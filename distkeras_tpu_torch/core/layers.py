@@ -1,0 +1,456 @@
+"""Layers of the port, counterparts of ``distkeras_tpu/core/layers.py``.
+
+Each layer is an ``nn.Module`` that holds its parameters.  It is created
+from its configuration alone (the same constructor arguments as the JAX
+spec) and gets its parameters from :meth:`Layer.build`, which takes the
+input shape (batch dim excluded), an explicit ``torch.Generator`` and the
+device — the counterpart of the JAX ``init(rng, in_shape)``.
+
+Interchange with the JAX package is exact:
+
+- ``get_config`` writes the instance attributes set by the constructor, so
+  fields left at their class defaults (``num_kv_heads``, ``rope``, ...) are
+  absent from the JSON, as in the JAX package; ``from_config`` bypasses
+  the constructor and the class defaults fill them back in.
+- Parameters keep the JAX names and layouts (Dense kernels are (in, out)),
+  and :func:`layer_leaves` walks them in JAX pytree leaf order (dict keys
+  sorted), which is the order of ``get_weights``.
+- Matmuls take operands rounded to the compute dtype and produce f32
+  (``preferred_element_type=f32`` in the JAX package); LayerNorm is f32;
+  residual adds stay in the activation dtype.
+
+Ported in this slice: Dense, LayerNormalization, PositionalEmbedding,
+MultiHeadAttention, TransformerBlock and Embedding.  Dropout is inactive
+(the port runs inference only); convolutions, pooling and batch norm
+arrive with the ConvNet training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_ACTIVATIONS = {
+    "linear": lambda x: x,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "swish": F.silu,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+    "softplus": F.softplus,
+}
+
+
+def get_activation(name: Optional[str]):
+    if name is None:
+        return _ACTIVATIONS["linear"]
+    if callable(name):
+        return name
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown activation {name!r}; known: {sorted(_ACTIVATIONS)}"
+        ) from None
+
+
+def _apply_activation(name, x):
+    # softmax-family runs in f32 for numerical stability under bf16 compute
+    if name in ("softmax", "log_softmax", "sigmoid"):
+        return get_activation(name)(x.to(torch.float32))
+    return get_activation(name)(x)
+
+
+# ---------------------------------------------------------------------------
+# initializers (Keras-compatible names, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _fans(shape: Sequence[int]) -> Tuple[int, int]:
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def init_weight(generator: torch.Generator, shape: Sequence[int],
+                scheme: str = "glorot_uniform") -> torch.Tensor:
+    """An f32 CPU tensor drawn from ``generator`` (a CPU generator)."""
+    shape = tuple(int(s) for s in shape)
+    fan_in, fan_out = _fans(shape)
+    if scheme in ("glorot_uniform", "he_uniform"):
+        limit = math.sqrt(6.0 / (fan_in + fan_out if scheme ==
+                                 "glorot_uniform" else fan_in))
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+    if scheme in ("glorot_normal", "he_normal"):
+        std = math.sqrt(2.0 / (fan_in + fan_out if scheme == "glorot_normal"
+                               else fan_in))
+        return std * torch.randn(shape, generator=generator)
+    if scheme == "zeros":
+        return torch.zeros(shape)
+    if scheme == "ones":
+        return torch.ones(shape)
+    raise ValueError(f"Unknown initializer {scheme!r}")
+
+
+def _param(t: torch.Tensor, device) -> nn.Parameter:
+    return nn.Parameter(t.to(device=device, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Layer base
+# ---------------------------------------------------------------------------
+
+class Layer(nn.Module):
+    """Base layer.  Subclasses implement ``build(in_shape, generator,
+    device) -> out_shape`` (creates the parameters) and
+    ``forward(x, compute_dtype)``."""
+
+    #: class-level registry name (set via __init_subclass__)
+    kind: str = "Layer"
+
+    _REGISTRY: Dict[str, type] = {}
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls.kind = cls.__name__
+        Layer._REGISTRY[cls.__name__] = cls
+
+    # -- config (serialization) --------------------------------------------
+    def get_config(self) -> Dict[str, Any]:
+        # nn.Module keeps its own state under underscore names, plus
+        # ``training``; everything else in __dict__ is configuration
+        cfg = {k: v for k, v in self.__dict__.items()
+               if not k.startswith("_") and k != "training"}
+        cfg["kind"] = self.kind
+        return cfg
+
+    @staticmethod
+    def from_config(cfg: Dict[str, Any]) -> "Layer":
+        cfg = dict(cfg)
+        kind = cfg.pop("kind")
+        try:
+            cls = Layer._REGISTRY[kind]
+        except KeyError:
+            raise ValueError(f"layer kind {kind!r} is not ported yet; "
+                             f"ported: {sorted(Layer._REGISTRY)}") from None
+        obj = cls.__new__(cls)
+        nn.Module.__init__(obj)
+        # JSON turns tuples into lists; shape fields come back as tuples
+        for k, v in cfg.items():
+            setattr(obj, k, tuple(v) if isinstance(v, list) else v)
+        return obj
+
+    def build(self, in_shape: Tuple[int, ...], generator: torch.Generator,
+              device) -> Tuple[int, ...]:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def extra_repr(self) -> str:
+        cfg = {k: v for k, v in self.get_config().items() if k != "kind"}
+        return ", ".join(f"{k}={v!r}" for k, v in cfg.items())
+
+
+def layer_leaves(module: nn.Module, prefix: str = ""
+                 ) -> Iterator[Tuple[str, nn.Parameter]]:
+    """(path, parameter) pairs in JAX pytree leaf order: a layer's
+    parameters and sub-layers form one dict whose keys are sorted."""
+    entries = {**module._parameters, **module._modules}
+    for name in sorted(entries):
+        value = entries[name]
+        if value is None:
+            continue
+        if isinstance(value, nn.Module):
+            yield from layer_leaves(value, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", value
+
+
+# ---------------------------------------------------------------------------
+# Core layers
+# ---------------------------------------------------------------------------
+
+def _project(x: torch.Tensor, kernel: torch.Tensor,
+             bias: Optional[torch.Tensor], compute_dtype) -> torch.Tensor:
+    """x @ kernel with operands rounded to ``compute_dtype`` and an f32
+    result.  A product of two bf16 values is exact in f32, so upcasting the
+    rounded operands reproduces ``preferred_element_type=f32``; a bf16
+    ``torch.matmul`` would round its output to bf16 before the bias add."""
+    y = torch.matmul(x.to(compute_dtype).to(torch.float32),
+                     kernel.to(compute_dtype).to(torch.float32))
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+class Dense(Layer):
+    """Fully connected layer; the kernel is stored (in, out)."""
+
+    def __init__(self, units: int, activation: Optional[str] = None,
+                 use_bias: bool = True, kernel_init: str = "glorot_uniform"):
+        super().__init__()
+        self.units = int(units)
+        self.activation = activation
+        self.use_bias = use_bias
+        self.kernel_init = kernel_init
+
+    def build(self, in_shape, generator, device):
+        d = in_shape[-1]
+        self.kernel = _param(init_weight(generator, (d, self.units),
+                                         self.kernel_init), device)
+        if self.use_bias:
+            self.bias = _param(torch.zeros(self.units), device)
+        return tuple(in_shape[:-1]) + (self.units,)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        y = _project(x, self.kernel, self.bias if self.use_bias else None,
+                     compute_dtype)
+        return _apply_activation(self.activation, y)
+
+
+class LayerNormalization(Layer):
+    """Layer norm over the trailing dim: f32 arithmetic, biased variance,
+    result cast back to the input dtype."""
+
+    def __init__(self, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = float(epsilon)
+
+    def build(self, in_shape, generator, device):
+        c = in_shape[-1]
+        self.scale = _param(torch.ones(c), device)
+        self.offset = _param(torch.zeros(c), device)
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.offset).to(x.dtype)
+
+
+class PositionalEmbedding(Layer):
+    """Learned additive positional embedding for (B, S, D) inputs."""
+
+    def __init__(self, max_len: int):
+        super().__init__()
+        self.max_len = int(max_len)
+
+    def build(self, in_shape, generator, device):
+        s, d = in_shape
+        if s > self.max_len:
+            raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
+        self.embedding = _param(
+            0.02 * torch.randn((self.max_len, d), generator=generator),
+            device)
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        s = x.shape[1]
+        return x + self.embedding[:s].to(x.dtype)
+
+
+class MultiHeadAttention(Layer):
+    """Multi-head self-attention on (B, S, D) inputs, through
+    ``ops.attention.attention`` (the flash kernel on the card, the plain
+    path elsewhere).  ``num_kv_heads`` < ``num_heads`` is grouped-query
+    attention."""
+
+    #: class-level defaults, so configs that lack these fields (the JSON
+    #: omits fields left at their defaults) deserialize as classic MHA
+    num_kv_heads: Optional[int] = None
+    attention_window: Optional[int] = None
+    rope: bool = False
+    rope_theta: float = 10000.0
+    rope_scale: float = 1.0
+
+    def __init__(self, num_heads: int, key_dim: int, causal: bool = False,
+                 use_bias: bool = True, attention_impl: Optional[str] = None,
+                 num_kv_heads: Optional[int] = None,
+                 attention_window: Optional[int] = None,
+                 rope: bool = False, rope_theta: float = 10000.0,
+                 rope_scale: float = 1.0):
+        super().__init__()
+        self.num_heads = int(num_heads)
+        self.key_dim = int(key_dim)  # per-head dim
+        self.causal = bool(causal)
+        self.use_bias = bool(use_bias)
+        self.attention_impl = attention_impl
+        if num_kv_heads is not None:
+            self.num_kv_heads = int(num_kv_heads)
+            if self.num_heads % self.num_kv_heads:
+                raise ValueError(
+                    f"num_heads={self.num_heads} not divisible by "
+                    f"num_kv_heads={self.num_kv_heads}")
+        _set_window_and_rope(self, causal, attention_window, rope,
+                             rope_theta, rope_scale)
+
+    def _kv_heads(self) -> int:
+        return (self.num_kv_heads if self.num_kv_heads is not None
+                else self.num_heads)
+
+    def build(self, in_shape, generator, device):
+        s, d = in_shape
+        inner = self.num_heads * self.key_dim
+        inner_kv = self._kv_heads() * self.key_dim
+        for name, shape in (("wq", (d, inner)), ("wk", (d, inner_kv)),
+                            ("wv", (d, inner_kv)), ("wo", (inner, d))):
+            setattr(self, name, _param(init_weight(generator, shape),
+                                       device))
+        if self.use_bias:
+            for name, n in (("bq", inner), ("bk", inner_kv),
+                            ("bv", inner_kv), ("bo", d)):
+                setattr(self, name, _param(torch.zeros(n), device))
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        from ..ops.attention import attention
+        b, s, _ = x.shape
+        dh = self.key_dim
+
+        def proj(name, heads):
+            bias = getattr(self, "b" + name[1]) if self.use_bias else None
+            y = _project(x, getattr(self, name), bias, compute_dtype)
+            return y.to(compute_dtype).reshape(b, s, heads, dh)
+
+        q = proj("wq", self.num_heads)
+        k = proj("wk", self._kv_heads())
+        v = proj("wv", self._kv_heads())
+        if self.rope:
+            from ..ops.rope import apply_rope
+            pos = torch.arange(s, device=x.device)
+            q = apply_rope(q, pos, self.rope_theta, self.rope_scale)
+            k = apply_rope(k, pos, self.rope_theta, self.rope_scale)
+        out = attention(q, k, v, causal=self.causal,
+                        impl=self.attention_impl,
+                        window=self.attention_window)
+        out = out.reshape(b, s, self.num_heads * dh)
+        return _project(out, self.wo, self.bo if self.use_bias else None,
+                        compute_dtype)
+
+
+def _set_window_and_rope(layer, causal, attention_window, rope, rope_theta,
+                         rope_scale):
+    """The attention_window / rope fields of MultiHeadAttention and
+    TransformerBlock: set only when they differ from the class default, so
+    the JSON matches the JAX package's."""
+    if attention_window is not None:
+        from ..ops.attention import validate_window
+        layer.attention_window = validate_window(attention_window, causal)
+    if rope:
+        from ..ops.rope import validate_rope_dim
+        validate_rope_dim(layer.key_dim)
+        layer.rope = True
+    if rope_theta != 10000.0 or rope_scale != 1.0:
+        if not rope:
+            raise ValueError(
+                f"rope_theta={rope_theta}/rope_scale={rope_scale} set but "
+                "rope=False — pass rope=True to enable rotary embeddings, "
+                "or drop the knobs")
+        from ..ops.rope import validate_rope_scaling
+        layer.rope_theta, layer.rope_scale = validate_rope_scaling(
+            rope_theta, rope_scale)
+
+
+class TransformerBlock(Layer):
+    """Pre-LN transformer block: LN → MHA → residual, LN → MLP → residual.
+
+    Its parameters are ``attn`` (a MultiHeadAttention), ``ln1`` and ``ln2``
+    (LayerNormalizations) and ``mlp_w1``/``mlp_b1``/``mlp_w2``/``mlp_b2``,
+    the JAX package's param dict; the sub-layers are built from this
+    block's configuration and are not part of it."""
+
+    #: class-level defaults mirror MultiHeadAttention (older configs)
+    num_kv_heads: Optional[int] = None
+    attention_window: Optional[int] = None
+    rope: bool = False
+    rope_theta: float = 10000.0
+    rope_scale: float = 1.0
+
+    def __init__(self, num_heads: int, key_dim: int, mlp_dim: int,
+                 dropout: float = 0.0, causal: bool = False,
+                 activation: str = "gelu",
+                 attention_impl: Optional[str] = None,
+                 num_kv_heads: Optional[int] = None,
+                 attention_window: Optional[int] = None,
+                 rope: bool = False, rope_theta: float = 10000.0,
+                 rope_scale: float = 1.0):
+        super().__init__()
+        self.num_heads = int(num_heads)
+        self.key_dim = int(key_dim)
+        self.mlp_dim = int(mlp_dim)
+        self.dropout = float(dropout)
+        self.causal = bool(causal)
+        self.activation = activation
+        self.attention_impl = attention_impl
+        if num_kv_heads is not None:
+            self.num_kv_heads = int(num_kv_heads)
+        _set_window_and_rope(self, causal, attention_window, rope,
+                             rope_theta, rope_scale)
+
+    def _mha(self) -> MultiHeadAttention:
+        return MultiHeadAttention(self.num_heads, self.key_dim,
+                                  causal=self.causal,
+                                  attention_impl=self.attention_impl,
+                                  num_kv_heads=self.num_kv_heads,
+                                  attention_window=self.attention_window,
+                                  rope=self.rope,
+                                  rope_theta=self.rope_theta,
+                                  rope_scale=self.rope_scale)
+
+    def build(self, in_shape, generator, device):
+        s, d = in_shape
+        # the JAX init draws ln1, attn, ln2, w1, w2 in this order
+        self.ln1 = LayerNormalization()
+        self.ln1.build(in_shape, generator, device)
+        self.attn = self._mha()
+        self.attn.build(in_shape, generator, device)
+        self.ln2 = LayerNormalization()
+        self.ln2.build(in_shape, generator, device)
+        self.mlp_w1 = _param(init_weight(generator, (d, self.mlp_dim)),
+                             device)
+        self.mlp_b1 = _param(torch.zeros(self.mlp_dim), device)
+        self.mlp_w2 = _param(init_weight(generator, (self.mlp_dim, d)),
+                             device)
+        self.mlp_b2 = _param(torch.zeros(d), device)
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        h = self.ln1(x, compute_dtype)
+        h = self.attn(h, compute_dtype)
+        x = x + h.to(x.dtype)
+        h = self.ln2(x, compute_dtype)
+        h = _project(h, self.mlp_w1, self.mlp_b1, compute_dtype)
+        h = _apply_activation(self.activation, h).to(compute_dtype)
+        h = _project(h, self.mlp_w2, self.mlp_b2, compute_dtype)
+        return x + h.to(x.dtype)
+
+
+class Embedding(Layer):
+    """Token embedding: gathers rows of the table cast to compute dtype."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        super().__init__()
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+
+    def build(self, in_shape, generator, device):
+        self.embedding = _param(
+            0.02 * torch.randn((self.input_dim, self.output_dim),
+                               generator=generator), device)
+        return tuple(in_shape) + (self.output_dim,)
+
+    def forward(self, x, compute_dtype=torch.bfloat16):
+        return F.embedding(x.long(), self.embedding.to(compute_dtype))

@@ -40,7 +40,12 @@ setup(
     description=("TPU-native distributed deep-learning framework with the "
                  "capability surface of dist-keras, rebuilt on JAX/XLA"),
     license="MIT",
-    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*"]),
+    # distkeras_tpu_torch: the PyTorch/CUDA port; its CUDA sources are
+    # compiled by nvcc at first use, so they ship as package data
+    packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*",
+                                    "distkeras_tpu_torch",
+                                    "distkeras_tpu_torch.*"]),
+    package_data={"distkeras_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     # jax >= 0.9: the SPMD engine uses jax.shard_map and jax.lax.pcast
     # (older jax installs fine but AttributeErrors at runtime)
