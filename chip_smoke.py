@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through four
-phases, each printing one JSON line, and fails with a non-zero exit if
-any phase fails:
+It drives the port only (no JAX is needed or imported) through seven
+phases, each printing JSON lines, and fails with a non-zero exit if any
+phase fails:
 
 1. device: the card's name and power limit, the torch and CUDA versions,
    and the build of every kernel from the checkout's sources (``nvcc``);
@@ -26,7 +26,23 @@ any phase fails:
    (``attention_impl="xla"``) and must have launched the kernel once per
    layer and batch;
 4. blob: ``FittedModel.save`` → ``load`` → ``predict`` gives bit-identical
-   logits.
+   logits;
+5. kernel_train: the training form of the forward (out and lse) and the
+   two backward kernels (dq, dk/dv) against their plain versions on the
+   card, at phase 2's shapes in f32, bf16 and f16 with a random dO, with
+   each error beside its per-element tolerance, and the kernels', plain
+   versions' and ``scaled_dot_product_attention`` backward's times (a
+   yardstick only) beside the card's bound;
+6. memory: forward and backward at S 8192 allocate nothing of size S²;
+7. train: ``SingleTrainer`` trains the full-width LM (both forms, bf16
+   and f32) on the x+1 next-token task, 16 steps, on the kernel route
+   and on the plain route (``attention_impl="xla"``) from the same
+   weights: the kernel route must have launched the training forward,
+   dq and dk/dv once per layer and step and the plain route never, the
+   routes must agree (first-step gradients and loss traces at f32, loss
+   traces within a measured band at bf16), the loss must fall, and
+   ``ModelPredictor`` must serve the trained model through the
+   inference kernel.
 
 Then it prints the kernel summary line, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -78,6 +94,39 @@ ARGMAX_MIN = 0.99
 ARGMAX_ALL_MIN = {"bfloat16": 0.98, "float32": 0.99}
 # the main path: the slice's form and dtype
 MAIN_PATH = ("full", "bfloat16")
+# the training kernels vs their plain versions, per element: |kernel -
+# plain| <= ulp * |plain| + 1e-4 * max|plain|.  Both compute in f32; the
+# backward's sums run S long with cancellation in dp - Delta, so the f32
+# term is relative to the tensor's largest value; bf16 and f16 outputs
+# may then round one ulp apart (2**-7 and 2**-10 of the value).
+TRAIN_TOL_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7,
+                 "float16": 2.0 ** -10}
+TRAIN_TOL_F32 = 1e-4
+# the training slice: the x+1 next-token task of tests/test_attention.py
+# at full width, SingleTrainer with adam 3e-3, 64 rows in batches of 8,
+# 2 epochs (16 steps), from the same numpy-seeded weights on both routes
+TRAIN_ROWS, TRAIN_EPOCHS = 64, 2
+TRAINER = dict(loss="sparse_categorical_crossentropy_from_logits",
+               worker_optimizer="adam", learning_rate=3e-3,
+               batch_size=BATCH, num_epoch=TRAIN_EPOCHS)
+# kernel route vs plain route.  f32: first-step gradients per parameter
+# tensor, |g_kernel - g_plain| <= GRAD_RTOL * max|g_plain| over the tensor
+# + GRAD_ATOL * the largest |g_plain| of any tensor (the second term
+# covers tensors whose true gradient is 0, e.g. a key bias without RoPE,
+# where both routes hold only f32 rounding), and the loss traces to
+# LOSS_RTOL_F32 (relative).  The routes differ only in the order of f32
+# sums: probe runs on the H100 read gradient differences of ~1e-6 of
+# each tensor's max and loss traces within 8e-6.  bf16: the plain route
+# rounds probabilities to bf16 before P.V (the JAX XLA path's rule) where
+# the kernels keep f32, so the traces drift apart over 16 steps; probe
+# runs read 8.9e-4 (full) and 3.1e-3 (rolling_window), and the band is
+# LOSS_BAND_BF16.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+LOSS_RTOL_F32 = 1e-4
+LOSS_BAND_BF16 = 0.02
+# the last loss of the 16 steps below this share of the first (probe
+# runs: 0.22 full, 0.056 rolling_window, on both routes and dtypes)
+LOSS_DROP = 0.5
 
 
 def emit(obj) -> None:
@@ -338,6 +387,338 @@ def phase_blob(fitted, data, logits):
           "bytes": os.path.getsize(path), "bit_identical": same})
     check(same, "blob round trip changed the logits")
 
+def _err_share(got, want, dname: str):
+    """(max abs error, largest error as a share of its element's
+    tolerance) of a kernel output against its plain version."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = TRAIN_TOL_ULP[dname] * w.abs() + TRAIN_TOL_F32 * w.abs().max()
+    return diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item()
+
+
+def _bound(flops: float, nbytes: float, dname: str):
+    """(bound ms at the dtype's peak, what bounds it, bound ms with the
+    operations at the f32 CUDA-core peak)."""
+    flop_ms = flops / PEAK_FLOPS[dname] * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f32_ms = max(flops / PEAK_FLOPS["float32"] * 1e3, byte_ms)
+    return (max(flop_ms, byte_ms),
+            "operations" if flop_ms >= byte_ms else "bytes", f32_ms)
+
+
+def phase_kernel_train():
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    cases = [  # name, B, S, H, Hkv, D, causal, window: phase 2's shapes
+        ("causal", 8, 2048, 8, 2, 32, True, None),
+        ("window256", 8, 2048, 8, 2, 32, True, 256),
+        ("noncausal", 8, 2048, 8, 2, 32, False, None),
+        ("d64", 8, 1024, 8, 2, 64, True, None),
+        ("d128", 8, 1024, 8, 2, 128, True, None),
+        ("ragged200", 8, 200, 8, 2, 32, True, None),
+        # head dims the kernels pad: 16 -> 32, 200 -> 256
+        ("d16", 8, 1024, 8, 2, 16, True, None),
+        ("d200", 2, 1000, 8, 2, 200, True, None),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = {}
+    for name, b, s, h, hkv, d, causal, window in cases:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(b, s, n, d, device="cuda",
+                                       generator=gen).to(dtype)
+                           for n in (h, hkv, hkv, h))
+            args = (causal, None, window)
+            out, lse = fa.flash_attention_forward(q, k, v, *args)
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                                  *args)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
+                                                *args)
+            torch.cuda.synchronize()
+            # each plain version on the kernel's own inputs
+            ro, rl = fa.flash_attention_reference(q, k, v, *args,
+                                                  return_lse=True)
+            rq, rdelta = fa.flash_attention_bwd_dq_reference(
+                q, k, v, out, lse, do, *args)
+            rk, rv = fa.flash_attention_bwd_dkv_reference(
+                q, k, v, lse, do, delta, *args)
+            errs = {"out": _err_share(out, ro, dname),
+                    "lse": _err_share(lse, rl, "float32"),
+                    "delta": _err_share(delta, rdelta, "float32"),
+                    "dq": _err_share(dq, rq, dname),
+                    "dk": _err_share(dk, rk, dname),
+                    "dv": _err_share(dv, rv, dname)}
+            del ro, rl, rq, rdelta, rk, rv
+
+            ms = {
+                "fwd_lse": median_ms(lambda: fa.flash_attention_forward(
+                    q, k, v, *args), 3, 20),
+                "dq": median_ms(lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, out, lse, do, *args), 3, 10),
+                "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, lse, do, delta, *args), 3, 10)}
+            plain_ms = {
+                "fwd_lse": median_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, *args, return_lse=True), 1, 3),
+                "dq": median_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, out, lse, do, *args), 1, 3),
+                "dkv": median_ms(
+                    lambda: fa.flash_attention_bwd_dkv_reference(
+                        q, k, v, lse, do, delta, *args), 1, 3)}
+            # the yardstick: SDPA forward, and its backward alone on a
+            # kept graph (never on the port's path)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = {}
+            if window is not None:
+                pos = torch.arange(s, device="cuda")
+                mask["attn_mask"] = ((pos[None, :] <= pos[:, None])
+                                     & (pos[None, :] > pos[:, None] - window))
+            else:
+                mask["is_causal"] = causal
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **mask)
+            sdpa_fwd_ms = median_ms(sdpa, 3, 10)
+            lib_out = sdpa()
+            dot = do.transpose(1, 2)
+            sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), 3, 10)
+            del lib_out, qt, kt, vt
+
+            pairs = b * h * live_pairs(s, causal, window)
+            bounds = {
+                "fwd_lse": _bound(4 * d * pairs,
+                                  nbytes(q, k, v, out, lse), dname),
+                "dq": _bound(6 * d * pairs,
+                             nbytes(q, k, v, out, do, lse, dq, delta),
+                             dname),
+                "dkv": _bound(8 * d * pairs,
+                              nbytes(q, k, v, do, lse, delta, dk, dv),
+                              dname)}
+            bwd_bytes = nbytes(q, k, v, out, do, lse, dq, dk, dv)
+            bwd_bound = _bound(10 * d * pairs, bwd_bytes, dname)
+            schedule_bound = _bound(14 * d * pairs, bwd_bytes, dname)
+            row = {"phase": "kernel_train", "case": name, "dtype": dname,
+                   "shape_bshd": [b, s, h, d], "kv_heads": hkv,
+                   "causal": causal, "window": window,
+                   "max_abs_err": {n: e[0] for n, e in errs.items()},
+                   "err_share_of_tol": {n: e[1] for n, e in errs.items()},
+                   "tol_ulp": TRAIN_TOL_ULP[dname],
+                   "tol_f32_of_max": TRAIN_TOL_F32,
+                   "ms": ms, "plain_ms": plain_ms,
+                   "bwd_ms": ms["dq"] + ms["dkv"],
+                   "bwd_plain_ms": plain_ms["dq"] + plain_ms["dkv"],
+                   "library_fwd_ms": sdpa_fwd_ms,
+                   "library_bwd_ms": sdpa_bwd_ms,
+                   "bound_ms": {n: bd[0] for n, bd in bounds.items()},
+                   "bound_by": {n: bd[1] for n, bd in bounds.items()},
+                   "bound_ms_f32_cuda_cores": {n: bd[2] for n, bd in
+                                               bounds.items()},
+                   "bwd_bound_ms": bwd_bound[0],
+                   "bwd_bound_ms_f32_cuda_cores": bwd_bound[2],
+                   "bwd_schedule_bound_ms": schedule_bound[0],
+                   "bwd_schedule_bound_ms_f32_cuda_cores":
+                       schedule_bound[2]}
+            emit(row)
+            worst = max(errs, key=lambda n: errs[n][1])
+            check(errs[worst][1] <= 1.0, f"training kernels {name}/{dname}:"
+                  f" {worst} error {errs[worst][1]:.3g}x its tolerance "
+                  f"(max abs err {errs[worst][0]})")
+            results[(name, dname)] = row
+            del q, k, v, do, out, lse, dq, delta, dk, dv
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_memory():
+    """Forward and backward through the kernels at S 8192 (bf16, B 1,
+    H 8, Hkv 2, D 32): the peak allocation above the inputs stays a small
+    multiple of one (S, H, D) tensor, where one f32 (H, S, S) score
+    tensor alone would take 2.1 GB."""
+    import importlib
+    import torch
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    b, s, h, hkv, d = 1, 8192, 8, 2, 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for n in (h, hkv, hkv, h))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.flash_attention_forward.launches = 0
+    fa.flash_attention_backward.dq_launches = 0
+    fa.flash_attention_backward.dkv_launches = 0
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    unit = q.numel() * q.element_size()  # one (S, H, D) bf16 tensor
+    limit = 8 * unit
+    scores = b * h * s * s * 4
+    launches = [fa.flash_attention_forward.launches,
+                fa.flash_attention_backward.dq_launches,
+                fa.flash_attention_backward.dkv_launches]
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    emit({"phase": "memory", "shape_bshd": [b, s, h, d], "kv_heads": hkv,
+          "dtype": "bfloat16", "peak_bytes_above_inputs": peak,
+          "sd_tensor_bytes": unit, "limit_bytes": limit,
+          "peak_in_sd_tensors": peak / unit,
+          "one_score_tensor_bytes": scores,
+          "launches_fwd_dq_dkv": launches, "grads_finite": finite})
+    check(peak <= limit, f"fwd+bwd at S {s} allocated {peak} bytes above "
+                         f"its inputs, over {limit}")
+    check(launches == [1, 1, 1], f"fwd+bwd launches {launches}")
+    check(finite, "non-finite gradients at S 8192")
+
+
+def _train_route(extra, weights, data, warm):
+    """Build the LM with ``weights``, warm up with one short training,
+    then run the counted ``SingleTrainer`` training; returns (fitted,
+    history, seconds, launches of the four kernel entry points)."""
+    import importlib
+    import torch
+    from distkeras_tpu_torch import (FittedModel, SingleTrainer,
+                                     load_jax_weights, transformer_lm)
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    model = transformer_lm(**{**LM, **extra})  # device=None: the card
+    load_jax_weights(model, weights)
+    fitted = FittedModel(model)
+    SingleTrainer(fitted, **{**TRAINER, "num_epoch": 1}).train(warm)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    fa.flash_attention_forward.launches = 0
+    fa.flash_attention_backward.dq_launches = 0
+    fa.flash_attention_backward.dkv_launches = 0
+    trainer = SingleTrainer(fitted, **TRAINER)
+    t0 = time.perf_counter()
+    trained = trainer.train(data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fwd_lse": fa.flash_attention_forward.launches,
+                "dq": fa.flash_attention_backward.dq_launches,
+                "dkv": fa.flash_attention_backward.dkv_launches,
+                "inference": fa.flash_attention.launches}
+    return trained, trainer.get_history(), seconds, launches
+
+
+def _first_step_grads(extra, weights, data):
+    """The gradient of every parameter for the first batch, through the
+    trainer's own masked loss."""
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.core.train import (make_masked_loss_fn,
+                                                model_params)
+    model = transformer_lm(**{**LM, **extra})
+    load_jax_weights(model, weights)
+    compute = make_masked_loss_fn(model, TRAINER["loss"])
+    x = torch.as_tensor(data["features"][:BATCH], device="cuda")
+    y = torch.as_tensor(data["label"][:BATCH], device="cuda")
+    value = compute(x, y, torch.ones(BATCH, device="cuda"))
+    params = model_params(model)
+    grads = torch.autograd.grad(value, list(params.values()))
+    return dict(zip(params, grads))
+
+
+def phase_train(card: str):
+    import importlib
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import Dataset, ModelPredictor, transformer_lm
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    rng = np.random.default_rng(SEED + 3)
+    x = rng.integers(0, LM["vocab_size"],
+                     (TRAIN_ROWS, LM["seq_len"])).astype(np.int32)
+    data = Dataset({"features": x,
+                    "label": ((x + 1) % LM["vocab_size"]).astype(np.int64)})
+    warm = Dataset({c: data[c][:BATCH] for c in data.columns})
+    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)
+    want = LM["num_layers"] * steps
+    kept = {}
+    for form, extra in FORMS.items():
+        weights = _random_jax_weights(
+            transformer_lm(**LM, **extra, device="meta"), rng)
+        for dtype in ("bfloat16", "float32"):
+            tag = f"{form}/{dtype}"
+            kw = {**extra, "compute_dtype": dtype}
+            fitted, hist, seconds, launches = _train_route(
+                kw, weights, data, warm)
+            _, plain_hist, plain_seconds, plain_launches = _train_route(
+                {**kw, "attention_impl": "xla"}, weights, data, warm)
+            torch.cuda.empty_cache()
+            hist, plain_hist = np.asarray(hist), np.asarray(plain_hist)
+            loss_rel = float(np.max(np.abs(hist - plain_hist)
+                                    / np.abs(plain_hist)))
+            row = {"phase": "train", "form": form, "compute_dtype": dtype,
+                   "steps": steps, "rows": TRAIN_ROWS, "batch_size": BATCH,
+                   "losses": hist.tolist(),
+                   "plain_losses": plain_hist.tolist(),
+                   "loss_max_rel_diff": loss_rel,
+                   "loss_tol": (LOSS_RTOL_F32 if dtype == "float32"
+                                else LOSS_BAND_BF16),
+                   "last_over_first": float(hist[-1] / hist[0]),
+                   "plain_last_over_first": float(plain_hist[-1]
+                                                  / plain_hist[0]),
+                   "launches": launches, "expected_launches": want,
+                   "plain_route_launches": plain_launches,
+                   "card": card, "ms_per_step": seconds / steps * 1e3,
+                   "examples_per_s": TRAIN_ROWS * TRAIN_EPOCHS / seconds,
+                   "plain_ms_per_step": plain_seconds / steps * 1e3,
+                   "plain_examples_per_s":
+                       TRAIN_ROWS * TRAIN_EPOCHS / plain_seconds}
+            if dtype == "float32":
+                got = _first_step_grads(kw, weights, data)
+                ref = _first_step_grads({**kw, "attention_impl": "xla"},
+                                        weights, data)
+                gmax = max(g.abs().max().item() for g in ref.values())
+                shares = {n: ((got[n] - ref[n]).abs().max().item()
+                              / (GRAD_RTOL * ref[n].abs().max().item()
+                                 + GRAD_ATOL * gmax)) for n in ref}
+                worst = max(shares, key=shares.get)
+                row.update({"grad_worst_tensor": worst,
+                            "grad_worst_share_of_tol": shares[worst],
+                            "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL})
+                del got, ref
+            emit(row)
+            check(bool(np.isfinite(hist).all()), f"{tag}: non-finite loss")
+            check(all(launches[n] == want for n in ("fwd_lse", "dq", "dkv"))
+                  and launches["inference"] == 0,
+                  f"{tag}: kernel launches {launches}, want {want} each")
+            check(not any(plain_launches.values()), f"{tag}: the plain "
+                  f"route launched kernels {plain_launches}")
+            check(loss_rel <= row["loss_tol"], f"{tag}: loss traces differ "
+                  f"by {loss_rel} > {row['loss_tol']}")
+            check(hist[-1] < LOSS_DROP * hist[0]
+                  and plain_hist[-1] < LOSS_DROP * plain_hist[0],
+                  f"{tag}: the loss did not fall below {LOSS_DROP} of the "
+                  f"first ({hist[0]} -> {hist[-1]}, plain {plain_hist[0]} "
+                  f"-> {plain_hist[-1]})")
+            if dtype == "float32":
+                check(row["grad_worst_share_of_tol"] <= 1.0,
+                      f"{tag}: first-step gradient of {worst} differs "
+                      f"{shares[worst]:.3g}x its tolerance")
+            if (form, dtype) == MAIN_PATH:
+                kept = launches
+                fa.flash_attention.launches = 0
+                served = ModelPredictor(fitted, batch_size=BATCH).predict(
+                    Dataset({"features": x[:ROWS]}))["prediction"]
+                n_serve = fa.flash_attention.launches
+                emit({"phase": "train_serve", "form": form,
+                      "compute_dtype": dtype, "rows": ROWS,
+                      "inference_launches": n_serve,
+                      "finite": bool(np.isfinite(served).all())})
+                check(n_serve == LM["num_layers"] * -(-ROWS // BATCH),
+                      f"serving the trained model launched the inference "
+                      f"kernel {n_serve} times")
+                check(bool(np.isfinite(served).all()),
+                      "trained model served non-finite logits")
+    return kept
+
 
 def main() -> int:
     import torch
@@ -352,18 +733,56 @@ def main() -> int:
     launches, kept = phase_slice()
     phase_blob(*kept["full"])
 
+    train_rows = phase_kernel_train()
+    phase_memory()
+    train_launches = phase_train(smi)
+
     main_row = kernel_rows[("causal", "bfloat16")]  # the slice's shape
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "distkeras_tpu/ops/flash_attention.py:78",
-        # the main path's counted run; every counted run beside it
-        "launches": launches["/".join(MAIN_PATH)],
-        "launches_by_path": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+    fwd = {"name": "flash_attention_fwd", "route": "cuda",
+           "source": "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
+           "replaces": "distkeras_tpu/ops/flash_attention.py:78",
+           # the main path's counted run; every counted run beside it
+           "launches": launches["/".join(MAIN_PATH)],
+           "launches_by_path": launches,
+           "max_abs_err": main_row["max_abs_err"],
+           "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+           "bound_ms": main_row["bound_ms"],
+           "bound_by": main_row["bound_by"],
+           "library_ms": main_row["library_ms"]}
+    t = train_rows[("causal", "bfloat16")]
+    err = t["max_abs_err"]
+
+    def train_entry(name, key, source, replaces, max_abs_err, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"distkeras_tpu_torch/csrc/{source}",
+                "replaces": f"distkeras_tpu/ops/flash_attention.py:"
+                            f"{replaces}",
+                # the training main path's counted run: 16 steps
+                "launches": train_launches[key],
+                "launches_per_step": train_launches[key] // (
+                    TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)),
+                "max_abs_err": max_abs_err, "ms": t["ms"][key],
+                "plain_ms": t["plain_ms"][key],
+                "bound_ms": t["bound_ms"][key],
+                "bound_by": t["bound_by"][key],
+                "library_ms": library_ms}
+    emit({"kernels": [
+        fwd,
+        # SDPA's forward is the yardstick of the forward with lse (it
+        # computes out without returning the lse); no single library call
+        # computes dq alone or dk/dv alone, so those carry null and the
+        # SDPA backward (dq, dk and dv together) beside them
+        train_entry("flash_attention_fwd_lse", "fwd_lse",
+                    "flash_attention_fwd.cu", 78,
+                    max(err["out"], err["lse"]), t["library_fwd_ms"]),
+        {**train_entry("flash_attention_bwd_dq", "dq",
+                       "flash_attention_bwd.cu", 182, err["dq"], None),
+         "backward_library_ms": t["library_bwd_ms"]},
+        {**train_entry("flash_attention_bwd_dkv", "dkv",
+                       "flash_attention_bwd.cu", 221,
+                       max(err["dk"], err["dv"]), None),
+         "backward_library_ms": t["library_bwd_ms"]},
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,12 +17,18 @@ Interchange with the JAX package is exact:
   sorted), which is the order of ``get_weights``.
 - Matmuls take operands rounded to the compute dtype and produce f32
   (``preferred_element_type=f32`` in the JAX package); LayerNorm is f32;
-  residual adds stay in the activation dtype.
+  residual adds stay in the activation dtype.  Parameters are f32, and
+  gradients flow back through those casts into them, as ``jax.grad``
+  does through ``astype``.
+- ``forward(x, compute_dtype, train=False, generator=None)`` is the JAX
+  ``apply(params, x, compute_dtype=, train=, rng=)``: ``train`` turns on
+  dropout, whose masks are drawn from ``generator`` (a ``torch.Generator``
+  on the input's device; JAX's threefry bits and torch's differ, so the
+  masks are not the JAX package's).
 
-Ported in this slice: Dense, LayerNormalization, PositionalEmbedding,
-MultiHeadAttention, TransformerBlock and Embedding.  Dropout is inactive
-(the port runs inference only); convolutions, pooling and batch norm
-arrive with the ConvNet training slice.
+Ported so far: Dense, LayerNormalization, PositionalEmbedding,
+MultiHeadAttention, TransformerBlock, Embedding and Dropout; convolutions,
+pooling and batch norm arrive with the ConvNet training slice.
 """
 
 from __future__ import annotations
@@ -116,7 +122,7 @@ def _param(t: torch.Tensor, device) -> nn.Parameter:
 class Layer(nn.Module):
     """Base layer.  Subclasses implement ``build(in_shape, generator,
     device) -> out_shape`` (creates the parameters) and
-    ``forward(x, compute_dtype)``."""
+    ``forward(x, compute_dtype, train=False, generator=None)``."""
 
     #: class-level registry name (set via __init_subclass__)
     kind: str = "Layer"
@@ -213,7 +219,8 @@ class Dense(Layer):
             self.bias = _param(torch.zeros(self.units), device)
         return tuple(in_shape[:-1]) + (self.units,)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         y = _project(x, self.kernel, self.bias if self.use_bias else None,
                      compute_dtype)
         return _apply_activation(self.activation, y)
@@ -233,7 +240,8 @@ class LayerNormalization(Layer):
         self.offset = _param(torch.zeros(c), device)
         return tuple(in_shape)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -257,7 +265,8 @@ class PositionalEmbedding(Layer):
             device)
         return tuple(in_shape)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         s = x.shape[1]
         return x + self.embedding[:s].to(x.dtype)
 
@@ -315,7 +324,8 @@ class MultiHeadAttention(Layer):
                 setattr(self, name, _param(torch.zeros(n), device))
         return tuple(in_shape)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         from ..ops.attention import attention
         b, s, _ = x.shape
         dh = self.key_dim
@@ -427,15 +437,16 @@ class TransformerBlock(Layer):
         self.mlp_b2 = _param(torch.zeros(d), device)
         return tuple(in_shape)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         h = self.ln1(x, compute_dtype)
         h = self.attn(h, compute_dtype)
-        x = x + h.to(x.dtype)
+        x = x + _dropout(generator, self.dropout, h.to(x.dtype), train)
         h = self.ln2(x, compute_dtype)
         h = _project(h, self.mlp_w1, self.mlp_b1, compute_dtype)
         h = _apply_activation(self.activation, h).to(compute_dtype)
         h = _project(h, self.mlp_w2, self.mlp_b2, compute_dtype)
-        return x + h.to(x.dtype)
+        return x + _dropout(generator, self.dropout, h.to(x.dtype), train)
 
 
 class Embedding(Layer):
@@ -452,5 +463,37 @@ class Embedding(Layer):
                                generator=generator), device)
         return tuple(in_shape) + (self.output_dim,)
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
         return F.embedding(x.long(), self.embedding.to(compute_dtype))
+
+
+def _dropout(generator: Optional[torch.Generator], rate: float,
+             x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Inverted dropout; identity at inference (shared by Dropout and
+    TransformerBlock so the semantics live in one place).  Keeps each
+    element with probability 1 - rate, drawn from ``generator``, and
+    scales the kept ones by 1 / (1 - rate)."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("Dropout in train mode requires a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(Layer):
+    """Inverted dropout; identity at inference.  Uses the generator
+    threaded through ``Sequential.forward`` (no global RNG state)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def build(self, in_shape, generator, device):
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return _dropout(generator, self.rate, x, train)

@@ -1,7 +1,8 @@
 """Sequential model and FittedModel, port of ``distkeras_tpu/core/model.py``.
 
 ``Sequential`` is an ``nn.Module`` holding its layers and their
-parameters; ``model(x)`` is the JAX ``apply(params, x)``.  The model spec
+parameters; ``model(x, train=, generator=)`` is the JAX
+``apply(params, x, train=, rng=)``.  The model spec
 is the same JSON as the JAX package's, and ``get_weights`` is the same
 flat list in JAX pytree leaf order, so an npz blob saved by either
 package loads in the other (:func:`write_npz_blob`, :func:`read_npz_blob`).
@@ -65,10 +66,19 @@ class Sequential(nn.Module):
         self.output_shape = shape
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                segment_ids=None) -> torch.Tensor:
+        """The forward pass.  ``train`` turns on dropout, with masks drawn
+        from ``generator`` (on ``x``'s device).  ``segment_ids`` (sequence
+        packing) is refused until packing is ported."""
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "segment_ids (sequence packing, data/packing.py) is not "
+                "ported yet")
         cdtype = torch_dtype(self.compute_dtype)
         for layer in self.layers:
-            x = layer(x, cdtype)
+            x = layer(x, cdtype, train=train, generator=generator)
         return x
 
     def predict(self, x, batch_size: int = 512) -> np.ndarray:
@@ -149,6 +159,9 @@ class FittedModel:
 
     def predict(self, x, batch_size: int = 512) -> np.ndarray:
         return self.model.predict(x, batch_size=batch_size)
+
+    def get_weights(self) -> List[np.ndarray]:
+        return self.model.get_weights()
 
     def serialize(self) -> dict:
         return serialize_model(self.model)

@@ -1,8 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces distkeras_tpu/ops/flash_attention.py :: _flash_kernel (the
-// Pallas TPU kernel launched by _flash_forward through pl.pallas_call), on
-// its inference form: no logsumexp residual is written.
+// Pallas TPU kernel launched by _flash_forward through pl.pallas_call) in
+// both of its forms.  The inference form (lse == nullptr) writes only the
+// output.  The training form (save_residuals=True, the custom_vjp's _fwd)
+// also writes the f32 per-row logsumexp of the scaled scores,
+//     lse[b, h, p] = safe_m + log(l)   (safe_m = 0 for an all-masked row,
+//                                       l == 0 taken as 1),
+// in a (B, H, S) layout: the statistic the backward kernels
+// (flash_attention_bwd.cu) recompute p = exp(s - lse) from.  The TPU
+// kernel's 128-lane broadcast of it is TPU layout and is not carried over.
+// The training form adds one branch and one f32 store per row at the end;
+// the inference form skips both.
 //
 // What it computes.  For every (batch, head, q row p):
 //     out[p] = softmax(q[p] . k^T * scale + mask) . v
@@ -97,8 +106,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                     int Hkv, int D, float scale, int causal, int window) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int Hkv, int D,
+                     float scale, int causal, int window) {
   static_assert(DP % 32 == 0, "a lane owns DP / 32 output columns");
   constexpr int DC = DP / 32;
   extern __shared__ __align__(16) float smem[];
@@ -238,13 +248,17 @@ __global__ void __launch_bounds__(kThreads)
       const int col = c * 32 + lane;
       if (col < D) ob[(size_t)p * q_stride + col] = from_f32<T>(acc[r][c] / denom);
     }
+    if (lse != nullptr && lane == 0) {
+      const float safe_m = m[r] == -INFINITY ? 0.f : m[r];
+      lse[(size_t)bh * S + p] = safe_m + logf(denom);
+    }
   }
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int Hkv, int D, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int Hkv, int D,
+                   float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -255,48 +269,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, D, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, D, scale,
       causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int H, int Hkv, int D, float scale,
-                         int causal, int window, cudaStream_t stream) {
+                         float* lse, int B, int S, int H, int Hkv, int D,
+                         float scale, int causal, int window,
+                         cudaStream_t stream) {
   if (D <= 0) return cudaErrorInvalidValue;
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream);
+    return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream);
+    return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
   if (D <= 256)
-    return launch<T, 256>(q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream);
+    return launch<T, 256>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  1 <= D <= 256.
-// window <= 0 means no window.
+// window <= 0 means no window.  lse: null for the inference form, else a
+// (B, H, S) f32 buffer that the training form fills.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int Hkv,
-                                   int D, int dtype, float scale, int causal,
-                                   int window, void* stream) {
+                                   void* o, void* lse, int B, int S, int H,
+                                   int Hkv, int D, int dtype, float scale,
+                                   int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       (S + kBlockQ - 1) / kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch_dim<float>(q, k, v, o, B, S, H, Hkv, D, scale, causal,
-                                    window, st);
+    return (int)dispatch_dim<float>(q, k, v, o, l, B, S, H, Hkv, D, scale,
+                                    causal, window, st);
   if (dtype == 1)
-    return (int)dispatch_dim<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                            causal, window, st);
+    return (int)dispatch_dim<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, D,
+                                            scale, causal, window, st);
   if (dtype == 2)
-    return (int)dispatch_dim<__half>(q, k, v, o, B, S, H, Hkv, D, scale, causal,
-                                     window, st);
+    return (int)dispatch_dim<__half>(q, k, v, o, l, B, S, H, Hkv, D, scale,
+                                     causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 """Model zoo, port of ``distkeras_tpu/models/zoo.py``.
 
 Only ``transformer_lm`` is ported so far; the MLP and ConvNet models
-arrive with the training slice.
+arrive with the ConvNet slice.
 """
 
 from __future__ import annotations

@@ -4,12 +4,14 @@
 Layout is BSHD ``(batch, seq, heads, head_dim)`` throughout, as in the JAX
 package.  ``impl``: ``"xla"`` — the plain tensor path
 (:func:`dot_product_attention`, the counterpart of the JAX package's XLA
-path); ``"pallas"`` — the hand-written flash kernel
-(``ops/flash_attention.py``; the name is kept so serialized configs
-interchange with the JAX package); ``None`` — the kernel for CUDA
-self-attention (:func:`_cuda_eligible`), else the plain path.  A CUDA call
-the kernel cannot take (a head dim above 256, a dtype other than
-f32/bf16/f16) raises rather than running the plain path unannounced.
+path, which trains through autograd); ``"pallas"`` — the hand-written
+flash kernels (``ops/flash_attention.py``: the forward, and under a
+gradient the forward with its lse and the dq and dk/dv backward kernels;
+the name is kept so serialized configs interchange with the JAX
+package); ``None`` — the kernels for CUDA self-attention
+(:func:`_cuda_eligible`), else the plain path.  A CUDA call the kernels
+cannot take (a head dim above 256, a dtype other than f32/bf16/f16)
+raises rather than running the plain path unannounced.
 
 The decode hooks of the JAX function (``q_offset``, ``kv_length``,
 ``kv_positions``, ``q_positions``, ``segment_ids``) arrive with the decode

@@ -1,125 +1,237 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the ``torch.autograd.Function`` that joins them.
 
-Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention`` on its
-inference path (``_flash_forward(save_residuals=False)`` → ``pallas_call``
-on ``_flash_kernel``).  The kernel itself is
-``distkeras_tpu_torch/csrc/flash_attention_fwd.cu``: CUDA C++ for Hopper
-(``sm_90a``), built by ``nvcc`` at first use and bound with ``ctypes``.  Its
-header says what bounds it on the H100 and what the design does about it.
+Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
+``jax.custom_vjp`` over three Pallas kernels:
 
-Contract (the JAX kernel's): (B, S, H, D) q and (B, S, Hkv, D) k, v in the
-BSHD layout; causal and sliding-window masks, with whole k tiles in the
-causal future or behind the window skipped; an f32 online-softmax
-recurrence with the all-masked-row guards; the output in q's dtype.
-Grouped-query attention reads kv head ``h // (H / Hkv)`` in the kernel
-instead of repeating k and v, which gives the same numbers.
+- ``_flash_kernel`` in its inference form (``flash_attention`` outside a
+  gradient) and its training form, which also writes the per-row f32
+  logsumexp (``flash_attention_forward``): ``csrc/flash_attention_fwd.cu``;
+- ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``):
+  ``csrc/flash_attention_bwd.cu``.
 
-:func:`flash_attention` launches the kernel for CUDA tensors (or raises:
-a head dim above 256 or a dtype other than f32/bf16/f16, bad shapes, a
-failed build or launch) and
-runs :func:`flash_attention_reference`, the plain version, only for CPU
-tensors.  It is forward-only: asking for a gradient raises.  The backward
-kernels and the ``torch.autograd.Function`` arrive with training.
+The kernels are CUDA C++ for Hopper (``sm_90a``), built by ``nvcc`` at
+first use and bound with ``ctypes``; each source's header says what bounds
+it on the H100 and what its design does about it.
+
+Contract (the JAX kernels'): (B, S, H, D) q and (B, S, Hkv, D) k, v in the
+BSHD layout; causal and sliding-window masks, with whole tiles in the
+causal future or behind the window skipped; f32 arithmetic with the
+all-masked-row guards; outputs in the inputs' dtype, lse f32 in a (B, H, S)
+layout (the TPU kernel's 128-lane broadcast of it is TPU layout and is not
+carried over).  Grouped-query attention reads kv head ``h // (H / Hkv)``
+instead of repeating k and v, and the backward sums dk and dv over the
+query heads of each kv head inside the kernel.
+
+Every wrapper launches its kernel for CUDA tensors (or raises: a head dim
+above 256, a dtype other than f32/bf16/f16, bad shapes, a failed build or
+launch) and runs its plain version only for CPU tensors.  Each counts its
+launches in a ``launches`` attribute (``flash_attention_backward`` in
+``dq_launches`` and ``dkv_launches``, one per kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .attention import validate_window
 
-#: what the kernel is built for: any head dim up to this one (the .cu
-#: pads it up to 32, 64, 128 or 256), in these dtypes (codes of the C call)
+#: what the kernels are built for: any head dim up to this one (the .cu
+#: files pad it up to 32, 64, 128 or 256), in these dtypes (codes of the C
+#: calls)
 KERNEL_MAX_HEAD_DIM = 256
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: q rows per thread block; the grid's q-tile axis holds at most 65535
-_BLOCK_Q = 64
+#: q rows (forward, dq) and keys (dk/dv) per thread block; the grid's tile
+#: axis holds at most 65535
+_BLOCK = 64
 
-_KERNEL = "flash_attention_fwd"
-_lib = None  # the loaded library, built at first launch
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: each C entry point: (library, argument types after the pointers)
+_ENTRIES = {
+    "flash_attention_fwd": ("flash_attention_fwd", 5),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", 8),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
+}
+_fns = {}  # entry name -> bound C function, loaded at first launch
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _entry(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from ..kernels import load
-        lib = load(_KERNEL)
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib_name, n_ptrs = _ENTRIES[name]
+        fn = getattr(load(lib_name), name)
+        # pointers, then B, S, H, Hkv, D, dtype, scale, causal, window, stream
+        fn.argtypes = ([_PTR] * n_ptrs + [_INT] * 6
+                       + [_FLOAT, _INT, _INT, _PTR])
+        fn.restype = _INT
+        _fns[name] = fn
+    return fn
 
 
-def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = False,
-                              scale: Optional[float] = None,
-                              window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, with the (S, S) f32 scores
-    materialised: f32 q·kᵀ·scale, masks, the ``safe`` row max, f32
-    probabilities times f32 v, ``l == 0 → 1``, cast to q's dtype."""
-    window = validate_window(window, causal)
+def _launch(name: str, ptrs, q: torch.Tensor, hkv: int, scale: float,
+            causal: bool, window: Optional[int]) -> None:
+    b, s, h, d = q.shape
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        rc = _entry(name)(
+            *ptrs, b, s, h, hkv, d, KERNEL_DTYPES[q.dtype], float(scale),
+            int(causal), window or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
+
+
+# ---------------------------------------------------------------------------
+# plain versions (f32, with the (S, S) scores materialised)
+# ---------------------------------------------------------------------------
+
+def _plain_scores(q, k, causal, scale, window, prescale):
+    """f32 (f64 for f64 inputs) scores of every query head against its kv
+    head, masked to -inf: (B, H, S, S), plus the repeated k.  The forward
+    scales q before the product (``_flash_kernel``), the backward scales
+    the product (``_dq_kernel``/``_dkv_kernel``)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if h % hkv:
         raise ValueError(f"num_heads {h} not divisible by kv heads {hkv}")
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
-    g = h // hkv
-    q32 = q.to(torch.float32) * scale
-    k32 = k.to(torch.float32).repeat_interleave(g, dim=2)
-    v32 = v.to(torch.float32).repeat_interleave(g, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q32, k32)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    k32 = k.to(acc).repeat_interleave(h // hkv, dim=2)
+    if prescale:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * scale, k32)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k32) * scale
     if causal:
         pos = torch.arange(s, device=q.device)
         hide = pos[None, :] > pos[:, None]
         if window is not None:
             hide = hide | (pos[None, :] <= pos[:, None] - window)
         scores = scores.masked_fill(hide, float("-inf"))
+    return scores, k32
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = False,
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None,
+                              return_lse: bool = False):
+    """The forward kernel's function in plain PyTorch, with the (S, S) f32
+    scores materialised: q·kᵀ·scale, masks, the ``safe`` row max, f32
+    probabilities times f32 v, ``l == 0 → 1``, cast to q's dtype.  With
+    ``return_lse`` also the (B, H, S) logsumexp ``safe_m + log(l)`` of the
+    training form."""
+    window = validate_window(window, causal)
+    scores, _ = _plain_scores(q, k, causal, _scale(q, scale), window,
+                              prescale=True)
+    h = q.shape[2]
+    v32 = v.to(scores.dtype).repeat_interleave(h // k.shape[2], dim=2)
     m = scores.amax(dim=-1, keepdim=True)
     safe = torch.where(m == float("-inf"), torch.zeros_like(m), m)
     p = torch.exp(scores - safe)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / l, v32)
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, v32).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (safe + torch.log(l)).squeeze(-1)
 
+
+def _plain_backward_terms(q, k, v, lse, dout, delta, causal, scale,
+                          window):
+    """p = exp(s − lse) and ds = p∘(dO·vᵀ − Δ)·scale, (B, H, S, S), with the
+    repeated k in the working dtype."""
+    scores, k32 = _plain_scores(q, k, causal, scale, window, prescale=False)
+    acc = scores.dtype
+    p = torch.exp(scores - lse.to(acc)[..., None])
+    v32 = v.to(acc).repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(acc), v32)
+    ds = p * (dp - delta.to(acc)[..., None]) * scale
+    return p, ds, k32
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, lse, dout, causal=False,
+                                     scale=None, window=None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dq kernel's function in plain PyTorch (``_dq_kernel``'s
+    recompute in f32 with the scores materialised): (dq = ds·k in q's
+    dtype, Δ = rowsum(dO∘O) in f32 (B, H, S), from O as stored)."""
+    window = validate_window(window, causal)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)
+    _, ds, k32 = _plain_backward_terms(q, k, v, lse, dout, delta, causal,
+                                       _scale(q, scale), window)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k32).to(q.dtype), delta
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta,
+                                      causal=False, scale=None, window=None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in plain PyTorch (``_dkv_kernel``'s
+    recompute in f32 with the scores materialised): dk = dsᵀ·q and
+    dv = pᵀ·dO, summed over the query heads of each kv head, in k's and
+    v's dtype."""
+    window = validate_window(window, causal)
+    p, ds, _ = _plain_backward_terms(q, k, v, lse, dout, delta, causal,
+                                     _scale(q, scale), window)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(ds.dtype))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.to(p.dtype))
+    group = lambda t: t.reshape(b, s, hkv, h // hkv, d).sum(3)
+    return group(dk).to(k.dtype), group(dv).to(v.dtype)
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, causal: bool = False,
+        scale: Optional[float] = None, window: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch: the recompute
+    schedule of ``_dq_kernel``/``_dkv_kernel`` in f32 with the scores
+    materialised.  p = exp(s − lse), Δ = rowsum(dO∘O) from O as stored,
+    ds = p∘(dO·vᵀ − Δ)·scale; dq = ds·k, dk = dsᵀ·q and dv = pᵀ·dO, the
+    last two summed over the query heads of each kv head; each cast to its
+    input's dtype."""
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, dout,
+                                                 causal, scale, window)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta,
+                                               causal, scale, window)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Flash attention forward on (B, S, H, D) q and (B, S, Hkv, D) k, v.
+    """Flash attention on (B, S, H, D) q and (B, S, Hkv, D) k, v.
 
-    A CUDA tensor launches the kernel and counts one launch in
-    ``flash_attention.launches``; a CPU tensor runs the plain version."""
+    When a gradient is wanted (grad enabled, an input that requires it),
+    this is :class:`FlashAttentionFunction`: the training forward, then the
+    backward kernels.  Otherwise it is the inference form, as the JAX
+    primal is: a CUDA tensor launches the kernel without the lse and counts
+    one launch in ``flash_attention.launches``; a CPU tensor runs the plain
+    version."""
     window = validate_window(window, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention is forward-only: its backward kernels are not "
-            "ported yet (run under torch.inference_mode(), or use "
-            "impl='xla' for gradients)")
+        return FlashAttentionFunction.apply(q, k, v, causal, scale, window)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale, window)
     _check(q, k, v)
-    b, s, h, d = q.shape
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
     out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, k.shape[2], d, KERNEL_DTYPES[q.dtype], float(scale),
-            int(causal), window or 0,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc}")
+    _launch("flash_attention_fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None),
+            q, k.shape[2], _scale(q, scale), causal, window)
     flash_attention.launches += 1
     return out
 
@@ -127,8 +239,130 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = False,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training form of the forward (the JAX ``_fwd``): (out, lse),
+    lse f32 (B, H, S).  A CUDA tensor launches the kernel with its lse
+    output and counts one launch in ``flash_attention_forward.launches``;
+    a CPU tensor runs the plain version."""
+    window = validate_window(window, causal)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale, window,
+                                         return_lse=True)
+    _check(q, k, v)
+    b, s, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr()),
+            q, k.shape[2], _scale(q, scale), causal, window)
+    flash_attention_forward.launches += 1
+    return out, lse
+
+
+flash_attention_forward.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, scale=None,
+                           window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dq kernel (``_dq_kernel``): (dq, Δ), Δ f32 (B, H, S).  A CUDA
+    tensor launches it and counts one launch in
+    ``flash_attention_backward.dq_launches``; a CPU tensor runs the plain
+    version."""
+    window = validate_window(window, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, out, lse, dout,
+                                                causal, scale, window)
+    _check(q, k, v)
+    b, s, h, _ = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        _check_like(name, t, q.shape, q.dtype, q.device)
+    _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    dq = torch.empty_like(q)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _launch("flash_attention_bwd_dq",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr()),
+            q, k.shape[2], _scale(q, scale), causal, window)
+    flash_attention_backward.dq_launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, causal=False,
+                            scale=None, window=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel (``_dkv_kernel``): (dk, dv) in k's and v's dtype,
+    summed over the query heads of each kv head, from Δ as the dq kernel
+    wrote it.  A CUDA tensor launches it and counts one launch in
+    ``flash_attention_backward.dkv_launches``; a CPU tensor runs the plain
+    version."""
+    window = validate_window(window, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta,
+                                                 causal, scale, window)
+    _check(q, k, v)
+    b, s, h, _ = q.shape
+    _check_like("dout", dout, q.shape, q.dtype, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_like(name, t, (b, h, s), torch.float32, q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            q, k.shape[2], _scale(q, scale), causal, window)
+    flash_attention_backward.dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
+                             scale=None, window=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) from the forward's saved (q, k, v, out, lse) and the
+    output's gradient (the JAX ``_bwd``): on the card the dq kernel, then
+    the dk/dv kernel on the same stream; on the CPU the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal, scale, window)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal,
+                                       scale, window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, dout, delta, causal,
+                                     scale, window)
+    return dq, dk, dv
+
+
+flash_attention_backward.dq_launches = 0
+flash_attention_backward.dkv_launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The counterpart of the ``jax.custom_vjp``: the forward saves
+    (q, k, v, out, lse), never an (S, S) tensor, and the backward runs the
+    dq and dk/dv kernels on them (the plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        out, lse = flash_attention_forward(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Refuse what the kernel does not take, before any pointer is passed."""
+    """Refuse what the kernels do not take, before any pointer is passed."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k and v must all lie on the "
                          "same CUDA device")
@@ -154,8 +388,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not 1 <= d <= KERNEL_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel is built for head dims up "
                          f"to {KERNEL_MAX_HEAD_DIM}, got {d}")
-    if -(-s // _BLOCK_Q) > 65535:
+    if -(-s // _BLOCK) > 65535:
         raise ValueError(f"sequence length {s} exceeds the kernel's grid "
-                         f"limit of {65535 * _BLOCK_Q}")
+                         f"limit of {65535 * _BLOCK}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+
+
+def _check_like(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    """Refuse a backward operand that is not a contiguous ``shape`` tensor
+    of ``dtype`` on ``device``."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"flash_attention backward wants a contiguous "
+                         f"{name} of shape {tuple(shape)} and dtype {dtype} "
+                         f"on {device}; got {tuple(t.shape)}, {t.dtype}, "
+                         f"{t.device}")

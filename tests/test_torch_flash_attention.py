@@ -189,10 +189,22 @@ def test_cuda_tensors_the_kernel_cannot_take_raise(monkeypatch, d, dtype,
 
 
 def test_flash_wrapper_refuses_gradients():
+    """The wrapper once refused gradients; with the backward ported it
+    takes the autograd Function when a gradient is wanted, and refuses to
+    record one (the inference form, no graph) when it is not."""
     q, k, v = to_torch(*make_qkv(12))
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, causal=True).grad_fn is None
+    out = flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    (grad,) = torch.autograd.grad(out.sum(), q)
+    want = flash_mod.flash_attention_backward_reference(
+        q.detach(), k, v, out.detach(),
+        flash_attention_reference(q.detach(), k, v, True,
+                                  return_lse=True)[1],
+        torch.ones_like(out), True)[0]
+    torch.testing.assert_close(grad, want, atol=0, rtol=0)
 
 
 def test_dispatch_rules():

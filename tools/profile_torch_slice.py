@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time of the port's serving slice goes, on a CUDA card.
+"""Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
 its ``"full"`` and ``"rolling_window"`` forms, with random weights drawn
-from a numpy seed by ``chip_smoke.py``'s rule, warms ``ModelPredictor.predict`` up, then traces one predict of
-16 rows (2 batches of 8) under ``torch.profiler``.  It prints, per form,
-one JSON line: the wall time of the call, the device's busy time (the sum
+from a numpy seed by ``chip_smoke.py``'s rule, and traces under
+``torch.profiler``:
+
+- serving: one ``ModelPredictor.predict`` of 16 rows (2 batches of 8),
+  after two warm-up calls;
+- training: one masked train step of ``SingleTrainer`` (the x+1 task,
+  adam 3e-3, a batch of 8 rows), after three warm-up steps; the update
+  rule's own time (``tx.update`` plus the in-place apply) is then taken
+  with CUDA events, as a median over 5 calls, because its many small
+  elementwise kernels carry no name of their own.
+
+It prints one JSON line per slice and form: the wall time (host clock
+around work that ends in a synchronise), the device's busy time (the sum
 of kernel and copy durations on the card; one stream, so they do not
 overlap) and idle share, and the device time by kernel, largest first,
-grouped as the flash kernel, matrix products, copies and the rest.  The
+grouped as the flash kernels, matrix products, copies and the rest.  The
 whole result also goes to ``--out``.  Imports nothing of JAX.
 """
 
@@ -20,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -29,8 +40,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_attention_fwd"
+    for kernel, label in (("flash_fwd_kernel", "flash_attention_fwd"),
+                          ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
+                          ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv")):
+        if kernel in low:
+            return label
     if "memcpy" in low or "memset" in low:
         return "copy"
     if "gemm" in low or "sgemm" in low or "cutlass" in low or "xmma" in low:
@@ -38,26 +52,8 @@ def group(name: str) -> str:
     return "other"
 
 
-def profile_form(form, extra, data):
-    import numpy as np
+def device_summary(prof, wall_ms):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    import chip_smoke
-    from distkeras_tpu_torch import (FittedModel, ModelPredictor,
-                                     load_jax_weights, transformer_lm)
-    rng = np.random.default_rng(chip_smoke.SEED)
-    model = transformer_lm(**chip_smoke.LM, **extra)
-    load_jax_weights(model, chip_smoke._random_jax_weights(model, rng))
-    predictor = ModelPredictor(FittedModel(model),
-                               batch_size=chip_smoke.BATCH)
-    predictor.predict(data)
-    predictor.predict(data)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        predictor.predict(data)  # ends with a copy to the host: synced
-        wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel, by_group = {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -68,13 +64,85 @@ def profile_form(form, extra, data):
         by_group[g] = by_group.get(g, 0.0) + us
     busy_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {"form": form, "rows": len(data),
-            "batch_size": chip_smoke.BATCH, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms
+            else None,
             "by_group_ms": {k: v / 1e3 for k, v in
                             sorted(by_group.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top]}
+
+
+def build_model(extra):
+    import numpy as np
+    import chip_smoke
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    rng = np.random.default_rng(chip_smoke.SEED)
+    model = transformer_lm(**chip_smoke.LM, **extra)
+    load_jax_weights(model, chip_smoke._random_jax_weights(model, rng))
+    return model
+
+
+def profile_predict(form, extra, data):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch import FittedModel, ModelPredictor
+    predictor = ModelPredictor(FittedModel(build_model(extra)),
+                               batch_size=chip_smoke.BATCH)
+    predictor.predict(data)
+    predictor.predict(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predictor.predict(data)  # ends with a copy to the host: synced
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"slice": "predict", "form": form, "rows": len(data),
+            "batch_size": chip_smoke.BATCH, **device_summary(prof, wall_ms)}
+
+
+def profile_train(form, extra, x, y):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.core.train import (TrainState, make_masked_step,
+                                                model_params)
+    model = build_model(extra)
+    params = model_params(model)
+    tx, opt_state = optimizers.build(
+        chip_smoke.TRAINER["worker_optimizer"], params,
+        chip_smoke.TRAINER["learning_rate"])
+    step = make_masked_step(model, chip_smoke.TRAINER["loss"], tx)
+    state = TrainState(params, opt_state, 0)
+    w = np.ones(len(x), np.float32)
+    for _ in range(3):
+        state, loss, _ = step(state, x, y, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, x, y, w)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the update rule alone, on gradients of the real step
+    plist = list(params.values())
+    grads = [torch.randn_like(p) * 1e-3 for p in plist]
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            updates, _ = tx.update(grads, state.opt_state, plist)
+            optimizers.apply_updates(plist, updates)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"slice": "train", "form": form, "batch_size": len(x),
+            "loss": float(loss), **device_summary(prof, wall_ms),
+            "optimizer_ms": statistics.median(times[1:])}
 
 
 def main() -> int:
@@ -96,15 +164,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    data = Dataset({"features": np.random.default_rng(
-        chip_smoke.SEED).integers(
-        0, chip_smoke.LM["vocab_size"],
-        (chip_smoke.ROWS, chip_smoke.LM["seq_len"])).astype(np.int32)})
-    results = {"card": smi, "torch": torch.__version__, "forms": []}
+    lm = chip_smoke.LM
+    ids = np.random.default_rng(chip_smoke.SEED).integers(
+        0, lm["vocab_size"], (chip_smoke.ROWS, lm["seq_len"]))
+    data = Dataset({"features": ids.astype(np.int32)})
+    x = torch.as_tensor(ids[:chip_smoke.BATCH].astype(np.int32),
+                        device="cuda")
+    y = (x.long() + 1) % lm["vocab_size"]
+    results = {"card": smi, "torch": torch.__version__, "rows": []}
     for form, extra in chip_smoke.FORMS.items():
-        row = profile_form(form, extra, data)
-        results["forms"].append(row)
-        print(json.dumps(row), flush=True)
+        for row in (profile_predict(form, extra, data),
+                    profile_train(form, extra, x, y)):
+            results["rows"].append(row)
+            print(json.dumps(row), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
