@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through seven
+It drives the port only (no JAX is needed or imported) through ten
 phases, each printing JSON lines, and fails with a non-zero exit if any
 phase fails:
 
@@ -13,7 +13,8 @@ phase fails:
    and the build of every kernel from the checkout's sources (``nvcc``);
 2. kernel: the flash-attention kernel against its plain PyTorch version
    on the card, at the serving slice's shapes and a few more (head dims
-   that the kernel pads, f16), in f32 and bf16, with the error beside its
+   that the kernel pads, f16, the parallel LM's Ulysses shape: B 8,
+   S 2048, 8 heads, MHA, D 64), in f32 and bf16, with the error beside its
    per-element tolerance, and the kernel's, plain
    version's and ``scaled_dot_product_attention``'s times (a yardstick
    only: the port never calls it) beside the card's bound;
@@ -42,7 +43,27 @@ phase fails:
    routes must agree (first-step gradients and loss traces at f32, loss
    traces within a measured band at bf16), the loss must fall, and
    ``ModelPredictor`` must serve the trained model through the
-   inference kernel.
+   inference kernel;
+8. kernel_ce: the fused cross-entropy kernels (forward, backward) against
+   their plain versions at the parallel LM's (16384, 32768) in f32 and
+   bf16, ragged (300, 1000), GPT-2's vocab (4096, 50257), (8, 16) in
+   f16, +-1e4 logits, out-of-range labels and misaligned rows, each
+   error beside its tolerance, and the kernels', plain versions' and
+   ``cross_entropy``'s times (a yardstick only) beside the bytes bound;
+9. memory_ce: loss forward + backward at (16384, 32768) f32 holds one
+   (T, V) tensor above the logits on the fused route (the gradient) and
+   at least one more on the plain route;
+10. parallel_train: the full-width ``ParallelTransformerLM`` of
+    ``scripts/bench_transformer.py`` (vocab 32768, d_model 512, 8 heads,
+    8 layers, mlp 2048, RoPE, bf16, batch 8 x 2048, adam 1e-3) from one
+    numpy-seeded weight set through ``load_jax_params``, 8 steps each on
+    the fused-CE ring, plain-CE ring and fused-CE Ulysses routes: the
+    fused CE kernels launch once per step on the fused routes and never
+    on the plain one, the flash kernels once per layer and step on the
+    Ulysses route and never on the ring, the loss falls on every route,
+    the routes agree within measured bf16 bands, and at f32 (2 layers)
+    fused and plain CE agree in loss traces (1e-5) and first-step
+    gradients, and so do Ulysses and ring (loss traces 1e-4).
 
 Then it prints the kernel summary line, the ``nvidia-smi`` name and power
 limit line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -127,6 +148,52 @@ LOSS_BAND_BF16 = 0.02
 # the last loss of the 16 steps below this share of the first (probe
 # runs: 0.22 full, 0.056 rolling_window, on both routes and dtypes)
 LOSS_DROP = 0.5
+# the fused cross-entropy kernels vs their plain versions, per element:
+# loss and lse within CE_TOL_REL * |plain| + CE_TOL_ABS (the JAX test's
+# rtol/atol, tests/test_fused_ce.py:36-38: both sum in f32, in other
+# orders); dlogits within one ulp of the dtype (0 at f32) * |plain| +
+# CE_GRAD_F32 * max|plain| (both compute in f32 and round once)
+CE_TOL_REL, CE_TOL_ABS = 1e-5, 1e-5
+CE_GRAD_F32 = 1e-6
+# f32 operations per logit (max, subtract, exp, add in the forward; the
+# backward's subtract, exp, compare, subtract, multiply) against the f32
+# CUDA-core peak, for the bound beside the bytes
+CE_OPS = {"fwd": 4, "bwd": 5}
+# the parallel-LM slice: scripts/bench_transformer.py:101-104, the JAX
+# package's single-chip ParallelTransformerLM configuration, at batch 8 x
+# seq 2048 (the first cell of its sweep, :96-99, that reaches seq 2048),
+# optax.adam(1e-3), random tokens, labels (tokens + 1) % V
+PLM = dict(vocab_size=32768, seq_len=2048, d_model=512, num_heads=8,
+           num_layers=8, mlp_dim=2048, positional="rope")
+PLM_BATCH, PLM_STEPS, PLM_LR = 8, 8, 1e-3
+PLM_ROUTES = {"fused_ring": dict(fused_ce=True),
+              "plain_ring": dict(fused_ce=False),
+              "fused_ulysses": dict(fused_ce=True, sp_impl="ulysses")}
+# the flash kernels' shape on the Ulysses route: name, B, S, H, Hkv, D,
+# causal, window
+PLM_ULYSSES_CASE = ("plm_ulysses", PLM_BATCH, PLM["seq_len"],
+                    PLM["num_heads"], PLM["num_heads"],
+                    PLM["d_model"] // PLM["num_heads"], True, None)
+# the f32 routes at cut depth: fused vs plain CE against the JAX
+# package's own rtol for fused vs XLA CE (tests/test_fused_ce.py:116);
+# Ulysses vs ring (flash kernels vs the ring's own f32 online softmax)
+# by the training slice's rule for kernel vs plain attention at f32,
+# LOSS_RTOL_F32 and GRAD_RTOL/GRAD_ATOL
+PLM_F32_LAYERS = 2
+PLM_LOSS_RTOL_F32 = 1e-5
+# bf16 loss traces over the 8 steps, relative; the traces are the same
+# to the last bit from one chip run to the next.  The fused and plain CE
+# routes read the same f32 logits and their gradients differ only in f32
+# rounding, but the backward then rounds through bf16 activations and 8
+# Adam steps carry the odd flipped ulp forward: chip runs read 1.3e-4,
+# and the band is PLM_CE_BAND_BF16.  The Ulysses route attends through
+# the flash kernels where the ring runs its own f32 online softmax, each
+# rounding its output to bf16 at other points: chip runs read 4.2e-3,
+# against PLM_SCHEDULE_BAND_BF16.  These bands catch a gross fault only;
+# the flash kernels are held per element at the route's shape (phases 2
+# and 5) and the schedules' f32 gradients against each other.
+PLM_CE_BAND_BF16 = 1e-3
+PLM_SCHEDULE_BAND_BF16 = 0.01
 
 
 def emit(obj) -> None:
@@ -201,6 +268,8 @@ def phase_kernel():
         ("d16", 8, 1024, 8, 2, 16, True, None, (f32, bf16)),
         ("d96", 4, 1024, 8, 2, 96, True, 128, (bf16, f16)),
         ("d200", 2, 1000, 8, 2, 200, True, None, (f32, bf16)),
+        # the parallel LM's attention on its Ulysses route (MHA, D 64)
+        PLM_ULYSSES_CASE + ((f32, bf16),),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -422,6 +491,7 @@ def phase_kernel_train():
         # head dims the kernels pad: 16 -> 32, 200 -> 256
         ("d16", 8, 1024, 8, 2, 16, True, None),
         ("d200", 2, 1000, 8, 2, 200, True, None),
+        PLM_ULYSSES_CASE,
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -720,6 +790,381 @@ def phase_train(card: str):
     return kept
 
 
+def _ce_shares(got, want, rel: float, abs_of_max: float, atol: float = 0.0):
+    """(max abs error, largest error as a share of its element's
+    tolerance rel * |plain| + abs_of_max * max|plain| + atol)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = rel * w.abs() + abs_of_max * w.abs().max() + atol
+    return diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item()
+
+
+def phase_kernel_ce():
+    """The fused cross-entropy kernels (B1 forward, B2 backward) against
+    their plain versions on the card, with a random per-row cotangent;
+    kernel, plain and library times at the timed shapes."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [  # name, T, V, dtype, logits kind, timed
+        ("slice", 16384, 32768, f32, "normal", True),
+        ("slice", 16384, 32768, bf16, "normal", True),
+        ("ragged", 300, 1000, f32, "normal", False),
+        ("gpt2_vocab", 4096, 50257, f32, "normal", True),
+        ("tiny", 8, 16, f16, "normal", False),
+        ("extreme", 64, 4096, f32, "extreme", False),
+        ("out_of_range_labels", 256, 1000, f32, "out_of_range", False),
+        # rows 4 bytes off a 16-byte boundary, and off their gradient's
+        ("offset_view", 512, 1000, bf16, "offset", False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    results = {}
+    for name, t, v, dtype, kind, timed in cases:
+        dname = str(dtype).split(".")[-1]
+        if kind == "offset":
+            flat = torch.randn(t * v + 2, device="cuda", generator=gen)
+            logits = (3.0 * flat).to(dtype)[2:].view(t, v)
+        else:
+            logits = (3.0 * torch.randn(t, v, device="cuda", generator=gen)
+                      ).to(dtype)
+        if kind == "extreme":  # the JAX test's +-1e4 rows
+            logits = torch.tensor([1e4, 0.0, -1e4, 5.0], device="cuda"
+                                  ).repeat(t, v // 4).to(dtype)
+        labels = torch.randint(0, v, (t,), device="cuda", generator=gen,
+                               dtype=torch.int32)
+        if kind == "out_of_range":
+            labels[:6] = torch.tensor([-1, v, v + 7, -1000, 2 ** 31 - 1,
+                                       v + 1000], dtype=torch.int32)
+        ct = torch.randn(t, device="cuda", generator=gen)
+        loss, lse = ce.fused_ce_fwd(logits, labels)
+        dlogits = ce.fused_ce_bwd(logits, labels, lse, ct)
+        torch.cuda.synchronize()
+        rloss, rlse = ce.fused_ce_forward_reference(logits, labels)
+        rdl = ce.fused_ce_backward_reference(logits, labels, lse, ct)
+        ulp = TRAIN_TOL_ULP[dname]
+        errs = {"loss": _ce_shares(loss, rloss, CE_TOL_REL, 0.0, CE_TOL_ABS),
+                "lse": _ce_shares(lse, rlse, CE_TOL_REL, 0.0, CE_TOL_ABS),
+                "dlogits": _ce_shares(dlogits, rdl, ulp, CE_GRAD_F32)}
+        finite = bool(torch.isfinite(loss).all()
+                      and torch.isfinite(dlogits).all())
+        del rloss, rlse, rdl
+        row = {"phase": "kernel_ce", "case": name, "dtype": dname,
+               "shape_tv": [t, v], "finite": finite,
+               "max_abs_err": {n: e[0] for n, e in errs.items()},
+               "err_share_of_tol": {n: e[1] for n, e in errs.items()},
+               "tol": {"loss_lse": [CE_TOL_REL, CE_TOL_ABS],
+                       "dlogits_ulp": ulp, "dlogits_of_max": CE_GRAD_F32}}
+        if kind == "out_of_range":
+            bad = slice(0, 6)
+            row["out_of_range_loss_minus_lse"] = (
+                loss[bad] - lse[bad]).abs().max().item()
+            check(row["out_of_range_loss_minus_lse"] == 0.0,
+                  "out-of-range labels picked a logit")
+        if timed:
+            es = logits.element_size()
+            fwd_bytes = t * v * es + 12 * t
+            bwd_bytes = 2 * t * v * es + 12 * t
+            bound = {"fwd": _bound(CE_OPS["fwd"] * t * v, fwd_bytes,
+                                   "float32"),
+                     "bwd": _bound(CE_OPS["bwd"] * t * v, bwd_bytes,
+                                   "float32")}
+            row["ms"] = {
+                "fwd": median_ms(lambda: ce.fused_ce_fwd(logits, labels),
+                                 3, 20),
+                "bwd": median_ms(lambda: ce.fused_ce_bwd(
+                    logits, labels, lse, ct), 3, 20)}
+            row["plain_ms"] = {
+                "fwd": median_ms(lambda: ce.fused_ce_forward_reference(
+                    logits, labels), 1, 5),
+                "bwd": median_ms(lambda: ce.fused_ce_backward_reference(
+                    logits, labels, lse, ct), 1, 5)}
+            # the yardstick, never on the port's path: cross_entropy's
+            # forward, and its backward alone on a kept graph
+            x = logits.detach().requires_grad_()
+            lab64 = labels.long()
+            lib = lambda: F.cross_entropy(x, lab64, reduction="none")
+            lib_fwd = median_ms(lib, 3, 20)
+            lib_out = lib()
+            lib_bwd = median_ms(lambda: torch.autograd.grad(
+                lib_out, x, ct.to(lib_out.dtype), retain_graph=True), 3, 20)
+            del lib_out, x
+            row.update({
+                "library_ms": {"fwd": lib_fwd, "bwd": lib_bwd},
+                "bound_ms": {n: b[0] for n, b in bound.items()},
+                "bound_by": {n: b[1] for n, b in bound.items()},
+                "bytes": {"fwd": fwd_bytes, "bwd": bwd_bytes},
+                "hbm_share_of_peak": {
+                    n: b[0] / row["ms"][n] for n, b in bound.items()}})
+        emit(row)
+        check(finite, f"fused CE {name}/{dname}: non-finite output")
+        worst = max(errs, key=lambda n: errs[n][1])
+        check(errs[worst][1] <= 1.0, f"fused CE {name}/{dname}: {worst} "
+              f"error {errs[worst][1]:.3g}x its tolerance (max abs err "
+              f"{errs[worst][0]})")
+        results[(name, dname)] = row
+        del logits, labels, ct, loss, lse, dlogits
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_memory_ce():
+    """Loss forward + backward at the parallel LM's (T, V) in f32: the
+    peak allocation above the logits.  The fused route holds the gradient
+    and O(T) vectors; the plain route (``log_softmax`` and a gather, the
+    model's ``fused_ce=False`` loss) at least one (T, V) f32 more."""
+    import importlib
+    import torch
+    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
+    t, v = PLM_BATCH * PLM["seq_len"], PLM["vocab_size"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    logits = torch.randn(t, v, device="cuda", generator=gen)
+    logits.requires_grad_(True)
+    labels = torch.randint(0, v, (t,), device="cuda", generator=gen)
+    tv_bytes = t * v * 4
+    fused_limit = tv_bytes + 16 * t * 4
+    peaks = {}
+    for route in ("fused", "plain"):
+        logits.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ce.fused_ce_fwd.launches = ce.fused_ce_bwd.launches = 0
+        if route == "fused":
+            loss = ce.fused_softmax_cross_entropy(logits, labels).mean()
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            loss = -logp.gather(-1, labels[:, None])[:, 0].mean()
+            del logp
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[route] = torch.cuda.max_memory_allocated() - base
+        launches = [ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches]
+        check(launches == ([1, 1] if route == "fused" else [0, 0]),
+              f"memory_ce {route}: launches {launches}")
+        check(bool(torch.isfinite(logits.grad).all()),
+              f"memory_ce {route}: non-finite gradient")
+        del loss
+    emit({"phase": "memory_ce", "shape_tv": [t, v], "dtype": "float32",
+          "tv_f32_bytes": tv_bytes,
+          "fused_peak_bytes_above_logits": peaks["fused"],
+          "fused_limit_bytes": fused_limit,
+          "plain_peak_bytes_above_logits": peaks["plain"],
+          "peak_in_tv_tensors": {r: p / tv_bytes for r, p in peaks.items()}})
+    check(peaks["fused"] <= fused_limit, f"fused CE allocated "
+          f"{peaks['fused']} bytes above the logits, over {fused_limit}")
+    check(peaks["plain"] >= peaks["fused"] + tv_bytes, f"the plain CE "
+          f"allocated {peaks['plain']} bytes, not a (T, V) f32 more than "
+          f"the fused {peaks['fused']}")
+    del logits
+    torch.cuda.empty_cache()
+
+
+def _parallel_tree(lm, rng):
+    """Weights in the JAX ``ParallelTransformerLM`` tree's layout (nested
+    dicts, a list of layers), drawn from a numpy seed by the JAX init's
+    rules: LayerNorm scales ones, biases zeros, ``embed`` N(0, 0.02²),
+    the other matrices N(0, 1) / sqrt(fan_in)."""
+    import numpy as np
+    tree = {"layers": [{} for _ in range(lm.num_layers)]}
+    for name, shape in lm._shapes().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.startswith("ln"):
+            w = np.ones(shape, np.float32)
+        elif leaf.startswith("b"):
+            w = np.zeros(shape, np.float32)
+        elif leaf in ("embed", "pos"):
+            w = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            w = (rng.standard_normal(shape, dtype=np.float32)
+                 / np.float32(np.sqrt(shape[-2])))
+        parts = name.split(".")
+        if parts[0] == "layers":
+            tree["layers"][int(parts[1])][parts[2]] = w
+        else:
+            tree[name] = w
+    return tree
+
+
+def _zero_counts():
+    import importlib
+    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    ce.fused_ce_fwd.launches = ce.fused_ce_bwd.launches = 0
+    fa.flash_attention.launches = fa.flash_attention_forward.launches = 0
+    fa.flash_attention_backward.dq_launches = 0
+    fa.flash_attention_backward.dkv_launches = 0
+
+
+def _read_counts():
+    import importlib
+    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    return {"fused_ce_fwd": ce.fused_ce_fwd.launches,
+            "fused_ce_bwd": ce.fused_ce_bwd.launches,
+            "flash_fwd_lse": fa.flash_attention_forward.launches,
+            "flash_dq": fa.flash_attention_backward.dq_launches,
+            "flash_dkv": fa.flash_attention_backward.dkv_launches,
+            "flash_inference": fa.flash_attention.launches}
+
+
+def _parallel_route(cfg, tree, toks, labels):
+    """Build the LM from ``tree`` on the card and train it PLM_STEPS
+    steps through ``compile_train_step``, the counts set to 0 just before
+    and read just after; returns (losses, step seconds, launches)."""
+    import torch
+    from distkeras_tpu_torch.core.optimizers import adam
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              load_jax_params)
+    lm = ParallelTransformerLM(**cfg, mesh=Mesh())  # the card
+    params = load_jax_params(lm, tree)
+    opt_state, step = lm.compile_train_step(adam(PLM_LR), params)
+    dev = lm.batch_sharding()
+    tokens = torch.as_tensor(toks, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    torch.cuda.synchronize()
+    _zero_counts()
+    losses, seconds = [], []
+    for _ in range(PLM_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, labels)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = _read_counts()
+    losses = [float(x) for x in losses]
+    del params, opt_state, lm
+    torch.cuda.empty_cache()
+    return losses, seconds, launches
+
+
+def _first_step_parallel_grads(cfg, tree, toks, labels):
+    import torch
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              load_jax_params)
+    lm = ParallelTransformerLM(**cfg, mesh=Mesh())
+    params = load_jax_params(lm, tree)
+    dev = lm.batch_sharding()
+    loss = lm._loss(params, torch.as_tensor(toks, device=dev),
+                    torch.as_tensor(labels, device=dev))
+    return dict(zip(params, torch.autograd.grad(loss,
+                                                list(params.values()))))
+
+
+def phase_parallel_train(card: str):
+    """The full-width ParallelTransformerLM (bf16) from one numpy-seeded
+    weight set, PLM_STEPS steps on each route, and the f32 pair (fused
+    and plain CE) at PLM_F32_LAYERS layers."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, ParallelTransformerLM
+    rng = np.random.default_rng(SEED + 5)
+    v, s = PLM["vocab_size"], PLM["seq_len"]
+    toks = rng.integers(0, v, (PLM_BATCH, s)).astype(np.int32)
+    labels = (toks + 1) % v
+    tokens_per_step = PLM_BATCH * s
+    bf16 = {**PLM, "compute_dtype": "bfloat16"}
+    tree = _parallel_tree(ParallelTransformerLM(
+        **bf16, mesh=Mesh(device="meta")), rng)
+    runs = {}
+    for route, extra in PLM_ROUTES.items():
+        losses, seconds, launches = _parallel_route(
+            {**bf16, **extra}, tree, toks, labels)
+        runs[route] = (losses, launches)
+        fused = extra["fused_ce"]
+        ulysses = extra.get("sp_impl") == "ulysses"
+        flash_want = PLM["num_layers"] * PLM_STEPS if ulysses else 0
+        step_ms = statistics.median(seconds[1:]) * 1e3
+        emit({"phase": "parallel_train", "route": route,
+              "compute_dtype": "bfloat16", "config": PLM,
+              "batch": PLM_BATCH, "steps": PLM_STEPS, "losses": losses,
+              "last_over_first": losses[-1] / losses[0],
+              "launches": launches, "card": card,
+              "first_step_ms": seconds[0] * 1e3, "ms_per_step": step_ms,
+              "tokens_per_s": tokens_per_step / (step_ms / 1e3)})
+        tag = f"parallel_train {route}"
+        check(all(np.isfinite(losses)), f"{tag}: non-finite loss")
+        check(losses[-1] < losses[0], f"{tag}: the loss did not fall "
+              f"({losses[0]} -> {losses[-1]})")
+        want_ce = PLM_STEPS if fused else 0
+        check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == want_ce,
+              f"{tag}: fused CE launches {launches}, want {want_ce} each")
+        check(all(launches[k] == flash_want for k in
+                  ("flash_fwd_lse", "flash_dq", "flash_dkv"))
+              and launches["flash_inference"] == 0,
+              f"{tag}: flash launches {launches}, want {flash_want} each")
+    del tree
+    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                                    / np.abs(np.asarray(b))))
+    ce_gap = rel(runs["fused_ring"][0], runs["plain_ring"][0])
+    schedule_gap = rel(runs["fused_ulysses"][0], runs["fused_ring"][0])
+
+    # the f32 routes at cut depth: loss traces and first-step gradients,
+    # fused vs plain CE (both ring) and Ulysses vs ring (both fused CE)
+    f32 = {**PLM, "num_layers": PLM_F32_LAYERS, "compute_dtype": "float32"}
+    tree32 = _parallel_tree(ParallelTransformerLM(
+        **f32, mesh=Mesh(device="meta")), np.random.default_rng(SEED + 7))
+    traces, grads = {}, {}
+    for route, extra in PLM_ROUTES.items():
+        losses, seconds, launches = _parallel_route(
+            {**f32, **extra}, tree32, toks, labels)
+        traces[route] = losses
+        want_ce = PLM_STEPS if extra["fused_ce"] else 0
+        want_flash = (PLM_F32_LAYERS * PLM_STEPS
+                      if extra.get("sp_impl") == "ulysses" else 0)
+        check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == want_ce
+              and all(launches[k] == want_flash for k in
+                      ("flash_fwd_lse", "flash_dq", "flash_dkv")),
+              f"f32 {route}: launches {launches}, want fused CE {want_ce} "
+              f"and flash {want_flash} each")
+        grads[route] = _first_step_parallel_grads({**f32, **extra}, tree32,
+                                                  toks, labels)
+    del tree32
+
+    def grad_worst(got, ref):
+        gmax = max(g.abs().max().item() for g in ref.values())
+        shares = {n: ((got[n] - ref[n]).abs().max().item()
+                      / (GRAD_RTOL * ref[n].abs().max().item()
+                         + GRAD_ATOL * gmax)) for n in ref}
+        worst = max(shares, key=shares.get)
+        return worst, shares[worst]
+
+    pairs = {  # name: (route, reference route, loss-trace rtol)
+        "ce": ("fused_ring", "plain_ring", PLM_LOSS_RTOL_F32),
+        "schedule": ("fused_ulysses", "fused_ring", LOSS_RTOL_F32)}
+    f32_rows = {}
+    for name, (route, ref, rtol) in pairs.items():
+        worst, share = grad_worst(grads[route], grads[ref])
+        f32_rows[name] = {"routes": [route, ref],
+                          "loss_gap": rel(traces[route], traces[ref]),
+                          "loss_rtol": rtol, "grad_worst_tensor": worst,
+                          "grad_worst_share_of_tol": share}
+    del grads
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel_train_check",
+          "bf16_ce_route_gap": ce_gap, "bf16_ce_band": PLM_CE_BAND_BF16,
+          "bf16_schedule_gap": schedule_gap,
+          "bf16_schedule_band": PLM_SCHEDULE_BAND_BF16,
+          "f32_layers": PLM_F32_LAYERS, "f32_losses": traces,
+          "f32": f32_rows, "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL})
+    check(ce_gap <= PLM_CE_BAND_BF16, f"bf16 fused vs plain CE loss traces "
+          f"differ by {ce_gap} > {PLM_CE_BAND_BF16}")
+    check(schedule_gap <= PLM_SCHEDULE_BAND_BF16, f"bf16 Ulysses vs ring "
+          f"loss traces differ by {schedule_gap} > {PLM_SCHEDULE_BAND_BF16}")
+    for name, r in f32_rows.items():
+        check(r["loss_gap"] <= r["loss_rtol"], f"f32 {name} pair {r['routes']}"
+              f": loss traces differ by {r['loss_gap']} > {r['loss_rtol']}")
+        check(r["grad_worst_share_of_tol"] <= 1.0, f"f32 {name} pair "
+              f"{r['routes']}: first-step gradient of "
+              f"{r['grad_worst_tensor']} differs "
+              f"{r['grad_worst_share_of_tol']:.3g}x its tolerance")
+    check(all(t[-1] < t[0] for t in traces.values()),
+          f"f32: the loss did not fall: {traces}")
+    return {route: launches for route, (_, launches) in runs.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -737,6 +1182,10 @@ def main() -> int:
     phase_memory()
     train_launches = phase_train(smi)
 
+    ce_rows = phase_kernel_ce()
+    phase_memory_ce()
+    plm_launches = phase_parallel_train(smi)
+
     main_row = kernel_rows[("causal", "bfloat16")]  # the slice's shape
     fwd = {"name": "flash_attention_fwd", "route": "cuda",
            "source": "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -750,9 +1199,11 @@ def main() -> int:
            "bound_by": main_row["bound_by"],
            "library_ms": main_row["library_ms"]}
     t = train_rows[("causal", "bfloat16")]
-    err = t["max_abs_err"]
+    u = train_rows[(PLM_ULYSSES_CASE[0], "bfloat16")]
+    outputs = {"fwd_lse": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 
-    def train_entry(name, key, source, replaces, max_abs_err, library_ms):
+    def train_entry(name, key, source, replaces, library_ms):
+        errs = outputs[key]
         return {"name": name, "route": "cuda",
                 "source": f"distkeras_tpu_torch/csrc/{source}",
                 "replaces": f"distkeras_tpu/ops/flash_attention.py:"
@@ -761,11 +1212,44 @@ def main() -> int:
                 "launches": train_launches[key],
                 "launches_per_step": train_launches[key] // (
                     TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)),
-                "max_abs_err": max_abs_err, "ms": t["ms"][key],
+                "max_abs_err": max(t["max_abs_err"][e] for e in errs),
+                "ms": t["ms"][key],
                 "plain_ms": t["plain_ms"][key],
                 "bound_ms": t["bound_ms"][key],
                 "bound_by": t["bound_by"][key],
-                "library_ms": library_ms}
+                "library_ms": library_ms,
+                # the same kernel at the parallel LM's Ulysses shape, and
+                # its launches on that route's 8 counted steps
+                "parallel_lm": {
+                    "shape_bshd": u["shape_bshd"], "kv_heads": u["kv_heads"],
+                    "launches": plm_launches["fused_ulysses"][
+                        {"fwd_lse": "flash_fwd_lse", "dq": "flash_dq",
+                         "dkv": "flash_dkv"}[key]],
+                    "max_abs_err": max(u["max_abs_err"][e] for e in errs),
+                    "ms": u["ms"][key], "plain_ms": u["plain_ms"][key],
+                    "bound_ms": u["bound_ms"][key],
+                    "bound_by": u["bound_by"][key],
+                    "library_fwd_ms": u["library_fwd_ms"],
+                    "library_bwd_ms": u["library_bwd_ms"]}}
+    c = ce_rows[("slice", "float32")]  # the parallel LM's logits
+
+    def ce_entry(name, key, replaces, *errs):
+        return {"name": name, "route": "cuda",
+                "source": "distkeras_tpu_torch/csrc/fused_ce.cu",
+                "replaces": f"distkeras_tpu/ops/fused_ce.py:{replaces}",
+                # the main path's counted run: the fused ring route's
+                # PLM_STEPS steps; every counted route beside it
+                "launches": plm_launches["fused_ring"][name],
+                "launches_per_step":
+                    plm_launches["fused_ring"][name] / PLM_STEPS,
+                "launches_by_route": {r: n[name] for r, n in
+                                      plm_launches.items()},
+                "max_abs_err": max(c["max_abs_err"][e] for e in errs),
+                "ms": c["ms"][key], "plain_ms": c["plain_ms"][key],
+                "bound_ms": c["bound_ms"][key],
+                "bound_by": c["bound_by"][key],
+                "library_ms": c["library_ms"][key],
+                "bf16_ms": ce_rows[("slice", "bfloat16")]["ms"][key]}
     emit({"kernels": [
         fwd,
         # SDPA's forward is the yardstick of the forward with lse (it
@@ -773,15 +1257,15 @@ def main() -> int:
         # computes dq alone or dk/dv alone, so those carry null and the
         # SDPA backward (dq, dk and dv together) beside them
         train_entry("flash_attention_fwd_lse", "fwd_lse",
-                    "flash_attention_fwd.cu", 78,
-                    max(err["out"], err["lse"]), t["library_fwd_ms"]),
+                    "flash_attention_fwd.cu", 78, t["library_fwd_ms"]),
         {**train_entry("flash_attention_bwd_dq", "dq",
-                       "flash_attention_bwd.cu", 182, err["dq"], None),
+                       "flash_attention_bwd.cu", 182, None),
          "backward_library_ms": t["library_bwd_ms"]},
         {**train_entry("flash_attention_bwd_dkv", "dkv",
-                       "flash_attention_bwd.cu", 221,
-                       max(err["dk"], err["dv"]), None),
+                       "flash_attention_bwd.cu", 221, None),
          "backward_library_ms": t["library_bwd_ms"]},
+        ce_entry("fused_ce_fwd", "fwd", 54, "loss", "lse"),
+        ce_entry("fused_ce_bwd", "bwd", 97, "dlogits"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -292,6 +292,15 @@ def scale_by_adam(b1: float, b2: float, eps: float,
     return Transform(init, update)
 
 
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Transform:
+    """``optax.adam``: Adam at optax's own epsilon of 1e-8 (the Keras
+    ``Adam`` above takes 1e-7), for callers that pass an update rule
+    directly, as ``ParallelTransformerLM.compile_train_step`` does."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 scale_by_learning_rate(learning_rate))
+
+
 def add_decayed_weights(weight_decay: float) -> Transform:
     return _stateless(lambda updates, params: [
         g + weight_decay * p for g, p in zip(updates, params)])

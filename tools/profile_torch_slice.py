@@ -15,14 +15,20 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
   adam 3e-3, a batch of 8 rows), after three warm-up steps; the update
   rule's own time (``tx.update`` plus the in-place apply) is then taken
   with CUDA events, as a median over 5 calls, because its many small
-  elementwise kernels carry no name of their own.
+  elementwise kernels carry no name of their own;
+- parallel: one ``compile_train_step`` step of the full-width
+  ``ParallelTransformerLM`` of ``chip_smoke.py`` (vocab 32768, d_model
+  512, 8 heads, 8 layers, mlp 2048, RoPE, bf16, batch 8 x 2048, adam
+  1e-3) on the fused-CE route, with the ``"ring"`` and the ``"ulysses"``
+  schedule, after three warm-up steps, the update rule timed as above.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
 of kernel and copy durations on the card; one stream, so they do not
 overlap) and idle share, and the device time by kernel, largest first,
-grouped as the flash kernels, matrix products, copies and the rest.  The
-whole result also goes to ``--out``.  Imports nothing of JAX.
+grouped as the flash kernels, the fused cross-entropy kernels, matrix
+products, copies and the rest.  The whole result also goes to
+``--out``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ def group(name: str) -> str:
     low = name.lower()
     for kernel, label in (("flash_fwd_kernel", "flash_attention_fwd"),
                           ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
-                          ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv")):
+                          ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+                          ("fused_ce_fwd_kernel", "fused_ce_fwd"),
+                          ("fused_ce_bwd_kernel", "fused_ce_bwd")):
         if kernel in low:
             return label
     if "memcpy" in low or "memset" in low:
@@ -126,7 +134,16 @@ def profile_train(form, extra, x, y):
         state, loss, _ = step(state, x, y, w)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # the update rule alone, on gradients of the real step
+    return {"slice": "train", "form": form, "batch_size": len(x),
+            "loss": float(loss), **device_summary(prof, wall_ms),
+            "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
+
+
+def update_rule_ms(tx, opt_state, params):
+    """Median CUDA-event time of the update rule alone (``tx.update``
+    plus the in-place apply) on gradient-sized random tensors."""
+    import torch
+    from distkeras_tpu_torch.core import optimizers
     plist = list(params.values())
     grads = [torch.randn_like(p) * 1e-3 for p in plist]
     times = []
@@ -135,14 +152,49 @@ def profile_train(form, extra, x, y):
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         with torch.no_grad():
-            updates, _ = tx.update(grads, state.opt_state, plist)
+            updates, _ = tx.update(grads, opt_state, plist)
             optimizers.apply_updates(plist, updates)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return {"slice": "train", "form": form, "batch_size": len(x),
-            "loss": float(loss), **device_summary(prof, wall_ms),
-            "optimizer_ms": statistics.median(times[1:])}
+    return statistics.median(times[1:])
+
+
+def profile_parallel(route):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch.core.optimizers import adam
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              load_jax_params)
+    cfg = {**chip_smoke.PLM, "compute_dtype": "bfloat16",
+           **chip_smoke.PLM_ROUTES[route]}
+    lm = ParallelTransformerLM(**cfg, mesh=Mesh())
+    rng = np.random.default_rng(chip_smoke.SEED + 5)
+    v, s = cfg["vocab_size"], cfg["seq_len"]
+    toks = rng.integers(0, v, (chip_smoke.PLM_BATCH, s)).astype(np.int32)
+    params = load_jax_params(lm, chip_smoke._parallel_tree(lm, rng))
+    tx = adam(chip_smoke.PLM_LR)
+    opt_state, step = lm.compile_train_step(tx, params)
+    tokens = torch.as_tensor(toks, device=lm.batch_sharding())
+    labels = (tokens.long() + 1) % v
+    for _ in range(3):
+        params, opt_state, loss = step(params, opt_state, tokens, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"slice": "parallel_train", "route": route,
+           "batch_size": chip_smoke.PLM_BATCH, "seq_len": s,
+           "loss": float(loss), **device_summary(prof, wall_ms),
+           "optimizer_ms": update_rule_ms(tx, opt_state, params)}
+    del params, opt_state, prof
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -177,6 +229,10 @@ def main() -> int:
                     profile_train(form, extra, x, y)):
             results["rows"].append(row)
             print(json.dumps(row), flush=True)
+    for route in ("fused_ring", "fused_ulysses"):
+        row = profile_parallel(route)
+        results["rows"].append(row)
+        print(json.dumps(row), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
