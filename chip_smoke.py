@@ -9,15 +9,21 @@ It drives the port only (no JAX is needed or imported) through ten
 phases, each printing JSON lines, and fails with a non-zero exit if any
 phase fails:
 
-1. device: the card's name and power limit, the torch and CUDA versions,
+1. device: the card's name, power limit, SM count and maximum SM clock
+   (for the exponential rate of the bounds), the torch and CUDA versions,
    and the build of every kernel from the checkout's sources (``nvcc``);
-2. kernel: the flash-attention kernel against its plain PyTorch version
+2. kernel: the flash-attention forward against its plain PyTorch version
    on the card, at the serving slice's shapes and a few more (head dims
-   that the kernel pads, f16, the parallel LM's Ulysses shape: B 8,
-   S 2048, 8 heads, MHA, D 64), in f32 and bf16, with the error beside its
-   per-element tolerance, and the kernel's, plain
+   that the kernels pad, the parallel LM's Ulysses shape: B 8, S 2048,
+   8 heads, MHA, D 64), in f32, bf16 and f16 (each served by the variant
+   its dtype and head dim select: sm90 for 16-bit, SIMT for f32), with
+   the error beside its per-element tolerance, and the kernel's, plain
    version's and ``scaled_dot_product_attention``'s times (a yardstick
-   only: the port never calls it) beside the card's bound;
+   only: the port never calls it) beside the card's bound (bytes,
+   products or one exponential per live pair, whichever is largest); at
+   the slice's and the Ulysses shape in bf16 the SIMT kernel is timed too,
+   through the private launcher, so the two variants are compared on one
+   card;
 3. slice: ``ModelPredictor`` over a full-width ``transformer_lm`` (the
    widest LM the JAX package benchmarks: vocab 512, seq 2048, d_model 256,
    8 heads, 2 kv heads, 4 layers, mlp 1024) in its ``"full"`` and
@@ -25,7 +31,8 @@ phase fails:
    random weights from a numpy seed loaded through ``load_jax_weights``;
    the kernel route is held against the plain route
    (``attention_impl="xla"``) and must have launched the kernel once per
-   layer and batch;
+   layer and batch, every bf16 launch on the sm90 variant and every f32
+   one on the SIMT variant;
 4. blob: ``FittedModel.save`` → ``load`` → ``predict`` gives bit-identical
    logits;
 5. kernel_train: the training form of the forward (out and lse) and the
@@ -33,13 +40,15 @@ phase fails:
    card, at phase 2's shapes in f32, bf16 and f16 with a random dO, with
    each error beside its per-element tolerance, and the kernels', plain
    versions' and ``scaled_dot_product_attention`` backward's times (a
-   yardstick only) beside the card's bound;
+   yardstick only) beside the card's bound; the SIMT forward timed at
+   bf16 as in phase 2;
 6. memory: forward and backward at S 8192 allocate nothing of size S²;
 7. train: ``SingleTrainer`` trains the full-width LM (both forms, bf16
    and f32) on the x+1 next-token task, 16 steps, on the kernel route
    and on the plain route (``attention_impl="xla"``) from the same
    weights: the kernel route must have launched the training forward,
-   dq and dk/dv once per layer and step and the plain route never, the
+   dq and dk/dv once per layer and step (the forward on the variant of
+   the dtype, as in phase 3) and the plain route never, the
    routes must agree (first-step gradients and loss traces at f32, loss
    traces within a measured band at bf16), the loss must fall, and
    ``ModelPredictor`` must serve the trained model through the
@@ -60,13 +69,15 @@ phase fails:
     the fused-CE ring, plain-CE ring and fused-CE Ulysses routes: the
     fused CE kernels launch once per step on the fused routes and never
     on the plain one, the flash kernels once per layer and step on the
-    Ulysses route and never on the ring, the loss falls on every route,
+    Ulysses route (the forward on sm90 at bf16, on SIMT at f32) and never
+    on the ring, the loss falls on every route,
     the routes agree within measured bf16 bands, and at f32 (2 layers)
     fused and plain CE agree in loss traces (1e-5) and first-step
     gradients, and so do Ulysses and ring (loss traces 1e-4).
 
-Then it prints the kernel summary line, the ``nvidia-smi`` name and power
-limit line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+Then it prints the kernel summary line (each forward variant with its
+source and the runs it served), the ``nvidia-smi`` name and power limit
+line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
 card, or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -91,6 +102,12 @@ ROWS, BATCH = 16, 8
 # flop/s by input type: bf16 on the tensor cores, f32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# the flash kernels' third term: one exponential per live (q, k) pair on
+# the MUFU units, 16 ex2 per clock per SM; phase_device sets the rate from
+# the card's SM count and the SM clock that nvidia-smi reports as its
+# maximum (clocks.max.sm)
+EX2_PER_CLOCK_PER_SM = 16
+EXP_PER_S = None
 # kernel vs plain version, per element: |kernel - plain| <= rel * |plain| +
 # abs.  Both compute in f32 and differ only in the order of f32 sums (abs
 # 2e-5 on unit-normal inputs); in bf16 and f16 each then rounds once to
@@ -194,6 +211,10 @@ PLM_LOSS_RTOL_F32 = 1e-5
 # and 5) and the schedules' f32 gradients against each other.
 PLM_CE_BAND_BF16 = 1e-3
 PLM_SCHEDULE_BAND_BF16 = 0.01
+# the cases at which phases kernel and kernel_train also time the SIMT
+# forward on bf16 inputs, beside the sm90 kernel that serves them: the
+# serving and training slices' shape, and the Ulysses route's
+SIMT_TIMED = ("causal", PLM_ULYSSES_CASE[0])
 
 
 def emit(obj) -> None:
@@ -231,12 +252,19 @@ def live_pairs(s: int, causal: bool, window) -> int:
 
 
 def phase_device():
+    global EXP_PER_S
     import torch
     from distkeras_tpu_torch import kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = EX2_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
     t0 = time.perf_counter()
     compiled = kernels.build()
     build_s = time.perf_counter() - t0
@@ -247,29 +275,34 @@ def phase_device():
           "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
+          "sm_count": sms, "sm_clock_max_mhz": sm_mhz,
+          "exp2_per_s": EXP_PER_S,
           "kernels_compiled": compiled, "build_s": build_s})
     return smi
 
 
 def phase_kernel():
+    import importlib
     import torch
     import torch.nn.functional as F
-    from distkeras_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    flash_attention = fa.flash_attention
+    flash_attention_reference = fa.flash_attention_reference
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    every = (f32, bf16, f16)
     cases = [  # name, B, S, H, Hkv, D, causal, window, dtypes
-        ("causal", 8, 2048, 8, 2, 32, True, None, (f32, bf16, f16)),
-        ("window256", 8, 2048, 8, 2, 32, True, 256, (f32, bf16)),
-        ("noncausal", 8, 2048, 8, 2, 32, False, None, (f32, bf16)),
-        ("d64", 8, 1024, 8, 2, 64, True, None, (f32, bf16)),
-        ("d128", 8, 1024, 8, 2, 128, True, None, (f32, bf16)),
-        ("ragged200", 8, 200, 8, 2, 32, True, None, (f32, bf16)),
-        # head dims the kernel pads: 16 -> 32, 96 -> 128, 200 -> 256
-        ("d16", 8, 1024, 8, 2, 16, True, None, (f32, bf16)),
+        ("causal", 8, 2048, 8, 2, 32, True, None, every),
+        ("window256", 8, 2048, 8, 2, 32, True, 256, every),
+        ("noncausal", 8, 2048, 8, 2, 32, False, None, every),
+        ("d64", 8, 1024, 8, 2, 64, True, None, every),
+        ("d128", 8, 1024, 8, 2, 128, True, None, every),
+        ("ragged200", 8, 200, 8, 2, 32, True, None, every),
+        # head dims the kernels pad: 16 -> 32, 96 -> 128, 200 -> 256
+        ("d16", 8, 1024, 8, 2, 16, True, None, every),
         ("d96", 4, 1024, 8, 2, 96, True, 128, (bf16, f16)),
-        ("d200", 2, 1000, 8, 2, 200, True, None, (f32, bf16)),
+        ("d200", 2, 1000, 8, 2, 200, True, None, every),
         # the parallel LM's attention on its Ulysses route (MHA, D 64)
-        PLM_ULYSSES_CASE + ((f32, bf16),),
+        PLM_ULYSSES_CASE + (every,),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -306,11 +339,11 @@ def phase_kernel():
             lib_out = sdpa().transpose(1, 2)
             library_ms = median_ms(sdpa, 3, 20)
 
-            flops = 4 * b * h * d * live_pairs(s, causal, window)
+            pairs = b * h * live_pairs(s, causal, window)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-            flop_ms = flops / PEAK_FLOPS[dname] * 1e3
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = _bound(4 * d * pairs, nbytes, dname, pairs)
             row = {"phase": "kernel", "case": name, "dtype": dname,
+                   "variant": fa._forward_variant(dtype, d),
                    "shape_bshd": [b, s, h, d], "kv_heads": hkv,
                    "causal": causal, "window": window,
                    "max_abs_err": err, "tol_rel": rel, "tol_abs": atol,
@@ -319,9 +352,11 @@ def phase_kernel():
                                            - ref.float()).abs().max().item(),
                    "ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
-                   "bound_ms": max(flop_ms, byte_ms),
-                   "bound_by": "operations" if flop_ms >= byte_ms
-                   else "bytes"}
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "bound_term": bound[3]}
+            if dname == "bfloat16" and name in SIMT_TIMED:
+                row["simt_ms"] = _simt_forward_ms(q, k, v, causal, window,
+                                                  lse=False)
             emit(row)
             check(err_share <= 1.0, f"flash kernel {name}/{dname}: error "
                   f"{err_share:.3g}x its tolerance ({rel} * |plain| + "
@@ -353,10 +388,18 @@ def _random_jax_weights(model, rng):
     return out
 
 
+def _want_variant(dtype: str, n: int) -> dict:
+    """The forward's launches by variant when ``n`` launches of a model in
+    ``dtype`` (head dims multiples of 8) are all served as the rule says:
+    16-bit by the sm90 kernel, f32 by the SIMT kernel."""
+    return {"sm90": 0 if dtype == "float32" else n,
+            "simt": n if dtype == "float32" else 0}
+
+
 def _predict_route(extra, weights, data):
     """Build the LM, load ``weights``, warm up, then time one counted
     ``ModelPredictor.predict``; returns (fitted, logits, seconds,
-    kernel launches during the counted run)."""
+    kernel launches during the counted run, and those by variant)."""
     from distkeras_tpu_torch import (FittedModel, ModelPredictor,
                                      load_jax_weights, transformer_lm)
     from distkeras_tpu_torch.ops.flash_attention import flash_attention
@@ -365,11 +408,12 @@ def _predict_route(extra, weights, data):
     fitted = FittedModel(model)
     predictor = ModelPredictor(fitted, batch_size=BATCH)
     predictor.predict(data)  # warm-up: cuBLAS handles, allocator
-    flash_attention.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     logits = predictor.predict(data)["prediction"]
     seconds = time.perf_counter() - t0
-    return fitted, logits, seconds, flash_attention.launches
+    return (fitted, logits, seconds, flash_attention.launches,
+            dict(flash_attention.launches_by_variant))
 
 
 def phase_slice():
@@ -383,17 +427,18 @@ def phase_slice():
     want_launches = LM["num_layers"] * batches
     shape = (ROWS, LM["seq_len"], LM["vocab_size"])
     tokens = ROWS * LM["seq_len"]
-    launches, kept = {}, {}
+    launches, variants, kept = {}, {}, {}
     for form, extra in FORMS.items():
         # one weight set per form, from the numpy seed, in the JAX layout
         weights = _random_jax_weights(
             transformer_lm(**LM, **extra, device="meta"), rng)
         for dtype in ("bfloat16", "float32"):
             kw = {**extra, "compute_dtype": dtype}
-            fitted, logits, seconds, n_kernel = _predict_route(
+            fitted, logits, seconds, n_kernel, by_variant = _predict_route(
                 kw, weights, data)
             launches[f"{form}/{dtype}"] = n_kernel
-            _, want, plain_seconds, n_plain = _predict_route(
+            variants[f"{form}/{dtype}"] = by_variant
+            _, want, plain_seconds, n_plain, _ = _predict_route(
                 {**kw, "attention_impl": "xla"}, weights, data)
             torch.cuda.empty_cache()
 
@@ -415,6 +460,7 @@ def phase_slice():
                   "decided_share": float(decided.mean()),
                   "argmax_agreement": agree, "argmax_min": ARGMAX_MIN,
                   "kernel_launches": n_kernel,
+                  "kernel_launches_by_variant": by_variant,
                   "expected_launches": want_launches,
                   "plain_route_launches": n_plain,
                   "tokens_per_s": tokens / seconds,
@@ -434,11 +480,13 @@ def phase_slice():
                   f"{ARGMAX_ALL_MIN[dtype]}")
             check(n_kernel == want_launches, f"{tag}: {n_kernel} kernel "
                   f"launches, want {want_launches}")
+            check(by_variant == _want_variant(dtype, want_launches),
+                  f"{tag}: forward launches by variant {by_variant}")
             check(n_plain == 0, f"{tag}: the plain route launched the "
                                 f"kernel {n_plain} times")
             if dtype == LM["compute_dtype"]:
                 kept[form] = (fitted, data, logits)
-    return launches, kept
+    return launches, variants, kept
 
 
 def phase_blob(fitted, data, logits):
@@ -465,14 +513,40 @@ def _err_share(got, want, dname: str):
     return diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item()
 
 
-def _bound(flops: float, nbytes: float, dname: str):
-    """(bound ms at the dtype's peak, what bounds it, bound ms with the
-    operations at the f32 CUDA-core peak)."""
-    flop_ms = flops / PEAK_FLOPS[dname] * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f32_ms = max(flops / PEAK_FLOPS["float32"] * 1e3, byte_ms)
-    return (max(flop_ms, byte_ms),
-            "operations" if flop_ms >= byte_ms else "bytes", f32_ms)
+def _bound(flops: float, nbytes: float, dname: str, exps: float = 0):
+    """(bound ms at the dtype's peak, what bounds it: "bytes" or
+    "operations", bound ms with the products at the f32 CUDA-core peak,
+    the term that bounds it: "bytes", "tensor_core", "cuda_core" or
+    "exponentials").  The bound is the largest of bytes over the HBM rate,
+    flops over the dtype's peak and ``exps`` exponentials over the MUFU
+    rate (EXP_PER_S)."""
+    unit = "cuda_core" if dname == "float32" else "tensor_core"
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             unit: flops / PEAK_FLOPS[dname] * 1e3,
+             "exponentials": exps / EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    f32_ms = max(flops / PEAK_FLOPS["float32"] * 1e3, terms["bytes"],
+                 terms["exponentials"])
+    return (terms[term], "bytes" if term == "bytes" else "operations",
+            f32_ms, term)
+
+
+def _simt_forward_ms(q, k, v, causal, window, lse: bool) -> float:
+    """The forward's SIMT kernel timed on 16-bit inputs that the wrappers
+    send to the sm90 kernel: through the private launcher, for timing
+    only (these launches are not counted)."""
+    import importlib
+    import torch
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    out = torch.empty_like(q)
+    b, s, h, _ = q.shape
+    res = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
+        if lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if res is None else res.data_ptr())
+    return median_ms(lambda: fa._launch(
+        fa.FORWARD_VARIANTS["simt"], ptrs, q, k.shape[2], fa._scale(q, None),
+        causal, window), 3, 20)
 
 
 def phase_kernel_train():
@@ -558,20 +632,24 @@ def phase_kernel_train():
                 lib_out, (qt, kt, vt), dot, retain_graph=True), 3, 10)
             del lib_out, qt, kt, vt
 
+            # each kernel takes one exponential per live pair (the
+            # backward kernels recompute p = exp(s - lse))
             pairs = b * h * live_pairs(s, causal, window)
             bounds = {
                 "fwd_lse": _bound(4 * d * pairs,
-                                  nbytes(q, k, v, out, lse), dname),
+                                  nbytes(q, k, v, out, lse), dname, pairs),
                 "dq": _bound(6 * d * pairs,
                              nbytes(q, k, v, out, do, lse, dq, delta),
-                             dname),
+                             dname, pairs),
                 "dkv": _bound(8 * d * pairs,
                               nbytes(q, k, v, do, lse, delta, dk, dv),
-                              dname)}
+                              dname, pairs)}
             bwd_bytes = nbytes(q, k, v, out, do, lse, dq, dk, dv)
-            bwd_bound = _bound(10 * d * pairs, bwd_bytes, dname)
-            schedule_bound = _bound(14 * d * pairs, bwd_bytes, dname)
+            bwd_bound = _bound(10 * d * pairs, bwd_bytes, dname, 2 * pairs)
+            schedule_bound = _bound(14 * d * pairs, bwd_bytes, dname,
+                                    3 * pairs)
             row = {"phase": "kernel_train", "case": name, "dtype": dname,
+                   "variant": fa._forward_variant(dtype, d),
                    "shape_bshd": [b, s, h, d], "kv_heads": hkv,
                    "causal": causal, "window": window,
                    "max_abs_err": {n: e[0] for n, e in errs.items()},
@@ -585,6 +663,7 @@ def phase_kernel_train():
                    "library_bwd_ms": sdpa_bwd_ms,
                    "bound_ms": {n: bd[0] for n, bd in bounds.items()},
                    "bound_by": {n: bd[1] for n, bd in bounds.items()},
+                   "bound_term": {n: bd[3] for n, bd in bounds.items()},
                    "bound_ms_f32_cuda_cores": {n: bd[2] for n, bd in
                                                bounds.items()},
                    "bwd_bound_ms": bwd_bound[0],
@@ -592,6 +671,9 @@ def phase_kernel_train():
                    "bwd_schedule_bound_ms": schedule_bound[0],
                    "bwd_schedule_bound_ms_f32_cuda_cores":
                        schedule_bound[2]}
+            if dname == "bfloat16" and name in SIMT_TIMED:
+                row["simt_ms"] = {"fwd_lse": _simt_forward_ms(
+                    q, k, v, causal, window, lse=True)}
             emit(row)
             worst = max(errs, key=lambda n: errs[n][1])
             check(errs[worst][1] <= 1.0, f"training kernels {name}/{dname}:"
@@ -661,10 +743,7 @@ def _train_route(extra, weights, data, warm):
     fitted = FittedModel(model)
     SingleTrainer(fitted, **{**TRAINER, "num_epoch": 1}).train(warm)
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    fa.flash_attention_forward.launches = 0
-    fa.flash_attention_backward.dq_launches = 0
-    fa.flash_attention_backward.dkv_launches = 0
+    _zero_counts()
     trainer = SingleTrainer(fitted, **TRAINER)
     t0 = time.perf_counter()
     trained = trainer.train(data)
@@ -673,7 +752,9 @@ def _train_route(extra, weights, data, warm):
     launches = {"fwd_lse": fa.flash_attention_forward.launches,
                 "dq": fa.flash_attention_backward.dq_launches,
                 "dkv": fa.flash_attention_backward.dkv_launches,
-                "inference": fa.flash_attention.launches}
+                "inference": fa.flash_attention.launches,
+                "fwd_lse_by_variant": dict(
+                    fa.flash_attention_forward.launches_by_variant)}
     return trained, trainer.get_history(), seconds, launches
 
 
@@ -709,7 +790,7 @@ def phase_train(card: str):
     warm = Dataset({c: data[c][:BATCH] for c in data.columns})
     steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)
     want = LM["num_layers"] * steps
-    kept = {}
+    runs = {}
     for form, extra in FORMS.items():
         weights = _random_jax_weights(
             transformer_lm(**LM, **extra, device="meta"), rng)
@@ -718,6 +799,7 @@ def phase_train(card: str):
             kw = {**extra, "compute_dtype": dtype}
             fitted, hist, seconds, launches = _train_route(
                 kw, weights, data, warm)
+            runs[tag] = launches
             _, plain_hist, plain_seconds, plain_launches = _train_route(
                 {**kw, "attention_impl": "xla"}, weights, data, warm)
             torch.cuda.empty_cache()
@@ -759,8 +841,13 @@ def phase_train(card: str):
             check(all(launches[n] == want for n in ("fwd_lse", "dq", "dkv"))
                   and launches["inference"] == 0,
                   f"{tag}: kernel launches {launches}, want {want} each")
-            check(not any(plain_launches.values()), f"{tag}: the plain "
-                  f"route launched kernels {plain_launches}")
+            check(launches["fwd_lse_by_variant"] == _want_variant(dtype, want),
+                  f"{tag}: training forward launches by variant "
+                  f"{launches['fwd_lse_by_variant']}")
+            check(not any(n for n in plain_launches.values()
+                          if isinstance(n, int))
+                  and not any(plain_launches["fwd_lse_by_variant"].values()),
+                  f"{tag}: the plain route launched kernels {plain_launches}")
             check(loss_rel <= row["loss_tol"], f"{tag}: loss traces differ "
                   f"by {loss_rel} > {row['loss_tol']}")
             check(hist[-1] < LOSS_DROP * hist[0]
@@ -773,21 +860,24 @@ def phase_train(card: str):
                       f"{tag}: first-step gradient of {worst} differs "
                       f"{shares[worst]:.3g}x its tolerance")
             if (form, dtype) == MAIN_PATH:
-                kept = launches
-                fa.flash_attention.launches = 0
+                _zero_counts()
                 served = ModelPredictor(fitted, batch_size=BATCH).predict(
                     Dataset({"features": x[:ROWS]}))["prediction"]
                 n_serve = fa.flash_attention.launches
+                serve_variant = dict(fa.flash_attention.launches_by_variant)
                 emit({"phase": "train_serve", "form": form,
                       "compute_dtype": dtype, "rows": ROWS,
                       "inference_launches": n_serve,
+                      "inference_launches_by_variant": serve_variant,
                       "finite": bool(np.isfinite(served).all())})
-                check(n_serve == LM["num_layers"] * -(-ROWS // BATCH),
+                n_want = LM["num_layers"] * -(-ROWS // BATCH)
+                check(n_serve == n_want and serve_variant
+                      == _want_variant(dtype, n_want),
                       f"serving the trained model launched the inference "
-                      f"kernel {n_serve} times")
+                      f"kernel {n_serve} times ({serve_variant})")
                 check(bool(np.isfinite(served).all()),
                       "trained model served non-finite logits")
-    return kept
+    return runs
 
 
 def _ce_shares(got, want, rel: float, abs_of_max: float, atol: float = 0.0):
@@ -996,6 +1086,8 @@ def _zero_counts():
     fa.flash_attention.launches = fa.flash_attention_forward.launches = 0
     fa.flash_attention_backward.dq_launches = 0
     fa.flash_attention_backward.dkv_launches = 0
+    for fn in (fa.flash_attention, fa.flash_attention_forward):
+        fn.launches_by_variant = dict.fromkeys(fa.FORWARD_VARIANTS, 0)
 
 
 def _read_counts():
@@ -1007,7 +1099,11 @@ def _read_counts():
             "flash_fwd_lse": fa.flash_attention_forward.launches,
             "flash_dq": fa.flash_attention_backward.dq_launches,
             "flash_dkv": fa.flash_attention_backward.dkv_launches,
-            "flash_inference": fa.flash_attention.launches}
+            "flash_inference": fa.flash_attention.launches,
+            "flash_fwd_lse_sm90":
+                fa.flash_attention_forward.launches_by_variant["sm90"],
+            "flash_fwd_lse_simt":
+                fa.flash_attention_forward.launches_by_variant["simt"]}
 
 
 def _parallel_route(cfg, tree, toks, labels):
@@ -1092,9 +1188,12 @@ def phase_parallel_train(card: str):
         check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == want_ce,
               f"{tag}: fused CE launches {launches}, want {want_ce} each")
         check(all(launches[k] == flash_want for k in
-                  ("flash_fwd_lse", "flash_dq", "flash_dkv"))
-              and launches["flash_inference"] == 0,
-              f"{tag}: flash launches {launches}, want {flash_want} each")
+                  ("flash_fwd_lse", "flash_dq", "flash_dkv",
+                   "flash_fwd_lse_sm90"))
+              and launches["flash_inference"] == 0
+              and launches["flash_fwd_lse_simt"] == 0,
+              f"{tag}: flash launches {launches}, want {flash_want} each, "
+              f"every forward on the sm90 kernel")
     del tree
     rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
                                     / np.abs(np.asarray(b))))
@@ -1116,9 +1215,12 @@ def phase_parallel_train(card: str):
                       if extra.get("sp_impl") == "ulysses" else 0)
         check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == want_ce
               and all(launches[k] == want_flash for k in
-                      ("flash_fwd_lse", "flash_dq", "flash_dkv")),
+                      ("flash_fwd_lse", "flash_dq", "flash_dkv",
+                       "flash_fwd_lse_simt"))
+              and launches["flash_fwd_lse_sm90"] == 0,
               f"f32 {route}: launches {launches}, want fused CE {want_ce} "
-              f"and flash {want_flash} each")
+              f"and flash {want_flash} each, every forward on the SIMT "
+              f"kernel")
         grads[route] = _first_step_parallel_grads({**f32, **extra}, tree32,
                                                   toks, labels)
     del tree32
@@ -1175,62 +1277,94 @@ def main() -> int:
 
     smi = phase_device()
     kernel_rows = phase_kernel()
-    launches, kept = phase_slice()
+    launches, variants, kept = phase_slice()
     phase_blob(*kept["full"])
 
     train_rows = phase_kernel_train()
     phase_memory()
-    train_launches = phase_train(smi)
+    train_runs = phase_train(smi)
 
     ce_rows = phase_kernel_ce()
     phase_memory_ce()
     plm_launches = phase_parallel_train(smi)
 
-    main_row = kernel_rows[("causal", "bfloat16")]  # the slice's shape
-    fwd = {"name": "flash_attention_fwd", "route": "cuda",
-           "source": "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
-           "replaces": "distkeras_tpu/ops/flash_attention.py:78",
-           # the main path's counted run; every counted run beside it
-           "launches": launches["/".join(MAIN_PATH)],
-           "launches_by_path": launches,
-           "max_abs_err": main_row["max_abs_err"],
-           "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-           "bound_ms": main_row["bound_ms"],
-           "bound_by": main_row["bound_by"],
-           "library_ms": main_row["library_ms"]}
-    t = train_rows[("causal", "bfloat16")]
-    u = train_rows[(PLM_ULYSSES_CASE[0], "bfloat16")]
+    from distkeras_tpu_torch.ops.flash_attention import FORWARD_VARIANTS
+    csrc = "distkeras_tpu_torch/csrc/"
+    # each forward variant with the runs that it serves: the sm90 kernel
+    # the main path (bf16), the SIMT kernel the same path in f32
+    served = {"sm90": ("/".join(MAIN_PATH), "bfloat16"),
+              "simt": (f"{MAIN_PATH[0]}/float32", "float32")}
+    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)
+    plm = PLM_ULYSSES_CASE[0]
+
+    def forward_entry(variant):
+        """The inference form at the slice's shape (phase kernel), its
+        launches on the counted predict of the run it serves."""
+        tag, dname = served[variant]
+        r, u = kernel_rows[("causal", dname)], kernel_rows[(plm, dname)]
+        return {"name": "flash_attention_fwd", "variant": variant,
+                "route": "cuda",
+                "source": f"{csrc}{FORWARD_VARIANTS[variant]}.cu",
+                "replaces": "distkeras_tpu/ops/flash_attention.py:78",
+                "dtype": dname, "launches_run": tag,
+                "launches": variants[tag][variant],
+                "launches_by_path": {p: v[variant]
+                                     for p, v in variants.items()},
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound_term": r["bound_term"],
+                "library_ms": r["library_ms"],
+                "simt_ms": r.get("simt_ms"),
+                "parallel_lm": {
+                    "shape_bshd": u["shape_bshd"], "ms": u["ms"],
+                    "simt_ms": u.get("simt_ms"), "plain_ms": u["plain_ms"],
+                    "bound_ms": u["bound_ms"], "bound_term": u["bound_term"],
+                    "library_ms": u["library_ms"],
+                    "max_abs_err": u["max_abs_err"]}}
     outputs = {"fwd_lse": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 
-    def train_entry(name, key, source, replaces, library_ms):
+    def train_entry(name, key, source, replaces, library_ms, variant=None):
+        """A training kernel at the slice's shape (phase kernel_train), its
+        launches on the counted SingleTrainer run of the path it serves
+        and on the Ulysses route's counted steps."""
+        tag, dname = served[variant or "sm90"]
+        t, u = train_rows[("causal", dname)], train_rows[(plm, dname)]
         errs = outputs[key]
-        return {"name": name, "route": "cuda",
-                "source": f"distkeras_tpu_torch/csrc/{source}",
-                "replaces": f"distkeras_tpu/ops/flash_attention.py:"
-                            f"{replaces}",
-                # the training main path's counted run: 16 steps
-                "launches": train_launches[key],
-                "launches_per_step": train_launches[key] // (
-                    TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)),
-                "max_abs_err": max(t["max_abs_err"][e] for e in errs),
-                "ms": t["ms"][key],
-                "plain_ms": t["plain_ms"][key],
-                "bound_ms": t["bound_ms"][key],
-                "bound_by": t["bound_by"][key],
-                "library_ms": library_ms,
-                # the same kernel at the parallel LM's Ulysses shape, and
-                # its launches on that route's 8 counted steps
-                "parallel_lm": {
-                    "shape_bshd": u["shape_bshd"], "kv_heads": u["kv_heads"],
-                    "launches": plm_launches["fused_ulysses"][
-                        {"fwd_lse": "flash_fwd_lse", "dq": "flash_dq",
-                         "dkv": "flash_dkv"}[key]],
-                    "max_abs_err": max(u["max_abs_err"][e] for e in errs),
-                    "ms": u["ms"][key], "plain_ms": u["plain_ms"][key],
-                    "bound_ms": u["bound_ms"][key],
-                    "bound_by": u["bound_by"][key],
-                    "library_fwd_ms": u["library_fwd_ms"],
-                    "library_bwd_ms": u["library_bwd_ms"]}}
+        n = (train_runs[tag]["fwd_lse_by_variant"][variant] if variant
+             else train_runs[tag][key])
+        entry = {"name": name, "route": "cuda",
+                 "source": f"{csrc}{source}",
+                 "replaces": f"distkeras_tpu/ops/flash_attention.py:"
+                             f"{replaces}",
+                 "dtype": dname, "launches_run": tag,
+                 "launches": n, "launches_per_step": n // steps,
+                 "max_abs_err": max(t["max_abs_err"][e] for e in errs),
+                 "ms": t["ms"][key],
+                 "plain_ms": t["plain_ms"][key],
+                 "bound_ms": t["bound_ms"][key],
+                 "bound_by": t["bound_by"][key],
+                 "bound_term": t["bound_term"][key],
+                 "library_ms": (t["library_fwd_ms"] if library_ms
+                                else None),
+                 # the same kernel at the parallel LM's Ulysses shape
+                 "parallel_lm": {
+                     "shape_bshd": u["shape_bshd"], "kv_heads": u["kv_heads"],
+                     "max_abs_err": max(u["max_abs_err"][e] for e in errs),
+                     "ms": u["ms"][key], "plain_ms": u["plain_ms"][key],
+                     "bound_ms": u["bound_ms"][key],
+                     "bound_by": u["bound_by"][key],
+                     "bound_term": u["bound_term"][key],
+                     "library_fwd_ms": u["library_fwd_ms"],
+                     "library_bwd_ms": u["library_bwd_ms"]}}
+        if variant is not None:
+            entry["variant"] = variant
+            entry["simt_ms"] = t.get("simt_ms", {}).get(key)
+            entry["parallel_lm"]["simt_ms"] = u.get("simt_ms", {}).get(key)
+        if dname == "bfloat16":  # its launches on the Ulysses route's steps
+            entry["parallel_lm"]["launches"] = plm_launches["fused_ulysses"][
+                {"fwd_lse": "flash_fwd_lse_sm90", "dq": "flash_dq",
+                 "dkv": "flash_dkv"}[key]]
+        return entry
     c = ce_rows[("slice", "float32")]  # the parallel LM's logits
 
     def ce_entry(name, key, replaces, *errs):
@@ -1250,19 +1384,22 @@ def main() -> int:
                 "bound_by": c["bound_by"][key],
                 "library_ms": c["library_ms"][key],
                 "bf16_ms": ce_rows[("slice", "bfloat16")]["ms"][key]}
+    t = train_rows[("causal", "bfloat16")]
     emit({"kernels": [
-        fwd,
+        forward_entry("sm90"),
+        forward_entry("simt"),
         # SDPA's forward is the yardstick of the forward with lse (it
         # computes out without returning the lse); no single library call
         # computes dq alone or dk/dv alone, so those carry null and the
         # SDPA backward (dq, dk and dv together) beside them
-        train_entry("flash_attention_fwd_lse", "fwd_lse",
-                    "flash_attention_fwd.cu", 78, t["library_fwd_ms"]),
+        *(train_entry("flash_attention_fwd_lse", "fwd_lse",
+                      f"{FORWARD_VARIANTS[v]}.cu", 78, True, v)
+          for v in ("sm90", "simt")),
         {**train_entry("flash_attention_bwd_dq", "dq",
-                       "flash_attention_bwd.cu", 182, None),
+                       "flash_attention_bwd.cu", 182, False),
          "backward_library_ms": t["library_bwd_ms"]},
         {**train_entry("flash_attention_bwd_dkv", "dkv",
-                       "flash_attention_bwd.cu", 221, None),
+                       "flash_attention_bwd.cu", 221, False),
          "backward_library_ms": t["library_bwd_ms"]},
         ce_entry("fused_ce_fwd", "fwd", 54, "loss", "lse"),
         ce_entry("fused_ce_bwd", "bwd", 97, "dlogits"),

@@ -47,7 +47,9 @@
 // masked in the kernel.  The kernel is templated on the head dim padded up
 // to 32, 64, 128 or 256 (any D <= 256 runs: columns past D are zero in
 // shared memory and never written) and on the dtype (f32, bf16, f16).
-// Tensor cores (wgmma) and TMA are left for later.
+// The wrapper (ops/flash_attention.py :: _forward_variant) sends it f32
+// inputs, and 16-bit inputs whose head dim is not a multiple of 8; other
+// 16-bit inputs go to the tensor-core kernel, flash_attention_fwd_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

@@ -28,7 +28,8 @@ BUILD_DIR = Path(os.environ.get("DISTKERAS_TPU_TORCH_BUILD_DIR")
                  or PACKAGE_DIR.parent / "build" / "torch_kernels")
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce")
+KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90",
+           "flash_attention_bwd", "fused_ce")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 

@@ -6,7 +6,12 @@ Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
 
 - ``_flash_kernel`` in its inference form (``flash_attention`` outside a
   gradient) and its training form, which also writes the per-row f32
-  logsumexp (``flash_attention_forward``): ``csrc/flash_attention_fwd.cu``;
+  logsumexp (``flash_attention_forward``), in two variants chosen by
+  :func:`_forward_variant` from the inputs' dtype and head dim:
+  ``csrc/flash_attention_fwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
+  products on TMA-fed tiles, bf16 and f16 with D a multiple of 8) and
+  ``csrc/flash_attention_fwd.cu`` (``"simt"``: f32 on the CUDA cores, for
+  f32 and any other 16-bit head dim);
 - ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``):
   ``csrc/flash_attention_bwd.cu``.
 
@@ -27,7 +32,8 @@ Every wrapper launches its kernel for CUDA tensors (or raises: a head dim
 above 256, a dtype other than f32/bf16/f16, bad shapes, a failed build or
 launch) and runs its plain version only for CPU tensors.  Each counts its
 launches in a ``launches`` attribute (``flash_attention_backward`` in
-``dq_launches`` and ``dkv_launches``, one per kernel).
+``dq_launches`` and ``dkv_launches``, one per kernel); the two forward
+wrappers also count them by variant in ``launches_by_variant``.
 """
 
 from __future__ import annotations
@@ -45,14 +51,18 @@ from .attention import validate_window
 #: calls)
 KERNEL_MAX_HEAD_DIM = 256
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: q rows (forward, dq) and keys (dk/dv) per thread block; the grid's tile
-#: axis holds at most 65535
+#: q rows (both forward variants, dq) and keys (dk/dv) per thread block;
+#: the grid's tile axis holds at most 65535
 _BLOCK = 64
+#: the forward's variants: C entry point (and source) of each
+FORWARD_VARIANTS = {"sm90": "flash_attention_fwd_sm90",
+                    "simt": "flash_attention_fwd"}
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: each C entry point: (library, argument types after the pointers)
 _ENTRIES = {
     "flash_attention_fwd": ("flash_attention_fwd", 5),
+    "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
 }
@@ -81,8 +91,35 @@ def _launch(name: str, ptrs, q: torch.Tensor, hkv: int, scale: float,
             *ptrs, b, s, h, hkv, d, KERNEL_DTYPES[q.dtype], float(scale),
             int(causal), window or 0,
             torch.cuda.current_stream(q.device).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"{name}: the TMA tensor maps could not be made "
+                           f"(code {rc}: -1 cuTensorMapEncodeTiled not "
+                           f"found, else -CUresult)")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _forward_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel serves these inputs, a rule about the inputs
+    alone (no fallback: the chosen kernel launches or raises).  bf16 and
+    f16 with a head dim that is a multiple of 8 (the TMA tensor maps need
+    16-byte strides) take ``"sm90"``, the tensor-core kernel; f32, whose
+    2e-5 tolerance TF32 products would break, and any other 16-bit head
+    dim take ``"simt"``, the f32 CUDA-core kernel."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0:
+        return "sm90"
+    return "simt"
+
+
+def _launch_forward(q, k, v, out, lse, scale, causal, window) -> str:
+    """Launch the forward variant that :func:`_forward_variant` picks
+    (lse None: the inference form); returns the variant."""
+    variant = _forward_variant(q.dtype, q.shape[-1])
+    _launch(FORWARD_VARIANTS[variant],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr()),
+            q, k.shape[2], _scale(q, scale), causal, window)
+    return variant
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -218,8 +255,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     When a gradient is wanted (grad enabled, an input that requires it),
     this is :class:`FlashAttentionFunction`: the training forward, then the
     backward kernels.  Otherwise it is the inference form, as the JAX
-    primal is: a CUDA tensor launches the kernel without the lse and counts
-    one launch in ``flash_attention.launches``; a CPU tensor runs the plain
+    primal is: a CUDA tensor launches the forward variant of
+    :func:`_forward_variant` without the lse and counts one launch in
+    ``flash_attention.launches`` and one in its variant's entry of
+    ``flash_attention.launches_by_variant``; a CPU tensor runs the plain
     version."""
     window = validate_window(window, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -229,14 +268,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, causal, scale, window)
     _check(q, k, v)
     out = torch.empty_like(q)
-    _launch("flash_attention_fwd",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None),
-            q, k.shape[2], _scale(q, scale), causal, window)
+    variant = _launch_forward(q, k, v, out, None, scale, causal, window)
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(FORWARD_VARIANTS, 0)
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -245,8 +284,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             window: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training form of the forward (the JAX ``_fwd``): (out, lse),
-    lse f32 (B, H, S).  A CUDA tensor launches the kernel with its lse
-    output and counts one launch in ``flash_attention_forward.launches``;
+    lse f32 (B, H, S).  A CUDA tensor launches the forward variant of
+    :func:`_forward_variant` with its lse output and counts one launch in
+    ``flash_attention_forward.launches`` and in ``launches_by_variant``;
     a CPU tensor runs the plain version."""
     window = validate_window(window, causal)
     if q.device.type == "cpu":
@@ -256,15 +296,15 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr()),
-            q, k.shape[2], _scale(q, scale), causal, window)
+    variant = _launch_forward(q, k, v, out, lse, scale, causal, window)
     flash_attention_forward.launches += 1
+    flash_attention_forward.launches_by_variant[variant] += 1
     return out, lse
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.launches_by_variant = dict.fromkeys(FORWARD_VARIANTS,
+                                                            0)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, scale=None,

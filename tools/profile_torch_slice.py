@@ -26,9 +26,9 @@ It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
 of kernel and copy durations on the card; one stream, so they do not
 overlap) and idle share, and the device time by kernel, largest first,
-grouped as the flash kernels, the fused cross-entropy kernels, matrix
-products, copies and the rest.  The whole result also goes to
-``--out``.  Imports nothing of JAX.
+grouped as the flash kernels (the forward's sm90 and SIMT variants
+apart), the fused cross-entropy kernels, matrix products, copies and the
+rest.  The whole result also goes to ``--out``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,7 +46,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def group(name: str) -> str:
     low = name.lower()
-    for kernel, label in (("flash_fwd_kernel", "flash_attention_fwd"),
+    for kernel, label in (("flash_fwd_sm90_kernel",
+                           "flash_attention_fwd_sm90"),
+                          ("flash_fwd_kernel", "flash_attention_fwd"),
                           ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
                           ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
                           ("fused_ce_fwd_kernel", "fused_ce_fwd"),
