@@ -37,18 +37,24 @@ phase fails:
    logits;
 5. kernel_train: the training form of the forward (out and lse) and the
    two backward kernels (dq, dk/dv) against their plain versions on the
-   card, at phase 2's shapes in f32, bf16 and f16 with a random dO, with
-   each error beside its per-element tolerance, and the kernels', plain
-   versions' and ``scaled_dot_product_attention`` backward's times (a
-   yardstick only) beside the card's bound; the SIMT forward timed at
-   bf16 as in phase 2;
-6. memory: forward and backward at S 8192 allocate nothing of size S²;
+   card, at phase 2's shapes in f32, bf16 and f16 with a random dO (the
+   backward on the variant its dtype and head dim select: sm90 for
+   16-bit head dims up to 128, SIMT for f32 and wider heads; every sm90
+   pair run twice on the same inputs and bit-identical), with each error
+   beside its per-element tolerance, and the kernels', plain versions'
+   and ``scaled_dot_product_attention`` backward's times (a yardstick
+   only, under each SDPA backend that takes the case, the least kept)
+   beside the card's bound; at the slice's and the Ulysses shape in bf16
+   the SIMT forward and the SIMT backward pair are timed too, as in
+   phase 2;
+6. memory: forward and backward (the sm90 kernels) at S 8192 allocate
+   nothing of size S²;
 7. train: ``SingleTrainer`` trains the full-width LM (both forms, bf16
    and f32) on the x+1 next-token task, 16 steps, on the kernel route
    and on the plain route (``attention_impl="xla"``) from the same
    weights: the kernel route must have launched the training forward,
-   dq and dk/dv once per layer and step (the forward on the variant of
-   the dtype, as in phase 3) and the plain route never, the
+   dq and dk/dv once per layer and step (each on the variant of the
+   dtype: sm90 at bf16, SIMT at f32) and the plain route never, the
    routes must agree (first-step gradients and loss traces at f32, loss
    traces within a measured band at bf16), the loss must fall, and
    ``ModelPredictor`` must serve the trained model through the
@@ -69,16 +75,17 @@ phase fails:
     the fused-CE ring, plain-CE ring and fused-CE Ulysses routes: the
     fused CE kernels launch once per step on the fused routes and never
     on the plain one, the flash kernels once per layer and step on the
-    Ulysses route (the forward on sm90 at bf16, on SIMT at f32) and never
-    on the ring, the loss falls on every route,
+    Ulysses route (forward, dq and dk/dv on sm90 at bf16, on SIMT at f32)
+    and never on the ring, the loss falls on every route,
     the routes agree within measured bf16 bands, and at f32 (2 layers)
     fused and plain CE agree in loss traces (1e-5) and first-step
     gradients, and so do Ulysses and ring (loss traces 1e-4).
 
-Then it prints the kernel summary line (each forward variant with its
-source and the runs it served), the ``nvidia-smi`` name and power limit
-line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
-card, or outside a checkout, it exits non-zero and prints no result.
+Then it prints the kernel summary line (each variant of each flash
+kernel with its source and the runs it served), the ``nvidia-smi`` name
+and power limit line, and last ``{"ok": true, "device": {...}}``.
+Without a CUDA card, or outside a checkout, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -212,9 +219,14 @@ PLM_LOSS_RTOL_F32 = 1e-5
 PLM_CE_BAND_BF16 = 1e-3
 PLM_SCHEDULE_BAND_BF16 = 0.01
 # the cases at which phases kernel and kernel_train also time the SIMT
-# forward on bf16 inputs, beside the sm90 kernel that serves them: the
-# serving and training slices' shape, and the Ulysses route's
+# kernels (the forward; the backward pair in kernel_train) on bf16 inputs,
+# beside the sm90 kernels that serve them: the serving and training
+# slices' shape, and the Ulysses route's
 SIMT_TIMED = ("causal", PLM_ULYSSES_CASE[0])
+# the SDPA backends under which phase kernel_train times the yardstick
+# backward (those that refuse a case are left out of it)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
 
 
 def emit(obj) -> None:
@@ -389,9 +401,9 @@ def _random_jax_weights(model, rng):
 
 
 def _want_variant(dtype: str, n: int) -> dict:
-    """The forward's launches by variant when ``n`` launches of a model in
-    ``dtype`` (head dims multiples of 8) are all served as the rule says:
-    16-bit by the sm90 kernel, f32 by the SIMT kernel."""
+    """A flash kernel's launches by variant when ``n`` launches of a model
+    in ``dtype`` (head dims multiples of 8, at most 128) are all served as
+    the rules say: 16-bit by the sm90 kernels, f32 by the SIMT kernels."""
     return {"sm90": 0 if dtype == "float32" else n,
             "simt": n if dtype == "float32" else 0}
 
@@ -549,6 +561,53 @@ def _simt_forward_ms(q, k, v, causal, window, lse: bool) -> float:
         causal, window), 3, 20)
 
 
+def _simt_backward_ms(q, k, v, out, lse, do, delta, causal, window) -> dict:
+    """The backward's SIMT kernels timed on 16-bit inputs that the
+    wrappers send to the sm90 kernels: through the private launcher, for
+    timing only (these launches are not counted)."""
+    import importlib
+    import torch
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta_out = torch.empty_like(delta)
+    names = fa.BACKWARD_VARIANTS["simt"]
+    rest = (q, k.shape[2], fa._scale(q, None), causal, window)
+    dq_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               do.data_ptr(), lse.data_ptr(), delta_out.data_ptr(),
+               dq.data_ptr())
+    dkv_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr())
+    return {"dq": median_ms(lambda: fa._launch(names["dq"], dq_ptrs, *rest),
+                            3, 10),
+            "dkv": median_ms(lambda: fa._launch(names["dkv"], dkv_ptrs,
+                                                *rest), 3, 10)}
+
+
+def _sdpa_backward_ms(sdpa, outputs, cotangent) -> dict:
+    """SDPA's backward alone, on a graph kept from its forward, under
+    each backend of SDPA_BACKENDS that takes the case (a yardstick only:
+    the port never calls it); ms by backend."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:  # a backend that refuses the case warns why, then raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                lib_out = sdpa()
+                times[name.lower()] = median_ms(lambda: torch.autograd.grad(
+                    lib_out, outputs, cotangent, retain_graph=True), 3, 10)
+        except RuntimeError:
+            pass
+        lib_out = None
+    return times
+
+
 def phase_kernel_train():
     import importlib
     import torch
@@ -582,6 +641,17 @@ def phase_kernel_train():
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
                                                 *args)
             torch.cuda.synchronize()
+            bwd_variant = fa._backward_variant(dtype, d)
+            repeat_same = None
+            if bwd_variant == "sm90":  # no atomics: the same bits again
+                dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse,
+                                                        do, *args)
+                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, do,
+                                                      delta2, *args)
+                torch.cuda.synchronize()
+                repeat_same = all(torch.equal(a, b) for a, b in (
+                    (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+                del dq2, delta2, dk2, dv2
             # each plain version on the kernel's own inputs
             ro, rl = fa.flash_attention_reference(q, k, v, *args,
                                                   return_lse=True)
@@ -626,11 +696,9 @@ def phase_kernel_train():
             sdpa = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **mask)
             sdpa_fwd_ms = median_ms(sdpa, 3, 10)
-            lib_out = sdpa()
-            dot = do.transpose(1, 2)
-            sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(
-                lib_out, (qt, kt, vt), dot, retain_graph=True), 3, 10)
-            del lib_out, qt, kt, vt
+            sdpa_bwd = _sdpa_backward_ms(sdpa, (qt, kt, vt),
+                                         do.transpose(1, 2))
+            del qt, kt, vt
 
             # each kernel takes one exponential per live pair (the
             # backward kernels recompute p = exp(s - lse))
@@ -650,6 +718,8 @@ def phase_kernel_train():
                                     3 * pairs)
             row = {"phase": "kernel_train", "case": name, "dtype": dname,
                    "variant": fa._forward_variant(dtype, d),
+                   "bwd_variant": bwd_variant,
+                   "bwd_repeat_bit_identical": repeat_same,
                    "shape_bshd": [b, s, h, d], "kv_heads": hkv,
                    "causal": causal, "window": window,
                    "max_abs_err": {n: e[0] for n, e in errs.items()},
@@ -660,7 +730,8 @@ def phase_kernel_train():
                    "bwd_ms": ms["dq"] + ms["dkv"],
                    "bwd_plain_ms": plain_ms["dq"] + plain_ms["dkv"],
                    "library_fwd_ms": sdpa_fwd_ms,
-                   "library_bwd_ms": sdpa_bwd_ms,
+                   "library_bwd_ms": min(sdpa_bwd.values(), default=None),
+                   "library_bwd_ms_by_backend": sdpa_bwd,
                    "bound_ms": {n: bd[0] for n, bd in bounds.items()},
                    "bound_by": {n: bd[1] for n, bd in bounds.items()},
                    "bound_term": {n: bd[3] for n, bd in bounds.items()},
@@ -673,12 +744,18 @@ def phase_kernel_train():
                        schedule_bound[2]}
             if dname == "bfloat16" and name in SIMT_TIMED:
                 row["simt_ms"] = {"fwd_lse": _simt_forward_ms(
-                    q, k, v, causal, window, lse=True)}
+                    q, k, v, causal, window, lse=True),
+                    **_simt_backward_ms(q, k, v, out, lse, do, delta, causal,
+                                        window)}
+                row["simt_bwd_ms"] = row["simt_ms"]["dq"] + row["simt_ms"][
+                    "dkv"]
             emit(row)
             worst = max(errs, key=lambda n: errs[n][1])
             check(errs[worst][1] <= 1.0, f"training kernels {name}/{dname}:"
                   f" {worst} error {errs[worst][1]:.3g}x its tolerance "
                   f"(max abs err {errs[worst][0]})")
+            check(repeat_same is not False, f"sm90 backward {name}/{dname}: "
+                  f"two runs on the same inputs differ")
             results[(name, dname)] = row
             del q, k, v, do, out, lse, dq, delta, dk, dv
             torch.cuda.empty_cache()
@@ -703,9 +780,7 @@ def phase_memory():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    fa.flash_attention_forward.launches = 0
-    fa.flash_attention_backward.dq_launches = 0
-    fa.flash_attention_backward.dkv_launches = 0
+    _zero_counts()
     out = fa.flash_attention(q, k, v, causal=True)
     out.backward(do)
     torch.cuda.synchronize()
@@ -713,19 +788,22 @@ def phase_memory():
     unit = q.numel() * q.element_size()  # one (S, H, D) bf16 tensor
     limit = 8 * unit
     scores = b * h * s * s * 4
-    launches = [fa.flash_attention_forward.launches,
-                fa.flash_attention_backward.dq_launches,
-                fa.flash_attention_backward.dkv_launches]
+    counts = _read_counts()
+    launches = [counts[n] for n in ("flash_fwd_lse_sm90", "flash_dq_sm90",
+                                    "flash_dkv_sm90")]
     finite = all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
     emit({"phase": "memory", "shape_bshd": [b, s, h, d], "kv_heads": hkv,
           "dtype": "bfloat16", "peak_bytes_above_inputs": peak,
           "sd_tensor_bytes": unit, "limit_bytes": limit,
           "peak_in_sd_tensors": peak / unit,
           "one_score_tensor_bytes": scores,
-          "launches_fwd_dq_dkv": launches, "grads_finite": finite})
+          "launches_fwd_dq_dkv_sm90": launches, "launches": counts,
+          "grads_finite": finite})
     check(peak <= limit, f"fwd+bwd at S {s} allocated {peak} bytes above "
                          f"its inputs, over {limit}")
-    check(launches == [1, 1, 1], f"fwd+bwd launches {launches}")
+    check(launches == [1, 1, 1] and counts["flash_fwd_lse"]
+          == counts["flash_dq"] == counts["flash_dkv"] == 1,
+          f"fwd+bwd launches {counts}, want one each, all sm90")
     check(finite, "non-finite gradients at S 8192")
 
 
@@ -754,7 +832,11 @@ def _train_route(extra, weights, data, warm):
                 "dkv": fa.flash_attention_backward.dkv_launches,
                 "inference": fa.flash_attention.launches,
                 "fwd_lse_by_variant": dict(
-                    fa.flash_attention_forward.launches_by_variant)}
+                    fa.flash_attention_forward.launches_by_variant),
+                "dq_by_variant": dict(
+                    fa.flash_attention_backward.dq_launches_by_variant),
+                "dkv_by_variant": dict(
+                    fa.flash_attention_backward.dkv_launches_by_variant)}
     return trained, trainer.get_history(), seconds, launches
 
 
@@ -841,12 +923,14 @@ def phase_train(card: str):
             check(all(launches[n] == want for n in ("fwd_lse", "dq", "dkv"))
                   and launches["inference"] == 0,
                   f"{tag}: kernel launches {launches}, want {want} each")
-            check(launches["fwd_lse_by_variant"] == _want_variant(dtype, want),
-                  f"{tag}: training forward launches by variant "
-                  f"{launches['fwd_lse_by_variant']}")
+            for key in ("fwd_lse_by_variant", "dq_by_variant",
+                        "dkv_by_variant"):
+                check(launches[key] == _want_variant(dtype, want),
+                      f"{tag}: training launches {key} {launches[key]}")
             check(not any(n for n in plain_launches.values()
                           if isinstance(n, int))
-                  and not any(plain_launches["fwd_lse_by_variant"].values()),
+                  and not any(any(n.values()) for n in plain_launches.values()
+                              if isinstance(n, dict)),
                   f"{tag}: the plain route launched kernels {plain_launches}")
             check(loss_rel <= row["loss_tol"], f"{tag}: loss traces differ "
                   f"by {loss_rel} > {row['loss_tol']}")
@@ -1088,22 +1172,28 @@ def _zero_counts():
     fa.flash_attention_backward.dkv_launches = 0
     for fn in (fa.flash_attention, fa.flash_attention_forward):
         fn.launches_by_variant = dict.fromkeys(fa.FORWARD_VARIANTS, 0)
+    for kernel in ("dq", "dkv"):
+        setattr(fa.flash_attention_backward, f"{kernel}_launches_by_variant",
+                dict.fromkeys(fa.BACKWARD_VARIANTS, 0))
 
 
 def _read_counts():
     import importlib
     ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    bwd = fa.flash_attention_backward
+    by_variant = {"fwd_lse": fa.flash_attention_forward.launches_by_variant,
+                  "dq": bwd.dq_launches_by_variant,
+                  "dkv": bwd.dkv_launches_by_variant}
     return {"fused_ce_fwd": ce.fused_ce_fwd.launches,
             "fused_ce_bwd": ce.fused_ce_bwd.launches,
             "flash_fwd_lse": fa.flash_attention_forward.launches,
-            "flash_dq": fa.flash_attention_backward.dq_launches,
-            "flash_dkv": fa.flash_attention_backward.dkv_launches,
+            "flash_dq": bwd.dq_launches,
+            "flash_dkv": bwd.dkv_launches,
             "flash_inference": fa.flash_attention.launches,
-            "flash_fwd_lse_sm90":
-                fa.flash_attention_forward.launches_by_variant["sm90"],
-            "flash_fwd_lse_simt":
-                fa.flash_attention_forward.launches_by_variant["simt"]}
+            **{f"flash_{kernel}_{variant}": n
+               for kernel, counts in by_variant.items()
+               for variant, n in counts.items()}}
 
 
 def _parallel_route(cfg, tree, toks, labels):
@@ -1189,11 +1279,12 @@ def phase_parallel_train(card: str):
               f"{tag}: fused CE launches {launches}, want {want_ce} each")
         check(all(launches[k] == flash_want for k in
                   ("flash_fwd_lse", "flash_dq", "flash_dkv",
-                   "flash_fwd_lse_sm90"))
+                   "flash_fwd_lse_sm90", "flash_dq_sm90", "flash_dkv_sm90"))
               and launches["flash_inference"] == 0
-              and launches["flash_fwd_lse_simt"] == 0,
+              and launches["flash_fwd_lse_simt"] == 0
+              and launches["flash_dq_simt"] == launches["flash_dkv_simt"] == 0,
               f"{tag}: flash launches {launches}, want {flash_want} each, "
-              f"every forward on the sm90 kernel")
+              f"every one on the sm90 kernels")
     del tree
     rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
                                     / np.abs(np.asarray(b))))
@@ -1216,11 +1307,13 @@ def phase_parallel_train(card: str):
         check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == want_ce
               and all(launches[k] == want_flash for k in
                       ("flash_fwd_lse", "flash_dq", "flash_dkv",
-                       "flash_fwd_lse_simt"))
-              and launches["flash_fwd_lse_sm90"] == 0,
+                       "flash_fwd_lse_simt", "flash_dq_simt",
+                       "flash_dkv_simt"))
+              and launches["flash_fwd_lse_sm90"] == 0
+              and launches["flash_dq_sm90"] == launches["flash_dkv_sm90"] == 0,
               f"f32 {route}: launches {launches}, want fused CE {want_ce} "
-              f"and flash {want_flash} each, every forward on the SIMT "
-              f"kernel")
+              f"and flash {want_flash} each, every one on the SIMT "
+              f"kernels")
         grads[route] = _first_step_parallel_grads({**f32, **extra}, tree32,
                                                   toks, labels)
     del tree32
@@ -1288,10 +1381,11 @@ def main() -> int:
     phase_memory_ce()
     plm_launches = phase_parallel_train(smi)
 
-    from distkeras_tpu_torch.ops.flash_attention import FORWARD_VARIANTS
+    import importlib
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
     csrc = "distkeras_tpu_torch/csrc/"
-    # each forward variant with the runs that it serves: the sm90 kernel
-    # the main path (bf16), the SIMT kernel the same path in f32
+    # each variant with the runs that it serves: the sm90 kernels the main
+    # path (bf16), the SIMT kernels the same path in f32
     served = {"sm90": ("/".join(MAIN_PATH), "bfloat16"),
               "simt": (f"{MAIN_PATH[0]}/float32", "float32")}
     steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // BATCH)
@@ -1304,7 +1398,7 @@ def main() -> int:
         r, u = kernel_rows[("causal", dname)], kernel_rows[(plm, dname)]
         return {"name": "flash_attention_fwd", "variant": variant,
                 "route": "cuda",
-                "source": f"{csrc}{FORWARD_VARIANTS[variant]}.cu",
+                "source": f"{csrc}{fa.FORWARD_VARIANTS[variant]}.cu",
                 "replaces": "distkeras_tpu/ops/flash_attention.py:78",
                 "dtype": dname, "launches_run": tag,
                 "launches": variants[tag][variant],
@@ -1322,48 +1416,60 @@ def main() -> int:
                     "library_ms": u["library_ms"],
                     "max_abs_err": u["max_abs_err"]}}
     outputs = {"fwd_lse": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    counters = {"fwd_lse": "flash_fwd_lse", "dq": "flash_dq",
+                "dkv": "flash_dkv"}
 
-    def train_entry(name, key, source, replaces, library_ms, variant=None):
-        """A training kernel at the slice's shape (phase kernel_train), its
-        launches on the counted SingleTrainer run of the path it serves
-        and on the Ulysses route's counted steps."""
-        tag, dname = served[variant or "sm90"]
+    def train_entry(name, key, replaces, variant):
+        """A training kernel's variant at the slice's shape (phase
+        kernel_train), its launches on the counted SingleTrainer run of
+        the path it serves and, at bf16, on the Ulysses route's counted
+        steps.  SDPA's forward is the yardstick of the forward with lse
+        (it computes out without returning the lse); no single library
+        call computes dq alone or dk/dv alone, so those carry null and the
+        SDPA backward (dq, dk and dv together) beside them."""
+        tag, dname = served[variant]
         t, u = train_rows[("causal", dname)], train_rows[(plm, dname)]
         errs = outputs[key]
-        n = (train_runs[tag]["fwd_lse_by_variant"][variant] if variant
-             else train_runs[tag][key])
-        entry = {"name": name, "route": "cuda",
-                 "source": f"{csrc}{source}",
+        by_variant = train_runs[tag][f"{key}_by_variant"]
+        c_entry = (fa.FORWARD_VARIANTS[variant] if key == "fwd_lse"
+                   else fa.BACKWARD_VARIANTS[variant][key])
+        entry = {"name": name, "variant": variant, "route": "cuda",
+                 "source": f"{csrc}{fa._ENTRIES[c_entry][0]}.cu",
                  "replaces": f"distkeras_tpu/ops/flash_attention.py:"
                              f"{replaces}",
                  "dtype": dname, "launches_run": tag,
-                 "launches": n, "launches_per_step": n // steps,
+                 "launches": by_variant[variant],
+                 "launches_by_variant": by_variant,
+                 "launches_per_step": by_variant[variant] // steps,
                  "max_abs_err": max(t["max_abs_err"][e] for e in errs),
                  "ms": t["ms"][key],
                  "plain_ms": t["plain_ms"][key],
                  "bound_ms": t["bound_ms"][key],
                  "bound_by": t["bound_by"][key],
                  "bound_term": t["bound_term"][key],
-                 "library_ms": (t["library_fwd_ms"] if library_ms
+                 "library_ms": (t["library_fwd_ms"] if key == "fwd_lse"
                                 else None),
+                 "simt_ms": t.get("simt_ms", {}).get(key),
                  # the same kernel at the parallel LM's Ulysses shape
                  "parallel_lm": {
                      "shape_bshd": u["shape_bshd"], "kv_heads": u["kv_heads"],
                      "max_abs_err": max(u["max_abs_err"][e] for e in errs),
                      "ms": u["ms"][key], "plain_ms": u["plain_ms"][key],
+                     "simt_ms": u.get("simt_ms", {}).get(key),
                      "bound_ms": u["bound_ms"][key],
                      "bound_by": u["bound_by"][key],
                      "bound_term": u["bound_term"][key],
                      "library_fwd_ms": u["library_fwd_ms"],
-                     "library_bwd_ms": u["library_bwd_ms"]}}
-        if variant is not None:
-            entry["variant"] = variant
-            entry["simt_ms"] = t.get("simt_ms", {}).get(key)
-            entry["parallel_lm"]["simt_ms"] = u.get("simt_ms", {}).get(key)
+                     "library_bwd_ms": u["library_bwd_ms"],
+                     "library_bwd_ms_by_backend":
+                         u["library_bwd_ms_by_backend"]}}
+        if key != "fwd_lse":
+            entry["backward_library_ms"] = t["library_bwd_ms"]
+            entry["backward_library_ms_by_backend"] = t[
+                "library_bwd_ms_by_backend"]
         if dname == "bfloat16":  # its launches on the Ulysses route's steps
             entry["parallel_lm"]["launches"] = plm_launches["fused_ulysses"][
-                {"fwd_lse": "flash_fwd_lse_sm90", "dq": "flash_dq",
-                 "dkv": "flash_dkv"}[key]]
+                f"{counters[key]}_{variant}"]
         return entry
     c = ce_rows[("slice", "float32")]  # the parallel LM's logits
 
@@ -1384,23 +1490,15 @@ def main() -> int:
                 "bound_by": c["bound_by"][key],
                 "library_ms": c["library_ms"][key],
                 "bf16_ms": ce_rows[("slice", "bfloat16")]["ms"][key]}
-    t = train_rows[("causal", "bfloat16")]
     emit({"kernels": [
         forward_entry("sm90"),
         forward_entry("simt"),
-        # SDPA's forward is the yardstick of the forward with lse (it
-        # computes out without returning the lse); no single library call
-        # computes dq alone or dk/dv alone, so those carry null and the
-        # SDPA backward (dq, dk and dv together) beside them
-        *(train_entry("flash_attention_fwd_lse", "fwd_lse",
-                      f"{FORWARD_VARIANTS[v]}.cu", 78, True, v)
+        *(train_entry(name, key, replaces, v)
+          for name, key, replaces in (
+              ("flash_attention_fwd_lse", "fwd_lse", 78),
+              ("flash_attention_bwd_dq", "dq", 182),
+              ("flash_attention_bwd_dkv", "dkv", 221))
           for v in ("sm90", "simt")),
-        {**train_entry("flash_attention_bwd_dq", "dq",
-                       "flash_attention_bwd.cu", 182, False),
-         "backward_library_ms": t["library_bwd_ms"]},
-        {**train_entry("flash_attention_bwd_dkv", "dkv",
-                       "flash_attention_bwd.cu", 221, False),
-         "backward_library_ms": t["library_bwd_ms"]},
         ce_entry("fused_ce_fwd", "fwd", 54, "loss", "lse"),
         ce_entry("fused_ce_bwd", "bwd", 97, "dlogits"),
     ]})

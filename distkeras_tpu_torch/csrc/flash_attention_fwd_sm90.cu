@@ -67,23 +67,18 @@
 // transposing copy.  The epilogue divides by l in f32 and stores the
 // output dtype.  Blocks run heaviest causal q tile first.
 //
-// cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint(ByVersion),
-// so the library links against the CUDA runtime only (no -lcuda).
+// The PTX wrappers, the wgmma instructions and the tensor maps are in
+// sm90_common.cuh, shared with the backward's flash_attention_bwd_sm90.cu.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "sm90_common.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kBlockQ = 64;    // q rows per CTA: one wgmma m64 tile
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles for a head dim padded to DP (32, 64, 128 or 256).
 template <int DP>
@@ -96,229 +91,6 @@ struct Cfg {
   static constexpr int kTileBytes = kBK * DP * 2;   // one K or one V tile
   // 1024 bytes of slack to align the swizzled buffers
   static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes;
-};
-
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// waits for the phase with this parity to complete; a wait that has not
-// completed after ~2^34 cycles (~9 s) traps, so that a fault in the
-// transaction counts ends the launch with an error instead of hanging it
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) asm volatile("trap;\n");
-  }
-}
-
-// one TMA box of a rank-4 tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or reuses of registers that an
-// in-flight wgmma writes or reads across the commit/wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int row_bytes) {
-  const uint64_t mode = row_bytes == 128 ? 1 : 2;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
-
-// The wgmma instructions this kernel issues, m64nNk16 with f32 accumulators:
-// wgmma_ss_<type>(d, desc_a, desc_b, accumulate) with both operands in
-// shared memory, K-major (S = Q.K^T, N = the key tile), and
-// wgmma_rs_<type>(d, a, desc_b) with A in registers and B MN-major (the
-// transpose bit; O += P.V, N = the padded head dim).  Operand lists are
-// spelled out because PTX takes every accumulator register by name.
-#define WG_N0 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define WG_N1 "%8, %9, %10, %11, %12, %13, %14, %15"
-#define WG_N2 "%16, %17, %18, %19, %20, %21, %22, %23"
-#define WG_N3 "%24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_N4 "%32, %33, %34, %35, %36, %37, %38, %39"
-#define WG_N5 "%40, %41, %42, %43, %44, %45, %46, %47"
-#define WG_N6 "%48, %49, %50, %51, %52, %53, %54, %55"
-#define WG_N7 "%56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_N8 "%64, %65, %66, %67, %68, %69, %70, %71"
-#define WG_N9 "%72, %73, %74, %75, %76, %77, %78, %79"
-#define WG_N10 "%80, %81, %82, %83, %84, %85, %86, %87"
-#define WG_N11 "%88, %89, %90, %91, %92, %93, %94, %95"
-#define WG_N12 "%96, %97, %98, %99, %100, %101, %102, %103"
-#define WG_N13 "%104, %105, %106, %107, %108, %109, %110, %111"
-#define WG_N14 "%112, %113, %114, %115, %116, %117, %118, %119"
-#define WG_N15 "%120, %121, %122, %123, %124, %125, %126, %127"
-#define WG_D16 WG_N0 ", " WG_N1
-#define WG_D32 WG_D16 ", " WG_N2 ", " WG_N3
-#define WG_D64 WG_D32 ", " WG_N4 ", " WG_N5 ", " WG_N6 ", " WG_N7
-#define WG_D128 \
-  WG_D64 ", " WG_N8 ", " WG_N9 ", " WG_N10 ", " WG_N11 ", " WG_N12 ", " \
-      WG_N13 ", " WG_N14 ", " WG_N15
-
-#define WG_F8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F16(i) WG_F8(i), WG_F8(i + 8)
-#define WG_F32(i) WG_F16(i), WG_F16(i + 16)
-#define WG_F64(i) WG_F32(i), WG_F32(i + 32)
-#define WG_F128(i) WG_F64(i), WG_F64(i + 64)
-
-// NR accumulators per thread for N = 2 * NR columns; DA, DB, SC: the
-// operand numbers of the two descriptors and the accumulate flag
-#define WG_SS(TY, NR, N, DA, DB, SC)                                        \
-  __device__ __forceinline__ void wgmma_ss_##TY(                           \
-      float(&d)[NR], uint64_t desc_a, uint64_t desc_b, int accumulate) {  \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." #TY     \
-                 "." #TY " {" WG_D##NR "}, %" #DA ", %" #DB                \
-                 ", p, 1, 1, 0, 0;\n}\n"                                    \
-                 : WG_F##NR(0)                                              \
-                 : "l"(desc_a), "l"(desc_b), "r"(accumulate));              \
-  }
-// A0-A3: the operand numbers of the four A registers; DB, SC as above
-#define WG_RS(TY, NR, N, A0, A1, A2, A3, DB, SC)                            \
-  __device__ __forceinline__ void wgmma_rs_##TY(                           \
-      float(&d)[NR], const uint32_t(&a)[4], uint64_t desc_b) {             \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." #TY     \
-                 "." #TY " {" WG_D##NR "}, {%" #A0 ", %" #A1 ", %" #A2     \
-                 ", %" #A3 "}, %" #DB ", p, 1, 1, 1;\n}\n"                 \
-                 : WG_F##NR(0)                                              \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),              \
-                   "l"(desc_b), "r"(1));                                    \
-  }
-
-WG_SS(bf16, 32, 64, 32, 33, 34)
-WG_SS(bf16, 64, 128, 64, 65, 66)
-WG_SS(f16, 32, 64, 32, 33, 34)
-WG_SS(f16, 64, 128, 64, 65, 66)
-WG_RS(bf16, 16, 32, 16, 17, 18, 19, 20, 21)
-WG_RS(bf16, 32, 64, 32, 33, 34, 35, 36, 37)
-WG_RS(bf16, 64, 128, 64, 65, 66, 67, 68, 69)
-WG_RS(bf16, 128, 256, 128, 129, 130, 131, 132, 133)
-WG_RS(f16, 16, 32, 16, 17, 18, 19, 20, 21)
-WG_RS(f16, 32, 64, 32, 33, 34, 35, 36, 37)
-WG_RS(f16, 64, 128, 64, 65, 66, 67, 68, 69)
-WG_RS(f16, 128, 256, 128, 129, 130, 131, 132, 133)
-
-// per input type: the wgmmas, and a pair of floats rounded to a packed
-// 16-bit pair (lower column in the low half, as the A fragment wants it)
-template <typename T>
-struct Ops;
-template <>
-struct Ops<__nv_bfloat16> {
-  template <int NR>
-  static __device__ __forceinline__ void ss(float (&d)[NR], uint64_t a,
-                                            uint64_t b, int acc) {
-    wgmma_ss_bf16(d, a, b, acc);
-  }
-  template <int NR>
-  static __device__ __forceinline__ void rs(float (&d)[NR],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    wgmma_rs_bf16(d, a, b);
-  }
-  // hi = rn(x, y), lo = rn(x - hi.x, y - hi.y)
-  static __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                               uint32_t& lo) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    __nv_bfloat162 l =
-        __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-    hi = *reinterpret_cast<uint32_t*>(&h);
-    lo = *reinterpret_cast<uint32_t*>(&l);
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float x,
-                                                float y) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-  }
-};
-template <>
-struct Ops<__half> {
-  template <int NR>
-  static __device__ __forceinline__ void ss(float (&d)[NR], uint64_t a,
-                                            uint64_t b, int acc) {
-    wgmma_ss_f16(d, a, b, acc);
-  }
-  template <int NR>
-  static __device__ __forceinline__ void rs(float (&d)[NR],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    wgmma_rs_f16(d, a, b);
-  }
-  static __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                               uint32_t& lo) {
-    __half2 h = __floats2half2_rn(x, y);
-    __half2 l = __floats2half2_rn(x - __low2float(h), y - __high2float(h));
-    hi = *reinterpret_cast<uint32_t*>(&h);
-    lo = *reinterpret_cast<uint32_t*>(&l);
-  }
-  static __device__ __forceinline__ void store2(__half* p, float x, float y) {
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -394,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(bar_q, 1);
 #pragma unroll
     for (int st = 0; st < kStages; ++st) mbar_init(bar_kv(st), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0) {
@@ -546,62 +318,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and the launch
+// host side: the launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A rank-4 map over a (B, S, heads, D) 16-bit tensor, dims innermost
-// first; a box is `chunk` head-dim elements of one head, `rows` positions
-// of one batch.  Returns 0, or a negative code: -1 when
-// cuTensorMapEncodeTiled is not found, -CUresult when it refuses the map.
-template <int DP>
-int make_map(CUtensorMap* map, const void* ptr, int dtype, int B, int S,
-             int heads, int D, int rows) {
-  using C = Cfg<DP>;
-  const EncodeTiledFn encode = encode_fn();
-  if (encode == nullptr) return -1;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::kChunk, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map,
-      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      C::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -609,9 +327,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int causal, int window, cudaStream_t stream) {
   using C = Cfg<DP>;
   CUtensorMap tq, tk, tv;
-  int rc = make_map<DP>(&tq, q, dtype, B, S, H, D, kBlockQ);
-  if (rc == 0) rc = make_map<DP>(&tk, k, dtype, B, S, Hkv, D, C::kBK);
-  if (rc == 0) rc = make_map<DP>(&tv, v, dtype, B, S, Hkv, D, C::kBK);
+  int rc = make_map(&tq, q, dtype, B, S, H, D, C::kChunk, kBlockQ);
+  if (rc == 0) rc = make_map(&tk, k, dtype, B, S, Hkv, D, C::kChunk, C::kBK);
+  if (rc == 0) rc = make_map(&tv, v, dtype, B, S, Hkv, D, C::kChunk, C::kBK);
   if (rc != 0) return rc;
   // set on every launch: the attribute belongs to the current device
   const cudaError_t e = cudaFuncSetAttribute(

@@ -6,8 +6,8 @@ at the root of the checkout (or into ``$DISTKERAS_TPU_TORCH_BUILD_DIR``
 when that is set, e.g. for an installed package), then loaded with
 ``ctypes``.  The build happens at first use (or up front through
 :func:`build`, which starts one ``nvcc`` per source, all at once) and is
-redone when the source is newer than the library.  A failed build raises;
-nothing falls back.
+redone when the source, or a header under ``csrc/`` (``*.cuh``), is newer
+than the library.  A failed build raises; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no card.
@@ -29,7 +29,7 @@ BUILD_DIR = Path(os.environ.get("DISTKERAS_TPU_TORCH_BUILD_DIR")
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90",
-           "flash_attention_bwd", "fused_ce")
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "fused_ce")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -58,9 +58,13 @@ def nvcc_command(name: str, output: Path) -> List[str]:
 
 
 def _stale(name: str) -> bool:
+    """Is the library missing, or older than its source or any header of
+    ``csrc/`` (a header is included by the sources that need it)?"""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < source_path(name).stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [source_path(name), *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Sequence[str] = KERNELS) -> List[str]:

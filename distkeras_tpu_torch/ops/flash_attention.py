@@ -12,8 +12,12 @@ Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
   products on TMA-fed tiles, bf16 and f16 with D a multiple of 8) and
   ``csrc/flash_attention_fwd.cu`` (``"simt"``: f32 on the CUDA cores, for
   f32 and any other 16-bit head dim);
-- ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``):
-  ``csrc/flash_attention_bwd.cu``.
+- ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``), in
+  two variants chosen by :func:`_backward_variant`:
+  ``csrc/flash_attention_bwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
+  products on TMA-fed tiles, bf16 and f16 with D a multiple of 8 up to
+  128) and ``csrc/flash_attention_bwd.cu`` (``"simt"``: f32 on the CUDA
+  cores, for f32 and any other head dim).
 
 The kernels are CUDA C++ for Hopper (``sm_90a``), built by ``nvcc`` at
 first use and bound with ``ctypes``; each source's header says what bounds
@@ -33,7 +37,8 @@ above 256, a dtype other than f32/bf16/f16, bad shapes, a failed build or
 launch) and runs its plain version only for CPU tensors.  Each counts its
 launches in a ``launches`` attribute (``flash_attention_backward`` in
 ``dq_launches`` and ``dkv_launches``, one per kernel); the two forward
-wrappers also count them by variant in ``launches_by_variant``.
+wrappers also count them by variant in ``launches_by_variant``, the
+backward in ``dq_launches_by_variant`` and ``dkv_launches_by_variant``.
 """
 
 from __future__ import annotations
@@ -57,6 +62,15 @@ _BLOCK = 64
 #: the forward's variants: C entry point (and source) of each
 FORWARD_VARIANTS = {"sm90": "flash_attention_fwd_sm90",
                     "simt": "flash_attention_fwd"}
+#: the backward's variants: the C entry points of the dq and dk/dv kernels
+BACKWARD_VARIANTS = {
+    "sm90": {"dq": "flash_attention_bwd_dq_sm90",
+             "dkv": "flash_attention_bwd_dkv_sm90"},
+    "simt": {"dq": "flash_attention_bwd_dq", "dkv": "flash_attention_bwd_dkv"},
+}
+#: the largest head dim of the backward's sm90 variant: its dK and dV
+#: accumulators take D f32 registers per thread of one warpgroup
+SM90_BACKWARD_MAX_HEAD_DIM = 128
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: each C entry point: (library, argument types after the pointers)
@@ -65,6 +79,8 @@ _ENTRIES = {
     "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90", 5),
     "flash_attention_bwd_dq": ("flash_attention_bwd", 8),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", 8),
+    "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_sm90", 8),
+    "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_sm90", 8),
 }
 _fns = {}  # entry name -> bound C function, loaded at first launch
 
@@ -111,10 +127,26 @@ def _forward_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
+def _backward_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which pair of backward kernels serves these inputs, a rule about
+    the inputs alone (no fallback).  bf16 and f16 with a head dim that is a
+    multiple of 8 (the TMA maps' 16-byte strides) and at most
+    ``SM90_BACKWARD_MAX_HEAD_DIM`` (the dK and dV accumulators of one
+    warpgroup take D f32 registers per thread, D / 2 each) take
+    ``"sm90"``, the tensor-core kernels; f32 and any other head dim take
+    ``"simt"``, the f32 CUDA-core kernels."""
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0
+            and head_dim <= SM90_BACKWARD_MAX_HEAD_DIM):
+        return "sm90"
+    return "simt"
+
+
 def _launch_forward(q, k, v, out, lse, scale, causal, window) -> str:
     """Launch the forward variant that :func:`_forward_variant` picks
     (lse None: the inference form); returns the variant."""
     variant = _forward_variant(q.dtype, q.shape[-1])
+    if variant == "sm90":
+        _check_tma(q, k, v)
     _launch(FORWARD_VARIANTS[variant],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr()),
@@ -310,8 +342,9 @@ flash_attention_forward.launches_by_variant = dict.fromkeys(FORWARD_VARIANTS,
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, scale=None,
                            window=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dq kernel (``_dq_kernel``): (dq, Δ), Δ f32 (B, H, S).  A CUDA
-    tensor launches it and counts one launch in
-    ``flash_attention_backward.dq_launches``; a CPU tensor runs the plain
+    tensor launches the variant of :func:`_backward_variant` and counts one
+    launch in ``flash_attention_backward.dq_launches`` and in its variant's
+    entry of ``dq_launches_by_variant``; a CPU tensor runs the plain
     version."""
     window = validate_window(window, causal)
     if q.device.type == "cpu":
@@ -322,14 +355,18 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, scale=None,
     for name, t in (("out", out), ("dout", dout)):
         _check_like(name, t, q.shape, q.dtype, q.device)
     _check_like("lse", lse, (b, h, s), torch.float32, q.device)
+    variant = _backward_variant(q.dtype, q.shape[-1])
+    if variant == "sm90":
+        _check_tma(q, k, v, out, dout)
     dq = torch.empty_like(q)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd_dq",
+    _launch(BACKWARD_VARIANTS[variant]["dq"],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr()),
             q, k.shape[2], _scale(q, scale), causal, window)
     flash_attention_backward.dq_launches += 1
+    flash_attention_backward.dq_launches_by_variant[variant] += 1
     return dq, delta
 
 
@@ -338,9 +375,10 @@ def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, causal=False,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel (``_dkv_kernel``): (dk, dv) in k's and v's dtype,
     summed over the query heads of each kv head, from Δ as the dq kernel
-    wrote it.  A CUDA tensor launches it and counts one launch in
-    ``flash_attention_backward.dkv_launches``; a CPU tensor runs the plain
-    version."""
+    wrote it.  A CUDA tensor launches the variant of
+    :func:`_backward_variant` and counts one launch in
+    ``flash_attention_backward.dkv_launches`` and in its variant's entry of
+    ``dkv_launches_by_variant``; a CPU tensor runs the plain version."""
     window = validate_window(window, causal)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta,
@@ -350,13 +388,17 @@ def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, causal=False,
     _check_like("dout", dout, q.shape, q.dtype, q.device)
     for name, t in (("lse", lse), ("delta", delta)):
         _check_like(name, t, (b, h, s), torch.float32, q.device)
+    variant = _backward_variant(q.dtype, q.shape[-1])
+    if variant == "sm90":
+        _check_tma(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv",
+    _launch(BACKWARD_VARIANTS[variant]["dkv"],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k.shape[2], _scale(q, scale), causal, window)
     flash_attention_backward.dkv_launches += 1
+    flash_attention_backward.dkv_launches_by_variant[variant] += 1
     return dk, dv
 
 
@@ -366,7 +408,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
                                         torch.Tensor]:
     """(dq, dk, dv) from the forward's saved (q, k, v, out, lse) and the
     output's gradient (the JAX ``_bwd``): on the card the dq kernel, then
-    the dk/dv kernel on the same stream; on the CPU the plain version."""
+    the dk/dv kernel on the same stream (it reads the Δ that the dq kernel
+    writes), both of the variant of :func:`_backward_variant`; on the CPU
+    the plain version."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal, scale, window)
@@ -379,6 +423,10 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
 
 flash_attention_backward.dq_launches = 0
 flash_attention_backward.dkv_launches = 0
+flash_attention_backward.dq_launches_by_variant = dict.fromkeys(
+    BACKWARD_VARIANTS, 0)
+flash_attention_backward.dkv_launches_by_variant = dict.fromkeys(
+    BACKWARD_VARIANTS, 0)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -433,6 +481,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"limit of {65535 * _BLOCK}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+
+
+def _check_tma(*tensors: torch.Tensor) -> None:
+    """Refuse what the sm90 variants' TMA tensor maps and 16-byte loads do
+    not take: a head dim that is not a multiple of 8, or data that does not
+    start on a 16-byte boundary (a contiguous view at an odd offset).
+    Raises rather than reroutes: the variant is a rule about dtype and head
+    dim alone."""
+    d = tensors[0].shape[-1]
+    if d % 8:
+        raise ValueError(f"flash_attention sm90 kernels need a head dim that "
+                         f"is a multiple of 8, got {d}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention sm90 kernels need every operand "
+                             "to start on a 16-byte boundary; got one at "
+                             f"offset {t.data_ptr() % 16}")
 
 
 def _check_like(name: str, t: torch.Tensor, shape, dtype, device) -> None:

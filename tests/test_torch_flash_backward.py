@@ -146,6 +146,9 @@ def launcher(monkeypatch):
     for fn in (flash_mod.flash_attention, flash_mod.flash_attention_forward):
         monkeypatch.setattr(fn, "launches_by_variant",
                             dict.fromkeys(flash_mod.FORWARD_VARIANTS, 0))
+    for attr in ("dq_launches_by_variant", "dkv_launches_by_variant"):
+        monkeypatch.setattr(flash_mod.flash_attention_backward, attr,
+                            dict.fromkeys(flash_mod.BACKWARD_VARIANTS, 0))
     with warnings.catch_warnings():  # a fake tensor's data_ptr warns
         warnings.simplefilter("ignore", UserWarning)
         yield calls
@@ -155,7 +158,7 @@ def test_cuda_training_path_launches_each_kernel_once(launcher):
     """On CUDA tensors the training forward launches the forward with an
     lse buffer (the inference form passes none), and the backward launches
     the dq kernel, then the dk/dv kernel, each counted once.  bf16 at
-    D 32 takes the forward's tensor-core variant."""
+    D 32 takes the tensor-core variants of the forward and the backward."""
     with FakeTensorMode():
         q, k, v = fake_cuda((2, 64, 8, 32), (2, 64, 2, 32), (2, 64, 2, 32))
         out, lse = flash_mod.flash_attention_forward(q, k, v, True, None, 16)
@@ -166,8 +169,8 @@ def test_cuda_training_path_launches_each_kernel_once(launcher):
         assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
         flash_mod.flash_attention(q, k, v, causal=True)
     assert [c[0] for c in launcher] == [
-        "flash_attention_fwd_sm90", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "flash_attention_fwd_sm90"]
+        "flash_attention_fwd_sm90", "flash_attention_bwd_dq_sm90",
+        "flash_attention_bwd_dkv_sm90", "flash_attention_fwd_sm90"]
     assert launcher[0][1:] == (5, False, (2, 64, 8, 32), 2, True, 16)
     assert launcher[1][1] == launcher[2][1] == 8
     assert launcher[3][1:3] == (5, True)  # inference: a null lse
@@ -177,6 +180,9 @@ def test_cuda_training_path_launches_each_kernel_once(launcher):
     assert flash_mod.flash_attention.launches == 1
     for fn in (flash_mod.flash_attention, flash_mod.flash_attention_forward):
         assert fn.launches_by_variant == {"sm90": 1, "simt": 0}
+    bwd = flash_mod.flash_attention_backward
+    assert bwd.dq_launches_by_variant == {"sm90": 1, "simt": 0}
+    assert bwd.dkv_launches_by_variant == {"sm90": 1, "simt": 0}
 
 
 @pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "dout_dtype",

@@ -173,6 +173,9 @@ def test_sm90_source_is_built_for_sm90a():
     text = src.read_text()
     assert f'extern "C" int {name}(' in text
     assert "distkeras_tpu/ops/flash_attention.py :: _flash_kernel" in text
+    # the PTX wrappers and tensor maps live in the header it includes
+    assert '#include "sm90_common.cuh"' in text
+    text += (kernels.CSRC_DIR / "sm90_common.cuh").read_text()
     for piece in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
                   "mbarrier.try_wait.parity", "cuTensorMapEncodeTiled",
                   "__grid_constant__"):

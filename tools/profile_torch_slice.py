@@ -26,9 +26,9 @@ It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
 of kernel and copy durations on the card; one stream, so they do not
 overlap) and idle share, and the device time by kernel, largest first,
-grouped as the flash kernels (the forward's sm90 and SIMT variants
-apart), the fused cross-entropy kernels, matrix products, copies and the
-rest.  The whole result also goes to ``--out``.  Imports nothing of JAX.
+grouped as the flash kernels (the sm90 and SIMT variants of the forward
+and of the backward's dq and dk/dv kernels apart), the fused
+cross-entropy kernels, matrix products, copies and the rest.  The whole result also goes to ``--out``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +49,10 @@ def group(name: str) -> str:
     for kernel, label in (("flash_fwd_sm90_kernel",
                            "flash_attention_fwd_sm90"),
                           ("flash_fwd_kernel", "flash_attention_fwd"),
+                          ("flash_bwd_dq_sm90_kernel",
+                           "flash_attention_bwd_dq_sm90"),
+                          ("flash_bwd_dkv_sm90_kernel",
+                           "flash_attention_bwd_dkv_sm90"),
                           ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
                           ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
                           ("fused_ce_fwd_kernel", "fused_ce_fwd"),
