@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through ten
+It drives the port only (no JAX is needed or imported) through thirteen
 phases, each printing JSON lines, and fails with a non-zero exit if any
 phase fails:
 
@@ -79,10 +79,33 @@ phase fails:
     and never on the ring, the loss falls on every route,
     the routes agree within measured bf16 bands, and at f32 (2 layers)
     fused and plain CE agree in loss traces (1e-5) and first-step
-    gradients, and so do Ulysses and ring (loss traces 1e-4).
+    gradients, and so do Ulysses and ring (loss traces 1e-4);
+11. wide: a head dim above 256 (B 2, S 1024, H 4, Hkv 2, D 320, causal,
+    f32 and bf16) through ``attention`` forward, backward and inference
+    form, every launch on the SIMT kernels (their 256-column chunks),
+    each kernel against its plain version under phases 2 and 5's rules,
+    with the kernels', plain versions' and SDPA's times beside the bound;
+12. views: q, k, v as ``chunk(3, dim=2)`` of one bf16 projection at the
+    serving slice's widths, as contiguous views off a 16-byte boundary,
+    and (T, V) logits that are a transpose, through ``attention`` and
+    ``fused_softmax_cross_entropy`` forward and backward: the kernels
+    launch, the results equal the same calls on contiguous copies to the
+    bit, the gradients come in the views' shapes, and the plain versions
+    agree under phases 5 and 8's rules;
+13. zoo: the MNIST flow (MinMax → OneHot → ``SingleTrainer`` →
+    ``ModelPredictor`` → LabelIndex → Accuracy) with ``mnist_convnet`` in
+    bf16 on 60000 rows, batch 512, adam 1e-3, 2 epochs: accuracy >= 0.8
+    on 10000 test rows, the epoch loss falls, examples/s and predict
+    rows/s on the host clock; the trained model's blob round trip
+    bit-identical; bf16 against f32 from the same weights on the first
+    batch within measured bands; the CIFAR-10 ConvNet and the Higgs MLP
+    for an epoch (the loss falls); one step of the digits models and of
+    a batch-norm stack (finite, the running statistics move); and no
+    attention or cross-entropy kernel launched on any of it.
 
 Then it prints the kernel summary line (each variant of each flash
-kernel with its source and the runs it served), the ``nvidia-smi`` name
+kernel with its source and the runs it served, and the SIMT kernels at
+the wide head dim), the ``nvidia-smi`` name
 and power limit line, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
@@ -227,6 +250,39 @@ SIMT_TIMED = ("causal", PLM_ULYSSES_CASE[0])
 # backward (those that refuse a case are left out of it)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
+# a head dim above 256 (the reference's kernel takes any): the SIMT kernels
+# take it in ceil(320 / 256) = 2 chunks of 256 columns.  name, B, S, H,
+# Hkv, D, causal, window
+WIDE_CASE = ("d320", 2, 1024, 4, 2, 320, True, None)
+# strided and misaligned views at the public entry points: q, k, v as
+# chunks of one (B, S, 3H, D) projection at the serving slice's widths
+# (MHA: a chunk of three equal parts), q, k, v each a contiguous view one
+# element off a 16-byte boundary, and (T, V) logits that are the transpose
+# of a (V, T) tensor.  name, B, S, H, Hkv, D (attention); name, T, V (CE)
+VIEW_QKV_CASE = ("qkv_chunk", BATCH, LM["seq_len"], LM["num_heads"],
+                 LM["num_heads"], LM["d_model"] // LM["num_heads"])
+VIEW_MISALIGNED_CASE = ("misaligned", 2, 1024, 8, 2, 32)
+VIEW_CE_CASE = ("transposed_logits", 4096, 32768)
+# the ConvNet slice: the MNIST flow of the verify recipe (MinMax → OneHot
+# → SingleTrainer → ModelPredictor → LabelIndex → Accuracy) at the
+# north-star configuration's full size: mnist_convnet in bf16, the 60000
+# rows and 10000 test rows of MNIST (load_mnist's synthetic stand-in
+# where no mnist.npz is found), batch 512 (bench.py's on-chip batch,
+# bench.py:1109-1110), adam 1e-3, 2 epochs.  Pass mark: the recipe's 0.8
+ZOO_ROWS, ZOO_TEST_ROWS, ZOO_BATCH, ZOO_EPOCHS = 60000, 10000, 512, 2
+ZOO_TRAINER = dict(batch_size=ZOO_BATCH, worker_optimizer="adam",
+                   learning_rate=1e-3, label_col="label_encoded",
+                   loss="categorical_crossentropy")
+ZOO_ACCURACY_MIN = 0.8
+# bf16 vs f32 from the same weights on the first batch of 512: the loss
+# relative and each parameter's gradient against its largest f32 value.
+# The bf16 model rounds every conv and Dense operand and runs the conv
+# backward in bf16 (the JAX _conv_f32_acc contract); the same computation
+# on the CPU read a loss gap of 1.3e-4 to 7.0e-4 and gradient gaps of 0.4%
+# to 3.1% of each tensor's largest value over three weight seeds
+ZOO_BF16_LOSS_BAND, ZOO_BF16_GRAD_BAND = 5e-3, 0.1
+# the other zoo models: one epoch on this many synthetic rows, batch 128
+ZOO_SMALL_ROWS, ZOO_SMALL_BATCH = 4096, 128
 
 
 def emit(obj) -> None:
@@ -852,7 +908,7 @@ def _first_step_grads(extra, weights, data):
     compute = make_masked_loss_fn(model, TRAINER["loss"])
     x = torch.as_tensor(data["features"][:BATCH], device="cuda")
     y = torch.as_tensor(data["label"][:BATCH], device="cuda")
-    value = compute(x, y, torch.ones(BATCH, device="cuda"))
+    value, _ = compute(x, y, torch.ones(BATCH, device="cuda"))
     params = model_params(model)
     grads = torch.autograd.grad(value, list(params.values()))
     return dict(zip(params, grads))
@@ -1360,6 +1416,495 @@ def phase_parallel_train(card: str):
     return {route: launches for route, (_, launches) in runs.items()}
 
 
+def _sdpa_forward_ms(sdpa) -> dict:
+    """SDPA's forward under each backend of SDPA_BACKENDS that takes the
+    case (a yardstick only); ms by backend."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:  # a backend that refuses the case warns why, then raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                times[name.lower()] = median_ms(sdpa, 3, 10)
+        except RuntimeError:
+            pass
+    return times
+
+
+def phase_wide():
+    """A head dim above 256 on the SIMT kernels (WIDE_CASE, f32 and bf16):
+    ``attention`` forward and backward through the public entry point,
+    its launches counted (the forward with lse, dq and dk/dv once each,
+    every one on ``simt``); the inference form; each kernel against its
+    plain version on its own inputs under the rules of phases kernel and
+    kernel_train, the path's outputs bit-equal to the kernels'; and the
+    kernels', plain versions' and SDPA's times (each backend that takes
+    D 320) beside the bound."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from distkeras_tpu_torch.ops.attention import attention
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    name, b, s, h, hkv, d, causal, window = WIDE_CASE
+    args = (causal, None, window)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, do = (torch.randn(b, s, n, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for n in (h, hkv, hkv, h))
+        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        _zero_counts()
+        out_path = attention(*leaves, causal=causal, window=window)
+        grads = torch.autograd.grad(out_path, leaves, do)
+        with torch.no_grad():  # the inference form
+            inference = attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        check(launches["flash_inference"] == 1
+              and fa.flash_attention.launches_by_variant["simt"] == 1
+              and all(launches[f"flash_{n}_simt"] == 1
+                      for n in ("fwd_lse", "dq", "dkv"))
+              and all(launches[f"flash_{n}_sm90"] == 0
+                      for n in ("fwd_lse", "dq", "dkv")),
+              f"wide {name}/{dname}: launches {launches}, want the inference "
+              f"forward, the forward with lse, dq and dk/dv once each on "
+              f"simt")
+        launches["flash_inference_simt"] = fa.flash_attention.\
+            launches_by_variant["simt"]
+        out, lse = fa.flash_attention_forward(q, k, v, *args)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, *args)
+        torch.cuda.synchronize()
+        same = (torch.equal(out_path, out)
+                and all(torch.equal(g, w) for g, w in zip(grads,
+                                                          (dq, dk, dv))))
+        ref = fa.flash_attention_reference(q, k, v, *args)
+        ro, rl = fa.flash_attention_reference(q, k, v, *args,
+                                              return_lse=True)
+        rq, rdelta = fa.flash_attention_bwd_dq_reference(q, k, v, out, lse,
+                                                         do, *args)
+        rk, rv = fa.flash_attention_bwd_dkv_reference(q, k, v, lse, do,
+                                                      delta, *args)
+        rel, atol = KERNEL_TOL[dname]
+        diff = (inference.float() - ref.float()).abs()
+        errs = {"inference": (diff.max().item(), (diff / (
+                    rel * ref.float().abs() + atol)).max().item()),
+                "out": _err_share(out, ro, dname),
+                "lse": _err_share(lse, rl, "float32"),
+                "delta": _err_share(delta, rdelta, "float32"),
+                "dq": _err_share(dq, rq, dname),
+                "dk": _err_share(dk, rk, dname),
+                "dv": _err_share(dv, rv, dname)}
+        del ref, ro, rl, rq, rdelta, rk, rv, diff, grads, out_path
+        ms = {"fwd": median_ms(lambda: fa.flash_attention(q, k, v, *args),
+                               3, 10),
+              "fwd_lse": median_ms(lambda: fa.flash_attention_forward(
+                  q, k, v, *args), 3, 10),
+              "dq": median_ms(lambda: fa.flash_attention_bwd_dq(
+                  q, k, v, out, lse, do, *args), 3, 10),
+              "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv(
+                  q, k, v, lse, do, delta, *args), 3, 10)}
+        plain_ms = {
+            "fwd": median_ms(lambda: fa.flash_attention_reference(
+                q, k, v, *args), 1, 3),
+            "fwd_lse": median_ms(lambda: fa.flash_attention_reference(
+                q, k, v, *args, return_lse=True), 1, 3),
+            "dq": median_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, out, lse, do, *args), 1, 3),
+            "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, lse, do, delta, *args), 1, 3)}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        sdpa_fwd = _sdpa_forward_ms(sdpa)
+        sdpa_bwd = _sdpa_backward_ms(sdpa, (qt, kt, vt), do.transpose(1, 2))
+        del qt, kt, vt
+        pairs = b * h * live_pairs(s, causal, window)
+        bounds = {
+            "fwd": _bound(4 * d * pairs, nbytes(q, k, v, out), dname, pairs),
+            "fwd_lse": _bound(4 * d * pairs, nbytes(q, k, v, out, lse),
+                              dname, pairs),
+            "dq": _bound(6 * d * pairs,
+                         nbytes(q, k, v, out, do, lse, dq, delta), dname,
+                         pairs),
+            "dkv": _bound(8 * d * pairs,
+                          nbytes(q, k, v, do, lse, delta, dk, dv), dname,
+                          pairs)}
+        row = {"phase": "wide", "case": name, "dtype": dname,
+               "shape_bshd": [b, s, h, d], "kv_heads": hkv,
+               "causal": causal, "window": window,
+               "head_dim_chunks": -(-d // fa.SIMT_HEAD_DIM_CHUNK),
+               "variant": fa._forward_variant(dtype, d),
+               "bwd_variant": fa._backward_variant(dtype, d),
+               "launches": launches, "path_equals_kernels": same,
+               "max_abs_err": {n: e[0] for n, e in errs.items()},
+               "err_share_of_tol": {n: e[1] for n, e in errs.items()},
+               "ms": ms, "plain_ms": plain_ms,
+               "library_fwd_ms": min(sdpa_fwd.values(), default=None),
+               "library_fwd_ms_by_backend": sdpa_fwd,
+               "library_bwd_ms": min(sdpa_bwd.values(), default=None),
+               "library_bwd_ms_by_backend": sdpa_bwd,
+               "bound_ms": {n: bd[0] for n, bd in bounds.items()},
+               "bound_by": {n: bd[1] for n, bd in bounds.items()},
+               "bound_term": {n: bd[3] for n, bd in bounds.items()}}
+        emit(row)
+        worst = max(errs, key=lambda n: errs[n][1])
+        check(errs[worst][1] <= 1.0, f"wide {name}/{dname}: {worst} error "
+              f"{errs[worst][1]:.3g}x its tolerance (max abs err "
+              f"{errs[worst][0]})")
+        check(same, f"wide {name}/{dname}: attention's outputs or gradients "
+              f"differ from the kernels' on the same inputs")
+        rows[dname] = row
+        del q, k, v, do, leaves, inference, out, lse, dq, delta, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_views():
+    """Strided and misaligned views at the public entry points: each view
+    case runs forward and backward through ``attention`` or
+    ``fused_softmax_cross_entropy``, launches the kernels (counted), gives
+    gradients in the views' shapes, is bit-equal to the same call on
+    contiguous copies, and holds against the plain versions under the
+    rules of phases kernel_train and kernel_ce."""
+    import importlib
+    import torch
+    from distkeras_tpu_torch.ops.attention import attention
+    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
+    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def attention_case(name, leaf, views, do):
+        """``views`` of ``leaf`` through attention, against contiguous
+        copies of them and the plain versions."""
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = attention(*views, causal=True)
+        (grad,) = torch.autograd.grad(out, leaf, do)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        copies = tuple(t.detach().clone().requires_grad_() for t in views)
+        out_c = attention(*copies, causal=True)
+        grads_c = torch.autograd.grad(out_c, copies, do)
+        grads_v = torch.autograd.grad(attention(*views, causal=True),
+                                      views, do)
+        q, k, v = copies
+        args = (True, None, None)
+        out_k, lse = fa.flash_attention_forward(q, k, v, *args)
+        ro = fa.flash_attention_reference(q, k, v, *args)
+        rq, rk, rv = fa.flash_attention_backward_reference(
+            q.detach(), k.detach(), v.detach(), out_k, lse, do, *args)
+        errs = {"out": _err_share(out, ro, "bfloat16"),
+                **{n: _err_share(g, r, "bfloat16")
+                   for n, g, r in zip(("dq", "dk", "dv"), grads_v,
+                                      (rq, rk, rv))}}
+        same = (torch.equal(out, out_c)
+                and all(torch.equal(a, c) for a, c in zip(grads_v, grads_c)))
+        row = {"phase": "views", "case": name, "dtype": "bfloat16",
+               "shape_bshd": list(views[0].shape),
+               "kv_shape": list(views[1].shape),
+               "view_strides": [list(t.stride()) for t in views],
+               "view_offsets_bytes": [t.storage_offset() * t.element_size()
+                                      for t in views],
+               "launches": launches, "equals_contiguous": same,
+               "grad_shape_is_leaf_shape": grad.shape == leaf.shape,
+               "max_abs_err": {n: e[0] for n, e in errs.items()},
+               "err_share_of_tol": {n: e[1] for n, e in errs.items()}}
+        emit(row)
+        check(launches["flash_fwd_lse"] == launches["flash_dq"]
+              == launches["flash_dkv"] == 1,
+              f"views {name}: launches {launches}, want one of each")
+        check(same and row["grad_shape_is_leaf_shape"], f"views {name}: "
+              f"differs from the same call on contiguous copies")
+        worst = max(errs, key=lambda n: errs[n][1])
+        check(errs[worst][1] <= 1.0, f"views {name}: {worst} error "
+              f"{errs[worst][1]:.3g}x its tolerance")
+        rows.append(row)
+
+    name, b, s, h, hkv, d = VIEW_QKV_CASE
+    qkv = torch.randn(b, s, 3 * h, d, device="cuda", generator=gen).to(bf16)
+    qkv.requires_grad_()
+    do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(bf16)
+    attention_case(name, qkv, qkv.chunk(3, dim=2), do)
+    del qkv, do
+
+    name, b, s, h, hkv, d = VIEW_MISALIGNED_CASE
+    sizes = (b * s * h * d, b * s * hkv * d, b * s * hkv * d)
+    flat = torch.randn(1 + sum(sizes), device="cuda", generator=gen).to(bf16)
+    flat.requires_grad_()
+    parts = flat[1:].split(sizes)  # each one bf16 element off the boundary
+    views = tuple(p.view(b, s, n, d) for p, n in zip(parts, (h, hkv, hkv)))
+    check(all(t.data_ptr() % 16 for t in views),
+          "views misaligned: a view is not off a 16-byte boundary")
+    do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(bf16)
+    attention_case(name, flat, views, do)
+    del flat, parts, views, do
+
+    name, t, v = VIEW_CE_CASE
+    base = 3.0 * torch.randn(v, t, device="cuda", generator=gen)
+    base.requires_grad_()
+    logits = base.t()  # (T, V), column-major
+    labels = torch.randint(0, v, (t,), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    _zero_counts()
+    loss = ce.fused_softmax_cross_entropy(logits, labels)
+    (dbase,) = torch.autograd.grad(loss.sum(), base)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    copy = logits.detach().contiguous().requires_grad_()
+    loss_c = ce.fused_softmax_cross_entropy(copy, labels)
+    (dcopy,) = torch.autograd.grad(loss_c.sum(), copy)
+    # each plain version on the kernel's own inputs (the backward's on the
+    # forward kernel's lse), as in phase kernel_ce
+    rloss, _ = ce.fused_ce_forward_reference(copy.detach(), labels)
+    _, lse = ce.fused_ce_fwd(copy.detach(), labels)
+    rgrad = ce.fused_ce_backward_reference(copy.detach(), labels, lse,
+                                           torch.ones_like(rloss))
+    errs = {"loss": _ce_shares(loss, rloss, CE_TOL_REL, 0.0, CE_TOL_ABS),
+            "dlogits": _ce_shares(dbase.t(), rgrad, 0.0, CE_GRAD_F32)}
+    same = torch.equal(loss, loss_c) and torch.equal(dbase.t(), dcopy)
+    row = {"phase": "views", "case": name, "dtype": "float32",
+           "shape_tv": [t, v], "view_strides": list(logits.stride()),
+           "launches": {k: launches[k] for k in ("fused_ce_fwd",
+                                                 "fused_ce_bwd")},
+           "equals_contiguous": same,
+           "grad_shape_is_leaf_shape": dbase.shape == base.shape,
+           "max_abs_err": {n: e[0] for n, e in errs.items()},
+           "err_share_of_tol": {n: e[1] for n, e in errs.items()}}
+    emit(row)
+    check(launches["fused_ce_fwd"] == launches["fused_ce_bwd"] == 1,
+          f"views {name}: launches {launches}, want one of each")
+    check(same and row["grad_shape_is_leaf_shape"], f"views {name}: differs "
+          f"from the same call on a contiguous copy")
+    worst = max(errs, key=lambda n: errs[n][1])
+    check(errs[worst][1] <= 1.0, f"views {name}: {worst} error "
+          f"{errs[worst][1]:.3g}x its tolerance")
+    rows.append(row)
+    del base, logits, copy, dbase, dcopy, rgrad
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _zoo_weights(model, rng):
+    """Weights in the JAX package's layout, from a numpy seed: kernels
+    (Dense and Conv2D) ~N(0, 2/fan_in), biases and BatchNorm offsets 0,
+    BatchNorm scales and variances 1, means 0 (the JAX init's values)."""
+    import numpy as np
+    from distkeras_tpu_torch.core.model import jax_leaves
+    out = []
+    for path, p in jax_leaves(model):
+        shape = tuple(p.shape)
+        if len(shape) >= 2:
+            fan_in = float(np.prod(shape[:-1]))
+            w = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+        elif path.endswith(("scale", "var")):
+            w = np.ones(shape)
+        else:
+            w = np.zeros(shape)
+        out.append(w.astype("float32"))
+    return out
+
+
+def _first_batch_grads(model, x, y):
+    """The masked loss of one batch and every parameter's gradient
+    (zeros for BatchNorm's statistics), through the trainer's own loss."""
+    import torch
+    from distkeras_tpu_torch.core.train import (_gradients,
+                                                make_masked_loss_fn,
+                                                model_params)
+    value, _ = make_masked_loss_fn(model, ZOO_TRAINER["loss"])(
+        x, y, torch.ones(len(x), device=x.device))
+    params = model_params(model)
+    return value.item(), dict(zip(params, _gradients(value,
+                                                     list(params.values()))))
+
+
+def _synthetic_rows(rng, rows, features, classes):
+    """Rows of a learnable synthetic task: class prototypes plus noise
+    in [0, 1], and one-hot labels."""
+    import numpy as np
+    protos = rng.uniform(0.2, 0.8, (classes, features))
+    labels = rng.integers(0, classes, rows)
+    x = np.clip(protos[labels] + 0.3 * rng.standard_normal(
+        (rows, features)), 0.0, 1.0).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[labels]
+
+
+def phase_zoo(card: str):
+    """The ConvNet/MLP zoo on the card: the MNIST flow at full size
+    (examples/s and predict rows/s on the host clock), bf16 against f32
+    from the same weights, the blob round trip, the CIFAR-10 ConvNet and
+    the Higgs MLP for an epoch, one step of the digits models and of a
+    batch-norm stack; no attention or cross-entropy kernel launches on
+    any of it."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (AccuracyEvaluator, FittedModel,
+                                     LabelIndexTransformer,
+                                     MinMaxTransformer, ModelPredictor,
+                                     OneHotTransformer, Sequential,
+                                     SingleTrainer, load_jax_weights)
+    from distkeras_tpu_torch import models
+    from distkeras_tpu_torch.core import layers as L
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.core.train import (TrainState, make_train_step,
+                                                model_params)
+    from distkeras_tpu_torch.data import Dataset, has_real_data, load_mnist
+    rng = np.random.default_rng(SEED + 17)
+
+    # the MNIST flow
+    train, test = load_mnist(n_train=ZOO_ROWS, n_test=ZOO_TEST_ROWS)
+    scale = MinMaxTransformer(0, 1, 0, 255)
+    train, test = scale.transform(train), scale.transform(test)
+    train = OneHotTransformer(10).transform(train)
+    weights = _zoo_weights(models.mnist_convnet("bfloat16", device="meta"),
+                           rng)
+    model = load_jax_weights(models.mnist_convnet("bfloat16"), weights)
+    trainer = SingleTrainer(FittedModel(model), num_epoch=ZOO_EPOCHS,
+                            **ZOO_TRAINER)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    fitted = trainer.train(train)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _read_counts()
+    history = np.asarray(trainer.get_history())
+    epochs = history.reshape(ZOO_EPOCHS, -1).mean(axis=1)
+    predictor = ModelPredictor(fitted)
+    predictor.predict(test.take(ZOO_BATCH))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predicted = predictor.predict(test)
+    predict_s = time.perf_counter() - t0
+    accuracy = AccuracyEvaluator().evaluate(
+        LabelIndexTransformer().transform(predicted))
+    emit({"phase": "zoo", "model": "mnist_convnet",
+          "compute_dtype": "bfloat16", "rows": ZOO_ROWS,
+          "test_rows": ZOO_TEST_ROWS, "epochs": ZOO_EPOCHS,
+          "real_data": has_real_data("mnist"), **ZOO_TRAINER,
+          "steps": len(history), "epoch_mean_loss": epochs.tolist(),
+          "first_loss": float(history[0]), "last_loss": float(history[-1]),
+          "accuracy": accuracy, "launches": launches, "card": card,
+          "train_s": train_s,
+          "examples_per_s": ZOO_ROWS * ZOO_EPOCHS / train_s,
+          "predict_s": predict_s,
+          "predict_rows_per_s": ZOO_TEST_ROWS / predict_s})
+    check(np.isfinite(history).all(), "zoo mnist: non-finite loss")
+    check(epochs[-1] < epochs[0], f"zoo mnist: the epoch mean loss did not "
+          f"fall ({epochs.tolist()})")
+    check(accuracy >= ZOO_ACCURACY_MIN, f"zoo mnist: accuracy {accuracy} "
+          f"below {ZOO_ACCURACY_MIN}")
+    check(not any(launches.values()), f"zoo mnist: attention or CE kernel "
+          f"launches {launches}, want none")
+
+    # the blob round trip of the trained model
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "mnist_convnet.npz")
+    fitted.save(path)
+    rows = test["features"][:2048]
+    same = bool(np.array_equal(FittedModel.load(path).predict(rows),
+                               fitted.predict(rows)))
+    emit({"phase": "zoo_blob", "path": os.path.relpath(path),
+          "bytes": os.path.getsize(path), "bit_identical": same})
+    check(same, "zoo blob round trip changed the predictions")
+
+    # bf16 against f32 from the same weights, on the first batch
+    x = torch.as_tensor(train["features"][:ZOO_BATCH], device="cuda")
+    y = torch.as_tensor(train["label_encoded"][:ZOO_BATCH], device="cuda")
+    loss16, g16 = _first_batch_grads(load_jax_weights(
+        models.mnist_convnet("bfloat16"), weights), x, y)
+    loss32, g32 = _first_batch_grads(load_jax_weights(
+        models.mnist_convnet("float32"), weights), x, y)
+    shares = {n: ((g16[n] - g32[n]).abs().max()
+                  / g32[n].abs().max().clamp_min(1e-30)).item() for n in g32}
+    loss_gap = abs(loss16 - loss32) / abs(loss32)
+    emit({"phase": "zoo_bf16_vs_f32", "model": "mnist_convnet",
+          "batch": ZOO_BATCH, "loss_bf16": loss16, "loss_f32": loss32,
+          "loss_gap": loss_gap, "loss_band": ZOO_BF16_LOSS_BAND,
+          "grad_gap_of_max": shares, "grad_band": ZOO_BF16_GRAD_BAND})
+    check(loss_gap <= ZOO_BF16_LOSS_BAND, f"zoo bf16 vs f32: loss gap "
+          f"{loss_gap} > {ZOO_BF16_LOSS_BAND}")
+    worst = max(shares, key=shares.get)
+    check(shares[worst] <= ZOO_BF16_GRAD_BAND, f"zoo bf16 vs f32: gradient "
+          f"of {worst} off by {shares[worst]:.3g} of its max")
+    del g16, g32, x, y
+
+    # the CIFAR-10 ConvNet and the Higgs MLP: one epoch, the loss falls
+    _zero_counts()
+    for name, features, classes in (("cifar10_convnet", 3072, 10),
+                                    ("higgs_mlp", 28, 2)):
+        xs, ys = _synthetic_rows(rng, ZOO_SMALL_ROWS, features, classes)
+        builder = getattr(models, name)
+        small = load_jax_weights(builder("bfloat16"), _zoo_weights(
+            builder("bfloat16", device="meta"), rng))
+        t = SingleTrainer(FittedModel(small), num_epoch=1,
+                          **{**ZOO_TRAINER, "batch_size": ZOO_SMALL_BATCH})
+        t0 = time.perf_counter()
+        t.train(Dataset({"features": xs, "label_encoded": ys}))
+        seconds = time.perf_counter() - t0
+        losses = np.asarray(t.get_history())
+        quarter = len(losses) // 4
+        emit({"phase": "zoo", "model": name, "compute_dtype": "bfloat16",
+              "rows": ZOO_SMALL_ROWS, "batch_size": ZOO_SMALL_BATCH,
+              "steps": len(losses), "first_quarter_loss":
+              float(losses[:quarter].mean()), "last_quarter_loss":
+              float(losses[-quarter:].mean()), "train_s": seconds,
+              "card": card})
+        check(np.isfinite(losses).all()
+              and losses[-quarter:].mean() < losses[:quarter].mean(),
+              f"zoo {name}: the loss did not fall ({losses.tolist()})")
+
+    # one step of the digits models and of a batch-norm stack
+    stacks = {
+        "digits_mlp": models.digits_mlp("bfloat16"),
+        "digits_convnet": models.digits_convnet("bfloat16"),
+        "batchnorm_stack": Sequential(
+            [L.Reshape((8, 8, 1)), L.Conv2D(16, 3, use_bias=False),
+             L.BatchNormalization(), L.AveragePooling2D(2),
+             L.GlobalAveragePooling2D(), L.Dense(10, activation="softmax")],
+            input_shape=(64,), compute_dtype="bfloat16")}
+    for name, net in stacks.items():
+        load_jax_weights(net, _zoo_weights(net, rng))
+        xs, ys = _synthetic_rows(rng, ZOO_SMALL_BATCH, 64, 10)
+        x = torch.as_tensor(xs, device="cuda")
+        y = torch.as_tensor(ys, device="cuda")
+        params = model_params(net)
+        tx, opt_state = optimizers.build("adam", params, learning_rate=1e-3)
+        before = net.get_weights()
+        _, loss = make_train_step(net, ZOO_TRAINER["loss"], tx)(
+            TrainState(params, opt_state, 0), (x, y))
+        with torch.no_grad():
+            out = net(x)
+        moved = {path: not np.array_equal(a, b) for (path, _), a, b in zip(
+            model_params(net).items(), net.get_weights(), before)}
+        stats_moved = [m for path, m in moved.items() if "/stats/" in path]
+        emit({"phase": "zoo_step", "model": name, "loss": loss.item(),
+              "outputs_finite": bool(torch.isfinite(out).all()),
+              "stats_moved": stats_moved})
+        check(bool(torch.isfinite(out).all()) and np.isfinite(loss.item()),
+              f"zoo step {name}: non-finite outputs or loss")
+        check(all(stats_moved), f"zoo step {name}: BatchNorm running "
+              f"statistics did not move ({moved})")
+    launches = _read_counts()
+    check(not any(launches.values()), f"zoo models: attention or CE kernel "
+          f"launches {launches}, want none")
+    return {"train_s": train_s, "accuracy": accuracy}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1380,6 +1925,10 @@ def main() -> int:
     ce_rows = phase_kernel_ce()
     phase_memory_ce()
     plm_launches = phase_parallel_train(smi)
+
+    wide_rows = phase_wide()
+    phase_views()
+    phase_zoo(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -1490,6 +2039,40 @@ def main() -> int:
                 "bound_by": c["bound_by"][key],
                 "library_ms": c["library_ms"][key],
                 "bf16_ms": ce_rows[("slice", "bfloat16")]["ms"][key]}
+
+    def wide_entry(name, key, replaces):
+        """A SIMT kernel at WIDE_CASE's head dim above 256 (bf16; f32
+        beside it): its launches on phase wide's counted drive of
+        ``attention`` forward, backward and inference form."""
+        w, w32 = wide_rows["bfloat16"], wide_rows["float32"]
+        errs = {"fwd": ("inference",), **outputs}[key]
+        count = {"fwd": "flash_inference"}.get(key, counters.get(key))
+        c_entry = (fa.FORWARD_VARIANTS["simt"] if key in ("fwd", "fwd_lse")
+                   else fa.BACKWARD_VARIANTS["simt"][key])
+        return {"name": name, "variant": "simt", "route": "cuda",
+                "source": f"{csrc}{fa._ENTRIES[c_entry][0]}.cu",
+                "replaces": f"distkeras_tpu/ops/flash_attention.py:"
+                            f"{replaces}",
+                "dtype": "bfloat16", "shape_bshd": w["shape_bshd"],
+                "kv_heads": w["kv_heads"],
+                "head_dim_chunks": w["head_dim_chunks"],
+                "launches_run": f"wide {WIDE_CASE[0]}",
+                "launches": w["launches"][f"{count}_simt"],
+                "max_abs_err": max(w["max_abs_err"][e] for e in errs),
+                "ms": w["ms"][key], "plain_ms": w["plain_ms"][key],
+                "bound_ms": w["bound_ms"][key],
+                "bound_by": w["bound_by"][key],
+                "library_ms": (w["library_fwd_ms"]
+                               if key in ("fwd", "fwd_lse") else None),
+                "backward_library_ms": w["library_bwd_ms"],
+                "float32": {"launches": w32["launches"][f"{count}_simt"],
+                            "max_abs_err": max(w32["max_abs_err"][e]
+                                               for e in errs),
+                            "ms": w32["ms"][key],
+                            "plain_ms": w32["plain_ms"][key],
+                            "bound_ms": w32["bound_ms"][key],
+                            "library_fwd_ms": w32["library_fwd_ms"],
+                            "library_bwd_ms": w32["library_bwd_ms"]}}
     emit({"kernels": [
         forward_entry("sm90"),
         forward_entry("simt"),
@@ -1501,6 +2084,11 @@ def main() -> int:
           for v in ("sm90", "simt")),
         ce_entry("fused_ce_fwd", "fwd", 54, "loss", "lse"),
         ce_entry("fused_ce_bwd", "bwd", 97, "dlogits"),
+        *(wide_entry(name, key, replaces) for name, key, replaces in (
+            ("flash_attention_fwd", "fwd", 78),
+            ("flash_attention_fwd_lse", "fwd_lse", 78),
+            ("flash_attention_bwd_dq", "dq", 182),
+            ("flash_attention_bwd_dkv", "dkv", 221))),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

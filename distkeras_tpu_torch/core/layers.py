@@ -12,11 +12,19 @@ Interchange with the JAX package is exact:
   fields left at their class defaults (``num_kv_heads``, ``rope``, ...) are
   absent from the JSON, as in the JAX package; ``from_config`` bypasses
   the constructor and the class defaults fill them back in.
-- Parameters keep the JAX names and layouts (Dense kernels are (in, out)),
-  and :func:`layer_leaves` walks them in JAX pytree leaf order (dict keys
-  sorted), which is the order of ``get_weights``.
+- Parameters keep the JAX names and layouts (Dense kernels are (in, out),
+  Conv2D kernels HWIO), and :func:`layer_leaves` walks them in JAX pytree
+  leaf order (dict keys sorted), which is the order of ``get_weights``.
+  BatchNormalization's running statistics are buffers of a ``stats``
+  sub-module, so they come out as ``stats/mean`` and ``stats/var``
+  after ``offset`` and ``scale``, as in the JAX params dict.
+- Images are NHWC, as in the JAX package.  A convolution hands cuDNN the
+  NHWC activations as an NCHW view in ``channels_last`` memory format, so
+  no layout copy is made.
 - Matmuls take operands rounded to the compute dtype and produce f32
-  (``preferred_element_type=f32`` in the JAX package); LayerNorm is f32;
+  (``preferred_element_type=f32`` in the JAX package), and so does a
+  convolution's forward, whose backward runs in the compute dtype (the
+  JAX ``_conv_f32_acc`` contract); LayerNorm and BatchNorm are f32;
   residual adds stay in the activation dtype.  Parameters are f32, and
   gradients flow back through those casts into them, as ``jax.grad``
   does through ``astype``.
@@ -26,13 +34,15 @@ Interchange with the JAX package is exact:
   on the input's device; JAX's threefry bits and torch's differ, so the
   masks are not the JAX package's).
 
-Ported so far: Dense, LayerNormalization, PositionalEmbedding,
-MultiHeadAttention, TransformerBlock, Embedding and Dropout; convolutions,
-pooling and batch norm arrive with the ConvNet training slice.
+Every layer of the JAX module is ported: Dense, Conv2D, MaxPooling2D,
+AveragePooling2D, GlobalAveragePooling2D, Flatten, Reshape, Activation,
+Dropout, BatchNormalization, LayerNormalization, PositionalEmbedding,
+MultiHeadAttention, TransformerBlock and Embedding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
@@ -132,7 +142,8 @@ class Layer(nn.Module):
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
         cls.kind = cls.__name__
-        Layer._REGISTRY[cls.__name__] = cls
+        if not cls.__name__.startswith("_"):  # a shared base is no kind
+            Layer._REGISTRY[cls.__name__] = cls
 
     # -- config (serialization) --------------------------------------------
     def get_config(self) -> Dict[str, Any]:
@@ -169,10 +180,11 @@ class Layer(nn.Module):
 
 
 def layer_leaves(module: nn.Module, prefix: str = ""
-                 ) -> Iterator[Tuple[str, nn.Parameter]]:
-    """(path, parameter) pairs in JAX pytree leaf order: a layer's
-    parameters and sub-layers form one dict whose keys are sorted."""
-    entries = {**module._parameters, **module._modules}
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path, tensor) pairs in JAX pytree leaf order: a layer's
+    parameters, buffers (BatchNorm's running statistics) and sub-layers
+    form one dict whose keys are sorted."""
+    entries = {**module._parameters, **module._buffers, **module._modules}
     for name in sorted(entries):
         value = entries[name]
         if value is None:
@@ -497,3 +509,326 @@ class Dropout(Layer):
     def forward(self, x, compute_dtype=torch.bfloat16, train=False,
                 generator=None):
         return _dropout(generator, self.rate, x, train)
+
+
+# ---------------------------------------------------------------------------
+# Convolution, pooling, reshaping and batch norm (the ConvNet/MLP zoo)
+# ---------------------------------------------------------------------------
+
+def _pair(v) -> Tuple[int, int]:
+    """An int or a pair → a pair of ints (``np.broadcast_to(v, (2,))``)."""
+    if isinstance(v, (tuple, list)):
+        if len(v) != 2:
+            raise ValueError(f"expected one int or two, got {v!r}")
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+def _window_pads(in_hw, window, strides, padding: str
+                 ) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) padding of XLA's ``padding`` for a
+    window: none for ``"VALID"``; for ``"SAME"`` enough for ceil(n / s)
+    outputs, split with the odd row or column at the end."""
+    if padding == "VALID":
+        return 0, 0, 0, 0
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    pads = []
+    for n, k, s in zip(in_hw, window, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return tuple(pads)
+
+
+def _window_out(in_hw, window, strides, padding: str) -> Tuple[int, int]:
+    """Output height and width of a window op (XLA's shape rule)."""
+    if padding == "SAME":
+        return tuple(-(-n // s) for n, s in zip(in_hw, strides))
+    out = tuple((n - k) // s + 1 for n, k, s in zip(in_hw, window, strides))
+    if min(out) < 1:
+        raise ValueError(f"window {window} does not fit the input {in_hw} "
+                         "with VALID padding")
+    return out
+
+
+def _nchw(x: torch.Tensor, pads, fill: float) -> torch.Tensor:
+    """An NHWC tensor as the NCHW view (``channels_last`` memory for an
+    NHWC-contiguous input), padded by ``pads`` with ``fill``."""
+    x = x.permute(0, 3, 1, 2)
+    t, b, l, r = pads
+    if t or b or l or r:
+        x = F.pad(x, (l, r, t, b), value=fill)
+    return x
+
+
+@contextlib.contextmanager
+def _cudnn_tf32(operand_dtype: torch.dtype):
+    """cuDNN's TF32 switch for convolutions of ``operand_dtype``-rounded
+    operands, whatever the process-wide setting: on for bf16 and f16
+    operands (their 8- and 11-bit significands are exact in TF32, so the
+    products are exact and the sums f32: the same function, on the tensor
+    cores), off for f32 operands (TF32 would round them)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = operand_dtype != torch.float32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _ConvF32Acc(torch.autograd.Function):
+    """Port of ``_conv_f32_acc``: a convolution of NHWC ``x`` and HWIO
+    ``k``, both already rounded to the compute dtype, whose forward output
+    is f32, and whose backward runs entirely in the compute dtype.
+
+    The forward upcasts the rounded operands and convolves in f32, as
+    ``_project`` does for Dense: a product of two bf16 values is exact in
+    f32, so this is the JAX ``preferred_element_type=f32`` result.  The
+    backward rounds the cotangent once to the compute dtype and takes the
+    input and kernel gradients from same-dtype convolutions, the JAX
+    custom VJP's documented contract (less precise than Dense's
+    gradients).  Symmetric padding goes to the convolution itself; XLA's
+    asymmetric SAME padding (stride > 1 or an even kernel) is an explicit
+    zero pad, whose rows and columns the input gradient then drops.  On
+    the card the f32 forward of 16-bit operands runs on TF32 tensor cores
+    and an f32 model's convolutions never do (:func:`_cudnn_tf32`)."""
+
+    @staticmethod
+    def forward(ctx, x, k, strides, pads):
+        t, b, l, r = pads
+        symmetric = t == b and l == r
+        conv_pad = (t, l) if symmetric else (0, 0)
+        xp = _nchw(x, (0, 0, 0, 0) if symmetric else pads, 0.0)
+        w = k.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        with _cudnn_tf32(x.dtype):
+            y = F.conv2d(xp.to(torch.float32), w.to(torch.float32),
+                         stride=strides, padding=conv_pad)
+        ctx.save_for_backward(x, k)
+        ctx.conf = (strides, pads, symmetric, conv_pad)
+        return y.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        strides, pads, symmetric, conv_pad = ctx.conf
+        g = g.to(x.dtype).permute(0, 3, 1, 2)
+        xp = _nchw(x, (0, 0, 0, 0) if symmetric else pads, 0.0)
+        w = k.permute(3, 2, 0, 1)
+        dx = dk = None
+        with _cudnn_tf32(x.dtype):
+            if ctx.needs_input_grad[0]:
+                dxp = torch.nn.grad.conv2d_input(xp.shape, w, g,
+                                                 stride=strides,
+                                                 padding=conv_pad)
+                t, _, l, _ = (0, 0, 0, 0) if symmetric else pads
+                dx = dxp[:, :, t:t + x.shape[1], l:l + x.shape[2]]
+                dx = dx.permute(0, 2, 3, 1)
+            if ctx.needs_input_grad[1]:
+                dk = torch.nn.grad.conv2d_weight(xp, w.shape, g,
+                                                 stride=strides,
+                                                 padding=conv_pad)
+                dk = dk.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        return dx, dk, None, None
+
+
+class Conv2D(Layer):
+    """2-D convolution on NHWC inputs; the kernel is stored HWIO."""
+
+    def __init__(self, filters: int, kernel_size=3, strides=1,
+                 padding: str = "SAME", activation: Optional[str] = None,
+                 use_bias: bool = True, kernel_init: str = "he_normal"):
+        super().__init__()
+        self.filters = int(filters)
+        self.kernel_size = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.padding = padding.upper()
+        self.activation = activation
+        self.use_bias = use_bias
+        self.kernel_init = kernel_init
+
+    def build(self, in_shape, generator, device):
+        h, w, cin = in_shape
+        kh, kw = self.kernel_size
+        self.kernel = _param(init_weight(generator, (kh, kw, cin,
+                                                     self.filters),
+                                         self.kernel_init), device)
+        if self.use_bias:
+            self.bias = _param(torch.zeros(self.filters), device)
+        return _window_out((h, w), self.kernel_size, self.strides,
+                           self.padding) + (self.filters,)
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        pads = _window_pads(x.shape[1:3], self.kernel_size, self.strides,
+                            self.padding)
+        y = _ConvF32Acc.apply(x.to(compute_dtype),
+                              self.kernel.to(compute_dtype), self.strides,
+                              pads)
+        if self.use_bias:
+            y = y + self.bias
+        return _apply_activation(self.activation, y)
+
+
+class _Pooling2D(Layer):
+    """The window configuration shared by the two pooling layers."""
+
+    def __init__(self, pool_size=2, strides=None, padding: str = "VALID"):
+        super().__init__()
+        self.pool_size = _pair(pool_size)
+        self.strides = (_pair(strides) if strides is not None
+                        else self.pool_size)
+        self.padding = padding.upper()
+
+    def build(self, in_shape, generator, device):
+        h, w, c = in_shape
+        return _window_out((h, w), self.pool_size, self.strides,
+                           self.padding) + (c,)
+
+    def _pads(self, x):
+        return _window_pads(x.shape[1:3], self.pool_size, self.strides,
+                            self.padding)
+
+
+class MaxPooling2D(_Pooling2D):
+    """Max over each window; SAME pads with -inf (the JAX
+    ``reduce_window`` init value)."""
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        fill = (float("-inf") if x.is_floating_point()
+                else torch.iinfo(x.dtype).min)
+        y = F.max_pool2d(_nchw(x, self._pads(x), fill), self.pool_size,
+                         self.strides)
+        return y.permute(0, 2, 3, 1)
+
+
+class AveragePooling2D(_Pooling2D):
+    """The sum over each zero-padded window divided by the full pool size,
+    as the JAX layer does (``count_include_pad`` with XLA's asymmetric
+    SAME padding, hence the explicit pad)."""
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        y = F.avg_pool2d(_nchw(x, self._pads(x), 0.0), self.pool_size,
+                         self.strides)
+        return y.permute(0, 2, 3, 1)
+
+
+class GlobalAveragePooling2D(Layer):
+    """Mean over height and width: (B, H, W, C) → (B, C)."""
+
+    def build(self, in_shape, generator, device):
+        return (in_shape[-1],)
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return x.mean(dim=(1, 2))
+
+
+class Flatten(Layer):
+    """(B, ...) → (B, prod(...)) in the activations' logical NHWC order,
+    so the Dense after it reads the JAX package's feature order."""
+
+    def build(self, in_shape, generator, device):
+        return (math.prod(in_shape),)
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return x.reshape(x.shape[0], -1)
+
+
+class Reshape(Layer):
+    """(B, ...) → (B, *target_shape)."""
+
+    def __init__(self, target_shape: Sequence[int]):
+        super().__init__()
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def build(self, in_shape, generator, device):
+        if math.prod(in_shape) != math.prod(self.target_shape):
+            raise ValueError(
+                f"Cannot reshape {tuple(in_shape)} to {self.target_shape}")
+        return self.target_shape
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+
+class Activation(Layer):
+    """An activation by name, as a layer of its own."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        self.activation = activation
+
+    def build(self, in_shape, generator, device):
+        return tuple(in_shape)
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return _apply_activation(self.activation, x)
+
+
+class _RunningStats(nn.Module):
+    """BatchNormalization's running statistics, the JAX params dict's
+    ``"stats"`` entry: buffers ``mean`` (zeros) and ``var`` (ones),
+    carried by the train step and never trained."""
+
+    def __init__(self, channels: int, device):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
+
+
+class BatchNormalization(Layer):
+    """Batch norm over the trailing (channel) dim: f32 arithmetic, biased
+    batch variance, result cast back to the input dtype.
+
+    In train mode it normalizes with the batch statistics; through
+    :meth:`apply_with_stats` it also returns Keras's EMA of the running
+    statistics, ``momentum · moving + (1 − momentum) · batch``, which the
+    train step writes back after the update (``Sequential.forward(...,
+    stats_out=)`` collects them, ``Sequential.merge_stats`` writes them).
+    In eval mode it normalizes with the running statistics."""
+
+    def __init__(self, momentum: float = 0.99, epsilon: float = 1e-3):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+
+    def build(self, in_shape, generator, device):
+        c = in_shape[-1]
+        self.scale = _param(torch.ones(c), device)
+        self.offset = _param(torch.zeros(c), device)
+        self.stats = _RunningStats(c, device)
+        return tuple(in_shape)
+
+    def _norm(self, x, train: bool):
+        """(y, new statistics); the statistics are None in eval mode."""
+        x32 = x.to(torch.float32)
+        new_stats = None
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            mean = x32.mean(dim=axes)
+            var = x32.var(dim=axes, correction=0)
+            with torch.no_grad():  # the JAX stop_gradient
+                m = self.momentum
+                new_stats = {
+                    "mean": m * self.stats.mean + (1.0 - m) * mean,
+                    "var": m * self.stats.var + (1.0 - m) * var}
+        else:
+            mean, var = self.stats.mean, self.stats.var
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        y = y * self.scale + self.offset
+        return y.to(x.dtype), new_stats
+
+    def forward(self, x, compute_dtype=torch.bfloat16, train=False,
+                generator=None):
+        return self._norm(x, train)[0]
+
+    def apply_with_stats(self, x, compute_dtype=torch.bfloat16):
+        """The train-mode forward and the EMA-updated running statistics
+        (``{"mean": ..., "var": ...}``)."""
+        return self._norm(x, True)

@@ -68,18 +68,41 @@ class Sequential(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                segment_ids=None) -> torch.Tensor:
+                segment_ids=None,
+                stats_out: Optional[dict] = None) -> torch.Tensor:
         """The forward pass.  ``train`` turns on dropout, with masks drawn
-        from ``generator`` (on ``x``'s device).  ``segment_ids`` (sequence
-        packing) is refused until packing is ported."""
+        from ``generator`` (on ``x``'s device), and batch statistics in
+        BatchNormalization.  ``stats_out``: an optional dict that a train
+        forward fills with ``{layer_index: new_stats}`` for the layers that
+        carry statistics (BatchNorm), for :meth:`merge_stats` after the
+        update.  ``segment_ids`` (sequence packing) is refused until
+        packing is ported."""
         if segment_ids is not None:
             raise NotImplementedError(
                 "segment_ids (sequence packing, data/packing.py) is not "
                 "ported yet")
         cdtype = torch_dtype(self.compute_dtype)
-        for layer in self.layers:
-            x = layer(x, cdtype, train=train, generator=generator)
+        for i, layer in enumerate(self.layers):
+            if (train and stats_out is not None
+                    and hasattr(layer, "apply_with_stats")):
+                x, stats_out[i] = layer.apply_with_stats(x, cdtype)
+            else:
+                x = layer(x, cdtype, train=train, generator=generator)
         return x
+
+    @torch.no_grad()
+    def merge_stats(self, stats: dict) -> "Sequential":
+        """Write ``{layer_index: new_stats}`` (from ``forward(...,
+        stats_out=)``) into the layers' running statistics, in place;
+        trained parameters are left as they are."""
+        for i, new in stats.items():
+            for name, value in new.items():
+                getattr(self.layers[i].stats, name).copy_(value)
+        return self
+
+    def has_stats(self) -> bool:
+        return any(hasattr(layer, "apply_with_stats")
+                   for layer in self.layers)
 
     def predict(self, x, batch_size: int = 512) -> np.ndarray:
         """Batched inference over host rows (used by ModelPredictor):
@@ -118,16 +141,20 @@ class Sequential(nn.Module):
             device=device, generator=generator)
 
     def get_weights(self) -> List[np.ndarray]:
-        """Flat list of numpy arrays in JAX pytree leaf order."""
-        return [p.detach().cpu().numpy() for _, p in jax_leaves(self)]
+        """Flat list of numpy arrays in JAX pytree leaf order: copies, so
+        later in-place updates of the model leave them as they are (the
+        JAX package's arrays are immutable)."""
+        return [np.array(p.detach().cpu()) for _, p in jax_leaves(self)]
 
     def set_weights(self, weights: Sequence[np.ndarray]) -> "Sequential":
         return load_jax_weights(self, weights)
 
 
-def jax_leaves(model: Sequential) -> Iterator[Tuple[str, nn.Parameter]]:
-    """(path, parameter) pairs in the order of the JAX package's
-    ``get_weights``: layer by layer, each layer's dict keys sorted."""
+def jax_leaves(model: Sequential) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path, tensor) pairs in the order of the JAX package's
+    ``get_weights``: layer by layer, each layer's dict keys sorted.  The
+    tensors are the parameters and BatchNorm's running statistics
+    (buffers, which need no gradient)."""
     for i, layer in enumerate(model.layers):
         yield from layer_leaves(layer, f"{i}/")
 

@@ -7,6 +7,12 @@ function over the model's own parameters (updated in place) and the
 epoch runner is a Python loop over the stacked batches, which live on the
 model's device for the whole epoch.  The losses of an epoch stay on the
 device until the epoch ends, so a step waits for nothing on the host.
+
+BatchNormalization's running statistics ride along as in the JAX step: the
+loss functions return them as an aux (``{layer_index: new_stats}``), the
+update rule sees a zero gradient for them (they are masked out of it, so
+they keep that zero update), and the step writes the new statistics into
+the model after the update.
 """
 
 from __future__ import annotations
@@ -35,31 +41,50 @@ def model_params(model: Sequential) -> Dict[str, torch.Tensor]:
     return dict(jax_leaves(model))
 
 
+def _gradients(value: torch.Tensor, params) -> list:
+    """d value / d p for every tensor of ``params``: zeros for one that
+    needs no gradient (BatchNorm's running statistics) or that the value
+    does not reach, as ``jax.grad`` gives."""
+    trainable = [p for p in params if p.requires_grad]
+    found = iter(torch.autograd.grad(value, trainable, allow_unused=True))
+    grads = [next(found) if p.requires_grad else None for p in params]
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def make_loss_fn(model: Sequential, loss) -> Callable:
-    """(x, y, generator) -> the loss of a train-mode forward.  (The JAX
-    step's BatchNorm statistics aux arrives with BatchNormalization.)"""
+    """(x, y, generator) -> (loss, stats_aux): the loss of a train-mode
+    forward, and the ``{layer_index: new_stats}`` dict of EMA-updated
+    BatchNorm running statistics (empty for stat-free models)."""
     loss_fn = get_loss(loss)
 
     def compute(x, y, generator=None):
-        return loss_fn(y, model(x, train=True, generator=generator))
+        stats: dict = {}
+        pred = model(x, train=True, generator=generator, stats_out=stats)
+        return loss_fn(y, pred), stats
 
     return compute
 
 
 def make_masked_loss_fn(model: Sequential, loss) -> Callable:
-    """(x, y, w, generator[, seg]) -> masked-mean loss.
+    """(x, y, w, generator[, seg]) -> (masked-mean loss, stats_aux).
 
     ``w`` is a per-example weight vector (1 real, 0 padding): the loss is
     Σ wᵢ·lossᵢ / max(Σ w, 1), so padded examples contribute exactly zero to
-    value and gradient.  ``seg`` (sequence packing) is refused by the
+    value and gradient (the tail batch is wrap-padded with real rows, which
+    keeps BatchNorm's batch statistics sane).  ``stats_aux`` as in
+    :func:`make_loss_fn`.  ``seg`` (sequence packing) is refused by the
     model's forward until packing is ported."""
     per_ex = per_example(get_loss(loss))
 
     def compute(x, y, w, generator=None, seg=None):
-        pred = model(x, train=True, generator=generator, segment_ids=seg)
+        stats: dict = {}
+        pred = model(x, train=True, generator=generator, segment_ids=seg,
+                     stats_out=stats)
         losses = per_ex(y, pred)
         w = w.to(torch.float32)
-        return torch.sum(losses * w) / torch.clamp(torch.sum(w), min=1.0)
+        return (torch.sum(losses * w) / torch.clamp(torch.sum(w), min=1.0),
+                stats)
 
     return compute
 
@@ -70,14 +95,16 @@ def make_masked_step(model: Sequential, loss, tx: opt_lib.Transform
 
     (state, x, y, w, generator[, seg]) -> (state, loss, wsum), with ``w``
     a host (numpy) weight vector.  The gradient is taken with respect to
-    the model's parameters, the update rule runs on it, and the update is
-    added to the parameters in place.
+    the model's parameters, the update rule runs on it, the update is
+    added to the parameters in place, and BatchNorm's new running
+    statistics are written after it.
 
     A fully padded batch (wsum == 0) is a TRUE no-op: the masked loss
     gives zero gradient, but e.g. Adam still moves parameters on a zero
-    gradient (decayed momentum over sqrt(v)), so the parameters and the
-    optimizer state are left as they were.  ``w`` comes from the host, so
-    that decision needs no wait for the device.
+    gradient (decayed momentum over sqrt(v)), so the parameters, the
+    optimizer state and the running statistics are left as they were.
+    ``w`` comes from the host, so that decision needs no wait for the
+    device.
     """
     compute = make_masked_loss_fn(model, loss)
 
@@ -85,18 +112,40 @@ def make_masked_step(model: Sequential, loss, tx: opt_lib.Transform
         w = np.asarray(w, dtype=np.float32)
         wsum = float(w.sum())
         params = list(state.params.values())
-        value = compute(x, y, torch.as_tensor(w, device=x.device),
-                        generator, seg)
-        grads = torch.autograd.grad(value, params, allow_unused=True)
+        value, stats = compute(x, y, torch.as_tensor(w, device=x.device),
+                               generator, seg)
+        grads = _gradients(value, params)
         opt_state = state.opt_state
         if wsum > 0.0:
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(params, grads)]
             with torch.no_grad():
                 updates, opt_state = tx.update(grads, opt_state, params)
                 opt_lib.apply_updates(params, updates)
+            model.merge_stats(stats)
         return (TrainState(state.params, opt_state, state.step + 1),
                 value.detach(), wsum)
+
+    return step
+
+
+def make_train_step(model: Sequential, loss, tx: opt_lib.Transform
+                    ) -> Callable:
+    """The single-device step without a mask: (state, (x, y), generator)
+    -> (state, loss).  The gradient of the train-mode loss, the update
+    rule, the update added in place, then BatchNorm's new running
+    statistics written into the model."""
+    compute = make_loss_fn(model, loss)
+
+    def step(state: TrainState, batch, generator=None):
+        x, y = batch
+        params = list(state.params.values())
+        value, stats = compute(x, y, generator)
+        grads = _gradients(value, params)
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, state.opt_state, params)
+            opt_lib.apply_updates(params, updates)
+        model.merge_stats(stats)
+        return (TrainState(state.params, opt_state, state.step + 1),
+                value.detach())
 
     return step
 

@@ -53,6 +53,19 @@
 // - Templated on the head dim padded up to 32, 64, 128 or 256 (padded
 //   columns are zero in shared memory and never stored) and on the dtype
 //   (f32, bf16, f16).
+// - Head dims above 256 (the TPU kernels take any head dim) are tiled,
+//   since whole-D f32 tiles would not fit in the 227 KB a block may have:
+//   with kWide the tiles are 256 columns wide and each block owns one
+//   256-column chunk of its output (dq, or dk and dv; blockIdx.z, ceil(D /
+//   256) chunks).  It builds s and dp by a loop over the D chunks, staging
+//   the operands chunk by chunk through the tiles (in the order of one
+//   pass over D, so every chunk's block computes the same f32 s and dp),
+//   then restages the chunk it owns of the operand it multiplies (k for
+//   dq; q and dO for dk/dv) and writes only its own chunk.  Delta is a
+//   rowsum over all of D read from device memory, as before; chunk 0
+//   writes it.  So s and dp are recomputed once per chunk.  D <= 256 takes
+//   the kWide = false instantiations, in which the chunk loop runs once
+//   and the block's resident tiles are staged once, as before.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,6 +76,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 256;  // tile width above D = 256
 constexpr unsigned kFull = 0xffffffffu;
 
 // dq kernel: 64 q rows per block (8 per warp), 32 keys per tile (one per lane)
@@ -122,7 +136,9 @@ constexpr size_t dkv_smem_bytes() {
                           2 * kDkvBlockK * kDkvBlockQ);
 }
 
-template <typename T, int DP>
+// DP: the tiles' width, the head dim D padded up to a multiple of 32 or,
+// with kWide (D > kChunk), the chunk width kChunk
+template <typename T, int DP, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
@@ -132,6 +148,7 @@ __global__ void __launch_bounds__(kThreads)
                         int H, int Hkv, int D, float scale, int causal,
                         int window) {
   static_assert(DP % 32 == 0, "a lane owns DP / 32 output columns");
+  static_assert(!kWide || DP == kChunk, "wide tiles are one chunk wide");
   constexpr int DC = DP / 32;
   constexpr int R = kDqRows;
   extern __shared__ __align__(16) float smem[];
@@ -148,6 +165,10 @@ __global__ void __launch_bounds__(kThreads)
   const int hk = h / (H / Hkv);
   const int q0 = qt * kDqBlockQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the dq chunk of this block, and the number of D chunks (1 and 1
+  // unless kWide)
+  const int zc = kWide ? (int)blockIdx.z : 0;
+  const int n_dc = kWide ? (D + DP - 1) / DP : 1;
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)Hkv * D;
@@ -160,12 +181,28 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + kv_off;
   const T* vb = v + kv_off;
 
-  for (int i = tid; i < kDqBlockQ * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, p = q0 + r;
-    const bool in = p < S && d < D;
-    Qs[i] = in ? to_f32(qb[(size_t)p * q_stride + d]) : 0.f;
-    dOs[i] = in ? to_f32(dob[(size_t)p * q_stride + d]) : 0.f;
-  }
+  // stage the q and dO columns [d0, d0 + DP)
+  auto stage_q = [&](int d0) {
+    for (int i = tid; i < kDqBlockQ * DP; i += kThreads) {
+      const int r = i / DP, d = i % DP, p = q0 + r;
+      const bool in = p < S && d0 + d < D;
+      Qs[i] = in ? to_f32(qb[(size_t)p * q_stride + d0 + d]) : 0.f;
+      dOs[i] = in ? to_f32(dob[(size_t)p * q_stride + d0 + d]) : 0.f;
+    }
+  };
+  // stage the k (and v) columns [d0, d0 + DP) of the key tile at k0
+  auto stage_kv = [&](int k0, int d0, bool with_v) {
+    for (int i = tid; i < kDqBlockK * DP; i += kThreads) {
+      const int r = i / DP, d = i % DP, kp = k0 + r;
+      const bool in = kp < S && d0 + d < D;
+      Ks[r * (DP + 1) + d] =
+          in ? to_f32(kb[(size_t)kp * kv_stride + d0 + d]) : 0.f;
+      if (with_v)
+        Vs[r * (DP + 1) + d] =
+            in ? to_f32(vb[(size_t)kp * kv_stride + d0 + d]) : 0.f;
+    }
+  };
+  if (!kWide) stage_q(0);
 
   // per-row statistics of the warp's rows: lse, and Delta = rowsum(dO o O)
   // from O as stored, which this block also writes for the dk/dv kernel
@@ -181,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
                     to_f32(ob[(size_t)p * q_stride + d]), part);
     delta_r[r] = warp_sum(part);
     lse_r[r] = p < S ? lse[(size_t)bh * S + p] : 0.f;
-    if (p < S && lane == 0) delta[(size_t)bh * S + p] = delta_r[r];
+    if (p < S && lane == 0 && zc == 0) delta[(size_t)bh * S + p] = delta_r[r];
   }
 
   float acc[R][DC];
@@ -204,39 +241,38 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kDqBlockK;
-    __syncthreads();  // q/dO staged, and every warp is done with the last tile
-    for (int i = tid; i < kDqBlockK * DP; i += kThreads) {
-      const int r = i / DP, d = i % DP, kp = k0 + r;
-      const bool in = kp < S && d < D;
-      Ks[r * (DP + 1) + d] = in ? to_f32(kb[(size_t)kp * kv_stride + d]) : 0.f;
-      Vs[r * (DP + 1) + d] = in ? to_f32(vb[(size_t)kp * kv_stride + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // lane j: s[r] = q[row r] . k[k0 + j], dp[r] = dO[row r] . v[k0 + j]
+    // lane j: s[r] = q[row r] . k[k0 + j], dp[r] = dO[row r] . v[k0 + j],
+    // summed over the D chunks in order (one chunk unless kWide)
     float s[R], dp[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
-    const float* kr = Ks + lane * (DP + 1);
-    const float* vr = Vs + lane * (DP + 1);
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // q/dO staged, and every warp is done with the last tile
+      if (kWide) stage_q(dc * DP);
+      stage_kv(k0, dc * DP, true);
+      __syncthreads();
+
+      const float* kr = Ks + lane * (DP + 1);
+      const float* vr = Vs + lane * (DP + 1);
 #pragma unroll 2
-    for (int d = 0; d < DP; d += 4) {
-      const float k0v = kr[d], k1v = kr[d + 1], k2v = kr[d + 2],
-                  k3v = kr[d + 3];
-      const float v0v = vr[d], v1v = vr[d + 1], v2v = vr[d + 2],
-                  v3v = vr[d + 3];
+      for (int d = 0; d < DP; d += 4) {
+        const float k0v = kr[d], k1v = kr[d + 1], k2v = kr[d + 2],
+                    k3v = kr[d + 3];
+        const float v0v = vr[d], v1v = vr[d + 1], v2v = vr[d + 2],
+                    v3v = vr[d + 3];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * DP + d);
-        const float4 gv = *reinterpret_cast<const float4*>(dow + r * DP + d);
-        s[r] = fmaf(qv.x, k0v, s[r]);
-        s[r] = fmaf(qv.y, k1v, s[r]);
-        s[r] = fmaf(qv.z, k2v, s[r]);
-        s[r] = fmaf(qv.w, k3v, s[r]);
-        dp[r] = fmaf(gv.x, v0v, dp[r]);
-        dp[r] = fmaf(gv.y, v1v, dp[r]);
-        dp[r] = fmaf(gv.z, v2v, dp[r]);
-        dp[r] = fmaf(gv.w, v3v, dp[r]);
+        for (int r = 0; r < R; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qw + r * DP + d);
+          const float4 gv = *reinterpret_cast<const float4*>(dow + r * DP + d);
+          s[r] = fmaf(qv.x, k0v, s[r]);
+          s[r] = fmaf(qv.y, k1v, s[r]);
+          s[r] = fmaf(qv.z, k2v, s[r]);
+          s[r] = fmaf(qv.w, k3v, s[r]);
+          dp[r] = fmaf(gv.x, v0v, dp[r]);
+          dp[r] = fmaf(gv.y, v1v, dp[r]);
+          dp[r] = fmaf(gv.z, v2v, dp[r]);
+          dp[r] = fmaf(gv.w, v3v, dp[r]);
+        }
       }
     }
 
@@ -249,6 +285,11 @@ __global__ void __launch_bounds__(kThreads)
       dsw[r * kDqBlockK + lane] = pr * (dp[r] - delta_r[r]) * scale;
     }
     __syncwarp();
+    if (kWide && zc != n_dc - 1) {  // the tile holds another chunk of k
+      __syncthreads();
+      stage_kv(k0, zc * DP, false);
+      __syncthreads();
+    }
 
     // acc[r][c] += sum_j ds[r][j] * k[j][c * 32 + lane]
 #pragma unroll 2
@@ -280,13 +321,13 @@ __global__ void __launch_bounds__(kThreads)
     if (p >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      const int col = c * 32 + lane;
+      const int col = zc * DP + c * 32 + lane;
       if (col < D) dqb[(size_t)p * q_stride + col] = from_f32<T>(acc[r][c]);
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -295,6 +336,7 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, int S, int H, int Hkv, int D,
                          float scale, int causal, int window) {
   static_assert(DP % 32 == 0, "a lane owns DP / 32 output columns");
+  static_assert(!kWide || DP == kChunk, "wide tiles are one chunk wide");
   constexpr int DC = DP / 32;
   constexpr int KR = kDkvKeys;
   extern __shared__ __align__(16) float smem[];
@@ -312,6 +354,10 @@ __global__ void __launch_bounds__(kThreads)
   const int G = H / Hkv;
   const int k0 = blockIdx.y * kDkvBlockK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the dk/dv chunk of this block, and the number of D chunks (1 and 1
+  // unless kWide)
+  const int zc = kWide ? (int)blockIdx.z : 0;
+  const int n_dc = kWide ? (D + DP - 1) / DP : 1;
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)Hkv * D;
@@ -319,12 +365,16 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + kv_off;
   const T* vb = v + kv_off;
 
-  for (int i = tid; i < kDkvBlockK * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, kp = k0 + r;
-    const bool in = kp < S && d < D;
-    Ks[i] = in ? to_f32(kb[(size_t)kp * kv_stride + d]) : 0.f;
-    Vs[i] = in ? to_f32(vb[(size_t)kp * kv_stride + d]) : 0.f;
-  }
+  // stage the k and v columns [d0, d0 + DP) of this block's keys
+  auto stage_kv = [&](int d0) {
+    for (int i = tid; i < kDkvBlockK * DP; i += kThreads) {
+      const int r = i / DP, d = i % DP, kp = k0 + r;
+      const bool in = kp < S && d0 + d < D;
+      Ks[i] = in ? to_f32(kb[(size_t)kp * kv_stride + d0 + d]) : 0.f;
+      Vs[i] = in ? to_f32(vb[(size_t)kp * kv_stride + d0 + d]) : 0.f;
+    }
+  };
+  if (!kWide) stage_kv(0);
 
   float dk_acc[KR][DC], dv_acc[KR][DC];
 #pragma unroll
@@ -353,45 +403,54 @@ __global__ void __launch_bounds__(kThreads)
     const size_t q_off = ((size_t)b * S * H + h) * D;
     const T* qb = q + q_off;
     const T* dob = dout + q_off;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kDkvBlockQ;
-      __syncthreads();  // k/v staged, and every warp is done with the last tile
+    // stage the q and dO columns [d0, d0 + DP) of the q tile at q0
+    auto stage_q = [&](int q0, int d0) {
       for (int i = tid; i < kDkvBlockQ * DP; i += kThreads) {
         const int r = i / DP, d = i % DP, p = q0 + r;
-        const bool in = p < S && d < D;
-        Qs[r * (DP + 1) + d] = in ? to_f32(qb[(size_t)p * q_stride + d]) : 0.f;
+        const bool in = p < S && d0 + d < D;
+        Qs[r * (DP + 1) + d] =
+            in ? to_f32(qb[(size_t)p * q_stride + d0 + d]) : 0.f;
         dOs[r * (DP + 1) + d] =
-            in ? to_f32(dob[(size_t)p * q_stride + d]) : 0.f;
+            in ? to_f32(dob[(size_t)p * q_stride + d0 + d]) : 0.f;
       }
-      __syncthreads();
-
-      // lane i: s[kk] = q[q0 + i] . k[key0 + kk], dp[kk] = dO[q0 + i] . v[..]
+    };
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * kDkvBlockQ;
+      // lane i: s[kk] = q[q0 + i] . k[key0 + kk], dp[kk] = dO[q0 + i] . v[..],
+      // summed over the D chunks in order (one chunk unless kWide)
       const int p = q0 + lane;
       const float lse_p = p < S ? lse[bh * S + p] : 0.f;
       const float delta_p = p < S ? delta[bh * S + p] : 0.f;
       float s[KR], dp[KR];
 #pragma unroll
       for (int kk = 0; kk < KR; ++kk) s[kk] = dp[kk] = 0.f;
-      const float* qr = Qs + lane * (DP + 1);
-      const float* gr = dOs + lane * (DP + 1);
+      for (int dc = 0; dc < n_dc; ++dc) {
+        __syncthreads();  // k/v staged, and every warp is done with the last tile
+        if (kWide) stage_kv(dc * DP);
+        stage_q(q0, dc * DP);
+        __syncthreads();
+
+        const float* qr = Qs + lane * (DP + 1);
+        const float* gr = dOs + lane * (DP + 1);
 #pragma unroll 2
-      for (int d = 0; d < DP; d += 4) {
-        const float q0v = qr[d], q1v = qr[d + 1], q2v = qr[d + 2],
-                    q3v = qr[d + 3];
-        const float g0v = gr[d], g1v = gr[d + 1], g2v = gr[d + 2],
-                    g3v = gr[d + 3];
+        for (int d = 0; d < DP; d += 4) {
+          const float q0v = qr[d], q1v = qr[d + 1], q2v = qr[d + 2],
+                      q3v = qr[d + 3];
+          const float g0v = gr[d], g1v = gr[d + 1], g2v = gr[d + 2],
+                      g3v = gr[d + 3];
 #pragma unroll
-        for (int kk = 0; kk < KR; ++kk) {
-          const float4 k4 = *reinterpret_cast<const float4*>(kw + kk * DP + d);
-          const float4 v4 = *reinterpret_cast<const float4*>(vw + kk * DP + d);
-          s[kk] = fmaf(q0v, k4.x, s[kk]);
-          s[kk] = fmaf(q1v, k4.y, s[kk]);
-          s[kk] = fmaf(q2v, k4.z, s[kk]);
-          s[kk] = fmaf(q3v, k4.w, s[kk]);
-          dp[kk] = fmaf(g0v, v4.x, dp[kk]);
-          dp[kk] = fmaf(g1v, v4.y, dp[kk]);
-          dp[kk] = fmaf(g2v, v4.z, dp[kk]);
-          dp[kk] = fmaf(g3v, v4.w, dp[kk]);
+          for (int kk = 0; kk < KR; ++kk) {
+            const float4 k4 = *reinterpret_cast<const float4*>(kw + kk * DP + d);
+            const float4 v4 = *reinterpret_cast<const float4*>(vw + kk * DP + d);
+            s[kk] = fmaf(q0v, k4.x, s[kk]);
+            s[kk] = fmaf(q1v, k4.y, s[kk]);
+            s[kk] = fmaf(q2v, k4.z, s[kk]);
+            s[kk] = fmaf(q3v, k4.w, s[kk]);
+            dp[kk] = fmaf(g0v, v4.x, dp[kk]);
+            dp[kk] = fmaf(g1v, v4.y, dp[kk]);
+            dp[kk] = fmaf(g2v, v4.z, dp[kk]);
+            dp[kk] = fmaf(g3v, v4.w, dp[kk]);
+          }
         }
       }
 #pragma unroll
@@ -403,6 +462,11 @@ __global__ void __launch_bounds__(kThreads)
         dsw[kk * kDkvBlockQ + lane] = pr * (dp[kk] - delta_p) * scale;
       }
       __syncwarp();
+      if (kWide && zc != n_dc - 1) {  // the tiles hold another chunk of q, dO
+        __syncthreads();
+        stage_q(q0, zc * DP);
+        __syncthreads();
+      }
 
       // dv[kk][c] += sum_i p[kk][i] * dO[i][c * 32 + lane]
 #pragma unroll 2
@@ -459,7 +523,7 @@ __global__ void __launch_bounds__(kThreads)
     if (kp >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      const int col = c * 32 + lane;
+      const int col = zc * DP + c * 32 + lane;
       if (col < D) {
         dkb[(size_t)kp * kv_stride + col] = from_f32<T>(dk_acc[kk][c]);
         dvb[(size_t)kp * kv_stride + col] = from_f32<T>(dv_acc[kk][c]);
@@ -486,13 +550,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kWide = false>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<DP>();
-  const cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DP>, smem);
+  const cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DP, kWide>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.H, (a.S + kDqBlockQ - 1) / kDqBlockQ);
-  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, a.stream>>>(
+  const dim3 grid(a.B * a.H, (a.S + kDqBlockQ - 1) / kDqBlockQ,
+                  kWide ? (a.D + DP - 1) / DP : 1);
+  flash_bwd_dq_kernel<T, DP, kWide><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.o),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq),
@@ -500,13 +565,14 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kWide = false>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<DP>();
-  const cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, DP>, smem);
+  const cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, DP, kWide>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.Hkv, (a.S + kDkvBlockK - 1) / kDkvBlockK);
-  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, a.stream>>>(
+  const dim3 grid(a.B * a.Hkv, (a.S + kDkvBlockK - 1) / kDkvBlockK,
+                  kWide ? (a.D + DP - 1) / DP : 1);
+  flash_bwd_dkv_kernel<T, DP, kWide><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.H, a.Hkv,
@@ -522,7 +588,8 @@ cudaError_t dispatch_dim(int which, const Args& a) {
   if (a.D <= 64) return which ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
   if (a.D <= 128) return which ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
   if (a.D <= 256) return which ? launch_dkv<T, 256>(a) : launch_dq<T, 256>(a);
-  return cudaErrorInvalidValue;
+  if ((a.D + kChunk - 1) / kChunk > 65535) return cudaErrorInvalidValue;
+  return which ? launch_dkv<T, kChunk, true>(a) : launch_dq<T, kChunk, true>(a);
 }
 
 int dispatch(int which, int dtype, const Args& a) {
@@ -537,7 +604,8 @@ int dispatch(int which, int dtype, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  1 <= D <= 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  D >= 1 (above 256 in
+// ceil(D / 256) chunks, at most 65535).
 // window <= 0 means no window.  lse (from the forward's training form) and
 // delta are f32 (B, H, S); the dq kernel writes delta, the dk/dv kernel
 // reads it, so the dq kernel runs first on the same stream.

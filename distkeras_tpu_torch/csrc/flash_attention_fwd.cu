@@ -45,11 +45,25 @@
 // future or entirely behind the window are never visited (the TPU's
 // _live_kq), which makes windowed attention O(S * window).  Ragged S is
 // masked in the kernel.  The kernel is templated on the head dim padded up
-// to 32, 64, 128 or 256 (any D <= 256 runs: columns past D are zero in
-// shared memory and never written) and on the dtype (f32, bf16, f16).
+// to 32, 64, 128 or 256 (columns past D are zero in shared memory and
+// never written) and on the dtype (f32, bf16, f16).
+//
+// Head dims above 256 (the TPU kernel takes any head dim) are tiled: with
+// kWide the tiles are 256 columns wide and hold one 256-column chunk of
+// q, k and v at a time, since whole-D f32 tiles would not fit in the
+// 227 KB a block may have.  Each block then owns one 256-column chunk of
+// the output (blockIdx.z, ceil(D / 256) chunks): for every key tile it
+// builds the scores by a loop over the D chunks, staging q and k chunk by
+// chunk through the tiles (in the order of one pass over D, so every
+// chunk's block computes the same f32 scores), stages only its own chunk
+// of v, and writes only its own chunk of the output; chunk 0 writes the
+// lse.  So the scores are recomputed once per chunk.  D <= 256 takes the
+// kWide = false instantiation, in which the chunk loop runs once and q is
+// staged once per block, as before.
 // The wrapper (ops/flash_attention.py :: _forward_variant) sends it f32
-// inputs, and 16-bit inputs whose head dim is not a multiple of 8; other
-// 16-bit inputs go to the tensor-core kernel, flash_attention_fwd_sm90.cu.
+// inputs, and 16-bit inputs whose head dim is not a multiple of 8 or is
+// above 256; other 16-bit inputs go to the tensor-core kernel,
+// flash_attention_fwd_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,6 +77,7 @@ constexpr int kBlockK = 32;                    // keys per tile: one per lane
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 8
 constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 256;                    // tile width above D = 256
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -104,14 +119,16 @@ constexpr size_t smem_bytes() {
                           kBlockQ * kBlockK);
 }
 
-// DP: the head dim D padded up to a multiple of 32 (the tiles' width)
-template <typename T, int DP>
+// DP: the tiles' width, the head dim D padded up to a multiple of 32 or,
+// with kWide (D > kChunk), the chunk width kChunk
+template <typename T, int DP, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int S, int H, int Hkv, int D,
                      float scale, int causal, int window) {
   static_assert(DP % 32 == 0, "a lane owns DP / 32 output columns");
+  static_assert(!kWide || DP == kChunk, "wide tiles are one chunk wide");
   constexpr int DC = DP / 32;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                      // [kBlockQ][DP], pre-scaled
@@ -127,6 +144,10 @@ __global__ void __launch_bounds__(kThreads)
   const int hk = h / (H / Hkv);
   const int q0 = qt * kBlockQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the output chunk of this block, and the number of D chunks (1 and 1
+  // unless kWide)
+  const int zc = kWide ? (int)blockIdx.z : 0;
+  const int n_dc = kWide ? (D + DP - 1) / DP : 1;
 
   const size_t q_stride = (size_t)H * D;  // elements from one position to the next
   const size_t kv_stride = (size_t)Hkv * D;
@@ -135,11 +156,16 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + ((size_t)b * S * Hkv + hk) * D;
   T* ob = o + ((size_t)b * S * H + h) * D;
 
-  for (int i = tid; i < kBlockQ * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, p = q0 + r;
-    Qs[i] = p < S && d < D ? to_f32(qb[(size_t)p * q_stride + d]) * scale
-                           : 0.f;
-  }
+  // stage the q columns [d0, d0 + DP), pre-scaled
+  auto stage_q = [&](int d0) {
+    for (int i = tid; i < kBlockQ * DP; i += kThreads) {
+      const int r = i / DP, d = i % DP, p = q0 + r;
+      Qs[i] = p < S && d0 + d < D
+                  ? to_f32(qb[(size_t)p * q_stride + d0 + d]) * scale
+                  : 0.f;
+    }
+  };
+  if (!kWide) stage_q(0);
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DC];
 #pragma unroll
@@ -165,31 +191,39 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
-    __syncthreads();  // q staged, and every warp is done with the last tile
-    for (int i = tid; i < kBlockK * DP; i += kThreads) {
-      const int r = i / DP, d = i % DP, kp = k0 + r;
-      const bool in = kp < S && d < D;
-      Ks[r * (DP + 1) + d] = in ? to_f32(kb[(size_t)kp * kv_stride + d]) : 0.f;
-      Vs[r * DP + d] = in ? to_f32(vb[(size_t)kp * kv_stride + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: lane j holds s[r] = q[row0 + r] . k[k0 + j]
+    // scores: lane j holds s[r] = q[row0 + r] . k[k0 + j], summed over the
+    // D chunks in order (one chunk unless kWide)
     float s[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * (DP + 1);
+    for (int dc = 0; dc < n_dc; ++dc) {
+      const int d0 = dc * DP;
+      __syncthreads();  // q staged, and every warp is done with the last tile
+      if (kWide) stage_q(d0);
+      for (int i = tid; i < kBlockK * DP; i += kThreads) {
+        const int r = i / DP, d = i % DP, kp = k0 + r;
+        const bool in = kp < S && d0 + d < D;
+        Ks[r * (DP + 1) + d] =
+            in ? to_f32(kb[(size_t)kp * kv_stride + d0 + d]) : 0.f;
+        if (dc == zc)  // this block's own chunk of v
+          Vs[r * DP + d] = in ? to_f32(vb[(size_t)kp * kv_stride + d0 + d])
+                              : 0.f;
+      }
+      __syncthreads();
+
+      const float* kr = Ks + lane * (DP + 1);
 #pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      const float k0v = kr[d], k1v = kr[d + 1], k2v = kr[d + 2],
-                  k3v = kr[d + 3];
+      for (int d = 0; d < DP; d += 4) {
+        const float k0v = kr[d], k1v = kr[d + 1], k2v = kr[d + 2],
+                    k3v = kr[d + 3];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * DP + d);
-        s[r] = fmaf(qv.x, k0v, s[r]);
-        s[r] = fmaf(qv.y, k1v, s[r]);
-        s[r] = fmaf(qv.z, k2v, s[r]);
-        s[r] = fmaf(qv.w, k3v, s[r]);
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qw + r * DP + d);
+          s[r] = fmaf(qv.x, k0v, s[r]);
+          s[r] = fmaf(qv.y, k1v, s[r]);
+          s[r] = fmaf(qv.z, k2v, s[r]);
+          s[r] = fmaf(qv.w, k3v, s[r]);
+        }
       }
     }
 
@@ -247,29 +281,30 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      const int col = c * 32 + lane;
+      const int col = zc * DP + c * 32 + lane;
       if (col < D) ob[(size_t)p * q_stride + col] = from_f32<T>(acc[r][c] / denom);
     }
-    if (lse != nullptr && lane == 0) {
+    if (lse != nullptr && lane == 0 && zc == 0) {
       const float safe_m = m[r] == -INFINITY ? 0.f : m[r];
       lse[(size_t)bh * S + p] = safe_m + logf(denom);
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kWide = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int H, int Hkv, int D,
                    float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, DP, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ,
+                  kWide ? (D + DP - 1) / DP : 1);
+  flash_fwd_kernel<T, DP, kWide><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, D, scale,
       causal, window);
@@ -290,12 +325,15 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
     return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
   if (D <= 256)
     return launch<T, 256>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, window, stream);
-  return cudaErrorInvalidValue;
+  if ((D + kChunk - 1) / kChunk > 65535) return cudaErrorInvalidValue;
+  return launch<T, kChunk, true>(q, k, v, o, lse, B, S, H, Hkv, D, scale,
+                                 causal, window, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  1 <= D <= 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  D >= 1 (above 256 in
+// ceil(D / 256) chunks, at most 65535).
 // window <= 0 means no window.  lse: null for the inference form, else a
 // (B, H, S) f32 buffer that the training form fills.
 // Returns the cudaError_t of the launch (0 on success).

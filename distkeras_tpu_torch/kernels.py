@@ -9,6 +9,9 @@ when that is set, e.g. for an installed package), then loaded with
 redone when the source, or a header under ``csrc/`` (``*.cuh``), is newer
 than the library.  A failed build raises; nothing falls back.
 
+It also holds :func:`kernel_operand`, the layout rule that the public
+entry points apply to a kernel's operands before the wrappers check them.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no card.
 """
@@ -22,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import List, Sequence
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = Path(os.environ.get("DISTKERAS_TPU_TORCH_BUILD_DIR")
@@ -32,6 +37,9 @@ KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90",
            "flash_attention_bwd", "flash_attention_bwd_sm90", "fused_ce")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: where every kernel operand must start: the sm90 kernels' TMA tensor maps
+#: and the 16-byte vector loads
+ALIGN_BYTES = 16
 
 
 def source_path(name: str) -> Path:
@@ -95,3 +103,24 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``name`` if needed and load its shared library."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def _needs_copy(t: torch.Tensor) -> bool:
+    """Is ``t`` a CUDA tensor that the kernels cannot read as it lies: not
+    contiguous, or not starting on an ``ALIGN_BYTES`` boundary?
+    (``Tensor.contiguous()`` keeps a misaligned contiguous view, so the
+    address is tested on its own.)"""
+    if t.device.type != "cuda":
+        return False
+    address = (t.untyped_storage().data_ptr()
+               + t.storage_offset() * t.element_size())
+    return not t.is_contiguous() or address % ALIGN_BYTES != 0
+
+
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: a fresh contiguous copy where
+    :func:`_needs_copy` says so (a layout copy; autograd carries a gradient
+    back into the view's shape and strides), else ``t`` itself."""
+    if _needs_copy(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t

@@ -1,7 +1,10 @@
-"""Model zoo, port of ``distkeras_tpu/models/zoo.py``.
-
-Only ``transformer_lm`` is ported so far; the MLP and ConvNet models
-arrive with the ConvNet slice.
+"""Model zoo, port of ``distkeras_tpu/models/zoo.py``: the MNIST MLP and
+ConvNet, the digits MLP and ConvNet, the CIFAR-10 ConvNet, the ATLAS
+Higgs MLP and the causal transformer LM, each the JAX function's stack,
+widths and config JSON.  Each builds its parameters on ``device``
+(``None`` means the CUDA card), drawn from ``generator`` (seed 0 when
+``None``; not the JAX package's numbers: load its weights with
+``load_jax_weights`` to match it).
 """
 
 from __future__ import annotations
@@ -10,10 +13,108 @@ from typing import Optional
 
 import torch
 
-from ..core.layers import (Dense, Embedding, LayerNormalization,
-                           PositionalEmbedding, TransformerBlock)
+from ..core.layers import (Conv2D, Dense, Dropout, Embedding, Flatten,
+                           LayerNormalization, MaxPooling2D,
+                           PositionalEmbedding, Reshape, TransformerBlock)
 from ..core.model import Sequential
 from ..device import DeviceLike
+
+
+def mnist_mlp(compute_dtype: str = "bfloat16", device: DeviceLike = None,
+              generator: Optional[torch.Generator] = None) -> Sequential:
+    """MLP on flat 784-dim MNIST rows: two Dense-500 relu layers and a
+    10-way softmax."""
+    return Sequential([
+        Dense(500, activation="relu"),
+        Dense(500, activation="relu"),
+        Dense(10, activation="softmax"),
+    ], input_shape=(784,), compute_dtype=compute_dtype, name="mnist_mlp",
+        device=device, generator=generator)
+
+
+def mnist_convnet(compute_dtype: str = "bfloat16", device: DeviceLike = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Sequential:
+    """ConvNet on 28x28x1 MNIST, the north-star benchmark model: two
+    Conv-32 and one Conv-64 (3x3, SAME, relu) with 2x2 max pools, Dense-128
+    relu and a 10-way softmax."""
+    return Sequential([
+        Reshape((28, 28, 1)),
+        Conv2D(32, 3, activation="relu"),
+        Conv2D(32, 3, activation="relu"),
+        MaxPooling2D(2),
+        Conv2D(64, 3, activation="relu"),
+        MaxPooling2D(2),
+        Flatten(),
+        Dense(128, activation="relu"),
+        Dense(10, activation="softmax"),
+    ], input_shape=(784,), compute_dtype=compute_dtype,
+        name="mnist_convnet", device=device, generator=generator)
+
+
+def digits_mlp(compute_dtype: str = "bfloat16", device: DeviceLike = None,
+               generator: Optional[torch.Generator] = None) -> Sequential:
+    """MLP on the 64-dim 8x8 digits rows (``data.datasets.load_digits``)."""
+    return Sequential([
+        Dense(128, activation="relu"),
+        Dense(128, activation="relu"),
+        Dense(10, activation="softmax"),
+    ], input_shape=(64,), compute_dtype=compute_dtype, name="digits_mlp",
+        device=device, generator=generator)
+
+
+def digits_convnet(compute_dtype: str = "bfloat16",
+                   device: DeviceLike = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Sequential:
+    """ConvNet on the 8x8x1 digits rows, the conv analogue of
+    ``digits_mlp`` ('same' padding keeps the 8x8 plane from vanishing
+    before the pools)."""
+    return Sequential([
+        Reshape((8, 8, 1)),
+        Conv2D(16, 3, activation="relu", padding="same"),
+        Conv2D(16, 3, activation="relu", padding="same"),
+        MaxPooling2D(2),
+        Conv2D(32, 3, activation="relu", padding="same"),
+        MaxPooling2D(2),
+        Flatten(),
+        Dense(64, activation="relu"),
+        Dense(10, activation="softmax"),
+    ], input_shape=(64,), compute_dtype=compute_dtype,
+        name="digits_convnet", device=device, generator=generator)
+
+
+def cifar10_convnet(compute_dtype: str = "bfloat16",
+                    device: DeviceLike = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Sequential:
+    """Small ConvNet on 32x32x3 CIFAR-10 rows (flat 3072-dim)."""
+    return Sequential([
+        Reshape((32, 32, 3)),
+        Conv2D(32, 3, activation="relu"),
+        Conv2D(32, 3, activation="relu"),
+        MaxPooling2D(2),
+        Conv2D(64, 3, activation="relu"),
+        Conv2D(64, 3, activation="relu"),
+        MaxPooling2D(2),
+        Flatten(),
+        Dense(256, activation="relu"),
+        Dropout(0.5),
+        Dense(10, activation="softmax"),
+    ], input_shape=(3072,), compute_dtype=compute_dtype,
+        name="cifar10_convnet", device=device, generator=generator)
+
+
+def higgs_mlp(compute_dtype: str = "bfloat16", device: DeviceLike = None,
+              generator: Optional[torch.Generator] = None) -> Sequential:
+    """Tabular MLP for ATLAS Higgs signal/background: two Dense-500 relu
+    layers and a 2-way softmax over 28 features."""
+    return Sequential([
+        Dense(500, activation="relu"),
+        Dense(500, activation="relu"),
+        Dense(2, activation="softmax"),
+    ], input_shape=(28,), compute_dtype=compute_dtype, name="higgs_mlp",
+        device=device, generator=generator)
 
 
 def transformer_lm(vocab_size: int = 256, seq_len: int = 128,

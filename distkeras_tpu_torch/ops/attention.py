@@ -10,8 +10,9 @@ gradient the forward with its lse and the dq and dk/dv backward kernels;
 the name is kept so serialized configs interchange with the JAX
 package); ``None`` — the kernels for CUDA self-attention
 (:func:`_cuda_eligible`), else the plain path.  A CUDA call the kernels
-cannot take (a head dim above 256, a dtype other than f32/bf16/f16)
-raises rather than running the plain path unannounced.
+cannot take (a dtype other than f32/bf16/f16) raises rather than running
+the plain path unannounced; a CUDA view they cannot read as it lies
+(strided, or off a 16-byte boundary) is copied for them first.
 
 The decode hooks of the JAX function (``q_offset``, ``kv_length``,
 ``kv_positions``, ``q_positions``, ``segment_ids``) arrive with the decode

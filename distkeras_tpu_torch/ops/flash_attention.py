@@ -11,7 +11,7 @@ Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
   ``csrc/flash_attention_fwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
   products on TMA-fed tiles, bf16 and f16 with D a multiple of 8) and
   ``csrc/flash_attention_fwd.cu`` (``"simt"``: f32 on the CUDA cores, for
-  f32 and any other 16-bit head dim);
+  f32 and any other 16-bit head dim, above 256 included);
 - ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``), in
   two variants chosen by :func:`_backward_variant`:
   ``csrc/flash_attention_bwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
@@ -32,9 +32,17 @@ carried over).  Grouped-query attention reads kv head ``h // (H / Hkv)``
 instead of repeating k and v, and the backward sums dk and dv over the
 query heads of each kv head inside the kernel.
 
-Every wrapper launches its kernel for CUDA tensors (or raises: a head dim
-above 256, a dtype other than f32/bf16/f16, bad shapes, a failed build or
-launch) and runs its plain version only for CPU tensors.  Each counts its
+The SIMT kernels take any head dim: above ``SIMT_HEAD_DIM_CHUNK`` (256)
+their tiles hold one 256-column chunk at a time, and the grid gets one
+block per output chunk on its z axis (each source's header says how).
+
+Every wrapper launches its kernel for CUDA tensors (or raises: a dtype
+other than f32/bf16/f16, bad shapes, a failed build or launch) and runs
+its plain version only for CPU tensors.  The wrappers take contiguous
+operands; the public :func:`flash_attention` first copies a CUDA view
+that is not contiguous, or does not start on a 16-byte boundary, into a
+fresh tensor (``kernels.kernel_operand``: a layout copy, after which the
+kernel still launches).  Each counts its
 launches in a ``launches`` attribute (``flash_attention_backward`` in
 ``dq_launches`` and ``dkv_launches``, one per kernel); the two forward
 wrappers also count them by variant in ``launches_by_variant``, the
@@ -49,12 +57,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..kernels import kernel_operand
 from .attention import validate_window
 
-#: what the kernels are built for: any head dim up to this one (the .cu
-#: files pad it up to 32, 64, 128 or 256), in these dtypes (codes of the C
-#: calls)
-KERNEL_MAX_HEAD_DIM = 256
+#: the SIMT kernels' tile width in the head dim: up to it the .cu files pad
+#: the head dim to 32, 64, 128 or 256; above it they take it in chunks of
+#: this many columns, one block per chunk on the grid's z axis (at most
+#: 65535 chunks)
+SIMT_HEAD_DIM_CHUNK = 256
+#: the largest head dim of the forward's sm90 variant (its wgmma N and TMA
+#: box width)
+SM90_FORWARD_MAX_HEAD_DIM = 256
+#: the dtypes the kernels take (codes of the C calls)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: q rows (both forward variants, dq) and keys (dk/dv) per thread block;
 #: the grid's tile axis holds at most 65535
@@ -119,10 +133,12 @@ def _forward_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel serves these inputs, a rule about the inputs
     alone (no fallback: the chosen kernel launches or raises).  bf16 and
     f16 with a head dim that is a multiple of 8 (the TMA tensor maps need
-    16-byte strides) take ``"sm90"``, the tensor-core kernel; f32, whose
-    2e-5 tolerance TF32 products would break, and any other 16-bit head
-    dim take ``"simt"``, the f32 CUDA-core kernel."""
-    if dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0:
+    16-byte strides) and at most ``SM90_FORWARD_MAX_HEAD_DIM`` take
+    ``"sm90"``, the tensor-core kernel; f32, whose 2e-5 tolerance TF32
+    products would break, and any other 16-bit head dim take ``"simt"``,
+    the f32 CUDA-core kernel."""
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0
+            and head_dim <= SM90_FORWARD_MAX_HEAD_DIM):
         return "sm90"
     return "simt"
 
@@ -291,8 +307,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`_forward_variant` without the lse and counts one launch in
     ``flash_attention.launches`` and one in its variant's entry of
     ``flash_attention.launches_by_variant``; a CPU tensor runs the plain
-    version."""
+    version.  A CUDA operand that is a non-contiguous or misaligned view is
+    first copied into a fresh tensor (gradients come back in the view's
+    shape and strides, through autograd)."""
     window = validate_window(window, causal)
+    q, k, v = kernel_operand(q), kernel_operand(k), kernel_operand(v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, causal, scale, window)
@@ -445,7 +464,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout.contiguous(), *ctx.args)
+            q, k, v, out, lse, kernel_operand(dout), *ctx.args)
         return dq, dk, dv, None, None, None
 
 
@@ -473,9 +492,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if h % k.shape[2]:
         raise ValueError(f"num_heads {h} not divisible by kv heads "
                          f"{k.shape[2]}")
-    if not 1 <= d <= KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel is built for head dims up "
-                         f"to {KERNEL_MAX_HEAD_DIM}, got {d}")
+    if d < 1:
+        raise ValueError(f"flash_attention kernel needs a head dim >= 1, "
+                         f"got {d}")
+    if -(-d // SIMT_HEAD_DIM_CHUNK) > 65535:
+        raise ValueError(f"head dim {d} exceeds the kernel's grid limit of "
+                         f"{65535 * SIMT_HEAD_DIM_CHUNK}")
     if -(-s // _BLOCK) > 65535:
         raise ValueError(f"sequence length {s} exceeds the kernel's grid "
                          f"limit of {65535 * _BLOCK}")

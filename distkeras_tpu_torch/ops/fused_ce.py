@@ -22,7 +22,10 @@ No (T, V) tensor beyond the gradient itself is ever written.
 Each wrapper launches its kernel for CUDA tensors, counting one launch in
 its ``launches`` attribute, or raises (a dtype other than f32/bf16/f16,
 bad shapes, operands on another device, non-contiguous logits, a failed
-build or launch); it runs its plain version only for CPU tensors.
+build or launch); it runs its plain version only for CPU tensors.  The
+public :func:`fused_softmax_cross_entropy` first copies CUDA logits that
+are a non-contiguous or misaligned view into a fresh tensor
+(``kernels.kernel_operand``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from ..kernels import kernel_operand
 
 #: the dtypes the kernels take (codes of the C calls)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -188,7 +193,10 @@ def fused_softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     comes in the logits dtype).  ``block_t`` and ``block_v`` are the TPU
     kernels' tile sizes, accepted so that calls written for the JAX
     function run unchanged; they change no result.  The JAX function's
-    ``interpret`` has no counterpart."""
+    ``interpret`` has no counterpart.  CUDA logits that are a
+    non-contiguous or misaligned view are first copied into a fresh tensor
+    (the gradient comes back in the view's shape and strides)."""
+    logits = kernel_operand(logits)
     labels = as_labels(labels)
     if torch.is_grad_enabled() and logits.requires_grad:
         return FusedCrossEntropyFunction.apply(logits, labels)

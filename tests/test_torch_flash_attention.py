@@ -172,7 +172,8 @@ def test_cuda_self_attention_takes_the_kernel(monkeypatch, d, dtype):
 
 
 @pytest.mark.parametrize("d,dtype,error,match", [
-    (300, torch.bfloat16, ValueError, "head dims up to 256"),
+    # a head dim past the SIMT kernels' 65535 chunks of 256 columns
+    (65535 * 256 + 8, torch.bfloat16, ValueError, "grid limit"),
     (32, torch.float64, TypeError, "one dtype among"),
 ])
 def test_cuda_tensors_the_kernel_cannot_take_raise(monkeypatch, d, dtype,
@@ -248,6 +249,8 @@ def test_kernel_source_and_build_command():
                           "dispatch_dim<__nv_bfloat16>",
                           "dispatch_dim<__half>"):
         assert instantiation in text
-    assert flash_mod.KERNEL_MAX_HEAD_DIM == 256
+    # and takes wider head dims in chunks of 256 columns
+    assert 'launch<T, kChunk, true>' in text
+    assert flash_mod.SIMT_HEAD_DIM_CHUNK == 256
     assert set(flash_mod.KERNEL_DTYPES) == {torch.float32, torch.bfloat16,
                                             torch.float16}

@@ -118,7 +118,8 @@ def test_f32_and_odd_head_dims_launch_the_simt_entry(launcher):
 
 
 @pytest.mark.parametrize("d,dtype,error,match", [
-    (264, torch.bfloat16, ValueError, "head dims up to 256"),
+    # a head dim past the SIMT kernels' 65535 chunks of 256 columns
+    (65535 * 256 + 8, torch.bfloat16, ValueError, "grid limit"),
     (32, torch.float64, TypeError, "one dtype among"),
 ])
 def test_what_no_kernel_takes_raises(launcher, d, dtype, error, match):

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``distkeras_tpu_torch``, and neither
-of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``),
-imports jax or the JAX package; importing the port pulls
+"""The port stands alone: no module of ``distkeras_tpu_torch``, and none
+of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
+``tools/compare_simt_builds.py``), imports jax or the JAX package; importing the port pulls
 in no jax; and its entry points refuse to drop to the CPU when no CUDA
 card is present."""
 
@@ -27,7 +27,8 @@ TINY = dict(vocab_size=16, seq_len=8, d_model=8, num_heads=2,
 def port_files():
     files = sorted((ROOT / "distkeras_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "tools" / "profile_torch_slice.py"]
+                    ROOT / "tools" / "profile_torch_slice.py",
+                    ROOT / "tools" / "compare_simt_builds.py"]
 
 
 def imported_roots(path):

@@ -202,7 +202,9 @@ def test_train_helpers_match_jax():
     assert got[3] == want[3] == 3
     for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a, b)
-    value = make_loss_fn(pm, "mse")(torch.from_numpy(x), torch.from_numpy(y))
+    value, stats = make_loss_fn(pm, "mse")(torch.from_numpy(x),
+                                           torch.from_numpy(y))
+    assert stats == {}  # no BatchNorm: an empty statistics aux, as in JAX
     jvalue, _ = jax_train.make_loss_fn(jm, "mse")(jparams, x, y, None)
     np.testing.assert_allclose(value.detach().numpy(), np.asarray(jvalue),
                                rtol=1e-6)

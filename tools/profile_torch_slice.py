@@ -2,6 +2,7 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
+        [--slices predict,train,parallel,zoo]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -20,7 +21,11 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
   ``ParallelTransformerLM`` of ``chip_smoke.py`` (vocab 32768, d_model
   512, 8 heads, 8 layers, mlp 2048, RoPE, bf16, batch 8 x 2048, adam
   1e-3) on the fused-CE route, with the ``"ring"`` and the ``"ulysses"``
-  schedule, after three warm-up steps, the update rule timed as above.
+  schedule, after three warm-up steps, the update rule timed as above;
+- zoo: one masked ``SingleTrainer`` step of ``mnist_convnet`` in bf16
+  (the north-star MNIST ConvNet of ``chip_smoke.py``'s zoo phase: batch
+  512 of synthetic MNIST rows, adam 1e-3, numpy-seeded weights), after
+  three warm-up steps, the update rule timed as above.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
@@ -28,7 +33,9 @@ of kernel and copy durations on the card; one stream, so they do not
 overlap) and idle share, and the device time by kernel, largest first,
 grouped as the flash kernels (the sm90 and SIMT variants of the forward
 and of the backward's dq and dk/dv kernels apart), the fused
-cross-entropy kernels, matrix products, copies and the rest.  The whole result also goes to ``--out``.  Imports nothing of JAX.
+cross-entropy kernels, convolutions (cuDNN's forward, data- and
+weight-gradient kernels), matrix products, copies and the rest
+(elementwise kernels, pooling, reductions).  The whole result also goes to ``--out``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ def group(name: str) -> str:
             return label
     if "memcpy" in low or "memset" in low:
         return "copy"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "conv"
     if "gemm" in low or "sgemm" in low or "cutlass" in low or "xmma" in low:
         return "matmul"
     return "other"
@@ -145,6 +154,48 @@ def profile_train(form, extra, x, y):
             "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
 
 
+def profile_zoo():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch import (MinMaxTransformer, OneHotTransformer,
+                                     load_jax_weights, mnist_convnet)
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.core.train import (TrainState, make_masked_step,
+                                                model_params)
+    from distkeras_tpu_torch.data import load_mnist
+    batch = chip_smoke.ZOO_BATCH
+    train, _ = load_mnist(n_train=batch, n_test=1)
+    train = OneHotTransformer(10).transform(
+        MinMaxTransformer(0, 1, 0, 255).transform(train))
+    x = torch.as_tensor(train["features"], device="cuda")
+    y = torch.as_tensor(train["label_encoded"], device="cuda")
+    model = mnist_convnet("bfloat16")
+    load_jax_weights(model, chip_smoke._zoo_weights(
+        model, np.random.default_rng(chip_smoke.SEED + 17)))
+    params = model_params(model)
+    cfg = chip_smoke.ZOO_TRAINER
+    tx, opt_state = optimizers.build(cfg["worker_optimizer"], params,
+                                     cfg["learning_rate"])
+    step = make_masked_step(model, cfg["loss"], tx)
+    state = TrainState(params, opt_state, 0)
+    w = np.ones(batch, np.float32)
+    for _ in range(3):
+        state, loss, _ = step(state, x, y, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, x, y, w)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"slice": "zoo_train", "model": "mnist_convnet",
+            "compute_dtype": "bfloat16", "batch_size": batch,
+            "loss": float(loss), **device_summary(prof, wall_ms),
+            "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
+
+
 def update_rule_ms(tx, opt_state, params):
     """Median CUDA-event time of the update rule alone (``tx.update``
     plus the in-place apply) on gradient-sized random tensors."""
@@ -211,7 +262,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "profile_torch_slice.json"))
+    ap.add_argument("--slices", default="predict,train,parallel,zoo",
+                    help="comma-separated: predict, train, parallel, zoo")
     args = ap.parse_args()
+    slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
     import numpy as np
     import chip_smoke
@@ -230,13 +284,19 @@ def main() -> int:
                         device="cuda")
     y = (x.long() + 1) % lm["vocab_size"]
     results = {"card": smi, "torch": torch.__version__, "rows": []}
+    runs = []
     for form, extra in chip_smoke.FORMS.items():
-        for row in (profile_predict(form, extra, data),
-                    profile_train(form, extra, x, y)):
-            results["rows"].append(row)
-            print(json.dumps(row), flush=True)
-    for route in ("fused_ring", "fused_ulysses"):
-        row = profile_parallel(route)
+        if "predict" in slices:
+            runs.append(lambda f=form, e=extra: profile_predict(f, e, data))
+        if "train" in slices:
+            runs.append(lambda f=form, e=extra: profile_train(f, e, x, y))
+    if "parallel" in slices:
+        runs += [lambda r=route: profile_parallel(r)
+                 for route in ("fused_ring", "fused_ulysses")]
+    if "zoo" in slices:
+        runs.append(profile_zoo)
+    for run in runs:
+        row = run()
         results["rows"].append(row)
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
