@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through thirteen
+It drives the port only (no JAX is needed or imported) through fourteen
 phases, each printing JSON lines, and fails with a non-zero exit if any
 phase fails:
 
@@ -102,11 +102,26 @@ phase fails:
     for an epoch (the loss falls); one step of the digits models and of
     a batch-norm stack (finite, the running statistics move); and no
     attention or cross-entropy kernel launched on any of it.
+14. adag: the SPMD engine and the distributed trainers.  The north-star
+    workload at full size (``bench.py:1109-1170``: ``SPMDEngine`` over
+    ``mnist_convnet`` in bf16, adam, algorithm adag, window 12, batch 512,
+    60000 rows, one worker on the card, the epoch on the card): one
+    warm-up epoch, then timed epochs with one host sync at the end, printed
+    as ``examples_per_sec_per_chip_mnist_convnet_adag`` with its ``mfu``
+    (the port's ``flops_per_example`` over ``peak_flops``); the verify
+    recipe through ``ADAG`` (f32 ConvNet, 8 workers on the card, 6 epochs:
+    accuracy >= 0.8); DOWNPOUR, DynSGD, AEASGD, EAMSGD, Averaging and
+    Ensemble with 4 workers (the loss falls); ADAG over a batch-norm stack
+    (the synced statistics reach the center); one f32 ADAG epoch on the
+    card against the port on the CPU within measured bands, and the same
+    epoch streamed onto the card round by round equal to it to the bit; a
+    round-unit checkpoint resume bit-identical to the uninterrupted run; and no
+    attention or cross-entropy kernel launched on any of it.
 
-Then it prints the kernel summary line (each variant of each flash
-kernel with its source and the runs it served, and the SIMT kernels at
-the wide head dim), the ``nvidia-smi`` name
-and power limit line, and last ``{"ok": true, "device": {...}}``.
+Then it prints the north-star line again, the kernel summary line (each
+variant of each flash kernel with its source and the runs it served, and
+the SIMT kernels at the wide head dim), the ``nvidia-smi`` name and power
+limit line, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -283,6 +298,50 @@ ZOO_ACCURACY_MIN = 0.8
 ZOO_BF16_LOSS_BAND, ZOO_BF16_GRAD_BAND = 5e-3, 0.1
 # the other zoo models: one epoch on this many synthetic rows, batch 128
 ZOO_SMALL_ROWS, ZOO_SMALL_BATCH = 4096, 128
+# the north-star workload (bench.py:1109-1170): SPMDEngine over
+# mnist_convnet in bf16, "categorical_crossentropy", adam, algorithm adag,
+# communication_window 12, batch 512, the 60000 MNIST rows scaled by 1/255
+# with one-hot labels, one worker per card (get_mesh()); the epoch lives
+# on the card, one warm-up epoch, then ADAG_EPOCHS timed epochs with one
+# host sync at the end
+ADAG_ROWS, ADAG_BATCH, ADAG_WINDOW, ADAG_EPOCHS = 60000, 512, 12, 5
+# the verify recipe (.claude/skills/verify/SKILL.md) through the trainer:
+# ADAG on mnist_convnet in f32, 8 workers on the one card, batch 32,
+# window 4, 6 epochs, adam 1e-3, on 4096 synthetic rows; accuracy on 256
+# test rows at least the recipe's 0.8
+RECIPE = dict(num_workers=8, batch_size=32, num_epoch=6,
+              communication_window=4, label_col="label_encoded",
+              worker_optimizer="adam", learning_rate=1e-3)
+RECIPE_ROWS, RECIPE_TEST_ROWS = 4096, 256
+# every other algorithm: 4 workers on the card, mnist_mlp in bf16, 2
+# epochs on 4096 rows at batch 64, window 4 (1 for the 'local' trainers).
+# The commits that add the workers' deltas (DOWNPOUR: the sum, DynSGD:
+# 1 + 1/2 + 1/3 + 1/4 of one) take SGD, as the JAX package's tests run
+# them (tests/test_trainers.py:52-58): four summed Adam windows step ~4x
+# Adam's rate and the MLP's loss rose on the card (DOWNPOUR at adam 1e-3:
+# 5.08 -> 12.3) and on the CPU (DynSGD: 1.54 -> 2.02)
+ALGO_ROWS, ALGO_WORKERS, ALGO_EPOCHS = 4096, 4, 2
+ALGO_RUNS = {
+    "DOWNPOUR": dict(communication_window=4, worker_optimizer="sgd",
+                     learning_rate=0.02),
+    "DynSGD": dict(communication_window=4, worker_optimizer="sgd",
+                   learning_rate=0.05),
+    "AEASGD": dict(communication_window=4, worker_optimizer="sgd",
+                   learning_rate=0.05, rho=1.0),
+    "EAMSGD": dict(communication_window=4, learning_rate=0.02, rho=1.0,
+                   momentum=0.9),
+    "AveragingTrainer": dict(worker_optimizer="adam", learning_rate=1e-3),
+    "EnsembleTrainer": dict(worker_optimizer="adam", learning_rate=1e-3),
+}
+# card against CPU: one f32 ADAG epoch (4 workers, mnist_mlp, batch 32,
+# window 4, adam 1e-3, 2048 rows: 4 rounds) from one numpy weight set on
+# the card and through the port on the CPU.  Both compute in f32 (TF32 is
+# off) and differ only in the order of f32 sums: an H100 run read round
+# losses 9.2e-8 apart (relative) and center tensors up to 1.9e-5 of their
+# largest value (Adam's steps on near-zero gradients carry the rounding);
+# the bands are about ten times those
+CARD_CPU_ROWS = 2048
+CARD_CPU_LOSS_BAND, CARD_CPU_PARAM_BAND = 1e-6, 2e-4
 
 
 def emit(obj) -> None:
@@ -1905,6 +1964,299 @@ def phase_zoo(card: str):
     return {"train_s": train_s, "accuracy": accuracy}
 
 
+def _adag_rows(rows):
+    """MNIST rows as bench.py feeds them: features scaled by 1/255,
+    one-hot labels (load_mnist's synthetic stand-in where no mnist.npz is
+    found)."""
+    import numpy as np
+    from distkeras_tpu_torch.data import load_mnist
+    train, _ = load_mnist(n_train=rows)
+    x = np.asarray(train["features"], np.float32) / 255.0
+    y = np.eye(10, dtype=np.float32)[np.asarray(train["label"])]
+    return x, y
+
+
+def _epoch_means(history, epochs):
+    import numpy as np
+    return np.asarray(history, np.float64).reshape(epochs, -1).mean(axis=1)
+
+
+def _adag_north_star(card: str, dev: str):
+    """examples/sec/chip of the north-star workload, bench.py's metric,
+    through the port's SPMDEngine on the card."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import models
+    from distkeras_tpu_torch.data import has_real_data
+    from distkeras_tpu_torch.metrics import flops_per_example, peak_flops
+    from distkeras_tpu_torch.parallel import (SPMDEngine, get_mesh,
+                                              shape_epoch_data)
+    mesh = get_mesh() if dev == "cuda" else get_mesh(devices=[dev])
+    n = mesh.size
+    model = models.mnist_convnet("bfloat16", device=dev)
+    engine = SPMDEngine(model, "categorical_crossentropy", "adam", mesh,
+                        "adag", communication_window=ADAG_WINDOW)
+    x, y = _adag_rows(ADAG_ROWS)
+    xb, yb, mb, rounds = shape_epoch_data(x, y, n, ADAG_WINDOW, ADAG_BATCH)
+    state = engine.init_state(torch.Generator().manual_seed(SEED), (784,))
+    rngs = engine.worker_rngs(SEED)
+    # the whole epoch lives on the card across epochs
+    xb = torch.as_tensor(xb, device=dev)
+    yb = torch.as_tensor(yb, device=dev)
+    state, warm = engine.run_epoch(state, xb, yb, mb, rngs)
+    warm = warm.cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(ADAG_EPOCHS):
+        state, losses = engine.run_epoch(state, xb, yb, mb, rngs)
+    losses = losses.cpu().numpy()  # the one host sync of the timed run
+    seconds = time.perf_counter() - t0
+    eps_per_chip = ADAG_EPOCHS * len(x) / seconds / n
+    kind = torch.cuda.get_device_name(0) if dev == "cuda" else dev
+    flops = flops_per_example(model, backward=True)
+    peak = peak_flops(kind)
+    row = {"metric": "examples_per_sec_per_chip_mnist_convnet_adag",
+           "value": eps_per_chip, "unit": "examples/sec/chip",
+           "mfu": eps_per_chip * flops / peak if peak else None,
+           "platform": "gpu" if dev == "cuda" else dev,
+           "device_kind": kind,
+           "data": "real" if has_real_data("mnist") else "synthetic",
+           "compute_dtype": "bfloat16", "batch": ADAG_BATCH,
+           "window": ADAG_WINDOW, "rows": len(x), "workers": n,
+           "rounds_per_epoch": rounds, "epochs_timed": ADAG_EPOCHS,
+           "seconds": seconds, "flops_per_example": flops,
+           "warmup_epoch_loss": [float(warm[0]), float(warm[-1])],
+           "last_epoch_loss": [float(losses[0]), float(losses[-1])],
+           "card": card}
+    emit({"phase": "adag", **row})
+    check(np.isfinite(warm).all() and np.isfinite(losses).all(),
+          "adag north star: non-finite loss")
+    check(losses.mean() < warm[0], f"adag north star: the loss did not "
+          f"fall ({warm[0]} -> {losses.mean()})")
+    return row
+
+
+def _adag_recipe(card: str, dev: str):
+    """The verify recipe through the ADAG trainer, 8 workers on the
+    card: MinMax -> OneHot -> ADAG -> ModelPredictor -> LabelIndex ->
+    Accuracy."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (ADAG, AccuracyEvaluator,
+                                     LabelIndexTransformer,
+                                     MinMaxTransformer, ModelPredictor,
+                                     OneHotTransformer, models)
+    from distkeras_tpu_torch.data import load_mnist
+    from distkeras_tpu_torch.parallel import get_mesh
+    train, test = load_mnist(n_train=RECIPE_ROWS, n_test=RECIPE_TEST_ROWS)
+    scale = MinMaxTransformer(0, 1, 0, 255)
+    train, test = scale.transform(train), scale.transform(test)
+    train = OneHotTransformer(10).transform(train)
+    t = ADAG(models.mnist_convnet("float32", device=dev),
+             mesh=get_mesh(RECIPE["num_workers"], devices=[dev] * 8),
+             **{k: v for k, v in RECIPE.items() if k != "num_workers"})
+    t0 = time.perf_counter()
+    fitted = t.train(train)
+    seconds = time.perf_counter() - t0
+    accuracy = AccuracyEvaluator().evaluate(LabelIndexTransformer().transform(
+        ModelPredictor(fitted, device=dev).predict(test)))
+    epochs = _epoch_means(t.get_history(), RECIPE["num_epoch"])
+    emit({"phase": "adag_recipe", "model": "mnist_convnet",
+          "compute_dtype": "float32", "rows": RECIPE_ROWS,
+          "test_rows": RECIPE_TEST_ROWS, **RECIPE,
+          "rounds": len(t.get_history()), "epoch_mean_loss": epochs.tolist(),
+          "accuracy": accuracy, "train_s": seconds, "card": card})
+    check(np.isfinite(epochs).all() and epochs[-1] < epochs[0],
+          f"adag recipe: the loss did not fall ({epochs.tolist()})")
+    check(accuracy >= ZOO_ACCURACY_MIN, f"adag recipe: accuracy {accuracy} "
+          f"below {ZOO_ACCURACY_MIN}")
+    return accuracy
+
+
+def _adag_algorithms(card: str, dev: str):
+    """DOWNPOUR, DynSGD, AEASGD, EAMSGD, Averaging and Ensemble, 4
+    workers on the card: the loss is finite and falls; then ADAG over a
+    batch-norm stack, whose statistics reach the center."""
+    import numpy as np
+    import torch
+    import distkeras_tpu_torch as port
+    from distkeras_tpu_torch import Dataset, Sequential, models
+    from distkeras_tpu_torch.core import layers as L
+    from distkeras_tpu_torch.parallel import get_mesh
+    x, y = _adag_rows(ALGO_ROWS)
+    data = Dataset({"features": x, "label_encoded": y})
+    common = dict(batch_size=64, num_epoch=ALGO_EPOCHS,
+                  label_col="label_encoded")
+    out = {}
+    for name, kw in ALGO_RUNS.items():
+        t = getattr(port, name)(
+            models.mnist_mlp("bfloat16", device=dev),
+            mesh=get_mesh(ALGO_WORKERS, devices=[dev] * ALGO_WORKERS),
+            **common, **kw)
+        t0 = time.perf_counter()
+        result = t.train(data)
+        seconds = time.perf_counter() - t0
+        epochs = _epoch_means(t.get_history(), ALGO_EPOCHS)
+        members = len(result) if isinstance(result, list) else 1
+        emit({"phase": "adag_algorithm", "trainer": name,
+              "model": "mnist_mlp", "compute_dtype": "bfloat16",
+              "workers": ALGO_WORKERS, "rows": ALGO_ROWS, **common, **kw,
+              "rounds": len(t.get_history()), "members": members,
+              "epoch_mean_loss": epochs.tolist(), "train_s": seconds,
+              "card": card})
+        check(np.isfinite(epochs).all() and epochs[-1] < epochs[0],
+              f"adag {name}: the loss did not fall ({epochs.tolist()})")
+        out[name] = epochs.tolist()
+
+    net = Sequential([L.Reshape((28, 28, 1)), L.Conv2D(8, 3),
+                      L.BatchNormalization(), L.MaxPooling2D(2), L.Flatten(),
+                      L.Dense(10, activation="softmax")],
+                     input_shape=(784,), compute_dtype="bfloat16",
+                     device=dev)
+    t = port.ADAG(net, mesh=get_mesh(ALGO_WORKERS,
+                                     devices=[dev] * ALGO_WORKERS),
+                  communication_window=4, worker_optimizer="adam",
+                  learning_rate=1e-3, **{**common, "num_epoch": 1})
+    t.train(data)
+    center, local = t._state.center, t._state.local
+    stats = [k for k in center if "/stats/" in k]
+    initial = {k: (1.0 if k.endswith("var") else 0.0) for k in stats}
+    moved = {k: float((center[k] - initial[k]).abs().max()) for k in stats}
+    synced = all(torch.equal(w[k], center[k]) for w in local for k in stats)
+    finite = all(bool(torch.isfinite(center[k]).all()) for k in stats)
+    emit({"phase": "adag_batchnorm", "stats": stats,
+          "moved_from_init_max": moved, "workers_equal_center": synced,
+          "finite": finite, "rounds": len(t.get_history()),
+          "last_loss": t.get_history()[-1], "card": card})
+    check(len(stats) == 2 and finite and all(v > 0 for v in moved.values()),
+          f"adag batchnorm: the center's statistics did not move ({moved})")
+    check(synced, "adag batchnorm: a worker's statistics differ from the "
+          "center's after the sync")
+    return out
+
+
+def _adag_card_vs_cpu(card: str, dev: str):
+    """One f32 ADAG epoch (4 workers, mnist_mlp) from one numpy weight set,
+    on the card and through the port on the CPU; on the card also streamed
+    round by round (``run_epoch_streaming`` over ``round_stream``, pinned
+    non-blocking copies), which must equal ``run_epoch`` to the bit."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, models
+    from distkeras_tpu_torch.data.pipeline import round_stream
+    from distkeras_tpu_torch.parallel import (SPMDEngine, get_mesh,
+                                              shape_epoch_data)
+    x, y = _adag_rows(CARD_CPU_ROWS)
+    weights = _zoo_weights(models.mnist_mlp("float32", device="meta"),
+                           np.random.default_rng(SEED + 23))
+    xb, yb, mb, rounds = shape_epoch_data(x, y, 4, 4, 32)
+    runs = {}
+    for key, where in (("card", dev), ("cpu", "cpu"), ("stream", dev)):
+        # a fresh model each time: a run leaves a worker's params in it
+        model = load_jax_weights(models.mnist_mlp("float32", device=where),
+                                 weights)
+        engine = SPMDEngine(model, "categorical_crossentropy", "adam",
+                            get_mesh(4, devices=[where] * 4), "adag",
+                            communication_window=4, learning_rate=1e-3)
+        state, rngs = engine.init_state(), engine.worker_rngs(SEED)
+        if key == "stream":
+            state, losses = engine.run_epoch_streaming(
+                state, round_stream(x, y, 4, 4, 32), rngs)
+        else:
+            state, losses = engine.run_epoch(state, xb, yb, mb, rngs)
+            losses = losses.cpu().numpy()
+        runs[key] = (losses, {k: v.cpu().numpy()
+                              for k, v in state.center.items()})
+    (l_card, c_card), (l_cpu, c_cpu) = runs["card"], runs["cpu"]
+    l_stream, c_stream = runs["stream"]
+    stream_same = (np.array_equal(l_stream, l_card)
+                   and all(np.array_equal(c_stream[k], c_card[k])
+                           for k in c_card))
+    loss_gap = float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu)))
+    param_gap = {k: float(np.max(np.abs(c_card[k] - c_cpu[k]))
+                          / max(float(np.max(np.abs(c_cpu[k]))), 1e-30))
+                 for k in c_cpu}
+    worst = max(param_gap, key=param_gap.get)
+    emit({"phase": "adag_card_vs_cpu", "model": "mnist_mlp",
+          "compute_dtype": "float32", "rounds": rounds,
+          "loss_card": l_card.tolist(), "loss_cpu": l_cpu.tolist(),
+          "loss_gap": loss_gap, "loss_band": CARD_CPU_LOSS_BAND,
+          "param_gap_of_max": param_gap, "param_band": CARD_CPU_PARAM_BAND,
+          "streamed_equals_run_epoch": stream_same, "card": card})
+    check(stream_same, "adag streaming: run_epoch_streaming differs from "
+          "run_epoch on the card")
+    check(loss_gap <= CARD_CPU_LOSS_BAND, f"adag card vs cpu: loss gap "
+          f"{loss_gap} > {CARD_CPU_LOSS_BAND}")
+    check(param_gap[worst] <= CARD_CPU_PARAM_BAND, f"adag card vs cpu: "
+          f"center {worst} off by {param_gap[worst]:.3g} of its max")
+    return loss_gap, param_gap[worst]
+
+
+def _adag_resume(card: str, dev: str):
+    """A round-unit checkpoint resume on the card: ADAG (4 workers,
+    mnist_mlp f32, 8 rounds over 2 epochs) killed after round 7 and
+    resumed gives the uninterrupted run's weights to the bit."""
+    import shutil
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import ADAG, Dataset, models
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.parallel import get_mesh
+    x, y = _adag_rows(1024)
+    data = Dataset({"features": x, "label_encoded": y})
+    kw = dict(batch_size=32, num_epoch=2, communication_window=2,
+              label_col="label_encoded", worker_optimizer="adam",
+              learning_rate=1e-3, seed=3)
+
+    def trainer(**extra):
+        return ADAG(models.mnist_mlp("float32", device=dev),
+                    mesh=get_mesh(4, devices=[dev] * 4), **kw, **extra)
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke", "adag_round_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    full = trainer().train(data, shuffle=True).get_weights()
+    ckpt = dict(checkpoint_dir=ck_dir, checkpoint_unit="round",
+                checkpoint_every=1)
+    first = trainer(**ckpt).train(data, shuffle=True).get_weights()
+    ck = Checkpointer(ck_dir)
+    last = ck.latest_step()
+    os.unlink(ck._path(last))  # a kill after the round before the last
+    resumed_trainer = trainer(**ckpt)
+    resumed = resumed_trainer.train(data, shuffle=True,
+                                    resume=True).get_weights()
+    same_round_mode = all(np.array_equal(a, b) for a, b in zip(full, first))
+    same_resumed = all(np.array_equal(a, b) for a, b in zip(full, resumed))
+    emit({"phase": "adag_resume", "rounds": last,
+          "resumed_rounds": len(resumed_trainer.get_history()),
+          "round_unit_equals_epoch_unit": same_round_mode,
+          "resume_bit_identical": same_resumed, "card": card})
+    check(same_round_mode, "adag resume: the round-unit run differs from "
+          "the epoch-unit run")
+    check(same_resumed and len(resumed_trainer.get_history()) == 1,
+          "adag resume: the resumed run is not bit-identical")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    return same_resumed
+
+
+def phase_adag(card: str, dev: str = "cuda"):
+    """The SPMD engine and the distributed trainers on the card: the
+    north-star workload at full size, the verify recipe, every other
+    algorithm, a batch-norm stack, card against CPU and a streamed epoch,
+    a round-unit resume; no attention or cross-entropy kernel launches on
+    any of it.  ``dev`` is the card; another device only rehearses the
+    phase at a cut size."""
+    _zero_counts()
+    row = _adag_north_star(card, dev)
+    _adag_recipe(card, dev)
+    _adag_algorithms(card, dev)
+    _adag_card_vs_cpu(card, dev)
+    _adag_resume(card, dev)
+    launches = _read_counts()
+    emit({"phase": "adag_launches", "launches": launches})
+    check(not any(launches.values()), f"adag: attention or CE kernel "
+          f"launches {launches}, want none")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1929,6 +2281,7 @@ def main() -> int:
     wide_rows = phase_wide()
     phase_views()
     phase_zoo(smi)
+    north_star = phase_adag(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -2073,6 +2426,7 @@ def main() -> int:
                             "bound_ms": w32["bound_ms"][key],
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
+    emit(north_star)
     emit({"kernels": [
         forward_entry("sm90"),
         forward_entry("simt"),

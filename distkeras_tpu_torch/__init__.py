@@ -9,9 +9,11 @@ flash-attention kernels (``csrc/flash_attention_fwd*.cu`` forward,
 hand-written cross-entropy kernels (``csrc/fused_ce.cu``); and trains and
 serves the ConvNet/MLP zoo (MNIST, digits, CIFAR-10, ATLAS Higgs) through
 ``SingleTrainer`` and ``ModelPredictor`` with the dist-keras transformer
-and evaluator pipeline.  The port imports torch and numpy, never jax and
-nothing of ``distkeras_tpu``.  Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+and evaluator pipeline, and with the dist-keras distributed trainers
+(ADAG, DOWNPOUR, DynSGD, AEASGD, EAMSGD, Averaging, Ensemble) on its SPMD
+engine, with checkpoints and metrics.  The port imports torch and numpy,
+never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
+card unless the caller passes ``device="cpu"``.
 """
 
 from .core import (Activation, AveragePooling2D, BatchNormalization,
@@ -31,7 +33,13 @@ from .evaluators import (AccuracyEvaluator, AUCEvaluator, Evaluator,
 from .models import (cifar10_convnet, digits_convnet, digits_mlp, higgs_mlp,
                      mnist_convnet, mnist_mlp, transformer_lm)
 from .predictors import ModelPredictor, Predictor
-from .trainers import SingleTrainer, Trainer
+from . import checkpoint, metrics, parallel
+from .checkpoint import Checkpointer, make_checkpointer
+from .metrics import MetricsLogger
+from .trainers import (ADAG, AEASGD, DOWNPOUR, EAMSGD,
+                       AsynchronousDistributedTrainer, AveragingTrainer,
+                       DistributedTrainer, DynSGD, EnsembleTrainer,
+                       SingleTrainer, SynchronousDistributedTrainer, Trainer)
 
 __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "Dense", "Dropout", "Embedding", "FittedModel", "Flatten",
@@ -47,4 +55,9 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "LossEvaluator", "TopKAccuracyEvaluator", "cifar10_convnet",
            "digits_convnet", "digits_mlp", "higgs_mlp", "mnist_convnet",
            "mnist_mlp", "transformer_lm", "ModelPredictor", "Predictor",
-           "SingleTrainer", "Trainer"]
+           "SingleTrainer", "Trainer", "DistributedTrainer",
+           "AsynchronousDistributedTrainer", "SynchronousDistributedTrainer",
+           "ADAG", "DOWNPOUR", "DynSGD", "AEASGD", "EAMSGD",
+           "AveragingTrainer", "EnsembleTrainer", "Checkpointer",
+           "make_checkpointer", "MetricsLogger", "checkpoint", "metrics",
+           "parallel"]

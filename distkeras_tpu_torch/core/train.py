@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import host_to_device
 from . import optimizers as opt_lib
 from .losses import get_loss, per_example
 from .model import Sequential, jax_leaves
@@ -104,7 +105,8 @@ def make_masked_step(model: Sequential, loss, tx: opt_lib.Transform
     gradient (decayed momentum over sqrt(v)), so the parameters, the
     optimizer state and the running statistics are left as they were.
     ``w`` comes from the host, so that decision needs no wait for the
-    device.
+    device, and it reaches the card by a copy from pinned memory that does
+    not wait either: a step makes the host wait for nothing.
     """
     compute = make_masked_loss_fn(model, loss)
 
@@ -112,7 +114,8 @@ def make_masked_step(model: Sequential, loss, tx: opt_lib.Transform
         w = np.asarray(w, dtype=np.float32)
         wsum = float(w.sum())
         params = list(state.params.values())
-        value, stats = compute(x, y, torch.as_tensor(w, device=x.device),
+        value, stats = compute(x, y, host_to_device(w, x.device,
+                                                    non_blocking=True),
                                generator, seg)
         grads = _gradients(value, params)
         opt_state = state.opt_state

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -35,3 +36,17 @@ def torch_dtype(name: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unknown compute dtype {name!r}; known: "
                          f"{sorted(_DTYPES)}") from None
+
+
+def host_to_device(a, device: torch.device,
+                   non_blocking: bool = False) -> torch.Tensor:
+    """A host array (or tensor) on ``device``; float64 becomes float32, as
+    the JAX package (64-bit mode off) stores it.  With ``non_blocking`` a
+    copy to a CUDA device goes from pinned memory and does not wait for
+    the card; without it the host waits for the copy."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    if t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    if non_blocking and device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

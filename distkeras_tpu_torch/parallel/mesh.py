@@ -1,4 +1,4 @@
-"""The device mesh of the model-parallel layer, port of the part of
+"""The device meshes of the port, counterpart of the part of
 ``distkeras_tpu/parallel/mesh.py`` that one card needs.
 
 :class:`Mesh` is the counterpart of ``jax.sharding.Mesh``: an array of
@@ -6,8 +6,16 @@ devices with one axis name per dimension, whose ``shape`` maps each name
 to its size.  The port runs the model-parallel programs on one card, where
 every mesh axis has size 1 and every collective over it is the identity:
 :func:`collective` is that identity, and raises for an axis of any other
-size.  Collectives across cards (``torch.distributed``), ``initialize``
-and the ``put_*`` placement helpers wait for ROADMAP queue A item 7.
+size.
+
+:func:`get_mesh` builds the 1-D worker mesh of the distributed trainers
+(axis :data:`WORKER_AXIS`): one worker per visible card by default.  An
+explicit ``devices`` list may name one device N times, the port's
+counterpart of ``--xla_force_host_platform_device_count``: the SPMD engine
+runs such a mesh as N workers on that one device (:func:`worker_device`).
+Collectives across cards (``torch.distributed``), the worker mesh across
+cards, ``initialize`` and the placement helpers (``replicated``,
+``worker_sharded``, ``put_*``) wait for ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from ..device import DeviceLike, resolve_device
 
 #: the axes of ParallelTransformerLM's mesh, in the JAX package's order
 LM_AXES = ("data", "seq", "model")
+#: the one axis of the distributed trainers' mesh
+WORKER_AXIS = "workers"
 
 
 class Mesh:
@@ -80,3 +90,49 @@ def collective(name: str, x, axis_names: Union[str, Sequence[str]],
                 f"{name} over mesh axis {axis!r} of size {n}: collectives "
                 "across cards are not ported yet (ROADMAP queue A item 7)")
     return x
+
+
+def get_mesh(num_workers: Optional[int] = None,
+             axis_name: str = WORKER_AXIS,
+             devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """1-D data-parallel mesh over ``num_workers`` devices.
+
+    ``devices`` defaults to every visible CUDA card (none raises: the port
+    never drops to the CPU); ``num_workers`` defaults to all of them.
+    Fewer workers than devices is allowed; more raises.  Pass ``devices``
+    to run several workers on one device, e.g. ``get_mesh(8,
+    devices=["cpu"] * 8)``."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = list(devices)
+    n = num_workers or len(devs)
+    if n > len(devs):
+        raise ValueError(
+            f"num_workers={n} exceeds the mesh's devices ({len(devs)}); to "
+            f"run {n} workers on one device pass "
+            f"get_mesh({n}, devices=[device] * {n})")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs[:n]
+    return Mesh(arr, (axis_name,))
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` and ``cuda:0`` are, when card
+    0 is the current one)."""
+    index = lambda d: (d.index if d.index is not None
+                       else torch.cuda.current_device()
+                       if d.type == "cuda" else None)
+    return a.type == b.type and index(a) == index(b)
+
+
+def worker_device(mesh: Mesh) -> torch.device:
+    """The one device on which every worker of a worker mesh runs; a mesh
+    whose workers sit on distinct devices raises."""
+    devs = list(mesh.devices.flat)
+    if not all(same_device(d, devs[0]) for d in devs[1:]):
+        raise NotImplementedError(
+            f"a worker mesh over distinct devices {devs}: the SPMD engine "
+            "across cards is not ported yet (ROADMAP queue A item 7)")
+    return devs[0]

@@ -1,15 +1,22 @@
-"""Trainers, port of ``distkeras_tpu/trainers.py``: the ``Trainer`` base
-and ``SingleTrainer``.
+"""Trainers, port of ``distkeras_tpu/trainers.py``: ``SingleTrainer`` and
+the distributed trainers (``ADAG``, ``DOWNPOUR``, ``DynSGD``, ``AEASGD``,
+``EAMSGD``, ``AveragingTrainer``, ``EnsembleTrainer``) on the SPMD engine
+(``parallel/spmd.py``).
 
 The constructor keywords are the JAX package's (``keras_model``,
-``worker_optimizer``, ``loss``, ``batch_size``, ``features_col``,
-``label_col``, ``num_epoch``, ``lr_schedule``, ``gradient_accumulation``,
-``gradient_clip_norm``, early stopping), and ``train(dataset) ->
-FittedModel``, ``get_history()`` and ``get_training_time()`` behave the
-same, plus ``device`` (``None`` means the CUDA card, and raises without
-one).  The distributed trainers (ADAG, DOWNPOUR, AEASGD, EAMSGD, DynSGD,
-Averaging, Ensemble) and their engines arrive with later slices, as do
-sequence packing (``segment_col``) and the Keras adapter.
+``worker_optimizer``, ``loss``, ``num_workers``, ``batch_size``,
+``features_col``, ``label_col``, ``num_epoch``, ``communication_window``,
+``rho``, ``momentum``, ``lr_schedule``, ``gradient_accumulation``,
+``gradient_clip_norm``, early stopping, checkpoints, metrics), and
+``train(dataset) -> FittedModel``, ``get_history()`` and
+``get_training_time()`` behave the same, plus ``device`` (``None`` means
+the CUDA card, and raises without one).  The distributed trainers run on
+a worker mesh (``parallel.get_mesh``): by default one worker per visible
+card; ``mesh=get_mesh(N, devices=[device] * N)`` runs N workers on one
+device.  What waits for later slices raises: the parameter-server engines
+(``execution="host_ps"``/``"process_ps"``, ROADMAP queue A item 6),
+sequence packing (``segment_col``, A5c), the orbax checkpoint backend and
+the Keras adapter.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ from .core.model import FittedModel, Sequential, load_jax_weights
 from .core.train import (TrainState, batch_epoch_arrays, make_epoch_runner,
                          model_params)
 from .data.dataset import Dataset
-from .device import DeviceLike, resolve_device
+from .data.pipeline import num_rounds
+from .device import DeviceLike, host_to_device, resolve_device
+from .parallel import mesh as mesh_lib
+from .parallel import rules
+from .parallel.spmd import DistState, SPMDEngine, shape_epoch_data
 
 
 def _as_model(keras_model) -> Sequential:
@@ -52,15 +63,6 @@ def _require_masked_loss(loss):
             f"segment_col needs a *_masked loss (packed labels mark "
             f"cross-document/padding positions -1), got {loss!r} — use "
             "e.g. 'sparse_categorical_crossentropy_masked_from_logits'")
-
-
-def _on_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host column on the device; float64 becomes float32, as JAX (with
-    64-bit mode off) stores it."""
-    a = np.asarray(a)
-    if a.dtype == np.float64:
-        a = a.astype(np.float32)
-    return torch.as_tensor(a, device=device)
 
 
 class Trainer:
@@ -150,6 +152,15 @@ class Trainer:
             load_jax_weights(model, self._initial_weights)
         return model
 
+    def _model_from(self, params, input_shape) -> Sequential:
+        """A fresh copy of the master model holding ``params`` (path →
+        tensor, the JAX leaf order)."""
+        model = self._initial_params(input_shape)
+        with torch.no_grad():
+            for p, v in zip(model_params(model).values(), params.values()):
+                p.copy_(v)
+        return model
+
     def serialize(self) -> dict:
         """Serialized trained model."""
         if self._fitted is not None:
@@ -167,8 +178,8 @@ class Trainer:
                     "early_stopping_patience needs validation_data passed "
                     "to train()")
             return None
-        xv = _on_device(validation_data[self.features_col], self.device)
-        yv = _on_device(validation_data[self.label_col], self.device)
+        xv = host_to_device(validation_data[self.features_col], self.device)
+        yv = host_to_device(validation_data[self.label_col], self.device)
         loss_fn = get_loss(self.loss)
 
         def val_loss(model: Sequential) -> float:
@@ -180,11 +191,14 @@ class Trainer:
         self._val_bad = 0
         return val_loss
 
-    def _validate_epoch(self, val_fn, model: Sequential, epoch: int) -> bool:
+    def _validate_epoch(self, val_fn, model: Sequential, epoch: int,
+                        metrics=None) -> bool:
         """Record this epoch's validation loss; True → stop now (no
         improvement > min_delta for ``early_stopping_patience`` epochs)."""
         vl = val_fn(model)
         self.validation_history.append(vl)
+        if metrics is not None:
+            metrics.logger.log(kind="val", epoch=epoch, val_loss=vl)
         patience = self.early_stopping_patience
         if patience is None:
             return False
@@ -253,8 +267,8 @@ class SingleTrainer(Trainer):
             ds = cols.shuffle(self.seed + epoch) if shuffle else cols
             xb, yb, mb, _ = batch_epoch_arrays(self.batch_size, ds["x"],
                                                ds["y"])
-            state, losses = runner(state, _on_device(xb, self.device),
-                                   _on_device(yb, self.device), mb,
+            state, losses = runner(state, host_to_device(xb, self.device),
+                                   host_to_device(yb, self.device), mb,
                                    generator)
             self.history.extend(losses.tolist())
             if val_fn is not None and self._validate_epoch(val_fn, model,
@@ -263,3 +277,495 @@ class SingleTrainer(Trainer):
         self._fitted = FittedModel(model)
         self.record_training_stop()
         return self._fitted
+
+
+#: the parameter-server engines of the JAX package, not ported yet
+_PS_ENGINES = ("host_ps", "process_ps")
+
+
+class DistributedTrainer(Trainer):
+    """Base of the multi-worker trainers: the worker count, batch and
+    window, and the ``train()`` lifecycle on the SPMD engine.  The JAX
+    package's ``service()`` (the parameter server's start) maps to the
+    engine's construction here."""
+
+    ALGORITHM = "local"
+    DEFAULT_WINDOW = 5
+
+    def __init__(self, keras_model, num_workers: Optional[int] = None,
+                 batch_size: int = 32, features_col: str = "features",
+                 label_col: str = "label", num_epoch: int = 1,
+                 communication_window: Optional[int] = None,
+                 loss: str = "categorical_crossentropy",
+                 worker_optimizer="sgd", learning_rate=None,
+                 execution: str = "spmd", mesh=None, seed: int = 0,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1,
+                 checkpoint_unit: str = "epoch",
+                 checkpoint_backend: str = "npz",
+                 metrics_path: Optional[str] = None,
+                 wire_dtype: Optional[str] = None,
+                 wire_topk: float = 0.01,
+                 wire_topk_dtype: Optional[str] = None,
+                 lr_schedule=None, gradient_accumulation: int = 1,
+                 gradient_clip_norm: Optional[float] = None,
+                 early_stopping_patience: Optional[int] = None,
+                 early_stopping_min_delta: float = 0.0,
+                 fault_tolerance: bool = False,
+                 fault_injection: Optional[dict] = None,
+                 segment_col: Optional[str] = None,
+                 device: DeviceLike = None):
+        if execution in _PS_ENGINES:
+            raise NotImplementedError(
+                f"execution={execution!r}: the parameter-server engines are "
+                "not ported yet (ROADMAP queue A item 6); use "
+                "execution='spmd'")
+        if execution != "spmd":
+            raise ValueError(f"unknown execution {execution!r}; the port "
+                             "runs execution='spmd'")
+        if segment_col is not None:
+            _require_masked_loss(loss)
+            raise NotImplementedError(
+                "segment_col (sequence packing, data/packing.py) is not "
+                "ported yet (ROADMAP A5c)")
+        if mesh is None:
+            mesh = mesh_lib.get_mesh(
+                num_workers, devices=None if device is None else [device])
+        mesh_device = mesh_lib.worker_device(mesh)
+        if device is not None and not mesh_lib.same_device(
+                resolve_device(device), mesh_device):
+            raise ValueError(f"device={device!r} but the worker mesh is on "
+                             f"{mesh_device}")
+        super().__init__(keras_model, loss, worker_optimizer, learning_rate,
+                         seed, lr_schedule, gradient_accumulation,
+                         gradient_clip_norm, early_stopping_patience,
+                         early_stopping_min_delta, mesh_device)
+        self.mesh = mesh
+        self.num_workers = int(mesh.devices.size)
+        self.batch_size = int(batch_size)
+        self.features_col = features_col
+        self.label_col = label_col
+        self.num_epoch = int(num_epoch)
+        self.communication_window = int(
+            communication_window if communication_window is not None
+            else self.DEFAULT_WINDOW)
+        self.execution = execution
+        # the wire codings of the parameter-server commits: a value the JAX
+        # class refuses is refused with its ValueError; any other coding
+        # is refused as not ported, since the SPMD engine has no wire and
+        # the PS engines are not here (ROADMAP queue A item 6)
+        if wire_topk_dtype is not None and wire_dtype != "topk":
+            raise ValueError(
+                "wire_topk_dtype applies to wire_dtype='topk' only")
+        if wire_dtype == "topk" and not 0.0 < float(wire_topk) <= 1.0:
+            raise ValueError(
+                f"wire_topk must be a density in (0, 1], got {wire_topk}")
+        if wire_topk_dtype not in (None, "bfloat16", "int8"):
+            raise ValueError(
+                "wire_topk_dtype must be None, 'bfloat16' or 'int8', got "
+                f"{wire_topk_dtype!r}")
+        if wire_dtype is not None or float(wire_topk) != 0.01:
+            raise NotImplementedError(
+                "wire_dtype/wire_topk code the parameter-server commits, "
+                "and the PS engines are not ported yet (ROADMAP queue A "
+                "item 6); the SPMD engine has no wire: leave them unset")
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = max(int(checkpoint_every), 1)
+        if checkpoint_unit not in ("epoch", "round"):
+            raise ValueError("checkpoint_unit must be 'epoch' or 'round'")
+        # 'round': checkpoints between rounds, on the global round clock
+        # (DistState.round_idx); 'epoch': between epochs
+        self.checkpoint_unit = checkpoint_unit
+        if checkpoint_backend not in ("npz", "orbax"):
+            raise ValueError("checkpoint_backend must be 'npz' or 'orbax'")
+        if checkpoint_backend == "orbax":
+            raise NotImplementedError(
+                "checkpoint_backend='orbax' is not ported (no orbax in the "
+                "port); use 'npz'")
+        self.checkpoint_backend = checkpoint_backend
+        self.metrics_path = metrics_path
+        # worker death on the PS engines; refused at train() on the SPMD
+        # engine, whose recovery is checkpoint_dir + train(resume=True)
+        self.fault_tolerance = bool(fault_tolerance)
+        self.fault_injection = fault_injection
+        self.metrics: List[dict] = []
+        self._engine: Optional[SPMDEngine] = None
+        self._state: Optional[DistState] = None
+
+    # -- engine lifecycle --------------------------------------------------
+    def _elastic_alpha(self) -> Optional[float]:
+        return None
+
+    def service(self, input_shape) -> SPMDEngine:
+        engine = SPMDEngine(
+            self._initial_params(input_shape), self.loss,
+            self.worker_optimizer, self.mesh, self.ALGORITHM,
+            self.communication_window, self.learning_rate,
+            alpha=self._elastic_alpha(), lr_schedule=self.lr_schedule,
+            schedule_steps=getattr(self, "_schedule_steps", None),
+            gradient_accumulation=self.gradient_accumulation,
+            gradient_clip_norm=self.gradient_clip_norm)
+        self._state = engine.init_state()
+        return engine
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False,
+              validation_data: Optional[Dataset] = None) -> FittedModel:
+        if self.fault_tolerance or self.fault_injection:
+            raise ValueError(
+                "fault_tolerance/fault_injection apply to the PS engines "
+                "(execution='host_ps'/'process_ps'); the SPMD program is "
+                "bulk-synchronous — a lost participant is a lost collective, "
+                "and its recovery story is checkpoint_dir + train("
+                "resume=True)")
+        self.record_training_start()
+        # before any resource (checkpoint directory, metrics file) opens:
+        # a bad validation config must not leak them
+        val_fn = self._setup_validation(validation_data)
+        x = np.asarray(dataset[self.features_col])
+        y = np.asarray(dataset[self.label_col])
+        self._input_shape = x.shape[1:]
+        rpe = num_rounds(len(x), self.num_workers, self.communication_window,
+                         self.batch_size)  # rounds per epoch (constant)
+        # per-worker optimizer updates over the run (the LR-schedule
+        # horizon): rounds × window mini-steps per epoch, ceil-divided by
+        # the accumulation factor
+        self._schedule_steps = -(-rpe * self.communication_window
+                                 * self.num_epoch
+                                 // self.gradient_accumulation)
+        engine = self.service(self._input_shape)
+        self._engine = engine
+        ckpt = None
+        start_epoch = 0
+        skip_rounds = 0  # rounds of start_epoch already done (round unit)
+        if resume and self.checkpoint_dir is None:
+            raise ValueError("train(resume=True) needs checkpoint_dir")
+        if self.checkpoint_dir is not None:
+            from .checkpoint import foreign_checkpoints, make_checkpointer
+            ckpt = make_checkpointer(self.checkpoint_dir,
+                                     self.checkpoint_backend)
+            latest = ckpt.latest_step()
+            if resume and latest is None:
+                foreign = foreign_checkpoints(self.checkpoint_dir,
+                                              self.checkpoint_backend)
+                if foreign:
+                    raise ValueError(
+                        f"resume=True with checkpoint_backend="
+                        f"{self.checkpoint_backend!r}, but "
+                        f"{self.checkpoint_dir} holds steps {foreign} "
+                        "written by the other backend — resuming now would "
+                        "silently retrain from scratch; use the backend "
+                        "that wrote the checkpoints")
+            if resume and latest is not None:
+                # a step number only means what the saving run meant by
+                # it: refuse to read epoch steps as rounds or vice versa
+                meta = ckpt.read_meta(latest)
+                saved_unit = meta.get("unit", "epoch")
+                if meta.get("engine", "spmd") != "spmd" \
+                        or saved_unit != self.checkpoint_unit:
+                    raise ValueError(
+                        f"checkpoint at {self.checkpoint_dir} was saved by "
+                        f"engine={meta.get('engine', 'spmd')!r} with "
+                        f"checkpoint_unit={saved_unit!r}; this trainer is "
+                        f"spmd/{self.checkpoint_unit!r} — resume with the "
+                        "same configuration")
+                if self.checkpoint_unit == "round" and \
+                        meta.get("rounds_per_epoch") not in (None, rpe):
+                    raise ValueError(
+                        f"checkpoint was saved with rounds_per_epoch="
+                        f"{meta['rounds_per_epoch']} but this configuration "
+                        f"gives {rpe} (batch_size/communication_window/"
+                        "dataset size changed) — resume with the same "
+                        "configuration")
+                self._state = engine.put_state(
+                    ckpt.restore(self._state, latest))
+                if self.checkpoint_unit == "round":
+                    # step k = global round clock after k rounds
+                    start_epoch, skip_rounds = divmod(latest, rpe)
+                else:
+                    # step k = state after k epochs
+                    start_epoch = latest
+        from .metrics import EpochMetrics, MetricsLogger
+        # every worker of the mesh runs on one card
+        metrics = EpochMetrics(MetricsLogger(self.metrics_path), num_chips=1)
+        self.metrics = metrics.logger.events
+        rngs = engine.worker_rngs(self.seed + 17)
+        try:
+            for epoch in range(start_epoch, self.num_epoch):
+                t0 = time.time()
+                if shuffle:
+                    # deterministic per-epoch reshuffle
+                    perm = np.random.default_rng(
+                        self.seed + epoch).permutation(len(x))
+                    xe, ye = x[perm], y[perm]
+                else:
+                    xe, ye = x, y
+                xb, yb, mb, rounds = shape_epoch_data(
+                    xe, ye, self.num_workers, self.communication_window,
+                    self.batch_size)
+                xb = host_to_device(xb, self.device)
+                yb = host_to_device(yb, self.device)
+                first = skip_rounds if epoch == start_epoch else 0
+                if self.checkpoint_unit == "round" and ckpt is not None:
+                    # round by round, checkpointable mid-epoch on the
+                    # global round clock; the same rounds as run_epoch.
+                    # The losses stay on the device until the epoch ends.
+                    losses = []
+                    done = self._state.round_idx
+                    for r in range(first, rounds):
+                        self._state, loss = engine.run_round(
+                            self._state, xb[r], yb[r], mb[r], rngs)
+                        losses.append(loss)
+                        done += 1
+                        if done % self.checkpoint_every == 0:
+                            ckpt.save(done, self._state,
+                                      meta={"engine": "spmd",
+                                            "unit": "round",
+                                            "rounds_per_epoch": rpe})
+                    losses = (torch.stack(losses).cpu().numpy()
+                              if losses else np.zeros((0,), np.float32))
+                else:
+                    self._state, losses = engine.run_epoch(
+                        self._state, xb, yb, mb, rngs)
+                    losses = losses.cpu().numpy()
+                self.history.extend(losses.tolist())
+                # every real row trains exactly once (the tail is padded
+                # and masked, not dropped); a resumed partial epoch counts
+                # the real rows of its remaining rounds (mask sum)
+                examples = (len(xe) if first == 0
+                            else int(mb[first:].sum()))
+                metrics.epoch(epoch, examples, time.time() - t0,
+                              float(losses.mean()) if len(losses) else 0.0)
+                if (ckpt is not None and self.checkpoint_unit == "epoch"
+                        and (epoch + 1) % self.checkpoint_every == 0):
+                    ckpt.save(epoch + 1, self._state,
+                              meta={"engine": "spmd", "unit": "epoch"})
+                if val_fn is not None and self._validate_epoch(
+                        val_fn, self._model_from(self._state.center,
+                                                 self._input_shape),
+                        epoch, metrics):
+                    break
+        finally:
+            metrics.logger.close()
+            if ckpt is not None:
+                ckpt.close()
+        self._fitted = FittedModel(self._model_from(self._state.center,
+                                                    self._input_shape))
+        self.record_training_stop()
+        return self._fitted
+
+
+class AsynchronousDistributedTrainer(DistributedTrainer):
+    """Base of the asynchronous family.  On the SPMD engine the async
+    commits execute as deterministic rounds (``parallel/spmd.py``).
+
+    The JAX class's parameter-server knobs (``parallelism_factor``,
+    ``comm_overlap``, ``ps_shards``, ``recovery``, ``elastic``, the lease,
+    server-core, streaming, row-sparse, address and supervision knobs)
+    configure ``execution='host_ps'``/``'process_ps'``, which are not
+    ported (ROADMAP queue A item 6).  Each is checked as the JAX class
+    checks it, and a value the JAX class refuses on the SPMD engine is
+    refused here with the same ``ValueError``.
+    """
+
+    def __init__(self, keras_model, *, parallelism_factor: int = 1,
+                 comm_overlap: Optional[bool] = None, ps_shards: int = 1,
+                 recovery: bool = False, recovery_policy=None,
+                 elastic: bool = False,
+                 lease_windows: Optional[int] = None,
+                 lease_timeout: float = 5.0,
+                 ps_core: str = "event", coalesce: bool = True,
+                 apply_kernel: Optional[str] = None,
+                 stream: bool = False,
+                 horizon_windows: Optional[int] = None,
+                 max_horizons: Optional[int] = None,
+                 row_sparse=None,
+                 ps_bind_host: Optional[str] = None,
+                 ps_advertise_host: Optional[str] = None,
+                 ps_placement: str = "driver",
+                 partition_windows: int = 0,
+                 freeze_deadline: Optional[float] = None,
+                 scratch_dir: Optional[str] = None,
+                 **kw):
+        super().__init__(keras_model, **kw)
+        ps_only = ("applies to the parameter-server engines "
+                   "(execution='host_ps'/'process_ps'); the SPMD engine "
+                   "has no parameter server")
+        refusals = (
+            (int(parallelism_factor) < 1,
+             "parallelism_factor must be >= 1"),
+            (int(parallelism_factor) > 1,
+             "parallelism_factor > 1 requires execution='host_ps' (the "
+             "SPMD engine runs exactly one worker per mesh slot)"),
+            (comm_overlap is not None, f"comm_overlap {ps_only}"),
+            (int(ps_shards) < 1, "ps_shards must be >= 1"),
+            (int(ps_shards) > 1, f"ps_shards > 1 {ps_only}"),
+            (bool(recovery), "recovery=True requires a PS engine; the SPMD "
+             "engine's recovery story is checkpoint_dir + "
+             "train(resume=True)"),
+            (bool(elastic), "elastic=True requires a PS engine; the SPMD "
+             "engine is bulk-synchronous — a lost participant is a lost "
+             "collective"),
+            (lease_windows is not None and int(lease_windows) < 1,
+             "lease_windows must be >= 1"),
+            (float(lease_timeout) <= 0, "lease_timeout must be > 0"),
+            (ps_core not in ("event", "threaded"),
+             f"ps_core must be one of ['event', 'threaded'], got "
+             f"{ps_core!r}"),
+            (apply_kernel not in (None, "numpy", "native", "auto"),
+             f"apply_kernel must be one of (None, 'numpy', 'native', "
+             f"'auto'), got {apply_kernel!r}"),
+            (ps_core != "event" or not coalesce or apply_kernel is not None,
+             f"ps_core/coalesce/apply_kernel {ps_only}"),
+            (bool(stream), "stream=True requires execution='host_ps'"),
+            (horizon_windows is not None and int(horizon_windows) < 1,
+             "horizon_windows must be >= 1"),
+            (horizon_windows is not None,
+             "horizon_windows applies to stream=True"),
+            (max_horizons is not None and int(max_horizons) < 1,
+             "max_horizons must be >= 1"),
+            (max_horizons is not None, "max_horizons applies to stream=True"),
+            (bool(row_sparse), "row_sparse requires execution='host_ps'"),
+            (ps_bind_host == "" or ps_advertise_host == "",
+             "ps_bind_host/ps_advertise_host must be a host string or None "
+             "(empty string is neither bindable nor dialable)"),
+            (ps_bind_host is not None or ps_advertise_host is not None,
+             f"ps_bind_host/ps_advertise_host {ps_only}"),
+            (ps_placement not in ("driver", "process"),
+             f"ps_placement must be 'driver' or 'process', got "
+             f"{ps_placement!r}"),
+            (int(partition_windows) < 0, "partition_windows must be >= 0"),
+            (freeze_deadline is not None and float(freeze_deadline) <= 0,
+             "freeze_deadline must be > 0"),
+            (ps_placement == "process" or freeze_deadline is not None
+             or scratch_dir is not None,
+             "ps_placement='process'/freeze_deadline/scratch_dir apply to "
+             "the supervised cross-process engine — execution='process_ps' "
+             "with elastic=True"),
+            (int(partition_windows) != 0, f"partition_windows {ps_only}"),
+        )
+        for refused, message in refusals:
+            if refused:
+                raise ValueError(message)
+
+
+class SynchronousDistributedTrainer(DistributedTrainer):
+    """Base of the synchronous family (the parallelism factor is 1, as
+    upstream)."""
+
+
+class DOWNPOUR(AsynchronousDistributedTrainer):
+    """DistBelief-style async SGD: workers push raw accumulated deltas
+    every window (default 5) and re-pull the center.  SPMD form: center +=
+    Σᵢ Δᵢ each round."""
+    ALGORITHM = "downpour"
+    DEFAULT_WINDOW = 5
+
+
+class ADAG(AsynchronousDistributedTrainer):
+    """Asynchronous Distributed Adaptive Gradients, the north-star
+    algorithm: window deltas normalized over the commit count before the
+    apply, in bulk-synchronous form the mean of the window deltas (center
+    += Σᵢ Δᵢ / N)."""
+    ALGORITHM = "adag"
+    DEFAULT_WINDOW = 12
+
+
+class DynSGD(AsynchronousDistributedTrainer):
+    """Staleness-aware async SGD: each commit is scaled by
+    1/(staleness+1).  The SPMD form emulates serialized commits with a
+    per-round rotation (see ``parallel/spmd.py``)."""
+    ALGORITHM = "dynsgd"
+    DEFAULT_WINDOW = 5
+
+
+class AEASGD(AsynchronousDistributedTrainer):
+    """Asynchronous Elastic Averaging SGD (Zhang et al. 2015): each worker
+    keeps its own params; every window the elastic force α·(x−x̃), α =
+    learning_rate·rho, is subtracted locally and added to the center."""
+    ALGORITHM = "aeasgd"
+    DEFAULT_WINDOW = 32
+
+    def __init__(self, keras_model, rho: float = 5.0,
+                 learning_rate: float = 0.1, **kw):
+        super().__init__(keras_model, learning_rate=learning_rate, **kw)
+        self.rho = float(rho)
+
+    def _elastic_alpha(self) -> float:
+        lr = self.learning_rate if self.learning_rate is not None else 0.1
+        return self.rho * lr
+
+
+class EAMSGD(AEASGD):
+    """Elastic averaging with Nesterov momentum on the local update
+    (``momentum`` default 0.9): the momentum lives in the worker optimizer
+    (SGD + Nesterov); the elastic exchange is AEASGD's."""
+    ALGORITHM = "eamsgd"
+
+    def __init__(self, keras_model, rho: float = 5.0,
+                 learning_rate: float = 0.1, momentum: float = 0.9, **kw):
+        kw.pop("worker_optimizer", None)
+        super().__init__(
+            keras_model, rho=rho, learning_rate=learning_rate,
+            worker_optimizer=opt_lib.SGD(learning_rate=learning_rate,
+                                         momentum=momentum, nesterov=True),
+            **kw)
+        self.momentum = float(momentum)
+
+
+def _reject_validation_kwargs(kw: dict, name: str) -> None:
+    """The 'local' trainers never update a center model, so validating it
+    per epoch would watch the initial weights: refuse up front."""
+    if kw.get("early_stopping_patience") is not None:
+        raise ValueError(
+            f"{name} trains independent per-worker models (the center "
+            "never moves): per-epoch center validation / early stopping "
+            "does not apply")
+
+
+class AveragingTrainer(DistributedTrainer):
+    """One-shot parameter averaging: each worker trains independently on
+    its shard; the result is the weight average."""
+    ALGORITHM = "local"
+
+    def __init__(self, keras_model, **kw):
+        kw.setdefault("communication_window", 1)
+        _reject_validation_kwargs(kw, type(self).__name__)
+        super().__init__(keras_model, **kw)
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False) -> FittedModel:
+        super().train(dataset, shuffle, resume)
+        self._fitted = FittedModel(self._model_from(
+            rules.average_trees(self._state.local), self._input_shape))
+        return self._fitted
+
+
+class EnsembleTrainer(DistributedTrainer):
+    """k independent models trained side by side, returned as a list."""
+    ALGORITHM = "local"
+
+    def __init__(self, keras_model, num_models: Optional[int] = None, **kw):
+        kw.setdefault("communication_window", 1)
+        if num_models is not None:
+            kw.setdefault("num_workers", num_models)
+        _reject_validation_kwargs(kw, type(self).__name__)
+        super().__init__(keras_model, **kw)
+        self.num_models = self.num_workers
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False) -> List[FittedModel]:
+        super().train(dataset, shuffle, resume)
+        models = [FittedModel(self._model_from(p, self._input_shape))
+                  for p in self._state.local]
+        self._ensemble = models
+        self._fitted = models[0]  # predict-convenience surface only
+        return models
+
+    def serialize(self) -> dict:
+        """All trained members: ``{"ensemble": [blob, ...]}``; rebuild
+        each with ``FittedModel.deserialize``."""
+        if not getattr(self, "_ensemble", None):
+            raise ValueError(
+                "EnsembleTrainer has no fitted models yet; call train() first")
+        return {"ensemble": [m.serialize() for m in self._ensemble]}

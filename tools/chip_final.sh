@@ -1,0 +1,39 @@
+#!/usr/bin/env bash
+# The final check of a tree on the card, run from the root of the repo.
+#
+# Before it runs, unpack the tree to test into build/archive and, for the
+# A/B of one phase, the commit it is compared with into build/parent:
+#
+#   git add -A && mkdir -p build/archive build/parent
+#   git archive "$(git write-tree)" | tar -x -C build/archive
+#   git archive PARENT_COMMIT | tar -x -C build/parent
+#
+# It runs chip_smoke.py from build/archive (the committed files alone),
+# profiles the ADAG round and the zoo step from there, runs the phase named
+# by its argument (default: zoo) in the order parent, change, change,
+# parent, and last runs chip_smoke.py alone in an empty directory, where it
+# must fail.  The logs go to chiprun_out/.
+#
+#   bash tools/chip_final.sh [PHASE]
+set -u
+phase="${1:-zoo}"
+out="$(pwd)/chiprun_out"
+mkdir -p "$out"
+(cd build/archive && python3 chip_smoke.py > "$out/smoke_final.log" 2>&1)
+echo "smoke_rc=$?"
+(cd build/archive && python3 tools/profile_torch_slice.py --slices adag,zoo \
+    --out "$out/profile_final.json" > "$out/profile_final.log" 2>&1)
+echo "prof_rc=$?"
+if [ -d build/parent ]; then
+  : > "$out/${phase}_ab.log"
+  for side in parent archive archive parent; do
+    (cd "build/$side" && python3 -c "import sys; sys.path.insert(0, '.'); \
+import chip_smoke as c; c.phase_$phase('$side')" >> "$out/${phase}_ab.log" 2>&1)
+    echo "$side rc=$?"
+  done
+fi
+rm -rf build/alone && mkdir -p build/alone
+cp build/archive/chip_smoke.py build/alone/
+(cd build/alone && python3 chip_smoke.py > "$out/alone_final.log" 2>&1)
+echo "alone_rc=$?"
+tail -3 "$out/smoke_final.log" | cut -c1-400

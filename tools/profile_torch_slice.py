@@ -2,7 +2,7 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
-        [--slices predict,train,parallel,zoo]
+        [--slices predict,train,parallel,zoo,adag]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -25,7 +25,12 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
 - zoo: one masked ``SingleTrainer`` step of ``mnist_convnet`` in bf16
   (the north-star MNIST ConvNet of ``chip_smoke.py``'s zoo phase: batch
   512 of synthetic MNIST rows, adam 1e-3, numpy-seeded weights), after
-  three warm-up steps, the update rule timed as above.
+  three warm-up steps, the update rule timed as above;
+- adag: one round of the north-star ADAG workload of ``chip_smoke.py``'s
+  adag phase (``SPMDEngine`` over ``mnist_convnet`` in bf16, one worker
+  on the card, ``communication_window`` 12 steps of batch 512 of the
+  synthetic MNIST rows, adam, then the exchange with the center), after
+  two warm-up rounds, the update rule timed as above.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
@@ -196,6 +201,43 @@ def profile_zoo():
             "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
 
 
+def profile_adag():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch import mnist_convnet
+    from distkeras_tpu_torch.parallel import (SPMDEngine, get_mesh,
+                                              shape_epoch_data)
+    window, batch = chip_smoke.ADAG_WINDOW, chip_smoke.ADAG_BATCH
+    engine = SPMDEngine(mnist_convnet("bfloat16"),
+                        "categorical_crossentropy", "adam", get_mesh(),
+                        "adag", communication_window=window)
+    x, y = chip_smoke._adag_rows(3 * window * batch)
+    xb, yb, mb, _ = shape_epoch_data(x, y, 1, window, batch)
+    xb = torch.as_tensor(xb, device="cuda")
+    yb = torch.as_tensor(yb, device="cuda")
+    state = engine.init_state(torch.Generator().manual_seed(chip_smoke.SEED),
+                              (784,))
+    rngs = engine.worker_rngs(chip_smoke.SEED)
+    for r in range(2):
+        state, loss = engine.run_round(state, xb[r], yb[r], mb[r], rngs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = engine.run_round(state, xb[2], yb[2], mb[2], rngs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"slice": "adag_round", "model": "mnist_convnet",
+            "compute_dtype": "bfloat16", "workers": engine.num_workers,
+            "window": window, "batch_size": batch, "loss": float(loss),
+            "wall_ms_per_step": wall_ms / window,
+            **device_summary(prof, wall_ms),
+            "optimizer_ms": update_rule_ms(engine.tx, state.opt_state[0],
+                                           engine._params)}
+
+
 def update_rule_ms(tx, opt_state, params):
     """Median CUDA-event time of the update rule alone (``tx.update``
     plus the in-place apply) on gradient-sized random tensors."""
@@ -262,8 +304,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "profile_torch_slice.json"))
-    ap.add_argument("--slices", default="predict,train,parallel,zoo",
-                    help="comma-separated: predict, train, parallel, zoo")
+    ap.add_argument("--slices", default="predict,train,parallel,zoo,adag",
+                    help="comma-separated: predict, train, parallel, zoo, "
+                         "adag")
     args = ap.parse_args()
     slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
@@ -295,6 +338,8 @@ def main() -> int:
                  for route in ("fused_ring", "fused_ulysses")]
     if "zoo" in slices:
         runs.append(profile_zoo)
+    if "adag" in slices:
+        runs.append(profile_adag)
     for run in runs:
         row = run()
         results["rows"].append(row)
