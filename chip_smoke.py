@@ -20,7 +20,9 @@ phase fails:
    the error beside its per-element tolerance, and the kernel's, plain
    version's and ``scaled_dot_product_attention``'s times (a yardstick
    only: the port never calls it) beside the card's bound (bytes,
-   products or one exponential per live pair, whichever is largest); at
+   products or one exponential per live pair, whichever is largest; the
+   products on the units that do them fastest: the dtype's peak, or the
+   TF32 tensor cores in split passes for f32); at
    the slice's and the Ulysses shape in bf16 the SIMT kernel is timed too,
    through the private launcher, so the two variants are compared on one
    card;
@@ -39,14 +41,16 @@ phase fails:
    two backward kernels (dq, dk/dv) against their plain versions on the
    card, at phase 2's shapes in f32, bf16 and f16 with a random dO (the
    backward on the variant its dtype and head dim select: sm90 for
-   16-bit head dims up to 128, SIMT for f32 and wider heads; every sm90
-   pair run twice on the same inputs and bit-identical), with each error
-   beside its per-element tolerance, and the kernels', plain versions'
-   and ``scaled_dot_product_attention`` backward's times (a yardstick
-   only, under each SDPA backend that takes the case, the least kept)
-   beside the card's bound; at the slice's and the Ulysses shape in bf16
-   the SIMT forward and the SIMT backward pair are timed too, as in
-   phase 2;
+   16-bit head dims up to 128, SIMT, the split-TF32 tensor-core pair, for
+   f32 and every other head dim; every pair run twice on the same inputs
+   and bit-identical), with each error beside its per-element tolerance,
+   and the kernels', plain versions' and ``scaled_dot_product_attention``
+   backward's times (a yardstick only, under each SDPA backend that takes
+   the case, the least kept) beside the card's bound (phase 2's rule)
+   and, beside it, the bounds with the products at the f32 CUDA-core peak
+   and in split-TF32 passes at the TF32 tensor-core peak; at the
+   slice's and the Ulysses shape in bf16 the SIMT forward and the SIMT
+   backward pair are timed too, as in phase 2;
 6. memory: forward and backward (the sm90 kernels) at S 8192 allocate
    nothing of size S²;
 7. train: ``SingleTrainer`` trains the full-width LM (both forms, bf16
@@ -82,9 +86,11 @@ phase fails:
     gradients, and so do Ulysses and ring (loss traces 1e-4);
 11. wide: a head dim above 256 (B 2, S 1024, H 4, Hkv 2, D 320, causal,
     f32 and bf16) through ``attention`` forward, backward and inference
-    form, every launch on the SIMT kernels (their 256-column chunks),
-    each kernel against its plain version under phases 2 and 5's rules,
-    with the kernels', plain versions' and SDPA's times beside the bound;
+    form, every launch on the SIMT kernels (the forward's 256-column
+    chunks, the backward's 128-column ones), each kernel against its
+    plain version under phases 2 and 5's rules, the backward pair
+    repeated bit-identically, with the kernels', plain versions' and
+    SDPA's times beside the bounds;
 12. views: q, k, v as ``chunk(3, dim=2)`` of one bf16 projection at the
     serving slice's widths, as contiguous views off a 16-byte boundary,
     and (T, V) logits that are a transpose, through ``attention`` and
@@ -144,9 +150,24 @@ FORMS = {"full": dict(),
          "rolling_window": dict(positional="rope", attention_window=256)}
 ROWS, BATCH = 16, 8
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s, and
-# flop/s by input type: bf16 on the tensor cores, f32 on the CUDA cores
+# flop/s by input type: bf16 on the tensor cores, f32 on the CUDA cores,
+# and the TF32 tensor cores, which take f32 products split into passes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+PEAK_UNIT = {"bfloat16": "tensor_core", "float16": "tensor_core",
+             "float32": "cuda_core"}
+TF32_FLOPS = 495e12
+# the flash kernels' work per live (q, k) pair: products of 2 * D flops of
+# two input operands (s = q.k^T, dp = dO.v^T) and of an f32 p or ds with an
+# input operand (p.v, ds.k, p^T.dO, ds^T.q), and exponentials.  "bwd" is
+# the backward's least work, "bwd_schedule" what the dq + dk/dv pair does
+# (s and dp in both)
+FLASH_WORK = {"fwd": (1, 1, 1), "dq": (2, 1, 1), "dkv": (2, 2, 1),
+              "bwd": (2, 3, 2), "bwd_schedule": (4, 3, 3)}
+# TF32 passes of those two kinds of product, each f32 operand split into
+# hi + lo (a.b = lo.hi + hi.lo + hi.hi): two f32 operands 3; bf16 and f16
+# are exact in TF32, so two 16-bit operands 1, an f32 p or ds with one 2
+TF32_PASSES = {"float32": (3, 3), "bfloat16": (1, 2), "float16": (1, 2)}
 # the flash kernels' third term: one exponential per live (q, k) pair on
 # the MUFU units, 16 ex2 per clock per SM; phase_device sets the rate from
 # the card's SM count and the SM clock that nvidia-smi reports as its
@@ -265,9 +286,24 @@ SIMT_TIMED = ("causal", PLM_ULYSSES_CASE[0])
 # backward (those that refuse a case are left out of it)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
-# a head dim above 256 (the reference's kernel takes any): the SIMT kernels
-# take it in ceil(320 / 256) = 2 chunks of 256 columns.  name, B, S, H,
-# Hkv, D, causal, window
+# phase kernel_train's cases (phase kernel's shapes): name, B, S, H, Hkv, D,
+# causal, window
+KERNEL_TRAIN_CASES = (
+    ("causal", 8, 2048, 8, 2, 32, True, None),
+    ("window256", 8, 2048, 8, 2, 32, True, 256),
+    ("noncausal", 8, 2048, 8, 2, 32, False, None),
+    ("d64", 8, 1024, 8, 2, 64, True, None),
+    ("d128", 8, 1024, 8, 2, 128, True, None),
+    ("ragged200", 8, 200, 8, 2, 32, True, None),
+    # head dims the kernels pad (16 -> 32; 200 -> 256 in the SIMT forward)
+    # or take in chunks (200: two of the SIMT backward's 128 columns)
+    ("d16", 8, 1024, 8, 2, 16, True, None),
+    ("d200", 2, 1000, 8, 2, 200, True, None),
+    PLM_ULYSSES_CASE,
+)
+# a head dim above 256 (the reference's kernel takes any): the SIMT forward
+# takes it in ceil(320 / 256) = 2 chunks of 256 columns, the SIMT backward
+# in ceil(320 / 128) = 3 of 128.  name, B, S, H, Hkv, D, causal, window
 WIDE_CASE = ("d320", 2, 1024, 4, 2, 320, True, None)
 # strided and misaligned views at the public entry points: q, k, v as
 # chunks of one (B, S, 3H, D) projection at the serving slice's widths
@@ -468,7 +504,7 @@ def phase_kernel():
 
             pairs = b * h * live_pairs(s, causal, window)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-            bound = _bound(4 * d * pairs, nbytes, dname, pairs)
+            bound = _flash_bound("fwd", d, pairs, nbytes, dname)
             row = {"phase": "kernel", "case": name, "dtype": dname,
                    "variant": fa._forward_variant(dtype, d),
                    "shape_bshd": [b, s, h, d], "kv_heads": hkv,
@@ -480,7 +516,9 @@ def phase_kernel():
                    "ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    "bound_ms": bound[0], "bound_by": bound[1],
-                   "bound_term": bound[3]}
+                   "bound_term": bound[2],
+                   "bound_ms_f32_cuda_cores": bound[3],
+                   "bound_ms_split_tf32": bound[4]}
             if dname == "bfloat16" and name in SIMT_TIMED:
                 row["simt_ms"] = _simt_forward_ms(q, k, v, causal, window,
                                                   lse=False)
@@ -640,22 +678,36 @@ def _err_share(got, want, dname: str):
     return diff.max().item(), (diff / tol.clamp_min(1e-30)).max().item()
 
 
-def _bound(flops: float, nbytes: float, dname: str, exps: float = 0):
-    """(bound ms at the dtype's peak, what bounds it: "bytes" or
-    "operations", bound ms with the products at the f32 CUDA-core peak,
-    the term that bounds it: "bytes", "tensor_core", "cuda_core" or
-    "exponentials").  The bound is the largest of bytes over the HBM rate,
-    flops over the dtype's peak and ``exps`` exponentials over the MUFU
-    rate (EXP_PER_S)."""
-    unit = "cuda_core" if dname == "float32" else "tensor_core"
+def _bound(flops: float, nbytes: float, peak: float, unit: str,
+           exps: float = 0):
+    """(bound ms, what bounds it: "bytes" or "operations", the term that
+    bounds it: "bytes", ``unit`` or "exponentials"): the largest of bytes
+    over the HBM rate, ``flops`` over ``peak`` flop/s (the rate of
+    ``unit``) and ``exps`` exponentials over the MUFU rate (EXP_PER_S)."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             unit: flops / PEAK_FLOPS[dname] * 1e3,
+             unit: flops / peak * 1e3,
              "exponentials": exps / EXP_PER_S * 1e3}
     term = max(terms, key=terms.get)
-    f32_ms = max(flops / PEAK_FLOPS["float32"] * 1e3, terms["bytes"],
-                 terms["exponentials"])
-    return (terms[term], "bytes" if term == "bytes" else "operations",
-            f32_ms, term)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def _flash_bound(key: str, d: int, pairs: int, nbytes: float, dname: str):
+    """(bound ms, "bytes" or "operations", its term, ms with the products
+    on the f32 CUDA cores, ms with them on the TF32 tensor cores in split
+    passes) of the flash work ``key`` (FLASH_WORK) over ``pairs`` live
+    pairs at head dim ``d``.  The bound is the least time the card could
+    take: the products at the dtype's peak or in TF32_PASSES on the TF32
+    tensor cores, whichever is less (for f32 the split, for 16-bit inputs
+    the dtype's peak)."""
+    n_in, n_p, n_exp = FLASH_WORK[key]
+    a, b = TF32_PASSES[dname]
+    flops, exps = 2 * d * pairs * (n_in + n_p), n_exp * pairs
+    native = _bound(flops, nbytes, PEAK_FLOPS[dname], PEAK_UNIT[dname], exps)
+    split = _bound(2 * d * pairs * (a * n_in + b * n_p), nbytes, TF32_FLOPS,
+                   "tf32_split", exps)
+    cuda_cores = _bound(flops, nbytes, PEAK_FLOPS["float32"], "cuda_core",
+                        exps)
+    return (*min(native, split), cuda_cores[0], split[0])
 
 
 def _simt_forward_ms(q, k, v, causal, window, lse: bool) -> float:
@@ -723,27 +775,26 @@ def _sdpa_backward_ms(sdpa, outputs, cotangent) -> dict:
     return times
 
 
+def _repeat_same(fa, q, k, v, out, lse, do, args, first) -> bool:
+    """Both variants of the backward sum in a fixed order (no atomics):
+    dq, Delta, dk and dv of a second run on the same inputs equal
+    ``first`` to the bit."""
+    import torch
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, *args)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, (dq, delta, dk, dv)))
+
+
 def phase_kernel_train():
     import importlib
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-    cases = [  # name, B, S, H, Hkv, D, causal, window: phase 2's shapes
-        ("causal", 8, 2048, 8, 2, 32, True, None),
-        ("window256", 8, 2048, 8, 2, 32, True, 256),
-        ("noncausal", 8, 2048, 8, 2, 32, False, None),
-        ("d64", 8, 1024, 8, 2, 64, True, None),
-        ("d128", 8, 1024, 8, 2, 128, True, None),
-        ("ragged200", 8, 200, 8, 2, 32, True, None),
-        # head dims the kernels pad: 16 -> 32, 200 -> 256
-        ("d16", 8, 1024, 8, 2, 16, True, None),
-        ("d200", 2, 1000, 8, 2, 200, True, None),
-        PLM_ULYSSES_CASE,
-    ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
-    for name, b, s, h, hkv, d, causal, window in cases:
+    for name, b, s, h, hkv, d, causal, window in KERNEL_TRAIN_CASES:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             dname = str(dtype).split(".")[-1]
             q, k, v, do = (torch.randn(b, s, n, d, device="cuda",
@@ -757,16 +808,8 @@ def phase_kernel_train():
                                                 *args)
             torch.cuda.synchronize()
             bwd_variant = fa._backward_variant(dtype, d)
-            repeat_same = None
-            if bwd_variant == "sm90":  # no atomics: the same bits again
-                dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse,
-                                                        do, *args)
-                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, lse, do,
-                                                      delta2, *args)
-                torch.cuda.synchronize()
-                repeat_same = all(torch.equal(a, b) for a, b in (
-                    (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
-                del dq2, delta2, dk2, dv2
+            repeat_same = _repeat_same(fa, q, k, v, out, lse, do, args,
+                                       (dq, delta, dk, dv))
             # each plain version on the kernel's own inputs
             ro, rl = fa.flash_attention_reference(q, k, v, *args,
                                                   return_lse=True)
@@ -819,18 +862,18 @@ def phase_kernel_train():
             # backward kernels recompute p = exp(s - lse))
             pairs = b * h * live_pairs(s, causal, window)
             bounds = {
-                "fwd_lse": _bound(4 * d * pairs,
-                                  nbytes(q, k, v, out, lse), dname, pairs),
-                "dq": _bound(6 * d * pairs,
-                             nbytes(q, k, v, out, do, lse, dq, delta),
-                             dname, pairs),
-                "dkv": _bound(8 * d * pairs,
-                              nbytes(q, k, v, do, lse, delta, dk, dv),
-                              dname, pairs)}
+                "fwd_lse": _flash_bound("fwd", d, pairs,
+                                        nbytes(q, k, v, out, lse), dname),
+                "dq": _flash_bound("dq", d, pairs,
+                                   nbytes(q, k, v, out, do, lse, dq, delta),
+                                   dname),
+                "dkv": _flash_bound("dkv", d, pairs,
+                                    nbytes(q, k, v, do, lse, delta, dk, dv),
+                                    dname)}
             bwd_bytes = nbytes(q, k, v, out, do, lse, dq, dk, dv)
-            bwd_bound = _bound(10 * d * pairs, bwd_bytes, dname, 2 * pairs)
-            schedule_bound = _bound(14 * d * pairs, bwd_bytes, dname,
-                                    3 * pairs)
+            bwd_bound = _flash_bound("bwd", d, pairs, bwd_bytes, dname)
+            schedule_bound = _flash_bound("bwd_schedule", d, pairs,
+                                          bwd_bytes, dname)
             row = {"phase": "kernel_train", "case": name, "dtype": dname,
                    "variant": fa._forward_variant(dtype, d),
                    "bwd_variant": bwd_variant,
@@ -849,14 +892,16 @@ def phase_kernel_train():
                    "library_bwd_ms_by_backend": sdpa_bwd,
                    "bound_ms": {n: bd[0] for n, bd in bounds.items()},
                    "bound_by": {n: bd[1] for n, bd in bounds.items()},
-                   "bound_term": {n: bd[3] for n, bd in bounds.items()},
-                   "bound_ms_f32_cuda_cores": {n: bd[2] for n, bd in
+                   "bound_term": {n: bd[2] for n, bd in bounds.items()},
+                   "bound_ms_f32_cuda_cores": {n: bd[3] for n, bd in
                                                bounds.items()},
+                   "bound_ms_split_tf32": {n: bd[4] for n, bd in
+                                           bounds.items()},
                    "bwd_bound_ms": bwd_bound[0],
-                   "bwd_bound_ms_f32_cuda_cores": bwd_bound[2],
+                   "bwd_bound_ms_f32_cuda_cores": bwd_bound[3],
                    "bwd_schedule_bound_ms": schedule_bound[0],
                    "bwd_schedule_bound_ms_f32_cuda_cores":
-                       schedule_bound[2]}
+                       schedule_bound[3]}
             if dname == "bfloat16" and name in SIMT_TIMED:
                 row["simt_ms"] = {"fwd_lse": _simt_forward_ms(
                     q, k, v, causal, window, lse=True),
@@ -869,7 +914,7 @@ def phase_kernel_train():
             check(errs[worst][1] <= 1.0, f"training kernels {name}/{dname}:"
                   f" {worst} error {errs[worst][1]:.3g}x its tolerance "
                   f"(max abs err {errs[worst][0]})")
-            check(repeat_same is not False, f"sm90 backward {name}/{dname}: "
+            check(repeat_same, f"{bwd_variant} backward {name}/{dname}: "
                   f"two runs on the same inputs differ")
             results[(name, dname)] = row
             del q, k, v, do, out, lse, dq, delta, dk, dv
@@ -1155,10 +1200,9 @@ def phase_kernel_ce():
             es = logits.element_size()
             fwd_bytes = t * v * es + 12 * t
             bwd_bytes = 2 * t * v * es + 12 * t
-            bound = {"fwd": _bound(CE_OPS["fwd"] * t * v, fwd_bytes,
-                                   "float32"),
-                     "bwd": _bound(CE_OPS["bwd"] * t * v, bwd_bytes,
-                                   "float32")}
+            bound = {n: _bound(CE_OPS[n] * t * v, nb, PEAK_FLOPS["float32"],
+                               "cuda_core")
+                     for n, nb in (("fwd", fwd_bytes), ("bwd", bwd_bytes))}
             row["ms"] = {
                 "fwd": median_ms(lambda: ce.fused_ce_fwd(logits, labels),
                                  3, 20),
@@ -1545,6 +1589,8 @@ def phase_wide():
         same = (torch.equal(out_path, out)
                 and all(torch.equal(g, w) for g, w in zip(grads,
                                                           (dq, dk, dv))))
+        repeat_same = _repeat_same(fa, q, k, v, out, lse, do, args,
+                                   (dq, delta, dk, dv))
         ref = fa.flash_attention_reference(q, k, v, *args)
         ro, rl = fa.flash_attention_reference(q, k, v, *args,
                                               return_lse=True)
@@ -1589,15 +1635,16 @@ def phase_wide():
         del qt, kt, vt
         pairs = b * h * live_pairs(s, causal, window)
         bounds = {
-            "fwd": _bound(4 * d * pairs, nbytes(q, k, v, out), dname, pairs),
-            "fwd_lse": _bound(4 * d * pairs, nbytes(q, k, v, out, lse),
-                              dname, pairs),
-            "dq": _bound(6 * d * pairs,
-                         nbytes(q, k, v, out, do, lse, dq, delta), dname,
-                         pairs),
-            "dkv": _bound(8 * d * pairs,
-                          nbytes(q, k, v, do, lse, delta, dk, dv), dname,
-                          pairs)}
+            "fwd": _flash_bound("fwd", d, pairs, nbytes(q, k, v, out),
+                                dname),
+            "fwd_lse": _flash_bound("fwd", d, pairs,
+                                    nbytes(q, k, v, out, lse), dname),
+            "dq": _flash_bound("dq", d, pairs,
+                               nbytes(q, k, v, out, do, lse, dq, delta),
+                               dname),
+            "dkv": _flash_bound("dkv", d, pairs,
+                                nbytes(q, k, v, do, lse, delta, dk, dv),
+                                dname)}
         row = {"phase": "wide", "case": name, "dtype": dname,
                "shape_bshd": [b, s, h, d], "kv_heads": hkv,
                "causal": causal, "window": window,
@@ -1614,8 +1661,15 @@ def phase_wide():
                "library_bwd_ms_by_backend": sdpa_bwd,
                "bound_ms": {n: bd[0] for n, bd in bounds.items()},
                "bound_by": {n: bd[1] for n, bd in bounds.items()},
-               "bound_term": {n: bd[3] for n, bd in bounds.items()}}
+               "bound_term": {n: bd[2] for n, bd in bounds.items()},
+               "bound_ms_f32_cuda_cores": {n: bd[3] for n, bd in
+                                           bounds.items()},
+               "bound_ms_split_tf32": {n: bd[4] for n, bd in
+                                       bounds.items()},
+               "bwd_repeat_bit_identical": repeat_same}
         emit(row)
+        check(repeat_same, f"wide {name}/{dname}: two backward runs on the "
+              f"same inputs differ")
         worst = max(errs, key=lambda n: errs[n][1])
         check(errs[worst][1] <= 1.0, f"wide {name}/{dname}: {worst} error "
               f"{errs[worst][1]:.3g}x its tolerance (max abs err "
@@ -2309,6 +2363,8 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "bound_term": r["bound_term"],
+                "bound_ms_f32_cuda_cores": r["bound_ms_f32_cuda_cores"],
+                "bound_ms_split_tf32": r["bound_ms_split_tf32"],
                 "library_ms": r["library_ms"],
                 "simt_ms": r.get("simt_ms"),
                 "parallel_lm": {
@@ -2365,6 +2421,9 @@ def main() -> int:
                      "library_bwd_ms": u["library_bwd_ms"],
                      "library_bwd_ms_by_backend":
                          u["library_bwd_ms_by_backend"]}}
+        for bound in ("bound_ms_f32_cuda_cores", "bound_ms_split_tf32"):
+            entry[bound] = t[bound][key]
+            entry["parallel_lm"][bound] = u[bound][key]
         if key != "fwd_lse":
             entry["backward_library_ms"] = t["library_bwd_ms"]
             entry["backward_library_ms_by_backend"] = t[
@@ -2418,12 +2477,18 @@ def main() -> int:
                 "library_ms": (w["library_fwd_ms"]
                                if key in ("fwd", "fwd_lse") else None),
                 "backward_library_ms": w["library_bwd_ms"],
+                "bound_ms_f32_cuda_cores": w["bound_ms_f32_cuda_cores"][key],
+                "bound_ms_split_tf32": w["bound_ms_split_tf32"][key],
                 "float32": {"launches": w32["launches"][f"{count}_simt"],
                             "max_abs_err": max(w32["max_abs_err"][e]
                                                for e in errs),
                             "ms": w32["ms"][key],
                             "plain_ms": w32["plain_ms"][key],
                             "bound_ms": w32["bound_ms"][key],
+                            "bound_ms_f32_cuda_cores":
+                                w32["bound_ms_f32_cuda_cores"][key],
+                            "bound_ms_split_tf32":
+                                w32["bound_ms_split_tf32"][key],
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     emit(north_star)

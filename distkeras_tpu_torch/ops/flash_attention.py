@@ -16,8 +16,9 @@ Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
   two variants chosen by :func:`_backward_variant`:
   ``csrc/flash_attention_bwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
   products on TMA-fed tiles, bf16 and f16 with D a multiple of 8 up to
-  128) and ``csrc/flash_attention_bwd.cu`` (``"simt"``: f32 on the CUDA
-  cores, for f32 and any other head dim).
+  128) and ``csrc/flash_attention_bwd.cu`` (``"simt"``: ``mma.sync``
+  products on the TF32 tensor cores, each f32 operand split into hi + lo
+  TF32 halves, for f32 and any other head dim).
 
 The kernels are CUDA C++ for Hopper (``sm_90a``), built by ``nvcc`` at
 first use and bound with ``ctypes``; each source's header says what bounds
@@ -32,9 +33,10 @@ carried over).  Grouped-query attention reads kv head ``h // (H / Hkv)``
 instead of repeating k and v, and the backward sums dk and dv over the
 query heads of each kv head inside the kernel.
 
-The SIMT kernels take any head dim: above ``SIMT_HEAD_DIM_CHUNK`` (256)
-their tiles hold one 256-column chunk at a time, and the grid gets one
-block per output chunk on its z axis (each source's header says how).
+The SIMT kernels take any head dim: above a chunk width (the forward's
+``SIMT_HEAD_DIM_CHUNK``, 256 columns; the backward's 128, ``kChunk`` in its
+source) their tiles hold one chunk at a time, and the grid gets one block
+per output chunk on its z axis (each source's header says how).
 
 Every wrapper launches its kernel for CUDA tensors (or raises: a dtype
 other than f32/bf16/f16, bad shapes, a failed build or launch) and runs
@@ -60,10 +62,12 @@ import torch
 from ..kernels import kernel_operand
 from .attention import validate_window
 
-#: the SIMT kernels' tile width in the head dim: up to it the .cu files pad
-#: the head dim to 32, 64, 128 or 256; above it they take it in chunks of
-#: this many columns, one block per chunk on the grid's z axis (at most
-#: 65535 chunks)
+#: the SIMT forward's tile width in the head dim: up to it
+#: ``flash_attention_fwd.cu`` pads the head dim to 32, 64, 128 or 256; above
+#: it the forward takes it in chunks of this many columns, one block per
+#: chunk on the grid's z axis (``_check``'s grid limit).  The SIMT backward
+#: (``flash_attention_bwd.cu``) pads to 32, 64 or 128 and chunks at 128
+#: columns, looping over z when there are more chunks than the grid holds
 SIMT_HEAD_DIM_CHUNK = 256
 #: the largest head dim of the forward's sm90 variant (its wgmma N and TMA
 #: box width)
@@ -149,8 +153,9 @@ def _backward_variant(dtype: torch.dtype, head_dim: int) -> str:
     multiple of 8 (the TMA maps' 16-byte strides) and at most
     ``SM90_BACKWARD_MAX_HEAD_DIM`` (the dK and dV accumulators of one
     warpgroup take D f32 registers per thread, D / 2 each) take
-    ``"sm90"``, the tensor-core kernels; f32 and any other head dim take
-    ``"simt"``, the f32 CUDA-core kernels."""
+    ``"sm90"``, the wgmma kernels; f32 and any other head dim take
+    ``"simt"``, the split-TF32 ``mma.sync`` kernels in 128-column chunks
+    above D 128."""
     if (dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0
             and head_dim <= SM90_BACKWARD_MAX_HEAD_DIM):
         return "sm90"

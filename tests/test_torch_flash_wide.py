@@ -121,13 +121,16 @@ def test_variant_rules(dtype, d, forward, backward):
 
 
 def test_simt_sources_tile_wide_head_dims():
-    """Both SIMT sources keep their padded instantiations for D <= 256 and
-    add one 256-column-chunk instantiation whose grid has a z axis of
-    ceil(D / 256) blocks."""
+    """Both SIMT sources keep padded instantiations for narrow head dims and
+    add one chunk instantiation whose grid has a z axis of one block per
+    chunk: the forward's chunks are 256 columns (padded up to 256), the
+    tensor-core backward's 128 (padded up to 32, 64 or 128: its dk and dv
+    accumulators take D registers per thread)."""
     assert flash_mod.SIMT_HEAD_DIM_CHUNK == 256
     fwd = kernels.source_path("flash_attention_fwd").read_text()
     bwd = kernels.source_path("flash_attention_bwd").read_text()
-    assert "constexpr int kChunk = 256;" in fwd and "kChunk = 256;" in bwd
+    assert "constexpr int kChunk = 256;" in fwd
+    assert "constexpr int kChunk = 128;" in bwd
     assert "launch<T, kChunk, true>" in fwd
     assert "launch_dq<T, kChunk, true>" in bwd
     assert "launch_dkv<T, kChunk, true>" in bwd
@@ -136,6 +139,7 @@ def test_simt_sources_tile_wide_head_dims():
         assert text.count("kWide ? (") >= 3
     for dp in (32, 64, 128, 256):
         assert f"launch<T, {dp}>" in fwd
+    for dp in (32, 64, "kChunk"):
         assert f"launch_dkv<T, {dp}>(a) : launch_dq<T, {dp}>(a)" in bwd
 
 

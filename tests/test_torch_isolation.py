@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``distkeras_tpu_torch``, and none
 of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
-``tools/compare_simt_builds.py``), imports jax or the JAX package; importing the port pulls
+``tools/compare_simt_builds.py``, ``tools/time_simt_backward.py``,
+``tools/simt_backward_share.py``), imports jax or the JAX package; importing the port pulls
 in no jax; and its entry points refuse to drop to the CPU when no CUDA
 card is present."""
 
@@ -28,7 +29,9 @@ def port_files():
     files = sorted((ROOT / "distkeras_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "tools" / "profile_torch_slice.py",
-                    ROOT / "tools" / "compare_simt_builds.py"]
+                    ROOT / "tools" / "compare_simt_builds.py",
+                    ROOT / "tools" / "time_simt_backward.py",
+                    ROOT / "tools" / "simt_backward_share.py"]
 
 
 def imported_roots(path):

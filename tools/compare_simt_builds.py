@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Are two builds of the SIMT flash kernels bit-identical, on a CUDA card?
+"""Are two builds of the SIMT flash forward bit-identical, on a CUDA card?
 
     python3 tools/compare_simt_builds.py --ref-csrc OTHER/distkeras_tpu_torch/csrc
 
-Compiles ``flash_attention_fwd.cu`` and ``flash_attention_bwd.cu`` from
-``--ref-csrc`` (for example the csrc directory of an older checkout,
-unpacked with ``git archive``) and from this checkout, with the flags of
-``distkeras_tpu_torch/kernels.py``, into ``build/compare_simt/``.  It then
-runs the forward (inference form and the form with lse) and the backward
-(dq, then dk/dv) of both builds on the same random inputs, at head dims
-that the kernels pad (16 ... 256), in f32, bf16 and f16, causal, windowed
+Compiles ``flash_attention_fwd.cu`` from ``--ref-csrc`` (for example the
+csrc directory of an older checkout, unpacked with ``git archive``) and
+from this checkout, with the flags of ``distkeras_tpu_torch/kernels.py``,
+into ``build/compare_simt/``.  It then runs the forward (inference form and
+the form with lse) of both builds on the same random inputs, at head dims
+that the kernel pads (16 ... 256), in f32, bf16 and f16, causal, windowed
 and not, and prints one JSON line per case with whether every output is
 equal to the last bit.  It exits non-zero if one is not.  Imports nothing
 of JAX.
+
+The SIMT backward (``flash_attention_bwd.cu``) is left out: its products
+run on the TF32 tensor cores with split operands, so a build from before
+that design differs from it in the last bits by design.
+``tools/time_simt_backward.py`` times two builds of it instead and holds
+each against the plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd",)
 # name, B, S, H, Hkv, D, causal, window
 CASES = (("d16", 2, 300, 4, 2, 16, True, None),
          ("d32", 2, 1024, 8, 2, 32, True, None),
@@ -38,13 +43,13 @@ CASES = (("d16", 2, 300, 4, 2, 16, True, None),
          ("d256", 1, 512, 4, 2, 256, True, None))
 
 
-def build(csrc: Path, out_dir: Path) -> dict:
-    """Compile both sources of ``csrc`` in parallel; name -> CDLL."""
+def build(csrc: Path, out_dir: Path, sources=SOURCES) -> dict:
+    """Compile ``sources`` of ``csrc`` in parallel; name -> CDLL."""
     sys.path.insert(0, str(ROOT))
     from distkeras_tpu_torch import kernels
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in sources:
         lib = out_dir / f"lib{name}.so"
         cmd = [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", str(lib),
@@ -70,34 +75,31 @@ def entry(libs: dict, lib: str, name: str, n_ptrs: int):
     return fn
 
 
-def run(libs: dict, q, k, v, do, causal, window) -> dict:
-    """Every output of both kernels' entries on these inputs."""
+def tail_args(q, hkv: int, causal, window) -> tuple:
+    """The C entries' arguments after the pointers: B, S, H, Hkv, D,
+    dtype code, scale, causal, window, stream."""
     import torch
     b, s, h, d = q.shape
     code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[q.dtype]
-    tail = (b, s, h, k.shape[2], d, code, d ** -0.5, int(causal),
-            window or 0, torch.cuda.current_stream().cuda_stream)
+    return (b, s, h, hkv, d, code, d ** -0.5, int(causal), window or 0,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def run(libs: dict, q, k, v, causal, window) -> dict:
+    """Every output of the forward's entry, both forms, on these inputs."""
+    import torch
+    b, s, h, d = q.shape
+    tail = tail_args(q, k.shape[2], causal, window)
     out_inf, out = torch.empty_like(q), torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     p = lambda *ts: [None if t is None else t.data_ptr() for t in ts]
-    calls = (
-        (entry(libs, "flash_attention_fwd", "flash_attention_fwd", 5),
-         p(q, k, v, out_inf, None)),
-        (entry(libs, "flash_attention_fwd", "flash_attention_fwd", 5),
-         p(q, k, v, out, lse)),
-        (entry(libs, "flash_attention_bwd", "flash_attention_bwd_dq", 8),
-         p(q, k, v, out, do, lse, delta, dq)),
-        (entry(libs, "flash_attention_bwd", "flash_attention_bwd_dkv", 8),
-         p(q, k, v, do, lse, delta, dk, dv)))
-    for fn, ptrs in calls:
-        rc = fn(*ptrs, *tail)
+    fwd = entry(libs, "flash_attention_fwd", "flash_attention_fwd", 5)
+    for ptrs in (p(q, k, v, out_inf, None), p(q, k, v, out, lse)):
+        rc = fwd(*ptrs, *tail)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
     torch.cuda.synchronize()
-    return {"out_inference": out_inf, "out": out, "lse": lse,
-            "delta": delta, "dq": dq, "dk": dk, "dv": dv}
+    return {"out_inference": out_inf, "out": out, "lse": lse}
 
 
 def main() -> int:
@@ -119,11 +121,11 @@ def main() -> int:
     all_equal = True
     for name, b, s, h, hkv, d, causal, window in CASES:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            q, k, v, do = (torch.randn(b, s, n, d, device="cuda",
-                                       generator=gen).to(dtype)
-                           for n in (h, hkv, hkv, h))
-            got_ref = run(ref, q, k, v, do, causal, window)
-            got_new = run(new, q, k, v, do, causal, window)
+            q, k, v = (torch.randn(b, s, n, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for n in (h, hkv, hkv))
+            got_ref = run(ref, q, k, v, causal, window)
+            got_new = run(new, q, k, v, causal, window)
             equal = {n: torch.equal(got_ref[n], got_new[n])
                      for n in got_ref}
             all_equal &= all(equal.values())
