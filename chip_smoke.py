@@ -15,9 +15,11 @@ phase fails:
 2. kernel: the flash-attention forward against its plain PyTorch version
    on the card, at the serving slice's shapes and a few more (head dims
    that the kernels pad, the parallel LM's Ulysses shape: B 8, S 2048,
-   8 heads, MHA, D 64), in f32, bf16 and f16 (each served by the variant
-   its dtype and head dim select: sm90 for 16-bit, SIMT for f32), with
-   the error beside its per-element tolerance, and the kernel's, plain
+   8 heads, MHA, D 64, and a 16-bit D 36), in f32, bf16 and f16 (each
+   served by the variant its dtype and head dim select: sm90 for 16-bit
+   head dims that are multiples of 8, SIMT for f32 and D 36), each run
+   twice and bit-identical, with the error beside its per-element
+   tolerance, and the kernel's, plain
    version's and ``scaled_dot_product_attention``'s times (a yardstick
    only: the port never calls it) beside the card's bound (bytes,
    products or one exponential per live pair, whichever is largest; the
@@ -42,8 +44,9 @@ phase fails:
    card, at phase 2's shapes in f32, bf16 and f16 with a random dO (the
    backward on the variant its dtype and head dim select: sm90 for
    16-bit head dims up to 128, SIMT, the split-TF32 tensor-core pair, for
-   f32 and every other head dim; every pair run twice on the same inputs
-   and bit-identical), with each error beside its per-element tolerance,
+   f32 and every other head dim; the forward and every pair run twice on
+   the same inputs and bit-identical), with each error beside its
+   per-element tolerance,
    and the kernels', plain versions' and ``scaled_dot_product_attention``
    backward's times (a yardstick only, under each SDPA backend that takes
    the case, the least kept) beside the card's bound (phase 2's rule)
@@ -86,11 +89,10 @@ phase fails:
     gradients, and so do Ulysses and ring (loss traces 1e-4);
 11. wide: a head dim above 256 (B 2, S 1024, H 4, Hkv 2, D 320, causal,
     f32 and bf16) through ``attention`` forward, backward and inference
-    form, every launch on the SIMT kernels (the forward's 256-column
-    chunks, the backward's 128-column ones), each kernel against its
-    plain version under phases 2 and 5's rules, the backward pair
-    repeated bit-identically, with the kernels', plain versions' and
-    SDPA's times beside the bounds;
+    form, every launch on the SIMT kernels (in 128-column chunks), each
+    kernel against its plain version under phases 2 and 5's rules, both
+    forward forms and the backward pair repeated bit-identically, with the
+    kernels', plain versions' and SDPA's times beside the bounds;
 12. views: q, k, v as ``chunk(3, dim=2)`` of one bf16 projection at the
     serving slice's widths, as contiguous views off a 16-byte boundary,
     and (T, V) logits that are a transpose, through ``attention`` and
@@ -301,9 +303,13 @@ KERNEL_TRAIN_CASES = (
     ("d200", 2, 1000, 8, 2, 200, True, None),
     PLM_ULYSSES_CASE,
 )
+# a 16-bit head dim that is not a multiple of 8: the SIMT forward serves it
+# (rows off a 16-byte boundary, staged by plain loads), in phase kernel
+# beside the sm90 cases.  name, B, S, H, Hkv, D, causal, window
+ODD_CASE = ("d36", 2, 1000, 8, 2, 36, True, None)
 # a head dim above 256 (the reference's kernel takes any): the SIMT forward
-# takes it in ceil(320 / 256) = 2 chunks of 256 columns, the SIMT backward
-# in ceil(320 / 128) = 3 of 128.  name, B, S, H, Hkv, D, causal, window
+# and backward take it in ceil(320 / 128) = 3 chunks of 128 columns.  name,
+# B, S, H, Hkv, D, causal, window
 WIDE_CASE = ("d320", 2, 1024, 4, 2, 320, True, None)
 # strided and misaligned views at the public entry points: q, k, v as
 # chunks of one (B, S, 3H, D) projection at the serving slice's widths
@@ -466,6 +472,7 @@ def phase_kernel():
         ("d200", 2, 1000, 8, 2, 200, True, None, every),
         # the parallel LM's attention on its Ulysses route (MHA, D 64)
         PLM_ULYSSES_CASE + (every,),
+        ODD_CASE + ((bf16, f16),),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -477,6 +484,9 @@ def phase_kernel():
             v = torch.randn(b, s, hkv, d, device="cuda", generator=gen)
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
             out = flash_attention(q, k, v, causal=causal, window=window)
+            # both variants sum in a fixed order (no atomics)
+            repeat_same = torch.equal(out, flash_attention(
+                q, k, v, causal=causal, window=window))
             torch.cuda.synchronize()
             ref = flash_attention_reference(q, k, v, causal, None, window)
             diff = (out.float() - ref.float()).abs()
@@ -511,6 +521,7 @@ def phase_kernel():
                    "causal": causal, "window": window,
                    "max_abs_err": err, "tol_rel": rel, "tol_abs": atol,
                    "err_share_of_tol": err_share,
+                   "repeat_bit_identical": repeat_same,
                    "library_max_abs_err": (lib_out.float()
                                            - ref.float()).abs().max().item(),
                    "ms": kernel_ms, "plain_ms": plain_ms,
@@ -526,6 +537,8 @@ def phase_kernel():
             check(err_share <= 1.0, f"flash kernel {name}/{dname}: error "
                   f"{err_share:.3g}x its tolerance ({rel} * |plain| + "
                   f"{atol}; max abs err {err})")
+            check(repeat_same, f"flash kernel {name}/{dname}: two runs on "
+                  f"the same inputs differ")
             results[(name, dname)] = row
             del q, k, v, out, ref, diff, lib_out
     torch.cuda.empty_cache()
@@ -802,6 +815,9 @@ def phase_kernel_train():
                            for n in (h, hkv, hkv, h))
             args = (causal, None, window)
             out, lse = fa.flash_attention_forward(q, k, v, *args)
+            fwd_repeat_same = all(map(torch.equal, (out, lse),
+                                      fa.flash_attention_forward(q, k, v,
+                                                                 *args)))
             dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do,
                                                   *args)
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
@@ -877,6 +893,7 @@ def phase_kernel_train():
             row = {"phase": "kernel_train", "case": name, "dtype": dname,
                    "variant": fa._forward_variant(dtype, d),
                    "bwd_variant": bwd_variant,
+                   "fwd_repeat_bit_identical": fwd_repeat_same,
                    "bwd_repeat_bit_identical": repeat_same,
                    "shape_bshd": [b, s, h, d], "kv_heads": hkv,
                    "causal": causal, "window": window,
@@ -914,6 +931,8 @@ def phase_kernel_train():
             check(errs[worst][1] <= 1.0, f"training kernels {name}/{dname}:"
                   f" {worst} error {errs[worst][1]:.3g}x its tolerance "
                   f"(max abs err {errs[worst][0]})")
+            check(fwd_repeat_same, f"forward with lse {name}/{dname}: two "
+                  f"runs on the same inputs differ")
             check(repeat_same, f"{bwd_variant} backward {name}/{dname}: "
                   f"two runs on the same inputs differ")
             results[(name, dname)] = row
@@ -1583,6 +1602,10 @@ def phase_wide():
         launches["flash_inference_simt"] = fa.flash_attention.\
             launches_by_variant["simt"]
         out, lse = fa.flash_attention_forward(q, k, v, *args)
+        fwd_repeat_same = (
+            torch.equal(inference, fa.flash_attention(q, k, v, *args))
+            and all(map(torch.equal, (out, lse),
+                        fa.flash_attention_forward(q, k, v, *args))))
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, *args)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, *args)
         torch.cuda.synchronize()
@@ -1666,8 +1689,11 @@ def phase_wide():
                                            bounds.items()},
                "bound_ms_split_tf32": {n: bd[4] for n, bd in
                                        bounds.items()},
+               "fwd_repeat_bit_identical": fwd_repeat_same,
                "bwd_repeat_bit_identical": repeat_same}
         emit(row)
+        check(fwd_repeat_same, f"wide {name}/{dname}: two forward runs on "
+              f"the same inputs differ")
         check(repeat_same, f"wide {name}/{dname}: two backward runs on the "
               f"same inputs differ")
         worst = max(errs, key=lambda n: errs[n][1])

@@ -10,8 +10,9 @@ Port of ``distkeras_tpu/ops/flash_attention.py :: flash_attention``, the
   :func:`_forward_variant` from the inputs' dtype and head dim:
   ``csrc/flash_attention_fwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
   products on TMA-fed tiles, bf16 and f16 with D a multiple of 8) and
-  ``csrc/flash_attention_fwd.cu`` (``"simt"``: f32 on the CUDA cores, for
-  f32 and any other 16-bit head dim, above 256 included);
+  ``csrc/flash_attention_fwd.cu`` (``"simt"``: ``mma.sync`` products on
+  the TF32 tensor cores, each f32 operand split into hi + lo TF32 halves,
+  for f32 and any other 16-bit head dim, above 256 included);
 - ``_dq_kernel`` and ``_dkv_kernel`` (``flash_attention_backward``), in
   two variants chosen by :func:`_backward_variant`:
   ``csrc/flash_attention_bwd_sm90.cu`` (``"sm90"``: wgmma tensor-core
@@ -33,10 +34,10 @@ carried over).  Grouped-query attention reads kv head ``h // (H / Hkv)``
 instead of repeating k and v, and the backward sums dk and dv over the
 query heads of each kv head inside the kernel.
 
-The SIMT kernels take any head dim: above a chunk width (the forward's
-``SIMT_HEAD_DIM_CHUNK``, 256 columns; the backward's 128, ``kChunk`` in its
-source) their tiles hold one chunk at a time, and the grid gets one block
-per output chunk on its z axis (each source's header says how).
+The SIMT kernels take any head dim: above a width that they take whole
+(the forward's 256, the backward's 128) their tiles hold one chunk of
+``SIMT_HEAD_DIM_CHUNK`` (128) columns at a time, and the grid gets one
+block per output chunk on its z axis (each source's header says how).
 
 Every wrapper launches its kernel for CUDA tensors (or raises: a dtype
 other than f32/bf16/f16, bad shapes, a failed build or launch) and runs
@@ -62,13 +63,13 @@ import torch
 from ..kernels import kernel_operand
 from .attention import validate_window
 
-#: the SIMT forward's tile width in the head dim: up to it
-#: ``flash_attention_fwd.cu`` pads the head dim to 32, 64, 128 or 256; above
-#: it the forward takes it in chunks of this many columns, one block per
-#: chunk on the grid's z axis (``_check``'s grid limit).  The SIMT backward
-#: (``flash_attention_bwd.cu``) pads to 32, 64 or 128 and chunks at 128
-#: columns, looping over z when there are more chunks than the grid holds
-SIMT_HEAD_DIM_CHUNK = 256
+#: the SIMT kernels' chunk width in the head dim: ``flash_attention_fwd.cu``
+#: pads the head dim to 32, 64, 128 or 256 and the backward
+#: (``flash_attention_bwd.cu``) to 32, 64 or 128; above that each takes it
+#: in chunks of this many columns, one block per output chunk on the grid's
+#: z axis, looping over z when there are more chunks than the grid holds
+#: (``_check`` refuses more than the grid's 65535 chunks all the same)
+SIMT_HEAD_DIM_CHUNK = 128
 #: the largest head dim of the forward's sm90 variant (its wgmma N and TMA
 #: box width)
 SM90_FORWARD_MAX_HEAD_DIM = 256
@@ -138,9 +139,11 @@ def _forward_variant(dtype: torch.dtype, head_dim: int) -> str:
     alone (no fallback: the chosen kernel launches or raises).  bf16 and
     f16 with a head dim that is a multiple of 8 (the TMA tensor maps need
     16-byte strides) and at most ``SM90_FORWARD_MAX_HEAD_DIM`` take
-    ``"sm90"``, the tensor-core kernel; f32, whose 2e-5 tolerance TF32
-    products would break, and any other 16-bit head dim take ``"simt"``,
-    the f32 CUDA-core kernel."""
+    ``"sm90"``, the wgmma kernel; f32 and any other 16-bit head dim take
+    ``"simt"``, the ``mma.sync`` kernel on the TF32 tensor cores, which
+    splits each f32 operand into hi + lo (three passes: one TF32 pass would
+    break the 2e-5 tolerance of f32) and takes head dims above 256 in
+    ``SIMT_HEAD_DIM_CHUNK``-column chunks."""
     if (dtype in (torch.bfloat16, torch.float16) and head_dim % 8 == 0
             and head_dim <= SM90_FORWARD_MAX_HEAD_DIM):
         return "sm90"

@@ -13,6 +13,7 @@ build line are checked without compiling.
 """
 
 import importlib
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -172,7 +173,7 @@ def test_cuda_self_attention_takes_the_kernel(monkeypatch, d, dtype):
 
 
 @pytest.mark.parametrize("d,dtype,error,match", [
-    # a head dim past the SIMT kernels' 65535 chunks of 256 columns
+    # a head dim past the SIMT kernels' 65535 chunks of 128 columns
     (65535 * 256 + 8, torch.bfloat16, ValueError, "grid limit"),
     (32, torch.float64, TypeError, "one dtype among"),
 ])
@@ -230,11 +231,16 @@ def test_dispatch_rules():
 def test_kernel_source_and_build_command():
     src = kernels.source_path("flash_attention_fwd")
     assert src.exists() and src.parent == kernels.CSRC_DIR
-    text = src.read_text()
+    # the source with the header of TF32 helpers it shares with the backward
+    text = src.read_text() + (kernels.CSRC_DIR / "simt_mma.cuh").read_text()
+    assert '#include "simt_mma.cuh"' in text
     assert 'extern "C" int flash_attention_fwd' in text
     assert "distkeras_tpu/ops/flash_attention.py :: _flash_kernel" in text
     for banned in ("cublas", "cudnn", "scaled_dot_product", "torch/"):
         assert banned not in text.lower()
+    # both products on the TF32 tensor cores, summed without atomics
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+    assert re.search(r"atomic\w*\s*\(|\batom\.|\bred\.", text) is None
     assert "flash_attention_fwd" in kernels.KERNELS
     cmd = kernels.nvcc_command("flash_attention_fwd", Path("out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
@@ -245,12 +251,14 @@ def test_kernel_source_and_build_command():
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     # the kernel takes every model dtype and pads every head dim up to 256
     for instantiation in ("launch<T, 32>", "launch<T, 64>", "launch<T, 128>",
-                          "launch<T, 256>", "dispatch_dim<float>",
+                          "launch<T, kWhole>", "dispatch_dim<float>",
                           "dispatch_dim<__nv_bfloat16>",
                           "dispatch_dim<__half>"):
         assert instantiation in text
-    # and takes wider head dims in chunks of 256 columns
+    assert "constexpr int kWhole = 256;" in text
+    # and takes wider head dims in chunks of 128 columns
     assert 'launch<T, kChunk, true>' in text
-    assert flash_mod.SIMT_HEAD_DIM_CHUNK == 256
+    assert "constexpr int kChunk = 128;" in text
+    assert flash_mod.SIMT_HEAD_DIM_CHUNK == 128
     assert set(flash_mod.KERNEL_DTYPES) == {torch.float32, torch.bfloat16,
                                             torch.float16}

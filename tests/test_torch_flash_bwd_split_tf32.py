@@ -443,7 +443,10 @@ def test_tf32_rounding_matches_cvt_rna():
 
 
 def test_simt_backward_source_uses_tf32_mmas_and_no_atomics():
-    text = kernels.source_path(SOURCE).read_text()
+    # the source with the header of TF32 helpers it shares with the forward
+    text = (kernels.source_path(SOURCE).read_text()
+            + (kernels.CSRC_DIR / "simt_mma.cuh").read_text())
+    assert '#include "simt_mma.cuh"' in text
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
     assert "cvt.rna.tf32.f32" in text
     assert "cp.async" in text

@@ -2,7 +2,7 @@
 
 The reference's kernel takes any head dim (``_pallas_eligible``: "head_dim
 is unconstrained").  The port's SIMT kernels (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``) take a head dim above 256 in 256-column
+``csrc/flash_attention_bwd.cu``) take a head dim above 256 in 128-column
 chunks, one block per output chunk on the grid's z axis; the variant rules
 send every such head dim there, whatever the dtype, and never to the plain
 path.  Here the wrappers are driven with fake CUDA tensors and a recording
@@ -123,13 +123,15 @@ def test_variant_rules(dtype, d, forward, backward):
 def test_simt_sources_tile_wide_head_dims():
     """Both SIMT sources keep padded instantiations for narrow head dims and
     add one chunk instantiation whose grid has a z axis of one block per
-    chunk: the forward's chunks are 256 columns (padded up to 256), the
-    tensor-core backward's 128 (padded up to 32, 64 or 128: its dk and dv
-    accumulators take D registers per thread)."""
-    assert flash_mod.SIMT_HEAD_DIM_CHUNK == 256
+    chunk of 128 columns: the forward pads up to 256 (its output
+    accumulators take D / 2 registers per thread) and chunks above it, the
+    backward pads up to 32, 64 or 128 (its dk and dv accumulators take D)
+    and chunks above that."""
+    assert flash_mod.SIMT_HEAD_DIM_CHUNK == 128
     fwd = kernels.source_path("flash_attention_fwd").read_text()
     bwd = kernels.source_path("flash_attention_bwd").read_text()
-    assert "constexpr int kChunk = 256;" in fwd
+    assert "constexpr int kChunk = 128;" in fwd
+    assert "constexpr int kWhole = 256;" in fwd
     assert "constexpr int kChunk = 128;" in bwd
     assert "launch<T, kChunk, true>" in fwd
     assert "launch_dq<T, kChunk, true>" in bwd
@@ -137,7 +139,7 @@ def test_simt_sources_tile_wide_head_dims():
     for text in (fwd, bwd):
         assert "kWide ? (int)blockIdx.z : 0" in text
         assert text.count("kWide ? (") >= 3
-    for dp in (32, 64, 128, 256):
+    for dp in (32, 64, 128, "kWhole"):
         assert f"launch<T, {dp}>" in fwd
     for dp in (32, 64, "kChunk"):
         assert f"launch_dkv<T, {dp}>(a) : launch_dq<T, {dp}>(a)" in bwd

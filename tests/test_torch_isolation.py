@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``distkeras_tpu_torch``, and none
 of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
-``tools/compare_simt_builds.py``, ``tools/time_simt_backward.py``,
-``tools/simt_backward_share.py``), imports jax or the JAX package; importing the port pulls
-in no jax; and its entry points refuse to drop to the CPU when no CUDA
-card is present."""
+``tools/compare_simt_builds.py``, ``tools/time_simt_builds.py``,
+``tools/simt_backward_share.py``, ``tools/simt_forward_share.py``), imports
+jax or the JAX package; importing the port pulls in no jax; and its
+entry points refuse to drop to the CPU when no CUDA card is present."""
 
 import ast
 import subprocess
@@ -30,8 +30,9 @@ def port_files():
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "tools" / "profile_torch_slice.py",
                     ROOT / "tools" / "compare_simt_builds.py",
-                    ROOT / "tools" / "time_simt_backward.py",
-                    ROOT / "tools" / "simt_backward_share.py"]
+                    ROOT / "tools" / "time_simt_builds.py",
+                    ROOT / "tools" / "simt_backward_share.py",
+                    ROOT / "tools" / "simt_forward_share.py"]
 
 
 def imported_roots(path):

@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""Are two builds of the SIMT flash forward bit-identical, on a CUDA card?
+"""Are two builds of the SIMT flash backward bit-identical, on a CUDA card?
 
     python3 tools/compare_simt_builds.py --ref-csrc OTHER/distkeras_tpu_torch/csrc
 
-Compiles ``flash_attention_fwd.cu`` from ``--ref-csrc`` (for example the
+Compiles ``flash_attention_bwd.cu`` from ``--ref-csrc`` (for example the
 csrc directory of an older checkout, unpacked with ``git archive``) and
 from this checkout, with the flags of ``distkeras_tpu_torch/kernels.py``,
-into ``build/compare_simt/``.  It then runs the forward (inference form and
-the form with lse) of both builds on the same random inputs, at head dims
-that the kernel pads (16 ... 256), in f32, bf16 and f16, causal, windowed
-and not, and prints one JSON line per case with whether every output is
-equal to the last bit.  It exits non-zero if one is not.  Imports nothing
-of JAX.
+into ``build/compare_simt/``.  It then runs the dq and dk/dv entries of both
+builds on the same random inputs (out and lse from the plain forward), at
+head dims that the kernels pad (16 ... 128) and take in chunks (200, 320),
+in f32, bf16 and f16, causal, windowed and not, and prints one JSON line per
+case with whether dq, Delta, dk and dv are equal to the last bit.  It exits
+non-zero if one is not.  This is the check for a change that must not move
+the backward's arithmetic, such as moving its helpers into a header.
+Imports nothing of JAX.
 
-The SIMT backward (``flash_attention_bwd.cu``) is left out: its products
-run on the TF32 tensor cores with split operands, so a build from before
-that design differs from it in the last bits by design.
-``tools/time_simt_backward.py`` times two builds of it instead and holds
-each against the plain version.
+The SIMT forward (``flash_attention_fwd.cu``) is left out: since its
+products moved to the TF32 tensor cores with split operands, a build from
+before that design differs from it in the last bits by design.
+``tools/time_simt_builds.py`` times two builds of either kernel instead and
+holds each against the plain version.
 """
 
 from __future__ import annotations
@@ -31,16 +33,17 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_bwd",)
 # name, B, S, H, Hkv, D, causal, window
 CASES = (("d16", 2, 300, 4, 2, 16, True, None),
          ("d32", 2, 1024, 8, 2, 32, True, None),
          ("d32_window", 2, 1024, 8, 2, 32, True, 100),
+         ("d36", 2, 500, 4, 2, 36, True, None),
          ("d64_noncausal", 2, 512, 4, 4, 64, False, None),
          ("d96", 2, 512, 4, 1, 96, True, None),
          ("d128", 2, 512, 4, 2, 128, True, None),
          ("d200", 2, 1000, 8, 2, 200, True, None),
-         ("d256", 1, 512, 4, 2, 256, True, None))
+         ("d320", 1, 512, 4, 2, 320, True, None))
 
 
 def build(csrc: Path, out_dir: Path, sources=SOURCES) -> dict:
@@ -85,21 +88,30 @@ def tail_args(q, hkv: int, causal, window) -> tuple:
             torch.cuda.current_stream().cuda_stream)
 
 
-def run(libs: dict, q, k, v, causal, window) -> dict:
-    """Every output of the forward's entry, both forms, on these inputs."""
-    import torch
-    b, s, h, d = q.shape
-    tail = tail_args(q, k.shape[2], causal, window)
-    out_inf, out = torch.empty_like(q), torch.empty_like(q)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    p = lambda *ts: [None if t is None else t.data_ptr() for t in ts]
-    fwd = entry(libs, "flash_attention_fwd", "flash_attention_fwd", 5)
-    for ptrs in (p(q, k, v, out_inf, None), p(q, k, v, out, lse)):
-        rc = fwd(*ptrs, *tail)
+def launcher(fn, ptrs, tail):
+    """A call of ``fn`` on these arguments that raises if the launch
+    fails."""
+    def launch():
+        rc = fn(*ptrs, *tail)
         if rc:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
+    return launch
+
+
+def run(libs: dict, q, k, v, out, lse, do, causal, window) -> dict:
+    """dq, Delta, dk and dv of the backward's two entries on these
+    inputs."""
+    import torch
+    tail = tail_args(q, k.shape[2], causal, window)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    p = lambda *ts: [t.data_ptr() for t in ts]
+    launcher(entry(libs, SOURCES[0], "flash_attention_bwd_dq", 8),
+             p(q, k, v, out, do, lse, delta, dq), tail)()
+    launcher(entry(libs, SOURCES[0], "flash_attention_bwd_dkv", 8),
+             p(q, k, v, do, lse, delta, dk, dv), tail)()
     torch.cuda.synchronize()
-    return {"out_inference": out_inf, "out": out, "lse": lse}
+    return {"dq": dq, "delta": delta, "dk": dk, "dv": dv}
 
 
 def main() -> int:
@@ -111,6 +123,9 @@ def main() -> int:
         print("compare_simt_builds: no CUDA device is available",
               file=sys.stderr)
         return 1
+    sys.path.insert(0, str(ROOT))
+    from distkeras_tpu_torch.ops.flash_attention import (
+        flash_attention_reference)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -121,11 +136,13 @@ def main() -> int:
     all_equal = True
     for name, b, s, h, hkv, d, causal, window in CASES:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            q, k, v = (torch.randn(b, s, n, d, device="cuda",
-                                   generator=gen).to(dtype)
-                       for n in (h, hkv, hkv))
-            got_ref = run(ref, q, k, v, causal, window)
-            got_new = run(new, q, k, v, causal, window)
+            q, k, v, do = (torch.randn(b, s, n, d, device="cuda",
+                                       generator=gen).to(dtype)
+                           for n in (h, hkv, hkv, h))
+            out, lse = (t.contiguous() for t in flash_attention_reference(
+                q, k, v, causal, None, window, return_lse=True))
+            got_ref = run(ref, q, k, v, out, lse, do, causal, window)
+            got_new = run(new, q, k, v, out, lse, do, causal, window)
             equal = {n: torch.equal(got_ref[n], got_new[n])
                      for n in got_ref}
             all_equal &= all(equal.values())
