@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through fourteen
+It drives the port only (no JAX is needed or imported) through sixteen
 phases, each printing JSON lines, and fails with a non-zero exit if any
 phase fails:
 
@@ -125,11 +125,29 @@ phase fails:
     epoch streamed onto the card round by round equal to it to the bit; a
     round-unit checkpoint resume bit-identical to the uninterrupted run; and no
     attention or cross-entropy kernel launched on any of it.
+15. pack: sequence packing (``data/packing.py``) of x+1 documents of 32 to
+    1024 tokens into 64 rows of 2048 (its efficiency printed); at f32 on
+    a 2-layer copy of the LM with RoPE each document of a packed row
+    gives its own forward's logits (1e-4; the bf16 band beside it);
+    ``SingleTrainer(segment_col=)`` with the masked loss trains 16 steps
+    in bf16 and the loss falls; ``ADAG(segment_col=)`` runs 2 rounds of 2
+    workers on the SPMD engine; no kernel launched on either run.
+16. decode: the four decode configurations of
+    ``scripts/bench_kernels.py`` (full, full_int8, rolling_window,
+    rolling_window_int8: batch 8, 256 greedy ``decode_step``s) with their
+    tokens/s and ms per step; at f32 the cached step's logits against the
+    full forward over a 1024-token prompt, ``generate`` on the card equal
+    to ``generate`` on the CPU (1024 + 256 tokens, both forms), beam
+    search (4 beams: one beam is greedy, the scores are the full
+    forward's log-probabilities), greedy speculative decoding with a
+    1-layer draft equal to ``generate``; int8 weights' bytes and greedy
+    agreement; no kernel launched on any of it.
 
-Then it prints the north-star line again, the kernel summary line (each
-variant of each flash kernel with its source and the runs it served, and
-the SIMT kernels at the wide head dim), the ``nvidia-smi`` name and power
-limit line, and last ``{"ok": true, "device": {...}}``.
+Then it prints the north-star line again, the whole run's wall time, the
+kernel summary line (each variant of each flash kernel with its source
+and the runs it served, the SIMT kernels at the wide head dim, and every
+kernel's launches on the packing and decode paths), the ``nvidia-smi``
+name and power limit line, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -384,6 +402,53 @@ ALGO_RUNS = {
 # the bands are about ten times those
 CARD_CPU_ROWS = 2048
 CARD_CPU_LOSS_BAND, CARD_CPU_PARAM_BAND = 1e-6, 2e-4
+# the packing slice (ROADMAP A5c): documents of phase train's x+1 task
+# (a run of consecutive token ids mod the vocab from a random start), their
+# lengths drawn from the seed in PACK_DOC_LEN tokens, packed by
+# pack_documents into rows of the LM's seq 2048; the first PACK_ROWS rows
+# train.  RoPE, since packing refuses a learned position table
+PACK_LM = dict(LM, positional="rope")
+PACK_DOC_LEN, PACK_DOCS, PACK_ROWS = (32, 1024), 320, 64
+PACK_LOSS = "sparse_categorical_crossentropy_masked_from_logits"
+# isolation: on a PACK_ISO_LAYERS-layer copy at full width, the packed
+# forward's logits (plain path) over each document of the first row
+# against that document's own forward (the kernel route): at f32 both
+# compute the same function in other orders of f32 sums (the kernel
+# against the plain version reads ~6e-6 in phase slice); at bf16 the
+# plain route rounds probabilities to bf16 where the kernel keeps f32,
+# the band of phase slice's LOGIT_TOL
+PACK_ISO_LAYERS = 2
+PACK_ISO_TOL = {"float32": 1e-4, "bfloat16": LOGIT_TOL["bfloat16"]}
+# packed ADAG on the SPMD engine: 2 workers, window 4, batch 4: the 64
+# rows are exactly 2 rounds
+PACK_ADAG_WORKERS, PACK_ADAG_WINDOW, PACK_ADAG_BATCH = 2, 4, 4
+# the decode slice (ROADMAP A4, its dense-cache layer): the four
+# configurations of scripts/bench_kernels.py:116-156 (the LM at bf16, batch
+# 8, 256 greedy decode_steps through jit_decode_step; the full cache of
+# seq 2048 from position 0, the rolling ring of the window 256 at position
+# 2047, as that script times them; *_int8 after FittedModel.quantize()),
+# one warm-up run, then DECODE_REPS timed runs, their median kept
+DECODE_CONFIGS = {
+    "full": (dict(), False, False),
+    "full_int8": (dict(), False, True),
+    "rolling_window": (dict(attention_window=256, positional="rope"), True,
+                       False),
+    "rolling_window_int8": (dict(attention_window=256, positional="rope"),
+                            True, True)}
+DECODE_BATCH, DECODE_STEPS, DECODE_REPS = 8, 256, 3
+# the decode checks, at f32 on 2 rows: the cached steps' logits against
+# the plain full forward's over a 1024-token prompt and DECODE_FORCED
+# teacher-forced steps (both compute the same function in other orders of
+# f32 sums: tests/test_decode.py holds 2e-5 at its CPU sizes; the card's
+# GEMMs of 2 rows and of 2048 sum in other orders, so 1e-4 on logits of
+# ~unit scale), and generate on the card against generate on the CPU
+# (1024 + 256 tokens, both forms); beam search and speculative decoding on
+# a 256-token prompt for 64 steps; beam scores against the full forward's
+# summed log-probabilities (64 terms, each to ~1e-6)
+DECODE_ROWS, DECODE_PROMPT, DECODE_CONT, DECODE_FORCED = 2, 1024, 256, 64
+DECODE_LOGIT_TOL_F32 = 1e-4
+BEAM_PROMPT, BEAM_STEPS, BEAM_WIDTH, BEAM_SCORE_TOL = 256, 64, 4, 1e-3
+SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 1, 4
 
 
 def emit(obj) -> None:
@@ -1363,6 +1428,7 @@ def _read_counts():
     by_variant = {"fwd_lse": fa.flash_attention_forward.launches_by_variant,
                   "dq": bwd.dq_launches_by_variant,
                   "dkv": bwd.dkv_launches_by_variant}
+    by_variant["inference"] = fa.flash_attention.launches_by_variant
     return {"fused_ce_fwd": ce.fused_ce_fwd.launches,
             "fused_ce_bwd": ce.fused_ce_bwd.launches,
             "flash_fwd_lse": fa.flash_attention_forward.launches,
@@ -2337,6 +2403,394 @@ def phase_adag(card: str, dev: str = "cuda"):
     return row
 
 
+def _sync(dev: str) -> None:
+    """Wait for the card (a rehearsal on the CPU has nothing to wait
+    for)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pack_corpus(rng):
+    """PACK_DOCS documents of the x+1 task packed into rows of the LM's
+    seq; the first PACK_ROWS rows, their segment ids and packed labels."""
+    import numpy as np
+    from distkeras_tpu_torch.data.packing import (pack_documents,
+                                                  packed_lm_labels)
+    v, (lo, hi) = LM["vocab_size"], PACK_DOC_LEN
+    docs = [((int(rng.integers(0, v)) + np.arange(int(rng.integers(
+        lo, hi + 1)))) % v).tolist() for _ in range(PACK_DOCS)]
+    tokens, segs = pack_documents(docs, LM["seq_len"])
+    check(len(tokens) >= PACK_ROWS, f"pack: {len(tokens)} rows packed, "
+          f"want {PACK_ROWS}")
+    tokens, segs = tokens[:PACK_ROWS], segs[:PACK_ROWS]
+    return tokens, segs, packed_lm_labels(tokens, segs)
+
+
+def _pack_isolation(card: str, dev: str, tokens, segs, rng):
+    """Each document of the first packed row: its logits in the packed
+    forward against its own forward, at f32 and bf16."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    cfg = dict(PACK_LM, num_layers=PACK_ISO_LAYERS)
+    weights = _random_jax_weights(transformer_lm(**cfg, device="meta"), rng)
+    ids = [int(i) for i in np.unique(segs[0]) if i]
+    for dtype in ("float32", "bfloat16"):
+        model = transformer_lm(**{**cfg, "compute_dtype": dtype}, device=dev)
+        load_jax_weights(model, weights)
+        row = torch.as_tensor(tokens[:1], device=dev)
+        with torch.no_grad():
+            packed = model(row, segment_ids=torch.as_tensor(
+                segs[:1], device=dev))[0]
+            worst = 0.0
+            for i in ids:
+                at = np.flatnonzero(segs[0] == i)
+                lo, hi = int(at[0]), int(at[-1]) + 1
+                solo = model(row[:, lo:hi])[0]
+                worst = max(worst,
+                            (packed[lo:hi] - solo).abs().max().item())
+        emit({"phase": "pack_isolation", "compute_dtype": dtype,
+              "layers": PACK_ISO_LAYERS, "documents": len(ids),
+              "doc_lengths": [int((segs[0] == i).sum()) for i in ids],
+              "max_abs_diff": worst, "tol": PACK_ISO_TOL[dtype],
+              "finite": bool(torch.isfinite(packed).all()), "card": card})
+        check(len(ids) >= 2, f"pack: the first row holds {len(ids)} document")
+        check(worst <= PACK_ISO_TOL[dtype], f"pack {dtype}: a packed "
+              f"document's logits differ from its own forward by {worst} > "
+              f"{PACK_ISO_TOL[dtype]}")
+        del model, packed
+        torch.cuda.empty_cache()
+
+
+def phase_pack(card: str, dev: str = "cuda"):
+    """Sequence packing on the card: the packed corpus and its efficiency,
+    document isolation of the packed forward, SingleTrainer and the packed
+    SPMD engine (ADAG) with ``segment_col``, and no kernel launched by
+    either run (packed batches take the plain attention path, as the
+    reference's take XLA's)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (ADAG, Dataset, FittedModel,
+                                     SingleTrainer, load_jax_weights,
+                                     transformer_lm)
+    from distkeras_tpu_torch.data.packing import packing_efficiency
+    from distkeras_tpu_torch.parallel import get_mesh
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    tokens, segs, labels = _pack_corpus(rng)
+    emit({"phase": "pack_corpus", "documents": PACK_DOCS,
+          "doc_len_range": list(PACK_DOC_LEN), "rows": len(tokens),
+          "seq_len": LM["seq_len"],
+          "documents_in_rows": int(sum(len(np.unique(r[r > 0]))
+                                       for r in segs)),
+          "packing_efficiency": packing_efficiency(segs),
+          "label_share": float((labels >= 0).mean())})
+    _pack_isolation(card, dev, tokens, segs, rng)
+
+    weights = _random_jax_weights(transformer_lm(**PACK_LM, device="meta"),
+                                  rng)
+    model = transformer_lm(**PACK_LM, device=dev)
+    load_jax_weights(model, weights)
+    fitted = FittedModel(model)
+    data = Dataset({"features": tokens, "label": labels,
+                    "segment_ids": segs})
+    kw = dict(TRAINER, loss=PACK_LOSS, segment_col="segment_ids",
+              device=dev)
+    SingleTrainer(fitted, **{**kw, "num_epoch": 1}).train(
+        Dataset({c: data[c][:BATCH] for c in data.columns}))  # warm-up
+    _sync(dev)
+    _zero_counts()
+    trainer = SingleTrainer(fitted, **kw)
+    t0 = time.perf_counter()
+    trainer.train(data)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    hist = np.asarray(trainer.get_history())
+    steps = len(hist)
+    adag = ADAG(fitted, mesh=get_mesh(PACK_ADAG_WORKERS,
+                                      devices=[dev] * PACK_ADAG_WORKERS),
+                batch_size=PACK_ADAG_BATCH, num_epoch=1,
+                communication_window=PACK_ADAG_WINDOW, loss=PACK_LOSS,
+                worker_optimizer="adam", learning_rate=3e-3,
+                segment_col="segment_ids")
+    t0 = time.perf_counter()
+    adag.train(data)
+    _sync(dev)
+    adag_seconds = time.perf_counter() - t0
+    rounds = np.asarray(adag.get_history())
+    launches = _read_counts()
+    emit({"phase": "pack_train", "compute_dtype": LM["compute_dtype"],
+          "rows": len(tokens), "batch_size": BATCH, "steps": steps,
+          "losses": hist.tolist(),
+          "last_over_first": float(hist[-1] / hist[0]),
+          "ms_per_step": seconds / steps * 1e3,
+          "tokens_per_s": float((labels >= 0).sum()) * TRAIN_EPOCHS
+          / seconds,
+          "adag": {"workers": PACK_ADAG_WORKERS,
+                   "window": PACK_ADAG_WINDOW,
+                   "batch_size": PACK_ADAG_BATCH,
+                   "round_losses": rounds.tolist(),
+                   "seconds": adag_seconds},
+          "launches": launches, "card": card})
+    check(steps == TRAIN_EPOCHS * PACK_ROWS // BATCH,
+          f"pack: {steps} SingleTrainer steps")
+    check(bool(np.isfinite(hist).all()) and hist[-1] < LOSS_DROP * hist[0],
+          f"pack: the packed loss did not fall below {LOSS_DROP} of the "
+          f"first ({hist.tolist()})")
+    want_rounds = -(-len(tokens) // (PACK_ADAG_WORKERS * PACK_ADAG_WINDOW
+                                     * PACK_ADAG_BATCH))
+    check(len(rounds) == want_rounds and bool(np.isfinite(rounds).all()),
+          f"pack: packed ADAG round losses {rounds.tolist()}, want "
+          f"{want_rounds} rounds")
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"pack: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "pack_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return launches
+
+
+def _decode_timing(card: str, dev: str):
+    """The four configurations of scripts/bench_kernels.py's decode
+    bench: DECODE_STEPS greedy steps at batch DECODE_BATCH."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (FittedModel, load_jax_weights,
+                                     transformer_lm)
+    from distkeras_tpu_torch.core.decode import init_cache, jit_decode_step
+    rng = np.random.default_rng(SEED + 12)
+    rows = {}
+    for name, (extra, rolling, int8) in DECODE_CONFIGS.items():
+        model = transformer_lm(**LM, **extra, device=dev)
+        load_jax_weights(model, _random_jax_weights(model, rng))
+        if int8:
+            model = FittedModel(model).quantize().model
+        slots = extra["attention_window"] if rolling else LM["seq_len"]
+        caches = init_cache(model, DECODE_BATCH, slots, rolling=rolling)
+        step = jit_decode_step(model, rolling=rolling)
+        start = LM["seq_len"] - 1 if rolling else 0
+
+        def run():
+            nonlocal caches
+            tok = torch.zeros(DECODE_BATCH, dtype=torch.int32, device=dev)
+            for i in range(DECODE_STEPS):
+                logits, caches = step(caches, tok,
+                                      start + (0 if rolling else i))
+                tok = torch.argmax(logits, -1).to(torch.int32)
+            return logits
+
+        logits = run()  # warm-up
+        _sync(dev)
+        times = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            logits = run()
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        t = statistics.median(times)
+        rows[name] = {"phase": "decode_timing", "cache": name,
+                      "compute_dtype": LM["compute_dtype"],
+                      "batch": DECODE_BATCH, "steps": DECODE_STEPS,
+                      "cache_slots": slots, "int8_weights": int8,
+                      "tokens_per_sec": DECODE_BATCH * DECODE_STEPS / t,
+                      "ms_per_step": t / DECODE_STEPS * 1e3,
+                      "runs_s": times,
+                      "finite": bool(torch.isfinite(logits).all()),
+                      "card": card}
+        emit(rows[name])
+        check(rows[name]["finite"], f"decode {name}: non-finite logits")
+        del model, caches
+    return rows
+
+
+def _decode_models(extra, rng, dev: str, layers=None):
+    """An f32 LM on ``dev`` with random weights, the same weights on the
+    plain attention route (the full-forward reference), and on the CPU."""
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    cfg = dict(LM, compute_dtype="float32", **extra)
+    if layers is not None:
+        cfg["num_layers"] = layers
+    weights = _random_jax_weights(transformer_lm(**cfg, device="meta"), rng)
+    out = []
+    for kw in (dict(device=dev), dict(device=dev, attention_impl="xla"),
+               dict(device="cpu")):
+        model = transformer_lm(**cfg, **kw)
+        load_jax_weights(model, weights)
+        out.append(model)
+    return out
+
+
+def _first_difference(plain, got, want, p_len: int) -> dict:
+    """Where two token paths first part, and the gap of the top two
+    logits of the full forward there."""
+    import torch
+    bad = (got != want).nonzero()
+    r, c = (int(v) for v in bad[0])
+    with torch.no_grad():
+        logits = plain(got[r:r + 1, :c].to(plain.device))[0, -1]
+    top = torch.topk(logits, 2).values
+    return {"row": r, "position": c, "generated_index": c - p_len,
+            "top2_logit_gap": float(top[0] - top[1])}
+
+
+def _decode_checks(card: str, dev: str):
+    """At f32: cached logits against the full forward, generate on the
+    card against generate on the CPU (both forms), beam search,
+    speculative decoding; at bf16: int8 weights."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import FittedModel
+    from distkeras_tpu_torch.core import decode
+    from distkeras_tpu_torch.core.quant import quantized_bytes
+    rng = np.random.default_rng(SEED + 13)
+    v, p_len = LM["vocab_size"], DECODE_PROMPT
+    ids = rng.integers(0, v, (DECODE_ROWS, p_len + DECODE_FORCED)).astype(
+        np.int32)
+    toks = torch.as_tensor(ids, device=dev)
+    prompt = toks[:, :p_len]
+    for form, extra in FORMS.items():
+        rolling = "attention_window" in extra
+        model, plain, cpu = _decode_models(extra, rng, dev)
+        with torch.no_grad():
+            full = plain(toks)
+        # the cached steps, teacher-forced: prefill, then single tokens
+        caches = decode.init_cache(model, DECODE_ROWS,
+                                   p_len if rolling else toks.shape[1])
+        logits, caches = decode._forward(model, caches, prompt, 0)
+        worst = (logits - full[:, :p_len]).abs().max().item()
+        if rolling:
+            w = extra["attention_window"]
+            caches = [None if c is None else
+                      {n: decode._to_ring(t, p_len, w) for n, t in c.items()}
+                      for c in caches]
+        for i in range(DECODE_FORCED - 1):
+            step, caches = decode.decode_step(model, caches,
+                                              toks[:, p_len + i], p_len + i,
+                                              rolling)
+            worst = max(worst,
+                        (step - full[:, p_len + i]).abs().max().item())
+        emit({"phase": "decode_cached_logits", "form": form,
+              "compute_dtype": "float32", "rows": DECODE_ROWS,
+              "prompt": p_len, "steps": DECODE_FORCED - 1,
+              "rolling": rolling, "max_abs_diff": worst,
+              "tol": DECODE_LOGIT_TOL_F32, "card": card})
+        check(worst <= DECODE_LOGIT_TOL_F32, f"decode {form}: cached logits "
+              f"differ from the full forward by {worst}")
+        # generate on the card against generate on the CPU
+        t0 = time.perf_counter()
+        got = decode.generate(model, prompt, DECODE_CONT, rolling=rolling)
+        _sync(dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = decode.generate(cpu, prompt.cpu(), DECODE_CONT,
+                               rolling=rolling)
+        cpu_s = time.perf_counter() - t0
+        same = bool(torch.equal(got.cpu(), want))
+        row = {"phase": "decode_card_vs_cpu", "form": form,
+               "compute_dtype": "float32", "rows": DECODE_ROWS,
+               "prompt": p_len, "steps": DECODE_CONT, "rolling": rolling,
+               "identical": same, "card_s": card_s, "cpu_s": cpu_s,
+               "card": card}
+        if not same:
+            row["first_difference"] = _first_difference(plain, got.cpu(),
+                                                        want, p_len)
+        emit(row)
+        check(same, f"decode {form}: generate on the card differs from "
+              f"the CPU: {row.get('first_difference')}")
+        del model, plain, cpu, caches, full
+        torch.cuda.empty_cache()
+
+    model, plain, _ = _decode_models(FORMS["full"], rng, dev)
+    short = prompt[:, :BEAM_PROMPT]
+    greedy = decode.generate(model, short, BEAM_STEPS)
+    one, _ = decode.beam_search(model, short, BEAM_STEPS, num_beams=1)
+    beams, scores = decode.beam_search(model, short, BEAM_STEPS,
+                                       num_beams=BEAM_WIDTH)
+    seqs = beams.reshape(-1, beams.shape[-1]).long()
+    with torch.no_grad():
+        logp = torch.log_softmax(plain(seqs), dim=-1)
+    want = logp[:, BEAM_PROMPT - 1:-1].gather(
+        -1, seqs[:, BEAM_PROMPT:, None])[..., 0].sum(-1)
+    score_diff = (scores.reshape(-1) - want).abs().max().item()
+    emit({"phase": "decode_beam", "compute_dtype": "float32",
+          "rows": DECODE_ROWS, "prompt": BEAM_PROMPT, "steps": BEAM_STEPS,
+          "num_beams": BEAM_WIDTH, "scores": scores.tolist(),
+          "beam1_equals_greedy": bool(torch.equal(one[:, 0], greedy)),
+          "score_max_abs_diff": score_diff, "tol": BEAM_SCORE_TOL,
+          "card": card})
+    check(bool(torch.equal(one[:, 0], greedy)),
+          "decode: beam search with one beam differs from greedy")
+    check(score_diff <= BEAM_SCORE_TOL, f"decode: beam scores differ from "
+          f"the full forward's log-probabilities by {score_diff}")
+
+    draft, _, _ = _decode_models(FORMS["full"], rng, dev,
+                                 layers=SPEC_DRAFT_LAYERS)
+    t0 = time.perf_counter()
+    spec, stats = decode.speculative_generate(
+        model, draft, short, BEAM_STEPS, draft_len=SPEC_DRAFT_LEN,
+        return_stats=True)
+    _sync(dev)
+    spec_s = time.perf_counter() - t0
+    same = bool(torch.equal(spec, greedy))
+    row = {"phase": "decode_speculative", "compute_dtype": "float32",
+           "rows": DECODE_ROWS, "prompt": BEAM_PROMPT, "steps": BEAM_STEPS,
+           "draft_layers": SPEC_DRAFT_LAYERS, "draft_len": SPEC_DRAFT_LEN,
+           **stats, "equals_generate": same, "seconds": spec_s,
+           "card": card}
+    if not same:
+        row["first_difference"] = _first_difference(plain, spec.cpu(),
+                                                     greedy.cpu(),
+                                                     BEAM_PROMPT)
+    emit(row)
+    check(same, "decode: greedy speculative_generate differs from "
+          f"generate: {row.get('first_difference')}")
+    del model, plain, draft
+
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, _random_jax_weights(model, rng))
+    fitted = FittedModel(model)
+    quantized = fitted.quantize()
+    base = fitted.generate(short, BEAM_STEPS)
+    q8 = quantized.generate(short, BEAM_STEPS)
+    agree = (base[:, BEAM_PROMPT:] == q8[:, BEAM_PROMPT:]).float().mean()
+    emit({"phase": "decode_int8", "compute_dtype": LM["compute_dtype"],
+          "rows": DECODE_ROWS, "prompt": BEAM_PROMPT, "steps": BEAM_STEPS,
+          "bytes": quantized_bytes(model),
+          "quantized_bytes": quantized_bytes(quantized.model),
+          "greedy_agreement": agree.item(),
+          "first_token_agreement":
+              (base[:, BEAM_PROMPT] == q8[:, BEAM_PROMPT]).float()
+              .mean().item(), "card": card})
+    check(quantized_bytes(quantized.model) < quantized_bytes(model),
+          "decode: int8 weights take no fewer bytes")
+    check(bool(((q8 >= 0) & (q8 < v)).all()),
+          "decode: int8 generate left the vocabulary")
+
+
+def phase_decode(card: str, dev: str = "cuda"):
+    """KV-cache decoding on the card: the decode bench's four
+    configurations timed, the cached step against the full forward,
+    generate on the card against the CPU, beam search, speculative
+    decoding, int8 weights; no kernel launched on any of it (decode
+    attends through the plain path, as the reference's does)."""
+    t_start = time.perf_counter()
+    _zero_counts()
+    rows = _decode_timing(card, dev)
+    _decode_checks(card, dev)
+    launches = _read_counts()
+    emit({"phase": "decode_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"decode: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "decode_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2345,6 +2799,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import distkeras_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     smi = phase_device()
     kernel_rows = phase_kernel()
     launches, variants, kept = phase_slice()
@@ -2362,6 +2817,8 @@ def main() -> int:
     phase_views()
     phase_zoo(smi)
     north_star = phase_adag(smi)
+    pack_launches = phase_pack(smi)
+    _, decode_launches = phase_decode(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -2517,8 +2974,23 @@ def main() -> int:
                                 w32["bound_ms_split_tf32"][key],
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
+    def new_paths(entry):
+        """The entry's launches on the packing and decode paths (each
+        counted from 0 over its phase's runs; both must be 0)."""
+        key = {"flash_attention_fwd": "flash_inference",
+               "flash_attention_fwd_lse": "flash_fwd_lse",
+               "flash_attention_bwd_dq": "flash_dq",
+               "flash_attention_bwd_dkv": "flash_dkv"}.get(entry["name"])
+        key = (f"{key}_{entry['variant']}" if key is not None
+               else entry["name"])
+        entry["launches_pack"] = pack_launches[key]
+        entry["launches_decode"] = decode_launches[key]
+        return entry
+
     emit(north_star)
-    emit({"kernels": [
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "card": smi})
+    emit({"kernels": [new_paths(e) for e in [
         forward_entry("sm90"),
         forward_entry("simt"),
         *(train_entry(name, key, replaces, v)
@@ -2534,7 +3006,7 @@ def main() -> int:
             ("flash_attention_fwd_lse", "fwd_lse", 78),
             ("flash_attention_bwd_dq", "dq", 182),
             ("flash_attention_bwd_dkv", "dkv", 221))),
-    ]})
+    ]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,874 @@
+"""Autoregressive decoding with a dense KV cache for Sequential causal LMs,
+port of ``distkeras_tpu/core/decode.py`` (without its paged arena).
+
+One walker understands the sequence-model layer kinds (``Embedding``,
+``PositionalEmbedding``, ``TransformerBlock``, ``LayerNormalization``,
+``Dense``) and reuses their own parts (``_project``, the layers' forwards)
+plus ``ops.attention.dot_product_attention`` through its ``q_offset``/
+``kv_length``/``kv_positions`` hooks, so decode numerics are the full
+forward's: there is no second attention.  No kernel of the port runs here,
+as no Pallas kernel runs in the JAX walker.
+
+``generate`` prefills the whole prompt in one batched forward, then runs
+single-token steps.  The JAX package scans those steps inside one XLA
+program; here they are an eager loop that never waits for the card: no
+step reads a value back to the host, and ``eos``/``pad`` are applied with
+``torch.where`` on the device, so the output keeps its static
+(B, P + num_steps) shape.  The scalar-position paths write the caches in
+place (the JAX scan's buffers are donated the same way) and return them;
+the per-row (B,) paths build new cache tensors, dropping writes past the
+cache's end as the JAX scatter does.
+
+Random draws use ``torch.Generator``s: a step's generator is seeded from
+(the caller's generator's seed, the step's position), the counterpart of
+``jax.random.fold_in``, so a position's draw is a function of the two.
+Sampling is Gumbel-max, as ``jax.random.categorical``; the bits differ
+from JAX's threefry, so sampled paths agree with the JAX package in their
+properties, not token for token.  Greedy paths, the filters and the beams
+agree exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import torch_dtype
+from .layers import (Dense, Embedding, LayerNormalization,
+                     MultiHeadAttention, PositionalEmbedding,
+                     TransformerBlock, _apply_activation, _project)
+from .quant import dequantize_kv, quantize_kv
+
+_STATELESS = (LayerNormalization, Dense)
+
+
+def _check_supported(model) -> None:
+    for layer in model.layers:
+        if not isinstance(layer, (Embedding, PositionalEmbedding,
+                                  TransformerBlock) + _STATELESS):
+            raise ValueError(
+                f"decode: unsupported layer kind {layer.kind!r} — KV-cache "
+                "decoding walks Embedding/PositionalEmbedding/"
+                "TransformerBlock/LayerNormalization/Dense sequences "
+                "(the transformer_lm family)")
+        if isinstance(layer, TransformerBlock) and not layer.causal:
+            raise ValueError(
+                "decode: TransformerBlock(causal=False) — autoregressive "
+                "decoding is only meaningful for causal models, and the "
+                "cached step would silently diverge from the full forward")
+
+
+def _context_limit(model) -> Optional[int]:
+    for layer in model.layers:
+        if isinstance(layer, PositionalEmbedding):
+            return layer.max_len
+    return None
+
+
+def _vocab_size(model) -> Optional[int]:
+    for layer in model.layers:
+        if isinstance(layer, Embedding):
+            return layer.input_dim
+    return None
+
+
+def _validate_rolling(model) -> None:
+    """Every block must carry a window for a ring cache to be sound:
+    without one, old positions stay visible and must stay cached."""
+    for layer in model.layers:
+        if isinstance(layer, TransformerBlock) and \
+                layer._mha().attention_window is None:
+            raise ValueError(
+                "rolling=True needs attention_window on every "
+                "TransformerBlock: without a window, old positions stay "
+                "visible and must stay cached")
+
+
+def init_cache(model, batch: int, max_len: int,
+               rolling: bool = False, kv_dtype: Optional[str] = None,
+               ring_slack: int = 0) -> List[Any]:
+    """One cache slot per layer, on the model's device: ``{"k", "v"}`` of
+    shape (batch, max_len, num_kv_heads, key_dim) in the compute dtype for
+    TransformerBlocks, None elsewhere.
+
+    ``rolling=True`` (sliding-window models only): each block's cache is
+    a ring of its ``attention_window`` slots (slot ``p % W`` holds
+    position ``p``), so memory stays O(W) however long the continuation;
+    ``ring_slack`` widens each ring by that many slots, which keeps
+    multi-token per-row steps exact.  ``kv_dtype="int8"``: entries are
+    int8 codes plus a per-(row, slot, head) f32 scale (``{"k", "v", "ks",
+    "vs"}``), quantized at write time, dequantized in the attention read;
+    they are written through the per-row decode paths only."""
+    _check_supported(model)
+    if rolling:
+        _validate_rolling(model)
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got "
+                         f"{kv_dtype!r}")
+    limit = _context_limit(model)
+    if limit is not None and max_len > limit:
+        raise ValueError(
+            f"cache max_len {max_len} exceeds the model's positional-"
+            f"embedding range {limit} — positions past it have no trained "
+            "embedding (the full forward rejects such sequences too)")
+    dtype = torch_dtype(model.compute_dtype)
+    dev = model.device
+    caches: List[Any] = []
+    for layer in model.layers:
+        if isinstance(layer, TransformerBlock):
+            mha = layer._mha()
+            slots = max_len
+            if rolling:
+                slots = min(mha.attention_window + int(ring_slack), max_len)
+            shape = (batch, slots, mha._kv_heads(), mha.key_dim)
+            if kv_dtype == "int8":
+                caches.append({
+                    "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "ks": torch.zeros(shape[:3], device=dev),
+                    "vs": torch.zeros(shape[:3], device=dev)})
+            else:
+                caches.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            caches.append(None)
+    return caches
+
+
+def _kv_quantized(cache) -> bool:
+    """True for an int8 KV cache dict (codes + per-entry scales)."""
+    return isinstance(cache, dict) and "ks" in cache
+
+
+def _kv_write(cache, slots: torch.Tensor, k_t, v_t):
+    """A new cache with the (B, L, Hkv, Dh) k/v entries written at the
+    per-row slots (B, L); int8 caches quantize on write.  A slot outside
+    the cache drops its write, as the JAX scatter does (the serving
+    engine's speculative verify leans on that at a request's end)."""
+    entries = {"k": k_t, "v": v_t}
+    if _kv_quantized(cache):
+        kq, ks = quantize_kv(k_t)
+        vq, vs = quantize_kv(v_t)
+        entries = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    ar = torch.arange(cache["k"].shape[1], device=slots.device)
+    out = {}
+    for name, cur in cache.items():
+        new = entries[name].to(cur.dtype)
+        for i in range(slots.shape[1]):
+            hit = slots[:, i, None] == ar                       # (B, S)
+            hit = hit.reshape(hit.shape + (1,) * (cur.ndim - 2))
+            cur = torch.where(hit, new[:, i, None], cur)
+        out[name] = cur
+    return out
+
+
+def _kv_read(cache, dtype):
+    """The attention-side view of a cache: dense (codes × scales for int8
+    caches)."""
+    if _kv_quantized(cache):
+        return (dequantize_kv(cache["k"], cache["ks"], dtype),
+                dequantize_kv(cache["v"], cache["vs"], dtype))
+    return cache["k"], cache["v"]
+
+
+def _per_row(pos) -> bool:
+    """True when ``pos`` is a (B,) per-row position vector rather than
+    the scalar all-rows-share-one-position form."""
+    return getattr(pos, "ndim", 0) == 1
+
+
+def _scalar_write(cache, start: int, k_t, v_t):
+    """Write k/v at slots [start, start + L) of every row, in place; the
+    start clamps so that the write fits, as ``dynamic_update_slice``."""
+    if _kv_quantized(cache):
+        raise TypeError("int8 KV caches are written through the per-row "
+                        "(B,) position paths; the scalar-position walker "
+                        "keeps a full-precision cache")
+    length = k_t.shape[1]
+    start = min(max(int(start), 0), cache["k"].shape[1] - length)
+    cache["k"][:, start:start + length] = k_t
+    cache["v"][:, start:start + length] = v_t
+    return cache
+
+
+def _mha_forward(mha: MultiHeadAttention, h, cache, pos, cdtype,
+                 rolling: bool = False):
+    """Cached attention over (B, L, D) queries starting at position
+    ``pos`` (an int, or a (B,) tensor: each row at its own position);
+    writes k/v for those L positions into the cache and attends through
+    ``ops.attention.dot_product_attention`` (the full forward's
+    numerics).  Rolling caches need a ring of >= window + L - 1 slots for
+    per-row L > 1 (``init_cache(ring_slack=...)``); the scalar rolling
+    step is single-token.  Returns (out, cache)."""
+    from ..ops.attention import dot_product_attention
+    b, length = h.shape[0], h.shape[1]
+    dh = mha.key_dim
+    per_row = _per_row(pos)
+    dev = h.device
+
+    def proj(name, heads):
+        bias = getattr(mha, "b" + name[1]) if mha.use_bias else None
+        y = _project(h, getattr(mha, name), bias, cdtype)
+        return y.to(cdtype).reshape(b, length, heads, dh)
+
+    q = proj("wq", mha.num_heads)
+    k_t = proj("wk", mha._kv_heads())
+    v_t = proj("wv", mha._kv_heads())
+    steps = torch.arange(length, device=dev)
+    if mha.rope:
+        # rotate by the queries' absolute positions; cached k keep the
+        # rotation of their own positions (scores depend on distance)
+        from ..ops.rope import apply_rope
+        positions = pos[:, None] + steps[None, :] if per_row else pos + steps
+        q = apply_rope(q, positions, mha.rope_theta, mha.rope_scale)
+        k_t = apply_rope(k_t, positions, mha.rope_theta, mha.rope_scale)
+    window = mha.attention_window
+    if per_row:
+        idx = pos[:, None] + steps[None, :]                      # (B, L)
+        if rolling:
+            w = cache["k"].shape[1]
+            if length > 1 and w < window + length - 1:
+                raise ValueError(
+                    f"multi-token per-row steps on a rolling cache need a "
+                    f"ring of >= window + L - 1 = {window + length - 1} "
+                    f"slots, got {w} (init_cache(ring_slack=...)) — the "
+                    f"oldest query's window would be overwritten by the "
+                    f"newest write")
+            cache = _kv_write(cache, torch.remainder(idx, w), k_t, v_t)
+            # slot j holds the newest position <= each row's write
+            # frontier congruent to j mod w (negative = never written)
+            front = pos[:, None] + (length - 1)
+            j = torch.arange(w, device=dev)
+            kv_positions = front - torch.remainder(front - j[None, :], w)
+            k, v = _kv_read(cache, cdtype)
+            out = dot_product_attention(q, k, v, causal=True, q_offset=pos,
+                                        window=window,
+                                        kv_positions=kv_positions)
+        else:
+            cache = _kv_write(cache, idx, k_t, v_t)
+            k, v = _kv_read(cache, cdtype)
+            out = dot_product_attention(q, k, v, causal=True, q_offset=pos,
+                                        kv_length=pos + length,
+                                        window=window)
+    elif rolling:
+        # ring of the block's window: slot p % W holds position p.  Single
+        # token writes only: generate() prefills a full cache, then
+        # converts it (_to_ring)
+        if length != 1:
+            raise ValueError("rolling cache steps are single-token "
+                             "(prefill uses a full cache, then converts)")
+        w = cache["k"].shape[1]
+        cache = _scalar_write(cache, pos % w, k_t, v_t)
+        # slot j holds position pos - ((pos - j) mod W); slots not yet
+        # written come out negative and mask themselves
+        j = torch.arange(w, device=dev)
+        kv_positions = pos - torch.remainder(pos - j, w)
+        out = dot_product_attention(q, cache["k"], cache["v"], causal=True,
+                                    q_offset=pos, window=window,
+                                    kv_positions=kv_positions)
+    else:
+        cache = _scalar_write(cache, pos, k_t, v_t)
+        out = dot_product_attention(q, cache["k"], cache["v"], causal=True,
+                                    q_offset=pos, kv_length=pos + length,
+                                    window=window)
+    out = out.reshape(b, length, mha.num_heads * dh)
+    y = _project(out, mha.wo, mha.bo if mha.use_bias else None, cdtype)
+    return y, cache
+
+
+def _block_forward(block: TransformerBlock, x, cache, pos, cdtype,
+                   rolling: bool = False):
+    """``TransformerBlock.forward`` (train=False) with cached attention."""
+    h = block.ln1(x, cdtype)
+    h, cache = _mha_forward(block.attn, h, cache, pos, cdtype, rolling)
+    x = x + h.to(x.dtype)
+    h = block.ln2(x, cdtype)
+    h = _project(h, block.mlp_w1, block.mlp_b1, cdtype)
+    h = _apply_activation(block.activation, h).to(cdtype)
+    h = _project(h, block.mlp_w2, block.mlp_b2, cdtype)
+    return x + h.to(x.dtype), cache
+
+
+@torch.no_grad()
+def _forward(model, caches, toks, pos, rolling: bool = False):
+    """Walk the layer stack over (B, L) tokens starting at position
+    ``pos``; returns ((B, L, V) f32 logits, caches).  L == 1 is a decode
+    step, L == P the batched prompt prefill.  ``pos`` may be a (B,)
+    per-row vector (each row at its own position)."""
+    cdtype = torch_dtype(model.compute_dtype)
+    length = toks.shape[1]
+    x = None
+    new_caches: List[Any] = []
+    for layer, cache in zip(model.layers, caches):
+        if isinstance(layer, PositionalEmbedding):
+            table = layer.embedding
+            if _per_row(pos):
+                # row r's token i sits at pos[r] + i; positions past the
+                # table clamp (their logits are junk no caller commits),
+                # as the JAX gather clamps
+                idx = pos[:, None] + torch.arange(length, device=x.device)
+                pe = table[idx.clamp(0, table.shape[0] - 1)]   # (B, L, D)
+                x = x + pe.to(x.dtype)
+            else:
+                start = min(max(int(pos), 0), table.shape[0] - length)
+                x = x + table[start:start + length].to(x.dtype)[None]
+        elif isinstance(layer, TransformerBlock):
+            x, cache = _block_forward(layer, x, cache, pos, cdtype, rolling)
+        elif isinstance(layer, Embedding):
+            x = layer(toks, cdtype)
+        else:  # LayerNormalization / Dense: position-independent
+            x = layer(x, cdtype)
+        new_caches.append(cache)
+    return x.to(torch.float32), new_caches
+
+
+@torch.no_grad()
+def decode_step(model, caches, tok, pos, rolling: bool = False):
+    """Advance one position.  tok: (B,) int current tokens; pos: an int
+    position (0-based), or a (B,) int tensor advancing every row at its
+    own position.  Returns (logits (B, V) f32, caches)."""
+    logits, caches = _forward(model, caches, tok[:, None], pos, rolling)
+    return logits[:, 0], caches
+
+
+def jit_decode_step(model, rolling: bool = False):
+    """The single-token entry point for serving loops that own their own
+    sampling and stopping.  The JAX package returns a jitted program; in
+    torch this returns the eager :func:`decode_step` bound to ``model``
+    and ``rolling`` (``generate`` steps through the same function, so the
+    numerics are identical)::
+
+        caches = init_cache(model, batch, max_len)
+        step = jit_decode_step(model)
+        for pos in range(p_len, max_len):
+            logits, caches = step(caches, tok, pos)
+            tok = my_sampler(logits)
+    """
+    _check_supported(model)
+    if rolling:
+        _validate_rolling(model)
+
+    def step(caches, tok, pos):
+        return decode_step(model, caches, _tokens(tok, model.device), pos,
+                           rolling)
+
+    return step
+
+
+def _tokens(x, device) -> torch.Tensor:
+    """Token ids (a tensor, numpy array or list) as an int32 tensor on
+    ``device``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=device, dtype=torch.int32)
+
+
+def _validate_sampling(temperature: float, rng,
+                       top_k: Optional[int], top_p: Optional[float]):
+    """The one sampling-surface rule set, shared by ``generate`` and
+    ``speculative_generate``."""
+    if temperature > 0.0 and rng is None:
+        raise ValueError("temperature > 0 sampling needs rng")
+    if top_k is not None or top_p is not None:
+        if temperature <= 0.0:
+            raise ValueError(
+                "top_k/top_p shape the SAMPLING distribution — pass "
+                "temperature > 0 (greedy argmax ignores them)")
+        if top_k is not None and top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _validate_stopping(eos_id: Optional[int], pad_id: Optional[int],
+                       vocab: Optional[int]):
+    """The one eos_id/pad_id rule set, shared by ``generate`` and
+    ``beam_search``: out-of-range ids are refused."""
+    if pad_id is not None and eos_id is None:
+        raise ValueError("pad_id only means something with eos_id")
+    if eos_id is not None and vocab is not None \
+            and not 0 <= eos_id < vocab:
+        raise ValueError(f"eos_id {eos_id} outside the model's vocabulary "
+                         f"[0, {vocab}) — stopping could never trigger")
+    if pad_id is not None and vocab is not None \
+            and not 0 <= pad_id < vocab:
+        raise ValueError(f"pad_id {pad_id} outside the model's vocabulary "
+                         f"[0, {vocab})")
+
+
+def _sort_desc(x: torch.Tensor):
+    """Descending sort along the last axis that keeps equal values in
+    index order, as ``jax.lax.top_k`` ranks ties."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)
+
+
+def _filter_logits(logits, top_k: Optional[int], top_p: Optional[float]):
+    """Restrict (…, V) logits to the top-k tokens and/or the smallest
+    nucleus whose probability mass reaches top_p (the top token always
+    survives); filtered entries go to -inf.  k first, then p."""
+    if top_k is not None:
+        k = min(int(top_k), logits.shape[-1])  # k past vocab = keep all
+        kth = _sort_desc(logits).values[..., k - 1:k]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p is not None:
+        sorted_desc = _sort_desc(logits).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep tokens whose preceding cumulative mass is < top_p (the top
+        # token's is 0, so at least one survives); the cut logit is the
+        # smallest kept one
+        kept = torch.sum((cum - probs) < top_p, dim=-1, keepdim=True)
+        cut = torch.gather(sorted_desc, -1, kept - 1)
+        logits = logits.masked_fill(logits < cut, float("-inf"))
+    return logits
+
+
+def _seed(*entropy: int) -> int:
+    return int(np.random.SeedSequence(
+        [int(e) % (1 << 64) for e in entropy]).generate_state(1,
+                                                              np.uint64)[0])
+
+
+def _fold(rng, data: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (``rng``'s seed, ``data``):
+    the counterpart of ``jax.random.fold_in``.  ``rng``: a
+    ``torch.Generator`` or an int seed."""
+    base = rng.initial_seed() if isinstance(rng, torch.Generator) else rng
+    return torch.Generator(device=device).manual_seed(_seed(base, data))
+
+
+def _categorical(generator: torch.Generator, logits) -> torch.Tensor:
+    """One draw per row from softmax(logits), by Gumbel-max (as
+    ``jax.random.categorical``): no value comes back to the host."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def sample_logits(logits, pos, temperature: float = 0.0, rng=None,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """The one per-step sampling rule: (B, V) f32 logits at absolute
+    position ``pos`` → (B,) int32 next tokens.  temperature 0 = greedy
+    argmax (the first of equal maxima); > 0 = a draw after
+    ``_filter_logits``, from a generator folded from (``rng``, ``pos``)."""
+    if temperature > 0.0:
+        logits = _filter_logits(logits / temperature, top_k, top_p)
+        nxt = _categorical(_fold(rng, pos, logits.device), logits)
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    return nxt.to(torch.int32)
+
+
+def _to_ring(full_cache, p_len: int, window: int):
+    """Convert a full prefill cache (positions 0..p_len-1 at slots
+    0..p_len-1) into a W-slot ring where slot ``p % W`` holds position
+    ``p``, keeping the last ``window`` positions."""
+    if p_len >= window:
+        # entries for positions p0..p_len-1 (p0 = p_len - W), in order;
+        # rolling by p0 % W puts position p at slot p % W
+        p0 = p_len - window
+        last = full_cache[:, p0:p0 + window]
+        return torch.roll(last, p0 % window, dims=1)
+    # shorter prompt: positions 0..p_len-1 already sit at their slots;
+    # grow/trim to W slots (the unwritten tail masks itself through
+    # kv_positions)
+    pad = window - full_cache.shape[1]
+    if pad > 0:
+        zeros = full_cache.new_zeros(full_cache.shape[:1] + (pad,)
+                                     + full_cache.shape[2:])
+        return torch.cat([full_cache, zeros], dim=1)
+    return full_cache[:, :window]
+
+
+def ring_from_prefill(full_cache, p_lens, window: int):
+    """Per-row ``_to_ring``: (B, S, ...) full prefill cache rows → (B, W,
+    ...) rings where slot ``p % W`` holds position ``p``, keeping each
+    row's last ``window`` prompt positions; ``p_lens`` (B,) are the rows'
+    prompt lengths.  Slots a short row never wrote come out zero."""
+    w = int(window)
+    dev = full_cache.device
+    j = torch.arange(w, device=dev)
+    p = torch.as_tensor(p_lens, device=dev).reshape(-1, 1).long()
+    # ring slot j holds the newest prompt position congruent to j mod W;
+    # rows shorter than W leave their tail slots negative (never written)
+    q = (p - 1) - torch.remainder(p - 1 - j[None, :], w)          # (B, W)
+    src = q.clamp(0, full_cache.shape[1] - 1)
+    tail = (1,) * (full_cache.ndim - 2)
+    rows = torch.gather(full_cache, 1, src.reshape(src.shape + tail).expand(
+        src.shape + full_cache.shape[2:]))
+    return torch.where((q >= 0).reshape(q.shape + tail), rows,
+                       torch.zeros((), dtype=full_cache.dtype, device=dev))
+
+
+def _check_total(model, p_len: int, num_steps: int, what: str = ""):
+    limit = _context_limit(model)
+    total = p_len + int(num_steps)
+    if limit is not None and total > limit:
+        raise ValueError(
+            f"prompt ({p_len}) + num_steps ({num_steps}) = {total} exceeds "
+            f"the {what}model's positional-embedding range {limit}")
+
+
+@torch.no_grad()
+def generate(model, prompt, num_steps: int, temperature: float = 0.0,
+             rng=None, max_len: Optional[int] = None, rolling: bool = False,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             eos_id: Optional[int] = None,
+             pad_id: Optional[int] = None) -> torch.Tensor:
+    """Continue ``prompt`` (B, P) int tokens by ``num_steps`` tokens;
+    returns (B, P + num_steps) int32 tokens on the model's device.
+
+    temperature 0 = greedy argmax; > 0 = sampling (needs ``rng``, a
+    ``torch.Generator`` or an int seed), with ``top_k``/``top_p``
+    restricting each step's distribution (k first, then p).  ``eos_id``:
+    once a row emits it, every later slot of that row is ``pad_id``
+    (default: ``eos_id`` itself).  Prefill is one batched forward, the
+    continuation an eager loop of single-token steps that never waits for
+    the card.
+
+    ``rolling=True`` (sliding-window models): after the prefill each
+    block's cache collapses to a ring of its ``attention_window`` slots,
+    so memory stays O(W): identical tokens to ``rolling=False``.
+    """
+    _check_supported(model)
+    prompt = _tokens(prompt, model.device)
+    b, p_len = prompt.shape
+    if num_steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    total = p_len + int(num_steps)
+    if max_len is None:
+        max_len = total
+    if max_len < total:
+        raise ValueError(f"max_len {max_len} < prompt+steps {total}")
+    _check_total(model, p_len, num_steps)
+    _validate_sampling(temperature, rng, top_k, top_p)
+    _validate_stopping(eos_id, pad_id, _vocab_size(model))
+    if rolling:
+        # the prefill still uses a full P-slot cache (one batched
+        # forward), which then collapses to rings
+        _validate_rolling(model)
+    if num_steps == 0:
+        return prompt
+    caches = init_cache(model, b, p_len if rolling else max_len)
+
+    def sample(logits, pos):
+        return sample_logits(logits, pos, temperature, rng, top_k, top_p)
+
+    # prefill: all P prompt positions in one batched forward
+    logits, caches = _forward(model, caches, prompt, 0)
+    tok = sample(logits[:, -1], p_len - 1)
+    if rolling:
+        caches = [None if cache is None else
+                  {name: _to_ring(t, p_len, layer._mha().attention_window)
+                   for name, t in cache.items()}
+                  for layer, cache in zip(model.layers, caches)]
+
+    pad = torch.tensor(pad_id if pad_id is not None else (eos_id or 0),
+                       dtype=torch.int32, device=prompt.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=prompt.device)
+    out = [prompt]
+    for i in range(int(num_steps) - 1):
+        pos = p_len + i
+        logits, caches = decode_step(model, caches, tok, pos, rolling)
+        nxt = sample(logits, pos)
+        if eos_id is not None:
+            # rows whose current token is eos (or that finished earlier)
+            # emit padding from the next slot on
+            done = done | (tok == eos_id)
+            nxt = torch.where(done, pad, nxt)
+        out.append(tok[:, None])
+        tok = nxt
+    out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
+@torch.no_grad()
+def speculative_generate(model, draft_model, prompt, num_steps: int,
+                         draft_len: int = 4, max_len: Optional[int] = None,
+                         temperature: float = 0.0, rng=None,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None,
+                         eos_id: Optional[int] = None,
+                         pad_id: Optional[int] = None,
+                         return_stats: bool = False):
+    """Decoding accelerated by a cheaper draft model, distribution-exact.
+
+    ``temperature == 0``: every committed token is the target's own
+    argmax, from the batched verify forward.  ``temperature > 0`` (needs
+    ``rng``): speculative sampling (accept a drafted x ~ q with
+    probability min(1, p(x)/q(x)), redraw the first rejection from
+    norm(max(p − q, 0))), both distributions warped alike first; the
+    committed tokens follow the warped target distribution exactly.
+
+    Each round the draft proposes ``draft_len`` tokens one at a time, the
+    target scores them all in one forward (L = draft_len + 1), and the
+    batch commits its rows' minimum accepted prefix plus one
+    bonus/correction token.  Rejected positions keep stale cache entries
+    that ``kv_length`` masks until the next round overwrites them.
+    ``eos_id``/``pad_id`` as in ``generate``; once every row has finished,
+    no more draft or verify forwards run.  ``return_stats=True`` also
+    returns ``{"target_calls", "drafted", "accepted"}`` (``target_calls``:
+    the verify forwards; the prompt prefill is one more).  Each round
+    reads the accepted length back to the host, as the JAX function does.
+    """
+    _check_supported(model)
+    _check_supported(draft_model)
+    dev = model.device
+    prompt = _tokens(prompt, dev)
+    b, p_len = prompt.shape
+    if num_steps < 1:
+        raise ValueError(f"speculative_generate needs num_steps >= 1, got "
+                         f"{num_steps}")
+    if draft_len < 1:
+        raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+    _validate_sampling(temperature, rng, top_k, top_p)
+    tv, dv = _vocab_size(model), _vocab_size(draft_model)
+    _validate_stopping(eos_id, pad_id, tv)
+    if tv is not None and dv is not None and tv != dv:
+        raise ValueError(f"target and draft vocabularies differ: {tv} vs "
+                         f"{dv} — argmax agreement would be meaningless")
+    total = p_len + int(num_steps)
+    if max_len is None:
+        max_len = total
+    if max_len < total:
+        raise ValueError(f"max_len {max_len} < prompt+steps {total}")
+    for name, m in (("target", model), ("draft", draft_model)):
+        _check_total(m, p_len, num_steps, f"{name} ")
+
+    # draft_len slots of slack so every round drafts and verifies at one
+    # (B, draft_len + 1) shape; slack slots only hold discarded writes.
+    # Learned-positional models cap the slack at their trained range
+    def alloc_for(m):
+        limit = _context_limit(m)
+        want = max_len + int(draft_len)
+        return want if limit is None else min(want, limit)
+
+    t_caches = init_cache(model, b, alloc_for(model))
+    d_caches = init_cache(draft_model, b, alloc_for(draft_model))
+    alloc = min(alloc_for(model), alloc_for(draft_model))
+    logits, t_caches = _forward(model, t_caches, prompt, 0)
+    _, d_caches = _forward(draft_model, d_caches, prompt, 0)
+
+    sampled = temperature > 0.0
+
+    def warp(l):
+        # the same warp for target and draft: the rejection rule is exact
+        # for whatever pair of distributions it compares
+        return _filter_logits(l / temperature, top_k, top_p) if sampled \
+            else l
+
+    draws = [0]  # host-side draw counter: a fresh fold per random draw
+
+    def key():
+        draws[0] += 1
+        return _fold(rng, draws[0], dev)
+
+    def pick(l):
+        return (_categorical(key(), warp(l)) if sampled
+                else torch.argmax(l, dim=-1)).to(torch.int32)
+
+    cur = pick(logits[:, -1])
+    d_step = jit_decode_step(draft_model)
+    pad_value = pad_id if pad_id is not None else (eos_id or 0)
+    pad_tok = torch.tensor(pad_value, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    out: List[torch.Tensor] = []
+
+    def commit(tok):
+        # eos as in generate, per committed token in commit order
+        nonlocal done
+        if eos_id is not None:
+            tok = torch.where(done, pad_tok, tok)
+            done = done | (tok == eos_id)
+        out.append(tok)
+
+    commit(cur)
+    cur = out[-1]
+    pos = p_len - 1  # cur continues from here; its cache slot is pos + 1
+    stats = {"target_calls": 0, "drafted": 0, "accepted": 0}
+    while len(out) < num_steps:
+        if eos_id is not None and bool(torch.all(done)):
+            # every row finished: fill the remaining slots with pad
+            out.extend([torch.full((b,), pad_value, dtype=torch.int32,
+                                   device=dev)] * (num_steps - len(out)))
+            break
+        # k = draft_len whenever the allocation allows (one verify shape);
+        # the commit clamp below keeps outputs exact when more is drafted
+        # than remains to emit
+        k = max(min(int(draft_len), alloc - (pos + 1) - 1), 0)
+        d_toks, q_logits = [], []
+        tok = cur
+        for i in range(k):
+            dl, d_caches = d_step(d_caches, tok, pos + 1 + i)
+            q_logits.append(warp(dl))
+            tok = pick(dl)
+            d_toks.append(tok)
+        # one target forward over [cur, d_1 .. d_k]: logits[i] scores the
+        # token following fed[i], so a fully accepted round still has a
+        # bonus logit at index k
+        fed = torch.stack([cur] + d_toks, dim=1)              # (B, k + 1)
+        logits, t_caches = _forward(model, t_caches, fed, pos + 1)
+        stats["target_calls"] += 1
+        stats["drafted"] += k
+        if k == 0:
+            commit(pick(logits[:, 0]))
+            cur = out[-1]
+            pos += 1
+            continue
+        drafted = torch.stack(d_toks, dim=1)                  # (B, k)
+        if sampled:
+            p = torch.softmax(warp(logits[:, :k]), dim=-1)    # (B, k, V)
+            q = torch.softmax(torch.stack(q_logits, dim=1), dim=-1)
+            at = drafted.long()[..., None]
+            px = torch.gather(p, -1, at)[..., 0]              # (B, k)
+            qx = torch.gather(q, -1, at)[..., 0]
+            u = torch.rand((b, k), generator=key(), device=dev)
+            accept = u * torch.clamp(qx, min=1e-30) < px      # u < p/q
+            n_row = torch.cumprod(accept.to(torch.int32), dim=1).sum(1)
+            a = min(int(n_row.min()), num_steps - len(out) - 1)
+            for i in range(a):
+                commit(drafted[:, i])         # accepted by every row
+            if a == k:
+                # fully accepted: the bonus token straight from warped p
+                tok_a = pick(logits[:, k])
+            else:
+                res = torch.clamp(p[:, a] - q[:, a], min=0.0)
+                rsum = res.sum(-1, keepdim=True)
+                # res == 0 iff p <= q everywhere, i.e. p == q: fall back
+                res = torch.where(rsum > 0.0,
+                                  res / torch.clamp(rsum, min=1e-38),
+                                  p[:, a])
+                rej = _categorical(key(),
+                                   torch.log(torch.clamp(res, min=1e-38)))
+                # rows that accepted position a keep their drafted token
+                tok_a = torch.where(n_row > a, drafted[:, a],
+                                    rej.to(torch.int32))
+            commit(tok_a)
+        else:
+            greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+            match = drafted == greedy[:, :k]                  # (B, k)
+            # per-row accepted prefix length; commit the batch minimum
+            n_row = torch.cumprod(match.to(torch.int32), dim=1).sum(1)
+            a = min(int(n_row.min()), num_steps - len(out) - 1)
+            for i in range(a):
+                commit(greedy[:, i])          # == accepted draft tokens
+            commit(greedy[:, a])              # bonus / correction token
+        stats["accepted"] += a
+        cur = out[-1]
+        pos += a + 1
+        if a == k and len(out) < num_steps:
+            # d_k was committed but never fed to the draft: one catch-up
+            # step writes its draft-cache slot (logits discarded)
+            _, d_caches = d_step(d_caches, drafted[:, -1], pos)
+
+    result = torch.cat([prompt, torch.stack(out[:num_steps], dim=1)], dim=1)
+    return (result, stats) if return_stats else result
+
+
+def _regather(caches, index: torch.Tensor):
+    return [None if c is None else
+            {name: t.index_select(0, index) for name, t in c.items()}
+            for c in caches]
+
+
+@torch.no_grad()
+def beam_search(model, prompt, num_steps: int, num_beams: int = 4,
+                length_penalty: float = 0.0, eos_id: Optional[int] = None,
+                pad_id: Optional[int] = None):
+    """Deterministic beam decoding: keep the ``num_beams`` highest
+    log-probability continuations of each prompt row.
+
+    prompt (B, P) → ``(tokens (B, num_beams, P + num_steps), scores (B,
+    num_beams))``, beams best first.  Scores are summed token
+    log-probabilities; ``length_penalty`` alpha > 0 divides them by
+    ``generated_length ** alpha`` before the final ranking.  ``eos_id``: a
+    beam that emits it is finished (its score freezes, its later slots
+    are ``pad_id``, default the eos itself) and keeps competing at its
+    frozen score.  The caches ride at batch B·num_beams, re-gathered to
+    each step's surviving parents.  Ties rank the lower index first, as
+    ``jax.lax.top_k`` and the stable ``jnp.argsort`` do.  Beam 0 with
+    ``num_beams=1`` is greedy ``generate``; rolling caches are not
+    supported here.
+    """
+    _check_supported(model)
+    dev = model.device
+    prompt = _tokens(prompt, dev)
+    b, p_len = prompt.shape
+    k = int(num_beams)
+    if k < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    if num_steps < 1:
+        raise ValueError(f"beam_search needs num_steps >= 1, got "
+                         f"{num_steps}")
+    if length_penalty < 0:
+        raise ValueError(f"length_penalty must be >= 0, got "
+                         f"{length_penalty}")
+    _check_total(model, p_len, num_steps)
+    _validate_stopping(eos_id, pad_id, _vocab_size(model))
+    pad = torch.tensor(pad_id if pad_id is not None else (eos_id or 0),
+                       dtype=torch.int32, device=dev)
+
+    # prefill once at batch B, then tile every cache to B·k rows laid out
+    # row-major (batch, beam): beam j of row i lives at i·k + j
+    caches = init_cache(model, b, p_len + int(num_steps))
+    logits, caches = _forward(model, caches, prompt, 0)
+    logp0 = torch.log_softmax(logits[:, -1], dim=-1)          # (B, V)
+    v = logp0.shape[-1]
+    scores, first = (t[..., :k] for t in _sort_desc(logp0))   # (B, k)
+    first = first.to(torch.int32)
+    caches = _regather(caches, torch.arange(b, device=dev)
+                       .repeat_interleave(k))
+    done = (first == eos_id) if eos_id is not None \
+        else torch.zeros((b, k), dtype=torch.bool, device=dev)
+
+    # a finished beam's candidate row: only the pad column, at +0
+    frozen = torch.full((v,), float("-inf"), device=dev)
+    frozen[pad.long()] = 0.0
+    rows = torch.arange(b, device=dev)[:, None] * k
+    tok, toks, parents = first, [], []
+    for i in range(int(num_steps) - 1):
+        logits, caches = decode_step(model, caches, tok.reshape(b * k),
+                                     p_len + i)
+        logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+        logp = torch.where(done[..., None], frozen, logp)
+        cand = (scores[..., None] + logp).reshape(b, k * v)
+        scores, idx = (t[..., :k] for t in _sort_desc(cand))   # (B, k)
+        parent = idx // v
+        tok = (idx % v).to(torch.int32)
+        caches = _regather(caches, (rows + parent).reshape(-1))
+        done = torch.gather(done, 1, parent)
+        if eos_id is not None:
+            tok = torch.where(done, pad, tok)
+            done = done | (tok == eos_id)
+        toks.append(tok)
+        parents.append(parent)
+
+    # each surviving beam's path, walking the parent pointers backward
+    # from the final beam order
+    steps = int(num_steps)
+    tokens = torch.zeros((b, k, steps), dtype=torch.int32, device=dev)
+    beam = torch.arange(k, device=dev).expand(b, k)
+    for i in range(steps - 1, 0, -1):
+        tokens[:, :, i] = torch.gather(toks[i - 1], 1, beam)
+        beam = torch.gather(parents[i - 1], 1, beam)
+    tokens[:, :, 0] = torch.gather(first, 1, beam)
+
+    if length_penalty > 0:
+        if eos_id is not None:
+            hit = tokens == eos_id
+            first_eos = torch.argmax(hit.to(torch.int32), dim=-1)
+            lengths = torch.where(hit.any(dim=-1), first_eos + 1,
+                                  torch.full_like(first_eos, steps))
+        else:
+            lengths = torch.full((b, k), steps, device=dev)
+        ranked = scores / lengths.to(torch.float32) ** length_penalty
+    else:
+        ranked = scores
+    order = torch.sort(-ranked, dim=-1, stable=True).indices
+    tokens = torch.gather(tokens, 1, order[..., None].expand(b, k, steps))
+    ranked = torch.gather(ranked, 1, order)
+    out = torch.cat([prompt[:, None].expand(b, k, p_len), tokens], dim=2)
+    return out, ranked

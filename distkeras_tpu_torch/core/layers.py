@@ -50,6 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .quant import read_weight
+
 _ACTIVATIONS = {
     "linear": lambda x: x,
     "relu": F.relu,
@@ -204,9 +206,10 @@ def _project(x: torch.Tensor, kernel: torch.Tensor,
     """x @ kernel with operands rounded to ``compute_dtype`` and an f32
     result.  A product of two bf16 values is exact in f32, so upcasting the
     rounded operands reproduces ``preferred_element_type=f32``; a bf16
-    ``torch.matmul`` would round its output to bf16 before the bias add."""
+    ``torch.matmul`` would round its output to bf16 before the bias add.
+    An int8 ``kernel`` (``core/quant.py``) is dequantized on the way."""
     y = torch.matmul(x.to(compute_dtype).to(torch.float32),
-                     kernel.to(compute_dtype).to(torch.float32))
+                     read_weight(kernel, compute_dtype).to(torch.float32))
     if bias is not None:
         y = y + bias
     return y
@@ -336,8 +339,12 @@ class MultiHeadAttention(Layer):
                 setattr(self, name, _param(torch.zeros(n), device))
         return tuple(in_shape)
 
+    #: Sequential.forward threads a packed batch's segment ids to layers
+    #: that declare this (see data/packing.py)
+    takes_segment_ids = True
+
     def forward(self, x, compute_dtype=torch.bfloat16, train=False,
-                generator=None):
+                generator=None, segment_ids=None):
         from ..ops.attention import attention
         b, s, _ = x.shape
         dh = self.key_dim
@@ -357,7 +364,8 @@ class MultiHeadAttention(Layer):
             k = apply_rope(k, pos, self.rope_theta, self.rope_scale)
         out = attention(q, k, v, causal=self.causal,
                         impl=self.attention_impl,
-                        window=self.attention_window)
+                        window=self.attention_window,
+                        segment_ids=segment_ids)
         out = out.reshape(b, s, self.num_heads * dh)
         return _project(out, self.wo, self.bo if self.use_bias else None,
                         compute_dtype)
@@ -449,10 +457,12 @@ class TransformerBlock(Layer):
         self.mlp_b2 = _param(torch.zeros(d), device)
         return tuple(in_shape)
 
+    takes_segment_ids = True
+
     def forward(self, x, compute_dtype=torch.bfloat16, train=False,
-                generator=None):
+                generator=None, segment_ids=None):
         h = self.ln1(x, compute_dtype)
-        h = self.attn(h, compute_dtype)
+        h = self.attn(h, compute_dtype, segment_ids=segment_ids)
         x = x + _dropout(generator, self.dropout, h.to(x.dtype), train)
         h = self.ln2(x, compute_dtype)
         h = _project(h, self.mlp_w1, self.mlp_b1, compute_dtype)
@@ -663,8 +673,8 @@ class Conv2D(Layer):
         pads = _window_pads(x.shape[1:3], self.kernel_size, self.strides,
                             self.padding)
         y = _ConvF32Acc.apply(x.to(compute_dtype),
-                              self.kernel.to(compute_dtype), self.strides,
-                              pads)
+                              read_weight(self.kernel, compute_dtype),
+                              self.strides, pads)
         if self.use_bias:
             y = y + self.bias
         return _apply_activation(self.activation, y)

@@ -75,19 +75,33 @@ class Sequential(nn.Module):
         BatchNormalization.  ``stats_out``: an optional dict that a train
         forward fills with ``{layer_index: new_stats}`` for the layers that
         carry statistics (BatchNorm), for :meth:`merge_stats` after the
-        update.  ``segment_ids`` (sequence packing) is refused until
-        packing is ported."""
+        update.
+
+        ``segment_ids`` (B, S): sequence-packing isolation, passed to every
+        layer that declares ``takes_segment_ids`` so that packed documents
+        attend only within themselves (``data/packing.py``).  It needs
+        relative positions: a learned ``PositionalEmbedding`` table would
+        give a mid-row document shifted position vectors, so that
+        combination is refused, as in the JAX package."""
         if segment_ids is not None:
-            raise NotImplementedError(
-                "segment_ids (sequence packing, data/packing.py) is not "
-                "ported yet")
+            from .layers import PositionalEmbedding
+            if any(isinstance(l, PositionalEmbedding) for l in self.layers):
+                raise ValueError(
+                    "sequence packing (segment_ids) requires relative "
+                    "positions: this model has an absolute "
+                    "PositionalEmbedding table, which would give packed "
+                    "documents position-shifted embeddings — build the "
+                    "model with positional='rope'")
         cdtype = torch_dtype(self.compute_dtype)
         for i, layer in enumerate(self.layers):
+            kw = ({"segment_ids": segment_ids}
+                  if segment_ids is not None
+                  and getattr(layer, "takes_segment_ids", False) else {})
             if (train and stats_out is not None
                     and hasattr(layer, "apply_with_stats")):
                 x, stats_out[i] = layer.apply_with_stats(x, cdtype)
             else:
-                x = layer(x, cdtype, train=train, generator=generator)
+                x = layer(x, cdtype, train=train, generator=generator, **kw)
         return x
 
     @torch.no_grad()
@@ -103,6 +117,12 @@ class Sequential(nn.Module):
     def has_stats(self) -> bool:
         return any(hasattr(layer, "apply_with_stats")
                    for layer in self.layers)
+
+    def count_params(self) -> int:
+        """Elements of every leaf (BatchNorm's statistics included), an
+        int8 weight counted by its logical shape."""
+        from .quant import logical_numel
+        return logical_numel(self.layers)
 
     def predict(self, x, batch_size: int = 512) -> np.ndarray:
         """Batched inference over host rows (used by ModelPredictor):
@@ -190,6 +210,43 @@ class FittedModel:
     def get_weights(self) -> List[np.ndarray]:
         return self.model.get_weights()
 
+    def count_params(self) -> int:
+        return self.model.count_params()
+
+    def quantize(self) -> "FittedModel":
+        """Weight-only int8 post-training quantization for serving: a new
+        FittedModel whose matmul kernels are int8 codes with per-channel
+        scales, dequantized inside the forward and decode code
+        (``core.quant``); this model is left as it is."""
+        from .quant import quantize_params
+        return FittedModel(quantize_params(self.model))
+
+    def generate(self, prompt, num_steps: int, temperature: float = 0.0,
+                 rng=None, max_len=None, rolling: bool = False, **kw):
+        """KV-cache continuation (causal LMs only): see
+        ``core.decode.generate`` (``**kw``: ``top_k``, ``top_p``,
+        ``eos_id``, ``pad_id``)."""
+        from .decode import generate
+        return generate(self.model, prompt, num_steps,
+                        temperature=temperature, rng=rng, max_len=max_len,
+                        rolling=rolling, **kw)
+
+    def speculative_generate(self, draft: "FittedModel", prompt,
+                             num_steps: int, draft_len: int = 4, **kw):
+        """Decoding accelerated by a cheaper ``draft`` model: see
+        ``core.decode.speculative_generate``."""
+        from .decode import speculative_generate
+        return speculative_generate(self.model, draft.model, prompt,
+                                    num_steps, draft_len=draft_len, **kw)
+
+    def beam_search(self, prompt, num_steps: int, num_beams: int = 4, **kw):
+        """Top-``num_beams`` continuation search: see
+        ``core.decode.beam_search``.  Returns (tokens (B, beams,
+        P+steps), scores), best beam first."""
+        from .decode import beam_search
+        return beam_search(self.model, prompt, num_steps,
+                           num_beams=num_beams, **kw)
+
     def serialize(self) -> dict:
         return serialize_model(self.model)
 
@@ -227,6 +284,12 @@ def read_npz_blob(path: str) -> dict:
 
 
 def serialize_model(model: Sequential) -> dict:
+    from .quant import is_quantized
+    if is_quantized(model):
+        raise ValueError(
+            "cannot serialize int8-quantized params (the npz/wire layout is "
+            "a flat full-precision weight list): save the unquantized model "
+            "and call .quantize() after load")
     return {"model": model.to_json(), "weights": model.get_weights()}
 
 

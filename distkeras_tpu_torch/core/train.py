@@ -74,8 +74,8 @@ def make_masked_loss_fn(model: Sequential, loss) -> Callable:
     Σ wᵢ·lossᵢ / max(Σ w, 1), so padded examples contribute exactly zero to
     value and gradient (the tail batch is wrap-padded with real rows, which
     keeps BatchNorm's batch statistics sane).  ``stats_aux`` as in
-    :func:`make_loss_fn`.  ``seg`` (sequence packing) is refused by the
-    model's forward until packing is ported."""
+    :func:`make_loss_fn`.  ``seg`` (optional): per-row segment ids for
+    sequence packing, threaded into the forward (``data/packing.py``)."""
     per_ex = per_example(get_loss(loss))
 
     def compute(x, y, w, generator=None, seg=None):
@@ -95,7 +95,8 @@ def make_masked_step(model: Sequential, loss, tx: opt_lib.Transform
     """The one masked minibatch step.
 
     (state, x, y, w, generator[, seg]) -> (state, loss, wsum), with ``w``
-    a host (numpy) weight vector.  The gradient is taken with respect to
+    a host (numpy) weight vector and ``seg`` as in
+    :func:`make_masked_loss_fn`.  The gradient is taken with respect to
     the model's parameters, the update rule runs on it, the update is
     added to the parameters in place, and BatchNorm's new running
     statistics are written after it.
@@ -161,17 +162,22 @@ def make_epoch_runner(model: Sequential, loss, tx: opt_lib.Transform,
     device and ``mb`` the host (num_batches, batch) real/padding mask
     (:func:`batch_epoch_data`), so the tail batch is padded and masked
     instead of dropped.  Each loss is the exact mean over that batch's
-    real examples; they come back as one (num_batches,) tensor."""
-    if packed:
-        raise NotImplementedError(
-            "packed epochs (sequence packing, data/packing.py) are not "
-            "ported yet")
+    real examples; they come back as one (num_batches,) tensor.
+
+    ``packed=True`` (sequence packing, ``data/packing.py``): the epoch
+    also takes the stacked segment ids ``sb`` (a tensor on the device),
+    ``epoch(state, xb, yb, sb, mb, generator)``, threaded into the masked
+    step's forward; use a ``*_masked`` loss so that the label -1
+    positions across documents drop out."""
     step = make_masked_step(model, loss, tx)
 
-    def epoch(state: TrainState, xb, yb, mb, generator=None):
+    def epoch(state: TrainState, xb, yb, *rest):
+        sb, mb, *gen = rest if packed else (None,) + rest
+        generator = gen[0] if gen else None
+        segs = sb if packed else [None] * len(xb)
         losses = []
-        for x, y, w in zip(xb, yb, mb):
-            state, value, _ = step(state, x, y, w, generator)
+        for x, y, seg, w in zip(xb, yb, segs, mb):
+            state, value, _ = step(state, x, y, w, generator, seg)
             losses.append(value)
         return state, torch.stack(losses)
 
@@ -203,6 +209,12 @@ def batch_epoch_data(x: np.ndarray, y: np.ndarray, batch_size: int):
     wrap-padding the tail batch instead of dropping it."""
     xb, yb, mask, nb = batch_epoch_arrays(batch_size, x, y)
     return xb, yb, mask, nb
+
+
+def make_packed_epoch_runner(model: Sequential, loss,
+                             tx: opt_lib.Transform) -> Callable:
+    """``make_epoch_runner(packed=True)``: one loop for both paths."""
+    return make_epoch_runner(model, loss, tx, packed=True)
 
 
 def init_state(model: Sequential, generator: Optional[torch.Generator],

@@ -14,14 +14,17 @@ cannot take (a dtype other than f32/bf16/f16) raises rather than running
 the plain path unannounced; a CUDA view they cannot read as it lies
 (strided, or off a 16-byte boundary) is copied for them first.
 
-The decode hooks of the JAX function (``q_offset``, ``kv_length``,
-``kv_positions``, ``q_positions``, ``segment_ids``) arrive with the decode
-slice; until then passing one raises.
+The hooks of the JAX function are those of the plain path:
+``segment_ids`` (sequence packing, ``data/packing.py``) and the KV-cache
+decoding hooks ``q_offset``, ``kv_length``, ``kv_positions`` and
+``q_positions`` (``core/decode.py``), each in its scalar and its per-row
+form.  The dispatcher never hands a packed batch to the flash kernels.
 """
 
 from __future__ import annotations
 
 import math
+import numbers
 from typing import Optional
 
 import torch
@@ -42,6 +45,20 @@ def validate_window(window: Optional[int], causal: bool) -> Optional[int]:
     return int(window)
 
 
+def _hook(value, device):
+    """A hook as the masks use it: an integer stays a Python int (it
+    broadcasts in place; a copy of it to the card would wait for the
+    card), a numpy array or tensor becomes a tensor on ``device``."""
+    if isinstance(value, numbers.Integral):
+        return int(value)
+    return torch.as_tensor(value, device=device)
+
+
+def _column(value):
+    """A per-row hook as a (B, 1) column (an int broadcasts as it is)."""
+    return value.reshape(-1, 1) if isinstance(value, torch.Tensor) else value
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False,
                           scale: Optional[float] = None,
@@ -56,34 +73,83 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     As in the JAX package, the probabilities are cast to ``v.dtype``
     before the P·V product, whose output comes back in ``v.dtype``.
     ``window`` (requires ``causal``): query p sees keys in (p - window, p].
+
+    The hooks, as in the JAX function (its docstring has the why):
+    ``q_offset`` places query i at absolute position ``q_offset + i`` for
+    the causal mask; ``kv_length`` hides key slots >= it;
+    ``kv_positions`` gives each key slot its absolute position (ring
+    caches; negative = an empty slot; requires ``causal``);
+    ``q_positions`` (B, Sq) gives each query its position.  ``q_offset``
+    and ``kv_length`` may be (B,) and ``kv_positions`` (B, Sk): one row
+    per request, each at its own position.  ``segment_ids`` (B, S):
+    queries and keys attend only within equal ids (sequence packing;
+    self-attention only).  Every mask sets its scores to ``NEG_INF``; a
+    fully masked row gives NaN, as in the JAX package (the causal mask
+    always leaves a query its own key).
     """
-    hooks = dict(q_offset=q_offset, kv_length=kv_length,
-                 kv_positions=kv_positions, segment_ids=segment_ids,
-                 q_positions=q_positions)
-    passed = sorted(n for n, val in hooks.items() if val is not None)
-    if passed:
-        raise NotImplementedError(
-            f"dot_product_attention: {passed} (decode / packing hooks) are "
-            "not ported yet")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     if h % hkv:
         raise ValueError(f"num_heads {h} not divisible by kv heads {hkv}")
     window = validate_window(window, causal)
+    if kv_positions is not None and not causal:
+        raise ValueError("kv_positions (rolling-cache slot positions) "
+                         "requires causal=True — its empty-slot masking "
+                         "lives in the causal mask")
+    if segment_ids is not None and sk != sq:
+        raise ValueError("segment_ids (sequence packing) is a "
+                         "self-attention feature: Sq must equal Sk, got "
+                         f"{sq} vs {sk}")
+    dev = q.device
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, d)
     # bf16 operands multiply exactly in f32, so upcasting before the
     # product gives the JAX einsum's preferred_element_type=f32 result
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
+    k_pos = (torch.arange(sk, device=dev) if kv_positions is None
+             else _hook(kv_positions, dev))
+    per_row = (q_positions is not None or k_pos.ndim == 2
+               or getattr(q_offset, "ndim", 0) >= 1
+               or getattr(kv_length, "ndim", 0) >= 1)
     if causal:
-        q_pos = torch.arange(sq, device=q.device)
-        k_pos = torch.arange(sk, device=q.device)
-        mask = k_pos[None, :] > q_pos[:, None]          # (Sq, Sk): True = hide
-        if window is not None:
-            mask = mask | (k_pos[None, :] <= q_pos[:, None] - window)
-        scores = scores.masked_fill(mask, NEG_INF)
+        if per_row:
+            # batched masks: row r is a request at its own position
+            if q_positions is not None:
+                q_pos = _hook(q_positions, dev)
+            else:
+                q_off = _hook(0 if q_offset is None else q_offset, dev)
+                q_pos = torch.arange(sq, device=dev)[None, :] + _column(q_off)
+            kp = k_pos if k_pos.ndim == 2 else k_pos[None, :]  # (B|1, Sk)
+            mask = kp[:, None, :] > q_pos[:, :, None]          # (B, Sq, Sk)
+            if window is not None:
+                mask = mask | (kp[:, None, :] <= q_pos[:, :, None] - window)
+            if kv_positions is not None:
+                mask = mask | (kp[:, None, :] < 0)  # negative = empty slot
+            scores = scores.masked_fill(mask[:, None, None], NEG_INF)
+        else:
+            q_pos = torch.arange(sq, device=dev)
+            if q_offset is not None:
+                q_pos = q_pos + _hook(q_offset, dev)
+            mask = k_pos[None, :] > q_pos[:, None]  # (Sq, Sk): True = hide
+            if window is not None:
+                mask = mask | (k_pos[None, :] <= q_pos[:, None] - window)
+            if kv_positions is not None:
+                mask = mask | (k_pos[None, :] < 0)  # negative = empty slot
+            scores = scores.masked_fill(mask, NEG_INF)
+    if kv_length is not None:
+        kl = _hook(kv_length, dev)
+        if per_row:
+            kp = k_pos if k_pos.ndim == 2 else k_pos[None, :]
+            hide = ~(kp < _column(kl))                       # (B|1, Sk)
+            scores = scores.masked_fill(hide[:, None, None, None], NEG_INF)
+        else:
+            scores = scores.masked_fill(~(k_pos < kl), NEG_INF)
+    if segment_ids is not None:
+        seg = _hook(segment_ids, dev)
+        cross = seg[:, :, None] != seg[:, None, :]        # (B, Sq, Sk)
+        scores = scores.masked_fill(cross[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.float32),
                        v.to(torch.float32)).to(v.dtype)

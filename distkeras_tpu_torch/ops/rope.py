@@ -5,9 +5,9 @@ proportional to the token's absolute position, so q·k depends only on the
 relative distance.  Rotation happens at projection time, before the
 attention dispatch, so it composes with every attention impl.
 
-Arithmetic is f32, output in the input dtype.  Only the scalar-position
-form ``positions: (S,)`` is ported; the per-row ``(B, S)`` form arrives
-with decode.
+Arithmetic is f32, output in the input dtype.  Positions come as (S,),
+shared by every row, or (B, S), one row each (a batched decode step
+where every row sits at its own position).
 """
 
 from __future__ import annotations
@@ -32,8 +32,9 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0,
     validate_rope_dim(dim)
     exps = -torch.arange(0, dim, 2, dtype=torch.float32,
                          device=positions.device) / dim
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # theta as a Python number: an f32 operand of the power without a copy
+    # to the card (a blocking copy would wait for the card)
+    freqs = torch.pow(float(theta), exps)
     pos = positions.to(torch.float32) / scale
     return pos[:, None] * freqs[None, :]
 
@@ -51,15 +52,18 @@ def ntk_theta(factor: float, dim: int, theta: float = 10000.0) -> float:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0, scale: float = 1.0) -> torch.Tensor:
-    """Rotate (B, S, H, D) q or k by the angles of (S,) ``positions``."""
-    if positions.ndim != 1:
-        raise NotImplementedError(
-            "apply_rope: only (S,) positions are ported; the per-row (B, S) "
-            "form arrives with decode")
+    """Rotate (B, S, H, D) q or k by the angles of ``positions``: (S,)
+    absolute positions, or (B, S) per-row positions."""
     b, s, h, d = x.shape
-    ang = rope_angles(positions, d, theta, scale)       # (S, d/2)
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    if positions.ndim == 2:                             # (B, S) per-row
+        ang = rope_angles(positions.reshape(-1), d, theta, scale)
+        ang = ang.reshape(positions.shape + ang.shape[-1:])  # (B, S, d/2)
+        cos = torch.cos(ang)[:, :, None, :]
+        sin = torch.sin(ang)[:, :, None, :]
+    else:
+        ang = rope_angles(positions, d, theta, scale)   # (S, d/2)
+        cos = torch.cos(ang)[None, :, None, :]
+        sin = torch.sin(ang)[None, :, None, :]
     x32 = x.to(torch.float32)
     x1, x2 = x32[..., 0::2], x32[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin,

@@ -30,6 +30,10 @@ window and reads them back after.  Dropout masks come from one
 round); they never match the JAX package's threefry masks.  A round's loss
 is Σᵢ loss_sumᵢ / max(Σᵢ wsumᵢ, 1) over the real (unpadded) examples, and
 the losses stay on the device until the caller reads them.
+
+A packed engine (``packed=True``, sequence packing, ``data/packing.py``)
+also takes each round's segment ids and threads them into the masked
+step's forward, so that attention keeps every document to itself.
 """
 
 from __future__ import annotations
@@ -97,10 +101,6 @@ class SPMDEngine:
                  gradient_accumulation: int = 1,
                  gradient_clip_norm=None,
                  packed: bool = False):
-        if packed:
-            raise NotImplementedError(
-                "packed engines (sequence packing, data/packing.py) are not "
-                "ported yet (ROADMAP A5c)")
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}; known: "
                              f"{list(ALGORITHMS)}")
@@ -123,6 +123,8 @@ class SPMDEngine:
         self.schedule_steps = schedule_steps
         self.gradient_accumulation = int(gradient_accumulation)
         self.gradient_clip_norm = gradient_clip_norm
+        # packed=True: the rounds also take segment ids (data/packing.py)
+        self.packed = bool(packed)
         self.tx = None  # built in init_state (needs params for masking)
         self._params: Optional[Params] = None
         self._step = None
@@ -206,11 +208,12 @@ class SPMDEngine:
             center[k] = mean
         return new_p, center
 
-    def _round(self, state: DistState, x, y, m, rngs
+    def _round(self, state: DistState, x, y, m, rngs, s=None
                ) -> Tuple[DistState, torch.Tensor]:
         """One round: every worker's window, then the exchange.  ``x``,
         ``y``: (window, workers, batch, ...) tensors on the device; ``m``:
-        the host (window, workers, batch) real/padding mask."""
+        the host (window, workers, batch) real/padding mask; ``s`` (packed
+        engines): the segment ids, as ``x``."""
         if self._step is None:
             raise RuntimeError("call init_state before running rounds")
         n, algo = self.num_workers, self.algorithm
@@ -221,8 +224,9 @@ class SPMDEngine:
             generator = self._generator(rngs[i], state.round_idx)
             ts = TrainState(self._params, state.opt_state[i], 0)
             for t in range(self.window):
-                ts, value, ws = self._step(ts, x[t, i], y[t, i], m[t, i],
-                                           generator)
+                ts, value, ws = self._step(
+                    ts, x[t, i], y[t, i], m[t, i], generator,
+                    s[t, i] if s is not None else None)
                 weighted.append(value.to(torch.float32) * ws)
                 wsum += ws
             new_p.append(self._snapshot())
@@ -261,59 +265,70 @@ class SPMDEngine:
         return DistState(center, new_p, new_s, state.round_idx + 1), loss
 
     # -- epochs ---------------------------------------------------------------
-    def _check_seg(self, seg) -> None:
-        if seg is not None:
-            raise ValueError("segment ids passed to an unpacked engine "
-                             "(packed engines are not ported yet: ROADMAP "
-                             "A5c)")
+    def _check_packed(self, seg) -> None:
+        if self.packed and seg is None:
+            raise ValueError("packed engine needs segment ids")
+        if seg is not None and not self.packed:
+            raise ValueError("segment ids passed to an unpacked engine — "
+                             "construct SPMDEngine(packed=True)")
+
+    def _on_device(self, a):
+        return None if a is None else host_to_device(a, self.device)
 
     def run_round(self, state: DistState, x, y, m, rngs, s=None
                   ) -> Tuple[DistState, torch.Tensor]:
         """One round from arrays shaped (window, workers, batch, ...), the
         round-granular checkpointing path; the same computation as a
-        round of :meth:`run_epoch`.  The loss comes back on the device."""
-        self._check_seg(s)
-        return self._round(state, host_to_device(x, self.device),
-                           host_to_device(y, self.device), np.asarray(m),
-                           rngs)
+        round of :meth:`run_epoch`.  ``s``: the segment ids of a packed
+        engine.  The loss comes back on the device."""
+        self._check_packed(s)
+        return self._round(state, self._on_device(x), self._on_device(y),
+                           np.asarray(m), rngs, self._on_device(s))
 
     def run_epoch(self, state: DistState, xb, yb, mb, rngs, sb=None
                   ) -> Tuple[DistState, torch.Tensor]:
         """``xb``/``yb``: (rounds, window, workers, batch, ...) arrays
         (tensors on the device, or host arrays copied there once); ``mb``:
-        the host real/padding mask from :func:`shape_epoch_data`.  The
+        the host real/padding mask from :func:`shape_epoch_data`; ``sb``
+        the segment ids of a packed engine, shaped as ``xb``.  The
         per-round losses come back as one tensor on the device: nothing in
         an epoch waits for the card."""
-        self._check_seg(sb)
-        xb = host_to_device(xb, self.device)
-        yb = host_to_device(yb, self.device)
+        self._check_packed(sb)
+        xb, yb, sb = (self._on_device(a) for a in (xb, yb, sb))
         mb = np.asarray(mb)
         losses = []
         for r in range(len(mb)):
-            state, loss = self._round(state, xb[r], yb[r], mb[r], rngs)
+            state, loss = self._round(state, xb[r], yb[r], mb[r], rngs,
+                                      sb[r] if sb is not None else None)
             losses.append(loss)
         return state, torch.stack(losses)
 
     def run_epoch_streaming(self, state: DistState, round_iter: Iterator,
                             rngs) -> Tuple[DistState, np.ndarray]:
-        """An epoch from a generator of per-round host (x, y, mask) triples
-        shaped (window, workers, batch, ...)
-        (``data.pipeline.round_stream``), double-buffered onto the device:
+        """An epoch from a generator of per-round host (x, y, mask) triples,
+        or (x, y, seg, mask) quadruples on a packed engine, shaped (window,
+        workers, batch, ...) (``data.pipeline.round_stream``; pass ``seg=``
+        there iff the engine is packed), double-buffered onto the device:
         the same computation as :meth:`run_epoch`, for data that cannot
         live on the device whole.  Returns the losses as host float32."""
+        arity = 4 if self.packed else 3
+
         def checked(it):
             for item in it:
-                if len(item) != 3:
+                if len(item) != arity:
                     raise ValueError(
                         f"streamed round has {len(item)} arrays, the "
-                        "unpacked engine expects 3 (x, y, mask); packed "
-                        "engines are not ported yet (ROADMAP A5c)")
+                        f"{'packed' if self.packed else 'unpacked'} "
+                        f"engine expects {arity} — pass seg=… to "
+                        "round_stream iff the engine is packed")
                 yield item
 
         losses = []
-        devices = (self.device, self.device, torch.device("cpu"))
-        for x, y, m in prefetch_to_device(checked(round_iter), devices):
-            state, loss = self._round(state, x, y, m.numpy(), rngs)
+        devices = ((self.device,) * (arity - 1)) + (torch.device("cpu"),)
+        for *data, m in prefetch_to_device(checked(round_iter), devices):
+            x, y, *s = data
+            state, loss = self._round(state, x, y, m.numpy(), rngs,
+                                      s[0] if s else None)
             losses.append(loss)
         return state, torch.stack(losses).cpu().numpy().astype(np.float32)
 

@@ -13,10 +13,11 @@ The constructor keywords are the JAX package's (``keras_model``,
 the CUDA card, and raises without one).  The distributed trainers run on
 a worker mesh (``parallel.get_mesh``): by default one worker per visible
 card; ``mesh=get_mesh(N, devices=[device] * N)`` runs N workers on one
-device.  What waits for later slices raises: the parameter-server engines
-(``execution="host_ps"``/``"process_ps"``, ROADMAP queue A item 6),
-sequence packing (``segment_col``, A5c), the orbax checkpoint backend and
-the Keras adapter.
+device.  ``segment_col`` trains on packed rows (``data/packing.py``) with
+a ``*_masked`` loss, on ``SingleTrainer`` and on the SPMD engine.  What
+waits for later slices raises: the parameter-server engines
+(``execution="host_ps"``/``"process_ps"``, ROADMAP queue A item 6), the
+orbax checkpoint backend and the Keras adapter.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .core.layers import Layer
 from .core.losses import get_loss
 from .core.model import FittedModel, Sequential, load_jax_weights
 from .core.train import (TrainState, batch_epoch_arrays, make_epoch_runner,
-                         model_params)
+                         make_packed_epoch_runner, model_params)
 from .data.dataset import Dataset
 from .data.pipeline import num_rounds
 from .device import DeviceLike, host_to_device, resolve_device
@@ -181,10 +182,22 @@ class Trainer:
         xv = host_to_device(validation_data[self.features_col], self.device)
         yv = host_to_device(validation_data[self.label_col], self.device)
         loss_fn = get_loss(self.loss)
+        # packed validation: the segment ids keep attention's document
+        # isolation, and the *_masked loss drops the label -1 positions
+        # across documents and on padding, as in training
+        seg_col = getattr(self, "segment_col", None)
+        if seg_col is not None and seg_col not in validation_data:
+            raise ValueError(
+                f"validation_data lacks the segment column {seg_col!r} — "
+                "pack it the same way as the training corpus "
+                "(data/packing.py)")
+        sv = (host_to_device(validation_data[seg_col], self.device)
+              if seg_col is not None else None)
 
         def val_loss(model: Sequential) -> float:
             with torch.no_grad():
-                return float(loss_fn(yv, model(xv, train=False)))
+                return float(loss_fn(yv, model(xv, train=False,
+                                               segment_ids=sv)))
 
         self.validation_history = []
         self._val_best = float("inf")
@@ -229,9 +242,6 @@ class SingleTrainer(Trainer):
                  device: DeviceLike = None):
         if segment_col is not None:
             _require_masked_loss(loss)
-            raise NotImplementedError(
-                "segment_col (sequence packing, data/packing.py) is not "
-                "ported yet")
         super().__init__(keras_model, loss, worker_optimizer, learning_rate,
                          seed, lr_schedule, gradient_accumulation,
                          gradient_clip_norm, early_stopping_patience,
@@ -240,6 +250,10 @@ class SingleTrainer(Trainer):
         self.label_col = label_col
         self.batch_size = int(batch_size)
         self.num_epoch = int(num_epoch)
+        # sequence packing (data/packing.py): the segment-ids column;
+        # attention isolates documents and the *_masked loss drops the
+        # label -1 positions across them
+        self.segment_col = segment_col
 
     def train(self, dataset: Dataset, shuffle: bool = False,
               validation_data: Optional[Dataset] = None) -> FittedModel:
@@ -258,18 +272,23 @@ class SingleTrainer(Trainer):
             self.lr_schedule, total_updates, self.gradient_accumulation,
             self.gradient_clip_norm)
         state = TrainState(params, opt_state, 0)
-        runner = make_epoch_runner(model, self.loss, tx)
+        packed = self.segment_col is not None
+        runner = (make_packed_epoch_runner(model, self.loss, tx) if packed
+                  else make_epoch_runner(model, self.loss, tx))
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed + 1)
         val_fn = self._setup_validation(validation_data)
-        cols = Dataset({"x": x, "y": y})
+        cols = {"x": x, "y": y}
+        if packed:
+            cols["s"] = dataset[self.segment_col]
+        cols = Dataset(cols)
         for epoch in range(self.num_epoch):
             ds = cols.shuffle(self.seed + epoch) if shuffle else cols
-            xb, yb, mb, _ = batch_epoch_arrays(self.batch_size, ds["x"],
-                                               ds["y"])
-            state, losses = runner(state, host_to_device(xb, self.device),
-                                   host_to_device(yb, self.device), mb,
-                                   generator)
+            *stacked, mb, _ = batch_epoch_arrays(
+                self.batch_size, *(ds[k] for k in cols.columns))
+            state, losses = runner(
+                state, *(host_to_device(a, self.device) for a in stacked),
+                mb, generator)
             self.history.extend(losses.tolist())
             if val_fn is not None and self._validate_epoch(val_fn, model,
                                                            epoch):
@@ -325,9 +344,6 @@ class DistributedTrainer(Trainer):
                              "runs execution='spmd'")
         if segment_col is not None:
             _require_masked_loss(loss)
-            raise NotImplementedError(
-                "segment_col (sequence packing, data/packing.py) is not "
-                "ported yet (ROADMAP A5c)")
         if mesh is None:
             mesh = mesh_lib.get_mesh(
                 num_workers, devices=None if device is None else [device])
@@ -340,6 +356,9 @@ class DistributedTrainer(Trainer):
                          seed, lr_schedule, gradient_accumulation,
                          gradient_clip_norm, early_stopping_patience,
                          early_stopping_min_delta, mesh_device)
+        # sequence packing on the SPMD engine (the distributed twin of
+        # SingleTrainer(segment_col=...)): the segment-ids column
+        self.segment_col = segment_col
         self.mesh = mesh
         self.num_workers = int(mesh.devices.size)
         self.batch_size = int(batch_size)
@@ -404,7 +423,8 @@ class DistributedTrainer(Trainer):
             alpha=self._elastic_alpha(), lr_schedule=self.lr_schedule,
             schedule_steps=getattr(self, "_schedule_steps", None),
             gradient_accumulation=self.gradient_accumulation,
-            gradient_clip_norm=self.gradient_clip_norm)
+            gradient_clip_norm=self.gradient_clip_norm,
+            packed=self.segment_col is not None)
         self._state = engine.init_state()
         return engine
 
@@ -424,6 +444,8 @@ class DistributedTrainer(Trainer):
         val_fn = self._setup_validation(validation_data)
         x = np.asarray(dataset[self.features_col])
         y = np.asarray(dataset[self.label_col])
+        seg = (np.asarray(dataset[self.segment_col])
+               if self.segment_col is not None else None)
         self._input_shape = x.shape[1:]
         rpe = num_rounds(len(x), self.num_workers, self.communication_window,
                          self.batch_size)  # rounds per epoch (constant)
@@ -498,11 +520,17 @@ class DistributedTrainer(Trainer):
                     perm = np.random.default_rng(
                         self.seed + epoch).permutation(len(x))
                     xe, ye = x[perm], y[perm]
+                    se = seg[perm] if seg is not None else None
                 else:
-                    xe, ye = x, y
-                xb, yb, mb, rounds = shape_epoch_data(
+                    xe, ye, se = x, y, seg
+                shaped = shape_epoch_data(
                     xe, ye, self.num_workers, self.communication_window,
-                    self.batch_size)
+                    self.batch_size, columns_seg=se)
+                if se is not None:
+                    xb, yb, sb, mb, rounds = shaped
+                    sb = host_to_device(sb, self.device)
+                else:
+                    (xb, yb, mb, rounds), sb = shaped, None
                 xb = host_to_device(xb, self.device)
                 yb = host_to_device(yb, self.device)
                 first = skip_rounds if epoch == start_epoch else 0
@@ -514,7 +542,8 @@ class DistributedTrainer(Trainer):
                     done = self._state.round_idx
                     for r in range(first, rounds):
                         self._state, loss = engine.run_round(
-                            self._state, xb[r], yb[r], mb[r], rngs)
+                            self._state, xb[r], yb[r], mb[r], rngs,
+                            s=sb[r] if sb is not None else None)
                         losses.append(loss)
                         done += 1
                         if done % self.checkpoint_every == 0:
@@ -526,7 +555,7 @@ class DistributedTrainer(Trainer):
                               if losses else np.zeros((0,), np.float32))
                 else:
                     self._state, losses = engine.run_epoch(
-                        self._state, xb, yb, mb, rngs)
+                        self._state, xb, yb, mb, rngs, sb=sb)
                     losses = losses.cpu().numpy()
                 self.history.extend(losses.tolist())
                 # every real row trains exactly once (the tail is padded

@@ -325,9 +325,11 @@ def test_wire_codings_wait_for_item_6(kw):
 
 def test_what_waits_for_later_slices_raises():
     model = port_model(numpy_weights())
-    with pytest.raises(NotImplementedError, match="A5c"):
-        port.ADAG(model, mesh=cpu_mesh(2), segment_col="seg",
+    # packing arrived (A5c): segment_col builds a packed engine; its
+    # training is held to the JAX package's in tests/test_torch_packing.py
+    t = port.ADAG(model, mesh=cpu_mesh(2), segment_col="seg",
                   loss="sparse_categorical_crossentropy_masked_from_logits")
+    assert t.segment_col == "seg" and t.service((D,)).packed
     with pytest.raises(ValueError, match="masked"):
         port.ADAG(model, mesh=cpu_mesh(2), segment_col="seg")
     with pytest.raises(NotImplementedError, match="orbax"):

@@ -222,8 +222,15 @@ def test_dispatch_rules():
         attention(q, k, v, impl="triton")
     with pytest.raises(ValueError, match="requires causal"):
         attention(q, k, v, window=4)
-    with pytest.raises(NotImplementedError, match="kv_length"):
-        dot_product_attention(q, k, v, causal=True, kv_length=8)
+    # the decode hook kv_length (ported with the decode layer) hides the
+    # key slots >= 8: below that the causal mask already does
+    got = dot_product_attention(q, k, v, causal=True, kv_length=8)
+    torch.testing.assert_close(
+        got[:, :8], dot_product_attention(q, k, v, causal=True)[:, :8],
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        got[:, 8:], dot_product_attention(q[:, 8:], k[:, :8], v[:, :8]),
+        atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="not divisible"):
         dot_product_attention(q, k[:, :, :1].expand(-1, -1, 3, -1), v)
 

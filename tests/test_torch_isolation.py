@@ -49,9 +49,16 @@ def imported_roots(path):
     return roots
 
 
+#: the modules of the decode and packing slice (data/packing.py is a copy
+#: of a numpy-only module of the JAX package, kept in the port)
+NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py")
+
+
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = port_files()
     assert len(files) >= 15
+    for rel in NEW_MODULES:
+        assert ROOT / "distkeras_tpu_torch" / rel in files, rel
     for path in files:
         bad = imported_roots(path) & BANNED
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -59,6 +66,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, distkeras_tpu_torch, distkeras_tpu_torch.kernels; "
+            "import distkeras_tpu_torch.core.decode, "
+            "distkeras_tpu_torch.core.quant, "
+            "distkeras_tpu_torch.data.packing; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

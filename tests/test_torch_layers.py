@@ -212,5 +212,11 @@ def test_rope_helpers_match():
             trope.validate_rope_scaling(*bad)
     with pytest.raises(ValueError):
         trope.validate_rope_dim(5)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(torch.zeros(2, 3, 1, 4), torch.zeros(2, 3))
+    # the per-row (B, S) positions form, one row per request
+    x = np.random.default_rng(2).standard_normal((2, 3, 1, 4)).astype(
+        np.float32)
+    pos = np.array([[0, 1, 2], [7, 8, 9]])
+    np.testing.assert_allclose(
+        trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos)).numpy(),
+        np.asarray(jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos))),
+        atol=1e-6)

@@ -243,8 +243,11 @@ def test_dropout_generators_per_worker_and_round():
 def test_engine_refusals():
     _, pm = models()
     mesh = get_mesh(2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="A5c"):
-        SPMDEngine(pm, LOSS, "adam", mesh, "adag", packed=True)
+    # packed engines build (A5c; run in tests/test_torch_packing.py) and
+    # refuse an epoch without segment ids
+    packed = SPMDEngine(pm, LOSS, "adam", mesh, "adag", packed=True)
+    with pytest.raises(ValueError, match="needs segment ids"):
+        packed.run_epoch(packed.init_state(), None, None, None, None)
     with pytest.raises(ValueError, match="unknown algorithm"):
         SPMDEngine(pm, LOSS, "adam", mesh, "hogwild")
     with pytest.raises(ValueError, match="alpha"):

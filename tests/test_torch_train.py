@@ -293,23 +293,39 @@ def test_dropout_trains_through_the_trainer():
                                   "packed_runner", "segment_ids",
                                   "keras_model"])
 def test_what_waits_for_later_slices_raises(case):
+    """Sequence packing arrived with its slice: ``segment_col``, the
+    packed runner and ``segment_ids`` now work (checked against the JAX
+    package in tests/test_torch_packing.py); an unmasked loss with
+    ``segment_col`` and the Keras adapter still raise."""
     model = transformer_lm(**SMALL, device="cpu")
+    rope = transformer_lm(**FORMS["rope_window"], **SMALL, device="cpu")
+    x = torch.zeros(2, 32, dtype=torch.int64)
+    seg = torch.ones(2, 32, dtype=torch.int64)
     if case == "segment_col":
-        with pytest.raises(NotImplementedError, match="packing"):
-            SingleTrainer(model, segment_col="seg", device="cpu",
+        t = SingleTrainer(rope, segment_col="seg", device="cpu",
+                          batch_size=2,
                           loss="sparse_categorical_crossentropy_masked")
+        t.train(Dataset({"features": x.numpy(), "label": x.numpy() - 1,
+                         "seg": seg.numpy()}))
+        assert t.segment_col == "seg" and len(t.get_history()) == 1
     elif case == "segment_col_unmasked":
         with pytest.raises(ValueError, match="masked"):
             SingleTrainer(model, segment_col="seg", device="cpu",
                           loss="sparse_categorical_crossentropy")
     elif case == "packed_runner":
-        tx = optimizers.build_tx("sgd", model_params(model))
-        with pytest.raises(NotImplementedError, match="packed"):
-            make_epoch_runner(model, "mse", tx, packed=True)
+        tx = optimizers.build_tx("sgd", model_params(rope))
+        state = TrainState(model_params(rope), tx.init(
+            list(model_params(rope).values())), 0)
+        _, losses = make_epoch_runner(
+            rope, "sparse_categorical_crossentropy_masked_from_logits", tx,
+            packed=True)(state, x[None], x[None], seg[None],
+                         np.ones((1, 2), np.float32))
+        assert losses.shape == (1,)
     elif case == "segment_ids":
-        with pytest.raises(NotImplementedError, match="segment_ids"):
-            model(torch.zeros(1, 32, dtype=torch.int64),
-                  segment_ids=torch.zeros(1, 32, dtype=torch.int64))
+        # one segment per row is the unpacked forward
+        assert torch.equal(rope(x, segment_ids=seg), rope(x))
+        with pytest.raises(ValueError, match="rope"):
+            model(x, segment_ids=seg)
     else:
         with pytest.raises(TypeError, match="Keras adapter"):
             SingleTrainer(object(), device="cpu")

@@ -9,19 +9,21 @@
 #   git archive PARENT_COMMIT | tar -x -C build/parent
 #
 # It runs chip_smoke.py from build/archive (the committed files alone),
-# profiles the ADAG round and the zoo step from there, runs the phase named
-# by its argument (default: zoo) in the order parent, change, change,
-# parent, and last runs chip_smoke.py alone in an empty directory, where it
-# must fail.  The logs go to chiprun_out/.
+# profiles the slices named by its second argument from there (default:
+# the packed train step and the decode steps), runs the phase named by its
+# first argument (default: zoo) in the order parent, change, change,
+# parent when build/parent exists, and last runs chip_smoke.py alone in an
+# empty directory, where it must fail.  The logs go to chiprun_out/.
 #
-#   bash tools/chip_final.sh [PHASE]
+#   bash tools/chip_final.sh [PHASE [SLICES]]
 set -u
 phase="${1:-zoo}"
+slices="${2:-pack,decode}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
 (cd build/archive && python3 chip_smoke.py > "$out/smoke_final.log" 2>&1)
 echo "smoke_rc=$?"
-(cd build/archive && python3 tools/profile_torch_slice.py --slices adag,zoo \
+(cd build/archive && python3 tools/profile_torch_slice.py --slices "$slices" \
     --out "$out/profile_final.json" > "$out/profile_final.log" 2>&1)
 echo "prof_rc=$?"
 if [ -d build/parent ]; then

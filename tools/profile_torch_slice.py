@@ -2,7 +2,7 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
-        [--slices predict,train,parallel,zoo,adag]
+        [--slices predict,train,parallel,zoo,adag,pack,decode]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -30,12 +30,23 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
   adag phase (``SPMDEngine`` over ``mnist_convnet`` in bf16, one worker
   on the card, ``communication_window`` 12 steps of batch 512 of the
   synthetic MNIST rows, adam, then the exchange with the center), after
-  two warm-up rounds, the update rule timed as above.
+  two warm-up rounds, the update rule timed as above;
+- pack: one packed masked train step of ``SingleTrainer`` (the LM with
+  RoPE, bf16, a batch of 8 of ``chip_smoke.py``'s packed rows of x+1
+  documents, their segment ids threaded through the plain attention
+  path, the masked loss, adam 3e-3), after three warm-up steps, the
+  update rule timed as above;
+- decode: one greedy ``decode_step`` of the LM in bf16 at batch 8 in the
+  ``"full"`` configuration of ``chip_smoke.py``'s decode phase (a cache
+  of 2048 slots, position 256) and the ``"rolling_window"`` one (a ring
+  of 256 slots at position 2047), after 256 warm-up steps.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
 of kernel and copy durations on the card; one stream, so they do not
-overlap) and idle share, and the device time by kernel, largest first,
+overlap) and idle share, the host's kernel launches, waits and copies
+(``cudaMemcpy*``, ``cuda*Synchronize``) and ATen operator calls (nested
+calls counted each), and the device time by kernel, largest first,
 grouped as the flash kernels (the sm90 and SIMT variants of the forward
 and of the backward's dq and dk/dv kernels apart), the fused
 cross-entropy kernels, convolutions (cuDNN's forward, data- and
@@ -80,11 +91,23 @@ def group(name: str) -> str:
     return "other"
 
 
+#: host-side runtime calls counted in each row: kernel launches, and the
+#: calls that make the host wait for the card or copy through it
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+
+
 def device_summary(prof, wall_ms):
     import torch
     by_kernel, by_group = {}, {}
+    host = {"kernel_launches": 0, "waits_and_copies": 0, "aten_ops": 0}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host["kernel_launches"] += evt.name in LAUNCHES
+            host["waits_and_copies"] += evt.name in WAITS
+            host["aten_ops"] += evt.name.startswith("aten::")
             continue
         us = evt.time_range.elapsed_us()
         by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
@@ -95,6 +118,7 @@ def device_summary(prof, wall_ms):
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms
             else None,
+            "host_calls": host,
             "by_group_ms": {k: v / 1e3 for k, v in
                             sorted(by_group.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top]}
@@ -157,6 +181,75 @@ def profile_train(form, extra, x, y):
     return {"slice": "train", "form": form, "batch_size": len(x),
             "loss": float(loss), **device_summary(prof, wall_ms),
             "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
+
+
+def profile_pack():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.core.train import (TrainState, make_masked_step,
+                                                model_params)
+    rng = np.random.default_rng(chip_smoke.SEED + 11)
+    tokens, segs, labels = chip_smoke._pack_corpus(rng)
+    model = transformer_lm(**chip_smoke.PACK_LM)
+    load_jax_weights(model, chip_smoke._random_jax_weights(model, rng))
+    params = model_params(model)
+    tx, opt_state = optimizers.build(
+        chip_smoke.TRAINER["worker_optimizer"], params,
+        chip_smoke.TRAINER["learning_rate"])
+    step = make_masked_step(model, chip_smoke.PACK_LOSS, tx)
+    state = TrainState(params, opt_state, 0)
+    b = chip_smoke.BATCH
+    x, y, seg = (torch.as_tensor(a[:b], device="cuda")
+                 for a in (tokens, labels, segs))
+    w = np.ones(b, np.float32)
+    for _ in range(3):
+        state, loss, _ = step(state, x, y, w, None, seg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, x, y, w, None, seg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"slice": "pack", "form": "rope", "batch_size": b,
+            "loss": float(loss), **device_summary(prof, wall_ms),
+            "optimizer_ms": update_rule_ms(tx, state.opt_state, params)}
+
+
+def profile_decode(name):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.core.decode import init_cache, jit_decode_step
+    extra, rolling, _ = chip_smoke.DECODE_CONFIGS[name]
+    model = transformer_lm(**chip_smoke.LM, **extra)
+    load_jax_weights(model, chip_smoke._random_jax_weights(
+        model, np.random.default_rng(chip_smoke.SEED + 12)))
+    lm, b = chip_smoke.LM, chip_smoke.DECODE_BATCH
+    caches = init_cache(model, b, extra["attention_window"] if rolling
+                        else lm["seq_len"], rolling=rolling)
+    step = jit_decode_step(model, rolling=rolling)
+    tok = torch.zeros(b, dtype=torch.int32, device="cuda")
+    pos = lm["seq_len"] - 1 if rolling else 0
+    for i in range(chip_smoke.DECODE_STEPS):
+        logits, caches = step(caches, tok, pos if rolling else pos + i)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = pos if rolling else pos + chip_smoke.DECODE_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, caches = step(caches, tok, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"slice": "decode", "form": name, "batch_size": b,
+            "position": pos, **device_summary(prof, wall_ms)}
 
 
 def profile_zoo():
@@ -304,9 +397,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "profile_torch_slice.json"))
-    ap.add_argument("--slices", default="predict,train,parallel,zoo,adag",
+    ap.add_argument("--slices",
+                    default="predict,train,parallel,zoo,adag,pack,decode",
                     help="comma-separated: predict, train, parallel, zoo, "
-                         "adag")
+                         "adag, pack, decode")
     args = ap.parse_args()
     slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
@@ -340,6 +434,11 @@ def main() -> int:
         runs.append(profile_zoo)
     if "adag" in slices:
         runs.append(profile_adag)
+    if "pack" in slices:
+        runs.append(profile_pack)
+    if "decode" in slices:
+        runs += [lambda n=name: profile_decode(n)
+                 for name in ("full", "rolling_window")]
     for run in runs:
         row = run()
         results["rows"].append(row)
