@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port only (no JAX is needed or imported) through sixteen
-phases, each printing JSON lines, and fails with a non-zero exit if any
-phase fails:
+It drives the port only (no JAX is needed or imported) through
+seventeen phases, each printing JSON lines, and fails with a non-zero
+exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
    (for the exponential rate of the bounds), the torch and CUDA versions,
@@ -142,14 +142,30 @@ phase fails:
     forward's log-probabilities), greedy speculative decoding with a
     1-layer draft equal to ``generate``; int8 weights' bytes and greedy
     agreement; no kernel launched on any of it.
+17. serve: the ``ServingEngine`` (``serving.py``) over the LM at full
+    width in bf16, both forms, 8 slots, chunks of 128: a seeded trace of
+    32 requests (prompts of 16, 64, 256 and 1024 tokens, 128 new tokens
+    each, half greedy, half sampled at temperature 0.7 with seeds of
+    their own, some with top-k 40 or top-p 0.9) through the engine with
+    its decode step as a CUDA graph and through the same engine with the
+    step uncaptured: tokens/s, ms per decode step, TTFT p50/p99, slot
+    occupancy, graph captures and replays, uploads and readbacks per
+    decode-only iteration (0 and 1), ATen calls, launches and busy time
+    a step under ``torch.profiler``; the two give the same tokens, no
+    request is lost and every slot is reused; at f32 on a 2-layer copy
+    (TF32 off) a lone greedy and a lone sampled request equal
+    ``generate`` in both prefill modes, the trace through the graph
+    engine equals the eager engine (``prefill_mode="eager"``), and the
+    greedy requests equal the same engine on the CPU; no kernel launched
+    on any of it.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
-kernel's launches on the packing and decode paths), the ``nvidia-smi``
-name and power limit line, and last ``{"ok": true, "device": {...}}``.
-Without a CUDA card, or outside a checkout, it exits non-zero and prints
-no result.
+kernel's launches on the packing, decode and serving paths), the
+``nvidia-smi`` name and power limit line, and last ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -449,6 +465,29 @@ DECODE_ROWS, DECODE_PROMPT, DECODE_CONT, DECODE_FORCED = 2, 1024, 256, 64
 DECODE_LOGIT_TOL_F32 = 1e-4
 BEAM_PROMPT, BEAM_STEPS, BEAM_WIDTH, BEAM_SCORE_TOL = 256, 64, 4, 1e-3
 SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 1, 4
+# the serving slice (ROADMAP queue A item 4, the engine core): the
+# ServingEngine over the LM at full width (bf16) in both forms, SERVE_SLOTS
+# slots, max_len the LM's seq, chunks of SERVE_CHUNK prompt tokens; the
+# traffic is a seeded trace made like examples/loadgen.py:48 make_trace:
+# SERVE_REQUESTS requests, prompt lengths drawn from SERVE_PROMPT_LENS (the
+# 1024-token prompts take the chunked path), SERVE_STEPS new tokens each,
+# every other request sampled at SERVE_TEMP with a seed of its own, cycling
+# through no filter, top-k, top-p and both.  The checks run on a
+# SERVE_CHECK_LAYERS-layer f32 copy (TF32 off): a lone greedy and a lone
+# sampled request against generate in both prefill modes, the whole trace
+# through the graph engine against the eager engine, and the greedy requests
+# on the card against the same engine on the CPU.  SERVE_PROFILE_STEPS
+# decode-only iterations of 8 running requests are traced for the host calls
+# a step, and SERVE_EVENT_STEPS back-to-back steps timed with CUDA events
+SERVE_FORMS = {"full": (dict(), False),
+               "rolling_window": (dict(attention_window=256,
+                                       positional="rope"), True)}
+SERVE_SLOTS, SERVE_CHUNK = 8, 128
+SERVE_REQUESTS, SERVE_STEPS = 32, 128
+SERVE_PROMPT_LENS = (16, 64, 256, 1024)
+SERVE_TEMP, SERVE_TOPK, SERVE_TOPP = 0.7, 40, 0.9
+SERVE_CHECK_LAYERS = 2
+SERVE_PROFILE_STEPS, SERVE_EVENT_STEPS = 8, 64
 
 
 def emit(obj) -> None:
@@ -2791,6 +2830,340 @@ def phase_decode(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _serve_trace(rng):
+    """SERVE_REQUESTS requests: (prompt, steps, submit keywords)."""
+    import numpy as np
+    filters = ({}, {"top_k": SERVE_TOPK}, {"top_p": SERVE_TOPP},
+               {"top_k": SERVE_TOPK, "top_p": SERVE_TOPP})
+    trace = []
+    for i in range(SERVE_REQUESTS):
+        p_len = int(rng.choice(SERVE_PROMPT_LENS))
+        prompt = rng.integers(0, LM["vocab_size"], p_len).astype(np.int32)
+        kw = {}
+        if i % 2:
+            kw = dict(temperature=SERVE_TEMP, seed=SEED * 1000 + i,
+                      **filters[(i // 2) % len(filters)])
+        trace.append((prompt, SERVE_STEPS, kw))
+    return trace
+
+
+def _serve_engine(model, rolling: bool, graphed: bool = True,
+                  mode: str = "bucketed"):
+    """A warmed-up ServingEngine of the phase's shape.  ``graphed=False``
+    builds the bucketed engine with its decode step uncaptured (the same
+    function run eagerly: the graph's yardstick, made here and nowhere in
+    the port)."""
+    from distkeras_tpu_torch import serving
+    uses = serving._uses_graph
+    if not graphed:
+        serving._uses_graph = lambda device: False
+    try:
+        eng = serving.ServingEngine(
+            model, num_slots=SERVE_SLOTS, max_len=LM["seq_len"],
+            rolling=rolling, prefill_chunk=SERVE_CHUNK, prefill_mode=mode)
+    finally:
+        serving._uses_graph = uses
+    return eng.warmup()
+
+
+def _serve_run(model, trace, rolling: bool, dev: str, graphed: bool = True,
+               mode: str = "bucketed"):
+    """The whole trace through one engine, driven inline: the rows, the
+    wall time, every decode-only iteration's host time and transfers."""
+    import numpy as np
+    eng = _serve_engine(model, rolling, graphed, mode)
+    _sync(dev)
+    keys = ("decode_steps", "prefills", "prefill_chunks", "h2d_transfers",
+            "d2h_transfers")
+    iter_ms, h2d, d2h = [], [], []
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, n, **kw) for p, n, kw in trace]
+    while True:
+        before = [eng.stats[k] for k in keys]
+        t1 = time.perf_counter()
+        if not eng.step():
+            break
+        dt = time.perf_counter() - t1
+        delta = [eng.stats[k] - b for k, b in zip(keys, before)]
+        if delta[0] == 1 and delta[1] == 0 and delta[2] == 0:
+            iter_ms.append(dt * 1e3)
+            h2d.append(delta[3])
+            d2h.append(delta[4])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    ttft = np.array([h.ttft_s for h in handles]) * 1e3
+    return {"rows": [h.result() for h in handles],
+            "finish": [h.finish for h in handles],
+            "wall_s": wall,
+            "tokens_per_sec": eng.stats["tokens_generated"] / wall,
+            "ms_per_decode_step": (statistics.median(iter_ms)
+                                   if iter_ms else None),
+            "decode_only_iterations": len(iter_ms),
+            "h2d_per_decode_iteration": sorted(set(h2d)),
+            "d2h_per_decode_iteration": sorted(set(d2h)),
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "slot_occupancy": eng.slot_occupancy,
+            "stats": {k: eng.stats[k] for k in (
+                "requests_completed", "tokens_generated", "decode_steps",
+                "prefills", "prefill_batches", "prefill_chunks",
+                "prefill_tokens", "h2d_transfers", "d2h_transfers",
+                "graph_captures", "graph_replays", "slot_requests")},
+            "free_slots": sorted(eng._free)}
+
+
+def _host_calls(prof) -> dict:
+    """tools/profile_torch_slice.py's host_calls counter over a
+    torch.profiler trace (ATen operator calls, kernel and graph launches,
+    waits and copies) and the device's busy time (kernels and copies on
+    the card)."""
+    import torch
+    launches = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+    out = {"aten_ops": 0, "kernel_launches": 0, "graph_launches": 0,
+           "waits_and_copies": 0, "device_kernels": 0, "device_busy_us": 0.0}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            out["device_kernels"] += 1
+            out["device_busy_us"] += evt.time_range.elapsed_us()
+            continue
+        out["aten_ops"] += evt.name.startswith("aten::")
+        out["kernel_launches"] += evt.name in launches
+        out["graph_launches"] += evt.name in ("cudaGraphLaunch",
+                                              "cuGraphLaunch")
+        out["waits_and_copies"] += evt.name in waits
+    return out
+
+
+def _serve_profile(model, rolling: bool, graphed: bool, dev: str) -> dict:
+    """SERVE_SLOTS running requests in steady decode: SERVE_PROFILE_STEPS
+    engine iterations under torch.profiler (host calls and busy time a
+    step), then SERVE_EVENT_STEPS decode steps back to back between two
+    CUDA events (the device's time a step with the host's gaps in it)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng = _serve_engine(model, rolling, graphed)
+    rng = np.random.default_rng(SEED + 16)
+    for _ in range(SERVE_SLOTS):
+        eng.submit(rng.integers(0, LM["vocab_size"], 64).astype(np.int32),
+                   LM["seq_len"] - 64)
+    while eng._free or eng._prefilling:
+        eng.step()
+    for _ in range(4):
+        eng.step()
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            eng.step()
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = _host_calls(prof)
+    n = SERVE_PROFILE_STEPS
+    event_ms = None
+    if torch.device(dev).type == "cuda":
+        step = eng._graph.replay if graphed else eng._device_step
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SERVE_EVENT_STEPS):
+            step()
+        end.record()
+        end.synchronize()
+        event_ms = start.elapsed_time(end) / SERVE_EVENT_STEPS
+    busy_ms = calls.pop("device_busy_us") / 1e3 / n
+    row = {"wall_ms_per_step": wall_ms / n,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (wall_ms / n),
+           "event_ms_per_step": event_ms,
+           **{f"{k}_per_step": v / n for k, v in calls.items()}}
+    del eng
+    return row
+
+
+def _serve_mismatch(got_rows, want_rows, trace, plain=None):
+    """The first request whose tokens differ, where, and (with the plain
+    full forward at hand) the gap of its top two logits there."""
+    import numpy as np
+    import torch
+    for i, (got, want) in enumerate(zip(got_rows, want_rows)):
+        if not np.array_equal(got, want):
+            p_len = len(trace[i][0])
+            out = {"request": i, "sampled": bool(trace[i][2])}
+            if plain is None:
+                c = int(np.flatnonzero(got != want)[0])
+                out.update(position=c, generated_index=c - p_len)
+            else:
+                out.update(_first_difference(
+                    plain, torch.as_tensor(got[None]),
+                    torch.as_tensor(want[None]), p_len))
+            return out
+    return None
+
+
+def _serve_checks(card: str, dev: str, trace, rng) -> dict:
+    """At f32 on a SERVE_CHECK_LAYERS-layer copy, TF32 off: (a) a lone
+    greedy and a lone sampled request equal generate in both forms and
+    both prefill modes; (b) the whole trace through the graph engine
+    equals the eager engine (``prefill_mode="eager"``); (c) the greedy
+    requests through the graph engine equal the same engine on the CPU."""
+    import torch
+    from distkeras_tpu_torch.core import decode
+    greedy = [r for r in trace if not r[2]]
+    lone = {"greedy": max(greedy, key=lambda r: len(r[0])),
+            "sampled": next(r for r in trace
+                            if "top_k" in r[2] and "top_p" in r[2])}
+    out = {}
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model, plain, cpu = _decode_models(extra, rng, dev,
+                                           layers=SERVE_CHECK_LAYERS)
+        for kind, (prompt, steps, kw) in lone.items():
+            gkw = dict(kw)
+            if "seed" in gkw:
+                gkw["rng"] = gkw.pop("seed")
+            want = decode.generate(model, prompt[None], steps,
+                                   max_len=LM["seq_len"], rolling=rolling,
+                                   **gkw).cpu().numpy()
+            for mode in ("bucketed", "eager"):
+                eng = _serve_engine(model, rolling, mode=mode)
+                h = eng.submit(prompt, steps, **kw)
+                eng.run_until_idle()
+                bad = _serve_mismatch([h.result()], want, [(prompt, steps,
+                                                            kw)], plain)
+                row = {"phase": "serve_lone", "form": form, "request": kind,
+                       "prefill_mode": mode, "prompt": len(prompt),
+                       "steps": steps, "compute_dtype": "float32",
+                       "layers": SERVE_CHECK_LAYERS,
+                       "graph_replays": eng.stats["graph_replays"],
+                       "equals_generate": bad is None, "card": card}
+                if bad is not None:
+                    row["first_difference"] = bad
+                emit(row)
+                check(bad is None, f"serve {form}: a lone {kind} request "
+                      f"({mode}) differs from generate: {bad}")
+        graph = _serve_run(model, trace, rolling, dev)
+        eager = _serve_run(model, trace, rolling, dev, mode="eager")
+        t0 = time.perf_counter()
+        on_cpu = _serve_run(cpu, greedy, rolling, "cpu")
+        cpu_s = time.perf_counter() - t0
+        greedy_rows = [r for r, req in zip(graph["rows"], trace)
+                       if not req[2]]
+        vs_eager = _serve_mismatch(graph["rows"], eager["rows"], trace,
+                                   plain)
+        vs_cpu = _serve_mismatch(greedy_rows, on_cpu["rows"], greedy, plain)
+        row = {"phase": "serve_checks", "form": form,
+               "compute_dtype": "float32", "layers": SERVE_CHECK_LAYERS,
+               "requests": len(trace), "graph_equals_eager": vs_eager is None,
+               "greedy_requests": len(greedy),
+               "card_equals_cpu": vs_cpu is None,
+               "graph_ms_per_decode_step": graph["ms_per_decode_step"],
+               "eager_ms_per_decode_step": eager["ms_per_decode_step"],
+               "cpu_s": cpu_s, "card": card}
+        if vs_eager is not None:
+            row["graph_vs_eager_first_difference"] = vs_eager
+        if vs_cpu is not None:
+            row["card_vs_cpu_first_difference"] = vs_cpu
+        emit(row)
+        check(vs_eager is None, f"serve {form}: the graph engine differs "
+              f"from the eager engine over the trace: {vs_eager}")
+        check(vs_cpu is None, f"serve {form}: greedy requests on the card "
+              f"differ from the CPU: {vs_cpu}")
+        out[form] = row
+        del model, plain, cpu
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(card: str, dev: str = "cuda"):
+    """The serving engine on the card: the trace through the graph engine
+    and through the same engine with its step uncaptured (bf16, full
+    width, both forms), their tokens/s, ms per decode step, TTFT and slot
+    occupancy; host calls a step; 0 uploads and 1 readback per
+    decode-only iteration; no request lost and every slot reused; the f32
+    checks of _serve_checks; no kernel launched on any of it (decode
+    attends through the plain path, as the reference's does)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    t_start = time.perf_counter()
+    _zero_counts()
+    rng = np.random.default_rng(SEED + 15)
+    trace = _serve_trace(rng)
+    rows = {}
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model = transformer_lm(**LM, **extra, device=dev)
+        load_jax_weights(model, _random_jax_weights(model, rng))
+        runs = {"graph": _serve_run(model, trace, rolling, dev),
+                "uncaptured": _serve_run(model, trace, rolling, dev,
+                                         graphed=False)}
+        prof = {route: _serve_profile(model, rolling, route == "graph", dev)
+                for route in runs}
+        g = runs["graph"]
+        same = _serve_mismatch(g["rows"], runs["uncaptured"]["rows"], trace)
+        row = {"phase": "serve", "form": form,
+               "compute_dtype": LM["compute_dtype"],
+               "slots": SERVE_SLOTS, "prefill_chunk": SERVE_CHUNK,
+               "requests": len(trace), "steps": SERVE_STEPS,
+               "prompt_lens": sorted({len(p) for p, _, _ in trace}),
+               "sampled_requests": sum(bool(kw) for _, _, kw in trace),
+               "graph_equals_uncaptured": same is None,
+               **{f"{route}_{k}": r[k] for route, r in runs.items()
+                  for k in ("tokens_per_sec", "ms_per_decode_step",
+                            "ttft_ms_p50", "ttft_ms_p99", "slot_occupancy",
+                            "wall_s")},
+               "graph_captures": g["stats"]["graph_captures"],
+               "graph_replays": g["stats"]["graph_replays"],
+               "decode_steps": g["stats"]["decode_steps"],
+               "decode_only_iterations": g["decode_only_iterations"],
+               "h2d_per_decode_iteration": g["h2d_per_decode_iteration"],
+               "d2h_per_decode_iteration": g["d2h_per_decode_iteration"],
+               "stats": g["stats"],
+               "profile": prof, "card": card}
+        if same is not None:
+            row["first_difference"] = same
+        emit(row)
+        check(same is None, f"serve {form}: the graph engine differs from "
+              f"the uncaptured step over the trace: {same}")
+        check(g["stats"]["requests_completed"] == len(trace)
+              and all(f == "length" for f in g["finish"])
+              and g["free_slots"] == list(range(SERVE_SLOTS)),
+              f"serve {form}: requests lost or slots held: "
+              f"{g['stats']['requests_completed']} of {len(trace)}")
+        check(min(g["stats"]["slot_requests"]) >= 2,
+              f"serve {form}: a slot was never reused: "
+              f"{g['stats']['slot_requests']}")
+        check(g["decode_only_iterations"] > 0
+              and g["h2d_per_decode_iteration"] == [0]
+              and g["d2h_per_decode_iteration"] == [1],
+              f"serve {form}: a decode-only iteration moved "
+              f"{g['h2d_per_decode_iteration']} uploads and "
+              f"{g['d2h_per_decode_iteration']} readbacks, want [0] and [1]")
+        check(g["stats"]["graph_captures"] == 1
+              and g["stats"]["graph_replays"] == g["stats"]["decode_steps"],
+              f"serve {form}: {g['stats']['graph_captures']} captures and "
+              f"{g['stats']['graph_replays']} replays for "
+              f"{g['stats']['decode_steps']} decode steps")
+        rows[form] = row
+        del model, runs
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    rows["checks"] = _serve_checks(card, dev, trace, rng)
+    launches = _read_counts()
+    emit({"phase": "serve_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"serve: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "serve_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2819,6 +3192,7 @@ def main() -> int:
     north_star = phase_adag(smi)
     pack_launches = phase_pack(smi)
     _, decode_launches = phase_decode(smi)
+    _, serve_launches = phase_serve(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -2975,8 +3349,8 @@ def main() -> int:
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
-        """The entry's launches on the packing and decode paths (each
-        counted from 0 over its phase's runs; both must be 0)."""
+        """The entry's launches on the packing, decode and serving paths
+        (each counted from 0 over its phase's runs; all must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -2985,6 +3359,7 @@ def main() -> int:
                else entry["name"])
         entry["launches_pack"] = pack_launches[key]
         entry["launches_decode"] = decode_launches[key]
+        entry["launches_serve"] = serve_launches[key]
         return entry
 
     emit(north_star)

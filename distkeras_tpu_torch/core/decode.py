@@ -14,23 +14,29 @@ single-token steps.  The JAX package scans those steps inside one XLA
 program; here they are an eager loop that never waits for the card: no
 step reads a value back to the host, and ``eos``/``pad`` are applied with
 ``torch.where`` on the device, so the output keeps its static
-(B, P + num_steps) shape.  The scalar-position paths write the caches in
-place (the JAX scan's buffers are donated the same way) and return them;
-the per-row (B,) paths build new cache tensors, dropping writes past the
-cache's end as the JAX scatter does.
+(B, P + num_steps) shape.  Every path writes the caches in place (the JAX
+scan's and the serving engine's buffers are donated the same way) and
+returns them; the per-row (B,) paths drop writes past the cache's end as
+the JAX scatter does, and take no value back to the host, so that the
+serving engine can capture its decode step as a CUDA graph.
 
-Random draws use ``torch.Generator``s: a step's generator is seeded from
-(the caller's generator's seed, the step's position), the counterpart of
-``jax.random.fold_in``, so a position's draw is a function of the two.
-Sampling is Gumbel-max, as ``jax.random.categorical``; the bits differ
-from JAX's threefry, so sampled paths agree with the JAX package in their
-properties, not token for token.  Greedy paths, the filters and the beams
-agree exactly.
+Random draws follow one counter-based rule (:func:`random_bits`): the
+bits of a draw are Threefry-2x32 (the block cipher of ``jax.random``) of
+the request's key, two 32-bit words, over the counter (position, row ·
+n + index), computed on the device by integer tensor ops.  A position's
+draw is a function of (key, position, row) alone, as ``fold_in(rng,
+pos)`` makes it in the JAX package; the card and the CPU draw the same
+bits, a lone request through the serving engine draws what ``generate``
+draws for row 0, and a batch of rows with keys of their own needs no
+generator per row.  Sampling is Gumbel-max, as ``jax.random.categorical``;
+the bits are not JAX's (its key derivation differs), so sampled paths
+agree with the JAX package in their properties, not token for token.
+Greedy paths, the filters and the beams agree exactly.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,25 +150,29 @@ def _kv_quantized(cache) -> bool:
 
 
 def _kv_write(cache, slots: torch.Tensor, k_t, v_t):
-    """A new cache with the (B, L, Hkv, Dh) k/v entries written at the
-    per-row slots (B, L); int8 caches quantize on write.  A slot outside
-    the cache drops its write, as the JAX scatter does (the serving
-    engine's speculative verify leans on that at a request's end)."""
+    """Write the (B, L, Hkv, Dh) k/v entries at the per-row slots (B, L)
+    into ``cache``, in place, and return it; int8 caches quantize on
+    write.  A slot outside the cache drops its write, as the JAX scatter
+    does: the slot is clamped and gets its own value back.  One
+    ``index_put_`` per token column, each with one index per row, so a
+    later column overwrites an earlier one at the same slot in order, and
+    nothing is read back to the host (a CUDA graph captures it)."""
     entries = {"k": k_t, "v": v_t}
     if _kv_quantized(cache):
         kq, ks = quantize_kv(k_t)
         vq, vs = quantize_kv(v_t)
         entries = {"k": kq, "v": vq, "ks": ks, "vs": vs}
-    ar = torch.arange(cache["k"].shape[1], device=slots.device)
-    out = {}
-    for name, cur in cache.items():
-        new = entries[name].to(cur.dtype)
-        for i in range(slots.shape[1]):
-            hit = slots[:, i, None] == ar                       # (B, S)
-            hit = hit.reshape(hit.shape + (1,) * (cur.ndim - 2))
-            cur = torch.where(hit, new[:, i, None], cur)
-        out[name] = cur
-    return out
+    n = cache["k"].shape[1]
+    rows = torch.arange(slots.shape[0], device=slots.device)
+    for i in range(slots.shape[1]):
+        col = slots[:, i]
+        keep = (col >= 0) & (col < n)
+        safe = col.clamp(0, n - 1)
+        for name, cur in cache.items():
+            new = entries[name][:, i].to(cur.dtype)
+            hit = keep.reshape((-1,) + (1,) * (cur.ndim - 2))
+            cur[rows, safe] = torch.where(hit, new, cur[rows, safe])
+    return cache
 
 
 def _kv_read(cache, dtype):
@@ -425,25 +435,85 @@ def _filter_logits(logits, top_k: Optional[int], top_p: Optional[float]):
     return logits
 
 
-def _seed(*entropy: int) -> int:
-    return int(np.random.SeedSequence(
-        [int(e) % (1 << 64) for e in entropy]).generate_state(1,
-                                                              np.uint64)[0])
+_MASK32 = 0xFFFFFFFF
+#: Threefry-2x32's rotation constants, four rounds each, alternating
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _fold(rng, data: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (``rng``'s seed, ``data``):
-    the counterpart of ``jax.random.fold_in``.  ``rng``: a
-    ``torch.Generator`` or an int seed."""
-    base = rng.initial_seed() if isinstance(rng, torch.Generator) else rng
-    return torch.Generator(device=device).manual_seed(_seed(base, data))
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Salmon et al., SC 2011; the block cipher
+    of ``jax.random``): the key words (k0, k1) encrypt the counter words
+    (x0, x1).  Every argument is an int64 tensor (or int) of 32-bit words,
+    broadcast together; returns the two output words.  Integer tensor ops
+    only, so the card and the CPU compute the same bits."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _MASK32
+    x1 = (x1 + k1) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) & _MASK32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
 
 
-def _categorical(generator: torch.Generator, logits) -> torch.Tensor:
+def rng_key(rng) -> Tuple[int, int]:
+    """A request's key as two 32-bit words: an int seed ``s`` (mod 2^64)
+    gives (s >> 32, s & 0xFFFFFFFF), as ``jax.random.PRNGKey`` splits a
+    seed; a ``torch.Generator`` gives its seed's; two words (a sequence or
+    array, e.g. a serving handle's ``key``) pass as they are."""
+    if isinstance(rng, torch.Generator):
+        rng = rng.initial_seed()
+    if isinstance(rng, (int, np.integer)):
+        seed = int(rng) % (1 << 64)
+        return seed >> 32, seed & _MASK32
+    words = np.asarray(rng).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError(f"rng must be an int seed, a torch.Generator or "
+                         f"two 32-bit key words, got {rng!r}")
+    return int(words[0]) & _MASK32, int(words[1]) & _MASK32
+
+
+def _key_rows(rng, b: int, device) -> torch.Tensor:
+    """``rng``'s key for each of ``b`` rows: a (b, 2) int64 tensor, filled
+    on ``device`` (no copy from the host)."""
+    k0, k1 = rng_key(rng)
+    return torch.stack([torch.full((b,), k0, dtype=torch.int64,
+                                   device=device),
+                        torch.full((b,), k1, dtype=torch.int64,
+                                   device=device)], dim=1)
+
+
+def random_bits(keys: torch.Tensor, counter: torch.Tensor,
+                rows: torch.Tensor, n: int) -> torch.Tensor:
+    """The one draw rule: (B, n) 32-bit words (in int64), word j of row r
+    being Threefry-2x32 under row r's key ``keys[r]`` (two words) of the
+    counter (``counter[r]``, ``rows[r]`` · n + j).  ``counter`` is the
+    position (or a draw count), ``rows`` the row's index in its batch: 0
+    for every row of the serving engine, whose rows carry keys of their
+    own, and the batch row in ``generate``, whose rows share one key."""
+    dev = keys.device
+    j = torch.arange(n, dtype=torch.int64, device=dev)
+    c0 = counter.to(torch.int64)[:, None] & _MASK32
+    c1 = (rows.to(torch.int64)[:, None] * n + j[None, :]) & _MASK32
+    keys = keys.to(torch.int64)
+    x0, _ = threefry2x32(keys[:, 0:1], keys[:, 1:2], c0, c1)
+    return x0
+
+
+def _uniform(keys, counter, rows, n: int) -> torch.Tensor:
+    """(B, n) f32 uniforms in (0, 1) from :func:`random_bits`: the top 23
+    bits, centred in their interval (exact in f32, never 0 or 1)."""
+    bits = random_bits(keys, counter, rows, n) >> 9
+    return (bits.to(torch.float32) + 0.5) * (2.0 ** -23)
+
+
+def _categorical(keys, counter, rows, logits) -> torch.Tensor:
     """One draw per row from softmax(logits), by Gumbel-max (as
-    ``jax.random.categorical``): no value comes back to the host."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    ``jax.random.categorical``), with the bits of :func:`random_bits`: no
+    value comes back to the host."""
+    u = _uniform(keys, counter, rows, logits.shape[-1])
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -452,14 +522,71 @@ def sample_logits(logits, pos, temperature: float = 0.0, rng=None,
                   top_p: Optional[float] = None) -> torch.Tensor:
     """The one per-step sampling rule: (B, V) f32 logits at absolute
     position ``pos`` → (B,) int32 next tokens.  temperature 0 = greedy
-    argmax (the first of equal maxima); > 0 = a draw after
-    ``_filter_logits``, from a generator folded from (``rng``, ``pos``)."""
+    argmax (the first of equal maxima); > 0 = :func:`sample_logits_batched`
+    with every row's parameters equal and ``rng``'s key, row r drawing as
+    row r of the batch, so that row 0 draws what a lone serving request
+    with the same key draws at that position."""
     if temperature > 0.0:
-        logits = _filter_logits(logits / temperature, top_k, top_p)
-        nxt = _categorical(_fold(rng, pos, logits.device), logits)
-    else:
-        nxt = torch.argmax(logits, dim=-1)
-    return nxt.to(torch.int32)
+        b, dev = logits.shape[0], logits.device
+
+        def full(value, dtype):
+            return torch.full((b,), value, dtype=dtype, device=dev)
+
+        return sample_logits_batched(
+            logits, full(int(pos), torch.int64),
+            full(float(temperature), torch.float32),
+            _key_rows(rng, b, dev), full(int(top_k or 0), torch.int64),
+            full(float(top_p or 0.0), torch.float32),
+            rows=torch.arange(b, device=dev))
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def filter_logits_batched(logits, top_k, top_p):
+    """Per-row ``_filter_logits`` with per-row parameters on the device:
+    ``top_k`` (B,) int (0 = off), ``top_p`` (B,) f32 (0 = off).  Row r with
+    ``top_k[r] == K > 0`` and ``top_p[r] == P > 0`` computes what
+    ``_filter_logits(row, K, P)`` computes (k first, then p); no value
+    comes back to the host, so one captured step serves a slot batch with
+    mixed sampling configurations."""
+    dev, v = logits.device, logits.shape[-1]
+    top_k = torch.as_tensor(top_k, device=dev).to(torch.int64)
+    top_p = torch.as_tensor(top_p, device=dev).to(torch.float32)
+    sorted_desc = _sort_desc(logits).values
+    kth = torch.gather(sorted_desc, -1, (top_k.clamp(1, v) - 1)[:, None])
+    logits = logits.masked_fill((top_k > 0)[:, None] & (logits < kth),
+                                float("-inf"))
+    # the p filter runs on the k-filtered logits, as _filter_logits
+    sorted_desc = _sort_desc(logits).values
+    probs = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    kept = torch.sum((cum - probs) < top_p[:, None], dim=-1, keepdim=True)
+    cut = torch.gather(sorted_desc, -1, kept.clamp(min=1) - 1)
+    return logits.masked_fill((top_p > 0)[:, None] & (logits < cut),
+                              float("-inf"))
+
+
+def sample_logits_batched(logits, positions, temperature, keys, top_k,
+                          top_p, rows=None) -> torch.Tensor:
+    """Per-row ``sample_logits``: every row carries its own sampling
+    configuration, all on the device.  ``positions`` (B,) absolute
+    positions; ``temperature`` (B,) f32 (<= 0 = greedy argmax for that
+    row); ``keys`` (B, 2) per-row key words; ``top_k``/``top_p`` as in
+    :func:`filter_logits_batched`; ``rows`` (B,) the rows' indices in the
+    draw rule (default 0: each row is a request with a key of its own).
+    Nothing comes back to the host, so the serving engine's decode step
+    is captured with it."""
+    dev = logits.device
+    temp = torch.as_tensor(temperature, device=dev).to(torch.float32)
+    positions = torch.as_tensor(positions, device=dev)
+    keys = torch.as_tensor(keys, device=dev)
+    sampled = temp > 0.0
+    safe = torch.where(sampled, temp, torch.ones_like(temp))
+    warped = filter_logits_batched(logits / safe[:, None], top_k, top_p)
+    if rows is None:
+        rows = torch.zeros_like(positions)
+    drawn = _categorical(keys, positions, rows, warped)
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(sampled, drawn, greedy).to(torch.int32)
 
 
 def _to_ring(full_cache, p_len: int, window: int):
@@ -521,8 +648,9 @@ def generate(model, prompt, num_steps: int, temperature: float = 0.0,
     """Continue ``prompt`` (B, P) int tokens by ``num_steps`` tokens;
     returns (B, P + num_steps) int32 tokens on the model's device.
 
-    temperature 0 = greedy argmax; > 0 = sampling (needs ``rng``, a
-    ``torch.Generator`` or an int seed), with ``top_k``/``top_p``
+    temperature 0 = greedy argmax; > 0 = sampling (needs ``rng``: a
+    ``torch.Generator``, an int seed or two key words; see
+    :func:`rng_key`), with ``top_k``/``top_p``
     restricting each step's distribution (k first, then p).  ``eos_id``:
     once a row emits it, every later slot of that row is ``pad_id``
     (default: ``eos_id`` itself).  Prefill is one batched forward, the
@@ -660,14 +788,18 @@ def speculative_generate(model, draft_model, prompt, num_steps: int,
         return _filter_logits(l / temperature, top_k, top_p) if sampled \
             else l
 
-    draws = [0]  # host-side draw counter: a fresh fold per random draw
+    # the draw rule's counter is a host-side draw count: each random draw
+    # takes the next one, and row r draws as row r of the batch
+    draws = [0]
+    keys = _key_rows(rng, b, dev) if sampled else None
+    rows = torch.arange(b, device=dev)
 
     def key():
         draws[0] += 1
-        return _fold(rng, draws[0], dev)
+        return torch.full((b,), draws[0], dtype=torch.int64, device=dev)
 
     def pick(l):
-        return (_categorical(key(), warp(l)) if sampled
+        return (_categorical(keys, key(), rows, warp(l)) if sampled
                 else torch.argmax(l, dim=-1)).to(torch.int32)
 
     cur = pick(logits[:, -1])
@@ -725,7 +857,7 @@ def speculative_generate(model, draft_model, prompt, num_steps: int,
             at = drafted.long()[..., None]
             px = torch.gather(p, -1, at)[..., 0]              # (B, k)
             qx = torch.gather(q, -1, at)[..., 0]
-            u = torch.rand((b, k), generator=key(), device=dev)
+            u = _uniform(keys, key(), rows, k)
             accept = u * torch.clamp(qx, min=1e-30) < px      # u < p/q
             n_row = torch.cumprod(accept.to(torch.int32), dim=1).sum(1)
             a = min(int(n_row.min()), num_steps - len(out) - 1)
@@ -741,7 +873,7 @@ def speculative_generate(model, draft_model, prompt, num_steps: int,
                 res = torch.where(rsum > 0.0,
                                   res / torch.clamp(rsum, min=1e-38),
                                   p[:, a])
-                rej = _categorical(key(),
+                rej = _categorical(keys, key(), rows,
                                    torch.log(torch.clamp(res, min=1e-38)))
                 # rows that accepted position a keep their drafted token
                 tok_a = torch.where(n_row > a, drafted[:, a],

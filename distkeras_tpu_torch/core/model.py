@@ -52,6 +52,18 @@ class Sequential(nn.Module):
         p = next(self.parameters(), None)
         return self._device if p is None else p.device
 
+    def add(self, layer: Layer) -> "Sequential":
+        """Append ``layer``; returns the model.  A model that has its
+        ``input_shape`` is rebuilt at once (every layer's parameters drawn
+        anew from seed 0, as the constructor draws them), so that
+        ``Sequential([a], input_shape=s).add(b)`` is
+        ``Sequential([a, b], input_shape=s)``; without one, call
+        :meth:`build` before the first forward."""
+        self.layers.append(layer)
+        if self.input_shape is not None:
+            self.build()
+        return self
+
     def build(self, input_shape: Optional[Sequence[int]] = None,
               generator: Optional[torch.Generator] = None) -> "Sequential":
         """(Re)create every layer's parameters for ``input_shape``."""
@@ -209,6 +221,12 @@ class FittedModel:
 
     def get_weights(self) -> List[np.ndarray]:
         return self.model.get_weights()
+
+    def set_weights(self, weights: Sequence[np.ndarray]) -> "FittedModel":
+        """Load the flat JAX-order weight list into the model, in place;
+        returns this FittedModel."""
+        self.model.set_weights(weights)
+        return self
 
     def count_params(self) -> int:
         return self.model.count_params()

@@ -1,0 +1,1435 @@
+"""Continuous-batching serving engine, port of the core of
+``distkeras_tpu/serving.py`` (``ServingEngine`` over its dense slot pool).
+
+The engine composes the decode layer (``core/decode.py``: the per-row
+``decode_step``, the batched samplers, eos stopping) into a live
+inference server with iteration-level scheduling:
+
+ - **Slot pool** — one batched KV cache (``init_cache(model, num_slots,
+   max_len)``, or a ring of each block's window with ``rolling=True``);
+   each batch row is a *slot* holding one in-flight request at its own
+   position.  The whole pool advances through one per-row ``decode_step``
+   (per-slot positions + active mask).
+ - **Admission queue with backpressure** — ``submit`` enqueues up to
+   ``queue_capacity`` requests; beyond that it blocks (or raises
+   :class:`QueueFull` with ``block=False``).
+ - **Prefill/decode interleave** — each iteration admits up to
+   ``prefills_per_step`` queued requests into free slots, then runs one
+   decode step for every running request.
+ - **Bucketed prefill** (``prefill_mode="bucketed"``, the default) —
+   admitted prompts are right-padded to a power-of-two length bucket and
+   prefilled together, one batched forward per bucket width; the
+   per-request prefill of the original engine stays, as the reference,
+   behind ``prefill_mode="eager"``.
+ - **Chunked prefill** — a prompt longer than ``prefill_chunk`` is
+   prefilled one chunk per iteration into a private staging cache,
+   interleaved with decode steps, and committed to its slot's pool row
+   with its last chunk.
+ - **Device-resident decode state** — current tokens, positions, the
+   active mask, per-slot sampling parameters and keys live in static
+   tensors on the model's device and advance inside the decode step.  A
+   decode-only iteration uploads nothing and reads back one token row,
+   into pinned host memory behind an event that the next iteration waits
+   on (one-step lookahead).  On a CUDA card the decode step is one CUDA
+   graph, captured once per engine over those static tensors and the pool
+   (the counterpart of the JAX package's jitted step with donated
+   buffers) and replayed every iteration; on the CPU the same function
+   runs uncaptured.  A card whose capture fails raises: there is no
+   quiet switch to the uncaptured step.
+ - **Retirement + slot reuse** — a request leaves its slot the moment it
+   emits ``eos_id`` or its ``num_steps``-th token, and the slot is
+   reusable by the next queued request mid-run.
+ - **Failure semantics** — per-request deadlines, cancellation, graceful
+   ``drain``, and a crashed or wedged loop failing every in-flight handle
+   with a typed :class:`EngineDead`.
+
+Determinism contract: a lone request through the engine emits the tokens
+that ``generate`` emits under the same seed and parameters — greedy and
+sampled alike, since both draw through ``core.decode``'s one counter-based
+draw rule (row 0 of ``generate``'s batch draws what a lone request
+draws).
+
+Left for later slices (each raises ``NotImplementedError`` naming its
+ROADMAP item): the paged pool and prefix trie, speculation, quantized
+weights and KV in the engine, roles and tenants (queue A item 4), hot
+weight reload from a parameter server (queue A item 6), and the wire
+front-end.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .core import decode as _dec
+from .core.decode import (_check_supported, _context_limit, _forward,
+                          _to_ring, _validate_rolling, _validate_sampling,
+                          _validate_stopping, _vocab_size, init_cache,
+                          rng_key, sample_logits)
+from .core.model import FittedModel, Sequential
+from .core.quant import kv_cache_bytes
+from .resilience import RetryPolicy as _RetryPolicy
+
+logger = logging.getLogger("distkeras_tpu_torch.serving")
+
+#: re-dial budget for hot-reload pulls, as in the JAX package (the pull
+#: runs on the decode thread between steps, so the policy's worst case is
+#: the longest serving stall a dead parameter server can cause)
+DEFAULT_RELOAD_POLICY = _RetryPolicy(attempts=4, backoff=0.02,
+                                     max_backoff=0.1, jitter=0.0,
+                                     deadline=0.5)
+
+_LATER = "ROADMAP queue A item 4"
+
+
+class QueueFull(RuntimeError):
+    """Admission backpressure: the engine's bounded queue is at capacity
+    (``submit(block=False)`` / a blocking submit that timed out)."""
+
+
+class Draining(RuntimeError):
+    """Admission refused because the engine is draining (``engine.drain``):
+    in-flight requests finish, new ones go elsewhere."""
+
+
+class EngineDead(RuntimeError):
+    """The serving engine's decode loop crashed, wedged, or was torn down
+    with work in flight.  Raised from ``RequestHandle.result()`` for every
+    request the dead engine was carrying (no silent hangs), and from
+    ``submit`` on a dead engine."""
+
+
+class RequestHandle:
+    """One submitted request's lifecycle + streaming surface.
+
+    Produced tokens arrive incrementally (``next_chunk``) as the engine
+    emits them; ``result()`` blocks until retirement and returns the full
+    ``generate``-shaped row: prompt + emitted tokens, padded with
+    ``pad_id`` (default ``eos_id``, else 0) out to ``num_steps``.
+
+    ``finish`` is the retire reason: ``"eos"`` / ``"length"`` / ``"empty"``
+    for normal completion, ``"deadline"`` (the partial row is still
+    returned, padded), ``"cancel"``, ``"drain"`` (drain timeout) and
+    ``"error"`` (the engine died — ``result()`` raises the stored
+    :class:`EngineDead`).  ``key`` is the request's two 32-bit key words
+    (``core.decode.rng_key``); ``deadline`` an absolute
+    ``time.perf_counter()`` instant or None.
+    """
+
+    __slots__ = ("id", "prompt", "num_steps", "temperature", "top_k",
+                 "top_p", "eos_id", "pad_id", "key", "tokens", "finish",
+                 "slot", "submitted_at", "started_at", "first_token_at",
+                 "finished_at", "deadline", "error", "cancelled_at",
+                 "_cond", "_chunk_read", "_listener")
+
+    def __init__(self, rid: int, prompt: np.ndarray, num_steps: int,
+                 temperature: float, top_k: Optional[int],
+                 top_p: Optional[float], eos_id: Optional[int],
+                 pad_id: Optional[int], key,
+                 deadline_s: Optional[float] = None):
+        self.id = rid
+        self.prompt = prompt
+        self.num_steps = int(num_steps)
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.key = key
+        self.tokens: List[int] = []     # emitted (pre-padding) tokens
+        self.finish: Optional[str] = None   # see class docstring
+        self.slot: Optional[int] = None
+        self.submitted_at = time.perf_counter()
+        self.started_at: Optional[float] = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+        self.deadline = (None if deadline_s is None
+                         else self.submitted_at + float(deadline_s))
+        self.error: Optional[BaseException] = None
+        self.cancelled_at: Optional[float] = None
+        self._cond = threading.Condition()
+        self._chunk_read = 0            # tokens already handed out as chunks
+        #: a no-arg callable invoked (outside ``_cond``) whenever tokens
+        #: arrive or the handle retires; set via ``set_listener``
+        self._listener: Optional[Callable[[], None]] = None
+
+    @property
+    def done(self) -> bool:
+        return self.finish is not None
+
+    @property
+    def pad(self) -> int:
+        return int(self.pad_id if self.pad_id is not None
+                   else (self.eos_id or 0))
+
+    # -- engine side ---------------------------------------------------------
+    def _push(self, token: int) -> None:
+        with self._cond:
+            if self.finish is not None:  # a wedged loop emitting past its
+                return                   # declared death: drop, don't grow
+            if self.first_token_at is None:
+                self.first_token_at = time.perf_counter()
+            self.tokens.append(int(token))
+            self._cond.notify_all()
+            fire = self._listener
+        if fire is not None:  # invoked OUTSIDE _cond: a listener must not
+            fire()            # nest locks
+
+    def _finish(self, reason: str) -> bool:
+        """Returns whether THIS call made the handle terminal — the engine
+        counts a request once, so a completion racing a concurrent failure
+        must not increment both counters."""
+        with self._cond:
+            if self.finish is not None:  # first terminal state wins
+                return False
+            self.finish = reason
+            self.finished_at = time.perf_counter()
+            self._cond.notify_all()
+            fire = self._listener
+        if fire is not None:
+            fire()
+        return True
+
+    def _fail(self, exc: BaseException, reason: str = "error") -> bool:
+        """Terminal failure: ``result()`` raises ``exc`` instead of
+        returning a row.  Idempotent like ``_finish``; same return
+        contract."""
+        with self._cond:
+            if self.finish is not None:
+                return False
+            self.error = exc
+            self.finish = reason
+            self.finished_at = time.perf_counter()
+            self._cond.notify_all()
+            fire = self._listener
+        if fire is not None:
+            fire()
+        return True
+
+    def set_listener(self, fn: Optional[Callable[[], None]]) -> None:
+        """Install (or clear, with None) the progress listener — fired
+        after every token push and on retirement, outside the handle's
+        lock."""
+        with self._cond:
+            self._listener = fn
+        if fn is not None and (self.done or len(self.tokens)):
+            fn()  # catch up on progress that predates the listener
+
+    def _expired(self, now: float) -> bool:
+        return self.deadline is not None and now > self.deadline
+
+    # -- consumer side -------------------------------------------------------
+    def next_chunk(self, timeout: Optional[float] = None
+                   ) -> Tuple[np.ndarray, bool]:
+        """Block until new tokens exist (or the request finished); return
+        ``(new_tokens, done)``.  After ``done`` the chunk may be empty —
+        the stream's final frame."""
+        with self._cond:
+            self._cond.wait_for(
+                lambda: self.done or len(self.tokens) > self._chunk_read,
+                timeout=timeout)
+            chunk = np.asarray(self.tokens[self._chunk_read:], np.int32)
+            self._chunk_read = len(self.tokens)
+            return chunk, self.done
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        with self._cond:
+            return self._cond.wait_for(lambda: self.done, timeout=timeout)
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        """The full ``generate``-shaped row (prompt + tokens, padded to
+        ``num_steps``) — blocks until the request retires.  A request the
+        engine failed raises its stored :class:`EngineDead`."""
+        if not self.wait(timeout):
+            raise TimeoutError(f"request {self.id} not done")
+        if self.error is not None:
+            raise self.error
+        gen = list(self.tokens) + [self.pad] * (self.num_steps
+                                                - len(self.tokens))
+        return np.concatenate([self.prompt, np.asarray(gen, np.int32)])
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        return (None if self.finished_at is None
+                else self.finished_at - self.submitted_at)
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Time to first token — submit instant → first emitted token
+        (queueing and prefill included).  None until the first token."""
+        return (None if self.first_token_at is None
+                else self.first_token_at - self.submitted_at)
+
+
+def _commit_rows(big, row, slots: torch.Tensor, width: int, rolling: bool,
+                 p_lens: torch.Tensor) -> None:
+    """Write freshly prefilled cache rows into the slot pool, in place:
+    row i of ``row`` into pool row ``slots[i]`` (the first
+    ``len(slots)`` rows; the batch's unused rows are never written),
+    ring-converted per row for rolling pools."""
+    if big is None:
+        return
+    n = slots.shape[0]
+    for name in ("k", "v"):
+        src = row[name][:n]
+        if rolling:
+            big[name][slots] = _dec.ring_from_prefill(src, p_lens,
+                                                      big[name].shape[1])
+        else:
+            big[name][slots, :width] = src
+
+
+def _commit_full_row(big, row, slot: int, rolling: bool,
+                     p_row: torch.Tensor) -> None:
+    """The chunked-prefill final commit: one staged full-length row
+    replaces pool row ``slot`` in place (ring-collapsed for rolling
+    pools)."""
+    if big is None:
+        return
+    for name in ("k", "v"):
+        src = row[name]
+        if rolling:
+            src = _dec.ring_from_prefill(src, p_row, big[name].shape[1])
+        big[name][slot] = src[0]
+
+
+def _pow2_buckets(cap: int) -> List[int]:
+    """The prefill length-bucket ladder: powers of two from 8 up, capped
+    (and terminated) at ``cap`` — a small set of prefill widths."""
+    cap = int(cap)
+    out: List[int] = []
+    n = 8
+    while n < cap:
+        out.append(n)
+        n *= 2
+    out.append(cap)
+    return out
+
+
+class _PrefillJob:
+    """Scheduler-side state of one chunked prefill in flight: the slot is
+    claimed (``engine._handles``) but not yet decoding; ``written`` prompt
+    tokens are staged so far.  ``staging`` is a full-length one-row cache
+    the chunks accumulate into — private to the job, so the decode
+    batch's junk writes into free pool rows cannot race it — which the
+    final chunk commits to the slot's pool row at once."""
+
+    __slots__ = ("handle", "staging", "written")
+
+    def __init__(self, handle: RequestHandle, staging=None):
+        self.handle = handle
+        self.staging = staging
+        self.written = 0
+
+
+def _uses_graph(device: torch.device) -> bool:
+    """Whether the decode step on ``device`` is a CUDA graph: on a CUDA
+    card always, elsewhere never."""
+    return device.type == "cuda"
+
+
+def _capture_graph(step: Callable[[], None], device: torch.device):
+    """Capture ``step`` (no arguments, static tensors only) as a CUDA
+    graph on ``device``; returns the graph, whose ``replay()`` runs it.
+    One warm-up run on the capture's side stream comes first, as PyTorch
+    asks (it initialises the library handles the capture must not
+    create)."""
+    stream = torch.cuda.Stream(device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        step()
+    return graph
+
+
+class ServingEngine:
+    """Iteration-level continuous-batching engine over a slot-pooled KV
+    cache.
+
+    ``model``: a ``FittedModel`` (or ``Sequential``) of the decode-supported
+    family (``transformer_lm``); the engine runs on the model's device.
+    ``num_slots`` is the decode batch — the number of simultaneously
+    running requests; ``max_len`` bounds prompt+continuation per request
+    (defaults to the model's positional range).  ``rolling=True``
+    (sliding-window models only) makes each slot an O(W) ring instead of
+    ``max_len`` slots.
+
+    ``prefill_mode``: ``"bucketed"`` (default) runs the fast path —
+    batched bucket prefill, chunked long-prompt prefill, device-resident
+    decode state with one-step lookahead, and on a CUDA card the decode
+    step as a CUDA graph; ``"eager"`` is the per-request engine, kept as
+    the reference and never captured.  ``prefill_chunk`` bounds how many
+    prompt tokens one iteration may prefill for a single request
+    (bucketed mode).
+
+    The JAX engine's later knobs (``spec_draft``, ``spec_len``,
+    ``quantize``, ``kv_dtype``, ``paged``, ``block_size``, ``kv_blocks``,
+    ``role``, ``tenants``) take their defaults here; any other value
+    raises ``NotImplementedError``.
+
+    Threading: ``submit`` is thread-safe (any number of producers); the
+    scheduler itself — ``step`` / ``run_until_idle`` / the ``start``
+    background thread — must be driven from one thread at a time.
+    """
+
+    def __init__(self, model: Union[FittedModel, Sequential],
+                 num_slots: int = 4, max_len: Optional[int] = None,
+                 queue_capacity: int = 64, prefills_per_step: int = 1,
+                 rolling: bool = False,
+                 default_deadline_s: Optional[float] = None,
+                 prefill_mode: str = "bucketed", prefill_chunk: int = 128,
+                 spec_draft=None, spec_len: int = 4,
+                 quantize: Optional[str] = None,
+                 kv_dtype: Optional[str] = None,
+                 paged: bool = False, block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 role: str = "unified", tenants=None):
+        later = {"spec_draft": (spec_draft, None), "spec_len": (spec_len, 4),
+                 "quantize": (quantize, None), "kv_dtype": (kv_dtype, None),
+                 "paged": (paged, False), "block_size": (block_size, 16),
+                 "kv_blocks": (kv_blocks, None), "role": (role, "unified"),
+                 "tenants": (tenants, None)}
+        for name, (value, default) in later.items():
+            if value != default:
+                raise NotImplementedError(
+                    f"ServingEngine({name}={value!r}): the paged pool, "
+                    f"speculation, quantization, roles and tenants of the "
+                    f"JAX engine are not ported yet ({_LATER})")
+        self.model = model.model if isinstance(model, FittedModel) else model
+        _check_supported(self.model)
+        if rolling:
+            _validate_rolling(self.model)
+        self.device = self.model.device
+        self.num_slots = int(num_slots)
+        if self.num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        limit = _context_limit(self.model)
+        if max_len is None:
+            if limit is None:
+                raise ValueError("max_len is required for models without a "
+                                 "positional-embedding range")
+            max_len = limit
+        if limit is not None and max_len > limit:
+            raise ValueError(f"max_len {max_len} exceeds the model's "
+                             f"positional-embedding range {limit}")
+        self.max_len = int(max_len)
+        self.rolling = bool(rolling)
+        self.queue_capacity = int(queue_capacity)
+        self.prefills_per_step = max(int(prefills_per_step), 1)
+        if prefill_mode not in ("bucketed", "eager"):
+            raise ValueError(f"prefill_mode must be 'bucketed' or 'eager', "
+                             f"got {prefill_mode!r}")
+        self.prefill_mode = prefill_mode
+        if int(prefill_chunk) < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
+        self.prefill_chunk = int(prefill_chunk)
+        if default_deadline_s is not None and default_deadline_s <= 0:
+            raise ValueError(f"default_deadline_s must be > 0, got "
+                             f"{default_deadline_s}")
+        self.default_deadline_s = default_deadline_s
+        self._vocab = _vocab_size(self.model)
+
+        # -- slot pool: ONE batched cache, one host-side row of state per
+        #    slot (the scheduler's bookkeeping view)
+        self.caches = init_cache(self.model, self.num_slots, self.max_len,
+                                 rolling=self.rolling)
+        self._handles: List[Optional[RequestHandle]] = [None] * self.num_slots
+        self._free: List[int] = list(range(self.num_slots - 1, -1, -1))
+        self._positions = np.zeros((self.num_slots,), np.int64)
+        self._cur_tok = np.zeros((self.num_slots,), np.int32)
+        self._active = np.zeros((self.num_slots,), bool)
+        self._temp = np.zeros((self.num_slots,), np.float32)
+        self._topk = np.zeros((self.num_slots,), np.int64)    # 0 = off
+        self._topp = np.zeros((self.num_slots,), np.float32)  # 0 = off
+        self._keys = np.zeros((self.num_slots, 2), np.int64)
+
+        # -- admission queue (the ONLY cross-thread state besides handles)
+        self._queue: "collections.deque[RequestHandle]" = collections.deque()
+        self._qlock = threading.Lock()
+        self._not_full = threading.Condition(self._qlock)
+        self._have_work = threading.Condition(self._qlock)
+        self._next_id = 0
+
+        # -- the fast path: prefill widths, the lookahead pipeline, and the
+        #    device-resident decode state (static tensors: the CUDA graph
+        #    reads and writes these very storages on every replay)
+        self._chunk_width = min(self.prefill_chunk, self.max_len)
+        self._buckets = _pow2_buckets(self._chunk_width)
+        self._pending: "collections.deque" = collections.deque()
+        self._prefilling: Dict[int, _PrefillJob] = {}
+        self._lookahead = 1 if self.prefill_mode == "bucketed" else 0
+        self._graph = None
+        self._graphed = (self.prefill_mode == "bucketed"
+                         and _uses_graph(self.device))
+        if self.prefill_mode == "bucketed":
+            def zeros(*shape, dtype=torch.float32):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+            b = self.num_slots
+            self._dev_tok = zeros(b, dtype=torch.int32)
+            self._dev_pos = zeros(b, dtype=torch.int64)
+            self._dev_act = zeros(b, dtype=torch.bool)
+            self._dev_temp = zeros(b)
+            self._dev_topk = zeros(b, dtype=torch.int64)
+            self._dev_topp = zeros(b)
+            self._dev_keys = zeros(b, 2, dtype=torch.int64)
+
+        # -- scheduler thread + stats + failure state
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+        self._draining = False
+        self._dead: Optional[BaseException] = None  # the EngineDead cause
+        #: decode-loop heartbeat (monotonic): stamped once per scheduler
+        #: iteration, idle iterations included
+        self.last_beat = time.monotonic()
+        self.stats: Dict[str, Any] = {
+            "requests_submitted": 0, "requests_completed": 0,
+            "requests_rejected": 0, "tokens_generated": 0,
+            "prefills": 0, "decode_steps": 0, "active_slot_steps": 0,
+            "queue_peak": 0, "slot_requests": [0] * self.num_slots,
+            # failure semantics: retirements by reason, handles failed with
+            # EngineDead, one reclaim sample per mid-run cancel/deadline
+            "requests_cancelled": 0, "requests_expired": 0,
+            "requests_failed": 0, "slot_reclaim_ms": [],
+            # the fast path: chunk and batch prefills, prompt tokens, and
+            # the decode loop's transfer discipline (a decode-only
+            # iteration uploads nothing and reads back one token row)
+            "prefill_chunks": 0, "prefill_batches": 0,
+            "prefill_batched_requests": 0, "prefill_batch_size_mean": None,
+            "prefill_tokens": 0,
+            "h2d_transfers": 0, "d2h_transfers": 0,
+            "kv_pool_bytes": kv_cache_bytes(self.caches),
+            # the decode step's CUDA graph: captures (one per engine on a
+            # card, none elsewhere) and replays (one per decode step)
+            "graph_captures": 0, "graph_replays": 0,
+        }
+
+        # -- lock-free load snapshot (the routing surface), republished by
+        #    reference from submit/step/drain/death, outside _qlock
+        self._load_snapshot: Dict[str, Any] = {
+            "queue_depth": 0, "slots_free": self.num_slots,
+            "slots_total": self.num_slots, "active": 0,
+            "queue_capacity": self.queue_capacity, "max_len": self.max_len,
+            "draining": False, "dead": False, "prefill_tokens": 0,
+            "tokens_generated": 0, "requests_completed": 0,
+            "requests_failed": 0,
+        }
+
+    # ------------------------------------------------------------- the step
+    def _step(self, tok, pos, act, temp, topk, topp, keys):
+        """One decode step of every slot: the per-row ``decode_step``
+        (cache writes in place, into the pool), the batched sampler, and
+        the active mask (free slots keep their token; their rows compute
+        a junk forward into their own pool rows, which the next prefill
+        fully overwrites)."""
+        logits, _ = _dec.decode_step(self.model, self.caches, tok, pos,
+                                     self.rolling)
+        nxt = _dec.sample_logits_batched(logits, pos, temp, keys, topk,
+                                         topp)
+        return torch.where(act, nxt, tok)
+
+    def _device_step(self) -> None:
+        """The bucketed decode step over the static device state: tokens
+        and positions advance in place, so the CUDA graph of this function
+        has no inputs or outputs of its own."""
+        out = self._step(self._dev_tok, self._dev_pos, self._dev_act,
+                         self._dev_temp, self._dev_topk, self._dev_topp,
+                         self._dev_keys)
+        self._dev_pos.copy_(torch.where(self._dev_act, self._dev_pos + 1,
+                                        self._dev_pos))
+        self._dev_tok.copy_(out)
+
+    def _capture(self) -> None:
+        """Capture :meth:`_device_step` as this engine's CUDA graph.  The
+        warm-up run before the capture advances the active rows' tokens
+        and positions, which are put back (its cache writes are those the
+        first replay makes again).  A failed capture raises."""
+        saved = (self._dev_tok.clone(), self._dev_pos.clone())
+        try:
+            self._graph = _capture_graph(self._device_step, self.device)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the decode step failed on "
+                f"{self.device}: {e!r}") from e
+        self._dev_tok.copy_(saved[0])
+        self._dev_pos.copy_(saved[1])
+        self.stats["graph_captures"] += 1
+
+    # ------------------------------------------------ the prefill programs
+    #
+    # Each runs eagerly, one per bucket width (never captured): the bucket
+    # program prefills up to ``prefills_per_step`` right-padded prompts in
+    # one batched forward over a fresh cache of the bucket's width,
+    # samples each row's first token, writes the rows into the pool and
+    # the slots' device state.  Chunked prefill stages its chunks in a
+    # private one-row cache of ``max_len`` (the scalar-position walker);
+    # the final chunk samples the first token and commits the whole row.
+    # Every forward goes through ``_dec`` (the decode MODULE); the
+    # module-level ``_forward`` import is the eager engine's.
+
+    def _install(self, slots, tok, pos, temp, topk, topp, keys) -> None:
+        """Write admitted slots' rows of decode state into the static
+        device tensors (``slots``: an int, or a device tensor of
+        indices)."""
+        self._dev_tok[slots] = tok.to(torch.int32)
+        self._dev_pos[slots] = pos
+        self._dev_act[slots] = True
+        self._dev_temp[slots] = temp
+        self._dev_topk[slots] = topk
+        self._dev_topp[slots] = topp
+        self._dev_keys[slots] = keys
+
+    def _bucket_prefill(self, width: int, prompts, p_lens, slots, n: int,
+                        r_temp, r_topk, r_topp, r_keys) -> torch.Tensor:
+        """One batched prefill of right-padded ``prompts`` (nb, width);
+        the first ``n`` rows are admissions into ``slots[:n]``, the rest
+        write nothing.  Returns the (nb,) first tokens."""
+        model = self.model
+        rows = init_cache(model, prompts.shape[0], width)
+        # right-padded batch: the causal mask alone keeps pad keys out of
+        # every real row, and the pad slots each row writes stay behind
+        # its decode frontier until overwritten
+        logits, rows = _dec._forward(model, rows, prompts, 0)
+        idx = (p_lens - 1).clamp(0, width - 1).to(torch.int64)
+        last = torch.gather(logits, 1, idx[:, None, None].expand(
+            -1, 1, logits.shape[-1]))[:, 0]
+        first = _dec.sample_logits_batched(last, p_lens - 1, r_temp, r_keys,
+                                           r_topk, r_topp)
+        if n:
+            s = slots[:n]
+            for big, row in zip(self.caches, rows):
+                _commit_rows(big, row, s, width, self.rolling, p_lens[:n])
+            self._install(s, first[:n], p_lens[:n], r_temp[:n], r_topk[:n],
+                          r_topp[:n], r_keys[:n])
+        return first
+
+    def _final_chunk(self, staging, toks, slot: int, offset: int,
+                     last_idx: int, p_len: int, r_temp, r_topk, r_topp,
+                     r_key) -> torch.Tensor:
+        """The last chunk of a chunked prefill: its forward, the first
+        token, and — for a real slot (< ``num_slots``) — the full-row
+        commit and the slot's device state.  Returns the (1,) first
+        token."""
+        logits, staging = _dec._forward(self.model, staging, toks, offset)
+        pos = torch.full((1,), p_len - 1, dtype=torch.int64,
+                         device=self.device)
+        first = _dec.sample_logits_batched(logits[0, last_idx][None], pos,
+                                           r_temp, r_key, r_topk, r_topp)
+        if slot < self.num_slots:
+            p_row = pos + 1
+            for big, row in zip(self.caches, staging):
+                _commit_full_row(big, row, slot, self.rolling, p_row)
+            self._install(slot, first[0], p_len, r_temp[0], r_topk[0],
+                          r_topp[0], r_key[0])
+        return first
+
+    # ----------------------------------------------------- device traffic
+    def _put(self, x) -> torch.Tensor:
+        """Host→device upload (admission inputs only).  Counted so the
+        transfer discipline is assertable: a decode-only iteration
+        performs ZERO uploads.  On a card it goes through pinned memory
+        without waiting for the card."""
+        self.stats["h2d_transfers"] += 1
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _snapshot(self, t: torch.Tensor):
+        """Start the read of device tensor ``t`` to the host: on a card an
+        asynchronous copy into pinned memory with an event behind it
+        (waited for by :meth:`_fetch`, one iteration later); elsewhere a
+        copy."""
+        if self.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _fetch(self, snap) -> np.ndarray:
+        """Device→host readback — the ONE transfer per drained step (the
+        sampled token row, or a prefill batch's first tokens)."""
+        self.stats["d2h_transfers"] += 1
+        host, event = snap
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    def _sampling_row(self, h: RequestHandle):
+        """One request's sampling parameters as (1,)-shaped device rows
+        for the final chunk."""
+        return (self._put(np.asarray([h.temperature], np.float32)),
+                self._put(np.asarray(
+                    [0 if h.top_k is None else int(h.top_k)], np.int64)),
+                self._put(np.asarray(
+                    [0.0 if h.top_p is None else float(h.top_p)],
+                    np.float32)),
+                self._put(np.asarray(h.key, np.int64)[None]))
+
+    # ------------------------------------------------------------ admission
+    def submit(self, prompt, num_steps: int, temperature: float = 0.0,
+               top_k: Optional[int] = None, top_p: Optional[float] = None,
+               eos_id: Optional[int] = None, pad_id: Optional[int] = None,
+               seed: int = 0, rng=None, block: bool = True,
+               timeout: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None,
+               priority: int = 0) -> RequestHandle:
+        """Enqueue one request; returns its :class:`RequestHandle`.
+
+        ``prompt``: (P,) int tokens.  Sampling/stopping knobs mirror
+        ``generate`` (that is the determinism contract); the request's key
+        is ``rng`` if given (an int seed, a ``torch.Generator`` or two key
+        words), else ``seed``'s.  Backpressure: with the queue at
+        ``queue_capacity``, ``block=True`` waits (up to ``timeout``),
+        ``block=False`` raises :class:`QueueFull` immediately.
+        ``deadline_s`` (default: the engine's ``default_deadline_s``)
+        bounds the request's whole lifetime, queueing included.  Raises
+        :class:`Draining` while ``drain`` is in progress and
+        :class:`EngineDead` on a dead engine.  ``tenant`` and ``priority``
+        (QoS) are not ported yet: only their defaults are taken."""
+        if tenant not in (None, "default") or int(priority) != 0:
+            raise NotImplementedError(
+                f"submit(tenant=, priority=): multi-tenant QoS is not "
+                f"ported yet ({_LATER})")
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1:
+            raise ValueError(f"prompt must be 1-D tokens, got shape "
+                             f"{prompt.shape} — submit one request per row")
+        if num_steps < 0:
+            raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        elif deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        key = np.asarray(rng_key(rng if rng is not None else int(seed)),
+                         np.uint32)
+        _validate_sampling(temperature, key, top_k, top_p)
+        _validate_stopping(eos_id, pad_id, self._vocab)
+        total = len(prompt) + int(num_steps)
+        if len(prompt) < 1:
+            raise ValueError("prompt must hold at least one token")
+        if total > self.max_len:
+            raise ValueError(f"prompt ({len(prompt)}) + num_steps "
+                             f"({num_steps}) = {total} exceeds the engine's "
+                             f"max_len {self.max_len}")
+        with self._qlock:
+            if self._dead is not None:
+                raise EngineDead(str(self._dead)) from self._dead
+            if self._draining:
+                raise Draining("serving engine is draining; admission "
+                               "stopped")
+            self._next_id += 1
+            handle = RequestHandle(self._next_id, prompt, num_steps,
+                                   temperature, top_k, top_p, eos_id,
+                                   pad_id, key, deadline_s=deadline_s)
+            self.stats["requests_submitted"] += 1
+            if num_steps == 0:  # nothing to generate: complete in place
+                handle._finish("empty")
+                self.stats["requests_completed"] += 1
+                return handle
+            while len(self._queue) >= self.queue_capacity:
+                if not block or not self._not_full.wait(timeout=timeout):
+                    self.stats["requests_rejected"] += 1
+                    raise QueueFull(
+                        f"admission queue at capacity "
+                        f"({self.queue_capacity}); request {handle.id} shed")
+                # _declare_dead / drain notify _not_full while we wait —
+                # re-check on every wake, or the request lands in a queue
+                # no scheduler will ever pop; both raises count as sheds
+                if self._dead is not None:
+                    self.stats["requests_rejected"] += 1
+                    raise EngineDead(str(self._dead)) from self._dead
+                if self._draining:
+                    self.stats["requests_rejected"] += 1
+                    raise Draining("serving engine is draining; admission "
+                                   "stopped")
+            self._queue.append(handle)
+            qd = len(self._queue)
+            self.stats["queue_peak"] = max(self.stats["queue_peak"], qd)
+            self._have_work.notify()
+        self._publish_load(qd=qd)
+        return handle
+
+    @property
+    def queue_depth(self) -> int:
+        with self._qlock:
+            return len(self._queue)
+
+    @property
+    def active_requests(self) -> int:
+        return int(self._active.sum())
+
+    # --------------------------------------------------- load snapshot
+    def _publish_load(self, qd: Optional[int] = None,
+                      draining: Optional[bool] = None,
+                      dead: Optional[bool] = None) -> None:
+        """Republish the lock-free load snapshot.  Called outside any
+        ``_qlock`` block; a ``None`` field carries the previous value."""
+        prev = self._load_snapshot
+        stats = self.stats
+        self._load_snapshot = {
+            "queue_depth": prev["queue_depth"] if qd is None else int(qd),
+            "slots_free": len(self._free),
+            "slots_total": self.num_slots,
+            "active": int(self._active.sum()),
+            "queue_capacity": self.queue_capacity,
+            "max_len": self.max_len,
+            "draining": (prev["draining"] if draining is None
+                         else bool(draining)),
+            "dead": prev["dead"] if dead is None else bool(dead),
+            "prefill_tokens": stats["prefill_tokens"],
+            "tokens_generated": stats["tokens_generated"],
+            "requests_completed": stats["requests_completed"],
+            "requests_failed": stats["requests_failed"],
+        }
+
+    def load(self) -> Dict[str, Any]:
+        """Cheap read-only load snapshot for routing decisions (no locks;
+        values may trail the engine by one iteration)."""
+        return dict(self._load_snapshot)
+
+    def _pop_queued(self) -> Optional[RequestHandle]:
+        with self._qlock:
+            if not self._queue:
+                return None
+            h = self._queue.popleft()
+            self._not_full.notify()
+            qd = len(self._queue)
+        self._publish_load(qd=qd)
+        return h
+
+    # ------------------------------------------------- cancel + deadlines
+    def cancel(self, handle: RequestHandle) -> bool:
+        """Request cancellation (thread-safe, any thread): the scheduler
+        retires the request with reason ``"cancel"`` within ONE iteration
+        — a queued request is shed before prefill, a running one frees its
+        slot.  Returns False if the request already finished."""
+        with handle._cond:
+            if handle.finish is not None:
+                return False
+            if handle.cancelled_at is None:
+                handle.cancelled_at = time.perf_counter()
+        with self._qlock:
+            self._have_work.notify_all()  # prompt reclamation on idle loops
+        return True
+
+    def _reap(self) -> bool:
+        """Retire cancelled and deadline-expired requests: queued ones are
+        shed before ever taking a slot; running and mid-chunked-prefill
+        ones free their slot.  Runs at the top of every iteration."""
+        now = time.perf_counter()
+        with self._qlock:
+            shed = [h for h in self._queue
+                    if h.cancelled_at is not None or h._expired(now)]
+            if shed:
+                self._queue = collections.deque(
+                    h for h in self._queue
+                    if not (h.cancelled_at is not None or h._expired(now)))
+                self._not_full.notify_all()
+        for h in shed:
+            reason = "cancel" if h.cancelled_at is not None else "deadline"
+            if h._finish(reason):
+                # held_slot=False: a queued shed never held a KV slot, so
+                # it adds no slot_reclaim_ms sample
+                self._account_terminal(h, reason, now, held_slot=False)
+                with self._qlock:  # drain()'s busy() sums this cross-thread
+                    self.stats["requests_completed"] += 1
+        did = bool(shed)
+        for slot in np.flatnonzero(self._active):
+            h = self._handles[slot]
+            if h.cancelled_at is not None:
+                self._retire(int(slot), "cancel")
+                did = True
+            elif h._expired(now):
+                self._retire(int(slot), "deadline")
+                did = True
+        for slot in list(self._prefilling):
+            h = self._prefilling[slot].handle
+            if h.cancelled_at is not None:
+                self._abort_prefill(slot, "cancel")
+                did = True
+            elif h._expired(now):
+                self._abort_prefill(slot, "deadline")
+                did = True
+        return did
+
+    def _abort_prefill(self, slot: int, reason: str) -> None:
+        """Retire a request mid-chunked-prefill: the slot goes straight
+        back to the pool (its staging cache dies with the job; the pool
+        row is rewritten by the next occupant's prefill)."""
+        h = self._prefilling.pop(slot).handle
+        self._handles[slot] = None
+        self._free.append(slot)
+        if h._finish(reason):
+            with self._qlock:
+                self.stats["requests_completed"] += 1
+            self._account_terminal(h, reason, time.perf_counter())
+
+    def _account_terminal(self, h: RequestHandle, reason: str,
+                          now: float, held_slot: bool = True) -> None:
+        """Reason counters, plus — for requests that held a KV slot — the
+        slot-reclaim latency sample (cancel/expiry instant → slot free)."""
+        if reason == "cancel":
+            self.stats["requests_cancelled"] += 1
+            if held_slot and h.cancelled_at is not None:
+                self.stats["slot_reclaim_ms"].append(
+                    round((now - h.cancelled_at) * 1e3, 3))
+        elif reason == "deadline":
+            self.stats["requests_expired"] += 1
+            if held_slot and h.deadline is not None:
+                self.stats["slot_reclaim_ms"].append(
+                    round((now - h.deadline) * 1e3, 3))
+
+    # ------------------------------------------------------------- prefill
+    def _prefill(self, slot: int, h: RequestHandle) -> None:
+        """EAGER-mode admission (the reference path): one per-request
+        prompt forward through the same ``_forward`` that ``generate``
+        prefills with, the first token through the shared
+        ``sample_logits``, the cache row written into the pool."""
+        p_len = len(h.prompt)
+        prompt = torch.as_tensor(h.prompt[None], device=self.device)
+        row = init_cache(self.model, 1,
+                         p_len if self.rolling else self.max_len)
+        logits, row = _forward(self.model, row, prompt, 0)
+        first = sample_logits(logits[:, -1], p_len - 1, h.temperature,
+                              h.key, h.top_k, h.top_p)
+        for layer, big, cache in zip(self.model.layers, self.caches, row):
+            if big is None:
+                continue
+            for name in ("k", "v"):
+                src = cache[name]
+                if self.rolling:
+                    src = _to_ring(src, p_len,
+                                   layer._mha().attention_window)
+                big[name][slot] = src[0]
+        h.slot = slot
+        h.started_at = time.perf_counter()
+        self._handles[slot] = h
+        self._mirror_admit(slot, h)
+        token = int(first[0])
+        self._cur_tok[slot] = token
+        self.stats["prefills"] += 1
+        self.stats["slot_requests"][slot] += 1
+        self.stats["prefill_tokens"] += p_len
+        self._emit(slot, token)
+
+    def _bucket_of(self, n: int) -> int:
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self._buckets[-1]
+
+    def _schedule_prefills(self) -> bool:
+        """Spend up to ``prefills_per_step`` prefill work units this
+        iteration: first advance chunked prefills already holding slots
+        (one chunk each), then admit queued requests.  Bucketed mode
+        gathers short prompts into per-bucket batches and routes prompts
+        longer than ``prefill_chunk`` to the chunked path; eager mode
+        prefills per request."""
+        did = False
+        budget = self.prefills_per_step
+        for slot in list(self._prefilling):
+            if budget <= 0:
+                break
+            self._advance_chunk(slot)
+            budget -= 1
+            did = True
+        batch: List[RequestHandle] = []
+        while budget > 0 and len(self._free) > len(batch):
+            h = self._pop_queued()
+            if h is None:
+                break
+            budget -= 1
+            did = True
+            if self.prefill_mode == "eager":
+                self._prefill(self._free.pop(), h)
+            elif len(h.prompt) > self.prefill_chunk:
+                self._start_chunked(self._free.pop(), h)
+            else:
+                batch.append(h)
+        if batch:
+            self._batch_prefill(batch)
+        return did
+
+    def _batch_prefill(self, batch: List[RequestHandle]) -> None:
+        """Admit up to ``prefills_per_step`` short prompts in ONE batched
+        forward per length bucket.  The batch is always
+        ``prefills_per_step`` rows; unfilled rows target slot
+        ``num_slots`` and write nothing."""
+        groups: Dict[int, List[RequestHandle]] = {}
+        for h in batch:
+            groups.setdefault(self._bucket_of(len(h.prompt)), []).append(h)
+        for width, group in groups.items():
+            nb = self.prefills_per_step
+            prompts = np.zeros((nb, width), np.int32)
+            p_lens = np.ones((nb,), np.int64)
+            slots = np.full((nb,), self.num_slots, np.int64)
+            r_temp = np.zeros((nb,), np.float32)
+            r_topk = np.zeros((nb,), np.int64)
+            r_topp = np.zeros((nb,), np.float32)
+            r_keys = np.zeros((nb, 2), np.int64)
+            entries: List[Tuple[int, RequestHandle]] = []
+            for i, h in enumerate(group):
+                slot = self._free.pop()
+                p = len(h.prompt)
+                prompts[i, :p] = h.prompt
+                p_lens[i] = p
+                slots[i] = slot
+                r_temp[i] = h.temperature
+                r_topk[i] = 0 if h.top_k is None else int(h.top_k)
+                r_topp[i] = 0.0 if h.top_p is None else float(h.top_p)
+                r_keys[i] = np.asarray(h.key, np.int64)
+                h.slot = slot
+                h.started_at = time.perf_counter()
+                self._handles[slot] = h
+                self._mirror_admit(slot, h)
+                self.stats["prefills"] += 1
+                self.stats["slot_requests"][slot] += 1
+                self.stats["prefill_tokens"] += p
+                entries.append((slot, h))
+            first = self._bucket_prefill(
+                width, self._put(prompts), self._put(p_lens),
+                self._put(slots), len(group), self._put(r_temp),
+                self._put(r_topk), self._put(r_topp), self._put(r_keys))
+            self.stats["prefill_batches"] += 1
+            self.stats["prefill_batched_requests"] += len(group)
+            self.stats["prefill_batch_size_mean"] = round(
+                self.stats["prefill_batched_requests"]
+                / self.stats["prefill_batches"], 3)
+            self._pending.append(("prefill", self._snapshot(first),
+                                  entries))
+
+    def _start_chunked(self, slot: int, h: RequestHandle) -> None:
+        """Claim ``slot`` for a long prompt and run its first chunk; the
+        scheduler advances one more chunk per iteration (``_reap`` can
+        retire it mid-prefill)."""
+        h.slot = slot
+        h.started_at = time.perf_counter()
+        self._handles[slot] = h
+        self._prefilling[slot] = _PrefillJob(
+            h, init_cache(self.model, 1, self.max_len))
+        self.stats["prefills"] += 1
+        self.stats["slot_requests"][slot] += 1
+        self._advance_chunk(slot)
+
+    def _advance_chunk(self, slot: int) -> None:
+        """One chunk of one prefilling slot: ``prefill_chunk`` more prompt
+        tokens into its staging cache (the final chunk rounds up to a
+        length bucket instead, samples the first token, commits the row
+        and activates the slot)."""
+        job = self._prefilling[slot]
+        h = job.handle
+        p_len = len(h.prompt)
+        remaining = p_len - job.written
+        offset = job.written
+        if remaining > self._chunk_width:
+            width, real, final = self._chunk_width, self._chunk_width, False
+        else:
+            width, real, final = self._bucket_of(remaining), remaining, True
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :real] = h.prompt[offset:offset + real]
+        toks_d = self._put(toks)
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_tokens"] += real
+        if not final:
+            _, job.staging = _dec._forward(self.model, job.staging, toks_d,
+                                           offset)
+        else:
+            first = self._final_chunk(job.staging, toks_d, slot, offset,
+                                      real - 1, p_len,
+                                      *self._sampling_row(h))
+            job.staging = None
+        job.written += real
+        if final:
+            del self._prefilling[slot]
+            self._mirror_admit(slot, h)
+            self._pending.append(("prefill", self._snapshot(first),
+                                  [(slot, h)]))
+
+    def _mirror_admit(self, slot: int, h: RequestHandle) -> None:
+        """Host mirrors of the per-slot state the prefill just set on the
+        device — the scheduler's bookkeeping view (``_cur_tok`` lands when
+        the first token is drained)."""
+        self._active[slot] = True
+        self._positions[slot] = len(h.prompt)
+        self._temp[slot] = h.temperature
+        self._topk[slot] = 0 if h.top_k is None else int(h.top_k)
+        self._topp[slot] = 0.0 if h.top_p is None else float(h.top_p)
+        self._keys[slot] = np.asarray(h.key, np.int64)
+
+    # ---------------------------------------------------------- retirement
+    def _emit(self, slot: int, token: int) -> None:
+        """Record one produced token for the request in ``slot``; retire on
+        eos (the eos itself is emitted, as in ``generate``) or length."""
+        h = self._handles[slot]
+        h._push(token)
+        self.stats["tokens_generated"] += 1
+        if h.eos_id is not None and token == h.eos_id:
+            self._retire(slot, "eos")
+        elif len(h.tokens) >= h.num_steps:
+            self._retire(slot, "length")
+
+    def _retire(self, slot: int, reason: str) -> None:
+        h = self._handles[slot]
+        self._handles[slot] = None
+        self._active[slot] = False
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        self._topp[slot] = 0.0
+        self._positions[slot] = 0
+        self._cur_tok[slot] = 0
+        self._free.append(slot)
+        if self.prefill_mode == "bucketed":
+            # deactivate the device row too (a fill on the device, no
+            # upload): an in-flight lookahead step may compute one junk
+            # token for it (drained entries skip finished handles), but
+            # from the next step on the slot is inert until a prefill
+            # rewrites it
+            self._dev_act[slot] = False
+        if h._finish(reason):  # no-op when _declare_dead already failed it
+            with self._qlock:
+                self.stats["requests_completed"] += 1
+            self._account_terminal(h, reason, time.perf_counter())
+
+    # ------------------------------------------------------------ schedule
+    def step(self) -> bool:
+        """One engine iteration: retire cancelled/expired requests, spend
+        up to ``prefills_per_step`` prefill work units, dispatch one decode
+        step for every running request, then drain the pipeline's oldest
+        in-flight step (one-step lookahead: the device computes step t+1
+        while the host emits step t's tokens).  Returns whether any work
+        happened."""
+        self.last_beat = time.monotonic()
+        did = self._reap()
+        did = self._schedule_prefills() or did
+        if self._active.any():
+            self._decode_once()
+            did = True
+        if self._pending:
+            did = self._drain_pending(flush=not self._active.any()) or did
+        self._publish_load()
+        return did
+
+    def _decode_once(self) -> None:
+        if self.prefill_mode == "eager":
+            def up(a, dtype=None):
+                return torch.as_tensor(a).to(self.device, dtype)
+            nxt = self._step(up(self._cur_tok), up(self._positions),
+                             up(self._active), up(self._temp),
+                             up(self._topk), up(self._topp), up(self._keys))
+            nxt = nxt.cpu().numpy()
+            self.stats["decode_steps"] += 1
+            self.stats["active_slot_steps"] += int(self._active.sum())
+            for slot in np.flatnonzero(self._active):
+                self._positions[slot] += 1
+                self._cur_tok[slot] = nxt[slot]
+                self._emit(int(slot), int(nxt[slot]))
+            return
+        # bucketed: dispatch only — the step reads the static device state
+        # (zero uploads), and the sampled row is fetched one iteration
+        # later by _drain_pending (one-step lookahead)
+        entries = [(int(s), self._handles[s])
+                   for s in np.flatnonzero(self._active)]
+        if self._graphed:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            self.stats["graph_replays"] += 1
+        else:
+            self._device_step()
+        self.stats["decode_steps"] += 1
+        self.stats["active_slot_steps"] += len(entries)
+        self._pending.append(("decode", self._snapshot(self._dev_tok),
+                              entries))
+
+    def _drain_pending(self, flush: bool = False) -> bool:
+        """Emit the tokens of in-flight steps older than the lookahead
+        window (``flush=True`` empties the pipeline).  Each drained entry
+        costs exactly one device→host fetch.  A slot whose request retired
+        (or was recycled) after dispatch is skipped: the lookahead step
+        computed one junk token for it, which dies here."""
+        did = False
+        keep = 0 if flush else self._lookahead
+        while len(self._pending) > keep:
+            kind, snap, entries = self._pending.popleft()
+            vals = self._fetch(snap)
+            for i, (slot, h) in enumerate(entries):
+                if h.finish is not None or self._handles[slot] is not h:
+                    continue
+                token = int(vals[slot] if kind == "decode" else vals[i])
+                if kind == "decode":
+                    self._positions[slot] += 1
+                self._cur_tok[slot] = token
+                self._emit(slot, token)
+            did = True
+        return did
+
+    def run_until_idle(self, max_steps: Optional[int] = None) -> None:
+        """Drive the scheduler inline until queue and slots are empty.  A
+        crash inside a step fails every in-flight handle with
+        :class:`EngineDead` before re-raising."""
+        steps = 0
+        while True:
+            try:
+                if not self.step():
+                    return
+            except Exception as e:
+                self._declare_dead(e)
+                raise
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"engine still busy after {max_steps} steps "
+                    f"(queue={self.queue_depth}, "
+                    f"active={self.active_requests})")
+
+    @property
+    def slot_occupancy(self) -> Optional[float]:
+        """Mean fraction of slots doing useful work per decode step — the
+        continuous-batching health metric (1.0 = every step fully
+        packed)."""
+        if not self.stats["decode_steps"]:
+            return None
+        return (self.stats["active_slot_steps"]
+                / (self.stats["decode_steps"] * self.num_slots))
+
+    # --------------------------------------------------- background thread
+    def start(self) -> "ServingEngine":
+        """Run the scheduler on a background thread; it idles on the work
+        condition when nothing is queued or active."""
+        if self._thread is not None:
+            return self
+        with self._qlock:
+            self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="dkt-serving-engine")
+        self._thread.start()
+        return self
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        """Stop the background scheduler thread.  A thread that outlives
+        ``join_timeout`` is wedged inside a step: it is logged, every
+        in-flight handle is failed with :class:`EngineDead`, and the
+        thread is detached."""
+        with self._qlock:
+            self._running = False
+            self._have_work.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+            if self._thread.is_alive():
+                logger.error(
+                    "serving engine decode thread still alive after "
+                    "stop(join_timeout=%.1fs) — wedged in a decode step; "
+                    "failing in-flight requests and detaching the thread",
+                    join_timeout)
+                self._declare_dead(EngineDead(
+                    f"decode thread wedged: did not exit within "
+                    f"stop(join_timeout={join_timeout})"))
+            self._thread = None
+
+    def drain(self, timeout: Optional[float] = None,
+              poll: float = 0.01) -> bool:
+        """Graceful drain: stop admission (``submit`` raises
+        :class:`Draining`), let every queued and running request finish,
+        then stop the scheduler.  Returns True when everything finished
+        within ``timeout`` (None = wait forever); on timeout the remaining
+        handles are failed with :class:`EngineDead` (reason ``"drain"``).
+        An engine never ``start()``-ed is driven to idle inline."""
+        with self._qlock:
+            self._draining = True
+            self._not_full.notify_all()  # blocked submitters raise Draining
+        self._publish_load(draining=True)
+        t0 = time.monotonic()
+
+        def busy() -> bool:
+            # terminal accounting, not queue+active snapshots: a request
+            # between queue-pop and slot activation is in neither
+            with self._qlock:
+                s = self.stats
+                return (s["requests_submitted"]
+                        > s["requests_completed"] + s["requests_failed"]
+                        + s["requests_rejected"])
+
+        def timed_out() -> bool:
+            return (timeout is not None
+                    and time.monotonic() - t0 > timeout)
+
+        if self._thread is None and self._dead is None:
+            while busy() and not timed_out():
+                try:
+                    self.step()
+                except Exception as e:
+                    self._declare_dead(e)
+                    raise
+        else:
+            while busy() and self._dead is None and not timed_out():
+                time.sleep(poll)
+        clean = self._dead is None and not busy()
+        if not clean and self._dead is None:
+            # declare BEFORE stop so waiters unblock at once with reason
+            # "drain"
+            self._declare_dead(
+                EngineDead(f"drain timed out after {timeout}s with work "
+                           f"in flight"), reason="drain")
+        self.stop(join_timeout=10.0 if clean else 2.0)
+        if not clean:
+            self._fail_stragglers(reason="drain")
+        return clean
+
+    def _fail_stragglers(self, reason: str) -> None:
+        """Post-join sweep: a request the scheduler popped BEFORE
+        ``_declare_dead`` swept the queue can land in ``_handles`` during
+        the loop's final iteration; with the loop joined, fail it."""
+        exc = self._dead
+        if exc is None:
+            return
+        for h in list(self._handles):
+            if h is not None and h._fail(EngineDead(str(exc)),
+                                         reason=reason):
+                with self._qlock:
+                    self.stats["requests_failed"] += 1
+
+    # -------------------------------------------------- failure semantics
+    def declare_dead(self, reason: str) -> None:
+        """Supervisor-facing: mark the engine dead and fail every in-flight
+        handle with a typed :class:`EngineDead`."""
+        self._declare_dead(EngineDead(reason))
+
+    def _declare_dead(self, cause: BaseException,
+                      reason: str = "error") -> None:
+        """Terminal engine failure: stop the loop, shed the queue, and fail
+        every queued + running handle so no waiter hangs.  Idempotent
+        (first cause wins).  The pool is not recycled — a wedged thread
+        may still write it; a restart goes through ``respawn_clone``."""
+        exc = (cause if isinstance(cause, EngineDead)
+               else EngineDead(f"serving engine died: {cause!r}"))
+        if exc is not cause:
+            exc.__cause__ = cause
+        with self._qlock:
+            self._running = False
+            if self._dead is not None:
+                return
+            self._dead = exc
+            queued = list(self._queue)
+            self._queue.clear()
+            self._not_full.notify_all()
+            self._have_work.notify_all()
+        for h in queued + [h for h in self._handles if h is not None]:
+            # only a true transition counts: a still-running thread may
+            # retire a handle concurrently
+            if h._fail(EngineDead(str(exc)), reason=reason):
+                with self._qlock:
+                    self.stats["requests_failed"] += 1
+        self._publish_load(qd=0, dead=True)
+
+    @property
+    def dead(self) -> Optional[BaseException]:
+        """The :class:`EngineDead` that killed this engine, or None."""
+        return self._dead
+
+    def respawn_clone(self) -> "ServingEngine":
+        """A fresh engine over the same model and knobs — new slot pool,
+        empty queue, fresh stats (the supervisor's restart path)."""
+        return ServingEngine(
+            self.model, num_slots=self.num_slots, max_len=self.max_len,
+            queue_capacity=self.queue_capacity,
+            prefills_per_step=self.prefills_per_step, rolling=self.rolling,
+            default_deadline_s=self.default_deadline_s,
+            prefill_mode=self.prefill_mode,
+            prefill_chunk=self.prefill_chunk)
+
+    @property
+    def kv_pool_bytes(self) -> int:
+        """Device bytes of the KV slot pool."""
+        return kv_cache_bytes(self.caches)
+
+    def warmup(self) -> "ServingEngine":
+        """Prepare every program before serving traffic: on a CUDA card
+        capture the decode step's graph (once per engine), elsewhere run
+        the step once; then — bucketed — run every bucket's batched
+        prefill and, when long prompts can chunk, the chunk programs, each
+        with every write dropped (slot ``num_slots``), so that the first
+        live iteration pays no first-call cost.  Fresh or idle engines
+        only."""
+        if self._active.any() or self._prefilling:
+            raise RuntimeError("warmup() on an engine with active slots "
+                               "would consume a real decode step")
+        if self.prefill_mode == "eager":
+            def up(a):
+                return torch.as_tensor(a).to(self.device)
+            self._step(up(self._cur_tok), up(self._positions),
+                       up(self._active), up(self._temp), up(self._topk),
+                       up(self._topp), up(self._keys))
+            return self
+        if self._graphed:
+            if self._graph is None:
+                self._capture()
+        else:
+            self._device_step()
+        nb, dev = self.prefills_per_step, self.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for width in self._buckets:
+            self._bucket_prefill(
+                width, zeros(nb, width, dtype=torch.int32),
+                torch.ones((nb,), dtype=torch.int64, device=dev),
+                torch.full((nb,), self.num_slots, dtype=torch.int64,
+                           device=dev), 0,
+                zeros(nb), zeros(nb, dtype=torch.int64), zeros(nb),
+                zeros(nb, 2, dtype=torch.int64))
+        if self.max_len > self.prefill_chunk:
+            for width in sorted({self._chunk_width, *self._buckets}):
+                toks = zeros(1, width, dtype=torch.int32)
+                staging = init_cache(self.model, 1, self.max_len)
+                _, staging = _dec._forward(self.model, staging, toks, 0)
+                self._final_chunk(staging, toks, self.num_slots, 0, 0, 1,
+                                  zeros(1), zeros(1, dtype=torch.int64),
+                                  zeros(1), zeros(1, 2, dtype=torch.int64))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return self
+
+    def _loop(self) -> None:
+        try:
+            while self._running:
+                if not self.step():
+                    with self._qlock:
+                        self._have_work.wait_for(
+                            lambda: bool(self._queue) or not self._running,
+                            timeout=0.05)
+        except Exception as e:
+            # a crashed decode loop fails loudly: every in-flight handle
+            # gets a typed EngineDead instead of hanging its waiter
+            logger.exception("serving engine decode loop crashed")
+            self._declare_dead(e)
+
+    def __enter__(self) -> "ServingEngine":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def attach_ps(self, host: str, port: int, every: int = 1,
+                  retry_policy=None, shard_plan=None,
+                  shard_addrs=None) -> None:
+        """Hot weight reload from a live parameter server: not ported yet
+        (it needs the port's socket PS stack)."""
+        raise NotImplementedError(
+            "ServingEngine.attach_ps: hot weight reload from a parameter "
+            "server comes with the async host-PS family (ROADMAP queue A "
+            "item 6)")

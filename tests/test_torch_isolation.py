@@ -49,9 +49,11 @@ def imported_roots(path):
     return roots
 
 
-#: the modules of the decode and packing slice (data/packing.py is a copy
-#: of a numpy-only module of the JAX package, kept in the port)
-NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py")
+#: the modules of the decode, packing and serving slices (data/packing.py
+#: and resilience.py are copies of numpy-only modules of the JAX package,
+#: kept in the port)
+NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
+               "serving.py", "resilience.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -68,7 +70,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, distkeras_tpu_torch, distkeras_tpu_torch.kernels; "
             "import distkeras_tpu_torch.core.decode, "
             "distkeras_tpu_torch.core.quant, "
-            "distkeras_tpu_torch.data.packing; "
+            "distkeras_tpu_torch.data.packing, "
+            "distkeras_tpu_torch.serving, distkeras_tpu_torch.resilience; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

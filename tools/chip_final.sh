@@ -10,15 +10,16 @@
 #
 # It runs chip_smoke.py from build/archive (the committed files alone),
 # profiles the slices named by its second argument from there (default:
-# the packed train step and the decode steps), runs the phase named by its
-# first argument (default: zoo) in the order parent, change, change,
-# parent when build/parent exists, and last runs chip_smoke.py alone in an
+# the decode steps and the serving engine's decode iterations), runs the
+# phase named by its first argument (default: zoo) in the order parent,
+# change, change, parent when build/parent exists, and last runs the
+# script chip_smoke.py alone in an
 # empty directory, where it must fail.  The logs go to chiprun_out/.
 #
 #   bash tools/chip_final.sh [PHASE [SLICES]]
 set -u
 phase="${1:-zoo}"
-slices="${2:-pack,decode}"
+slices="${2:-decode,serve}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
 (cd build/archive && python3 chip_smoke.py > "$out/smoke_final.log" 2>&1)

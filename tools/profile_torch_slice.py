@@ -2,7 +2,7 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
-        [--slices predict,train,parallel,zoo,adag,pack,decode]
+        [--slices predict,train,parallel,zoo,adag,pack,decode,serve]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -39,7 +39,13 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
 - decode: one greedy ``decode_step`` of the LM in bf16 at batch 8 in the
   ``"full"`` configuration of ``chip_smoke.py``'s decode phase (a cache
   of 2048 slots, position 256) and the ``"rolling_window"`` one (a ring
-  of 256 slots at position 2047), after 256 warm-up steps.
+  of 256 slots at position 2047), after 256 warm-up steps;
+- serve: ``chip_smoke.py``'s phase serve engine (``ServingEngine``, 8
+  slots, chunk 128) over the LM in bf16 in both forms, with its decode
+  step as a CUDA graph and uncaptured: 8 running requests in steady
+  decode, 8 engine iterations traced (``chip_smoke._serve_profile``: the
+  busy time, idle share and host calls of a decode iteration, graph
+  launches among them), then 64 steps back to back between CUDA events.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
@@ -252,6 +258,20 @@ def profile_decode(name):
             "position": pos, **device_summary(prof, wall_ms)}
 
 
+def profile_serve(name, graphed):
+    import numpy as np
+    import chip_smoke
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    extra, rolling = chip_smoke.SERVE_FORMS[name]
+    model = transformer_lm(**chip_smoke.LM, **extra)
+    load_jax_weights(model, chip_smoke._random_jax_weights(
+        model, np.random.default_rng(chip_smoke.SEED + 15)))
+    return {"slice": "serve", "form": name,
+            "step": "graph" if graphed else "uncaptured",
+            "slots": chip_smoke.SERVE_SLOTS,
+            **chip_smoke._serve_profile(model, rolling, graphed, "cuda")}
+
+
 def profile_zoo():
     import numpy as np
     import torch
@@ -398,9 +418,10 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "profile_torch_slice.json"))
     ap.add_argument("--slices",
-                    default="predict,train,parallel,zoo,adag,pack,decode",
+                    default="predict,train,parallel,zoo,adag,pack,decode,"
+                            "serve",
                     help="comma-separated: predict, train, parallel, zoo, "
-                         "adag, pack, decode")
+                         "adag, pack, decode, serve")
     args = ap.parse_args()
     slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
@@ -439,6 +460,10 @@ def main() -> int:
     if "decode" in slices:
         runs += [lambda n=name: profile_decode(n)
                  for name in ("full", "rolling_window")]
+    if "serve" in slices:
+        runs += [lambda n=name, g=graphed: profile_serve(n, g)
+                 for name in ("full", "rolling_window")
+                 for graphed in (True, False)]
     for run in runs:
         row = run()
         results["rows"].append(row)
