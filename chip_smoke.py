@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-seventeen phases, each printing JSON lines, and fails with a non-zero
+eighteen phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -158,11 +158,27 @@ exit if any phase fails:
     engine equals the eager engine (``prefill_mode="eager"``), and the
     greedy requests equal the same engine on the CPU; no kernel launched
     on any of it.
+18. paged: the same engine with its paged KV pool (``paged=True``, blocks
+    of 16 tokens, the default ``kv_blocks``: the dense pool's capacity)
+    over phase serve's trace, bf16, both forms, its decode step as a CUDA
+    graph (block tables on the device) and uncaptured: tokens/s, ms per
+    decode-only iteration, TTFT, ATen calls a step, uploads and readbacks
+    per decode-only iteration, the arena's bytes beside the dense pool's;
+    the two equal, one capture and a replay a step, no block leaked; the
+    shared-prefix trace of ``bench.py:741-790`` (16 requests behind one
+    240-token prefix, suffixes of 4, 6 or 8 tokens, 1 new token) through
+    the paged and the dense engine: TTFT, effective prefill tokens/s, the
+    prefix hit rate and ``serving_paged_capacity_slots``, at least 224 x
+    15 hit tokens; at f32 on 2 layers the paged engine equals the dense
+    engine and ``generate`` over both traces in both forms, and a tight
+    arena (2 slots' blocks) evicts and stays exact; no kernel launched on
+    any of it.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
-kernel's launches on the packing, decode and serving paths), the
+kernel's launches on the packing, decode, serving and paged serving
+paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -488,6 +504,29 @@ SERVE_PROMPT_LENS = (16, 64, 256, 1024)
 SERVE_TEMP, SERVE_TOPK, SERVE_TOPP = 0.7, 40, 0.9
 SERVE_CHECK_LAYERS = 2
 SERVE_PROFILE_STEPS, SERVE_EVENT_STEPS = 8, 64
+# the paged pool (ROADMAP queue A item 4, its block arena and prefix trie):
+# phase serve's engine and trace with paged=True, PAGED_BLOCK-token blocks
+# and the default kv_blocks (the dense pool's capacity), graph and
+# uncaptured; then the shared-prefix trace of bench.py:741-790, rebuilt
+# here as examples/loadgen.py's make_trace draws it (that module imports
+# JAX): PREFIX_REQUESTS requests over one PREFIX_LEN-token prefix, each
+# with its own suffix of PREFIX_SUFFIXES tokens and PREFIX_STEPS new
+# token, through a paged and a dense engine of PREFIX_SLOTS slots,
+# max_len PREFIX_MAX_LEN, chunks of PREFIX_CHUNK and PREFIX_PER_STEP
+# prefills an iteration, the prefix warmed once, PREFIX_USERS users in a
+# closed loop.  The prefix's PREFIX_LEN // PAGED_BLOCK full blocks serve
+# every request after the warm one: at least PREFIX_HIT_MIN hit tokens.
+# The f32 checks run on SERVE_CHECK_LAYERS layers; the tight arena holds
+# PAGED_TIGHT slots' worth of blocks
+PAGED_BLOCK = 16
+PAGED_POOL_STATS = ("blocks_allocated", "blocks_reused", "blocks_evicted",
+                    "prefix_hits", "prefix_hit_tokens", "cow_copies")
+PREFIX_REQUESTS, PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_STEPS = 16, 240, \
+    (4, 6, 8), 1
+PREFIX_SLOTS, PREFIX_MAX_LEN, PREFIX_CHUNK, PREFIX_PER_STEP = 8, 256, 16, 4
+PREFIX_USERS = 8
+PREFIX_HIT_MIN = 224 * 15
+PAGED_TIGHT = 2
 
 
 def emit(obj) -> None:
@@ -2848,8 +2887,9 @@ def _serve_trace(rng):
 
 
 def _serve_engine(model, rolling: bool, graphed: bool = True,
-                  mode: str = "bucketed"):
-    """A warmed-up ServingEngine of the phase's shape.  ``graphed=False``
+                  mode: str = "bucketed", **knobs):
+    """A warmed-up ServingEngine of the phase's shape (``knobs`` override
+    or add engine arguments, e.g. ``paged=True``).  ``graphed=False``
     builds the bucketed engine with its decode step uncaptured (the same
     function run eagerly: the graph's yardstick, made here and nowhere in
     the port)."""
@@ -2857,21 +2897,23 @@ def _serve_engine(model, rolling: bool, graphed: bool = True,
     uses = serving._uses_graph
     if not graphed:
         serving._uses_graph = lambda device: False
+    kw = dict(num_slots=SERVE_SLOTS, max_len=LM["seq_len"], rolling=rolling,
+              prefill_chunk=SERVE_CHUNK, prefill_mode=mode)
+    kw.update(knobs)
     try:
-        eng = serving.ServingEngine(
-            model, num_slots=SERVE_SLOTS, max_len=LM["seq_len"],
-            rolling=rolling, prefill_chunk=SERVE_CHUNK, prefill_mode=mode)
+        eng = serving.ServingEngine(model, **kw)
     finally:
         serving._uses_graph = uses
     return eng.warmup()
 
 
 def _serve_run(model, trace, rolling: bool, dev: str, graphed: bool = True,
-               mode: str = "bucketed"):
+               mode: str = "bucketed", **knobs):
     """The whole trace through one engine, driven inline: the rows, the
-    wall time, every decode-only iteration's host time and transfers."""
+    wall time, every decode-only iteration's host time and transfers (and,
+    paged, the pool's counters and its state after the run)."""
     import numpy as np
-    eng = _serve_engine(model, rolling, graphed, mode)
+    eng = _serve_engine(model, rolling, graphed, mode, **knobs)
     _sync(dev)
     keys = ("decode_steps", "prefills", "prefill_chunks", "h2d_transfers",
             "d2h_transfers")
@@ -2892,6 +2934,13 @@ def _serve_run(model, trace, rolling: bool, dev: str, graphed: bool = True,
     _sync(dev)
     wall = time.perf_counter() - t0
     ttft = np.array([h.ttft_s for h in handles]) * 1e3
+    paged = {}
+    if eng.paged:
+        paged = {"pool": {k: eng.stats[k] for k in PAGED_POOL_STATS},
+                 "kv_blocks": eng.kv_blocks,
+                 "kv_blocks_in_use": eng.kv_blocks_in_use,
+                 "conservation": eng._pool.check_conservation(),
+                 "plans_left": len(eng._plans)}
     return {"rows": [h.result() for h in handles],
             "finish": [h.finish for h in handles],
             "wall_s": wall,
@@ -2909,7 +2958,8 @@ def _serve_run(model, trace, rolling: bool, dev: str, graphed: bool = True,
                 "prefills", "prefill_batches", "prefill_chunks",
                 "prefill_tokens", "h2d_transfers", "d2h_transfers",
                 "graph_captures", "graph_replays", "slot_requests")},
-            "free_slots": sorted(eng._free)}
+            "free_slots": sorted(eng._free),
+            "kv_pool_bytes": eng.kv_pool_bytes, **paged}
 
 
 def _host_calls(prof) -> dict:
@@ -2937,15 +2987,17 @@ def _host_calls(prof) -> dict:
     return out
 
 
-def _serve_profile(model, rolling: bool, graphed: bool, dev: str) -> dict:
+def _serve_profile(model, rolling: bool, graphed: bool, dev: str,
+                   **knobs) -> dict:
     """SERVE_SLOTS running requests in steady decode: SERVE_PROFILE_STEPS
     engine iterations under torch.profiler (host calls and busy time a
     step), then SERVE_EVENT_STEPS decode steps back to back between two
-    CUDA events (the device's time a step with the host's gaps in it)."""
+    CUDA events (the device's time a step with the host's gaps in it).
+    ``knobs`` as in _serve_engine."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng = _serve_engine(model, rolling, graphed)
+    eng = _serve_engine(model, rolling, graphed, **knobs)
     rng = np.random.default_rng(SEED + 16)
     for _ in range(SERVE_SLOTS):
         eng.submit(rng.integers(0, LM["vocab_size"], 64).astype(np.int32),
@@ -3164,6 +3216,334 @@ def phase_serve(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _prefix_trace(vocab: int):
+    """examples/loadgen.py's make_trace(PREFIX_REQUESTS, num_steps=
+    PREFIX_STEPS, prompt_lengths=PREFIX_SUFFIXES, prefix_groups=1,
+    prefix_len=PREFIX_LEN) over ``vocab`` tokens, greedy, in numpy: the
+    same draws in the same order."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    trace = []
+    for _ in range(PREFIX_REQUESTS):
+        p_len = int(PREFIX_SUFFIXES[rng.integers(0, len(PREFIX_SUFFIXES))])
+        suffix = rng.integers(0, vocab, p_len).astype(np.int32)
+        trace.append((np.concatenate([prefix, suffix]).astype(np.int32),
+                      PREFIX_STEPS, {}))
+    return trace
+
+
+def _prefix_engine(model, paged: bool):
+    from distkeras_tpu_torch.serving import ServingEngine
+    kw = dict(paged=True, block_size=PAGED_BLOCK) if paged else {}
+    return ServingEngine(model, num_slots=PREFIX_SLOTS,
+                         max_len=PREFIX_MAX_LEN, prefill_chunk=PREFIX_CHUNK,
+                         prefills_per_step=PREFIX_PER_STEP, **kw)
+
+
+def _prefix_run(model, trace, paged: bool, dev: str) -> dict:
+    """The shared-prefix trace through one engine (warmed up, the prefix
+    warmed once by the first request's prompt), PREFIX_USERS users in a
+    closed loop driven inline: each submits its next request when its
+    last one finished.  TTFT from submit to the first token; the
+    effective prefill rate counts prefilled and trie-served tokens."""
+    import numpy as np
+    eng = _prefix_engine(model, paged).warmup()
+    eng.submit(trace[0][0], 1)
+    eng.run_until_idle()
+    _sync(dev)
+    pf0, hit0 = eng.stats["prefill_tokens"], eng.stats["prefix_hit_tokens"]
+    pending = list(trace)
+    live, handles = [], []
+    t0 = time.perf_counter()
+    while pending or live:
+        while pending and len(live) < PREFIX_USERS:
+            prompt, steps, kw = pending.pop(0)
+            live.append(eng.submit(prompt, steps, **kw))
+            handles.append(live[-1])
+        eng.step()
+        live = [h for h in live if not h.done]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    prefilled = eng.stats["prefill_tokens"] - pf0
+    hits = eng.stats["prefix_hit_tokens"] - hit0
+    ttft = np.array([h.ttft_s for h in handles]) * 1e3
+    out = {"rows": [h.result() for h in handles], "wall_s": wall,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "prefill_tokens": prefilled, "prefix_hit_tokens": hits,
+           "effective_prefill_tokens_per_sec": (prefilled + hits) / wall,
+           "prefix_hit_rate": (hits / (hits + prefilled)
+                               if hits + prefilled else None),
+           "kv_pool_bytes": eng.kv_pool_bytes,
+           "stats": {k: eng.stats[k] for k in (
+               "prefill_chunks", "prefill_batches", "decode_steps",
+               *PAGED_POOL_STATS)}}
+    if paged:
+        out.update(kv_blocks=eng.kv_blocks,
+                   kv_blocks_in_use=eng.kv_blocks_in_use,
+                   conservation=eng._pool.check_conservation())
+    return out
+
+
+def _paged_capacity_slots(paged_bytes: int, kv_blocks: int,
+                          dense_bytes: int, trace) -> int:
+    """bench.py's serving_paged_capacity_slots: the blocks the dense
+    pool's bytes buy, less the shared prefix chain (counted once), over
+    the most private blocks one trace request needs."""
+    blk_bytes = paged_bytes // (kv_blocks + 1)
+    budget_blocks = dense_bytes // blk_bytes
+    shared = PREFIX_LEN // PAGED_BLOCK
+    marg = max(-(-(len(p) + n) // PAGED_BLOCK) - shared for p, n, _ in trace)
+    return int((budget_blocks - shared) // max(marg, 1))
+
+
+def _paged_checks(card: str, dev: str, trace, prefix_trace, rng) -> dict:
+    """At f32 on a SERVE_CHECK_LAYERS-layer copy, TF32 off, both forms:
+    the paged graph engine's tokens equal the dense graph engine's over
+    phase serve's trace and the shared-prefix trace, and generate's (the
+    greedy requests batched by prompt length, each sampled filter kind
+    alone); a tight arena (PAGED_TIGHT slots' blocks) evicts and equals
+    the dense engine."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.core import decode
+    out = {}
+    paged = dict(paged=True, block_size=PAGED_BLOCK)
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model, plain, _ = _decode_models(extra, rng, dev,
+                                         layers=SERVE_CHECK_LAYERS)
+        runs = {"dense": _serve_run(model, trace, rolling, dev),
+                "paged": _serve_run(model, trace, rolling, dev, **paged)}
+        if not rolling:
+            blocks = -(-LM["seq_len"] // PAGED_BLOCK)
+            runs["tight"] = _serve_run(model, trace, rolling, dev,
+                                       kv_blocks=PAGED_TIGHT * blocks,
+                                       **paged)
+        want = {}
+        lengths = sorted({len(p) for p, _, kw in trace if not kw})
+        for p_len in lengths:
+            idx = [i for i, (p, _, kw) in enumerate(trace)
+                   if not kw and len(p) == p_len]
+            prompts = torch.as_tensor(np.stack([trace[i][0] for i in idx]))
+            rows = decode.generate(model, prompts, SERVE_STEPS,
+                                   max_len=LM["seq_len"], rolling=rolling)
+            want.update(zip(idx, rows.cpu().numpy()))
+        kinds = {}      # the first sampled request of each filter kind
+        for i, (_, _, kw) in enumerate(trace):
+            if kw:
+                kinds.setdefault(tuple(sorted(k for k in kw
+                                              if k.startswith("top"))), i)
+        for i in kinds.values():
+            prompt, steps, kw = trace[i]
+            gkw = dict(kw)
+            gkw["rng"] = gkw.pop("seed")
+            want[i] = decode.generate(model, prompt[None], steps,
+                                      max_len=LM["seq_len"], rolling=rolling,
+                                      **gkw).cpu().numpy()[0]
+        order = sorted(want)
+        sub = [trace[i] for i in order]
+        row = {"phase": "paged_checks", "form": form,
+               "compute_dtype": "float32", "layers": SERVE_CHECK_LAYERS,
+               "requests": len(trace), "generate_requests": len(order),
+               "card": card}
+        for name, r in runs.items():
+            if name == "dense":
+                continue
+            bad = _serve_mismatch(r["rows"], runs["dense"]["rows"], trace,
+                                  plain)
+            row[f"{name}_equals_dense"] = bad is None
+            if bad is not None:
+                row[f"{name}_vs_dense_first_difference"] = bad
+        bad = _serve_mismatch([runs["paged"]["rows"][i] for i in order],
+                              [want[i] for i in order], sub, plain)
+        row["paged_equals_generate"] = bad is None
+        if bad is not None:
+            row["paged_vs_generate_first_difference"] = bad
+        for name in ("paged", "tight"):
+            if name in runs:
+                row[f"{name}_pool"] = runs[name]["pool"]
+                row[f"{name}_leaked_blocks"] = runs[name]["kv_blocks_in_use"]
+        if not rolling:
+            pre = {flag: _prefix_run(model, prefix_trace, flag, dev)
+                   for flag in (True, False)}
+            p_rows = [r[0] for r in prefix_trace]
+            g = {}
+            for p_len in sorted({len(p) for p in p_rows}):
+                idx = [i for i, p in enumerate(p_rows) if len(p) == p_len]
+                rows = decode.generate(
+                    model, torch.as_tensor(np.stack([p_rows[i] for i in idx])),
+                    PREFIX_STEPS, max_len=PREFIX_MAX_LEN)
+                g.update(zip(idx, rows.cpu().numpy()))
+            want_p = [g[i] for i in range(len(p_rows))]
+            vs_dense = _serve_mismatch(pre[True]["rows"], pre[False]["rows"],
+                                       prefix_trace, plain)
+            vs_gen = _serve_mismatch(pre[True]["rows"], want_p, prefix_trace,
+                                     plain)
+            row.update(prefix_paged_equals_dense=vs_dense is None,
+                       prefix_paged_equals_generate=vs_gen is None,
+                       prefix_hit_tokens=pre[True]["prefix_hit_tokens"])
+            check(vs_dense is None and vs_gen is None,
+                  f"paged {form}: the shared-prefix trace differs: "
+                  f"{vs_dense or vs_gen}")
+        emit(row)
+        for name in runs:
+            if name == "dense":
+                continue
+            check(row[f"{name}_equals_dense"],
+                  f"paged {form}: the {name} engine differs from the dense "
+                  f"engine over the trace: "
+                  f"{row.get(f'{name}_vs_dense_first_difference')}")
+            check(runs[name]["kv_blocks_in_use"] == 0
+                  and runs[name]["conservation"]
+                  and not runs[name]["plans_left"],
+                  f"paged {form}: {name} leaked blocks: "
+                  f"{runs[name]['kv_blocks_in_use']}")
+        check(row["paged_equals_generate"],
+              f"paged {form}: requests differ from generate: "
+              f"{row.get('paged_vs_generate_first_difference')}")
+        if "tight" in runs:
+            check(runs["tight"]["pool"]["blocks_evicted"] > 0,
+                  f"paged {form}: the tight arena evicted nothing: "
+                  f"{runs['tight']['pool']}")
+        out[form] = row
+        del model, plain, runs
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged(card: str, dev: str = "cuda"):
+    """The paged pool on the card: phase serve's trace (bf16, full width,
+    both forms) through the paged engine with its decode step as a CUDA
+    graph and uncaptured (tokens/s, ms per decode-only iteration, TTFT,
+    host calls a step, uploads and readbacks per decode-only iteration,
+    the pool's bytes beside the dense pool's; the two equal, one capture,
+    a replay a step, no block leaked); the shared-prefix trace through the
+    paged and the dense engine (TTFT, effective prefill tokens/s, the hit
+    rate, bench.py's capacity slots; at least PREFIX_HIT_MIN hit tokens);
+    the f32 checks of _paged_checks; no kernel launched on any of it (the
+    paged step attends through the plain path, as the reference's
+    does)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.serving import ServingEngine
+    t_start = time.perf_counter()
+    _zero_counts()
+    rng = np.random.default_rng(SEED + 15)    # phase serve's trace, weights
+    trace = _serve_trace(rng)
+    prefix_trace = _prefix_trace(LM["vocab_size"])
+    paged = dict(paged=True, block_size=PAGED_BLOCK)
+    rows = {}
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model = transformer_lm(**LM, **extra, device=dev)
+        load_jax_weights(model, _random_jax_weights(model, rng))
+        dense_bytes = ServingEngine(model, num_slots=SERVE_SLOTS,
+                                    max_len=LM["seq_len"],
+                                    rolling=rolling).kv_pool_bytes
+        runs = {"graph": _serve_run(model, trace, rolling, dev, **paged),
+                "uncaptured": _serve_run(model, trace, rolling, dev,
+                                         graphed=False, **paged)}
+        prof = _serve_profile(model, rolling, True, dev, **paged)
+        g = runs["graph"]
+        same = _serve_mismatch(g["rows"], runs["uncaptured"]["rows"], trace)
+        row = {"phase": "paged", "form": form,
+               "compute_dtype": LM["compute_dtype"], "slots": SERVE_SLOTS,
+               "prefill_chunk": SERVE_CHUNK, "block_size": PAGED_BLOCK,
+               "kv_blocks": g["kv_blocks"], "requests": len(trace),
+               "graph_equals_uncaptured": same is None,
+               **{f"{route}_{k}": r[k] for route, r in runs.items()
+                  for k in ("tokens_per_sec", "ms_per_decode_step",
+                            "ttft_ms_p50", "ttft_ms_p99", "slot_occupancy",
+                            "wall_s")},
+               "graph_captures": g["stats"]["graph_captures"],
+               "graph_replays": g["stats"]["graph_replays"],
+               "decode_steps": g["stats"]["decode_steps"],
+               "decode_only_iterations": g["decode_only_iterations"],
+               "h2d_per_decode_iteration": g["h2d_per_decode_iteration"],
+               "d2h_per_decode_iteration": g["d2h_per_decode_iteration"],
+               "aten_ops_per_step": prof["aten_ops_per_step"],
+               "kv_pool_bytes": g["kv_pool_bytes"],
+               "dense_kv_pool_bytes": dense_bytes,
+               "pool": g["pool"], "kv_blocks_in_use": g["kv_blocks_in_use"],
+               "conservation": g["conservation"], "stats": g["stats"],
+               "profile": prof, "card": card}
+        if same is not None:
+            row["first_difference"] = same
+        emit(row)
+        check(same is None, f"paged {form}: the graph engine differs from "
+              f"the uncaptured step over the trace: {same}")
+        check(g["stats"]["requests_completed"] == len(trace)
+              and all(f == "length" for f in g["finish"]),
+              f"paged {form}: requests lost: "
+              f"{g['stats']['requests_completed']} of {len(trace)}")
+        check(g["decode_only_iterations"] > 0
+              and g["h2d_per_decode_iteration"] == [0]
+              and g["d2h_per_decode_iteration"] == [1],
+              f"paged {form}: a decode-only iteration moved "
+              f"{g['h2d_per_decode_iteration']} uploads and "
+              f"{g['d2h_per_decode_iteration']} readbacks, want [0] and [1]")
+        check(g["stats"]["graph_captures"] == 1
+              and g["stats"]["graph_replays"] == g["stats"]["decode_steps"],
+              f"paged {form}: {g['stats']['graph_captures']} captures and "
+              f"{g['stats']['graph_replays']} replays for "
+              f"{g['stats']['decode_steps']} decode steps")
+        for route, r in runs.items():
+            check(r["kv_blocks_in_use"] == 0 and r["conservation"]
+                  and not r["plans_left"],
+                  f"paged {form}: {route} leaked {r['kv_blocks_in_use']} "
+                  f"blocks")
+        rows[form] = row
+        if not rolling:
+            pre = {name: _prefix_run(model, prefix_trace, name == "paged",
+                                     dev)
+                   for name in ("paged", "dense")}
+            p = pre["paged"]
+            prow = {"phase": "paged_prefix", "form": form,
+                    "compute_dtype": LM["compute_dtype"],
+                    "requests": len(prefix_trace), "prefix_len": PREFIX_LEN,
+                    "suffixes": list(PREFIX_SUFFIXES),
+                    "block_size": PAGED_BLOCK, "slots": PREFIX_SLOTS,
+                    "max_len": PREFIX_MAX_LEN, "prefill_chunk": PREFIX_CHUNK,
+                    "prefills_per_step": PREFIX_PER_STEP,
+                    "users": PREFIX_USERS,
+                    **{f"{name}_{k}": r[k] for name, r in pre.items()
+                       for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                 "effective_prefill_tokens_per_sec",
+                                 "prefill_tokens", "wall_s")},
+                    "prefix_hit_tokens": p["prefix_hit_tokens"],
+                    "prefix_hit_rate": p["prefix_hit_rate"],
+                    "serving_paged_capacity_slots": _paged_capacity_slots(
+                        p["kv_pool_bytes"], p["kv_blocks"],
+                        pre["dense"]["kv_pool_bytes"], prefix_trace),
+                    "paged_stats": p["stats"],
+                    "dense_stats": pre["dense"]["stats"],
+                    "kv_blocks_in_use": p["kv_blocks_in_use"],
+                    "card": card}
+            emit(prow)
+            check(p["prefix_hit_tokens"] >= PREFIX_HIT_MIN,
+                  f"paged: {p['prefix_hit_tokens']} prefix hit tokens, want "
+                  f">= {PREFIX_HIT_MIN}")
+            check(p["kv_blocks_in_use"] == 0 and p["conservation"],
+                  f"paged: the shared-prefix run leaked "
+                  f"{p['kv_blocks_in_use']} blocks")
+            rows["prefix"] = prow
+        del model, runs
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    rows["checks"] = _paged_checks(card, dev, trace, prefix_trace, rng)
+    launches = _read_counts()
+    emit({"phase": "paged_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"paged: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "paged_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3193,6 +3573,7 @@ def main() -> int:
     pack_launches = phase_pack(smi)
     _, decode_launches = phase_decode(smi)
     _, serve_launches = phase_serve(smi)
+    _, paged_launches = phase_paged(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -3349,8 +3730,9 @@ def main() -> int:
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
-        """The entry's launches on the packing, decode and serving paths
-        (each counted from 0 over its phase's runs; all must be 0)."""
+        """The entry's launches on the packing, decode, serving and paged
+        serving paths (each counted from 0 over its phase's runs; all
+        must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -3360,6 +3742,7 @@ def main() -> int:
         entry["launches_pack"] = pack_launches[key]
         entry["launches_decode"] = decode_launches[key]
         entry["launches_serve"] = serve_launches[key]
+        entry["launches_paged"] = paged_launches[key]
         return entry
 
     emit(north_star)

@@ -1,5 +1,7 @@
-"""Autoregressive decoding with a dense KV cache for Sequential causal LMs,
-port of ``distkeras_tpu/core/decode.py`` (without its paged arena).
+"""Autoregressive decoding with a KV cache for Sequential causal LMs, port
+of ``distkeras_tpu/core/decode.py``: the dense (B, S) cache and the
+serving engine's paged arena (a flat pool of fixed-size blocks addressed
+through per-row block tables, :class:`PagedView`).
 
 One walker understands the sequence-model layer kinds (``Embedding``,
 ``PositionalEmbedding``, ``TransformerBlock``, ``LayerNormalization``,
@@ -18,7 +20,10 @@ step reads a value back to the host, and ``eos``/``pad`` are applied with
 scan's and the serving engine's buffers are donated the same way) and
 returns them; the per-row (B,) paths drop writes past the cache's end as
 the JAX scatter does, and take no value back to the host, so that the
-serving engine can capture its decode step as a CUDA graph.
+serving engine can capture its decode step as a CUDA graph.  The paged
+arena is written the same way: every index is routed inside the arena
+(positions a row must not write go to its null block), so no write is
+dropped and no index leaves the tensor.
 
 Random draws follow one counter-based rule (:func:`random_bits`): the
 bits of a draw are Threefry-2x32 (the block cipher of ``jax.random``) of
@@ -144,6 +149,111 @@ def init_cache(model, batch: int, max_len: int,
     return caches
 
 
+class PagedView:
+    """A paged-KV access threaded through the decode walker
+    (``_forward(paged=...)``): ``tables`` (B, T) int64 per-row block
+    tables on the device, ``page`` tokens per block and ``view`` the
+    logical sequence length (Python ints).  ``floor``/``ceil`` (B,) bound
+    each row's write range: logical positions below ``floor`` (a shared,
+    refcounted prefix another request owns) or at/above ``ceil``
+    (right-pad junk past the real prompt) are routed into the arena's
+    null block instead.  ``qcap`` (B,) clamps pad query positions onto
+    the last real position (``dot_product_attention(q_positions=)``).
+    ``ring`` lays logical positions out modulo ``view`` (the paged form
+    of the rolling ring: slot ``p % view`` holds position ``p``, through
+    the block table)."""
+
+    __slots__ = ("tables", "page", "view", "floor", "ceil", "qcap", "ring")
+
+    def __init__(self, tables, page: int, view: int, floor=None, ceil=None,
+                 qcap=None, ring: bool = False):
+        self.tables = tables
+        self.page = int(page)
+        self.view = int(view)
+        self.floor = floor
+        self.ceil = ceil
+        self.qcap = qcap
+        self.ring = bool(ring)
+
+
+def init_paged_arena(model, num_blocks: int, block_size: int,
+                     kv_dtype: Optional[str] = None) -> List[Any]:
+    """The paged slot pool's store, on the model's device: per
+    TransformerBlock a flat arena of ``num_blocks + 1`` blocks laid out
+    along axis 0, ``{"k", "v"}`` of shape ((num_blocks + 1) * block_size,
+    num_kv_heads, key_dim) in the compute dtype (int8 codes plus
+    ``{"ks", "vs"}`` per-entry f32 scales for ``kv_dtype="int8"``).
+    Physical block b owns slots [b * block_size, (b + 1) * block_size);
+    position p of a request whose table maps logical block
+    ``p // block_size`` to b lives at slot ``b * block_size + p %
+    block_size``.  The trailing block (id ``num_blocks``) is the null
+    block: free slots' decode writes, right-pad prefill writes and warmup
+    all go there, so no program touches a real request's blocks but its
+    own.  Capacity is ``num_blocks × block_size`` tokens, allocated per
+    request on demand, instead of ``batch × max_len`` up front."""
+    _check_supported(model)
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got "
+                         f"{kv_dtype!r}")
+    if int(num_blocks) < 1:
+        raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+    if int(block_size) < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    arena_len = (int(num_blocks) + 1) * int(block_size)
+    dtype = torch_dtype(model.compute_dtype)
+    dev = model.device
+    caches: List[Any] = []
+    for layer in model.layers:
+        if isinstance(layer, TransformerBlock):
+            mha = layer._mha()
+            shape = (arena_len, mha._kv_heads(), mha.key_dim)
+            if kv_dtype == "int8":
+                caches.append({
+                    "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "ks": torch.zeros(shape[:2], device=dev),
+                    "vs": torch.zeros(shape[:2], device=dev)})
+            else:
+                caches.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            caches.append(None)
+    return caches
+
+
+def gather_blocks(caches, rows: torch.Tensor) -> List[Any]:
+    """The arena slots named by ``rows`` (a flat (n,) int64 tensor of
+    physical slot indices: block table rows expanded by the block size)
+    out of a flat paged arena: per TransformerBlock a dict of (n, Hkv,
+    Dh) payloads (int8 arenas also their (n, Hkv) scales).  Read-only,
+    so gathering a shared prefix block is safe; callers pad ``rows`` with
+    null-block slots to a fixed length."""
+    return [None if c is None else
+            {k: v.index_select(0, rows) for k, v in c.items()}
+            for c in caches]
+
+
+def scatter_blocks(caches, rows: torch.Tensor, payload) -> List[Any]:
+    """Write ``payload`` (the :func:`gather_blocks` layout) into the
+    arena slots ``rows``, in place, and return the caches.  Padding rows
+    name the null block, where a write is harmless."""
+    for c, p in zip(caches, payload):
+        if c is not None:
+            for k, v in c.items():
+                v[rows] = p[k].to(v.dtype)
+    return caches
+
+
+def gather_slot_state(caches, rows: torch.Tensor, tok, pos, keys,
+                      slot: int):
+    """The arena slots named by ``rows`` (:func:`gather_blocks`) together
+    with slot ``slot``'s device-resident decode frontier: its current
+    unwritten token, its position and its key row, all read from the
+    device tensors in one go."""
+    return gather_blocks(caches, rows), tok[slot], pos[slot], keys[slot]
+
+
 def _kv_quantized(cache) -> bool:
     """True for an int8 KV cache dict (codes + per-entry scales)."""
     return isinstance(cache, dict) and "ks" in cache
@@ -204,20 +314,109 @@ def _scalar_write(cache, start: int, k_t, v_t):
     return cache
 
 
+def _paged_write(cache, phys: torch.Tensor, k_t, v_t):
+    """Write the (B, L, Hkv, Dh) k/v entries at the arena slots ``phys``
+    (B, L), in place, in one ``index_put_`` per leaf (int8 arenas
+    quantize on write).  Every index lies inside the arena; slots that
+    several entries share are null-block slots, whose contents nothing
+    reads unmasked."""
+    entries = {"k": k_t, "v": v_t}
+    if _kv_quantized(cache):
+        kq, ks = quantize_kv(k_t)
+        vq, vs = quantize_kv(v_t)
+        entries = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    flat = phys.reshape(-1)
+    for name, cur in cache.items():
+        new = entries[name]
+        cur[flat] = new.reshape((-1,) + new.shape[2:]).to(cur.dtype)
+    return cache
+
+
+def _paged_read(cache, paged: PagedView, cdtype):
+    """The rows' logical (B, view, Hkv, Dh) K/V out of the arena through
+    their block tables (codes × scales for int8 arenas)."""
+    from ..ops.attention import paged_gather
+
+    def view(name):
+        return paged_gather(cache[name], paged.tables, paged.page,
+                            paged.view)
+    if _kv_quantized(cache):
+        return (dequantize_kv(view("k"), view("ks"), cdtype),
+                dequantize_kv(view("v"), view("vs"), cdtype))
+    return view("k"), view("v")
+
+
+def _paged_attend(mha: MultiHeadAttention, paged: PagedView, cache, q, k_t,
+                  v_t, pos, idx, q_pos, cdtype):
+    """The paged branch of :func:`_mha_forward`: scatter the L new
+    entries of each row (positions ``idx``, (B, L)) at their block-table
+    slots (positions below ``floor`` or at/above ``ceil`` into the null
+    block), gather each row's logical view and attend with the dense
+    path's per-row masks, the queries at ``q_pos``."""
+    from ..ops.attention import dot_product_attention
+    length = k_t.shape[1]
+    bs, view = paged.page, paged.view
+    window = mha.attention_window
+    if paged.ring:
+        if length > 1 and view < window + length - 1:
+            raise ValueError(
+                f"multi-token per-row steps on a paged ring need a view of "
+                f">= window + L - 1 = {window + length - 1} slots, got "
+                f"{view} — the oldest query's window would be overwritten "
+                f"by the newest write")
+        lidx = torch.remainder(idx, view)
+    else:
+        lidx = idx
+    blk = torch.clamp(lidx // bs, max=paged.tables.shape[1] - 1)
+    phys = torch.gather(paged.tables, 1, blk) * bs + lidx % bs
+    null_phys = cache["k"].shape[0] - 1  # inside the null block
+    if paged.floor is not None:
+        phys = phys.masked_fill(idx < paged.floor.reshape(-1, 1), null_phys)
+    if paged.ceil is not None:
+        phys = phys.masked_fill(idx >= paged.ceil.reshape(-1, 1), null_phys)
+    cache = _paged_write(cache, phys, k_t, v_t)
+    k, v = _paged_read(cache, paged, cdtype)
+    if paged.ring:
+        # view slot j holds the newest position <= each row's write
+        # frontier congruent to j mod view (negative = never written), as
+        # in the dense ring
+        front = pos[:, None] + (length - 1)
+        j = torch.arange(view, device=pos.device)
+        kv_positions = front - torch.remainder(front - j[None, :], view)
+        out = dot_product_attention(q, k, v, causal=True, q_positions=q_pos,
+                                    window=window, kv_positions=kv_positions)
+    else:
+        out = dot_product_attention(q, k, v, causal=True, q_positions=q_pos,
+                                    kv_length=pos + length, window=window)
+    return out, cache
+
+
 def _mha_forward(mha: MultiHeadAttention, h, cache, pos, cdtype,
-                 rolling: bool = False):
+                 rolling: bool = False, paged: Optional[PagedView] = None):
     """Cached attention over (B, L, D) queries starting at position
     ``pos`` (an int, or a (B,) tensor: each row at its own position);
     writes k/v for those L positions into the cache and attends through
     ``ops.attention.dot_product_attention`` (the full forward's
     numerics).  Rolling caches need a ring of >= window + L - 1 slots for
     per-row L > 1 (``init_cache(ring_slack=...)``); the scalar rolling
-    step is single-token.  Returns (out, cache)."""
+    step is single-token.  ``paged`` (a :class:`PagedView`, per-row
+    ``pos`` only): the cache is a flat block arena
+    (:func:`init_paged_arena`) written and read through block tables, a
+    storage relayout with the dense path's numerics.  Returns (out,
+    cache)."""
     from ..ops.attention import dot_product_attention
     b, length = h.shape[0], h.shape[1]
     dh = mha.key_dim
     per_row = _per_row(pos)
     dev = h.device
+    steps = torch.arange(length, device=dev)
+    q_pos = None
+    if paged is not None:
+        if not per_row:
+            raise ValueError("paged KV access needs per-row (B,) positions")
+        idx = pos[:, None] + steps[None, :]                      # (B, L)
+        q_pos = (idx if paged.qcap is None
+                 else torch.minimum(idx, paged.qcap.reshape(-1, 1)))
 
     def proj(name, heads):
         bias = getattr(mha, "b" + name[1]) if mha.use_bias else None
@@ -227,16 +426,22 @@ def _mha_forward(mha: MultiHeadAttention, h, cache, pos, cdtype,
     q = proj("wq", mha.num_heads)
     k_t = proj("wk", mha._kv_heads())
     v_t = proj("wv", mha._kv_heads())
-    steps = torch.arange(length, device=dev)
     if mha.rope:
         # rotate by the queries' absolute positions; cached k keep the
         # rotation of their own positions (scores depend on distance)
         from ..ops.rope import apply_rope
-        positions = pos[:, None] + steps[None, :] if per_row else pos + steps
+        if q_pos is not None:
+            positions = q_pos
+        else:
+            positions = (pos[:, None] + steps[None, :] if per_row
+                         else pos + steps)
         q = apply_rope(q, positions, mha.rope_theta, mha.rope_scale)
         k_t = apply_rope(k_t, positions, mha.rope_theta, mha.rope_scale)
     window = mha.attention_window
-    if per_row:
+    if paged is not None:
+        out, cache = _paged_attend(mha, paged, cache, q, k_t, v_t, pos, idx,
+                                   q_pos, cdtype)
+    elif per_row:
         idx = pos[:, None] + steps[None, :]                      # (B, L)
         if rolling:
             w = cache["k"].shape[1]
@@ -290,10 +495,11 @@ def _mha_forward(mha: MultiHeadAttention, h, cache, pos, cdtype,
 
 
 def _block_forward(block: TransformerBlock, x, cache, pos, cdtype,
-                   rolling: bool = False):
+                   rolling: bool = False, paged: Optional[PagedView] = None):
     """``TransformerBlock.forward`` (train=False) with cached attention."""
     h = block.ln1(x, cdtype)
-    h, cache = _mha_forward(block.attn, h, cache, pos, cdtype, rolling)
+    h, cache = _mha_forward(block.attn, h, cache, pos, cdtype, rolling,
+                            paged)
     x = x + h.to(x.dtype)
     h = block.ln2(x, cdtype)
     h = _project(h, block.mlp_w1, block.mlp_b1, cdtype)
@@ -303,11 +509,14 @@ def _block_forward(block: TransformerBlock, x, cache, pos, cdtype,
 
 
 @torch.no_grad()
-def _forward(model, caches, toks, pos, rolling: bool = False):
+def _forward(model, caches, toks, pos, rolling: bool = False,
+             paged: Optional[PagedView] = None):
     """Walk the layer stack over (B, L) tokens starting at position
     ``pos``; returns ((B, L, V) f32 logits, caches).  L == 1 is a decode
     step, L == P the batched prompt prefill.  ``pos`` may be a (B,)
-    per-row vector (each row at its own position)."""
+    per-row vector (each row at its own position).  ``paged``: the caches
+    are a flat block arena read and written through per-row block tables
+    (:class:`PagedView`)."""
     cdtype = torch_dtype(model.compute_dtype)
     length = toks.shape[1]
     x = None
@@ -326,7 +535,8 @@ def _forward(model, caches, toks, pos, rolling: bool = False):
                 start = min(max(int(pos), 0), table.shape[0] - length)
                 x = x + table[start:start + length].to(x.dtype)[None]
         elif isinstance(layer, TransformerBlock):
-            x, cache = _block_forward(layer, x, cache, pos, cdtype, rolling)
+            x, cache = _block_forward(layer, x, cache, pos, cdtype, rolling,
+                                      paged)
         elif isinstance(layer, Embedding):
             x = layer(toks, cdtype)
         else:  # LayerNormalization / Dense: position-independent
@@ -336,11 +546,16 @@ def _forward(model, caches, toks, pos, rolling: bool = False):
 
 
 @torch.no_grad()
-def decode_step(model, caches, tok, pos, rolling: bool = False):
+def decode_step(model, caches, tok, pos, rolling: bool = False,
+                paged: Optional[PagedView] = None):
     """Advance one position.  tok: (B,) int current tokens; pos: an int
     position (0-based), or a (B,) int tensor advancing every row at its
-    own position.  Returns (logits (B, V) f32, caches)."""
-    logits, caches = _forward(model, caches, tok[:, None], pos, rolling)
+    own position.  ``paged``: the caches are a flat block arena addressed
+    through per-row block tables (the serving engine's paged pool): the
+    same numerics, block-granular storage.  Returns (logits (B, V) f32,
+    caches)."""
+    logits, caches = _forward(model, caches, tok[:, None], pos, rolling,
+                              paged)
     return logits[:, 0], caches
 
 

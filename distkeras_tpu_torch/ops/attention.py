@@ -156,6 +156,51 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, d)
 
 
+# ---------------------------------------------------------------------------
+# paged-KV (block-table) forms: the serving engine's paged slot pool
+# ---------------------------------------------------------------------------
+
+def paged_gather(arena: torch.Tensor, block_tables: torch.Tensor,
+                 page_size: int, view_len: int) -> torch.Tensor:
+    """Gather a per-row logical K/V view out of a flat paged arena.
+
+    ``arena``: (A, ...), a flat pool of fixed-size blocks along axis 0
+    (``A = (num_blocks + 1) * page_size``; the trailing block is the null
+    block that junk writes go to).  ``block_tables``: (B, T) int64, row
+    r's logical block i at physical block ``block_tables[r, i]``; null
+    entries read junk, which the caller's frontier masks.  Returns the
+    (B, view_len, ...) logical view: entry (r, p) is the arena slot that
+    holds row r's position p.  Logical blocks past the table read its
+    last column (the engine keeps it null), so every index stays inside
+    the arena.  The values equal a dense (B, view_len, ...) cache holding
+    the same writes, so attention over the view is the dense path's."""
+    page = int(page_size)
+    idx = torch.arange(int(view_len), device=arena.device)
+    blk = torch.clamp(idx // page, max=block_tables.shape[1] - 1)
+    phys = block_tables[:, blk] * page + (idx % page)[None, :]
+    return arena[phys]
+
+
+def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
+                    v_arena: torch.Tensor, block_tables: torch.Tensor,
+                    page_size: int, view_len: int, *, q_positions=None,
+                    q_offset=None, kv_length=None,
+                    window: Optional[int] = None, kv_positions=None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """``dot_product_attention`` over block-table-gathered K/V: each row's
+    keys and values come out of ``k_arena``/``v_arena`` through its block
+    table, then the per-row causal masks apply (``q_positions`` or
+    ``q_offset`` place the queries, ``kv_length`` hides the unwritten
+    tail, ``kv_positions`` carries ring layouts).  Quantized arenas are
+    dequantized by the caller (``core/decode.py``)."""
+    k = paged_gather(k_arena, block_tables, page_size, view_len)
+    v = paged_gather(v_arena, block_tables, page_size, view_len)
+    return dot_product_attention(q, k, v, causal=True, scale=scale,
+                                 q_positions=q_positions, q_offset=q_offset,
+                                 kv_length=kv_length, window=window,
+                                 kv_positions=kv_positions)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, scale: Optional[float] = None,
               impl: Optional[str] = None, window: Optional[int] = None,

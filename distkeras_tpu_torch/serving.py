@@ -10,6 +10,15 @@ inference server with iteration-level scheduling:
    each batch row is a *slot* holding one in-flight request at its own
    position.  The whole pool advances through one per-row ``decode_step``
    (per-slot positions + active mask).
+ - **Paged pool** (``paged=True``) — the slot pool becomes a flat arena
+   of ``block_size``-token blocks (``init_paged_arena``) addressed
+   through per-slot block tables on the device: blocks are allocated per
+   request on demand (capacity is tokens in flight, not ``num_slots ×
+   max_len``), and, for non-rolling pools, shared across requests
+   through a radix prefix trie (a prompt whose leading blocks match a
+   cached chain prefills only its suffix; a partially matched boundary
+   block is copied on write).  Refcount-0 chains stay cached until LRU
+   eviction needs their blocks.
  - **Admission queue with backpressure** — ``submit`` enqueues up to
    ``queue_capacity`` requests; beyond that it blocks (or raises
    :class:`QueueFull` with ``block=False``).
@@ -50,10 +59,9 @@ draw rule (row 0 of ``generate``'s batch draws what a lone request
 draws).
 
 Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): the paged pool and prefix trie, speculation, quantized
-weights and KV in the engine, roles and tenants (queue A item 4), hot
-weight reload from a parameter server (queue A item 6), and the wire
-front-end.
+ROADMAP item): speculation, quantized weights and KV in the engine, roles
+and tenants (queue A item 4), hot weight reload from a parameter server
+(queue A item 6), and the wire front-end.
 """
 
 from __future__ import annotations
@@ -299,6 +307,24 @@ def _commit_full_row(big, row, slot: int, rolling: bool,
         big[name][slot] = src[0]
 
 
+def _commit_ring_blocks(arena, rows, p_lens: torch.Tensor,
+                        row_bt: torch.Tensor, page: int, view: int) -> None:
+    """The rolling paged commit: each row of a dense prefill cache
+    ``rows`` (first ``len(row_bt)`` rows) collapses to a ``view``-slot
+    ring (``ring_from_prefill``) written, in place, into the arena slots
+    its block-table row names (null rows write the null block)."""
+    n = row_bt.shape[0]
+    j = torch.arange(view, device=row_bt.device)
+    blk = torch.clamp(j // page, max=row_bt.shape[1] - 1)
+    phys = row_bt[:, blk] * page + (j % page)[None, :]
+    for big, row in zip(arena, rows):
+        if big is None:
+            continue
+        ring = [_dec.ring_from_prefill(row[name][:n], p_lens[:n], view)
+                for name in ("k", "v")]
+        _dec._paged_write(big, phys, *ring)
+
+
 def _pow2_buckets(cap: int) -> List[int]:
     """The prefill length-bucket ladder: powers of two from 8 up, capped
     (and terminated) at ``cap`` — a small set of prefill widths."""
@@ -320,12 +346,264 @@ class _PrefillJob:
     batch's junk writes into free pool rows cannot race it — which the
     final chunk commits to the slot's pool row at once."""
 
-    __slots__ = ("handle", "staging", "written")
+    __slots__ = ("handle", "staging", "written", "bt")
 
-    def __init__(self, handle: RequestHandle, staging=None):
+    def __init__(self, handle: RequestHandle, staging=None, bt=None):
         self.handle = handle
         self.staging = staging
         self.written = 0
+        #: paged engines: the job's (1, T) device block-table row
+        self.bt = bt
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool: host-side block allocator + radix prefix index
+# ---------------------------------------------------------------------------
+
+class _RadixNode:
+    """One full block of prompt tokens in the prefix trie: ``key`` is its
+    ``block_size``-token chunk (the edge label from ``parent``), ``block``
+    the physical arena block holding those tokens' K/V (all layers).
+    ``ref`` counts live requests sharing the block; at ref 0 the node
+    stays cached (its K/V stay valid in the arena) until the allocator
+    evicts it: LRU over ``last_used``, leaves first, so a chain is
+    reclaimed suffix-inward.  ``epoch`` stamps the scheduler pass that
+    inserted it: a node is matchable only from later passes, so that a
+    matcher in the same pass never reads blocks whose prefill program has
+    not been dispatched yet."""
+
+    __slots__ = ("parent", "key", "block", "ref", "last_used", "children",
+                 "epoch")
+
+    def __init__(self, parent, key: Tuple[int, ...], block: int,
+                 epoch: int = -1):
+        self.parent = parent
+        self.key = key
+        self.block = block
+        self.ref = 0
+        self.last_used = 0
+        self.children: Dict[Tuple[int, ...], "_RadixNode"] = {}
+        self.epoch = epoch
+
+
+class _BlockPlan:
+    """One admitted request's blocks: ``blocks`` the full logical chain
+    (matched + fresh, in logical-block order), ``nodes`` the trie nodes
+    it holds a reference on, ``private`` the block ids it owns outright
+    (the copy-on-write copy, the partial prompt boundary, the decode
+    region), ``matched`` the prefix tokens served from the trie, and
+    ``cow`` the ``(src, dst)`` blocks of the copy-on-write boundary copy
+    (or None)."""
+
+    __slots__ = ("nodes", "private", "blocks", "matched", "cow")
+
+    def __init__(self, nodes, private, blocks, matched, cow):
+        self.nodes = nodes
+        self.private = private
+        self.blocks = blocks
+        self.matched = matched
+        self.cow = cow
+
+
+class _PagedKVPool:
+    """Host-side allocator and radix prefix index over a flat block arena
+    (``core.decode.init_paged_arena``), used from the scheduler thread
+    only.
+
+    Allocation is block-granular and on demand: a request takes
+    ``ceil((p_len + num_steps) / block_size)`` blocks instead of a
+    ``max_len`` row, so capacity is bounded by tokens in flight rather
+    than ``num_slots × max_len``.  With ``share=True`` (non-rolling pools)
+    admissions first walk the trie: full blocks whose token chunk matches
+    the prompt are shared (refcounted, never written again: every
+    sharer's write floor lies above them), a partially matched boundary
+    block is copied (copy-on-write: the admission owns the copy and goes
+    on writing into it), and only the unmatched suffix is prefilled.
+    Matching is capped at ``p_len - 1``, so at least one prompt token is
+    prefilled: the logits that sample the first token must be computed.
+    Retirement drops refs; refcount-0 chains stay cached until LRU
+    eviction (leaves first) reclaims their blocks for new admissions.
+    The counters go straight into the engine's ``stats`` dict."""
+
+    def __init__(self, num_blocks: int, block_size: int, share: bool,
+                 stats: Dict[str, Any]):
+        self.num_blocks = int(num_blocks)
+        self.bs = int(block_size)
+        self.share = bool(share)
+        self.stats = stats
+        self.free: List[int] = list(range(self.num_blocks - 1, -1, -1))
+        self.root = _RadixNode(None, (), -1)
+        self.private_out = 0
+        self._clock = 0
+        self.epoch = 0
+        #: running count of ``cached_blocks()``, so that the load snapshot
+        #: reads an int instead of walking the trie
+        self.trie_nodes = 0
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def next_epoch(self) -> None:
+        """One scheduler pass is one epoch: nodes inserted in this pass
+        are not matchable until the next."""
+        self.epoch += 1
+
+    def _nodes(self) -> List[_RadixNode]:
+        out, stack = [], list(self.root.children.values())
+        while stack:
+            n = stack.pop()
+            out.append(n)
+            stack.extend(n.children.values())
+        return out
+
+    def cached_blocks(self) -> int:
+        """Trie-held blocks (shared and refcount-0 cached)."""
+        return len(self._nodes())
+
+    def in_use(self) -> int:
+        """Blocks held by live requests: private ones plus trie nodes with
+        a non-zero refcount.  0 when the engine is idle: every retirement
+        path must restore it."""
+        return self.private_out + sum(1 for n in self._nodes() if n.ref > 0)
+
+    def check_conservation(self) -> bool:
+        """free + cached + private == num_blocks, always."""
+        return (len(self.free) + self.cached_blocks() + self.private_out
+                == self.num_blocks)
+
+    def _match(self, toks: List[int], cap: int):
+        """Walk the trie: full-block matches (the chain), then the best
+        partial child match at the divergence point (the copy-on-write
+        boundary).  ``cap`` bounds the matchable tokens; nodes inserted in
+        this epoch are invisible."""
+        nodes: List[_RadixNode] = []
+        parent = self.root
+        d = 0
+        while d + self.bs <= cap:
+            child = parent.children.get(tuple(toks[d:d + self.bs]))
+            if child is None or child.epoch >= self.epoch:
+                break
+            nodes.append(child)
+            parent = child
+            d += self.bs
+        pnode, plen = None, 0
+        lim = min(cap - d, self.bs)
+        if lim > 0:
+            for key, child in parent.children.items():
+                if child.epoch >= self.epoch:
+                    continue
+                j = 0
+                while j < lim and key[j] == toks[d + j]:
+                    j += 1
+                if j > plen:
+                    pnode, plen = child, j
+        return nodes, pnode, plen
+
+    def _evictable(self, pinned) -> List[_RadixNode]:
+        out, stack = [], list(self.root.children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            elif n.ref == 0 and n not in pinned:
+                out.append(n)
+        return out
+
+    def _reserve(self, need: int, pinned=()) -> bool:
+        """Make ``need`` blocks free, evicting LRU refcount-0 leaves
+        (suffix-inward); False when live requests hold too much (the
+        admission stays queued until retirements free blocks)."""
+        pinned = set(pinned)
+        while len(self.free) < need:
+            cands = self._evictable(pinned)
+            if not cands:
+                return False
+            victim = min(cands, key=lambda n: n.last_used)
+            del victim.parent.children[victim.key]
+            self.free.append(victim.block)
+            self.trie_nodes -= 1
+            self.stats["blocks_evicted"] += 1
+        return True
+
+    def admit(self, tokens, n_blocks: int) -> Optional[_BlockPlan]:
+        """Reserve a request's block chain.  ``tokens`` (the prompt) is
+        None for share-off (rolling) pools: a plain allocation.  The
+        request's own full prompt blocks enter the trie later, in
+        :meth:`publish`.  Returns None when blocks are unavailable (the
+        admission backs off)."""
+        if not self.share or tokens is None:
+            if not self._reserve(n_blocks):
+                return None
+            fresh = [self.free.pop() for _ in range(n_blocks)]
+            self.stats["blocks_allocated"] += n_blocks
+            self.private_out += n_blocks
+            return _BlockPlan([], fresh, list(fresh), 0, None)
+        toks = [int(t) for t in tokens]
+        cap = len(toks) - 1
+        nodes, pnode, plen = self._match(toks, cap)
+        matched = len(nodes) * self.bs + plen
+        need = n_blocks - len(nodes)
+        pinned = list(nodes) + ([pnode] if pnode is not None else [])
+        if not self._reserve(need, pinned):
+            return None
+        fresh = [self.free.pop() for _ in range(need)]
+        self.stats["blocks_allocated"] += need
+        self.private_out += need
+        chain = [n.block for n in nodes] + fresh
+        now = self._tick()
+        for n in nodes:
+            n.ref += 1
+            n.last_used = now
+        self.stats["blocks_reused"] += len(nodes)
+        if matched:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += matched
+        cow = None
+        if pnode is not None:
+            cow = (pnode.block, chain[len(nodes)])
+            pnode.last_used = now
+            self.stats["cow_copies"] += 1
+        return _BlockPlan(list(nodes), fresh, chain, matched, cow)
+
+    def publish(self, plan: _BlockPlan, tokens) -> None:
+        """Insert the request's own full prompt blocks into the trie (ref
+        1, held until release) so that later admissions can share them.
+        Called once the program writing their contents is dispatched: at
+        once for bucket prefills, at the final chunk for chunked ones.
+        Stops at the first key collision: the existing nodes stay, and
+        this plan's duplicates stay private."""
+        if not self.share or tokens is None:
+            return
+        toks = [int(t) for t in tokens]
+        parent = plan.nodes[-1] if plan.nodes else self.root
+        now = self._tick()
+        i = len(plan.nodes)
+        while (i + 1) * self.bs <= len(toks) and i < len(plan.blocks):
+            key = tuple(toks[i * self.bs:(i + 1) * self.bs])
+            if key in parent.children:
+                break
+            node = _RadixNode(parent, key, plan.blocks[i], self.epoch)
+            node.ref = 1
+            node.last_used = now
+            parent.children[key] = node
+            plan.nodes.append(node)
+            plan.private.remove(plan.blocks[i])
+            self.private_out -= 1
+            self.trie_nodes += 1
+            parent = node
+            i += 1
+
+    def release(self, plan: _BlockPlan) -> None:
+        """Retirement: drop the plan's refs (refcount-0 chains stay cached
+        for later prefix hits) and free its private blocks."""
+        now = self._tick()
+        for n in plan.nodes:
+            n.ref -= 1
+            n.last_used = now
+        self.free.extend(plan.private)
+        self.private_out -= len(plan.private)
+        plan.nodes, plan.private = [], []
 
 
 def _uses_graph(device: torch.device) -> bool:
@@ -364,6 +642,12 @@ class ServingEngine:
     (sliding-window models only) makes each slot an O(W) ring instead of
     ``max_len`` slots.
 
+    ``paged=True`` (bucketed mode only) stores the pool as a flat arena
+    of ``kv_blocks`` blocks of ``block_size`` tokens (default: the dense
+    pool's capacity, ``num_slots`` × the blocks of one ``max_len`` row, or
+    of one window ring for rolling pools) with a radix prefix trie over
+    full prompt blocks (non-rolling pools).
+
     ``prefill_mode``: ``"bucketed"`` (default) runs the fast path —
     batched bucket prefill, chunked long-prompt prefill, device-resident
     decode state with one-step lookahead, and on a CUDA card the decode
@@ -373,9 +657,8 @@ class ServingEngine:
     (bucketed mode).
 
     The JAX engine's later knobs (``spec_draft``, ``spec_len``,
-    ``quantize``, ``kv_dtype``, ``paged``, ``block_size``, ``kv_blocks``,
-    ``role``, ``tenants``) take their defaults here; any other value
-    raises ``NotImplementedError``.
+    ``quantize``, ``kv_dtype``, ``role``, ``tenants``) take their
+    defaults here; any other value raises ``NotImplementedError``.
 
     Threading: ``submit`` is thread-safe (any number of producers); the
     scheduler itself — ``step`` / ``run_until_idle`` / the ``start``
@@ -396,15 +679,17 @@ class ServingEngine:
                  role: str = "unified", tenants=None):
         later = {"spec_draft": (spec_draft, None), "spec_len": (spec_len, 4),
                  "quantize": (quantize, None), "kv_dtype": (kv_dtype, None),
-                 "paged": (paged, False), "block_size": (block_size, 16),
-                 "kv_blocks": (kv_blocks, None), "role": (role, "unified"),
-                 "tenants": (tenants, None)}
+                 "role": (role, "unified"), "tenants": (tenants, None)}
         for name, (value, default) in later.items():
             if value != default:
                 raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}): the paged pool, "
-                    f"speculation, quantization, roles and tenants of the "
-                    f"JAX engine are not ported yet ({_LATER})")
+                    f"ServingEngine({name}={value!r}): speculation, "
+                    f"quantization, roles and tenants of the JAX engine "
+                    f"are not ported yet ({_LATER})")
+        if prefill_mode == "eager" and paged:
+            raise ValueError(
+                "paged is a fast-path feature (prefill_mode='bucketed'); "
+                "the eager engine stays the unmodified reference")
         self.model = model.model if isinstance(model, FittedModel) else model
         _check_supported(self.model)
         if rolling:
@@ -441,9 +726,46 @@ class ServingEngine:
         self._vocab = _vocab_size(self.model)
 
         # -- slot pool: ONE batched cache, one host-side row of state per
-        #    slot (the scheduler's bookkeeping view)
-        self.caches = init_cache(self.model, self.num_slots, self.max_len,
-                                 rolling=self.rolling)
+        #    slot (the scheduler's bookkeeping view).  Paged: a flat arena
+        #    of block_size-token blocks plus the host allocator and prefix
+        #    trie; the default kv_blocks holds the dense pool's capacity
+        #    exactly, so paged=True alone changes layout, not limits
+        self.paged = bool(paged)
+        if int(block_size) < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = int(block_size)
+        self._pool: Optional[_PagedKVPool] = None
+        self._plans: Dict[int, _BlockPlan] = {}
+        if self.paged:
+            bs = self.block_size
+            if self.rolling:
+                windows = {layer._mha().attention_window
+                           for layer in self.model.layers
+                           if hasattr(layer, "_mha")}
+                if len(windows) != 1:
+                    raise ValueError(
+                        "paged rolling pools need one uniform "
+                        "attention_window across every TransformerBlock "
+                        "(the block table is per request, shared by all "
+                        f"layers); got windows {sorted(windows)}")
+                self._t_view = min(windows.pop(), self.max_len)
+            else:
+                self._t_view = self.max_len
+            self._blocks_per_slot = -(-self._t_view // bs)
+            if kv_blocks is None:
+                kv_blocks = self.num_slots * self._blocks_per_slot
+            self.kv_blocks = int(kv_blocks)
+            if self.kv_blocks < self._blocks_per_slot:
+                raise ValueError(
+                    f"kv_blocks {self.kv_blocks} cannot hold even one "
+                    f"max-length request ({self._blocks_per_slot} blocks "
+                    f"of {bs} tokens)")
+            self.caches = _dec.init_paged_arena(self.model, self.kv_blocks,
+                                                bs)
+        else:
+            self.kv_blocks = None
+            self.caches = init_cache(self.model, self.num_slots,
+                                     self.max_len, rolling=self.rolling)
         self._handles: List[Optional[RequestHandle]] = [None] * self.num_slots
         self._free: List[int] = list(range(self.num_slots - 1, -1, -1))
         self._positions = np.zeros((self.num_slots,), np.int64)
@@ -483,6 +805,15 @@ class ServingEngine:
             self._dev_topk = zeros(b, dtype=torch.int64)
             self._dev_topp = zeros(b)
             self._dev_keys = zeros(b, 2, dtype=torch.int64)
+            if self.paged:
+                # the device block tables: one row per slot, null-filled
+                # (null = kv_blocks, the arena's junk block), the last
+                # column always null; the prefill programs install a
+                # slot's row and retirement re-nulls it, in place
+                self._t_tbl = self._blocks_per_slot + 1
+                self._dev_bt = torch.full((b, self._t_tbl), self.kv_blocks,
+                                          dtype=torch.int64,
+                                          device=self.device)
 
         # -- scheduler thread + stats + failure state
         self._thread: Optional[threading.Thread] = None
@@ -508,19 +839,31 @@ class ServingEngine:
             "prefill_batched_requests": 0, "prefill_batch_size_mean": None,
             "prefill_tokens": 0,
             "h2d_transfers": 0, "d2h_transfers": 0,
+            # the paged pool: fresh block allocations, trie-shared blocks,
+            # admissions (and their tokens) served from the prefix trie,
+            # boundary copy-on-writes, LRU reclaims of cached chains (all
+            # 0 on dense engines); kv_pool_bytes is the pool's device
+            # bytes (the arena with its null block when paged)
+            "blocks_allocated": 0, "blocks_reused": 0, "blocks_evicted": 0,
+            "prefix_hits": 0, "prefix_hit_tokens": 0, "cow_copies": 0,
             "kv_pool_bytes": kv_cache_bytes(self.caches),
             # the decode step's CUDA graph: captures (one per engine on a
             # card, none elsewhere) and replays (one per decode step)
             "graph_captures": 0, "graph_replays": 0,
         }
+        if self.paged:
+            self._pool = _PagedKVPool(self.kv_blocks, self.block_size,
+                                      share=not self.rolling,
+                                      stats=self.stats)
 
         # -- lock-free load snapshot (the routing surface), republished by
         #    reference from submit/step/drain/death, outside _qlock
         self._load_snapshot: Dict[str, Any] = {
             "queue_depth": 0, "slots_free": self.num_slots,
-            "slots_total": self.num_slots, "active": 0,
+            "slots_total": self.num_slots, "active": 0, "trie_blocks": 0,
             "queue_capacity": self.queue_capacity, "max_len": self.max_len,
-            "draining": False, "dead": False, "prefill_tokens": 0,
+            "draining": False, "dead": False, "prefix_hit_tokens": 0,
+            "prefill_tokens": 0,
             "tokens_generated": 0, "requests_completed": 0,
             "requests_failed": 0,
         }
@@ -531,9 +874,15 @@ class ServingEngine:
         (cache writes in place, into the pool), the batched sampler, and
         the active mask (free slots keep their token; their rows compute
         a junk forward into their own pool rows, which the next prefill
-        fully overwrites)."""
+        fully overwrites; paged: into the null block, their table rows
+        being null).  Paged engines read the static device block tables
+        ``_dev_bt``."""
+        paged = None
+        if self.paged:
+            paged = _dec.PagedView(self._dev_bt, self.block_size,
+                                   self._t_view, ring=self.rolling)
         logits, _ = _dec.decode_step(self.model, self.caches, tok, pos,
-                                     self.rolling)
+                                     self.rolling, paged)
         nxt = _dec.sample_logits_batched(logits, pos, temp, keys, topk,
                                          topp)
         return torch.where(act, nxt, tok)
@@ -574,13 +923,25 @@ class ServingEngine:
     # the slots' device state.  Chunked prefill stages its chunks in a
     # private one-row cache of ``max_len`` (the scalar-position walker);
     # the final chunk samples the first token and commits the whole row.
-    # Every forward goes through ``_dec`` (the decode MODULE); the
-    # module-level ``_forward`` import is the eager engine's.
+    # Paged non-rolling engines skip both fresh caches: the bucket program
+    # prefills each row's unmatched suffix straight into the arena through
+    # its block-table row (queries from the matched length on, attending
+    # the shared prefix through the gather, writing above the ``floor`` at
+    # the match), and chunks write straight into the request's private
+    # blocks (its device table row stays null until the final chunk, so
+    # no decode step writes them).  Paged rolling engines prefill densely
+    # and commit rings through the table.  The programs also install the
+    # slots' device table rows.  Every forward goes through ``_dec`` (the
+    # decode MODULE); the module-level ``_forward`` import is the eager
+    # engine's.
 
-    def _install(self, slots, tok, pos, temp, topk, topp, keys) -> None:
-        """Write admitted slots' rows of decode state into the static
-        device tensors (``slots``: an int, or a device tensor of
-        indices)."""
+    def _install(self, slots, tok, pos, temp, topk, topp, keys,
+                 bt=None) -> None:
+        """Write admitted slots' rows of decode state (and, paged, their
+        block-table rows ``bt``) into the static device tensors
+        (``slots``: an int, or a device tensor of indices)."""
+        if bt is not None:
+            self._dev_bt[slots] = bt
         self._dev_tok[slots] = tok.to(torch.int32)
         self._dev_pos[slots] = pos
         self._dev_act[slots] = True
@@ -589,49 +950,110 @@ class ServingEngine:
         self._dev_topp[slots] = topp
         self._dev_keys[slots] = keys
 
+    def _paged_view(self, bt, floor, p_lens) -> "_dec.PagedView":
+        """A prefill's view of the arena: rows write from ``floor`` up to
+        their prompt's end (``p_lens``), and pad queries clamp onto the
+        last real position."""
+        return _dec.PagedView(bt, self.block_size, self._t_view,
+                              floor=floor, ceil=p_lens, qcap=p_lens - 1)
+
     def _bucket_prefill(self, width: int, prompts, p_lens, slots, n: int,
-                        r_temp, r_topk, r_topp, r_keys) -> torch.Tensor:
+                        r_temp, r_topk, r_topp, r_keys, match=None,
+                        row_bt=None) -> torch.Tensor:
         """One batched prefill of right-padded ``prompts`` (nb, width);
         the first ``n`` rows are admissions into ``slots[:n]``, the rest
-        write nothing.  Returns the (nb,) first tokens."""
+        write nothing (paged: their null table rows send every write to
+        the null block).  Paged engines pass each row's matched prefix
+        length ``match`` (the prompts are the unmatched suffixes) and its
+        block-table row ``row_bt``.  Returns the (nb,) first tokens."""
         model = self.model
-        rows = init_cache(model, prompts.shape[0], width)
-        # right-padded batch: the causal mask alone keeps pad keys out of
-        # every real row, and the pad slots each row writes stay behind
-        # its decode frontier until overwritten
-        logits, rows = _dec._forward(model, rows, prompts, 0)
-        idx = (p_lens - 1).clamp(0, width - 1).to(torch.int64)
-        last = torch.gather(logits, 1, idx[:, None, None].expand(
-            -1, 1, logits.shape[-1]))[:, 0]
+        direct = self.paged and not self.rolling
+        if direct:
+            logits, _ = _dec._forward(model, self.caches, prompts, match,
+                                      paged=self._paged_view(row_bt, match,
+                                                             p_lens))
+            idx = (p_lens - match - 1).clamp(0, width - 1)
+        else:
+            rows = init_cache(model, prompts.shape[0], width)
+            # right-padded batch: the causal mask alone keeps pad keys out
+            # of every real row, and the pad slots each row writes stay
+            # behind its decode frontier until overwritten
+            logits, rows = _dec._forward(model, rows, prompts, 0)
+            idx = (p_lens - 1).clamp(0, width - 1)
+        last = torch.gather(logits, 1, idx.to(torch.int64)[:, None, None]
+                            .expand(-1, 1, logits.shape[-1]))[:, 0]
         first = _dec.sample_logits_batched(last, p_lens - 1, r_temp, r_keys,
                                            r_topk, r_topp)
+        if self.paged and self.rolling:
+            _commit_ring_blocks(self.caches, rows, p_lens, row_bt,
+                                self.block_size, self._t_view)
         if n:
             s = slots[:n]
-            for big, row in zip(self.caches, rows):
-                _commit_rows(big, row, s, width, self.rolling, p_lens[:n])
+            if not self.paged:
+                for big, row in zip(self.caches, rows):
+                    _commit_rows(big, row, s, width, self.rolling,
+                                 p_lens[:n])
             self._install(s, first[:n], p_lens[:n], r_temp[:n], r_topk[:n],
-                          r_topp[:n], r_keys[:n])
+                          r_topp[:n], r_keys[:n],
+                          bt=row_bt[:n] if self.paged else None)
         return first
+
+    def _paged_chunk(self, toks, offset: int, p_len: int, bt):
+        """One chunk of a paged non-rolling chunked prefill, straight into
+        the request's blocks through its (1, T) table row ``bt``: queries
+        from ``offset`` on, writes from ``offset`` up to ``p_len``.
+        Returns the chunk's logits."""
+        dev = self.device
+        off = torch.full((1,), offset, dtype=torch.int64, device=dev)
+        plen = torch.full((1,), p_len, dtype=torch.int64, device=dev)
+        logits, _ = _dec._forward(self.model, self.caches, toks, off,
+                                  paged=self._paged_view(bt, off, plen))
+        return logits
 
     def _final_chunk(self, staging, toks, slot: int, offset: int,
                      last_idx: int, p_len: int, r_temp, r_topk, r_topp,
-                     r_key) -> torch.Tensor:
+                     r_key, bt=None) -> torch.Tensor:
         """The last chunk of a chunked prefill: its forward, the first
         token, and — for a real slot (< ``num_slots``) — the full-row
-        commit and the slot's device state.  Returns the (1,) first
-        token."""
-        logits, staging = _dec._forward(self.model, staging, toks, offset)
+        commit and the slot's device state.  Paged engines pass the job's
+        (1, T) table row ``bt``: non-rolling ones write the chunk straight
+        into the arena (``staging`` is None), rolling ones commit the
+        staged row's ring through the table (null rows write the null
+        block), and the slot's table row is installed.  Returns the (1,)
+        first token."""
+        if self.paged and not self.rolling:
+            logits = self._paged_chunk(toks, offset, p_len, bt)
+        else:
+            logits, staging = _dec._forward(self.model, staging, toks,
+                                            offset)
         pos = torch.full((1,), p_len - 1, dtype=torch.int64,
                          device=self.device)
         first = _dec.sample_logits_batched(logits[0, last_idx][None], pos,
                                            r_temp, r_key, r_topk, r_topp)
+        if self.paged and self.rolling:
+            _commit_ring_blocks(self.caches, staging, pos + 1, bt,
+                                self.block_size, self._t_view)
         if slot < self.num_slots:
-            p_row = pos + 1
-            for big, row in zip(self.caches, staging):
-                _commit_full_row(big, row, slot, self.rolling, p_row)
+            if not self.paged:
+                for big, row in zip(self.caches, staging):
+                    _commit_full_row(big, row, slot, self.rolling, pos + 1)
             self._install(slot, first[0], p_len, r_temp[0], r_topk[0],
-                          r_topp[0], r_key[0])
+                          r_topp[0], r_key[0],
+                          bt=bt[0] if self.paged else None)
         return first
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """The copy-on-write copy: physical block ``src`` duplicated onto
+        ``dst`` in every layer's arena, in place (from host ints: slices,
+        no upload), so that an admission that matched a cached block
+        partially writes its own suffix into the copy while the original
+        stays shared."""
+        bs = self.block_size
+        for cache in self.caches:
+            if cache is not None:
+                for leaf in cache.values():
+                    leaf[dst * bs:(dst + 1) * bs] = leaf[src * bs:
+                                                         (src + 1) * bs]
 
     # ----------------------------------------------------- device traffic
     def _put(self, x) -> torch.Tensor:
@@ -785,11 +1207,13 @@ class ServingEngine:
             "slots_free": len(self._free),
             "slots_total": self.num_slots,
             "active": int(self._active.sum()),
+            "trie_blocks": self._pool.trie_nodes if self.paged else 0,
             "queue_capacity": self.queue_capacity,
             "max_len": self.max_len,
             "draining": (prev["draining"] if draining is None
                          else bool(draining)),
             "dead": prev["dead"] if dead is None else bool(dead),
+            "prefix_hit_tokens": stats["prefix_hit_tokens"],
             "prefill_tokens": stats["prefill_tokens"],
             "tokens_generated": stats["tokens_generated"],
             "requests_completed": stats["requests_completed"],
@@ -869,14 +1293,26 @@ class ServingEngine:
     def _abort_prefill(self, slot: int, reason: str) -> None:
         """Retire a request mid-chunked-prefill: the slot goes straight
         back to the pool (its staging cache dies with the job; the pool
-        row is rewritten by the next occupant's prefill)."""
+        row is rewritten by the next occupant's prefill).  Paged engines
+        release the job's block plan: refcounts drop and its private
+        blocks, chunks written so far included, go back to the allocator;
+        the slot's device table row was never installed, so no decode
+        write can reach them once they are handed out again."""
         h = self._prefilling.pop(slot).handle
         self._handles[slot] = None
         self._free.append(slot)
+        self._release_blocks(slot)
         if h._finish(reason):
             with self._qlock:
                 self.stats["requests_completed"] += 1
             self._account_terminal(h, reason, time.perf_counter())
+
+    def _release_blocks(self, slot: int) -> None:
+        if self._pool is None:
+            return
+        plan = self._plans.pop(slot, None)
+        if plan is not None:
+            self._pool.release(plan)
 
     def _account_terminal(self, h: RequestHandle, reason: str,
                           now: float, held_slot: bool = True) -> None:
@@ -938,9 +1374,20 @@ class ServingEngine:
         (one chunk each), then admit queued requests.  Bucketed mode
         gathers short prompts into per-bucket batches and routes prompts
         longer than ``prefill_chunk`` to the chunked path; eager mode
-        prefills per request."""
+        prefills per request.
+
+        Paged engines walk the radix trie per admission: matched prefix
+        blocks are shared (copied on write at a partial boundary), the
+        block chain is reserved from the allocator, and when blocks run
+        out even after evicting cached chains the head request goes back
+        to the front of the queue until retirements free blocks (FIFO
+        head-of-line: admission order is the fairness contract).  Chunked
+        routing keys on the unmatched suffix length, so a long prompt
+        with a hot prefix admits in one bucket program."""
         did = False
         budget = self.prefills_per_step
+        if self.paged:
+            self._pool.next_epoch()
         for slot in list(self._prefilling):
             if budget <= 0:
                 break
@@ -948,44 +1395,101 @@ class ServingEngine:
             budget -= 1
             did = True
         batch: List[RequestHandle] = []
+        plans: Dict[int, _BlockPlan] = {}
         while budget > 0 and len(self._free) > len(batch):
             h = self._pop_queued()
             if h is None:
                 break
+            plan = None
+            if self.paged:
+                plan = self._admit_blocks(h)
+                if plan is None:
+                    with self._qlock:
+                        self._queue.appendleft(h)
+                        qd = len(self._queue)
+                    self._publish_load(qd=qd)
+                    break
             budget -= 1
             did = True
             if self.prefill_mode == "eager":
                 self._prefill(self._free.pop(), h)
-            elif len(h.prompt) > self.prefill_chunk:
-                self._start_chunked(self._free.pop(), h)
+            elif (len(h.prompt) - (plan.matched if plan else 0)
+                    > self.prefill_chunk):
+                self._start_chunked(self._free.pop(), h, plan)
             else:
+                if plan is not None:
+                    plans[h.id] = plan
+                    self._pool.publish(plan, h.prompt)
                 batch.append(h)
         if batch:
-            self._batch_prefill(batch)
+            self._batch_prefill(batch, plans)
         return did
 
-    def _batch_prefill(self, batch: List[RequestHandle]) -> None:
+    # ----------------------------------------------------- paged admission
+    def _admit_blocks(self, h: RequestHandle) -> Optional[_BlockPlan]:
+        """Reserve a request's block chain (trie walk and allocation) and
+        make its copy-on-write block copy, if any.  Positions past the
+        request's end go to the null block through the table, so
+        ``ceil((p_len + num_steps) / block_size)`` blocks cover every
+        entry a live query can attend."""
+        if self.rolling:
+            plan = self._pool.admit(None, self._blocks_per_slot)
+        else:
+            total = len(h.prompt) + h.num_steps
+            plan = self._pool.admit(h.prompt, -(-total // self.block_size))
+        if plan is not None and plan.cow is not None:
+            self._copy_block(*plan.cow)
+        return plan
+
+    def _row_tables(self, plan: _BlockPlan) -> np.ndarray:
+        """A plan's chain as a null-padded block-table row (its last
+        column always null)."""
+        bt = np.full((self._t_tbl,), self.kv_blocks, np.int64)
+        n = min(len(plan.blocks), self._t_tbl - 1)
+        bt[:n] = plan.blocks[:n]
+        return bt
+
+    def _batch_prefill(self, batch: List[RequestHandle],
+                       plans: Optional[Dict[int, _BlockPlan]] = None
+                       ) -> None:
         """Admit up to ``prefills_per_step`` short prompts in ONE batched
         forward per length bucket.  The batch is always
         ``prefills_per_step`` rows; unfilled rows target slot
-        ``num_slots`` and write nothing."""
+        ``num_slots`` and write nothing.  Paged engines bucket by the
+        unmatched suffix length and pass each row's match and table row;
+        ``prefill_tokens`` counts only what is prefilled (the hit tokens
+        are in ``prefix_hit_tokens``)."""
+        plans = plans or {}
         groups: Dict[int, List[RequestHandle]] = {}
         for h in batch:
-            groups.setdefault(self._bucket_of(len(h.prompt)), []).append(h)
+            matched = plans[h.id].matched if h.id in plans else 0
+            groups.setdefault(self._bucket_of(len(h.prompt) - matched),
+                              []).append(h)
         for width, group in groups.items():
             nb = self.prefills_per_step
             prompts = np.zeros((nb, width), np.int32)
+            match = np.zeros((nb,), np.int64)
             p_lens = np.ones((nb,), np.int64)
             slots = np.full((nb,), self.num_slots, np.int64)
             r_temp = np.zeros((nb,), np.float32)
             r_topk = np.zeros((nb,), np.int64)
             r_topp = np.zeros((nb,), np.float32)
             r_keys = np.zeros((nb, 2), np.int64)
+            if self.paged:
+                row_bt = np.full((nb, self._t_tbl), self.kv_blocks,
+                                 np.int64)
             entries: List[Tuple[int, RequestHandle]] = []
             for i, h in enumerate(group):
                 slot = self._free.pop()
                 p = len(h.prompt)
-                prompts[i, :p] = h.prompt
+                m = 0
+                if self.paged:
+                    plan = plans[h.id]
+                    m = plan.matched
+                    self._plans[slot] = plan
+                    row_bt[i] = self._row_tables(plan)
+                prompts[i, :p - m] = h.prompt[m:]
+                match[i] = m
                 p_lens[i] = p
                 slots[i] = slot
                 r_temp[i] = h.temperature
@@ -998,12 +1502,17 @@ class ServingEngine:
                 self._mirror_admit(slot, h)
                 self.stats["prefills"] += 1
                 self.stats["slot_requests"][slot] += 1
-                self.stats["prefill_tokens"] += p
+                self.stats["prefill_tokens"] += p - m
                 entries.append((slot, h))
+            paged = {}
+            if self.paged:
+                paged = dict(match=self._put(match),
+                             row_bt=self._put(row_bt))
             first = self._bucket_prefill(
                 width, self._put(prompts), self._put(p_lens),
                 self._put(slots), len(group), self._put(r_temp),
-                self._put(r_topk), self._put(r_topp), self._put(r_keys))
+                self._put(r_topk), self._put(r_topp), self._put(r_keys),
+                **paged)
             self.stats["prefill_batches"] += 1
             self.stats["prefill_batched_requests"] += len(group)
             self.stats["prefill_batch_size_mean"] = round(
@@ -1012,15 +1521,28 @@ class ServingEngine:
             self._pending.append(("prefill", self._snapshot(first),
                                   entries))
 
-    def _start_chunked(self, slot: int, h: RequestHandle) -> None:
+    def _start_chunked(self, slot: int, h: RequestHandle,
+                       plan: Optional[_BlockPlan] = None) -> None:
         """Claim ``slot`` for a long prompt and run its first chunk; the
         scheduler advances one more chunk per iteration (``_reap`` can
-        retire it mid-prefill)."""
+        retire it mid-prefill).  Paged non-rolling jobs have no staging
+        cache: chunks write into the request's own blocks, from the
+        matched frontier on, so a hot shared prefix skips its chunks."""
         h.slot = slot
         h.started_at = time.perf_counter()
         self._handles[slot] = h
-        self._prefilling[slot] = _PrefillJob(
-            h, init_cache(self.model, 1, self.max_len))
+        if self.paged:
+            self._plans[slot] = plan
+            bt = self._put(self._row_tables(plan)[None])
+            if self.rolling:
+                job = _PrefillJob(h, init_cache(self.model, 1, self.max_len),
+                                  bt)
+            else:
+                job = _PrefillJob(h, bt=bt)
+                job.written = plan.matched
+        else:
+            job = _PrefillJob(h, init_cache(self.model, 1, self.max_len))
+        self._prefilling[slot] = job
         self.stats["prefills"] += 1
         self.stats["slot_requests"][slot] += 1
         self._advance_chunk(slot)
@@ -1045,13 +1567,20 @@ class ServingEngine:
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += real
         if not final:
-            _, job.staging = _dec._forward(self.model, job.staging, toks_d,
-                                           offset)
+            if self.paged and not self.rolling:
+                self._paged_chunk(toks_d, offset, p_len, job.bt)
+            else:
+                _, job.staging = _dec._forward(self.model, job.staging,
+                                               toks_d, offset)
         else:
             first = self._final_chunk(job.staging, toks_d, slot, offset,
                                       real - 1, p_len,
-                                      *self._sampling_row(h))
+                                      *self._sampling_row(h), bt=job.bt)
             job.staging = None
+            if self.paged:
+                # the chain's contents are now all dispatched: publish
+                # the prompt's full blocks into the prefix trie
+                self._pool.publish(self._plans[slot], h.prompt)
         job.written += real
         if final:
             del self._prefilling[slot]
@@ -1097,8 +1626,15 @@ class ServingEngine:
             # upload): an in-flight lookahead step may compute one junk
             # token for it (drained entries skip finished handles), but
             # from the next step on the slot is inert until a prefill
-            # rewrites it
+            # rewrites it.  Paged: the slot's table row is re-nulled in
+            # place, so that junk and every later idle step go to the null
+            # block while the released blocks go back to the allocator
+            # (the in-flight step is ordered before any program that
+            # could reuse them)
             self._dev_act[slot] = False
+            if self.paged:
+                self._dev_bt[slot] = self.kv_blocks
+                self._release_blocks(slot)
         if h._finish(reason):  # no-op when _declare_dead already failed it
             with self._qlock:
                 self.stats["requests_completed"] += 1
@@ -1349,20 +1885,35 @@ class ServingEngine:
             prefills_per_step=self.prefills_per_step, rolling=self.rolling,
             default_deadline_s=self.default_deadline_s,
             prefill_mode=self.prefill_mode,
-            prefill_chunk=self.prefill_chunk)
+            prefill_chunk=self.prefill_chunk,
+            # the same arena shape, a fresh trie and allocator: cached
+            # chains index the dead pool's arena contents
+            paged=self.paged, block_size=self.block_size,
+            kv_blocks=self.kv_blocks)
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the KV slot pool."""
+        """Device bytes of the KV slot pool (the flat block arena, null
+        block included, when paged)."""
         return kv_cache_bytes(self.caches)
+
+    @property
+    def kv_blocks_in_use(self) -> Optional[int]:
+        """Paged engines: blocks held by live requests (private ones and
+        trie-shared ones with a non-zero refcount); 0 when idle, since
+        refcount-0 cached chains are reusable capacity, not leaks.  None
+        for dense engines."""
+        return None if self._pool is None else self._pool.in_use()
 
     def warmup(self) -> "ServingEngine":
         """Prepare every program before serving traffic: on a CUDA card
         capture the decode step's graph (once per engine), elsewhere run
         the step once; then — bucketed — run every bucket's batched
         prefill and, when long prompts can chunk, the chunk programs, each
-        with every write dropped (slot ``num_slots``), so that the first
-        live iteration pays no first-call cost.  Fresh or idle engines
+        with every write dropped (slot ``num_slots``; paged: all-null
+        block tables, so that every arena write goes to the null block,
+        and a null-onto-null copy-on-write copy), so that the first live
+        iteration pays no first-call cost.  Fresh or idle engines
         only."""
         if self._active.any() or self._prefilling:
             raise RuntimeError("warmup() on an engine with active slots "
@@ -1384,6 +1935,12 @@ class ServingEngine:
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        paged, null_bt = {}, None
+        if self.paged:
+            null_bt = torch.full((nb, self._t_tbl), self.kv_blocks,
+                                 dtype=torch.int64, device=dev)
+            paged = dict(match=zeros(nb, dtype=torch.int64), row_bt=null_bt)
+            self._copy_block(self.kv_blocks, self.kv_blocks)
         for width in self._buckets:
             self._bucket_prefill(
                 width, zeros(nb, width, dtype=torch.int32),
@@ -1391,15 +1948,21 @@ class ServingEngine:
                 torch.full((nb,), self.num_slots, dtype=torch.int64,
                            device=dev), 0,
                 zeros(nb), zeros(nb, dtype=torch.int64), zeros(nb),
-                zeros(nb, 2, dtype=torch.int64))
+                zeros(nb, 2, dtype=torch.int64), **paged)
         if self.max_len > self.prefill_chunk:
+            bt = None if null_bt is None else null_bt[:1]
             for width in sorted({self._chunk_width, *self._buckets}):
                 toks = zeros(1, width, dtype=torch.int32)
-                staging = init_cache(self.model, 1, self.max_len)
-                _, staging = _dec._forward(self.model, staging, toks, 0)
+                if self.paged and not self.rolling:
+                    staging = None
+                    self._paged_chunk(toks, 0, 1, bt)
+                else:
+                    staging = init_cache(self.model, 1, self.max_len)
+                    _, staging = _dec._forward(self.model, staging, toks, 0)
                 self._final_chunk(staging, toks, self.num_slots, 0, 0, 1,
                                   zeros(1), zeros(1, dtype=torch.int64),
-                                  zeros(1), zeros(1, 2, dtype=torch.int64))
+                                  zeros(1), zeros(1, 2, dtype=torch.int64),
+                                  bt=bt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return self

@@ -345,8 +345,8 @@ def test_background_thread_drives_requests(fitted):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob", [
-    {"paged": True}, {"block_size": 8}, {"kv_blocks": 4},
     {"spec_len": 2}, {"quantize": "int8"}, {"kv_dtype": "int8"},
+    {"kv_dtype": "int8", "paged": True},
     {"role": "prefill"}, {"tenants": []},
 ])
 def test_later_knobs_raise_their_item(fitted, knob):

@@ -10,16 +10,18 @@
 #
 # It runs chip_smoke.py from build/archive (the committed files alone),
 # profiles the slices named by its second argument from there (default:
-# the decode steps and the serving engine's decode iterations), runs the
-# phase named by its first argument (default: zoo) in the order parent,
-# change, change, parent when build/parent exists, and last runs the
-# script chip_smoke.py alone in an
-# empty directory, where it must fail.  The logs go to chiprun_out/.
+# the decode steps and the dense and paged serving engines' decode
+# iterations), runs the phases named by its first argument (default: zoo;
+# a comma-separated list runs each in turn, a side whose chip_smoke.py
+# lacks a phase logs it as absent) in the order parent, change, change,
+# parent when build/parent exists, and last runs the script chip_smoke.py
+# alone in an empty directory, where it must fail.  The logs go to
+# chiprun_out/.
 #
-#   bash tools/chip_final.sh [PHASE [SLICES]]
+#   bash tools/chip_final.sh [PHASES [SLICES]]
 set -u
 phase="${1:-zoo}"
-slices="${2:-decode,serve}"
+slices="${2:-decode,serve,paged}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
 (cd build/archive && python3 chip_smoke.py > "$out/smoke_final.log" 2>&1)
@@ -28,10 +30,17 @@ echo "smoke_rc=$?"
     --out "$out/profile_final.json" > "$out/profile_final.log" 2>&1)
 echo "prof_rc=$?"
 if [ -d build/parent ]; then
-  : > "$out/${phase}_ab.log"
+  log="$out/${phase//,/_}_ab.log"
+  : > "$log"
   for side in parent archive archive parent; do
     (cd "build/$side" && python3 -c "import sys; sys.path.insert(0, '.'); \
-import chip_smoke as c; c.phase_$phase('$side')" >> "$out/${phase}_ab.log" 2>&1)
+import chip_smoke as c
+for p in '$phase'.split(','):
+    run = getattr(c, 'phase_' + p, None)
+    if run is None:
+        print('{\"phase\": \"%s\", \"absent\": \"$side\"}' % p)
+    else:
+        run('$side')" >> "$log" 2>&1)
     echo "$side rc=$?"
   done
 fi

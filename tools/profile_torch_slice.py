@@ -2,7 +2,7 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
-        [--slices predict,train,parallel,zoo,adag,pack,decode,serve]
+        [--slices predict,train,parallel,zoo,adag,pack,decode,serve,paged]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -45,7 +45,11 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
   step as a CUDA graph and uncaptured: 8 running requests in steady
   decode, 8 engine iterations traced (``chip_smoke._serve_profile``: the
   busy time, idle share and host calls of a decode iteration, graph
-  launches among them), then 64 steps back to back between CUDA events.
+  launches among them), then 64 steps back to back between CUDA events;
+- paged: the same engine with its paged KV pool (``chip_smoke.py``'s
+  phase paged: ``paged=True``, blocks of 16 tokens, the default
+  ``kv_blocks``), both forms, its decode step as a CUDA graph over the
+  device block tables and uncaptured, traced the same way.
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
@@ -258,7 +262,7 @@ def profile_decode(name):
             "position": pos, **device_summary(prof, wall_ms)}
 
 
-def profile_serve(name, graphed):
+def profile_serve(name, graphed, paged=False):
     import numpy as np
     import chip_smoke
     from distkeras_tpu_torch import load_jax_weights, transformer_lm
@@ -266,10 +270,13 @@ def profile_serve(name, graphed):
     model = transformer_lm(**chip_smoke.LM, **extra)
     load_jax_weights(model, chip_smoke._random_jax_weights(
         model, np.random.default_rng(chip_smoke.SEED + 15)))
-    return {"slice": "serve", "form": name,
+    knobs = (dict(paged=True, block_size=chip_smoke.PAGED_BLOCK) if paged
+             else {})
+    return {"slice": "paged" if paged else "serve", "form": name,
             "step": "graph" if graphed else "uncaptured",
-            "slots": chip_smoke.SERVE_SLOTS,
-            **chip_smoke._serve_profile(model, rolling, graphed, "cuda")}
+            "slots": chip_smoke.SERVE_SLOTS, **knobs,
+            **chip_smoke._serve_profile(model, rolling, graphed, "cuda",
+                                        **knobs)}
 
 
 def profile_zoo():
@@ -419,9 +426,9 @@ def main() -> int:
         ROOT, "build", "profile_torch_slice.json"))
     ap.add_argument("--slices",
                     default="predict,train,parallel,zoo,adag,pack,decode,"
-                            "serve",
+                            "serve,paged",
                     help="comma-separated: predict, train, parallel, zoo, "
-                         "adag, pack, decode, serve")
+                         "adag, pack, decode, serve, paged")
     args = ap.parse_args()
     slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
@@ -460,10 +467,12 @@ def main() -> int:
     if "decode" in slices:
         runs += [lambda n=name: profile_decode(n)
                  for name in ("full", "rolling_window")]
-    if "serve" in slices:
-        runs += [lambda n=name, g=graphed: profile_serve(n, g)
-                 for name in ("full", "rolling_window")
-                 for graphed in (True, False)]
+    for kind in ("serve", "paged"):
+        if kind in slices:
+            runs += [lambda n=name, g=graphed, k=kind:
+                     profile_serve(n, g, paged=k == "paged")
+                     for name in ("full", "rolling_window")
+                     for graphed in (True, False)]
     for run in runs:
         row = run()
         results["rows"].append(row)
