@@ -527,6 +527,26 @@ PREFIX_SLOTS, PREFIX_MAX_LEN, PREFIX_CHUNK, PREFIX_PER_STEP = 8, 256, 16, 4
 PREFIX_USERS = 8
 PREFIX_HIT_MIN = 224 * 15
 PAGED_TIGHT = 2
+# speculation and quantization in the engine (ROADMAP queue A item 4): phase
+# serve's engine and trace (bf16, full width, both forms, 8 slots, chunks
+# of 128) with spec_len SPEC_DRAFT_LEN, drafted by the target itself and
+# by a SPEC_DRAFT_LAYERS-layer draft of the same widths; the target and
+# that draft are first trained on the card on phase train's x+1 task
+# (SPEC_TRAIN_ROWS rows of seq 2048, batch 8, SPEC_TRAIN_EPOCHS epochs,
+# adam 3e-3), examples/loadgen.py:698-740 build_spec_engine at full
+# width.  Besides phase serve's trace, an x+1 "arith" greedy trace
+# (examples/loadgen.py:75-77: each prompt a seeded-start x+1 run) of
+# SERVE_REQUESTS requests, SERVE_PROMPT_LENS prompts and SERVE_STEPS new
+# tokens reads the accept rate.  Graph = uncaptured at bf16 over the
+# trace's first SPEC_UNCAPTURED requests (dense self-drafted, paged with
+# the trained draft: the uncaptured round is host-bound, 44-116 ms a
+# round on the H100).  The f32 checks run on
+# SERVE_CHECK_LAYERS layers (TF32 off) over the first SPEC_CHECK_REQUESTS
+# greedy requests of the trace cut to SPEC_CHECK_STEPS new tokens, the
+# random draft SPEC_DRAFT_LAYERS layers of random weights
+SPEC_TRAIN_ROWS, SPEC_TRAIN_EPOCHS = 64, 6
+SPEC_UNCAPTURED = 8
+SPEC_CHECK_REQUESTS, SPEC_CHECK_STEPS = 6, 48
 
 
 def emit(obj) -> None:
@@ -2935,12 +2955,23 @@ def _serve_run(model, trace, rolling: bool, dev: str, graphed: bool = True,
     wall = time.perf_counter() - t0
     ttft = np.array([h.ttft_s for h in handles]) * 1e3
     paged = {}
+    if eng._draft_model is not None:
+        st = eng.stats
+        paged["spec"] = {k: st[k] for k in (
+            "drafted", "accepted", "verify_calls", "target_calls",
+            "active_slot_steps")}
+        paged["spec"]["accept_rate"] = (st["accepted"] / st["drafted"]
+                                        if st["drafted"] else None)
+        # tokens a round commits per active row (accepted + 1 each)
+        paged["spec"]["tokens_per_round_per_row"] = (
+            (st["accepted"] + st["active_slot_steps"])
+            / st["active_slot_steps"] if st["active_slot_steps"] else None)
     if eng.paged:
-        paged = {"pool": {k: eng.stats[k] for k in PAGED_POOL_STATS},
+        paged.update({"pool": {k: eng.stats[k] for k in PAGED_POOL_STATS},
                  "kv_blocks": eng.kv_blocks,
                  "kv_blocks_in_use": eng.kv_blocks_in_use,
                  "conservation": eng._pool.check_conservation(),
-                 "plans_left": len(eng._plans)}
+                 "plans_left": len(eng._plans)})
     return {"rows": [h.result() for h in handles],
             "finish": [h.finish for h in handles],
             "wall_s": wall,
@@ -2993,7 +3024,8 @@ def _serve_profile(model, rolling: bool, graphed: bool, dev: str,
     engine iterations under torch.profiler (host calls and busy time a
     step), then SERVE_EVENT_STEPS decode steps back to back between two
     CUDA events (the device's time a step with the host's gaps in it).
-    ``knobs`` as in _serve_engine."""
+    ``knobs`` as in _serve_engine (with ``spec_draft``, a step is a
+    speculative round)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3002,7 +3034,7 @@ def _serve_profile(model, rolling: bool, graphed: bool, dev: str,
     for _ in range(SERVE_SLOTS):
         eng.submit(rng.integers(0, LM["vocab_size"], 64).astype(np.int32),
                    LM["seq_len"] - 64)
-    while eng._free or eng._prefilling:
+    while eng.queue_depth or eng._prefilling:
         eng.step()
     for _ in range(4):
         eng.step()
@@ -3018,7 +3050,7 @@ def _serve_profile(model, rolling: bool, graphed: bool, dev: str,
     n = SERVE_PROFILE_STEPS
     event_ms = None
     if torch.device(dev).type == "cuda":
-        step = eng._graph.replay if graphed else eng._device_step
+        step = eng._graph.replay if graphed else eng._device_iteration
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3544,6 +3576,323 @@ def phase_paged(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _arith_trace(rng):
+    """examples/loadgen.py's make_trace(pattern="arith") at the phase's
+    shape: SERVE_REQUESTS greedy requests, each prompt a seeded-start x+1
+    run (mod the vocabulary) of a length drawn from SERVE_PROMPT_LENS,
+    SERVE_STEPS new tokens."""
+    import numpy as np
+    trace = []
+    for _ in range(SERVE_REQUESTS):
+        p_len = int(rng.choice(SERVE_PROMPT_LENS))
+        start = int(rng.integers(0, LM["vocab_size"]))
+        prompt = ((start + np.arange(p_len)) % LM["vocab_size"])
+        trace.append((prompt.astype(np.int32), SERVE_STEPS, {}))
+    return trace
+
+
+def _spec_pair(extra, rng, dev: str):
+    """The target LM (bf16, full width) and a SPEC_DRAFT_LAYERS-layer
+    draft of the same widths, from random weights, each trained on the
+    card on the x+1 task: returns (target, draft, their loss histories,
+    seconds)."""
+    import numpy as np
+    from distkeras_tpu_torch import (Dataset, FittedModel, SingleTrainer,
+                                     load_jax_weights, transformer_lm)
+    x = rng.integers(0, LM["vocab_size"],
+                     (SPEC_TRAIN_ROWS, LM["seq_len"])).astype(np.int32)
+    data = Dataset({"features": x,
+                    "label": ((x + 1) % LM["vocab_size"]).astype(np.int64)})
+    out, hist = [], []
+    t0 = time.perf_counter()
+    for layers in (LM["num_layers"], SPEC_DRAFT_LAYERS):
+        model = transformer_lm(**{**LM, **extra, "num_layers": layers},
+                               device=dev)
+        load_jax_weights(model, _random_jax_weights(model, rng))
+        trainer = SingleTrainer(FittedModel(model), device=dev,
+                                **{**TRAINER, "num_epoch": SPEC_TRAIN_EPOCHS})
+        out.append(trainer.train(data).model)
+        hist.append(trainer.get_history())
+    _sync(dev)
+    return out[0], out[1], hist, time.perf_counter() - t0
+
+
+def _greedy_share(got_rows, want_rows, trace) -> float:
+    """The share of the trace's greedy requests whose rows agree."""
+    import numpy as np
+    same = [np.array_equal(a, b) for a, b, r in zip(got_rows, want_rows,
+                                                      trace) if not r[2]]
+    return sum(same) / len(same)
+
+
+def _spec_checks(card: str, dev: str, trace, rng) -> dict:
+    """At f32 on a SERVE_CHECK_LAYERS-layer copy, TF32 off, both forms,
+    over SPEC_CHECK_REQUESTS greedy requests of the trace cut to
+    SPEC_CHECK_STEPS: the speculative engine (self-draft and a random
+    SPEC_DRAFT_LAYERS-layer draft, dense and paged) equals the plain
+    engine and generate; on the full form the speculative, the int8-KV
+    (dense, paged) and the quantized-weight (int8, bf16) engines on the
+    card equal the same engines on the CPU; int8 KV codes and scales of
+    the card equal the CPU's."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.core import decode, quant
+    x = torch.as_tensor(rng.standard_normal((64, 2, 32)).astype(np.float32))
+    codes = [quant.quantize_kv(t) for t in (x, x.to(dev))]
+    same_codes = all(torch.equal(a, b.cpu()) for a, b in zip(*codes))
+    emit({"phase": "spec_int8_codes", "card_equals_cpu": same_codes,
+          "card": card})
+    check(same_codes, "spec: int8 KV codes or scales differ card vs CPU")
+    greedy = [(p, SPEC_CHECK_STEPS, kw) for p, _, kw in trace
+              if not kw][:SPEC_CHECK_REQUESTS]
+    paged = dict(paged=True, block_size=PAGED_BLOCK)
+    out = {}
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model, plain, cpu = _decode_models(extra, rng, dev,
+                                           layers=SERVE_CHECK_LAYERS)
+        cfg = dict(LM, compute_dtype="float32", num_layers=SPEC_DRAFT_LAYERS,
+                   **extra)
+        weights = _random_jax_weights(transformer_lm(**cfg, device="meta"),
+                                      rng)
+        rdraft = transformer_lm(**cfg, device=dev)
+        load_jax_weights(rdraft, weights)
+        rdraft_cpu = transformer_lm(**cfg, device="cpu")
+        load_jax_weights(rdraft_cpu, weights)
+        want = {}
+        for p_len in sorted({len(p) for p, _, _ in greedy}):
+            idx = [i for i, r in enumerate(greedy) if len(r[0]) == p_len]
+            rows = decode.generate(
+                model, torch.as_tensor(np.stack([greedy[i][0] for i in idx])),
+                SPEC_CHECK_STEPS, max_len=LM["seq_len"], rolling=rolling)
+            want.update(zip(idx, rows.cpu().numpy()))
+        want = [want[i] for i in range(len(greedy))]
+        row = {"phase": "spec_checks", "form": form,
+               "compute_dtype": "float32", "layers": SERVE_CHECK_LAYERS,
+               "requests": len(greedy), "steps": SPEC_CHECK_STEPS,
+               "card": card}
+        bad = {}
+        runs = {"plain": _serve_run(model, greedy, rolling, dev)}
+        for name, knobs in (("self", dict(spec_draft=model)),
+                            ("random", dict(spec_draft=rdraft)),
+                            ("self_paged", dict(spec_draft=model, **paged)),
+                            ("random_paged", dict(spec_draft=rdraft,
+                                                  **paged))):
+            r = _serve_run(model, greedy, rolling, dev,
+                           spec_len=SPEC_DRAFT_LEN, **knobs)
+            runs[name] = r
+            if "kv_blocks_in_use" in r:
+                check(r["kv_blocks_in_use"] == 0 and r["conservation"]
+                      and not r["plans_left"],
+                      f"spec {form}: {name} leaked "
+                      f"{r['kv_blocks_in_use']} blocks")
+        for name, r in runs.items():
+            bad[f"{name}_vs_generate"] = _serve_mismatch(r["rows"], want,
+                                                         greedy, plain)
+            if name != "plain":
+                bad[f"{name}_vs_plain"] = _serve_mismatch(
+                    r["rows"], runs["plain"]["rows"], greedy, plain)
+        row["accept_rates"] = {n: r["spec"]["accept_rate"]
+                               for n, r in runs.items() if "spec" in r}
+        if form == "full":
+            # (name, the card's run, the CPU engine's knobs)
+            cpu_runs = (
+                ("spec_self", runs["self"],
+                 dict(spec_draft=cpu, spec_len=SPEC_DRAFT_LEN)),
+                ("spec_random_paged", runs["random_paged"],
+                 dict(spec_draft=rdraft_cpu, spec_len=SPEC_DRAFT_LEN,
+                      **paged)),
+                *((name, _serve_run(model, greedy, rolling, dev, **knobs),
+                   knobs) for name, knobs in (
+                      ("kv_int8", dict(kv_dtype="int8")),
+                      ("kv_int8_paged", dict(kv_dtype="int8", **paged)),
+                      ("weights_int8", dict(quantize="int8")),
+                      ("weights_bf16", dict(quantize="bf16")))))
+            t0 = time.perf_counter()
+            for name, on_card, knobs in cpu_runs:
+                on_cpu = _serve_run(cpu, greedy, rolling, "cpu", **knobs)
+                bad[f"{name}_card_vs_cpu"] = _serve_mismatch(
+                    on_card["rows"], on_cpu["rows"], greedy, plain)
+            row["cpu_s"] = time.perf_counter() - t0
+        row.update({f"{k}_equal": v is None for k, v in bad.items()})
+        row["first_differences"] = {k: v for k, v in bad.items()
+                                    if v is not None}
+        emit(row)
+        check(not row["first_differences"],
+              f"spec {form}: f32 checks differ: {row['first_differences']}")
+        out[form] = row
+        del model, plain, cpu, rdraft, rdraft_cpu, runs
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec(card: str, dev: str = "cuda"):
+    """Speculation and quantization in the engine on the card: per form a
+    target and a SPEC_DRAFT_LAYERS-layer draft trained on the x+1 task,
+    then (counts from 0) phase serve's trace through the plain graph
+    engine, the self-drafted and the trained-draft speculative graph
+    engines, the trained-draft one twice (sampled rows repeat) and paged,
+    and its first SPEC_UNCAPTURED requests through the self-drafted and
+    the paged engines uncaptured (graph = uncaptured at bf16); the
+    arith trace through the plain and the trained-draft engines (accept
+    rate, tokens a round a row); ms a round, tokens/s against the plain
+    engine, host calls a round; the pools' bytes (bf16 and int8, dense and
+    paged) and bench.py's serving_quant_capacity_slots; the f32 checks of
+    _spec_checks; no kernel launched on any of it (the round attends
+    through the plain path, as the reference's does)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.serving import ServingEngine
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    trace = _serve_trace(np.random.default_rng(SEED + 15))
+    arith = _arith_trace(rng)
+    pairs = {form: _spec_pair(extra, rng, dev)
+             for form, (extra, _) in SERVE_FORMS.items()}
+    for form, (_, _, hist, seconds) in pairs.items():
+        emit({"phase": "spec_train", "form": form,
+              "epochs": SPEC_TRAIN_EPOCHS, "rows": SPEC_TRAIN_ROWS,
+              "target_losses": [hist[0][0], hist[0][-1]],
+              "draft_losses": [hist[1][0], hist[1][-1]],
+              "seconds": seconds, "card": card})
+    _zero_counts()          # the main path starts here (training is set-up)
+    spec = dict(spec_len=SPEC_DRAFT_LEN)
+    paged = dict(paged=True, block_size=PAGED_BLOCK)
+    rows = {}
+    for form, (extra, rolling) in SERVE_FORMS.items():
+        model, draft, _, _ = pairs[form]
+        runs = {
+            "plain": _serve_run(model, trace, rolling, dev),
+            "self": _serve_run(model, trace, rolling, dev,
+                               spec_draft=model, **spec),
+            "self_uncaptured": _serve_run(
+                model, trace[:SPEC_UNCAPTURED], rolling, dev, graphed=False,
+                spec_draft=model, **spec),
+            "draft": _serve_run(model, trace, rolling, dev,
+                                spec_draft=draft, **spec),
+            "draft_again": _serve_run(model, trace, rolling, dev,
+                                      spec_draft=draft, **spec),
+            "draft_paged": _serve_run(model, trace, rolling, dev,
+                                      spec_draft=draft, **spec, **paged),
+            "draft_paged_uncaptured": _serve_run(
+                model, trace[:SPEC_UNCAPTURED], rolling, dev,
+                graphed=False, spec_draft=draft, **spec, **paged),
+            "arith_plain": _serve_run(model, arith, rolling, dev),
+            "arith_draft": _serve_run(model, arith, rolling, dev,
+                                      spec_draft=draft, **spec)}
+        prof = {name: _serve_profile(model, rolling, True, dev, **knobs)
+                for name, knobs in (("plain", {}),
+                                    ("self", dict(spec_draft=model, **spec)),
+                                    ("draft", dict(spec_draft=draft,
+                                                   **spec)))}
+        same = _serve_mismatch(runs["self"]["rows"][:SPEC_UNCAPTURED],
+                               runs["self_uncaptured"]["rows"],
+                               trace[:SPEC_UNCAPTURED])
+        same_paged = _serve_mismatch(
+            runs["draft_paged"]["rows"][:SPEC_UNCAPTURED],
+            runs["draft_paged_uncaptured"]["rows"], trace[:SPEC_UNCAPTURED])
+        repeat = _serve_mismatch(runs["draft"]["rows"],
+                                 runs["draft_again"]["rows"], trace)
+        row = {"phase": "spec", "form": form,
+               "compute_dtype": LM["compute_dtype"], "slots": SERVE_SLOTS,
+               "spec_len": SPEC_DRAFT_LEN, "draft_layers": SPEC_DRAFT_LAYERS,
+               "requests": len(trace), "steps": SERVE_STEPS,
+               "graph_equals_uncaptured": same is None,
+               "paged_graph_equals_uncaptured": same_paged is None,
+               "sampled_rows_repeat": repeat is None,
+               "greedy_share_spec_equals_plain": {
+                   name: _greedy_share(runs[name]["rows"],
+                                       runs["plain"]["rows"], trace)
+                   for name in ("self", "draft")},
+               **{f"{name}_{k}": runs[name][k] for name in runs
+                  for k in ("tokens_per_sec", "ms_per_decode_step",
+                            "ttft_ms_p50", "wall_s")},
+               "spec": {name: r["spec"] for name, r in runs.items()
+                        if "spec" in r},
+               "decode_only_iterations": {
+                   name: r["decode_only_iterations"]
+                   for name, r in runs.items()},
+               "h2d_per_decode_iteration": sorted({
+                   v for r in runs.values()
+                   for v in r["h2d_per_decode_iteration"]}),
+               "d2h_per_decode_iteration": sorted({
+                   v for r in runs.values()
+                   for v in r["d2h_per_decode_iteration"]}),
+               "graph": {name: [r["stats"]["graph_captures"],
+                                r["stats"]["graph_replays"],
+                                r["stats"]["decode_steps"]]
+                         for name, r in runs.items()},
+               "paged_kv_blocks_in_use": runs["draft_paged"]
+               ["kv_blocks_in_use"],
+               "profile": prof, "card": card}
+        for key, bad in (("first_difference", same),
+                         ("paged_first_difference", same_paged),
+                         ("repeat_first_difference", repeat)):
+            if bad is not None:
+                row[key] = bad
+        emit(row)
+        check(same is None and same_paged is None,
+              f"spec {form}: the graph round differs from the uncaptured "
+              f"round: {same or same_paged}")
+        check(repeat is None, f"spec {form}: sampled rows did not repeat: "
+              f"{repeat}")
+        for name, r in runs.items():
+            check(r["stats"]["requests_completed"] == len(r["rows"])
+                  and all(f == "length" for f in r["finish"]),
+                  f"spec {form}: {name} lost requests")
+            check(r["decode_only_iterations"] > 0
+                  and r["h2d_per_decode_iteration"] == [0]
+                  and r["d2h_per_decode_iteration"] == [1],
+                  f"spec {form}: {name} moved "
+                  f"{r['h2d_per_decode_iteration']} uploads and "
+                  f"{r['d2h_per_decode_iteration']} readbacks a decode-only "
+                  f"iteration, want [0] and [1]")
+            graphed = not name.endswith("uncaptured")
+            check(r["stats"]["graph_captures"] == int(graphed)
+                  and r["stats"]["graph_replays"]
+                  == (r["stats"]["decode_steps"] if graphed else 0),
+                  f"spec {form}: {name}: {r['stats']['graph_captures']} "
+                  f"captures, {r['stats']['graph_replays']} replays for "
+                  f"{r['stats']['decode_steps']} steps")
+            if "kv_blocks_in_use" in r:
+                check(r["kv_blocks_in_use"] == 0 and r["conservation"]
+                      and not r["plans_left"],
+                      f"spec {form}: {name} leaked "
+                      f"{r['kv_blocks_in_use']} blocks")
+        rows[form] = row
+        del runs
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    model = pairs["full"][0]
+    pools = {}
+    for name, knobs in (("bf16", {}), ("int8", dict(kv_dtype="int8")),
+                        ("bf16_paged", paged),
+                        ("int8_paged", dict(kv_dtype="int8", **paged))):
+        eng = ServingEngine(model, num_slots=SERVE_SLOTS,
+                            max_len=LM["seq_len"], **knobs)
+        pools[name] = eng.kv_pool_bytes
+        del eng
+    capacity = int(pools["bf16"] // (pools["int8"] // SERVE_SLOTS))
+    rows["pools"] = {"phase": "spec_pools", "slots": SERVE_SLOTS,
+                     "kv_pool_bytes": pools,
+                     "serving_quant_capacity_slots": capacity, "card": card}
+    emit(rows["pools"])
+    del pairs, model
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    rows["checks"] = _spec_checks(card, dev, trace, rng)
+    launches = _read_counts()
+    emit({"phase": "spec_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"spec: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "spec_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3574,6 +3923,7 @@ def main() -> int:
     _, decode_launches = phase_decode(smi)
     _, serve_launches = phase_serve(smi)
     _, paged_launches = phase_paged(smi)
+    _, spec_launches = phase_spec(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -3730,9 +4080,9 @@ def main() -> int:
                             "library_fwd_ms": w32["library_fwd_ms"],
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
-        """The entry's launches on the packing, decode, serving and paged
-        serving paths (each counted from 0 over its phase's runs; all
-        must be 0)."""
+        """The entry's launches on the packing, decode, serving, paged
+        serving and speculative serving paths (each counted from 0 over
+        its phase's runs; all must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -3743,6 +4093,7 @@ def main() -> int:
         entry["launches_decode"] = decode_launches[key]
         entry["launches_serve"] = serve_launches[key]
         entry["launches_paged"] = paged_launches[key]
+        entry["launches_spec"] = spec_launches[key]
         return entry
 
     emit(north_star)

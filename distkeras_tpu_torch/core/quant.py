@@ -18,7 +18,11 @@ two leaves ``q`` and ``scale``, in the JAX pytree's order.
 Symmetric per-output-channel scheme: ``scale = max|w| / 127`` reduced over
 all but the last axis, ``codes = round(w / scale)`` (half to even, as
 ``jnp.round``), computed in f32 as the JAX package does, so the codes are
-the same bits.  Quantize after training (``FittedModel.quantize()``).
+the same bits.  Scales divide by a tensor of 127s, never by the Python
+number: a CUDA division by a scalar multiplies by its rounded reciprocal,
+which can land one ulp off the true quotient that the CPU (and XLA)
+computes, so only the tensor division gives the card the CPU's scales bit
+for bit.  Quantize after training (``FittedModel.quantize()``).
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def quantize_tensor(w: torch.Tensor) -> QuantizedTensor:
     w = w.detach().to(torch.float32)
     dims = tuple(range(w.ndim - 1))
     amax = torch.amax(torch.abs(w), dim=dims, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale)
 
@@ -167,7 +172,8 @@ def quantize_kv(x: torch.Tensor):
     never written) keep scale 0 and dequantize to exact zeros."""
     xf = x.to(torch.float32)
     amax = torch.amax(torch.abs(xf), dim=-1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.zeros_like(amax))
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.zeros_like(amax))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(xf / safe[..., None]), -127,
                     127).to(torch.int8)

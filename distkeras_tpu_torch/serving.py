@@ -45,6 +45,29 @@ inference server with iteration-level scheduling:
    buffers) and replayed every iteration; on the CPU the same function
    runs uncaptured.  A card whose capture fails raises: there is no
    quiet switch to the uncaptured step.
+ - **Speculative decoding** (``spec_draft=``) — every decode iteration
+   is one speculative round (:func:`_spec_round`): ``spec_len`` per-row
+   draft steps over the draft's own pool (the same slot indices; paged:
+   its own arena over the same block ids), one batched verify forward of
+   the target over ``[token, d_1 .. d_k]``, a per-row accept and commit
+   (greedy rows take the longest drafted prefix matching the target's
+   argmax, so their chain is the argmax chain; sampled rows take the
+   Leviathan/Chen rule on identically warped distributions), and a draft
+   back-fill step.  Rows commit 1 to ``spec_len + 1`` tokens each; the
+   round's one output row carries them and their counts, so an iteration
+   still reads back one array.  On a CUDA card the round is the captured
+   graph.  A rolling target pool keeps ``spec_len`` slack slots in its
+   ring, so that the L = ``spec_len + 1`` verify write never overwrites
+   the oldest query's window.
+ - **Quantization** — ``quantize="int8"`` (weight-only int8,
+   ``core.quant.quantize_params``) or ``"bf16"`` (float weights rounded
+   to bf16, computed in the model's compute dtype), applied once at
+   construction to the target and the draft; ``kv_dtype="int8"`` stores
+   the pools as int8 codes plus per-entry scales (about 1.8x the slots at
+   the same bytes).  A dense int8 engine prefills in full precision and
+   quantizes on commit, a paged one prefills through the int8 arena (its
+   prompt attends over dequantized entries, as token-by-token decoding
+   does): the two rules differ, as the JAX package's two engines do.
  - **Retirement + slot reuse** — a request leaves its slot the moment it
    emits ``eos_id`` or its ``num_steps``-th token, and the slot is
    reusable by the next queued request mid-run.
@@ -56,17 +79,30 @@ Determinism contract: a lone request through the engine emits the tokens
 that ``generate`` emits under the same seed and parameters — greedy and
 sampled alike, since both draw through ``core.decode``'s one counter-based
 draw rule (row 0 of ``generate``'s batch draws what a lone request
-draws).
+draws).  Greedy speculation emits ``generate``'s tokens too; sampled
+speculation commits the warped target distribution exactly, with draws of
+its own.
+
+Draws of the speculative round: ``core.decode.random_bits`` under the
+request's key, counter (t, p · V + j) for a draw of purpose p at absolute
+position t (V the vocabulary, j < V the draw's word).  Purpose 0 is the
+plain sampler (the first token after prefill), 1 the draft's proposal of
+the token at t, 2 the accept uniform of the token proposed at t (one
+word), 3 the residual or bonus draw of the token at t.  So no two purposes
+of one request share bits, and a position's draws depend on (key,
+position, purpose) alone: a position drafted again after a rejection
+reuses bits that decided nothing committed (the JAX round folds its keys
+by (position, purpose) for the same reason; its bits are not these).
 
 Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): speculation, quantized weights and KV in the engine, roles
-and tenants (queue A item 4), hot weight reload from a parameter server
-(queue A item 6), and the wire front-end.
+ROADMAP item): roles and tenants (queue A item 4), hot weight reload from
+a parameter server (queue A item 6), and the wire front-end.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import logging
 import threading
 import time
@@ -74,6 +110,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core import decode as _dec
 from .core.decode import (_check_supported, _context_limit, _forward,
@@ -81,7 +118,8 @@ from .core.decode import (_check_supported, _context_limit, _forward,
                           _validate_stopping, _vocab_size, init_cache,
                           rng_key, sample_logits)
 from .core.model import FittedModel, Sequential
-from .core.quant import kv_cache_bytes
+from .core.quant import (QUANT_KEYS, QuantizedTensor, kv_cache_bytes,
+                         quantize_kv, quantize_params)
 from .resilience import RetryPolicy as _RetryPolicy
 
 logger = logging.getLogger("distkeras_tpu_torch.serving")
@@ -275,20 +313,74 @@ class RequestHandle:
                 else self.first_token_at - self.submitted_at)
 
 
+def _quantize_weights(model: Sequential, mode: str) -> Sequential:
+    """The engine's one weight-quantization path, applied once at
+    construction: ``"int8"`` — ``quantize_params`` weight-only int8 (the
+    matmul kernels become :class:`QuantizedTensor` codes + scales that
+    dequantize inside the unmodified forward); ``"bf16"`` — every float
+    parameter and buffer rounded to bfloat16 (QuantizedTensor and integer
+    leaves untouched), so that a float32 compute dtype computes at f32 on
+    bf16-rounded weights.  Both copy the model and leave ``model`` as it
+    is.  Idempotent: a model already in the mode's form comes back as it
+    is, without a second copy."""
+    if mode == "int8":
+        todo = any(name in QUANT_KEYS and p.ndim >= 2
+                   for m in model.modules()
+                   for name, p in m._parameters.items() if p is not None)
+        return quantize_params(model) if todo else model
+
+    def leaves(m):
+        return [t for t in (*m._parameters.values(), *m._buffers.values())
+                if t is not None and t.is_floating_point()
+                and t.dtype != torch.bfloat16]
+
+    if not any(leaves(m) for m in model.modules()
+               if not isinstance(m, QuantizedTensor)):
+        return model
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for m in out.modules():
+            if isinstance(m, QuantizedTensor):
+                continue
+            for name, p in m._parameters.items():
+                if p is not None and p.is_floating_point():
+                    m._parameters[name] = nn.Parameter(
+                        p.detach().to(torch.bfloat16),
+                        requires_grad=p.requires_grad)
+            for name, b in m._buffers.items():
+                if b is not None and b.is_floating_point():
+                    m._buffers[name] = b.to(torch.bfloat16)
+    return out
+
+
+def _kv_entries(big, kv) -> Dict[str, torch.Tensor]:
+    """Prefilled full-precision ``{"k", "v"}`` entries as the pool stores
+    them: as they are, or quantized on commit for int8 pools (the
+    per-entry scales a decode-time write produces)."""
+    if "ks" not in big:
+        return kv
+    kq, ks = quantize_kv(kv["k"])
+    vq, vs = quantize_kv(kv["v"])
+    return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+
+
 def _commit_rows(big, row, slots: torch.Tensor, width: int, rolling: bool,
                  p_lens: torch.Tensor) -> None:
-    """Write freshly prefilled cache rows into the slot pool, in place:
-    row i of ``row`` into pool row ``slots[i]`` (the first
+    """Write freshly prefilled full-precision cache rows into the slot
+    pool, in place: row i of ``row`` into pool row ``slots[i]`` (the first
     ``len(slots)`` rows; the batch's unused rows are never written),
-    ring-converted per row for rolling pools."""
+    ring-converted per row for rolling pools, quantized on commit for
+    int8 pools."""
     if big is None:
         return
     n = slots.shape[0]
-    for name in ("k", "v"):
-        src = row[name][:n]
+    kv = {name: row[name][:n] for name in ("k", "v")}
+    if rolling:
+        kv = {name: _dec.ring_from_prefill(t, p_lens, big["k"].shape[1])
+              for name, t in kv.items()}
+    for name, src in _kv_entries(big, kv).items():
         if rolling:
-            big[name][slots] = _dec.ring_from_prefill(src, p_lens,
-                                                      big[name].shape[1])
+            big[name][slots] = src
         else:
             big[name][slots, :width] = src
 
@@ -297,13 +389,14 @@ def _commit_full_row(big, row, slot: int, rolling: bool,
                      p_row: torch.Tensor) -> None:
     """The chunked-prefill final commit: one staged full-length row
     replaces pool row ``slot`` in place (ring-collapsed for rolling
-    pools)."""
+    pools, quantized on commit for int8 pools)."""
     if big is None:
         return
-    for name in ("k", "v"):
-        src = row[name]
-        if rolling:
-            src = _dec.ring_from_prefill(src, p_row, big[name].shape[1])
+    kv = {name: row[name] for name in ("k", "v")}
+    if rolling:
+        kv = {name: _dec.ring_from_prefill(t, p_row, big["k"].shape[1])
+              for name, t in kv.items()}
+    for name, src in _kv_entries(big, kv).items():
         big[name][slot] = src[0]
 
 
@@ -325,6 +418,147 @@ def _commit_ring_blocks(arena, rows, p_lens: torch.Tensor,
         _dec._paged_write(big, phys, *ring)
 
 
+def _commit_view_blocks(arena, rows, p_lens: torch.Tensor,
+                        row_bt: torch.Tensor, page: int, view: int) -> None:
+    """The draft's commit of a rolling paged engine's chunked prefill:
+    each staged full-view row of ``rows`` (first ``len(row_bt)`` rows)
+    written, in place, into the arena slots its table row names,
+    positions at or past the row's prompt length into the null block."""
+    n = row_bt.shape[0]
+    j = torch.arange(view, device=row_bt.device)
+    blk = torch.clamp(j // page, max=row_bt.shape[1] - 1)
+    phys = row_bt[:, blk] * page + (j % page)[None, :]
+    past = j[None, :] >= p_lens[:n].reshape(-1, 1)
+    for big, row in zip(arena, rows):
+        if big is None:
+            continue
+        _dec._paged_write(big, phys.masked_fill(past, big["k"].shape[0] - 1),
+                          row["k"][:n, :view], row["v"][:n, :view])
+
+
+#: the speculative round's draw purposes (module docstring): each takes
+#: the counter words [p · V, (p + 1) · V) at a position
+_DRAW_DRAFT, _DRAW_ACCEPT, _DRAW_FINAL = 1, 2, 3
+
+
+def _draw_rows(like: torch.Tensor, purpose: int, words: int,
+               vocab: int) -> torch.Tensor:
+    """``random_bits``' ``rows`` argument that puts a draw of ``words``
+    words (``vocab`` or 1) at the start of ``purpose``'s counter words."""
+    return torch.full_like(like, purpose * vocab // words)
+
+
+@torch.no_grad()
+def _spec_round(model, draft, caches, d_caches, tok, pos, act, temp, topk,
+                topp, keys, k: int, rolling: bool = False,
+                paged: Optional["_dec.PagedView"] = None,
+                d_paged: Optional["_dec.PagedView"] = None):
+    """One speculative round of every slot, the counterpart of the JAX
+    engine's ``_build_spec_fn``: ``k`` per-row draft steps (``draft`` over
+    ``d_caches``, never rolling; ``d_paged`` its view of the draft arena),
+    one batched verify forward of ``model`` over ``[tok, d_1 .. d_k]`` at
+    the rows' positions (``rolling``: a dense ring with ``k`` slack slots;
+    ``paged``: the target arena's view), the per-row accept and commit,
+    and the draft's back-fill step at ``pos + k``.  The arguments are the
+    plain step's device state; the caches are written in place.
+
+    Returns ``(out, new_tok, new_pos)``: ``out`` (B, k + 2) int32 holds
+    row r's committed tokens in its first ``n_r`` columns and ``n_r`` (1
+    to k + 1 for an active row, 0 for an inactive one) in its last.  Only
+    gathers, scatters and ``where`` on static shapes, and no value read
+    back to the host: a CUDA graph captures the round.  Positions a row
+    wrote past its new frontier (rejected drafts) hold junk that its
+    ``kv_length`` masks until the next round overwrites them."""
+    b = tok.shape[0]
+    sampled = temp > 0.0
+    safe_t = torch.where(sampled, temp, torch.ones_like(temp))
+
+    def warp(logits):
+        return _dec.filter_logits_batched(logits / safe_t[:, None], topk,
+                                          topp)
+
+    # -- draft phase: k per-row single-token steps over the draft's pool
+    d_toks, q_logits = [], []
+    t = tok
+    for i in range(k):
+        dl, _ = _dec.decode_step(draft, d_caches, t, pos + i, False, d_paged)
+        wl = warp(dl)
+        vocab = dl.shape[-1]
+        prop = _dec._categorical(keys, pos + (i + 1),
+                                 _draw_rows(pos, _DRAW_DRAFT, vocab, vocab),
+                                 wl)
+        t = torch.where(sampled, prop,
+                        torch.argmax(dl, dim=-1)).to(torch.int32)
+        d_toks.append(t)
+        q_logits.append(wl)
+    drafted = torch.stack(d_toks, dim=1)                         # (B, k)
+
+    # -- verify: one forward over [tok, d_1 .. d_k]; logits[:, i] scores
+    #    the token after fed position i, so a fully accepted row still has
+    #    its bonus distribution at index k
+    fed = torch.cat([tok[:, None], drafted], dim=1)
+    logits, _ = _dec._forward(model, caches, fed, pos,
+                              rolling and paged is None, paged)
+    vocab = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)       # (B, k + 1)
+
+    # -- greedy accept: the longest drafted prefix matching the argmax
+    a_g = torch.cumprod((drafted == greedy[:, :k]).to(torch.int32),
+                        dim=1).sum(1)
+
+    # -- sampled accept: x ~ q accepted with probability min(1, p/q); the
+    #    first rejection redraws from norm(max(p - q, 0)), a full accept
+    #    draws the bonus from the warped p
+    rep_k = topk[:, None].expand(b, k).reshape(-1)
+    rep_p = topp[:, None].expand(b, k).reshape(-1)
+    pk = _dec.filter_logits_batched(
+        (logits[:, :k] / safe_t[:, None, None]).reshape(b * k, vocab),
+        rep_k, rep_p).reshape(b, k, vocab)
+    p_probs = torch.softmax(pk, dim=-1)
+    q_probs = torch.softmax(torch.stack(q_logits, dim=1), dim=-1)
+    at = drafted.long()[..., None]
+    px = torch.gather(p_probs, -1, at)[..., 0]
+    qx = torch.gather(q_probs, -1, at)[..., 0]
+    steps = torch.arange(1, k + 1, device=pos.device)
+    u = _dec._uniform(keys[:, None].expand(b, k, 2).reshape(b * k, 2),
+                      (pos[:, None] + steps[None, :]).reshape(-1),
+                      _draw_rows(pos.new_empty(b * k), _DRAW_ACCEPT, 1,
+                                 vocab), 1).reshape(b, k)
+    accept = u * torch.clamp(qx, min=1e-30) < px
+    a_s = torch.cumprod(accept.to(torch.int32), dim=1).sum(1)
+    ai = a_s.clamp(0, k - 1)[:, None, None].expand(b, 1, vocab)
+    p_a = torch.gather(p_probs, 1, ai)[:, 0]
+    q_a = torch.gather(q_probs, 1, ai)[:, 0]
+    res = torch.clamp(p_a - q_a, min=0.0)
+    rsum = res.sum(-1, keepdim=True)
+    # res == 0 iff p <= q everywhere, i.e. p == q: fall back to p
+    res = torch.where(rsum > 0.0, res / torch.clamp(rsum, min=1e-38), p_a)
+    bonus = torch.softmax(warp(logits[:, k]), dim=-1)
+    dist = torch.where((a_s == k)[:, None], bonus, res)
+    corr = _dec._categorical(keys, pos + a_s + 1,
+                             _draw_rows(pos, _DRAW_FINAL, vocab, vocab),
+                             torch.log(torch.clamp(dist, min=1e-38)))
+    committed_s = torch.cat([drafted, torch.zeros_like(drafted[:, :1])],
+                            dim=1).scatter(1, a_s[:, None],
+                                           corr.to(torch.int32)[:, None])
+
+    # -- per-row commit and the state advance
+    a = torch.where(sampled, a_s, a_g)
+    committed = torch.where(sampled[:, None], committed_s, greedy)
+    n = torch.where(act, a + 1, torch.zeros_like(a))
+    last = torch.gather(committed, 1, a[:, None])[:, 0]
+    new_tok = torch.where(act, last, tok)
+    new_pos = torch.where(act, pos + n, pos)
+
+    # -- back-fill: d_k at pos + k, the full-accept rows' cache hole (the
+    #    committed bonus's predecessor, never fed to the draft); for every
+    #    other row pos + k lies at or past its new frontier, junk masked
+    #    until overwritten
+    _dec.decode_step(draft, d_caches, d_toks[-1], pos + k, False, d_paged)
+    out = torch.cat([committed, n[:, None].to(torch.int32)], dim=1)
+    return out, new_tok, new_pos
+
+
 def _pow2_buckets(cap: int) -> List[int]:
     """The prefill length-bucket ladder: powers of two from 8 up, capped
     (and terminated) at ``cap`` — a small set of prefill widths."""
@@ -344,16 +578,21 @@ class _PrefillJob:
     tokens are staged so far.  ``staging`` is a full-length one-row cache
     the chunks accumulate into — private to the job, so the decode
     batch's junk writes into free pool rows cannot race it — which the
-    final chunk commits to the slot's pool row at once."""
+    final chunk commits to the slot's pool row at once.  Speculative
+    engines stage the draft's chunks alike (``d_staging``, ``dbt``)."""
 
-    __slots__ = ("handle", "staging", "written", "bt")
+    __slots__ = ("handle", "staging", "written", "bt", "d_staging", "dbt")
 
-    def __init__(self, handle: RequestHandle, staging=None, bt=None):
+    def __init__(self, handle: RequestHandle, staging=None, bt=None,
+                 d_staging=None, dbt=None):
         self.handle = handle
         self.staging = staging
         self.written = 0
         #: paged engines: the job's (1, T) device block-table row
         self.bt = bt
+        self.d_staging = d_staging
+        #: paged speculative engines: the draft's (1, T_d) table row
+        self.dbt = dbt
 
 
 # ---------------------------------------------------------------------------
@@ -606,6 +845,17 @@ class _PagedKVPool:
         plan.nodes, plan.private = [], []
 
 
+def _module_of(model) -> Sequential:
+    """The ``Sequential`` behind an engine's model argument: a
+    ``FittedModel``, a ``Sequential``, or a tuple whose first item is one
+    (the JAX engine's ``(model, params)`` form)."""
+    if isinstance(model, FittedModel):
+        return model.model
+    if isinstance(model, tuple):
+        return _module_of(model[0])
+    return model
+
+
 def _uses_graph(device: torch.device) -> bool:
     """Whether the decode step on ``device`` is a CUDA graph: on a CUDA
     card always, elsewhere never."""
@@ -656,9 +906,14 @@ class ServingEngine:
     prompt tokens one iteration may prefill for a single request
     (bucketed mode).
 
-    The JAX engine's later knobs (``spec_draft``, ``spec_len``,
-    ``quantize``, ``kv_dtype``, ``role``, ``tenants``) take their
-    defaults here; any other value raises ``NotImplementedError``.
+    ``spec_draft`` (a ``FittedModel`` or ``Sequential`` of the target's
+    vocabulary, on its device; bucketed mode only) makes every decode
+    iteration a speculative round of ``spec_len`` draft tokens.
+    ``quantize`` (None, ``"int8"``, ``"bf16"``) quantizes the target's
+    and the draft's weights once, into copies; ``kv_dtype="int8"``
+    (bucketed mode only) stores both pools as int8 codes plus per-entry
+    scales.  ``role`` and ``tenants`` take their defaults here; any other
+    value raises ``NotImplementedError``.
 
     Threading: ``submit`` is thread-safe (any number of producers); the
     scheduler itself — ``step`` / ``run_until_idle`` / the ``start``
@@ -677,23 +932,53 @@ class ServingEngine:
                  paged: bool = False, block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  role: str = "unified", tenants=None):
-        later = {"spec_draft": (spec_draft, None), "spec_len": (spec_len, 4),
-                 "quantize": (quantize, None), "kv_dtype": (kv_dtype, None),
-                 "role": (role, "unified"), "tenants": (tenants, None)}
+        later = {"role": (role, "unified"), "tenants": (tenants, None)}
         for name, (value, default) in later.items():
             if value != default:
                 raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}): speculation, "
-                    f"quantization, roles and tenants of the JAX engine "
-                    f"are not ported yet ({_LATER})")
-        if prefill_mode == "eager" and paged:
+                    f"ServingEngine({name}={value!r}): roles and tenants "
+                    f"of the JAX engine are not ported yet ({_LATER})")
+        if prefill_mode == "eager" and (spec_draft is not None
+                                        or kv_dtype is not None or paged):
             raise ValueError(
-                "paged is a fast-path feature (prefill_mode='bucketed'); "
-                "the eager engine stays the unmodified reference")
-        self.model = model.model if isinstance(model, FittedModel) else model
-        _check_supported(self.model)
+                "spec_draft / kv_dtype / paged are fast-path features "
+                "(prefill_mode='bucketed'); the eager engine stays the "
+                "unmodified bit-exactness reference")
+        if quantize not in (None, "int8", "bf16"):
+            raise ValueError(f"quantize must be None, 'int8' or 'bf16', "
+                             f"got {quantize!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', got "
+                             f"{kv_dtype!r}")
+        if int(spec_len) < 1:
+            raise ValueError(f"spec_len must be >= 1, got {spec_len}")
+        self.spec_len = int(spec_len)
+        self.quantize = quantize
+        self.kv_dtype = kv_dtype
+        target = _module_of(model)
+        _check_supported(target)
         if rolling:
-            _validate_rolling(self.model)
+            _validate_rolling(target)
+        draft = None if spec_draft is None else _module_of(spec_draft)
+        if draft is not None:
+            _check_supported(draft)
+            tv, dv = _vocab_size(target), _vocab_size(draft)
+            if tv is not None and dv is not None and tv != dv:
+                raise ValueError(
+                    f"target and draft vocabularies differ: {tv} vs {dv} — "
+                    f"draft proposals would be meaningless")
+            if draft.device != target.device:
+                raise ValueError(f"the draft lies on {draft.device}, the "
+                                 f"target on {target.device}")
+        # quantize ONCE at construction, into copies (the caller's models
+        # stay as they are); a self-draft shares the target's copy
+        self.model = target
+        if quantize is not None:
+            self.model = _quantize_weights(target, quantize)
+            if draft is not None:
+                draft = (self.model if draft is target
+                         else _quantize_weights(draft, quantize))
+        self._draft_model: Optional[Sequential] = draft
         self.device = self.model.device
         self.num_slots = int(num_slots)
         if self.num_slots < 1:
@@ -729,13 +1014,20 @@ class ServingEngine:
         #    slot (the scheduler's bookkeeping view).  Paged: a flat arena
         #    of block_size-token blocks plus the host allocator and prefix
         #    trie; the default kv_blocks holds the dense pool's capacity
-        #    exactly, so paged=True alone changes layout, not limits
+        #    exactly, so paged=True alone changes layout, not limits.  A
+        #    rolling pool under speculation keeps spec_len slack slots in
+        #    its ring (the L = spec_len + 1 verify write must not overwrite
+        #    the oldest query's window).  The draft gets its own pool over
+        #    the same slot indices (paged: its own arena over the same
+        #    block ids), full length and never rolling
+        ring_slack = self.spec_len if (rolling and draft is not None) else 0
         self.paged = bool(paged)
         if int(block_size) < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.block_size = int(block_size)
         self._pool: Optional[_PagedKVPool] = None
         self._plans: Dict[int, _BlockPlan] = {}
+        self.d_caches = None
         if self.paged:
             bs = self.block_size
             if self.rolling:
@@ -748,10 +1040,14 @@ class ServingEngine:
                         "attention_window across every TransformerBlock "
                         "(the block table is per request, shared by all "
                         f"layers); got windows {sorted(windows)}")
-                self._t_view = min(windows.pop(), self.max_len)
+                self._t_view = min(windows.pop() + ring_slack, self.max_len)
             else:
                 self._t_view = self.max_len
             self._blocks_per_slot = -(-self._t_view // bs)
+            if draft is not None:
+                # the draft pages max_len positions over the same chain
+                self._blocks_per_slot = max(self._blocks_per_slot,
+                                            -(-self.max_len // bs))
             if kv_blocks is None:
                 kv_blocks = self.num_slots * self._blocks_per_slot
             self.kv_blocks = int(kv_blocks)
@@ -761,11 +1057,18 @@ class ServingEngine:
                     f"max-length request ({self._blocks_per_slot} blocks "
                     f"of {bs} tokens)")
             self.caches = _dec.init_paged_arena(self.model, self.kv_blocks,
-                                                bs)
+                                                bs, kv_dtype=kv_dtype)
+            if draft is not None:
+                self.d_caches = _dec.init_paged_arena(
+                    draft, self.kv_blocks, bs, kv_dtype=kv_dtype)
         else:
             self.kv_blocks = None
             self.caches = init_cache(self.model, self.num_slots,
-                                     self.max_len, rolling=self.rolling)
+                                     self.max_len, rolling=self.rolling,
+                                     kv_dtype=kv_dtype, ring_slack=ring_slack)
+            if draft is not None:
+                self.d_caches = init_cache(draft, self.num_slots,
+                                           self.max_len, kv_dtype=kv_dtype)
         self._handles: List[Optional[RequestHandle]] = [None] * self.num_slots
         self._free: List[int] = list(range(self.num_slots - 1, -1, -1))
         self._positions = np.zeros((self.num_slots,), np.int64)
@@ -794,6 +1097,7 @@ class ServingEngine:
         self._graph = None
         self._graphed = (self.prefill_mode == "bucketed"
                          and _uses_graph(self.device))
+        self._dev_dbt: Optional[torch.Tensor] = None
         if self.prefill_mode == "bucketed":
             def zeros(*shape, dtype=torch.float32):
                 return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -805,15 +1109,26 @@ class ServingEngine:
             self._dev_topk = zeros(b, dtype=torch.int64)
             self._dev_topp = zeros(b)
             self._dev_keys = zeros(b, 2, dtype=torch.int64)
+            if draft is not None:
+                # the speculative round's output row: committed tokens and
+                # their count per slot, the one array a round reads back
+                self._dev_spec = zeros(b, self.spec_len + 2,
+                                       dtype=torch.int32)
             if self.paged:
                 # the device block tables: one row per slot, null-filled
                 # (null = kv_blocks, the arena's junk block), the last
                 # column always null; the prefill programs install a
-                # slot's row and retirement re-nulls it, in place
-                self._t_tbl = self._blocks_per_slot + 1
+                # slot's row and retirement re-nulls it, in place.  The
+                # draft's table rows name the same blocks over max_len
+                self._t_tbl = -(-self._t_view // self.block_size) + 1
                 self._dev_bt = torch.full((b, self._t_tbl), self.kv_blocks,
                                           dtype=torch.int64,
                                           device=self.device)
+                if draft is not None:
+                    self._d_tbl = -(-self.max_len // self.block_size) + 1
+                    self._dev_dbt = torch.full(
+                        (b, self._d_tbl), self.kv_blocks,
+                        dtype=torch.int64, device=self.device)
 
         # -- scheduler thread + stats + failure state
         self._thread: Optional[threading.Thread] = None
@@ -839,11 +1154,18 @@ class ServingEngine:
             "prefill_batched_requests": 0, "prefill_batch_size_mean": None,
             "prefill_tokens": 0,
             "h2d_transfers": 0, "d2h_transfers": 0,
+            # speculation, in speculative_generate's vocabulary: draft
+            # proposals, accepted prefix tokens, the batched verify
+            # forwards (target_calls mirrors verify_calls); all 0 without
+            # a draft
+            "drafted": 0, "accepted": 0,
+            "verify_calls": 0, "target_calls": 0,
             # the paged pool: fresh block allocations, trie-shared blocks,
             # admissions (and their tokens) served from the prefix trie,
             # boundary copy-on-writes, LRU reclaims of cached chains (all
-            # 0 on dense engines); kv_pool_bytes is the pool's device
-            # bytes (the arena with its null block when paged)
+            # 0 on dense engines); kv_pool_bytes is the target pool's
+            # device bytes (the arena with its null block when paged;
+            # codes + scales for int8 pools)
             "blocks_allocated": 0, "blocks_reused": 0, "blocks_evicted": 0,
             "prefix_hits": 0, "prefix_hit_tokens": 0, "cow_copies": 0,
             "kv_pool_bytes": kv_cache_bytes(self.caches),
@@ -898,17 +1220,49 @@ class ServingEngine:
                                         self._dev_pos))
         self._dev_tok.copy_(out)
 
+    def _device_round(self) -> None:
+        """The speculative engines' decode iteration: one
+        :func:`_spec_round` over the static device state, both pools and
+        (paged) both device block tables; the committed tokens land in
+        ``_dev_spec``, tokens and positions advance in place, so the CUDA
+        graph of this function has no inputs or outputs of its own."""
+        paged = d_paged = None
+        if self.paged:
+            paged = _dec.PagedView(self._dev_bt, self.block_size,
+                                   self._t_view, ring=self.rolling)
+            d_paged = _dec.PagedView(self._dev_dbt, self.block_size,
+                                     self.max_len)
+        out, tok, pos = _spec_round(
+            self.model, self._draft_model, self.caches, self.d_caches,
+            self._dev_tok, self._dev_pos, self._dev_act, self._dev_temp,
+            self._dev_topk, self._dev_topp, self._dev_keys, self.spec_len,
+            self.rolling, paged, d_paged)
+        self._dev_spec.copy_(out)
+        self._dev_tok.copy_(tok)
+        self._dev_pos.copy_(pos)
+
+    def _device_iteration(self) -> None:
+        """The bucketed decode iteration, uncaptured: the speculative
+        round with a draft, else the plain step."""
+        if self._draft_model is not None:
+            self._device_round()
+        else:
+            self._device_step()
+
     def _capture(self) -> None:
-        """Capture :meth:`_device_step` as this engine's CUDA graph.  The
-        warm-up run before the capture advances the active rows' tokens
-        and positions, which are put back (its cache writes are those the
-        first replay makes again).  A failed capture raises."""
+        """Capture :meth:`_device_iteration` (the plain step, or the
+        speculative round) as this engine's CUDA graph.  The warm-up run
+        before the capture advances the active rows' tokens and positions,
+        which are put back (its cache writes are those the first replay
+        makes again).  A failed capture raises."""
         saved = (self._dev_tok.clone(), self._dev_pos.clone())
+        what = ("speculative round" if self._draft_model is not None
+                else "decode step")
         try:
-            self._graph = _capture_graph(self._device_step, self.device)
+            self._graph = _capture_graph(self._device_iteration, self.device)
         except Exception as e:
             raise RuntimeError(
-                f"CUDA graph capture of the decode step failed on "
+                f"CUDA graph capture of the {what} failed on "
                 f"{self.device}: {e!r}") from e
         self._dev_tok.copy_(saved[0])
         self._dev_pos.copy_(saved[1])
@@ -931,17 +1285,23 @@ class ServingEngine:
     # blocks (its device table row stays null until the final chunk, so
     # no decode step writes them).  Paged rolling engines prefill densely
     # and commit rings through the table.  The programs also install the
-    # slots' device table rows.  Every forward goes through ``_dec`` (the
+    # slots' device table rows.  Speculative engines fill the draft's pool
+    # in the same program from the same prompts: a dense draft pool like
+    # the target's, a paged draft arena always straight through its table
+    # (it is never rolling).  Every forward goes through ``_dec`` (the
     # decode MODULE); the module-level ``_forward`` import is the eager
     # engine's.
 
     def _install(self, slots, tok, pos, temp, topk, topp, keys,
-                 bt=None) -> None:
+                 bt=None, dbt=None) -> None:
         """Write admitted slots' rows of decode state (and, paged, their
-        block-table rows ``bt``) into the static device tensors
-        (``slots``: an int, or a device tensor of indices)."""
+        block-table rows ``bt`` and the draft's ``dbt``) into the static
+        device tensors (``slots``: an int, or a device tensor of
+        indices)."""
         if bt is not None:
             self._dev_bt[slots] = bt
+        if dbt is not None:
+            self._dev_dbt[slots] = dbt
         self._dev_tok[slots] = tok.to(torch.int32)
         self._dev_pos[slots] = pos
         self._dev_act[slots] = True
@@ -950,23 +1310,27 @@ class ServingEngine:
         self._dev_topp[slots] = topp
         self._dev_keys[slots] = keys
 
-    def _paged_view(self, bt, floor, p_lens) -> "_dec.PagedView":
-        """A prefill's view of the arena: rows write from ``floor`` up to
-        their prompt's end (``p_lens``), and pad queries clamp onto the
-        last real position."""
-        return _dec.PagedView(bt, self.block_size, self._t_view,
+    def _paged_view(self, bt, floor, p_lens,
+                    view: Optional[int] = None) -> "_dec.PagedView":
+        """A prefill's view of an arena (the target's, or with ``view``
+        ``max_len`` the draft's): rows write from ``floor`` up to their
+        prompt's end (``p_lens``), and pad queries clamp onto the last
+        real position."""
+        return _dec.PagedView(bt, self.block_size,
+                              self._t_view if view is None else view,
                               floor=floor, ceil=p_lens, qcap=p_lens - 1)
 
     def _bucket_prefill(self, width: int, prompts, p_lens, slots, n: int,
                         r_temp, r_topk, r_topp, r_keys, match=None,
-                        row_bt=None) -> torch.Tensor:
+                        row_bt=None, row_dbt=None) -> torch.Tensor:
         """One batched prefill of right-padded ``prompts`` (nb, width);
         the first ``n`` rows are admissions into ``slots[:n]``, the rest
         write nothing (paged: their null table rows send every write to
         the null block).  Paged engines pass each row's matched prefix
         length ``match`` (the prompts are the unmatched suffixes) and its
-        block-table row ``row_bt``.  Returns the (nb,) first tokens."""
-        model = self.model
+        block-table row ``row_bt`` (speculative ones the draft's
+        ``row_dbt`` too).  Returns the (nb,) first tokens."""
+        model, draft = self.model, self._draft_model
         direct = self.paged and not self.rolling
         if direct:
             logits, _ = _dec._forward(model, self.caches, prompts, match,
@@ -987,45 +1351,78 @@ class ServingEngine:
         if self.paged and self.rolling:
             _commit_ring_blocks(self.caches, rows, p_lens, row_bt,
                                 self.block_size, self._t_view)
+        drows = None
+        if draft is not None:
+            if self.paged:
+                # match is 0 on rolling engines (no sharing on rings)
+                _dec._forward(draft, self.d_caches, prompts, match,
+                              paged=self._paged_view(row_dbt, match, p_lens,
+                                                     self.max_len))
+            else:
+                drows = init_cache(draft, prompts.shape[0], width)
+                _, drows = _dec._forward(draft, drows, prompts, 0)
         if n:
             s = slots[:n]
             if not self.paged:
                 for big, row in zip(self.caches, rows):
                     _commit_rows(big, row, s, width, self.rolling,
                                  p_lens[:n])
+                if drows is not None:
+                    for big, row in zip(self.d_caches, drows):
+                        _commit_rows(big, row, s, width, False, p_lens[:n])
             self._install(s, first[:n], p_lens[:n], r_temp[:n], r_topk[:n],
                           r_topp[:n], r_keys[:n],
-                          bt=row_bt[:n] if self.paged else None)
+                          bt=row_bt[:n] if self.paged else None,
+                          dbt=(row_dbt[:n] if row_dbt is not None
+                               else None))
         return first
 
-    def _paged_chunk(self, toks, offset: int, p_len: int, bt):
+    def _paged_chunk(self, toks, offset: int, p_len: int, bt, dbt=None):
         """One chunk of a paged non-rolling chunked prefill, straight into
-        the request's blocks through its (1, T) table row ``bt``: queries
-        from ``offset`` on, writes from ``offset`` up to ``p_len``.
-        Returns the chunk's logits."""
+        the request's blocks through its (1, T) table row ``bt`` (and the
+        draft's arena through ``dbt``): queries from ``offset`` on, writes
+        from ``offset`` up to ``p_len``.  Returns the chunk's logits."""
         dev = self.device
         off = torch.full((1,), offset, dtype=torch.int64, device=dev)
         plen = torch.full((1,), p_len, dtype=torch.int64, device=dev)
         logits, _ = _dec._forward(self.model, self.caches, toks, off,
                                   paged=self._paged_view(bt, off, plen))
+        if self._draft_model is not None:
+            _dec._forward(self._draft_model, self.d_caches, toks, off,
+                          paged=self._paged_view(dbt, off, plen,
+                                                 self.max_len))
         return logits
+
+    def _stage_chunk(self, job: _PrefillJob, toks, offset: int) -> None:
+        """A mid chunk of a staged chunked prefill: its cache writes into
+        the job's staging caches (the target's, and the draft's)."""
+        _, job.staging = _dec._forward(self.model, job.staging, toks, offset)
+        if self._draft_model is not None:
+            _, job.d_staging = _dec._forward(self._draft_model,
+                                             job.d_staging, toks, offset)
 
     def _final_chunk(self, staging, toks, slot: int, offset: int,
                      last_idx: int, p_len: int, r_temp, r_topk, r_topp,
-                     r_key, bt=None) -> torch.Tensor:
+                     r_key, bt=None, d_staging=None,
+                     dbt=None) -> torch.Tensor:
         """The last chunk of a chunked prefill: its forward, the first
         token, and — for a real slot (< ``num_slots``) — the full-row
         commit and the slot's device state.  Paged engines pass the job's
         (1, T) table row ``bt``: non-rolling ones write the chunk straight
         into the arena (``staging`` is None), rolling ones commit the
         staged row's ring through the table (null rows write the null
-        block), and the slot's table row is installed.  Returns the (1,)
-        first token."""
+        block), and the slot's table row is installed.  Speculative
+        engines do the same for the draft (``d_staging``, ``dbt``; the
+        draft's staged row commits whole, never as a ring).  Returns the
+        (1,) first token."""
+        draft = self._draft_model
         if self.paged and not self.rolling:
-            logits = self._paged_chunk(toks, offset, p_len, bt)
+            logits = self._paged_chunk(toks, offset, p_len, bt, dbt)
         else:
             logits, staging = _dec._forward(self.model, staging, toks,
                                             offset)
+            if draft is not None:
+                _, d_staging = _dec._forward(draft, d_staging, toks, offset)
         pos = torch.full((1,), p_len - 1, dtype=torch.int64,
                          device=self.device)
         first = _dec.sample_logits_batched(logits[0, last_idx][None], pos,
@@ -1033,23 +1430,30 @@ class ServingEngine:
         if self.paged and self.rolling:
             _commit_ring_blocks(self.caches, staging, pos + 1, bt,
                                 self.block_size, self._t_view)
+            if draft is not None:
+                _commit_view_blocks(self.d_caches, d_staging, pos + 1, dbt,
+                                    self.block_size, self.max_len)
         if slot < self.num_slots:
             if not self.paged:
                 for big, row in zip(self.caches, staging):
                     _commit_full_row(big, row, slot, self.rolling, pos + 1)
+                if draft is not None:
+                    for big, row in zip(self.d_caches, d_staging):
+                        _commit_full_row(big, row, slot, False, pos + 1)
             self._install(slot, first[0], p_len, r_temp[0], r_topk[0],
                           r_topp[0], r_key[0],
-                          bt=bt[0] if self.paged else None)
+                          bt=bt[0] if self.paged else None,
+                          dbt=dbt[0] if dbt is not None else None)
         return first
 
     def _copy_block(self, src: int, dst: int) -> None:
         """The copy-on-write copy: physical block ``src`` duplicated onto
-        ``dst`` in every layer's arena, in place (from host ints: slices,
-        no upload), so that an admission that matched a cached block
-        partially writes its own suffix into the copy while the original
-        stays shared."""
+        ``dst`` in every layer's arena, the target's and the draft's, in
+        place (from host ints: slices, no upload), so that an admission
+        that matched a cached block partially writes its own suffix into
+        the copy while the original stays shared."""
         bs = self.block_size
-        for cache in self.caches:
+        for cache in [*self.caches, *(self.d_caches or [])]:
             if cache is not None:
                 for leaf in cache.values():
                     leaf[dst * bs:(dst + 1) * bs] = leaf[src * bs:
@@ -1441,13 +1845,17 @@ class ServingEngine:
             self._copy_block(*plan.cow)
         return plan
 
-    def _row_tables(self, plan: _BlockPlan) -> np.ndarray:
-        """A plan's chain as a null-padded block-table row (its last
-        column always null)."""
-        bt = np.full((self._t_tbl,), self.kv_blocks, np.int64)
-        n = min(len(plan.blocks), self._t_tbl - 1)
-        bt[:n] = plan.blocks[:n]
-        return bt
+    def _row_tables(self, plan: _BlockPlan):
+        """A plan's chain as null-padded block-table rows (their last
+        column always null): the target's, and the draft's over
+        ``max_len`` (None without a draft)."""
+        def row(width):
+            t = np.full((width,), self.kv_blocks, np.int64)
+            n = min(len(plan.blocks), width - 1)
+            t[:n] = plan.blocks[:n]
+            return t
+        return (row(self._t_tbl),
+                row(self._d_tbl) if self._draft_model is not None else None)
 
     def _batch_prefill(self, batch: List[RequestHandle],
                        plans: Optional[Dict[int, _BlockPlan]] = None
@@ -1475,9 +1883,13 @@ class ServingEngine:
             r_topk = np.zeros((nb,), np.int64)
             r_topp = np.zeros((nb,), np.float32)
             r_keys = np.zeros((nb, 2), np.int64)
+            row_bt = row_dbt = None
             if self.paged:
                 row_bt = np.full((nb, self._t_tbl), self.kv_blocks,
                                  np.int64)
+                if self._draft_model is not None:
+                    row_dbt = np.full((nb, self._d_tbl), self.kv_blocks,
+                                      np.int64)
             entries: List[Tuple[int, RequestHandle]] = []
             for i, h in enumerate(group):
                 slot = self._free.pop()
@@ -1487,7 +1899,10 @@ class ServingEngine:
                     plan = plans[h.id]
                     m = plan.matched
                     self._plans[slot] = plan
-                    row_bt[i] = self._row_tables(plan)
+                    rb, rd = self._row_tables(plan)
+                    row_bt[i] = rb
+                    if rd is not None:
+                        row_dbt[i] = rd
                 prompts[i, :p - m] = h.prompt[m:]
                 match[i] = m
                 p_lens[i] = p
@@ -1508,6 +1923,8 @@ class ServingEngine:
             if self.paged:
                 paged = dict(match=self._put(match),
                              row_bt=self._put(row_bt))
+                if row_dbt is not None:
+                    paged["row_dbt"] = self._put(row_dbt)
             first = self._bucket_prefill(
                 width, self._put(prompts), self._put(p_lens),
                 self._put(slots), len(group), self._put(r_temp),
@@ -1531,17 +1948,22 @@ class ServingEngine:
         h.slot = slot
         h.started_at = time.perf_counter()
         self._handles[slot] = h
+        draft = self._draft_model
+        bt = dbt = None
         if self.paged:
             self._plans[slot] = plan
-            bt = self._put(self._row_tables(plan)[None])
-            if self.rolling:
-                job = _PrefillJob(h, init_cache(self.model, 1, self.max_len),
-                                  bt)
-            else:
-                job = _PrefillJob(h, bt=bt)
-                job.written = plan.matched
+            rb, rd = self._row_tables(plan)
+            bt = self._put(rb[None])
+            if rd is not None:
+                dbt = self._put(rd[None])
+        if self.paged and not self.rolling:
+            job = _PrefillJob(h, bt=bt, dbt=dbt)
+            job.written = plan.matched
         else:
-            job = _PrefillJob(h, init_cache(self.model, 1, self.max_len))
+            job = _PrefillJob(
+                h, init_cache(self.model, 1, self.max_len), bt,
+                None if draft is None else init_cache(draft, 1,
+                                                      self.max_len), dbt)
         self._prefilling[slot] = job
         self.stats["prefills"] += 1
         self.stats["slot_requests"][slot] += 1
@@ -1568,15 +1990,15 @@ class ServingEngine:
         self.stats["prefill_tokens"] += real
         if not final:
             if self.paged and not self.rolling:
-                self._paged_chunk(toks_d, offset, p_len, job.bt)
+                self._paged_chunk(toks_d, offset, p_len, job.bt, job.dbt)
             else:
-                _, job.staging = _dec._forward(self.model, job.staging,
-                                               toks_d, offset)
+                self._stage_chunk(job, toks_d, offset)
         else:
             first = self._final_chunk(job.staging, toks_d, slot, offset,
                                       real - 1, p_len,
-                                      *self._sampling_row(h), bt=job.bt)
-            job.staging = None
+                                      *self._sampling_row(h), bt=job.bt,
+                                      d_staging=job.d_staging, dbt=job.dbt)
+            job.staging = job.d_staging = None
             if self.paged:
                 # the chain's contents are now all dispatched: publish
                 # the prompt's full blocks into the prefix trie
@@ -1634,6 +2056,8 @@ class ServingEngine:
             self._dev_act[slot] = False
             if self.paged:
                 self._dev_bt[slot] = self.kv_blocks
+                if self._dev_dbt is not None:
+                    self._dev_dbt[slot] = self.kv_blocks
                 self._release_blocks(slot)
         if h._finish(reason):  # no-op when _declare_dead already failed it
             with self._qlock:
@@ -1685,9 +2109,18 @@ class ServingEngine:
             self._graph.replay()
             self.stats["graph_replays"] += 1
         else:
-            self._device_step()
+            self._device_iteration()
         self.stats["decode_steps"] += 1
         self.stats["active_slot_steps"] += len(entries)
+        if self._draft_model is not None:
+            # one speculative round: rows commit 1..spec_len + 1 tokens
+            # each, packed with their counts into the one drained array
+            self.stats["verify_calls"] += 1
+            self.stats["target_calls"] += 1
+            self.stats["drafted"] += self.spec_len * len(entries)
+            self._pending.append(("spec", self._snapshot(self._dev_spec),
+                                  entries))
+            return
         self._pending.append(("decode", self._snapshot(self._dev_tok),
                               entries))
 
@@ -1704,6 +2137,22 @@ class ServingEngine:
             vals = self._fetch(snap)
             for i, (slot, h) in enumerate(entries):
                 if h.finish is not None or self._handles[slot] is not h:
+                    continue
+                if kind == "spec":
+                    # row ``slot`` committed n tokens this round; emit in
+                    # order and stop the moment eos or length retires the
+                    # request (the round's trailing tokens die here, like
+                    # any lookahead junk)
+                    n = int(vals[slot, -1])
+                    self.stats["accepted"] += max(n - 1, 0)
+                    self._positions[slot] += n
+                    for j in range(n):
+                        token = int(vals[slot, j])
+                        self._cur_tok[slot] = token
+                        self._emit(slot, token)
+                        if (h.finish is not None
+                                or self._handles[slot] is not h):
+                            break
                     continue
                 token = int(vals[slot] if kind == "decode" else vals[i])
                 if kind == "decode":
@@ -1878,7 +2327,10 @@ class ServingEngine:
 
     def respawn_clone(self) -> "ServingEngine":
         """A fresh engine over the same model and knobs — new slot pool,
-        empty queue, fresh stats (the supervisor's restart path)."""
+        empty queue, fresh stats (the supervisor's restart path).  The
+        draft, ``spec_len`` and both quantization knobs carry over; the
+        models are already quantized, so the clone shares them instead of
+        quantizing again."""
         return ServingEngine(
             self.model, num_slots=self.num_slots, max_len=self.max_len,
             queue_capacity=self.queue_capacity,
@@ -1886,6 +2338,8 @@ class ServingEngine:
             default_deadline_s=self.default_deadline_s,
             prefill_mode=self.prefill_mode,
             prefill_chunk=self.prefill_chunk,
+            spec_draft=self._draft_model, spec_len=self.spec_len,
+            quantize=self.quantize, kv_dtype=self.kv_dtype,
             # the same arena shape, a fresh trie and allocator: cached
             # chains index the dead pool's arena contents
             paged=self.paged, block_size=self.block_size,
@@ -1893,8 +2347,10 @@ class ServingEngine:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the KV slot pool (the flat block arena, null
-        block included, when paged)."""
+        """Device bytes of the target's KV slot pool (the flat block
+        arena, null block included, when paged; int8 codes + scales for
+        ``kv_dtype="int8"``): the byte accounting behind bench.py's
+        ``serving_quant_capacity_slots``."""
         return kv_cache_bytes(self.caches)
 
     @property
@@ -1907,14 +2363,15 @@ class ServingEngine:
 
     def warmup(self) -> "ServingEngine":
         """Prepare every program before serving traffic: on a CUDA card
-        capture the decode step's graph (once per engine), elsewhere run
-        the step once; then — bucketed — run every bucket's batched
-        prefill and, when long prompts can chunk, the chunk programs, each
-        with every write dropped (slot ``num_slots``; paged: all-null
-        block tables, so that every arena write goes to the null block,
-        and a null-onto-null copy-on-write copy), so that the first live
-        iteration pays no first-call cost.  Fresh or idle engines
-        only."""
+        capture the decode iteration's graph (once per engine: the plain
+        step, or the speculative round), elsewhere run it once; then —
+        bucketed — run every bucket's batched prefill and, when long
+        prompts can chunk, the chunk programs (speculative engines: their
+        draft halves too), each with every write dropped (slot
+        ``num_slots``; paged: all-null block tables, so that every arena
+        write goes to the null block, and a null-onto-null copy-on-write
+        copy), so that the first live iteration pays no first-call cost.
+        Fresh or idle engines only."""
         if self._active.any() or self._prefilling:
             raise RuntimeError("warmup() on an engine with active slots "
                                "would consume a real decode step")
@@ -1929,17 +2386,22 @@ class ServingEngine:
             if self._graph is None:
                 self._capture()
         else:
-            self._device_step()
+            self._device_iteration()
         nb, dev = self.prefills_per_step, self.device
+        draft = self._draft_model
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        paged, null_bt = {}, None
+        paged, null_bt, null_dbt = {}, None, None
         if self.paged:
             null_bt = torch.full((nb, self._t_tbl), self.kv_blocks,
                                  dtype=torch.int64, device=dev)
             paged = dict(match=zeros(nb, dtype=torch.int64), row_bt=null_bt)
+            if draft is not None:
+                null_dbt = torch.full((nb, self._d_tbl), self.kv_blocks,
+                                      dtype=torch.int64, device=dev)
+                paged["row_dbt"] = null_dbt
             self._copy_block(self.kv_blocks, self.kv_blocks)
         for width in self._buckets:
             self._bucket_prefill(
@@ -1951,18 +2413,21 @@ class ServingEngine:
                 zeros(nb, 2, dtype=torch.int64), **paged)
         if self.max_len > self.prefill_chunk:
             bt = None if null_bt is None else null_bt[:1]
+            dbt = None if null_dbt is None else null_dbt[:1]
             for width in sorted({self._chunk_width, *self._buckets}):
                 toks = zeros(1, width, dtype=torch.int32)
+                job = _PrefillJob(None, bt=bt, dbt=dbt)
                 if self.paged and not self.rolling:
-                    staging = None
-                    self._paged_chunk(toks, 0, 1, bt)
+                    self._paged_chunk(toks, 0, 1, bt, dbt)
                 else:
-                    staging = init_cache(self.model, 1, self.max_len)
-                    _, staging = _dec._forward(self.model, staging, toks, 0)
-                self._final_chunk(staging, toks, self.num_slots, 0, 0, 1,
+                    job.staging = init_cache(self.model, 1, self.max_len)
+                    if draft is not None:
+                        job.d_staging = init_cache(draft, 1, self.max_len)
+                    self._stage_chunk(job, toks, 0)
+                self._final_chunk(job.staging, toks, self.num_slots, 0, 0, 1,
                                   zeros(1), zeros(1, dtype=torch.int64),
                                   zeros(1), zeros(1, 2, dtype=torch.int64),
-                                  bt=bt)
+                                  bt=bt, d_staging=job.d_staging, dbt=dbt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return self

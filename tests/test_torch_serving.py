@@ -11,7 +11,8 @@ counter-based rule, whose bits are not JAX's threefry key schedule).
 Also here: the engine's slot lifecycle, backpressure, the background
 thread, the engine route of ``ModelPredictor``, the per-row decode
 substrate, the batched samplers and the draw rule, the in-place cache
-write, the knobs still to port, the copied ``RetryPolicy``, and C3
+write, the knobs still to port and the validation of the speculation
+and quantization knobs, the copied ``RetryPolicy``, and C3
 (``Sequential.add`` and ``FittedModel.set_weights``).
 """
 
@@ -345,8 +346,6 @@ def test_background_thread_drives_requests(fitted):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob", [
-    {"spec_len": 2}, {"quantize": "int8"}, {"kv_dtype": "int8"},
-    {"kv_dtype": "int8", "paged": True},
     {"role": "prefill"}, {"tenants": []},
 ])
 def test_later_knobs_raise_their_item(fitted, knob):
@@ -354,10 +353,33 @@ def test_later_knobs_raise_their_item(fitted, knob):
         ServingEngine(fitted, num_slots=1, max_len=24, **knob)
 
 
+@pytest.mark.parametrize("knob,match", [
+    ({"spec_len": 0, "draft": True}, "spec_len"),
+    ({"quantize": "fp4"}, "quantize"),
+    ({"kv_dtype": "int4"}, "kv_dtype"),
+    ({"kv_dtype": "int8", "paged": True, "prefill_mode": "eager"},
+     "bit-exactness reference"),
+])
+def test_spec_and_quant_knobs_validate_as_jax(pair, knob, match):
+    """The speculation and quantization knobs are taken now (ROADMAP
+    queue A item 4, its speculation slice); their bad values raise the
+    JAX engine's ValueErrors, message for message."""
+    jf, pf = pair
+    knob = dict(knob)
+    draft = knob.pop("draft", False)
+    for engine, f in ((ServingEngine, pf), (JEngine, jf)):
+        kw = dict(knob, spec_draft=f) if draft else knob
+        with pytest.raises(ValueError, match=match):
+            engine(f, num_slots=1, max_len=24, **kw)
+
+
 def test_spec_draft_tenant_and_attach_ps_raise_their_items(fitted):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted)
-    eng = ServingEngine(fitted, num_slots=1, max_len=24)
+        ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
+                      role="decode")
+    eng = ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
+                        spec_len=2, quantize="int8", kv_dtype="int8")
+    assert eng._draft_model is not None and eng.spec_len == 2
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
         eng.submit(PROMPT, 2, tenant="gold")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):

@@ -8,11 +8,12 @@
 #   git archive "$(git write-tree)" | tar -x -C build/archive
 #   git archive PARENT_COMMIT | tar -x -C build/parent
 #
-# It runs chip_smoke.py from build/archive (the committed files alone),
-# profiles the slices named by its second argument from there (default:
-# the decode steps and the dense and paged serving engines' decode
-# iterations), runs the phases named by its first argument (default: zoo;
-# a comma-separated list runs each in turn, a side whose chip_smoke.py
+# It runs chip_smoke.py from build/archive (the committed files alone;
+# phase spec among its phases), profiles the slices named by its second
+# argument from there (default: the decode steps, the dense and paged
+# serving engines' decode iterations and the speculative engine's
+# rounds), runs the phases named by its first argument (default: spec; a
+# comma-separated list runs each in turn, a side whose chip_smoke.py
 # lacks a phase logs it as absent) in the order parent, change, change,
 # parent when build/parent exists, and last runs the script chip_smoke.py
 # alone in an empty directory, where it must fail.  The logs go to
@@ -20,8 +21,8 @@
 #
 #   bash tools/chip_final.sh [PHASES [SLICES]]
 set -u
-phase="${1:-zoo}"
-slices="${2:-decode,serve,paged}"
+phase="${1:-spec}"
+slices="${2:-decode,serve,paged,spec}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
 (cd build/archive && python3 chip_smoke.py > "$out/smoke_final.log" 2>&1)

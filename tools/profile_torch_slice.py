@@ -2,7 +2,8 @@
 """Where the time of the port's slices goes, on a CUDA card.
 
     python3 tools/profile_torch_slice.py [--out build/profile.json]
-        [--slices predict,train,parallel,zoo,adag,pack,decode,serve,paged]
+        [--slices predict,train,parallel,zoo,adag,pack,decode,serve,paged,
+                  spec]
 
 Builds the full-width ``transformer_lm`` of ``chip_smoke.py`` (vocab 512,
 seq 2048, d_model 256, 8 heads, 2 kv heads, 4 layers, mlp 1024, bf16) in
@@ -49,7 +50,11 @@ from a numpy seed by ``chip_smoke.py``'s rule, and traces under
 - paged: the same engine with its paged KV pool (``chip_smoke.py``'s
   phase paged: ``paged=True``, blocks of 16 tokens, the default
   ``kv_blocks``), both forms, its decode step as a CUDA graph over the
-  device block tables and uncaptured, traced the same way.
+  device block tables and uncaptured, traced the same way;
+- spec: the same engine with speculation (``chip_smoke.py``'s phase
+  spec: ``spec_len`` 4, self-drafted, random weights), both forms, its
+  speculative round as a CUDA graph and uncaptured, traced the same way
+  (an iteration is one round: 4 draft steps, the verify, the back-fill).
 
 It prints one JSON line per slice and form: the wall time (host clock
 around work that ends in a synchronise), the device's busy time (the sum
@@ -262,7 +267,7 @@ def profile_decode(name):
             "position": pos, **device_summary(prof, wall_ms)}
 
 
-def profile_serve(name, graphed, paged=False):
+def profile_serve(name, graphed, paged=False, spec=False):
     import numpy as np
     import chip_smoke
     from distkeras_tpu_torch import load_jax_weights, transformer_lm
@@ -272,9 +277,12 @@ def profile_serve(name, graphed, paged=False):
         model, np.random.default_rng(chip_smoke.SEED + 15)))
     knobs = (dict(paged=True, block_size=chip_smoke.PAGED_BLOCK) if paged
              else {})
-    return {"slice": "paged" if paged else "serve", "form": name,
-            "step": "graph" if graphed else "uncaptured",
-            "slots": chip_smoke.SERVE_SLOTS, **knobs,
+    if spec:
+        knobs.update(spec_draft=model, spec_len=chip_smoke.SPEC_DRAFT_LEN)
+    info = {k: v for k, v in knobs.items() if k != "spec_draft"}
+    return {"slice": "spec" if spec else "paged" if paged else "serve",
+            "form": name, "step": "graph" if graphed else "uncaptured",
+            "slots": chip_smoke.SERVE_SLOTS, **info,
             **chip_smoke._serve_profile(model, rolling, graphed, "cuda",
                                         **knobs)}
 
@@ -426,9 +434,9 @@ def main() -> int:
         ROOT, "build", "profile_torch_slice.json"))
     ap.add_argument("--slices",
                     default="predict,train,parallel,zoo,adag,pack,decode,"
-                            "serve,paged",
+                            "serve,paged,spec",
                     help="comma-separated: predict, train, parallel, zoo, "
-                         "adag, pack, decode, serve, paged")
+                         "adag, pack, decode, serve, paged, spec")
     args = ap.parse_args()
     slices = set(args.slices.split(","))
     sys.path.insert(0, ROOT)
@@ -467,10 +475,11 @@ def main() -> int:
     if "decode" in slices:
         runs += [lambda n=name: profile_decode(n)
                  for name in ("full", "rolling_window")]
-    for kind in ("serve", "paged"):
+    for kind in ("serve", "paged", "spec"):
         if kind in slices:
             runs += [lambda n=name, g=graphed, k=kind:
-                     profile_serve(n, g, paged=k == "paged")
+                     profile_serve(n, g, paged=k == "paged",
+                                   spec=k == "spec")
                      for name in ("full", "rolling_window")
                      for graphed in (True, False)]
     for run in runs:
