@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-eighteen phases, each printing JSON lines, and fails with a non-zero
+twenty phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -173,12 +173,32 @@ exit if any phase fails:
     engine and ``generate`` over both traces in both forms, and a tight
     arena (2 slots' blocks) evicts and stays exact; no kernel launched on
     any of it.
+19. spec: speculation and quantization in the engine: phase serve's
+    engine and trace with ``spec_len`` 4, drafted by the target and by a
+    1-layer draft (both trained briefly on x+1), dense and paged, graph
+    and uncaptured; ms a round, the accept rate, tokens a round a row, the
+    int8 pools' bytes; at f32 speculative = plain = ``generate`` and card
+    = CPU; no kernel launched on any of it.
+20. qos: multi-tenant QoS and paged-KV preemption in the engine (the LM
+    at full width, bf16, paged, blocks of 16, form full, 8 slots, the
+    tenants of ``examples/loadgen.py:138-155 qos_policies(3)``): phase
+    serve's first 8 requests each preempted once at its own decode depth
+    and resumed, every row equal to the same requests unpreempted, the
+    swap-out and resume ms, blocks and bytes; with tenants registered a
+    decode-only iteration still uploads nothing, reads back one row and
+    replays the graph once; an open-loop overload of 32 mixed-tenant
+    requests at 200 requests/s on an arena of 160 blocks, with the
+    policies and as plain FIFO: interactive and batch latency, completion
+    rates, preemptions and resumes, no block leaked, interactive p99 <=
+    batch p99 with the policies; at f32 on 2 layers a preempted greedy
+    and a preempted sampled request equal their unpreempted rows and the
+    CPU's; no kernel launched on any of it.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
-kernel's launches on the packing, decode, serving and paged serving
-paths), the
+kernel's launches on the packing, decode, serving, paged, speculative
+and QoS serving paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -547,6 +567,31 @@ PAGED_TIGHT = 2
 SPEC_TRAIN_ROWS, SPEC_TRAIN_EPOCHS = 64, 6
 SPEC_UNCAPTURED = 8
 SPEC_CHECK_REQUESTS, SPEC_CHECK_STEPS = 6, 48
+# multi-tenant QoS and preemption in the engine (ROADMAP queue A item 4):
+# the LM at full width, bf16, form full (a rolling pool cannot preempt),
+# paged with PAGED_BLOCK-token blocks, SERVE_SLOTS slots, chunks of
+# SERVE_CHUNK, max_len its seq, queue capacity QOS_QUEUE; the tenants of
+# examples/loadgen.py:138-155 qos_policies(3): "interactive" (interactive
+# tier, weight QOS_INTERACTIVE_WEIGHT), "batch0" and "batch1" (batch tier,
+# weight 1).  (a) phase serve's first QOS_PREEMPTED requests, all of
+# tenant batch0, request i preempted once when it has emitted
+# QOS_DEPTH0 + i * QOS_DEPTH_STEP tokens, against the same requests
+# unpreempted, and (a') the same requests starved: once each has emitted
+# QOS_DEPTH0 tokens, QOS_STARVE interactive requests (each the first
+# QOS_STARVE_PROMPT tokens of one of their prompts, QOS_STARVE_STEPS
+# greedy tokens) arrive at the full slots, and the scheduler picks its
+# own victims; (b) an overload trace made as examples/loadgen.py:48
+# make_trace(tenants=3, tier_mix=QOS_TIER_MIX) makes it (QOS_REQUESTS
+# requests, phase serve's prompt lengths and new tokens, half sampled),
+# offered open loop at QOS_QPS requests/s (bench.py:911) to an engine of
+# QOS_KV_BLOCKS blocks (a request reserves ~29 on average: slots and
+# blocks both starve), with the policies and with none (plain FIFO); the
+# f32 checks on SERVE_CHECK_LAYERS layers (TF32 off)
+QOS_TENANTS, QOS_INTERACTIVE_WEIGHT, QOS_QUEUE = 3, 4.0, 64
+QOS_PREEMPTED, QOS_DEPTH0, QOS_DEPTH_STEP = 8, 8, 15
+QOS_STARVE, QOS_STARVE_PROMPT, QOS_STARVE_STEPS = 4, 16, 32
+QOS_REQUESTS, QOS_QPS, QOS_TIER_MIX, QOS_KV_BLOCKS = 32, 200.0, 0.3, 160
+QOS_TIMEOUT_S = 300.0
 
 
 def emit(obj) -> None:
@@ -3893,6 +3938,451 @@ def phase_spec(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _qos_trace(num_requests: int, seed: int = 0, vocab: int = 16,
+               num_steps: int = 16, temperature: float = 0.0,
+               sampled_fraction: float = 0.5, prompt_lengths=(4, 6, 8),
+               tenants: int = QOS_TENANTS, tier_mix: float = QOS_TIER_MIX):
+    """examples/loadgen.py's make_trace(num_requests, seed, vocab,
+    num_steps, temperature, sampled_fraction, prompt_lengths,
+    tenants=tenants, tier_mix=tier_mix) with its default random pattern,
+    in numpy: the same draws in the same order, as submit keywords."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    trace = []
+    for i in range(int(num_requests)):
+        p_len = int(prompt_lengths[rng.integers(0, len(prompt_lengths))])
+        req = {"prompt": rng.integers(0, vocab, p_len).astype(np.int32),
+               "num_steps": int(num_steps), "seed": int(seed * 10_000 + i)}
+        if temperature > 0.0 and rng.random() < sampled_fraction:
+            req["temperature"] = float(temperature)
+        if int(tenants) >= 2:
+            if rng.random() < float(tier_mix):
+                req["tenant"] = "interactive"
+            else:
+                req["tenant"] = f"batch{int(rng.integers(tenants - 1))}"
+        trace.append(req)
+    return trace
+
+
+def _qos_policies(tenants: int = QOS_TENANTS,
+                  interactive_weight: float = QOS_INTERACTIVE_WEIGHT):
+    """examples/loadgen.py's qos_policies(tenants) in the port: one
+    "interactive" tenant (interactive tier, ``interactive_weight``) and
+    ``tenants - 1`` weight-1 batch tenants "batch0", "batch1", ...; fresh
+    objects on every call (a policy belongs to one engine)."""
+    from distkeras_tpu_torch.serving import TenantPolicy
+    pols = [TenantPolicy("interactive", tier="interactive",
+                         weight=interactive_weight)]
+    for i in range(max(int(tenants) - 1, 1)):
+        pols.append(TenantPolicy(f"batch{i}", tier="batch", weight=1.0))
+    return pols
+
+
+def _qos_percentile_ms(latencies_s, q: float):
+    import numpy as np
+    if not latencies_s:
+        return None
+    return float(np.percentile(np.asarray(latencies_s), q)) * 1e3
+
+
+def _mean_max(xs):
+    return [sum(xs) / len(xs), max(xs)] if xs else None
+
+
+def _run_overload(engine, trace, qps: float, timeout_s: float = 300.0):
+    """examples/loadgen.py's run_overload in the port: the engine on its
+    background thread (started here, stopped by the caller), the trace
+    offered open loop at ``qps`` requests/s, refusals (QueueFull and its
+    QuotaExceeded) counted as sheds of their tier, then every handle
+    waited for; latencies by tier, completion rates and the engine's QoS
+    counters."""
+    from distkeras_tpu_torch.serving import QueueFull
+    engine.start()
+    handles = []
+    shed = {"interactive": 0, "batch": 0}
+    t0 = time.perf_counter()
+    for i, req in enumerate(trace):
+        delay = t0 + i / float(qps) - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        tier = ("interactive" if req.get("tenant") == "interactive"
+                else "batch")
+        try:
+            handles.append((tier, engine.submit(block=False, **req)))
+        except QueueFull:
+            shed[tier] += 1
+    lat = {"interactive": [], "batch": []}
+    done = {"interactive": 0, "batch": 0}
+    total = dict(shed)
+    for tier, h in handles:
+        total[tier] += 1
+        h.wait(timeout=timeout_s)
+        if h.finish in ("eos", "length", "empty"):
+            done[tier] += 1
+            lat[tier].append(h.latency_s)
+    wall = time.perf_counter() - t0
+    s = engine.stats
+    return {
+        "offered_qps": float(qps), "wall_s": wall,
+        "interactive_p50_ms": _qos_percentile_ms(lat["interactive"], 50),
+        "interactive_p99_ms": _qos_percentile_ms(lat["interactive"], 99),
+        "batch_p50_ms": _qos_percentile_ms(lat["batch"], 50),
+        "batch_p99_ms": _qos_percentile_ms(lat["batch"], 99),
+        "interactive_completion_rate":
+            done["interactive"] / max(total["interactive"], 1),
+        "batch_completion_rate": done["batch"] / max(total["batch"], 1),
+        "requests": {tier: total[tier] for tier in total},
+        "shed_interactive": shed["interactive"],
+        "shed_batch": shed["batch"],
+        "preemptions": s["preemptions"], "resumes": s["resumes"],
+        "preempt_swap_ms_mean_max": _mean_max(s["preempt_swap_ms"]),
+        "preempt_resume_ms_mean_max": _mean_max(s["preempt_resume_ms"]),
+        "kv_blocks_swapped_out": s["kv_blocks_swapped_out"],
+        "kv_block_bytes_swapped_out": s["kv_block_bytes_swapped_out"],
+        "kv_blocks_resumed": s["kv_blocks_resumed"],
+        "kv_block_bytes_resumed": s["kv_block_bytes_resumed"],
+        "quota_refused": s["quota_refused"],
+        "tenants": {t: dict(v) for t, v in s["tenants"].items()},
+    }
+
+
+def _qos_engine(model, dev: str, policies: bool = True, **knobs):
+    """A warmed-up paged engine of phase qos's shape (``knobs`` override
+    or add engine arguments), with qos_policies(3) registered or none."""
+    kw = dict(paged=True, block_size=PAGED_BLOCK, queue_capacity=QOS_QUEUE,
+              tenants=_qos_policies() if policies else None)
+    kw.update(knobs)
+    return _serve_engine(model, False, **kw)
+
+
+def _qos_explicit(model, trace, dev: str, preempt: bool, starve: int = 0,
+                  **knobs) -> dict:
+    """``trace`` (phase serve's (prompt, steps, keywords) form) submitted
+    at once as tenant batch0 and driven inline; with ``preempt`` request
+    i is marked for preemption once it has emitted QOS_DEPTH0 + i *
+    QOS_DEPTH_STEP tokens; with ``starve``, once every request has
+    emitted QOS_DEPTH0 tokens, ``starve`` interactive requests arrive
+    (the scheduler preempts victims of its own).  The rows, the
+    suspensions (tokens emitted, blocks swapped, the slot left and the
+    slot resumed into), the swap samples, every decode-only iteration's
+    uploads, readbacks, replays and captures, and the pool's state after
+    the run."""
+    eng = _qos_engine(model, dev, **knobs)
+    _sync(dev)
+    handles = [eng.submit(p, n, tenant="batch0", **kw) for p, n, kw in trace]
+    starved = []
+    depth = ({h.id: QOS_DEPTH0 + i * QOS_DEPTH_STEP
+              for i, h in enumerate(handles)} if preempt else {})
+    marks, swaps, last_slot = {}, {}, {}
+    keys = ("decode_steps", "prefills", "prefill_chunks", "preemptions",
+            "resumes", "h2d_transfers", "d2h_transfers", "graph_replays",
+            "graph_captures")
+    per_iter = {k: set() for k in keys[5:]}
+    iters = 0
+    t0 = time.perf_counter()
+    while True:
+        before = [eng.stats[k] for k in keys]
+        if not eng.step():
+            break
+        delta = dict(zip(keys, (eng.stats[k] - b
+                                for k, b in zip(keys, before))))
+        if (delta["decode_steps"] == 1 and not delta["prefills"]
+                and not delta["prefill_chunks"]
+                and not delta["preemptions"] and not delta["resumes"]):
+            iters += 1
+            for k in per_iter:
+                per_iter[k].add(delta[k])
+        if (starve and not starved
+                and all(len(h.tokens) >= QOS_DEPTH0 for h in handles)):
+            starved = [eng.submit(p[:QOS_STARVE_PROMPT], QOS_STARVE_STEPS,
+                                  tenant="interactive")
+                       for p, _, _ in trace[:starve]]
+        for rid, rec in list(eng._suspended.items()):
+            if rid not in swaps:
+                swaps[rid] = {"tokens": len(rec.handle.tokens),
+                              "pos": rec.pos, "blocks": rec.n_blocks,
+                              "slot_left": last_slot.get(rid)}
+        for h in handles:
+            if h.slot is not None:
+                last_slot[h.id] = h.slot
+            if (h.id in depth and h.id not in marks and h.slot is not None
+                    and len(h.tokens) >= depth[h.id]):
+                check(eng.preempt(h), f"qos: preempt() refused request "
+                      f"{h.id}")
+                marks[h.id] = len(h.tokens)
+            if h.id in swaps and "slot_resumed" not in swaps[h.id] \
+                    and h.slot is not None:
+                swaps[h.id]["slot_resumed"] = h.slot
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    s = eng.stats
+    out = {"rows": [h.result() for h in handles],
+           "finish": [h.finish for h in handles], "wall_s": wall,
+           "interactive_finish": [h.finish for h in starved],
+           "swaps": [swaps.get(h.id) for h in handles],
+           "decode_only_iterations": iters,
+           **{f"{k}_per_decode_iteration": sorted(v)
+              for k, v in per_iter.items()},
+           "stats": {k: s[k] for k in (
+               "requests_completed", "tokens_generated", "decode_steps",
+               "preemptions", "resumes", "kv_blocks_swapped_out",
+               "kv_block_bytes_swapped_out", "kv_blocks_resumed",
+               "kv_block_bytes_resumed", "preempt_swap_ms",
+               "preempt_resume_ms", "graph_captures", "graph_replays",
+               "tenants")},
+           "kv_blocks_in_use": eng.kv_blocks_in_use,
+           "conservation": eng._pool.check_conservation(),
+           "plans_left": len(eng._plans), "suspended": len(eng._suspended)}
+    del eng
+    return out
+
+
+def _qos_leaks(r: dict) -> bool:
+    return (r["kv_blocks_in_use"] == 0 and r["conservation"]
+            and not r["plans_left"] and not r["suspended"])
+
+
+def _qos_checks(card: str, dev: str, trace, rng) -> dict:
+    """At f32 on a SERVE_CHECK_LAYERS-layer copy, TF32 off: the trace's
+    first greedy and first sampled request, each preempted once and
+    resumed, on the card equal the same requests unpreempted on the card
+    and preempted on the CPU, token for token."""
+    import torch
+    reqs = [next(r for r in trace if not r[2]),
+            next(r for r in trace if r[2])]
+    model, plain, cpu = _decode_models({}, rng, dev,
+                                       layers=SERVE_CHECK_LAYERS)
+    runs = {"card_preempted": _qos_explicit(model, reqs, dev, True),
+            "card_plain": _qos_explicit(model, reqs, dev, False)}
+    t0 = time.perf_counter()
+    runs["cpu_preempted"] = _qos_explicit(cpu, reqs, "cpu", True)
+    cpu_s = time.perf_counter() - t0
+    vs_plain = _serve_mismatch(runs["card_preempted"]["rows"],
+                               runs["card_plain"]["rows"], reqs, plain)
+    vs_cpu = _serve_mismatch(runs["card_preempted"]["rows"],
+                             runs["cpu_preempted"]["rows"], reqs, plain)
+    row = {"phase": "qos_checks", "compute_dtype": "float32",
+           "layers": SERVE_CHECK_LAYERS,
+           "requests": [{"prompt": len(p), "steps": n, "sampled": bool(kw)}
+                        for p, n, kw in reqs],
+           "preemptions": runs["card_preempted"]["stats"]["preemptions"],
+           "resumes": runs["card_preempted"]["stats"]["resumes"],
+           "cpu_preemptions": runs["cpu_preempted"]["stats"]["preemptions"],
+           "preempted_equals_unpreempted": vs_plain is None,
+           "card_equals_cpu": vs_cpu is None, "cpu_s": cpu_s, "card": card}
+    if vs_plain is not None:
+        row["vs_unpreempted_first_difference"] = vs_plain
+    if vs_cpu is not None:
+        row["vs_cpu_first_difference"] = vs_cpu
+    emit(row)
+    for name, r in runs.items():
+        want = 0 if name == "card_plain" else len(reqs)
+        check(r["stats"]["preemptions"] == want == r["stats"]["resumes"],
+              f"qos checks: {name}: {r['stats']['preemptions']} "
+              f"preemptions, {r['stats']['resumes']} resumes, want {want}")
+        check(_qos_leaks(r), f"qos checks: {name} leaked blocks")
+    check(vs_plain is None, f"qos: at f32 a preempted request differs from "
+          f"its unpreempted row: {vs_plain}")
+    check(vs_cpu is None, f"qos: at f32 a preempted request on the card "
+          f"differs from the CPU: {vs_cpu}")
+    del model, plain, cpu
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_qos(card: str, dev: str = "cuda"):
+    """Multi-tenant QoS and preemption on the card (the LM at full width,
+    bf16, paged, form full): phase serve's first QOS_PREEMPTED requests
+    each preempted once at its own depth and resumed, every row equal to
+    the unpreempted run's (the swap-out and resume ms, blocks and bytes;
+    0 uploads, 1 readback and 1 replay a decode-only iteration with
+    tenants registered, and its host calls); the overload trace open loop
+    at QOS_QPS requests/s on QOS_KV_BLOCKS blocks, with the policies and
+    as plain FIFO (latency by tier, completion, preemptions, resumes, the
+    terminal balance, no leak; interactive p99 <= batch p99 with the
+    policies); the f32 checks of _qos_checks; no kernel launched on any of
+    it (the JAX engine's swap programs and decode run none)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    t_start = time.perf_counter()
+    _zero_counts()
+    rng = np.random.default_rng(SEED + 15)    # phase serve's trace, weights
+    trace = _serve_trace(rng)[:QOS_PREEMPTED]
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, _random_jax_weights(model, rng))
+    runs = {"plain": _qos_explicit(model, trace, dev, False),
+            "preempted": _qos_explicit(model, trace, dev, True),
+            "starved": _qos_explicit(model, trace, dev, False,
+                                     starve=QOS_STARVE)}
+    prof = _serve_profile(model, False, True, dev, paged=True,
+                          block_size=PAGED_BLOCK, tenants=_qos_policies())
+    pre, plain, starved = runs["preempted"], runs["plain"], runs["starved"]
+    same = _serve_mismatch(pre["rows"], plain["rows"], trace)
+    same_starved = _serve_mismatch(starved["rows"], plain["rows"], trace)
+    ps, ss = pre["stats"], starved["stats"]
+    row = {"phase": "qos_preempt", "form": "full",
+           "compute_dtype": LM["compute_dtype"], "slots": SERVE_SLOTS,
+           "block_size": PAGED_BLOCK, "requests": len(trace),
+           "steps": SERVE_STEPS,
+           "resumed_equals_unpreempted": same is None,
+           "preemptions": ps["preemptions"], "resumes": ps["resumes"],
+           "swaps": [dict(s, prompt=len(p)) for s, (p, _, _) in
+                     zip(pre["swaps"], trace)],
+           "resumed_in_another_slot": sum(
+               s["slot_resumed"] != s["slot_left"] for s in pre["swaps"]),
+           "preempt_swap_ms": ps["preempt_swap_ms"],
+           "preempt_resume_ms": ps["preempt_resume_ms"],
+           "preempt_swap_ms_mean_max": _mean_max(ps["preempt_swap_ms"]),
+           "preempt_resume_ms_mean_max": _mean_max(ps["preempt_resume_ms"]),
+           "kv_blocks_swapped_out": ps["kv_blocks_swapped_out"],
+           "kv_block_bytes_swapped_out": ps["kv_block_bytes_swapped_out"],
+           "kv_blocks_resumed": ps["kv_blocks_resumed"],
+           "kv_block_bytes_resumed": ps["kv_block_bytes_resumed"],
+           "kv_block_bytes": (ps["kv_block_bytes_swapped_out"]
+                              // max(ps["kv_blocks_swapped_out"], 1)),
+           "starved": {
+               "interactive_requests": QOS_STARVE,
+               "resumed_equals_unpreempted": same_starved is None,
+               "interactive_finish": starved["interactive_finish"],
+               "victims": [s for s in starved["swaps"] if s],
+               **{k: ss[k] for k in (
+                   "preemptions", "resumes", "kv_blocks_swapped_out",
+                   "kv_block_bytes_swapped_out", "preempt_swap_ms",
+                   "preempt_resume_ms")}},
+           "wall_s": {name: r["wall_s"] for name, r in runs.items()},
+           "tenants_registered_decode_only_iterations":
+               plain["decode_only_iterations"],
+           **{f"tenants_registered_{k}": plain[k] for k in (
+               "h2d_transfers_per_decode_iteration",
+               "d2h_transfers_per_decode_iteration",
+               "graph_replays_per_decode_iteration",
+               "graph_captures_per_decode_iteration")},
+           "graph": {name: [r["stats"]["graph_captures"],
+                            r["stats"]["graph_replays"],
+                            r["stats"]["decode_steps"]]
+                     for name, r in runs.items()},
+           "tenants_registered_aten_ops_per_step": prof["aten_ops_per_step"],
+           "tenants_registered_graph_launches_per_step":
+               prof["graph_launches_per_step"],
+           "profile": prof, "card": card}
+    if same is not None:
+        row["first_difference"] = same
+    if same_starved is not None:
+        row["starved"]["first_difference"] = same_starved
+    emit(row)
+    check(same is None, f"qos: a resumed row differs from its unpreempted "
+          f"row at bf16: {same}")
+    check(same_starved is None, f"qos: a row the scheduler preempted "
+          f"differs from its unpreempted row at bf16: {same_starved}")
+    check(ss["preemptions"] >= 1 and ss["resumes"] == ss["preemptions"]
+          and starved["interactive_finish"] == ["length"] * QOS_STARVE,
+          f"qos: starving {QOS_STARVE} interactive requests made "
+          f"{ss['preemptions']} preemptions and {ss['resumes']} resumes")
+    check(ps["preemptions"] == ps["resumes"] == len(trace),
+          f"qos: {ps['preemptions']} preemptions and {ps['resumes']} "
+          f"resumes of {len(trace)} marked requests")
+    check(ps["kv_blocks_resumed"] == ps["kv_blocks_swapped_out"]
+          and ps["kv_block_bytes_resumed"]
+          == ps["kv_block_bytes_swapped_out"],
+          "qos: resumed blocks or bytes differ from the swapped ones")
+    for name, r in runs.items():
+        check(r["stats"]["requests_completed"]
+              == len(trace) + len(r["interactive_finish"])
+              and all(f == "length" for f in r["finish"]),
+              f"qos: {name} lost requests")
+        check(_qos_leaks(r), f"qos: {name} leaked "
+              f"{r['kv_blocks_in_use']} blocks")
+        check(r["stats"]["graph_captures"] == 1
+              and r["stats"]["graph_replays"] == r["stats"]["decode_steps"],
+              f"qos: {name}: {r['stats']['graph_captures']} captures, "
+              f"{r['stats']['graph_replays']} replays for "
+              f"{r['stats']['decode_steps']} steps")
+    check(plain["decode_only_iterations"] > 0
+          and plain["h2d_transfers_per_decode_iteration"] == [0]
+          and plain["d2h_transfers_per_decode_iteration"] == [1]
+          and plain["graph_replays_per_decode_iteration"] == [1]
+          and plain["graph_captures_per_decode_iteration"] == [0],
+          "qos: with tenants registered a decode-only iteration moved "
+          f"{plain['h2d_transfers_per_decode_iteration']} uploads, "
+          f"{plain['d2h_transfers_per_decode_iteration']} readbacks, "
+          f"{plain['graph_replays_per_decode_iteration']} replays, want "
+          "[0], [1], [1]")
+    rows = {"preempt": row}
+    otrace = _qos_trace(QOS_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
+                        num_steps=SERVE_STEPS, temperature=SERVE_TEMP,
+                        prompt_lengths=SERVE_PROMPT_LENS)
+    for arm in ("policies", "fifo"):
+        eng = _qos_engine(model, dev, policies=arm == "policies",
+                          kv_blocks=QOS_KV_BLOCKS)
+        _sync(dev)
+        try:
+            point = _run_overload(eng, otrace, QOS_QPS, QOS_TIMEOUT_S)
+        finally:
+            eng.stop()
+        s = eng.stats
+        orow = {"phase": "qos_overload", "arm": arm,
+                "compute_dtype": LM["compute_dtype"],
+                "kv_blocks": eng.kv_blocks, "slots": SERVE_SLOTS,
+                "block_size": PAGED_BLOCK, "queue_capacity": QOS_QUEUE,
+                "prompt_lens": sorted({len(r["prompt"]) for r in otrace}),
+                "sampled_requests": sum("temperature" in r for r in otrace),
+                **point,
+                "requests_submitted": s["requests_submitted"],
+                "requests_completed": s["requests_completed"],
+                "requests_failed": s["requests_failed"],
+                "requests_rejected": s["requests_rejected"],
+                "decode_steps": s["decode_steps"],
+                "graph_captures": s["graph_captures"],
+                "graph_replays": s["graph_replays"],
+                "blocks_evicted": s["blocks_evicted"],
+                "kv_blocks_in_use": eng.kv_blocks_in_use,
+                "conservation": eng._pool.check_conservation(),
+                "suspended": len(eng._suspended), "card": card}
+        emit(orow)
+        rows[arm] = orow
+        check(orow["interactive_completion_rate"] == 1.0
+              and orow["batch_completion_rate"] == 1.0,
+              f"qos overload {arm}: not every request completed")
+        check(orow["resumes"] == orow["preemptions"]
+              and orow["kv_blocks_resumed"] == orow["kv_blocks_swapped_out"]
+              and orow["kv_block_bytes_resumed"]
+              == orow["kv_block_bytes_swapped_out"],
+              f"qos overload {arm}: {orow['preemptions']} preemptions, "
+              f"{orow['resumes']} resumes, blocks or bytes unbalanced")
+        check(s["requests_submitted"] == s["requests_completed"]
+              + s["requests_failed"] + s["requests_rejected"],
+              f"qos overload {arm}: the terminal balance fails")
+        check(orow["kv_blocks_in_use"] == 0 and orow["conservation"]
+              and not orow["suspended"],
+              f"qos overload {arm}: {orow['kv_blocks_in_use']} blocks "
+              f"leaked")
+        check(orow["graph_captures"] == 1
+              and orow["graph_replays"] == orow["decode_steps"],
+              f"qos overload {arm}: {orow['graph_captures']} captures")
+        del eng
+    check(rows["policies"]["interactive_p99_ms"]
+          <= rows["policies"]["batch_p99_ms"],
+          f"qos overload: interactive p99 "
+          f"{rows['policies']['interactive_p99_ms']} ms above batch p99 "
+          f"{rows['policies']['batch_p99_ms']} ms with the policies")
+    del model, runs
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    rows["checks"] = _qos_checks(card, dev, _serve_trace(
+        np.random.default_rng(SEED + 15)), rng)
+    launches = _read_counts()
+    emit({"phase": "qos_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"qos: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "qos_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3924,6 +4414,7 @@ def main() -> int:
     _, serve_launches = phase_serve(smi)
     _, paged_launches = phase_paged(smi)
     _, spec_launches = phase_spec(smi)
+    _, qos_launches = phase_qos(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -4081,8 +4572,8 @@ def main() -> int:
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
         """The entry's launches on the packing, decode, serving, paged
-        serving and speculative serving paths (each counted from 0 over
-        its phase's runs; all must be 0)."""
+        serving, speculative serving and QoS serving paths (each counted
+        from 0 over its phase's runs; all must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -4094,6 +4585,7 @@ def main() -> int:
         entry["launches_serve"] = serve_launches[key]
         entry["launches_paged"] = paged_launches[key]
         entry["launches_spec"] = spec_launches[key]
+        entry["launches_qos"] = qos_launches[key]
         return entry
 
     emit(north_star)

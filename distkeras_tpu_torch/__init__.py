@@ -11,7 +11,10 @@ serves the ConvNet/MLP zoo (MNIST, digits, CIFAR-10, ATLAS Higgs) through
 ``SingleTrainer`` and ``ModelPredictor`` with the dist-keras transformer
 and evaluator pipeline, and with the dist-keras distributed trainers
 (ADAG, DOWNPOUR, DynSGD, AEASGD, EAMSGD, Averaging, Ensemble) on its SPMD
-engine, with checkpoints and metrics.  The port imports torch and numpy,
+engine, with checkpoints and metrics; and serves the LM through the
+continuous-batching ``serving.ServingEngine`` (paged KV pool and prefix
+trie, speculation, quantization, multi-tenant QoS with preemption).  The
+port imports torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
 """
@@ -33,6 +36,9 @@ from .evaluators import (AccuracyEvaluator, AUCEvaluator, Evaluator,
 from .models import (cifar10_convnet, digits_convnet, digits_mlp, higgs_mlp,
                      mnist_convnet, mnist_mlp, transformer_lm)
 from .predictors import ModelPredictor, Predictor
+from . import serving
+from .serving import (Draining, EngineDead, QueueFull, QuotaExceeded,
+                      RequestHandle, ServingEngine, TenantPolicy)
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
@@ -60,4 +66,6 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "ADAG", "DOWNPOUR", "DynSGD", "AEASGD", "EAMSGD",
            "AveragingTrainer", "EnsembleTrainer", "Checkpointer",
            "make_checkpointer", "MetricsLogger", "checkpoint", "metrics",
-           "parallel"]
+           "parallel", "serving", "ServingEngine", "RequestHandle",
+           "QueueFull", "QuotaExceeded", "Draining", "EngineDead",
+           "TenantPolicy"]

@@ -94,9 +94,25 @@ position, purpose) alone: a position drafted again after a rejection
 reuses bits that decided nothing committed (the JAX round folds its keys
 by (position, purpose) for the same reason; its bits are not these).
 
+Multi-tenant QoS (``tenants=``, ``register_tenant``, ``submit(tenant=,
+priority=)``): one admission queue per tenant, popped by stride-based
+weighted-fair scheduling (interactive-tier tenants strictly first,
+``pass += 1 / weight`` a pick, highest ``priority`` first within a
+tenant, FIFO among equals; requests naming no tenant pop in plain FIFO
+order), token-bucket quotas refused with :class:`QuotaExceeded` before a
+request counts as submitted, tier-default deadlines, and preemption of
+batch-tier requests on paged engines (``preempt``, or automatically when
+the interactive tier is starved of slots or blocks): the request's live
+KV blocks and its decode frontier are read to host memory, its slot and
+blocks are freed, and it later resumes into a fresh private chain and
+any free slot with the same token stream, since every draw depends on
+(key, position) alone.  Both swap programs write the static device state
+in place, so the decode step's CUDA graph replays over the resumed row
+without a new capture.
+
 Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): roles and tenants (queue A item 4), hot weight reload from
-a parameter server (queue A item 6), and the wire front-end.
+ROADMAP item): roles and the wire front-end (queue A item 4) and hot
+weight reload from a parameter server (queue A item 6).
 """
 
 from __future__ import annotations
@@ -139,6 +155,80 @@ class QueueFull(RuntimeError):
     (``submit(block=False)`` / a blocking submit that timed out)."""
 
 
+class QuotaExceeded(QueueFull):
+    """Admission refused by the submitting tenant's token-bucket quota
+    (``TenantPolicy.rate``).  A :class:`QueueFull`, so every shed path
+    treats a quota refusal as sheddable.  Raised at once even from a
+    blocking ``submit``: waiting out a refill inside the engine would hold
+    admission hostage to one tenant's burst."""
+
+
+class TenantPolicy:
+    """One tenant's QoS contract: ``weight`` is its weighted-fair share of
+    admissions, ``rate``/``burst`` a token-bucket quota in requests/s
+    (``rate=None`` = unlimited), ``tier`` the SLO band (``"interactive"``
+    tenants are admitted ahead of ``"batch"`` tenants and may preempt
+    them; ``"batch"`` tenants are preemptible), and ``deadline_s`` an
+    optional tier-default per-request deadline applied when ``submit``
+    passes none (an explicit ``deadline_s`` still wins).  The bucket is
+    mutated under the engine's queue lock: one policy object belongs to
+    one engine (``clone()`` for a copy with a full bucket)."""
+
+    __slots__ = ("name", "weight", "rate", "burst", "tier", "deadline_s",
+                 "_tokens", "_stamp")
+
+    def __init__(self, name: str, weight: float = 1.0,
+                 rate: Optional[float] = None,
+                 burst: Optional[float] = None, tier: str = "batch",
+                 deadline_s: Optional[float] = None):
+        if not name:
+            raise ValueError("tenant name must be non-empty")
+        if not (weight > 0):
+            raise ValueError(f"weight must be > 0, got {weight}")
+        if rate is not None and not (rate > 0):
+            raise ValueError(f"rate must be None or > 0, got {rate}")
+        if tier not in ("interactive", "batch"):
+            raise ValueError(f"tier must be 'interactive' or 'batch', "
+                             f"got {tier!r}")
+        if deadline_s is not None and not (deadline_s > 0):
+            raise ValueError(f"deadline_s must be None or > 0, "
+                             f"got {deadline_s}")
+        self.name = str(name)
+        self.weight = float(weight)
+        self.rate = None if rate is None else float(rate)
+        if burst is None:
+            burst = None if rate is None else max(1.0, float(rate))
+        elif not (burst >= 1.0):
+            raise ValueError(f"burst must be >= 1, got {burst}")
+        self.burst = None if burst is None else float(burst)
+        self.tier = tier
+        self.deadline_s = deadline_s
+        self._tokens = 0.0 if self.burst is None else self.burst
+        self._stamp: Optional[float] = None
+
+    def _take(self, now: float) -> bool:
+        """Spend one bucket token (refilling first); False = over quota.
+        The caller holds the engine's queue lock."""
+        if self.rate is None:
+            return True
+        if self._stamp is not None:
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._stamp)
+                               * self.rate)
+        self._stamp = now
+        if self._tokens >= 1.0:
+            self._tokens -= 1.0
+            return True
+        return False
+
+    def clone(self) -> "TenantPolicy":
+        """A copy with a full bucket of its own (``respawn_clone``: the
+        replacement engine does not inherit the dead engine's debt)."""
+        return TenantPolicy(self.name, weight=self.weight, rate=self.rate,
+                            burst=self.burst, tier=self.tier,
+                            deadline_s=self.deadline_s)
+
+
 class Draining(RuntimeError):
     """Admission refused because the engine is draining (``engine.drain``):
     in-flight requests finish, new ones go elsewhere."""
@@ -165,20 +255,22 @@ class RequestHandle:
     ``"error"`` (the engine died — ``result()`` raises the stored
     :class:`EngineDead`).  ``key`` is the request's two 32-bit key words
     (``core.decode.rng_key``); ``deadline`` an absolute
-    ``time.perf_counter()`` instant or None.
+    ``time.perf_counter()`` instant or None; ``tenant`` and ``priority``
+    the QoS fields ``submit`` was given.
     """
 
     __slots__ = ("id", "prompt", "num_steps", "temperature", "top_k",
                  "top_p", "eos_id", "pad_id", "key", "tokens", "finish",
                  "slot", "submitted_at", "started_at", "first_token_at",
                  "finished_at", "deadline", "error", "cancelled_at",
-                 "_cond", "_chunk_read", "_listener")
+                 "tenant", "priority", "_cond", "_chunk_read", "_listener")
 
     def __init__(self, rid: int, prompt: np.ndarray, num_steps: int,
                  temperature: float, top_k: Optional[int],
                  top_p: Optional[float], eos_id: Optional[int],
                  pad_id: Optional[int], key,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None,
+                 tenant: str = "default", priority: int = 0):
         self.id = rid
         self.prompt = prompt
         self.num_steps = int(num_steps)
@@ -199,6 +291,8 @@ class RequestHandle:
                          else self.submitted_at + float(deadline_s))
         self.error: Optional[BaseException] = None
         self.cancelled_at: Optional[float] = None
+        self.tenant = str(tenant)
+        self.priority = int(priority)
         self._cond = threading.Condition()
         self._chunk_read = 0            # tokens already handed out as chunks
         #: a no-arg callable invoked (outside ``_cond``) whenever tokens
@@ -595,6 +689,28 @@ class _PrefillJob:
         self.dbt = dbt
 
 
+class _SuspendedReq:
+    """One preempted request swapped out to host memory: its live KV rows
+    (``layers``: per TransformerBlock a dict of host tensors of
+    ``n_blocks`` × ``block_size`` rows, the ``gather_blocks`` layout, or
+    None) and its decode frontier read from the device (``pos`` entries
+    written, ``tok`` the current unwritten token).  The handle stays
+    live with the tokens it has emitted; it holds no slot and no arena
+    block."""
+
+    __slots__ = ("handle", "layers", "n_blocks", "pos", "tok",
+                 "suspended_at")
+
+    def __init__(self, handle: RequestHandle, layers, n_blocks: int,
+                 pos: int, tok: int):
+        self.handle = handle
+        self.layers = layers
+        self.n_blocks = int(n_blocks)
+        self.pos = int(pos)
+        self.tok = int(tok)
+        self.suspended_at = time.perf_counter()
+
+
 # ---------------------------------------------------------------------------
 # paged KV pool: host-side block allocator + radix prefix index
 # ---------------------------------------------------------------------------
@@ -912,8 +1028,15 @@ class ServingEngine:
     ``quantize`` (None, ``"int8"``, ``"bf16"``) quantizes the target's
     and the draft's weights once, into copies; ``kv_dtype="int8"``
     (bucketed mode only) stores both pools as int8 codes plus per-entry
-    scales.  ``role`` and ``tenants`` take their defaults here; any other
-    value raises ``NotImplementedError``.
+    scales.
+
+    ``tenants`` (a list of :class:`TenantPolicy`; more with
+    ``register_tenant``) turns on weighted-fair admission across tenants,
+    quotas and tier deadlines; paged non-rolling engines without a draft
+    also preempt batch-tier requests (``preempt``, and automatically when
+    an interactive request starves).  ``role`` takes its default
+    ``"unified"`` only: the prefill and decode roles of disaggregated
+    serving raise ``NotImplementedError``.
 
     Threading: ``submit`` is thread-safe (any number of producers); the
     scheduler itself — ``step`` / ``run_until_idle`` / the ``start``
@@ -932,12 +1055,10 @@ class ServingEngine:
                  paged: bool = False, block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  role: str = "unified", tenants=None):
-        later = {"role": (role, "unified"), "tenants": (tenants, None)}
-        for name, (value, default) in later.items():
-            if value != default:
-                raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}): roles and tenants "
-                    f"of the JAX engine are not ported yet ({_LATER})")
+        if role != "unified":
+            raise NotImplementedError(
+                f"ServingEngine(role={role!r}): the roles of the JAX "
+                f"engine are not ported yet ({_LATER})")
         if prefill_mode == "eager" and (spec_draft is not None
                                         or kv_dtype is not None or paged):
             raise ValueError(
@@ -1079,12 +1200,40 @@ class ServingEngine:
         self._topp = np.zeros((self.num_slots,), np.float32)  # 0 = off
         self._keys = np.zeros((self.num_slots, 2), np.int64)
 
-        # -- admission queue (the ONLY cross-thread state besides handles)
-        self._queue: "collections.deque[RequestHandle]" = collections.deque()
+        # -- admission queues (the ONLY cross-thread state besides
+        #    handles): one FIFO list per tenant, popped by stride-based
+        #    weighted-fair scheduling, interactive-tier tenants first.  A
+        #    request naming no tenant lands in the "default" queue, and one
+        #    tenant's requests of one priority pop FIFO.  _qdepth is the global
+        #    depth (the backpressure bound is engine-wide); _q_int counts
+        #    queued interactive-tier requests (the preemption signal)
+        self._queues: Dict[str, List[RequestHandle]] = {}
+        self._qdepth = 0
+        self._q_int = 0
+        self._wf_pass: Dict[str, float] = {}
+        self._tenants: Dict[str, TenantPolicy] = {}
+        for pol in (tenants or []):
+            if not isinstance(pol, TenantPolicy):
+                raise ValueError(f"tenants must be TenantPolicy instances, "
+                                 f"got {type(pol).__name__}")
+            self._tenants[pol.name] = pol
         self._qlock = threading.Lock()
         self._not_full = threading.Condition(self._qlock)
         self._have_work = threading.Condition(self._qlock)
         self._next_id = 0
+
+        # -- preemption: suspended requests hold no slot and no block, only
+        #    a host copy of their live KV rows and frontier (scheduler
+        #    thread, read under _qlock by _declare_dead); _preempt_ids
+        #    carries preempt() marks to the scheduler; _int_blocked is set
+        #    when an interactive admission found no blocks, so that the
+        #    starvation pass fires on pool pressure as well as on slots
+        self._suspended: Dict[int, _SuspendedReq] = collections.OrderedDict()
+        self._preempt_ids: set = set()
+        self._int_blocked = False
+        self._can_preempt = (self.paged and not self.rolling
+                             and draft is None
+                             and self.prefill_mode == "bucketed")
 
         # -- the fast path: prefill widths, the lookahead pipeline, and the
         #    device-resident decode state (static tensors: the CUDA graph
@@ -1172,6 +1321,16 @@ class ServingEngine:
             # the decode step's CUDA graph: captures (one per engine on a
             # card, none elsewhere) and replays (one per decode step)
             "graph_captures": 0, "graph_replays": 0,
+            # multi-tenant QoS: swap-outs and resumes, the blocks and bytes
+            # of their KV payloads (their reads and uploads also land in
+            # d2h/h2d_transfers), one ms sample per swap-out and resume,
+            # quota refusals (not requests_rejected), and per tenant its
+            # submitted/completed/shed/quota_refused/preemptions/resumes
+            "preemptions": 0, "resumes": 0,
+            "kv_blocks_swapped_out": 0, "kv_block_bytes_swapped_out": 0,
+            "kv_blocks_resumed": 0, "kv_block_bytes_resumed": 0,
+            "preempt_swap_ms": [], "preempt_resume_ms": [],
+            "quota_refused": 0, "tenants": {},
         }
         if self.paged:
             self._pool = _PagedKVPool(self.kv_blocks, self.block_size,
@@ -1187,7 +1346,7 @@ class ServingEngine:
             "draining": False, "dead": False, "prefix_hit_tokens": 0,
             "prefill_tokens": 0,
             "tokens_generated": 0, "requests_completed": 0,
-            "requests_failed": 0,
+            "requests_failed": 0, "queued_interactive": 0,
         }
 
     # ------------------------------------------------------------- the step
@@ -1296,8 +1455,8 @@ class ServingEngine:
                  bt=None, dbt=None) -> None:
         """Write admitted slots' rows of decode state (and, paged, their
         block-table rows ``bt`` and the draft's ``dbt``) into the static
-        device tensors (``slots``: an int, or a device tensor of
-        indices)."""
+        device tensors, in place (``slots``: an int, a slice, or a device
+        tensor of indices)."""
         if bt is not None:
             self._dev_bt[slots] = bt
         if dbt is not None:
@@ -1461,14 +1620,18 @@ class ServingEngine:
 
     # ----------------------------------------------------- device traffic
     def _put(self, x) -> torch.Tensor:
-        """Host→device upload (admission inputs only).  Counted so the
-        transfer discipline is assertable: a decode-only iteration
-        performs ZERO uploads.  On a card it goes through pinned memory
-        without waiting for the card."""
+        """Host→device upload (admission and resume inputs only: a numpy
+        array or a host tensor).  Counted so the transfer discipline is
+        assertable: a decode-only iteration performs ZERO uploads.  On a
+        card it goes through pinned memory without waiting for the
+        card."""
         self.stats["h2d_transfers"] += 1
-        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = (x if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(x)))
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+            if not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
         return t.to(self.device)
 
     def _snapshot(self, t: torch.Tensor):
@@ -1521,23 +1684,33 @@ class ServingEngine:
         words), else ``seed``'s.  Backpressure: with the queue at
         ``queue_capacity``, ``block=True`` waits (up to ``timeout``),
         ``block=False`` raises :class:`QueueFull` immediately.
-        ``deadline_s`` (default: the engine's ``default_deadline_s``)
-        bounds the request's whole lifetime, queueing included.  Raises
-        :class:`Draining` while ``drain`` is in progress and
-        :class:`EngineDead` on a dead engine.  ``tenant`` and ``priority``
-        (QoS) are not ported yet: only their defaults are taken."""
-        if tenant not in (None, "default") or int(priority) != 0:
-            raise NotImplementedError(
-                f"submit(tenant=, priority=): multi-tenant QoS is not "
-                f"ported yet ({_LATER})")
+        ``deadline_s`` (default: the tenant's ``TenantPolicy.deadline_s``,
+        else the engine's ``default_deadline_s``) bounds the request's
+        whole lifetime, queueing included.  Raises :class:`Draining` while
+        ``drain`` is in progress and :class:`EngineDead` on a dead engine.
+
+        QoS: ``tenant`` names the submitting tenant (default
+        ``"default"``); admission is weighted-fair across backlogged
+        tenants by their registered :class:`TenantPolicy`, and a tenant
+        over its token-bucket quota raises :class:`QuotaExceeded` at once
+        (also with ``block=True``).  ``priority`` orders requests within a
+        tenant's queue (higher first) and picks preemption victims (lower
+        first)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D tokens, got shape "
                              f"{prompt.shape} — submit one request per row")
         if num_steps < 0:
             raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+        tenant = "default" if tenant is None else str(tenant)
+        priority = int(priority)
         if deadline_s is None:
-            deadline_s = self.default_deadline_s
+            with self._qlock:  # register_tenant may race admission
+                pol = self._tenants.get(tenant)
+            if pol is not None and pol.deadline_s is not None:
+                deadline_s = pol.deadline_s
+            else:
+                deadline_s = self.default_deadline_s
         elif deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         key = np.asarray(rng_key(rng if rng is not None else int(seed)),
@@ -1557,18 +1730,33 @@ class ServingEngine:
             if self._draining:
                 raise Draining("serving engine is draining; admission "
                                "stopped")
+            pol = self._tenants.get(tenant)
+            if pol is not None and not pol._take(time.monotonic()):
+                # a policy refusal, before requests_submitted counts (so
+                # drain's terminal accounting never waits on it) and apart
+                # from requests_rejected (it does not dilute shed_rate)
+                self._tenant_stats(tenant)["quota_refused"] += 1
+                self.stats["quota_refused"] += 1
+                raise QuotaExceeded(
+                    f"tenant {tenant!r} over its token-bucket quota "
+                    f"({pol.rate}/s, burst {pol.burst})")
             self._next_id += 1
             handle = RequestHandle(self._next_id, prompt, num_steps,
                                    temperature, top_k, top_p, eos_id,
-                                   pad_id, key, deadline_s=deadline_s)
+                                   pad_id, key, deadline_s=deadline_s,
+                                   tenant=tenant, priority=priority)
             self.stats["requests_submitted"] += 1
+            tstats = self._tenant_stats(tenant)
+            tstats["submitted"] += 1
             if num_steps == 0:  # nothing to generate: complete in place
                 handle._finish("empty")
                 self.stats["requests_completed"] += 1
+                tstats["completed"] += 1
                 return handle
-            while len(self._queue) >= self.queue_capacity:
+            while self._qdepth >= self.queue_capacity:
                 if not block or not self._not_full.wait(timeout=timeout):
                     self.stats["requests_rejected"] += 1
+                    tstats["shed"] += 1
                     raise QueueFull(
                         f"admission queue at capacity "
                         f"({self.queue_capacity}); request {handle.id} shed")
@@ -1582,8 +1770,8 @@ class ServingEngine:
                     self.stats["requests_rejected"] += 1
                     raise Draining("serving engine is draining; admission "
                                    "stopped")
-            self._queue.append(handle)
-            qd = len(self._queue)
+            self._q_push(handle)
+            qd = self._qdepth
             self.stats["queue_peak"] = max(self.stats["queue_peak"], qd)
             self._have_work.notify()
         self._publish_load(qd=qd)
@@ -1592,7 +1780,96 @@ class ServingEngine:
     @property
     def queue_depth(self) -> int:
         with self._qlock:
-            return len(self._queue)
+            return self._qdepth
+
+    # ------------------------------------------------- tenant QoS plumbing
+    def register_tenant(self, policy: TenantPolicy) -> None:
+        """Install (or replace) one tenant's :class:`TenantPolicy`.
+        Thread-safe; it takes effect at the next admission.  A request
+        naming no tenant, or one not registered, is treated as batch tier,
+        weight 1, no quota."""
+        if not isinstance(policy, TenantPolicy):
+            raise ValueError(f"expected a TenantPolicy, got "
+                             f"{type(policy).__name__}")
+        with self._qlock:
+            self._tenants[policy.name] = policy
+
+    def _tenant_stats(self, tenant: str) -> Dict[str, int]:
+        """The tenant's counter dict, made at first use.  The caller holds
+        ``_qlock``."""
+        ts = self.stats["tenants"].get(tenant)
+        if ts is None:
+            ts = {"submitted": 0, "completed": 0, "shed": 0,
+                  "quota_refused": 0, "preemptions": 0, "resumes": 0}
+            self.stats["tenants"][tenant] = ts
+        return ts
+
+    def _tier_of(self, tenant: str) -> str:
+        """The tenant's tier (``"batch"`` when not registered).  The
+        caller holds ``_qlock``."""
+        pol = self._tenants.get(tenant)
+        return "batch" if pol is None else pol.tier
+
+    def _q_push(self, h: RequestHandle, front: bool = False) -> None:
+        """Enqueue under ``_qlock``.  A tenant joining the backlog starts
+        its stride pass at the least pass among backlogged tenants, so
+        idle time banks no credit."""
+        q = self._queues.get(h.tenant)
+        if q is None:
+            q = self._queues[h.tenant] = []
+        if not q:
+            floor = min((self._wf_pass.get(n, 0.0)
+                         for n, qq in self._queues.items() if qq),
+                        default=0.0)
+            self._wf_pass[h.tenant] = max(
+                self._wf_pass.get(h.tenant, 0.0), floor)
+        if front:
+            q.insert(0, h)
+        else:
+            q.append(h)
+        self._qdepth += 1
+        if self._tier_of(h.tenant) == "interactive":
+            self._q_int += 1
+
+    def _q_pop_locked(self) -> Optional[RequestHandle]:
+        """The weighted-fair pick under ``_qlock``: interactive-tier
+        tenants strictly before batch-tier ones; within a tier the
+        backlogged tenant of least stride pass (ties by name; ``pass +=
+        1 / weight`` a pick); within a tenant the highest ``priority``,
+        FIFO among equals.  One tenant of uniform priority pops FIFO."""
+        best_name, best_key = None, None
+        for name, q in self._queues.items():
+            if not q:
+                continue
+            lvl = 0 if self._tier_of(name) == "interactive" else 1
+            key = (lvl, self._wf_pass.get(name, 0.0), name)
+            if best_key is None or key < best_key:
+                best_name, best_key = name, key
+        if best_name is None:
+            return None
+        q = self._queues[best_name]
+        idx = max(range(len(q)), key=lambda i: (q[i].priority, -i))
+        h = q.pop(idx)
+        self._qdepth -= 1
+        if self._tier_of(best_name) == "interactive":
+            self._q_int -= 1
+        pol = self._tenants.get(best_name)
+        weight = 1.0 if pol is None else pol.weight
+        self._wf_pass[best_name] = (self._wf_pass.get(best_name, 0.0)
+                                    + 1.0 / weight)
+        return h
+
+    def _q_snapshot_locked(self) -> List[RequestHandle]:
+        """Every queued handle, tenant by tenant, under ``_qlock``."""
+        return [h for q in self._queues.values() for h in q]
+
+    def _q_clear_locked(self) -> List[RequestHandle]:
+        """Empty every queue under ``_qlock``; returns what was queued."""
+        out = self._q_snapshot_locked()
+        self._queues.clear()
+        self._qdepth = 0
+        self._q_int = 0
+        return out
 
     @property
     def active_requests(self) -> int:
@@ -1606,6 +1883,8 @@ class ServingEngine:
         ``_qlock`` block; a ``None`` field carries the previous value."""
         prev = self._load_snapshot
         stats = self.stats
+        with self._qlock:
+            qi = self._q_int
         self._load_snapshot = {
             "queue_depth": prev["queue_depth"] if qd is None else int(qd),
             "slots_free": len(self._free),
@@ -1622,6 +1901,7 @@ class ServingEngine:
             "tokens_generated": stats["tokens_generated"],
             "requests_completed": stats["requests_completed"],
             "requests_failed": stats["requests_failed"],
+            "queued_interactive": qi,
         }
 
     def load(self) -> Dict[str, Any]:
@@ -1631,11 +1911,11 @@ class ServingEngine:
 
     def _pop_queued(self) -> Optional[RequestHandle]:
         with self._qlock:
-            if not self._queue:
+            h = self._q_pop_locked()
+            if h is None:
                 return None
-            h = self._queue.popleft()
             self._not_full.notify()
-            qd = len(self._queue)
+            qd = self._qdepth
         self._publish_load(qd=qd)
         return h
 
@@ -1657,15 +1937,26 @@ class ServingEngine:
     def _reap(self) -> bool:
         """Retire cancelled and deadline-expired requests: queued ones are
         shed before ever taking a slot; running and mid-chunked-prefill
-        ones free their slot.  Runs at the top of every iteration."""
+        ones free their slot; suspended ones drop their host copy.  Runs
+        at the top of every iteration."""
         now = time.perf_counter()
+        shed: List[RequestHandle] = []
         with self._qlock:
-            shed = [h for h in self._queue
-                    if h.cancelled_at is not None or h._expired(now)]
+            for name, q in self._queues.items():
+                if not any(h.cancelled_at is not None or h._expired(now)
+                           for h in q):
+                    continue
+                keep: List[RequestHandle] = []
+                for h in q:
+                    if h.cancelled_at is not None or h._expired(now):
+                        shed.append(h)
+                        self._qdepth -= 1
+                        if self._tier_of(name) == "interactive":
+                            self._q_int -= 1
+                    else:
+                        keep.append(h)
+                self._queues[name] = keep
             if shed:
-                self._queue = collections.deque(
-                    h for h in self._queue
-                    if not (h.cancelled_at is not None or h._expired(now)))
                 self._not_full.notify_all()
         for h in shed:
             reason = "cancel" if h.cancelled_at is not None else "deadline"
@@ -1675,6 +1966,7 @@ class ServingEngine:
                 self._account_terminal(h, reason, now, held_slot=False)
                 with self._qlock:  # drain()'s busy() sums this cross-thread
                     self.stats["requests_completed"] += 1
+                    self._tenant_stats(h.tenant)["completed"] += 1
         did = bool(shed)
         for slot in np.flatnonzero(self._active):
             h = self._handles[slot]
@@ -1692,6 +1984,27 @@ class ServingEngine:
             elif h._expired(now):
                 self._abort_prefill(slot, "deadline")
                 did = True
+        # a suspended request holds no slot and no block: its cancel or
+        # deadline drops the host copy and retires the handle (no
+        # slot_reclaim_ms sample: nothing to reclaim)
+        with self._qlock:  # _declare_dead clears _suspended cross-thread
+            susp = list(self._suspended.items())
+        for rid, rec in susp:
+            h = rec.handle
+            if h.cancelled_at is not None:
+                reason = "cancel"
+            elif h._expired(now):
+                reason = "deadline"
+            else:
+                continue
+            with self._qlock:
+                self._suspended.pop(rid, None)
+            if h._finish(reason):
+                self._account_terminal(h, reason, now, held_slot=False)
+                with self._qlock:
+                    self.stats["requests_completed"] += 1
+                    self._tenant_stats(h.tenant)["completed"] += 1
+            did = True
         return did
 
     def _abort_prefill(self, slot: int, reason: str) -> None:
@@ -1709,6 +2022,7 @@ class ServingEngine:
         if h._finish(reason):
             with self._qlock:
                 self.stats["requests_completed"] += 1
+                self._tenant_stats(h.tenant)["completed"] += 1
             self._account_terminal(h, reason, time.perf_counter())
 
     def _release_blocks(self, slot: int) -> None:
@@ -1784,8 +2098,8 @@ class ServingEngine:
         blocks are shared (copied on write at a partial boundary), the
         block chain is reserved from the allocator, and when blocks run
         out even after evicting cached chains the head request goes back
-        to the front of the queue until retirements free blocks (FIFO
-        head-of-line: admission order is the fairness contract).  Chunked
+        to the front of its queue until retirements free blocks
+        (head-of-line: admission order is the fairness contract).  Chunked
         routing keys on the unmatched suffix length, so a long prompt
         with a hot prefix admits in one bucket program."""
         did = False
@@ -1808,9 +2122,15 @@ class ServingEngine:
             if self.paged:
                 plan = self._admit_blocks(h)
                 if plan is None:
+                    # an interactive request starving on blocks (not
+                    # slots) flags the next iteration's preemption pass
                     with self._qlock:
-                        self._queue.appendleft(h)
-                        qd = len(self._queue)
+                        interactive = (self._tier_of(h.tenant)
+                                       == "interactive")
+                        self._q_push(h, front=True)
+                        qd = self._qdepth
+                    if interactive:
+                        self._int_blocked = True
                     self._publish_load(qd=qd)
                     break
             budget -= 1
@@ -2062,18 +2382,252 @@ class ServingEngine:
         if h._finish(reason):  # no-op when _declare_dead already failed it
             with self._qlock:
                 self.stats["requests_completed"] += 1
+                self._tenant_stats(h.tenant)["completed"] += 1
             self._account_terminal(h, reason, time.perf_counter())
+
+    # ----------------------------------------------- preemption (QoS swap)
+    def preempt(self, handle: RequestHandle) -> bool:
+        """Mark a running request for preemption (thread-safe): within one
+        iteration its live KV rows and decode frontier are read to host
+        memory, its slot and blocks are freed, and it waits, suspended,
+        until capacity is free again; then it resumes with the token
+        stream it would have emitted unpreempted.  The scheduler takes the
+        same path itself when the interactive tier starves.  Returns False
+        when the request already finished or the engine cannot preempt
+        (it needs ``paged=True``, bucketed prefill, no rolling window and
+        no draft)."""
+        if not self._can_preempt:
+            return False
+        with handle._cond:
+            if handle.finish is not None:
+                return False
+        with self._qlock:
+            self._preempt_ids.add(handle.id)
+            self._have_work.notify_all()
+        return True
+
+    def _read_host(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Device→host read of several tensors together, one readback in
+        ``d2h_transfers``: on a card asynchronous copies into pinned
+        memory behind one event, waited for here; elsewhere copies."""
+        self.stats["d2h_transfers"] += 1
+        if self.device.type != "cuda":
+            return [t.clone() for t in tensors]
+        out = []
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            out.append(host)
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        return out
+
+    def _swap_out(self, slot: int, n_src: int):
+        """The swap-out program: ``gather_slot_state`` over the first
+        ``n_src`` blocks of the slot's device table row (their physical
+        rows expanded on the device) with the slot's device token,
+        position and key, read to the host together.  Returns the host
+        payload (the ``gather_blocks`` layout), token and position."""
+        bs = self.block_size
+        blocks = self._dev_bt[slot, :n_src]
+        rows = (blocks[:, None] * bs
+                + torch.arange(bs, device=self.device)[None, :]).reshape(-1)
+        dev, tok, pos, _ = _dec.gather_slot_state(
+            self.caches, rows, self._dev_tok, self._dev_pos, self._dev_keys,
+            slot)
+        leaves = [t for c in dev if c is not None for t in c.values()]
+        host = iter(self._read_host(leaves + [tok, pos]))
+        layers = [None if c is None else {k: next(host) for k in c}
+                  for c in dev]
+        return layers, int(next(host)), int(next(host))
+
+    def _ingest(self, slot: int, rows, payload, row_bt, tok, pos, temp,
+                topk, topp, keys) -> None:
+        """The swap-in program (the JAX engine's ``_build_ingest_fn``):
+        ``scatter_blocks`` of ``payload`` into the arena rows ``rows`` (a
+        device tensor of physical slot indices), then slot ``slot``'s
+        device row (table row, token, position, active, sampling
+        parameters, key: (1, ...) device tensors) through ``_install``.
+        Every write is in place, on the current stream, behind any
+        lookahead snapshot: the decode step's CUDA graph replays over the
+        ingested row as it is."""
+        _dec.scatter_blocks(self.caches, rows, payload)
+        self._install(slice(slot, slot + 1), tok, pos, temp, topk, topp,
+                      keys, bt=row_bt)
+
+    def _suspend_slot(self, slot: int) -> bool:
+        """Swap one running request out: flush the lookahead (so the
+        handle's tokens reach the true frontier), read its live KV rows
+        and device frontier to the host, then free the slot and its blocks
+        as ``_retire`` does, minus the terminal transition.  Returns False
+        when the request retired in the flush."""
+        h = self._handles[slot]
+        if h is None:
+            return False
+        t0 = time.perf_counter()
+        if self._pending:
+            self._drain_pending(flush=True)
+        if self._handles[slot] is not h or h.finish is not None:
+            return False  # eos/length/cancel landed in the flush
+        n_src = max(-(-int(self._positions[slot]) // self.block_size), 1)
+        layers, tok, pos = self._swap_out(slot, n_src)
+        rec = _SuspendedReq(h, layers, n_src, pos, tok)
+        self._handles[slot] = None
+        self._active[slot] = False
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        self._topp[slot] = 0.0
+        self._positions[slot] = 0
+        self._cur_tok[slot] = 0
+        self._free.append(slot)
+        self._dev_act[slot] = False
+        self._dev_bt[slot] = self.kv_blocks
+        self._release_blocks(slot)
+        h.slot = None
+        nbytes = sum(t.numel() * t.element_size() for c in layers
+                     if c is not None for t in c.values())
+        with self._qlock:  # _declare_dead drains _suspended cross-thread
+            self._suspended[h.id] = rec
+            self.stats["preemptions"] += 1
+            self._tenant_stats(h.tenant)["preemptions"] += 1
+        self.stats["kv_blocks_swapped_out"] += n_src
+        self.stats["kv_block_bytes_swapped_out"] += nbytes
+        self.stats["preempt_swap_ms"].append(
+            (time.perf_counter() - t0) * 1000.0)
+        return True
+
+    def _resume_suspended(self, rec: _SuspendedReq) -> bool:
+        """Swap one suspended request back in: a free slot, a fresh private
+        chain of ``ceil((P + num_steps) / block_size)`` blocks (no trie
+        match), the host rows scattered into its first blocks and the
+        slot's device row installed at the suspended frontier.  Returns
+        False when no slot or no blocks are free (the caller retries)."""
+        h = rec.handle
+        if not self._free:
+            return False
+        bs = self.block_size
+        total = len(h.prompt) + h.num_steps
+        plan = self._pool.admit(None, -(-total // bs))
+        if plan is None:
+            return False
+        t0 = time.perf_counter()
+        slot = self._free.pop()
+        h.slot = slot
+        self._handles[slot] = h
+        self._plans[slot] = plan
+        self.stats["slot_requests"][slot] += 1
+        n_src = rec.n_blocks
+        phys = (np.asarray(plan.blocks[:n_src], np.int64)[:, None] * bs
+                + np.arange(bs, dtype=np.int64)[None, :]).reshape(-1)
+        payload = [None if c is None else {k: self._put(v)
+                                           for k, v in c.items()}
+                   for c in rec.layers]
+        nbytes = sum(t.numel() * t.element_size() for c in rec.layers
+                     if c is not None for t in c.values())
+        bt, _ = self._row_tables(plan)
+        self._ingest(
+            slot, self._put(phys), payload, self._put(bt[None]),
+            self._put(np.asarray([rec.tok], np.int32)),
+            self._put(np.asarray([rec.pos], np.int64)),
+            self._put(np.asarray([h.temperature], np.float32)),
+            self._put(np.asarray([0 if h.top_k is None else h.top_k],
+                                 np.int64)),
+            self._put(np.asarray([0.0 if h.top_p is None else h.top_p],
+                                 np.float32)),
+            self._put(np.asarray(h.key, np.int64)[None]))
+        self._mirror_admit(slot, h)
+        self._positions[slot] = rec.pos   # the suspended frontier, not
+        self._cur_tok[slot] = rec.tok     # the prompt's end
+        with self._qlock:
+            self.stats["resumes"] += 1
+            self._tenant_stats(h.tenant)["resumes"] += 1
+        self.stats["kv_blocks_resumed"] += n_src
+        self.stats["kv_block_bytes_resumed"] += nbytes
+        self.stats["preempt_resume_ms"].append(
+            (time.perf_counter() - t0) * 1000.0)
+        return True
+
+    def _balance_qos(self) -> bool:
+        """The preemption pass (between ``_reap`` and
+        ``_schedule_prefills``): suspend the marked requests and, when an
+        interactive request waits with no free slot or was refused blocks,
+        one batch-tier victim an iteration (least ``priority``, then the
+        latest started, then the lowest slot); then resume suspended
+        requests oldest first while slots are free and no interactive
+        request waits, never one suspended in this pass."""
+        did = False
+        suspended_now = set()
+        with self._qlock:
+            explicit = set(self._preempt_ids)
+            self._preempt_ids.clear()
+            starved = self._q_int > 0
+        blocked = self._int_blocked
+        self._int_blocked = False
+        if explicit:
+            for slot in np.flatnonzero(self._active):
+                h = self._handles[int(slot)]
+                if h is not None and h.id in explicit:
+                    if self._suspend_slot(int(slot)):
+                        suspended_now.add(h.id)
+                        did = True
+        if starved and (not self._free or blocked):
+            victims = []
+            for slot in np.flatnonzero(self._active):
+                h = self._handles[int(slot)]
+                if h is None:
+                    continue
+                with self._qlock:
+                    tier = self._tier_of(h.tenant)
+                if tier == "interactive":
+                    continue
+                victims.append((h.priority, -(h.started_at or 0.0),
+                                int(slot)))
+            if victims:
+                victims.sort()
+                v = self._handles[victims[0][2]]
+                if self._suspend_slot(victims[0][2]):
+                    suspended_now.add(v.id)
+                    did = True
+        with self._qlock:  # _declare_dead drains _suspended cross-thread
+            waiting_int = self._q_int > 0
+            susp = list(self._suspended.items())
+        if susp and self._free and not waiting_int:
+            for rid, rec in susp:
+                if not self._free:
+                    break
+                if rid in suspended_now:
+                    # the capacity it freed goes first to what starved it
+                    # (admitted later in this iteration)
+                    continue
+                if rec.handle.finish is not None:
+                    with self._qlock:
+                        self._suspended.pop(rid, None)  # failed meanwhile
+                    continue
+                if not self._resume_suspended(rec):
+                    break  # block-starved: wait for retirements
+                with self._qlock:
+                    self._suspended.pop(rid, None)
+                did = True
+        return did
 
     # ------------------------------------------------------------ schedule
     def step(self) -> bool:
-        """One engine iteration: retire cancelled/expired requests, spend
-        up to ``prefills_per_step`` prefill work units, dispatch one decode
+        """One engine iteration: retire cancelled/expired requests, run the
+        preemption pass (paged engines with QoS work), spend up to
+        ``prefills_per_step`` prefill work units, dispatch one decode
         step for every running request, then drain the pipeline's oldest
         in-flight step (one-step lookahead: the device computes step t+1
         while the host emits step t's tokens).  Returns whether any work
         happened."""
         self.last_beat = time.monotonic()
         did = self._reap()
+        if self._can_preempt:
+            with self._qlock:
+                qos_work = bool(self._preempt_ids or self._suspended
+                                or self._q_int)
+            if qos_work or self._int_blocked:
+                did = self._balance_qos() or did
         did = self._schedule_prefills() or did
         if self._active.any():
             self._decode_once()
@@ -2241,7 +2795,8 @@ class ServingEngine:
 
         def busy() -> bool:
             # terminal accounting, not queue+active snapshots: a request
-            # between queue-pop and slot activation is in neither
+            # between queue-pop and slot activation is in neither, and a
+            # suspended one in no slot
             with self._qlock:
                 s = self.stats
                 return (s["requests_submitted"]
@@ -2276,11 +2831,16 @@ class ServingEngine:
 
     def _fail_stragglers(self, reason: str) -> None:
         """Post-join sweep: a request the scheduler popped BEFORE
-        ``_declare_dead`` swept the queue can land in ``_handles`` during
-        the loop's final iteration; with the loop joined, fail it."""
+        ``_declare_dead`` swept the queue can land in ``_handles`` (or
+        ``_suspended``) during the loop's final iteration; with the loop
+        joined, fail it."""
         exc = self._dead
         if exc is None:
             return
+        with self._qlock:
+            suspended = [rec.handle for rec in self._suspended.values()]
+            self._suspended.clear()
+        self._fail_suspended(suspended, exc, reason)
         for h in list(self._handles):
             if h is not None and h._fail(EngineDead(str(exc)),
                                          reason=reason):
@@ -2308,10 +2868,14 @@ class ServingEngine:
             if self._dead is not None:
                 return
             self._dead = exc
-            queued = list(self._queue)
-            self._queue.clear()
+            queued = self._q_clear_locked()
+            suspended = [rec.handle for rec in self._suspended.values()]
+            self._suspended.clear()
             self._not_full.notify_all()
             self._have_work.notify_all()
+        # suspended requests are in neither the queue nor _handles: without
+        # this their waiters (and drain's terminal accounting) would hang
+        self._fail_suspended(suspended, exc, reason)
         for h in queued + [h for h in self._handles if h is not None]:
             # only a true transition counts: a still-running thread may
             # retire a handle concurrently
@@ -2319,6 +2883,19 @@ class ServingEngine:
                 with self._qlock:
                     self.stats["requests_failed"] += 1
         self._publish_load(qd=0, dead=True)
+
+    def _fail_suspended(self, handles, exc: BaseException,
+                        reason: str) -> None:
+        """Fail swapped-out requests with an :class:`EngineDead` naming the
+        swap-out; each true transition counts a failure (and, as in the
+        JAX engine, a completion of its tenant)."""
+        for h in handles:
+            if h._fail(EngineDead(
+                    f"request was swapped out (preempted) and not resumed "
+                    f"before engine shutdown: {exc}"), reason=reason):
+                with self._qlock:
+                    self.stats["requests_failed"] += 1
+                    self._tenant_stats(h.tenant)["completed"] += 1
 
     @property
     def dead(self) -> Optional[BaseException]:
@@ -2330,7 +2907,10 @@ class ServingEngine:
         empty queue, fresh stats (the supervisor's restart path).  The
         draft, ``spec_len`` and both quantization knobs carry over; the
         models are already quantized, so the clone shares them instead of
-        quantizing again."""
+        quantizing again.  Tenant policies carry over as clones with full
+        buckets."""
+        with self._qlock:  # register_tenant may race a respawn
+            tenant_pols = [p.clone() for p in self._tenants.values()]
         return ServingEngine(
             self.model, num_slots=self.num_slots, max_len=self.max_len,
             queue_capacity=self.queue_capacity,
@@ -2343,7 +2923,7 @@ class ServingEngine:
             # the same arena shape, a fresh trie and allocator: cached
             # chains index the dead pool's arena contents
             paged=self.paged, block_size=self.block_size,
-            kv_blocks=self.kv_blocks)
+            kv_blocks=self.kv_blocks, tenants=tenant_pols or None)
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -2371,6 +2951,9 @@ class ServingEngine:
         ``num_slots``; paged: all-null block tables, so that every arena
         write goes to the null block, and a null-onto-null copy-on-write
         copy), so that the first live iteration pays no first-call cost.
+        Engines that can preempt, with tenants registered, also run one
+        swap-out and one ingest, through the null block and a free slot's
+        row, which is left inactive with the state of a never-used row.
         Fresh or idle engines only."""
         if self._active.any() or self._prefilling:
             raise RuntimeError("warmup() on an engine with active slots "
@@ -2428,6 +3011,23 @@ class ServingEngine:
                                   zeros(1), zeros(1, dtype=torch.int64),
                                   zeros(1), zeros(1, 2, dtype=torch.int64),
                                   bt=bt, d_staging=job.d_staging, dbt=dbt)
+        with self._qlock:
+            qos_on = bool(self._tenants)
+        if self._can_preempt and qos_on:
+            # the free slot's table row is null, so the gather reads and
+            # the ingest writes the null block alone
+            slot = self._free[-1]
+            bs = self.block_size
+            rows = self.kv_blocks * bs + torch.arange(bs, device=dev)
+            payload = _dec.gather_slot_state(
+                self.caches, rows, self._dev_tok, self._dev_pos,
+                self._dev_keys, slot)[0]
+            self._ingest(slot, rows, payload,
+                         null_bt[:1], zeros(1, dtype=torch.int32),
+                         zeros(1, dtype=torch.int64), zeros(1),
+                         zeros(1, dtype=torch.int64), zeros(1),
+                         zeros(1, 2, dtype=torch.int64))
+            self._dev_act[slot] = False
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return self
@@ -2438,7 +3038,8 @@ class ServingEngine:
                 if not self.step():
                     with self._qlock:
                         self._have_work.wait_for(
-                            lambda: bool(self._queue) or not self._running,
+                            lambda: self._qdepth > 0
+                            or bool(self._preempt_ids) or not self._running,
                             timeout=0.05)
         except Exception as e:
             # a crashed decode loop fails loudly: every in-flight handle

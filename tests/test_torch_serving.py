@@ -349,6 +349,16 @@ def test_background_thread_drives_requests(fitted):
     {"role": "prefill"}, {"tenants": []},
 ])
 def test_later_knobs_raise_their_item(fitted, knob):
+    """The roles still wait for ROADMAP queue A item 4; tenants are taken
+    now (an empty policy list is an engine without tenants)."""
+    if "tenants" in knob:
+        eng = ServingEngine(fitted, num_slots=1, max_len=24, **knob)
+        assert eng._tenants == {} and eng.stats["tenants"] == {}
+        h = eng.submit(PROMPT, 3)
+        eng.run_until_idle()
+        np.testing.assert_array_equal(h.result(),
+                                      gen(fitted, PROMPT, 3, max_len=24))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
         ServingEngine(fitted, num_slots=1, max_len=24, **knob)
 
@@ -380,8 +390,12 @@ def test_spec_draft_tenant_and_attach_ps_raise_their_items(fitted):
     eng = ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
                         spec_len=2, quantize="int8", kv_dtype="int8")
     assert eng._draft_model is not None and eng.spec_len == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        eng.submit(PROMPT, 2, tenant="gold")
+    # tenants are taken now: an unregistered one is booked on its own
+    h = eng.submit(PROMPT, 2, tenant="gold", priority=1)
+    assert (h.tenant, h.priority) == ("gold", 1)
+    assert eng.stats["tenants"]["gold"]["submitted"] == 1
+    eng.run_until_idle()
+    assert eng.stats["tenants"]["gold"]["completed"] == 1
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
         eng.attach_ps("127.0.0.1", 1)
 
