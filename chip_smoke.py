@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty phases, each printing JSON lines, and fails with a non-zero
+twenty-one phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -193,12 +193,30 @@ exit if any phase fails:
     batch p99 with the policies; at f32 on 2 layers a preempted greedy
     and a preempted sampled request equal their unpreempted rows and the
     CPU's; no kernel launched on any of it.
+21. disagg: disaggregated prefill/decode roles and the wire front-end (the
+    LM at full width, bf16, paged, blocks of 16, form full, 8 slots, one
+    prefill-role and one decode-role engine on the card): phase serve's
+    trace through the unified paged engine, an in-process ``DisaggPair``
+    and a pair whose decode engine sits behind a ``ServingServer``, every
+    row equal; the blocks and bytes shipped equal those ingested and the
+    block arithmetic (16,384 B a block); the extraction and ingest ms,
+    the wire hand-off of a 1024-token prompt's blocks; a decode-only
+    iteration of the decode engine uploads nothing, reads back one row and
+    replays its graph once, and the prefill engine captures no graph; the
+    bimodal interference trace of ``bench.py:866-893`` through the unified
+    engine and the pair (per-token decode p99 of the short requests, TTFT,
+    ``serving_kv_transfer_bytes``); phase serve's first 8 requests from a
+    ``ServingClient`` against a ``ServingServer`` on both cores, equal to
+    the in-process rows, with a ``load()`` probe and a mid-stream cancel
+    that frees its blocks; at f32 on 2 layers the pair equals the unified
+    engine and the CPU; no block leaked and no kernel launched on any of
+    it.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
-kernel's launches on the packing, decode, serving, paged, speculative
-and QoS serving paths), the
+kernel's launches on the packing, decode, serving, paged, speculative,
+QoS and disaggregated serving paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -592,6 +610,25 @@ QOS_PREEMPTED, QOS_DEPTH0, QOS_DEPTH_STEP = 8, 8, 15
 QOS_STARVE, QOS_STARVE_PROMPT, QOS_STARVE_STEPS = 4, 16, 32
 QOS_REQUESTS, QOS_QPS, QOS_TIER_MIX, QOS_KV_BLOCKS = 32, 200.0, 0.3, 160
 QOS_TIMEOUT_S = 300.0
+# disaggregated prefill/decode and the wire front-end (ROADMAP queue A item
+# 4): the LM at full width, bf16, form full (roles refuse rolling pools),
+# paged with PAGED_BLOCK-token blocks, SERVE_SLOTS slots an engine, chunks
+# of SERVE_CHUNK, max_len its seq; one prefill-role and one decode-role
+# engine on the card (examples/loadgen.py:607-615 build_engine(
+# disaggregate=True, prefill_engines=1)).  (a) phase serve's trace through
+# the unified paged engine, an in-process DisaggPair and a pair whose decode
+# engine is behind a ServingServer (event core) on 127.0.0.1; (b) the
+# interference trace of bench.py:866-893 at full width: make_trace's
+# bimodal pattern over DISAGG_PROMPT_LENS, DISAGG_LONG_FRACTION long,
+# DISAGG_REQUESTS requests of SERVE_STEPS new tokens (the long ones a
+# quarter), greedy, through the unified engine and the in-process pair; (c)
+# phase serve's first DISAGG_WIRE_REQUESTS requests from a ServingClient
+# against a ServingServer over a unified paged engine, once per core;
+# DISAGG_WIRE_REPS timed 'k' round trips of the largest block set; the f32
+# checks on SERVE_CHECK_LAYERS layers (TF32 off)
+DISAGG_PROMPT_LENS, DISAGG_LONG_FRACTION, DISAGG_REQUESTS = (16, 1024), \
+    0.3, 32
+DISAGG_WIRE_REQUESTS, DISAGG_WIRE_REPS = 8, 3
 
 
 def emit(obj) -> None:
@@ -3941,18 +3978,29 @@ def phase_spec(card: str, dev: str = "cuda"):
 def _qos_trace(num_requests: int, seed: int = 0, vocab: int = 16,
                num_steps: int = 16, temperature: float = 0.0,
                sampled_fraction: float = 0.5, prompt_lengths=(4, 6, 8),
-               tenants: int = QOS_TENANTS, tier_mix: float = QOS_TIER_MIX):
+               tenants: int = QOS_TENANTS, tier_mix: float = QOS_TIER_MIX,
+               pattern: str = "random", long_fraction: float = 0.25):
     """examples/loadgen.py's make_trace(num_requests, seed, vocab,
     num_steps, temperature, sampled_fraction, prompt_lengths,
-    tenants=tenants, tier_mix=tier_mix) with its default random pattern,
-    in numpy: the same draws in the same order, as submit keywords."""
+    pattern=pattern, long_fraction=long_fraction, tenants=tenants,
+    tier_mix=tier_mix) for its "random" and "bimodal" patterns, in numpy:
+    the same draws in the same order, as submit keywords."""
     import numpy as np
     rng = np.random.default_rng(seed)
     trace = []
     for i in range(int(num_requests)):
-        p_len = int(prompt_lengths[rng.integers(0, len(prompt_lengths))])
+        steps = int(num_steps)
+        if pattern == "bimodal":
+            if rng.random() < float(long_fraction):
+                p_len = int(max(prompt_lengths))   # prefill-heavy
+                steps = max(1, int(num_steps) // 4)
+            else:
+                p_len = int(min(prompt_lengths))   # decode-heavy
+        else:
+            p_len = int(prompt_lengths[rng.integers(0,
+                                                    len(prompt_lengths))])
         req = {"prompt": rng.integers(0, vocab, p_len).astype(np.int32),
-               "num_steps": int(num_steps), "seed": int(seed * 10_000 + i)}
+               "num_steps": steps, "seed": int(seed * 10_000 + i)}
         if temperature > 0.0 and rng.random() < sampled_fraction:
             req["temperature"] = float(temperature)
         if int(tenants) >= 2:
@@ -4383,6 +4431,607 @@ def phase_qos(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _disagg_engines(model, **knobs):
+    """A warmed-up prefill-role and decode-role engine of phase disagg's
+    shape (examples/loadgen.py:607-615 build_engine(disaggregate=True,
+    prefill_engines=1) at full width)."""
+    kw = dict(paged=True, block_size=PAGED_BLOCK)
+    kw.update(knobs)
+    return (_serve_engine(model, False, role="prefill", **kw),
+            _serve_engine(model, False, role="decode", **kw))
+
+
+def _block_bytes() -> int:
+    """One KV block's payload bytes by the LM's arithmetic: every layer's
+    k and v rows of PAGED_BLOCK tokens, num_kv_heads x head dim entries of
+    the compute dtype (4 x 2 x 16 x 2 x 32 x 2 B = 16,384 B)."""
+    head_dim = LM["d_model"] // LM["num_heads"]
+    itemsize = 2 if LM["compute_dtype"] in ("bfloat16", "float16") else 4
+    return (LM["num_layers"] * 2 * PAGED_BLOCK * LM["num_kv_heads"]
+            * head_dim * itemsize)
+
+
+def _pair_inline(pre, dec, trace, dev: str) -> dict:
+    """``trace`` (phase serve's (prompt, steps, keywords) form) through an
+    in-process DisaggPair: the prefill engine on its own thread, the
+    decode engine driven inline here (its step is what its own loop would
+    run), each decode-only iteration's uploads, readbacks, replays and
+    captures recorded; the rows, the wall time and both engines' state
+    after the run."""
+    from distkeras_tpu_torch.serving import DisaggPair
+    pair = DisaggPair([pre], decode=dec, poll_s=0.001)
+    keys = ("decode_steps", "kv_blocks_ingested", "h2d_transfers",
+            "d2h_transfers", "graph_replays", "graph_captures")
+    per_iter = {k: set() for k in keys[2:]}
+    iters = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    pre.start()
+    try:
+        handles = [pair.submit(p, n, **kw) for p, n, kw in trace]
+        while not all(h.done for h in handles):
+            before = [dec.stats[k] for k in keys]
+            if not dec.step():
+                with dec._qlock:
+                    dec._have_work.wait_for(lambda: dec._qdepth > 0,
+                                            timeout=0.002)
+                continue
+            delta = dict(zip(keys, (dec.stats[k] - b
+                                    for k, b in zip(keys, before))))
+            if delta["decode_steps"] == 1 and not delta[
+                    "kv_blocks_ingested"]:
+                iters += 1
+                for k in per_iter:
+                    per_iter[k].add(delta[k])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        pair.stop()
+    return {"rows": [h.result() for h in handles],
+            "finish": [h.finish for h in handles], "wall_s": wall,
+            "decode_only_iterations": iters,
+            **{f"{k}_per_decode_iteration": sorted(v)
+               for k, v in per_iter.items()},
+            **_pair_state(pair, pre, dec)}
+
+
+def _pair_state(pair, pre, dec) -> dict:
+    """A pair's counters, its two engines' transfer and graph counters
+    and their pools' state (leaks, conservation); ``dec`` may sit behind
+    a server, outside the pair."""
+    c = dict(pair.counters)
+    return {
+        "counters": c,
+        "balanced": c["requests_submitted"] == sum(c[k] for k in (
+            "requests_completed", "requests_failed", "requests_rejected",
+            "requests_cancelled", "requests_expired")),
+        "transfer": {k: e.stats[k] for e, ks in (
+            (pre, ("kv_blocks_shipped", "kv_block_bytes_shipped")),
+            (dec, ("kv_blocks_ingested", "kv_block_bytes_ingested")))
+            for k in ks},
+        "extract_ms": list(pre.stats["transfer_ms"]),
+        "ingest_ms": list(dec.stats["transfer_ms"]),
+        "prefill_graph_captures": pre.stats["graph_captures"],
+        "prefill_decode_steps": pre.stats["decode_steps"],
+        "decode_graph": [dec.stats["graph_captures"],
+                         dec.stats["graph_replays"],
+                         dec.stats["decode_steps"]],
+        "decode_prefills": dec.stats["prefills"],
+        "kv_blocks_in_use": [pre.kv_blocks_in_use, dec.kv_blocks_in_use],
+        "conservation": (pre._pool.check_conservation()
+                         and dec._pool.check_conservation()),
+        "plans_left": len(pre._plans) + len(dec._plans)}
+
+
+def _pair_clean(s: dict) -> bool:
+    return (s["kv_blocks_in_use"] == [0, 0] and s["conservation"]
+            and not s["plans_left"] and s["balanced"])
+
+
+def _pair_wire(pre, dec, trace, dev: str) -> dict:
+    """``trace`` through a DisaggPair whose decode engine sits behind a
+    ServingServer (event core) on 127.0.0.1: the blocks ship over the
+    wire (``'k'``) and the tokens stream back."""
+    from distkeras_tpu_torch.serving import DisaggPair, ServingServer
+    srv = ServingServer(dec, host="127.0.0.1", server_core="event",
+                        poll_s=0.002).start()
+    try:
+        pair = DisaggPair([pre], decode_addr=srv.addr, poll_s=0.001)
+        _sync(dev)
+        t0 = time.perf_counter()
+        pair.start()
+        try:
+            handles = [pair.submit(p, n, **kw) for p, n, kw in trace]
+            for h in handles:
+                h.wait(timeout=QOS_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            pair.stop()
+        _wait_state(lambda: dec.kv_blocks_in_use == 0)
+        out = {"rows": [h.result() for h in handles],
+               "finish": [h.finish for h in handles], "wall_s": wall,
+               **_pair_state(pair, pre, dec)}
+        out["handoff_ms"] = _wire_handoff_ms(pre, srv)
+    finally:
+        srv.stop()
+    return out
+
+
+def _wire_handoff_ms(pre, srv) -> dict:
+    """The wire hand-off of the largest block set (a DISAGG_PROMPT_LENS
+    maximum prompt through the prefill engine inline): its frame's bytes,
+    the pure-Python encode's ms, and DISAGG_WIRE_REPS ``'k'`` round trips
+    (frame out, the server's validate and copy, admission, ack back), each
+    request then streamed to its end (2 tokens)."""
+    import numpy as np
+    from distkeras_tpu_torch import networking
+    from distkeras_tpu_torch.serving import ServingClient
+    p_len = max(DISAGG_PROMPT_LENS)
+    prompt = np.random.default_rng(SEED + 17).integers(
+        0, LM["vocab_size"], p_len).astype(np.int32)
+    h = pre.submit(prompt, 2)
+    pre.run_until_idle()
+    kvb = h.kvblocks
+    t0 = time.perf_counter()
+    frame = networking.encode_message({"blocks": kvb, "prompt": prompt,
+                                       "first_token": int(h.tokens[0]),
+                                       "num_steps": 2})
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    acks = []
+    with ServingClient(*srv.addr) as c:
+        for _ in range(DISAGG_WIRE_REPS):
+            t0 = time.perf_counter()
+            rid = c.submit_prefilled(kvb, prompt, int(h.tokens[0]), 2)
+            acks.append((time.perf_counter() - t0) * 1e3)
+            for _, done in c.stream(rid):
+                if done is not None:
+                    break
+    return {"prompt": p_len, "blocks": kvb.num_blocks,
+            "payload_bytes": kvb.nbytes, "frame_bytes": len(frame),
+            "encode_ms": encode_ms, "ack_ms": acks}
+
+
+def _wait_state(pred, timeout: float = 30.0) -> bool:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            return False
+        time.sleep(0.002)
+    return True
+
+
+def _interference(engine, trace, dev: str) -> dict:
+    """bench.py:870-886 at full width: the engine (a unified paged engine
+    or a DisaggPair) started after its warmup, the whole bimodal trace
+    submitted at once, every handle waited for; the per-token decode
+    latency ``(latency - ttft) / (tokens - 1)`` of the short requests
+    (its p50 and p99), TTFT p50/p99 of the short and of every request."""
+    import numpy as np
+    short = min(DISAGG_PROMPT_LENS)
+    _sync(dev)
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        hs = [(req, engine.submit(**req)) for req in trace]
+        per_tok, ttft, ttft_short = [], [], []
+        for req, h in hs:
+            h.wait(timeout=QOS_TIMEOUT_S)
+            ttft.append(h.ttft_s)
+            if len(req["prompt"]) == short:
+                ttft_short.append(h.ttft_s)
+                if h.finish in ("eos", "length") and len(h.tokens) >= 2:
+                    per_tok.append((h.latency_s - h.ttft_s)
+                                   / (len(h.tokens) - 1))
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    return {"decode_p50_ms": _qos_percentile_ms(per_tok, 50),
+            "decode_p99_ms": _qos_percentile_ms(per_tok, 99),
+            "ttft_p50_ms": _qos_percentile_ms(ttft, 50),
+            "ttft_p99_ms": _qos_percentile_ms(ttft, 99),
+            "short_ttft_p50_ms": _qos_percentile_ms(ttft_short, 50),
+            "short_ttft_p99_ms": _qos_percentile_ms(ttft_short, 99),
+            "short_requests": len(per_tok), "wall_s": wall,
+            "rows": [h.result() for _, h in hs],
+            "finish": [h.finish for _, h in hs]}
+
+
+def _disagg_shipped(pre, dev: str) -> dict:
+    """One prompt of each of SERVE_PROMPT_LENS through the prefill engine
+    inline: the blocks and bytes it ships and its extraction ms."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 18)
+    out = {}
+    for p_len in SERVE_PROMPT_LENS:
+        h = pre.submit(rng.integers(0, LM["vocab_size"], p_len).astype(
+            np.int32), 2)
+        pre.run_until_idle()
+        out[p_len] = {"blocks": h.kvblocks.num_blocks,
+                      "bytes": h.kvblocks.nbytes,
+                      "extract_ms": pre.stats["transfer_ms"][-1]}
+    _sync(dev)
+    return out
+
+
+def _disagg_profile(pre, dec, dev: str) -> dict:
+    """SERVE_SLOTS shipped requests in steady decode on the decode-role
+    engine (64-token prompts prefilled by the prefill engine inline):
+    SERVE_PROFILE_STEPS decode-only iterations under torch.profiler (ATen
+    calls, graph launches and busy time an iteration), then the requests
+    cancelled and the engine idle again.  The ingests' ms samples are
+    kept too: taken here with no other engine thread running, beside
+    the pair runs' samples, where the prefill engine's thread competes
+    for the interpreter and the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 16)
+    shipped = []
+    for _ in range(SERVE_SLOTS):
+        prompt = rng.integers(0, LM["vocab_size"], 64).astype(np.int32)
+        h = pre.submit(prompt, 2)
+        pre.run_until_idle()
+        shipped.append((h.kvblocks, prompt, int(h.tokens[0])))
+    hs = [dec.submit_prefilled(kvb, p, t, LM["seq_len"] - 64)
+          for kvb, p, t in shipped]
+    n_ingest = len(dec.stats["transfer_ms"])
+    while dec.queue_depth:
+        dec.step()
+    ingest_ms = dec.stats["transfer_ms"][n_ingest:]
+    for _ in range(4):
+        dec.step()
+    _sync(dev)
+    before = {k: dec.stats[k] for k in ("graph_replays", "graph_captures",
+                                        "h2d_transfers", "d2h_transfers")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            dec.step()
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = _host_calls(prof)
+    n = SERVE_PROFILE_STEPS
+    busy_ms = calls.pop("device_busy_us") / 1e3 / n
+    row = {"wall_ms_per_step": wall_ms / n,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (wall_ms / n),
+           **{f"{k}_per_step": v / n for k, v in calls.items()},
+           **{f"{k}_per_step": (dec.stats[k] - v) / n
+              for k, v in before.items()},
+           "ingest_ms_alone_64_tokens": ingest_ms}
+    for h in hs:
+        dec.cancel(h)
+    dec.run_until_idle()
+    return row
+
+
+def _disagg_checks(card: str, dev: str, trace, rng) -> dict:
+    """At f32 on a SERVE_CHECK_LAYERS-layer copy, TF32 off: the trace's
+    first greedy and first sampled request through an in-process pair on
+    the card equal the unified paged engine on the card and the same pair
+    on the CPU, token for token."""
+    import torch
+    reqs = [next(r for r in trace if not r[2]),
+            next(r for r in trace if r[2])]
+    model, plain, cpu = _decode_models({}, rng, dev,
+                                       layers=SERVE_CHECK_LAYERS)
+    unified = _serve_run(model, reqs, False, dev, paged=True,
+                         block_size=PAGED_BLOCK)
+    card_pair = _pair_inline(*_disagg_engines(model), reqs, dev)
+    t0 = time.perf_counter()
+    cpu_pair = _pair_inline(*_disagg_engines(cpu), reqs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    vs_unified = _serve_mismatch(card_pair["rows"], unified["rows"], reqs,
+                                 plain)
+    vs_cpu = _serve_mismatch(card_pair["rows"], cpu_pair["rows"], reqs,
+                             plain)
+    row = {"phase": "disagg_checks", "compute_dtype": "float32",
+           "layers": SERVE_CHECK_LAYERS,
+           "requests": [{"prompt": len(p), "steps": n, "sampled": bool(kw)}
+                        for p, n, kw in reqs],
+           "pair_equals_unified": vs_unified is None,
+           "card_equals_cpu": vs_cpu is None, "cpu_s": cpu_s,
+           "clean": [_pair_clean(card_pair), _pair_clean(cpu_pair)],
+           "card": card}
+    if vs_unified is not None:
+        row["vs_unified_first_difference"] = vs_unified
+    if vs_cpu is not None:
+        row["vs_cpu_first_difference"] = vs_cpu
+    emit(row)
+    check(vs_unified is None, f"disagg: at f32 a pair's row differs from "
+          f"the unified engine's: {vs_unified}")
+    check(vs_cpu is None, f"disagg: at f32 the pair on the card differs "
+          f"from the CPU: {vs_cpu}")
+    check(all(row["clean"]), "disagg checks: a pair leaked blocks or "
+          "lost a request")
+    del model, plain, cpu
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def _share_equal(got_rows, want_rows) -> float:
+    import numpy as np
+    return (sum(np.array_equal(a, b) for a, b in zip(got_rows, want_rows))
+            / max(len(want_rows), 1))
+
+
+def _wire_client_run(eng, trace, core: str) -> dict:
+    """(c): ``trace`` from one ServingClient against a ServingServer
+    (``core``) over ``eng``, an idle unified paged engine: every request
+    submitted, then each streamed to its final row; a load() probe; one
+    long request cancelled mid-stream on the same socket; the pool and
+    the connections after the client closes (the server stops the
+    engine, which a later server may start again)."""
+    import numpy as np
+    from distkeras_tpu_torch.serving import ServingClient, ServingServer
+    cancelled = eng.stats["requests_cancelled"]
+    srv = ServingServer(eng, host="127.0.0.1", server_core=core,
+                        poll_s=0.002).start()
+    try:
+        t0 = time.perf_counter()
+        with ServingClient(*srv.addr) as c:
+            rids = [c.submit(p, n, **kw) for p, n, kw in trace]
+            load = c.load()
+            finals = []
+            for rid in rids:
+                final = None
+                for _, done in c.stream(rid):
+                    if done is not None:
+                        final = done
+                finals.append(final)
+            wall = time.perf_counter() - t0
+            p, _, _ = max(trace, key=lambda r: len(r[0]))
+            rid = c.submit(p, SERVE_STEPS)
+            gen = c.stream(rid)
+            first, _ = next(gen)
+            c.cancel(rid, await_ack=False)
+            cancel_final = None
+            for _, done in gen:
+                if done is not None:
+                    cancel_final = done
+        freed = _wait_state(lambda: eng.kv_blocks_in_use == 0)
+        closed = _wait_state(lambda: srv.live_connections == 0)
+        out = {"core": core, "wall_s": wall,
+               "rows": [np.asarray(f["row"]) for f in finals],
+               "finish": [f["finish"] for f in finals],
+               "load_keys": sorted(load), "load_slots_total":
+                   load.get("slots_total"),
+               "cancel_first_chunk": len(first),
+               "cancel_finish": cancel_final["finish"],
+               "cancel_tokens": len(cancel_final["row"]) - len(p),
+               "blocks_freed": freed, "connections_closed": closed,
+               "kv_blocks_in_use": eng.kv_blocks_in_use,
+               "conservation": eng._pool.check_conservation(),
+               "requests_cancelled": (eng.stats["requests_cancelled"]
+                                      - cancelled),
+               "disconnects": srv.disconnects,
+               "protocol_errors": srv.protocol_errors}
+    finally:
+        srv.stop()
+    return out
+
+
+def phase_disagg(card: str, dev: str = "cuda"):
+    """Disaggregated prefill/decode roles and the wire front-end on the
+    card (the LM at full width, bf16, paged, blocks of 16, form full, 8
+    slots an engine, chunks of 128): (a) phase serve's trace through the
+    unified paged engine, an in-process DisaggPair (its decode engine
+    driven inline: 0 uploads, 1 readback and 1 replay a decode-only
+    iteration) and a pair whose decode engine is behind a ServingServer
+    (event core), every row equal; shipped = ingested blocks and bytes =
+    the block arithmetic; no leak, the prefill engine captures no graph;
+    the extraction and ingest ms, blocks and bytes per prompt length, the
+    wire hand-off of the largest block set; the decode engine's host calls
+    an iteration; (b) the bimodal interference trace through the unified
+    engine and the in-process pair: per-token decode p99 of the short
+    requests, TTFT, ``serving_kv_transfer_bytes``; (c) phase serve's first
+    DISAGG_WIRE_REQUESTS requests from a ServingClient against a
+    ServingServer over a unified paged engine, once per core, equal to
+    (a)'s rows, with a load() probe and a mid-stream cancel that frees its
+    blocks; the f32 checks of _disagg_checks; no kernel launched on any of
+    it (the JAX engine's role programs run none)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.serving import DisaggPair, SERVING_CORES
+    t_start = time.perf_counter()
+    _zero_counts()
+    rng = np.random.default_rng(SEED + 15)    # phase serve's trace, weights
+    trace = _serve_trace(rng)
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, _random_jax_weights(model, rng))
+    block_bytes = _block_bytes()
+    want_blocks = sum(-(-len(p) // PAGED_BLOCK) for p, _, _ in trace)
+    # (a) rows
+    unified = _serve_run(model, trace, False, dev, paged=True,
+                         block_size=PAGED_BLOCK)
+    pre, dec = _disagg_engines(model)
+    inproc = _pair_inline(pre, dec, trace, dev)
+    shipped = _disagg_shipped(pre, dev)
+    prof = _disagg_profile(pre, dec, dev)
+    wire = _pair_wire(*_disagg_engines(model), trace, dev)
+    same = {name: _serve_mismatch(r["rows"], unified["rows"], trace)
+            for name, r in (("in_process", inproc), ("wire", wire))}
+    row = {"phase": "disagg_rows", "form": "full",
+           "compute_dtype": LM["compute_dtype"], "slots": SERVE_SLOTS,
+           "block_size": PAGED_BLOCK, "prefill_chunk": SERVE_CHUNK,
+           "requests": len(trace), "steps": SERVE_STEPS,
+           "prompt_lens": sorted({len(p) for p, _, _ in trace}),
+           "sampled_requests": sum(bool(kw) for _, _, kw in trace),
+           **{f"{name}_equals_unified": m is None
+              for name, m in same.items()},
+           **{f"{name}_share_equal": _share_equal(r["rows"],
+                                                  unified["rows"])
+              for name, r in (("in_process", inproc), ("wire", wire))},
+           "wall_s": {"unified": unified["wall_s"],
+                      "in_process_pair": inproc["wall_s"],
+                      "wire_pair": wire["wall_s"]},
+           "block_bytes": block_bytes,
+           "want_blocks": want_blocks,
+           "want_bytes": want_blocks * block_bytes,
+           "transfer": {"in_process": inproc["transfer"],
+                        "wire": wire["transfer"]},
+           "extract_ms_p50_max": [float(np.median(inproc["extract_ms"])),
+                                  max(inproc["extract_ms"])],
+           "ingest_ms_p50_max": [float(np.median(inproc["ingest_ms"])),
+                                 max(inproc["ingest_ms"])],
+           "shipped_per_prompt_len": shipped,
+           "wire_handoff": wire["handoff_ms"],
+           "decode_only_iterations": inproc["decode_only_iterations"],
+           **{f"decode_{k}": inproc[k] for k in (
+               "h2d_transfers_per_decode_iteration",
+               "d2h_transfers_per_decode_iteration",
+               "graph_replays_per_decode_iteration",
+               "graph_captures_per_decode_iteration")},
+           "decode_graph": {"in_process": inproc["decode_graph"],
+                            "wire": wire["decode_graph"]},
+           "prefill_graph_captures": [inproc["prefill_graph_captures"],
+                                      wire["prefill_graph_captures"]],
+           "decode_aten_ops_per_step": prof["aten_ops_per_step"],
+           "decode_graph_launches_per_step": prof["graph_launches_per_step"],
+           "decode_profile": prof,
+           "counters": {"in_process": inproc["counters"],
+                        "wire": wire["counters"]},
+           "card": card}
+    for name, m in same.items():
+        if m is not None:
+            row[f"{name}_first_difference"] = m
+    emit(row)
+    for name, m in same.items():
+        check(m is None, f"disagg: a row through the {name} pair differs "
+              f"from the unified engine's: {m}")
+    for name, r in (("in_process", inproc), ("wire", wire)):
+        t = r["transfer"]
+        check(t["kv_blocks_shipped"] == t["kv_blocks_ingested"]
+              == want_blocks
+              and t["kv_block_bytes_shipped"] == t["kv_block_bytes_ingested"]
+              == want_blocks * block_bytes,
+              f"disagg {name}: shipped/ingested {t}, want {want_blocks} "
+              f"blocks of {block_bytes} B")
+        check(r["kv_blocks_in_use"] == [0, 0] and r["conservation"]
+              and not r["plans_left"] and r["balanced"]
+              and r["counters"]["requests_completed"] == len(trace)
+              and all(f == "length" for f in r["finish"]),
+              f"disagg {name}: leaked blocks or lost requests: "
+              f"{r['kv_blocks_in_use']}, {r['counters']}")
+        check(r["prefill_graph_captures"] == 0,
+              f"disagg {name}: the prefill engine captured a graph")
+        g = r["decode_graph"]
+        check(g[0] == 1 and g[1] == g[2],
+              f"disagg {name}: decode engine {g[0]} captures, {g[1]} "
+              f"replays for {g[2]} steps")
+    check(inproc["decode_only_iterations"] > 0
+          and inproc["h2d_transfers_per_decode_iteration"] == [0]
+          and inproc["d2h_transfers_per_decode_iteration"] == [1]
+          and inproc["graph_replays_per_decode_iteration"] == [1]
+          and inproc["graph_captures_per_decode_iteration"] == [0],
+          "disagg: a decode-only iteration of the decode engine moved "
+          f"{inproc['h2d_transfers_per_decode_iteration']} uploads, "
+          f"{inproc['d2h_transfers_per_decode_iteration']} readbacks, "
+          f"{inproc['graph_replays_per_decode_iteration']} replays, "
+          f"{inproc['graph_captures_per_decode_iteration']} captures, "
+          "want [0], [1], [1], [0]")
+    for p_len, s in shipped.items():
+        want = -(-p_len // PAGED_BLOCK)
+        check(s["blocks"] == want and s["bytes"] == want * block_bytes,
+              f"disagg: a {p_len}-token prompt shipped {s}, want {want} "
+              f"blocks")
+    rows = {"rows": row}
+    # (b) interference: make_trace's bimodal pattern, greedy (a long
+    # prompt gets SERVE_STEPS // 4 new tokens, as make_trace gives it)
+    btrace = _qos_trace(DISAGG_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
+                        num_steps=SERVE_STEPS,
+                        prompt_lengths=DISAGG_PROMPT_LENS, tenants=0,
+                        pattern="bimodal",
+                        long_fraction=DISAGG_LONG_FRACTION)
+    ueng = _serve_engine(model, False, paged=True, block_size=PAGED_BLOCK)
+    arms = {"unified": _interference(ueng, btrace, dev)}
+    bpre, bdec = _disagg_engines(model)
+    bpair = DisaggPair([bpre], decode=bdec, poll_s=0.001)
+    arms["disagg"] = _interference(bpair, btrace, dev)
+    bstate = _pair_state(bpair, bpre, bdec)
+    bsame = _serve_mismatch(arms["disagg"]["rows"], arms["unified"]["rows"],
+                            [(r["prompt"], r["num_steps"], {})
+                             for r in btrace])
+    brow = {"phase": "disagg_interference", "pattern": "bimodal",
+            "requests": len(btrace),
+            "long_requests": sum(len(r["prompt"]) == max(DISAGG_PROMPT_LENS)
+                                 for r in btrace),
+            "prompt_lens": list(DISAGG_PROMPT_LENS),
+            "long_fraction": DISAGG_LONG_FRACTION,
+            "serving_unified_decode_p99_ms":
+                arms["unified"]["decode_p99_ms"],
+            "serving_disagg_decode_p99_ms": arms["disagg"]["decode_p99_ms"],
+            "serving_kv_transfer_bytes":
+                bstate["transfer"]["kv_block_bytes_shipped"],
+            **{f"{arm}_{k}": r[k] for arm, r in arms.items() for k in (
+                "decode_p50_ms", "ttft_p50_ms", "ttft_p99_ms",
+                "short_ttft_p50_ms", "short_ttft_p99_ms", "short_requests",
+                "wall_s")},
+            "rows_equal": bsame is None,
+            "extract_ms_p50_max": [float(np.median(bstate["extract_ms"])),
+                                   max(bstate["extract_ms"])],
+            "ingest_ms_p50_max": [float(np.median(bstate["ingest_ms"])),
+                                  max(bstate["ingest_ms"])],
+            "counters": bstate["counters"], "card": card}
+    if bsame is not None:
+        brow["first_difference"] = bsame
+    emit(brow)
+    rows["interference"] = brow
+    bwant = sum(-(-len(r["prompt"]) // PAGED_BLOCK) for r in btrace)
+    check(bstate["transfer"]["kv_block_bytes_shipped"]
+          == bstate["transfer"]["kv_block_bytes_ingested"]
+          == bwant * block_bytes,
+          f"disagg interference: shipped {bstate['transfer']}, want "
+          f"{bwant} blocks")
+    check(_pair_clean(bstate)
+          and bstate["counters"]["requests_completed"] == len(btrace),
+          f"disagg interference: leaked blocks or lost requests: "
+          f"{bstate['kv_blocks_in_use']}, {bstate['counters']}")
+    check(bsame is None, f"disagg interference: a pair row differs from "
+          f"the unified engine's: {bsame}")
+    del bpre, bdec, bpair, pre, dec
+    # (c) the wire front-end, once per core
+    wtrace = trace[:DISAGG_WIRE_REQUESTS]
+    for core in SERVING_CORES:
+        w = _wire_client_run(ueng, wtrace, core)
+        wsame = _serve_mismatch(w.pop("rows"),
+                                unified["rows"][:DISAGG_WIRE_REQUESTS],
+                                wtrace)
+        wrow = {"phase": "disagg_wire", **w,
+                "streamed_equals_in_process": wsame is None, "card": card}
+        if wsame is not None:
+            wrow["first_difference"] = wsame
+        emit(wrow)
+        rows[f"wire_{core}"] = wrow
+        check(wsame is None, f"disagg wire {core}: a streamed row differs "
+              f"from the in-process row: {wsame}")
+        check(all(f == "length" for f in w["finish"])
+              and w["cancel_finish"] == "cancel"
+              and w["requests_cancelled"] == 1
+              and w["blocks_freed"] and w["conservation"],
+              f"disagg wire {core}: finishes {w['finish']}, cancel "
+              f"{w['cancel_finish']}, {w['kv_blocks_in_use']} blocks left")
+        check(w["connections_closed"], f"disagg wire {core}: connections "
+              "still open after the client closed")
+        check(w["load_slots_total"] == SERVE_SLOTS,
+              f"disagg wire {core}: load() probe {w['load_keys']}")
+    del model, ueng
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    rows["checks"] = _disagg_checks(card, dev, trace, rng)
+    launches = _read_counts()
+    emit({"phase": "disagg_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"disagg: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "disagg_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4415,6 +5064,7 @@ def main() -> int:
     _, paged_launches = phase_paged(smi)
     _, spec_launches = phase_spec(smi)
     _, qos_launches = phase_qos(smi)
+    _, disagg_launches = phase_disagg(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -4572,8 +5222,9 @@ def main() -> int:
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
         """The entry's launches on the packing, decode, serving, paged
-        serving, speculative serving and QoS serving paths (each counted
-        from 0 over its phase's runs; all must be 0)."""
+        serving, speculative serving, QoS serving and disaggregated
+        serving paths (each counted from 0 over its phase's runs; all
+        must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -4586,6 +5237,7 @@ def main() -> int:
         entry["launches_paged"] = paged_launches[key]
         entry["launches_spec"] = spec_launches[key]
         entry["launches_qos"] = qos_launches[key]
+        entry["launches_disagg"] = disagg_launches[key]
         return entry
 
     emit(north_star)

@@ -13,8 +13,11 @@ and evaluator pipeline, and with the dist-keras distributed trainers
 (ADAG, DOWNPOUR, DynSGD, AEASGD, EAMSGD, Averaging, Ensemble) on its SPMD
 engine, with checkpoints and metrics; and serves the LM through the
 continuous-batching ``serving.ServingEngine`` (paged KV pool and prefix
-trie, speculation, quantization, multi-tenant QoS with preemption).  The
-port imports torch and numpy,
+trie, speculation, quantization, multi-tenant QoS with preemption,
+disaggregated prefill and decode roles) behind its socket front-end
+(``ServingServer``, ``ServingClient``, ``DisaggPair``) over ``networking``,
+the serving wire of the JAX package byte for byte.  The port imports
+torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
 """
@@ -36,9 +39,11 @@ from .evaluators import (AccuracyEvaluator, AUCEvaluator, Evaluator,
 from .models import (cifar10_convnet, digits_convnet, digits_mlp, higgs_mlp,
                      mnist_convnet, mnist_mlp, transformer_lm)
 from .predictors import ModelPredictor, Predictor
-from . import serving
-from .serving import (Draining, EngineDead, QueueFull, QuotaExceeded,
-                      RequestHandle, ServingEngine, TenantPolicy)
+from . import networking, serving
+from .networking import ChaosFault, ChaosProxy
+from .serving import (DisaggPair, Draining, EngineDead, QueueFull,
+                      QuotaExceeded, RequestHandle, ServingClient,
+                      ServingEngine, ServingServer, TenantPolicy)
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
@@ -68,4 +73,5 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "make_checkpointer", "MetricsLogger", "checkpoint", "metrics",
            "parallel", "serving", "ServingEngine", "RequestHandle",
            "QueueFull", "QuotaExceeded", "Draining", "EngineDead",
-           "TenantPolicy"]
+           "TenantPolicy", "ServingServer", "ServingClient", "DisaggPair",
+           "networking", "ChaosFault", "ChaosProxy"]

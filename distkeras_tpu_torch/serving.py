@@ -110,9 +110,32 @@ any free slot with the same token stream, since every draw depends on
 in place, so the decode step's CUDA graph replays over the resumed row
 without a new capture.
 
-Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): roles and the wire front-end (queue A item 4) and hot
-weight reload from a parameter server (queue A item 6).
+Disaggregated serving (``role="prefill"`` / ``"decode"``, paged
+non-rolling engines without a draft): a prefill-role engine runs only
+prompts — when a request's first token drains, the filled blocks of its
+chain are gathered (read-only, trie-shared blocks too) and read to host
+memory in one readback as a :class:`networking.KVBlocks` in logical block
+order with the request's key, and the request retires ``"prefilled"``; it
+never decodes and captures no graph.  A decode-role engine admits only
+such block sets (``submit_prefilled``): its scheduler thread allocates a
+fresh private chain, scatters the payload into it and installs the slot's
+row at the shipped position, in place (the swap-in program of
+preemption), so its decode graph replays over the ingested row.
+:class:`DisaggPair` puts prefill engines and one decode engine behind the
+unified engine's client surface, in process or over the wire.
+
+The wire front-end (:class:`ServingServer`, thread-per-connection or one
+selector loop, and :class:`ServingClient`) speaks the frames of the JAX
+package's serving wire byte for byte (``networking``, a copy of its
+module): ``'q'`` enqueue, ``'r'`` stream, ``'x'`` cancel, ``'k'`` a
+shipped block set, ``'s'`` the load snapshot.  Its handler and I/O
+threads and the pair's relay loop touch host data only (token lists,
+``KVBlocks`` in host memory); only an engine's own scheduler thread
+touches its device tensors.
+
+Left for a later slice: hot weight reload from a parameter server
+(``attach_ps`` raises ``NotImplementedError`` naming ROADMAP queue A item
+6).
 """
 
 from __future__ import annotations
@@ -120,6 +143,9 @@ from __future__ import annotations
 import collections
 import copy
 import logging
+import select
+import selectors
+import socket
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -128,6 +154,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import networking
 from .core import decode as _dec
 from .core.decode import (_check_supported, _context_limit, _forward,
                           _to_ring, _validate_rolling, _validate_sampling,
@@ -146,9 +173,6 @@ logger = logging.getLogger("distkeras_tpu_torch.serving")
 DEFAULT_RELOAD_POLICY = _RetryPolicy(attempts=4, backoff=0.02,
                                      max_backoff=0.1, jitter=0.0,
                                      deadline=0.5)
-
-_LATER = "ROADMAP queue A item 4"
-
 
 class QueueFull(RuntimeError):
     """Admission backpressure: the engine's bounded queue is at capacity
@@ -253,7 +277,10 @@ class RequestHandle:
     for normal completion, ``"deadline"`` (the partial row is still
     returned, padded), ``"cancel"``, ``"drain"`` (drain timeout) and
     ``"error"`` (the engine died — ``result()`` raises the stored
-    :class:`EngineDead`).  ``key`` is the request's two 32-bit key words
+    :class:`EngineDead`) and ``"prefilled"`` (a ``role="prefill"`` engine
+    finished its half: the first token is pushed and ``kvblocks`` holds
+    the request's blocks for the decode engine).  ``key`` is the request's
+    two 32-bit key words
     (``core.decode.rng_key``); ``deadline`` an absolute
     ``time.perf_counter()`` instant or None; ``tenant`` and ``priority``
     the QoS fields ``submit`` was given.
@@ -263,7 +290,8 @@ class RequestHandle:
                  "top_p", "eos_id", "pad_id", "key", "tokens", "finish",
                  "slot", "submitted_at", "started_at", "first_token_at",
                  "finished_at", "deadline", "error", "cancelled_at",
-                 "tenant", "priority", "_cond", "_chunk_read", "_listener")
+                 "kvblocks", "tenant", "priority", "_cond", "_chunk_read",
+                 "_listener")
 
     def __init__(self, rid: int, prompt: np.ndarray, num_steps: int,
                  temperature: float, top_k: Optional[int],
@@ -291,6 +319,9 @@ class RequestHandle:
                          else self.submitted_at + float(deadline_s))
         self.error: Optional[BaseException] = None
         self.cancelled_at: Optional[float] = None
+        #: networking.KVBlocks on a "prefilled" handle (the prefill role's
+        #: extraction) or on a decode-role request before its ingest
+        self.kvblocks = None
         self.tenant = str(tenant)
         self.priority = int(priority)
         self._cond = threading.Condition()
@@ -961,6 +992,21 @@ class _PagedKVPool:
         plan.nodes, plan.private = [], []
 
 
+def _leaf_dtype(a) -> torch.dtype:
+    """The torch dtype of a shipped payload leaf (a numpy array or a host
+    tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
+
+
+def _wire_leaf(t: torch.Tensor):
+    """A host tensor read from an arena as a shipped payload leaf: a
+    bfloat16 tensor stays a tensor (numpy has no bfloat16), any other
+    dtype becomes its numpy array (the JAX package's payload type)."""
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
 def _module_of(model) -> Sequential:
     """The ``Sequential`` behind an engine's model argument: a
     ``FittedModel``, a ``Sequential``, or a tuple whose first item is one
@@ -1034,9 +1080,12 @@ class ServingEngine:
     ``register_tenant``) turns on weighted-fair admission across tenants,
     quotas and tier deadlines; paged non-rolling engines without a draft
     also preempt batch-tier requests (``preempt``, and automatically when
-    an interactive request starves).  ``role`` takes its default
-    ``"unified"`` only: the prefill and decode roles of disaggregated
-    serving raise ``NotImplementedError``.
+    an interactive request starves).
+
+    ``role`` (paged, non-rolling, no draft): ``"unified"`` (default) runs
+    prompts and tokens; ``"prefill"`` runs prompts only, each request
+    retiring ``"prefilled"`` with its blocks on ``handle.kvblocks``;
+    ``"decode"`` admits only shipped block sets (``submit_prefilled``).
 
     Threading: ``submit`` is thread-safe (any number of producers); the
     scheduler itself — ``step`` / ``run_until_idle`` / the ``start``
@@ -1055,10 +1104,31 @@ class ServingEngine:
                  paged: bool = False, block_size: int = 16,
                  kv_blocks: Optional[int] = None,
                  role: str = "unified", tenants=None):
+        # -- disaggregation role ("unified": the engine is its whole
+        #    self).  "prefill": admissions run the paged prefill programs
+        #    and stop before the token loop, the request retiring
+        #    "prefilled" with its blocks read to the handle.  "decode":
+        #    admission comes from submit_prefilled (a shipped block set
+        #    scattered into this engine's own blocks); submit refuses
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be 'unified', 'prefill' or "
+                             f"'decode', got {role!r}")
         if role != "unified":
-            raise NotImplementedError(
-                f"ServingEngine(role={role!r}): the roles of the JAX "
-                f"engine are not ported yet ({_LATER})")
+            if not paged:
+                raise ValueError(
+                    f"role={role!r} needs the paged block arena "
+                    "(paged=True): block transfer is defined over "
+                    "fixed-size arena blocks")
+            if rolling:
+                raise ValueError(
+                    f"role={role!r} does not compose with rolling pools — "
+                    "ring-laid blocks are not positionally addressable on "
+                    "the receiving side")
+            if spec_draft is not None:
+                raise ValueError(
+                    f"role={role!r} does not compose with spec_draft: the "
+                    "draft arena is engine-private and never shipped")
+        self.role = role
         if prefill_mode == "eager" and (spec_draft is not None
                                         or kv_dtype is not None or paged):
             raise ValueError(
@@ -1232,7 +1302,7 @@ class ServingEngine:
         self._preempt_ids: set = set()
         self._int_blocked = False
         self._can_preempt = (self.paged and not self.rolling
-                             and draft is None
+                             and draft is None and self.role == "unified"
                              and self.prefill_mode == "bucketed")
 
         # -- the fast path: prefill widths, the lookahead pipeline, and the
@@ -1331,6 +1401,13 @@ class ServingEngine:
             "kv_blocks_resumed": 0, "kv_block_bytes_resumed": 0,
             "preempt_swap_ms": [], "preempt_resume_ms": [],
             "quota_refused": 0, "tenants": {},
+            # disaggregation: blocks (and their payload bytes) a prefill-
+            # role engine extracted and a decode-role engine ingested;
+            # transfer_ms is one sample per extraction (gather + host
+            # read) and per ingest (uploads + scatter + install)
+            "kv_blocks_shipped": 0, "kv_block_bytes_shipped": 0,
+            "kv_blocks_ingested": 0, "kv_block_bytes_ingested": 0,
+            "transfer_ms": [],
         }
         if self.paged:
             self._pool = _PagedKVPool(self.kv_blocks, self.block_size,
@@ -1695,7 +1772,13 @@ class ServingEngine:
         over its token-bucket quota raises :class:`QuotaExceeded` at once
         (also with ``block=True``).  ``priority`` orders requests within a
         tenant's queue (higher first) and picks preemption victims (lower
-        first)."""
+        first).  A ``role="decode"`` engine refuses (``ValueError``): it
+        admits shipped block sets only (:meth:`submit_prefilled`)."""
+        if self.role == "decode":
+            raise ValueError(
+                "role='decode' engines admit only shipped block sets "
+                "(submit_prefilled) — route plain submissions to the "
+                "prefill engine or a DisaggPair")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D tokens, got shape "
@@ -1770,6 +1853,144 @@ class ServingEngine:
                     self.stats["requests_rejected"] += 1
                     raise Draining("serving engine is draining; admission "
                                    "stopped")
+            self._q_push(handle)
+            qd = self._qdepth
+            self.stats["queue_peak"] = max(self.stats["queue_peak"], qd)
+            self._have_work.notify()
+        self._publish_load(qd=qd)
+        return handle
+
+    def submit_prefilled(self, blocks, prompt, first_token: int,
+                         num_steps: int, temperature: float = 0.0,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None,
+                         eos_id: Optional[int] = None,
+                         pad_id: Optional[int] = None,
+                         block: bool = True, timeout: Optional[float] = None,
+                         deadline_s: Optional[float] = None,
+                         tenant: Optional[str] = None,
+                         priority: int = 0) -> RequestHandle:
+        """Decode-role admission: enqueue a request whose prefill ran
+        elsewhere.  ``blocks`` is the shipped :class:`networking.KVBlocks`
+        (the prompt's KV in logical block order and the request's key),
+        ``first_token`` the token the prefill engine sampled at the prompt
+        boundary, pushed into the handle at once.  ``num_steps`` counts
+        every generated token, the shipped one included.  This call only
+        queues the request (any thread may make it): the engine's own
+        scheduler thread scatters the payload into blocks of its own
+        (physical ids never cross engines) and enters the token loop at
+        the shipped position.  Geometry that does not fit this engine
+        raises ``ValueError``; a torn or hostile payload is rejected by
+        ``blocks.validate()`` at the transport boundary, before this
+        call.  Backpressure, quota and death behave as in
+        :meth:`submit`."""
+        if self.role != "decode":
+            raise ValueError("submit_prefilled needs role='decode' — "
+                             f"this engine is role={self.role!r}")
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or len(prompt) < 1:
+            raise ValueError(f"prompt must be 1-D tokens (>= 1), got "
+                             f"shape {prompt.shape}")
+        if num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1 (it counts the "
+                             f"shipped first token), got {num_steps}")
+        tenant = "default" if tenant is None else str(tenant)
+        priority = int(priority)
+        if deadline_s is None:
+            with self._qlock:  # register_tenant may race admission
+                pol = self._tenants.get(tenant)
+            if pol is not None and pol.deadline_s is not None:
+                deadline_s = pol.deadline_s
+            else:
+                deadline_s = self.default_deadline_s
+        elif deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        kvb = blocks
+        if kvb.block_size != self.block_size:
+            raise ValueError(
+                f"shipped blocks are {kvb.block_size}-token, this arena "
+                f"pages {self.block_size}-token blocks")
+        if kvb.positions != len(prompt):
+            raise ValueError(
+                f"shipped positions ({kvb.positions}) disagree with the "
+                f"prompt length ({len(prompt)})")
+        total = len(prompt) + int(num_steps)
+        if total > self.max_len:
+            raise ValueError(f"prompt ({len(prompt)}) + num_steps "
+                             f"({num_steps}) = {total} exceeds the engine's "
+                             f"max_len {self.max_len}")
+        if len(kvb.layers) != len(self.caches):
+            raise ValueError(
+                f"shipped payload spans {len(kvb.layers)} layers, this "
+                f"model has {len(self.caches)}")
+        for i, (c, mine) in enumerate(zip(kvb.layers, self.caches)):
+            if (c is None) != (mine is None):
+                raise ValueError(f"layer {i} cache presence disagrees "
+                                 "with this model")
+            if c is None:
+                continue
+            if ("ks" in c) != ("ks" in mine):
+                raise ValueError(
+                    f"layer {i} quantization disagrees: shipped "
+                    f"{'int8' if 'ks' in c else 'dense'} KV, this arena is "
+                    f"{'int8' if 'ks' in mine else 'dense'}")
+            shipped = (tuple(c["k"].shape[1:]), _leaf_dtype(c["k"]))
+            held = (tuple(mine["k"].shape[1:]), mine["k"].dtype)
+            if shipped != held:
+                raise ValueError(
+                    f"layer {i} shipped rows are {shipped[0]} {shipped[1]}, "
+                    f"this arena holds {held[0]} {held[1]}")
+        _validate_stopping(eos_id, pad_id, self._vocab)
+        key = np.asarray(kvb.key, np.uint32)
+        with self._qlock:
+            if self._dead is not None:
+                raise EngineDead(str(self._dead)) from self._dead
+            if self._draining:
+                raise Draining("serving engine is draining; admission "
+                               "stopped")
+            pol = self._tenants.get(tenant)
+            if pol is not None and not pol._take(time.monotonic()):
+                self._tenant_stats(tenant)["quota_refused"] += 1
+                self.stats["quota_refused"] += 1
+                raise QuotaExceeded(
+                    f"tenant {tenant!r} over its token-bucket quota "
+                    f"({pol.rate}/s, burst {pol.burst})")
+            self._next_id += 1
+            handle = RequestHandle(self._next_id, prompt, num_steps,
+                                   temperature, top_k, top_p, eos_id,
+                                   pad_id, key, deadline_s=deadline_s,
+                                   tenant=tenant, priority=priority)
+            handle.kvblocks = kvb
+            self.stats["requests_submitted"] += 1
+            tstats = self._tenant_stats(tenant)
+            tstats["submitted"] += 1
+            # the shipped first token is this request's first generated
+            # token: push it now (TTFT on this engine is the hand-off
+            # instant) and complete in place when it already ends the row
+            first = int(first_token)
+            handle._push(first)
+            eos = eos_id is not None and first == int(eos_id)
+            if eos or num_steps == 1:
+                handle._finish("eos" if eos else "length")
+                self.stats["requests_completed"] += 1
+                tstats["completed"] += 1
+                self.stats["tokens_generated"] += 1
+                return handle
+            while self._qdepth >= self.queue_capacity:
+                if not block or not self._not_full.wait(timeout=timeout):
+                    self.stats["requests_rejected"] += 1
+                    tstats["shed"] += 1
+                    raise QueueFull(
+                        f"admission queue at capacity "
+                        f"({self.queue_capacity}); request {handle.id} shed")
+                if self._dead is not None:
+                    self.stats["requests_rejected"] += 1
+                    raise EngineDead(str(self._dead)) from self._dead
+                if self._draining:
+                    self.stats["requests_rejected"] += 1
+                    raise Draining("serving engine is draining; admission "
+                                   "stopped")
+            self.stats["tokens_generated"] += 1
             self._q_push(handle)
             qd = self._qdepth
             self.stats["queue_peak"] = max(self.stats["queue_peak"], qd)
@@ -2106,6 +2327,25 @@ class ServingEngine:
         budget = self.prefills_per_step
         if self.paged:
             self._pool.next_epoch()
+        if self.role == "decode":
+            # the decode role's admission replaces prefill: each queued
+            # handle carries a shipped block set, admitted through one
+            # block allocation and the ingest program; without blocks the
+            # head goes back to the front of its queue (the fairness
+            # contract of the paged path)
+            while budget > 0 and self._free:
+                h = self._pop_queued()
+                if h is None:
+                    break
+                if not self._ingest(h):
+                    with self._qlock:
+                        self._q_push(h, front=True)
+                        qd = self._qdepth
+                    self._publish_load(qd=qd)
+                    break
+                budget -= 1
+                did = True
+            return did
         for slot in list(self._prefilling):
             if budget <= 0:
                 break
@@ -2155,11 +2395,15 @@ class ServingEngine:
         make its copy-on-write block copy, if any.  Positions past the
         request's end go to the null block through the table, so
         ``ceil((p_len + num_steps) / block_size)`` blocks cover every
-        entry a live query can attend."""
+        entry a live query can attend; a prefill-role engine writes the
+        prompt's KV alone (the first token's entry is written by the
+        decode engine), so its chain stops at ``ceil(p_len /
+        block_size)``."""
         if self.rolling:
             plan = self._pool.admit(None, self._blocks_per_slot)
         else:
-            total = len(h.prompt) + h.num_steps
+            total = len(h.prompt) + (0 if self.role == "prefill"
+                                     else h.num_steps)
             plan = self._pool.admit(h.prompt, -(-total // self.block_size))
         if plan is not None and plan.cow is not None:
             self._copy_block(*plan.cow)
@@ -2442,9 +2686,10 @@ class ServingEngine:
                   for c in dev]
         return layers, int(next(host)), int(next(host))
 
-    def _ingest(self, slot: int, rows, payload, row_bt, tok, pos, temp,
-                topk, topp, keys) -> None:
-        """The swap-in program (the JAX engine's ``_build_ingest_fn``):
+    def _ingest_fn(self, slot: int, rows, payload, row_bt, tok, pos, temp,
+                   topk, topp, keys) -> None:
+        """The install program of a resume and of the decode role's
+        admission (the JAX engine's ``_build_ingest_fn``):
         ``scatter_blocks`` of ``payload`` into the arena rows ``rows`` (a
         device tensor of physical slot indices), then slot ``slot``'s
         device row (table row, token, position, active, sampling
@@ -2455,6 +2700,97 @@ class ServingEngine:
         _dec.scatter_blocks(self.caches, rows, payload)
         self._install(slice(slot, slot + 1), tok, pos, temp, topk, topp,
                       keys, bt=row_bt)
+
+    def _install_payload(self, slot: int, h: RequestHandle,
+                         plan: _BlockPlan, n_src: int, layers, tok: int,
+                         pos: int) -> None:
+        """Upload a host payload of ``n_src`` blocks (the
+        :func:`~core.decode.gather_blocks` layout) into the first blocks
+        of ``plan`` and install slot ``slot``'s row of decode state at
+        token ``tok``, position ``pos`` (:meth:`_ingest_fn`), then its
+        host mirrors: a resume's and the decode role's admission."""
+        bs = self.block_size
+        phys = (np.asarray(plan.blocks[:n_src], np.int64)[:, None] * bs
+                + np.arange(bs, dtype=np.int64)[None, :]).reshape(-1)
+        payload = [None if c is None else {k: self._put(v)
+                                           for k, v in c.items()}
+                   for c in layers]
+        bt, _ = self._row_tables(plan)
+        self._ingest_fn(
+            slot, self._put(phys), payload, self._put(bt[None]),
+            self._put(np.asarray([tok], np.int32)),
+            self._put(np.asarray([pos], np.int64)),
+            self._put(np.asarray([h.temperature], np.float32)),
+            self._put(np.asarray([0 if h.top_k is None else h.top_k],
+                                 np.int64)),
+            self._put(np.asarray([0.0 if h.top_p is None else h.top_p],
+                                 np.float32)),
+            self._put(np.asarray(h.key, np.int64)[None]))
+        self._mirror_admit(slot, h)
+        self._positions[slot] = pos   # the shipped or suspended frontier
+        self._cur_tok[slot] = tok
+
+    def _ingest(self, h: RequestHandle) -> bool:
+        """Admit one shipped block set (decode role): a fresh private
+        chain of ``ceil((P + num_steps) / block_size)`` blocks (no trie
+        match, so release is a plain refund at any retirement), the
+        payload scattered into its first blocks and the slot's row
+        installed at the shipped position with the shipped key, in place.
+        Returns False when no blocks are free (the caller requeues the
+        request at the front)."""
+        kvb = h.kvblocks
+        total = len(h.prompt) + h.num_steps
+        plan = self._pool.admit(None, -(-total // self.block_size))
+        if plan is None:
+            return False
+        t0 = time.perf_counter()
+        slot = self._free.pop()
+        h.slot = slot
+        h.started_at = t0
+        self._handles[slot] = h
+        self._plans[slot] = plan
+        self.stats["slot_requests"][slot] += 1
+        self._install_payload(slot, h, plan, kvb.num_blocks, kvb.layers,
+                              h.tokens[0], len(h.prompt))
+        self.stats["kv_blocks_ingested"] += kvb.num_blocks
+        self.stats["kv_block_bytes_ingested"] += kvb.nbytes
+        self.stats["transfer_ms"].append(
+            (time.perf_counter() - t0) * 1000.0)
+        return True
+
+    def _finish_prefilled(self, slot: int, token: int) -> None:
+        """The prefill role's hand-off: the drained first token means the
+        request's prompt KV is written, so gather the first ``ceil(P /
+        block_size)`` blocks of its chain (read-only: trie-shared blocks
+        gather safely; the physical rows expanded on the device from the
+        slot's table row), read them to host memory in one readback, hang
+        a :class:`networking.KVBlocks` with the request's key on the
+        handle, push the token and retire ``"prefilled"`` through
+        :meth:`_retire`, which releases the blocks as at any
+        retirement."""
+        h = self._handles[slot]
+        t0 = time.perf_counter()
+        bs = self.block_size
+        p_len = len(h.prompt)
+        n_src = -(-p_len // bs)
+        blocks = self._dev_bt[slot, :n_src]
+        rows = (blocks[:, None] * bs
+                + torch.arange(bs, device=self.device)[None, :]).reshape(-1)
+        dev = _dec.gather_blocks(self.caches, rows)
+        host = iter(self._read_host(
+            [t for c in dev if c is not None for t in c.values()]))
+        layers = [None if c is None else {k: _wire_leaf(next(host))
+                                          for k in c}
+                  for c in dev]
+        h.kvblocks = networking.KVBlocks(layers, bs, n_src, p_len,
+                                         np.asarray(h.key, np.uint32))
+        h._push(token)
+        self.stats["tokens_generated"] += 1
+        self.stats["kv_blocks_shipped"] += n_src
+        self.stats["kv_block_bytes_shipped"] += h.kvblocks.nbytes
+        self.stats["transfer_ms"].append(
+            (time.perf_counter() - t0) * 1000.0)
+        self._retire(slot, "prefilled")
 
     def _suspend_slot(self, slot: int) -> bool:
         """Swap one running request out: flush the lookahead (so the
@@ -2506,9 +2842,8 @@ class ServingEngine:
         h = rec.handle
         if not self._free:
             return False
-        bs = self.block_size
         total = len(h.prompt) + h.num_steps
-        plan = self._pool.admit(None, -(-total // bs))
+        plan = self._pool.admit(None, -(-total // self.block_size))
         if plan is None:
             return False
         t0 = time.perf_counter()
@@ -2518,27 +2853,10 @@ class ServingEngine:
         self._plans[slot] = plan
         self.stats["slot_requests"][slot] += 1
         n_src = rec.n_blocks
-        phys = (np.asarray(plan.blocks[:n_src], np.int64)[:, None] * bs
-                + np.arange(bs, dtype=np.int64)[None, :]).reshape(-1)
-        payload = [None if c is None else {k: self._put(v)
-                                           for k, v in c.items()}
-                   for c in rec.layers]
         nbytes = sum(t.numel() * t.element_size() for c in rec.layers
                      if c is not None for t in c.values())
-        bt, _ = self._row_tables(plan)
-        self._ingest(
-            slot, self._put(phys), payload, self._put(bt[None]),
-            self._put(np.asarray([rec.tok], np.int32)),
-            self._put(np.asarray([rec.pos], np.int64)),
-            self._put(np.asarray([h.temperature], np.float32)),
-            self._put(np.asarray([0 if h.top_k is None else h.top_k],
-                                 np.int64)),
-            self._put(np.asarray([0.0 if h.top_p is None else h.top_p],
-                                 np.float32)),
-            self._put(np.asarray(h.key, np.int64)[None]))
-        self._mirror_admit(slot, h)
-        self._positions[slot] = rec.pos   # the suspended frontier, not
-        self._cur_tok[slot] = rec.tok     # the prompt's end
+        self._install_payload(slot, h, plan, n_src, rec.layers, rec.tok,
+                              rec.pos)
         with self._qlock:
             self.stats["resumes"] += 1
             self._tenant_stats(h.tenant)["resumes"] += 1
@@ -2618,8 +2936,9 @@ class ServingEngine:
         ``prefills_per_step`` prefill work units, dispatch one decode
         step for every running request, then drain the pipeline's oldest
         in-flight step (one-step lookahead: the device computes step t+1
-        while the host emits step t's tokens).  Returns whether any work
-        happened."""
+        while the host emits step t's tokens).  A prefill-role engine
+        never decodes: it drains every dispatched prefill in the same
+        iteration.  Returns whether any work happened."""
         self.last_beat = time.monotonic()
         did = self._reap()
         if self._can_preempt:
@@ -2629,6 +2948,14 @@ class ServingEngine:
             if qos_work or self._int_blocked:
                 did = self._balance_qos() or did
         did = self._schedule_prefills() or did
+        if self.role == "prefill":
+            # no token loop: drain every dispatched prefill now (the
+            # drained first token triggers the extraction and hand-off,
+            # and nothing else would push a lookahead entry out)
+            if self._pending:
+                did = self._drain_pending(flush=True) or did
+            self._publish_load()
+            return did
         if self._active.any():
             self._decode_once()
             did = True
@@ -2712,7 +3039,10 @@ class ServingEngine:
                 if kind == "decode":
                     self._positions[slot] += 1
                 self._cur_tok[slot] = token
-                self._emit(slot, token)
+                if self.role == "prefill":
+                    self._finish_prefilled(slot, token)
+                else:
+                    self._emit(slot, token)
             did = True
         return did
 
@@ -2908,7 +3238,7 @@ class ServingEngine:
         draft, ``spec_len`` and both quantization knobs carry over; the
         models are already quantized, so the clone shares them instead of
         quantizing again.  Tenant policies carry over as clones with full
-        buckets."""
+        buckets, and so does the role."""
         with self._qlock:  # register_tenant may race a respawn
             tenant_pols = [p.clone() for p in self._tenants.values()]
         return ServingEngine(
@@ -2923,7 +3253,8 @@ class ServingEngine:
             # the same arena shape, a fresh trie and allocator: cached
             # chains index the dead pool's arena contents
             paged=self.paged, block_size=self.block_size,
-            kv_blocks=self.kv_blocks, tenants=tenant_pols or None)
+            kv_blocks=self.kv_blocks, role=self.role,
+            tenants=tenant_pols or None)
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -2954,6 +3285,10 @@ class ServingEngine:
         Engines that can preempt, with tenants registered, also run one
         swap-out and one ingest, through the null block and a free slot's
         row, which is left inactive with the state of a never-used row.
+        A prefill-role engine never decodes, so it captures no graph: it
+        runs the extraction gather (over the null block) instead of the
+        decode iteration.  A decode-role engine never prefills: after the
+        decode iteration it runs the ingest program alone, as above.
         Fresh or idle engines only."""
         if self._active.any() or self._prefilling:
             raise RuntimeError("warmup() on an engine with active slots "
@@ -2965,16 +3300,39 @@ class ServingEngine:
                        up(self._active), up(self._temp), up(self._topk),
                        up(self._topp), up(self._keys))
             return self
-        if self._graphed:
-            if self._graph is None:
-                self._capture()
-        else:
-            self._device_iteration()
         nb, dev = self.prefills_per_step, self.device
         draft = self._draft_model
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
+
+        null_rows = (self.kv_blocks * self.block_size
+                     + torch.arange(self.block_size, device=dev)
+                     if self.paged else None)
+        if self.role == "prefill":
+            _dec.gather_blocks(self.caches, null_rows)
+        elif self._graphed:
+            if self._graph is None:
+                self._capture()
+        else:
+            self._device_iteration()
+        if self.role == "decode":
+            # the ingest program alone (a decode-role engine runs no
+            # prefill), through the null block and a free slot's row,
+            # left inactive as a never-used row
+            slot = self._free[-1]
+            payload = _dec.gather_blocks(self.caches, null_rows)
+            self._ingest_fn(slot, null_rows, payload,
+                            torch.full((1, self._t_tbl), self.kv_blocks,
+                                       dtype=torch.int64, device=dev),
+                            zeros(1, dtype=torch.int32),
+                            zeros(1, dtype=torch.int64), zeros(1),
+                            zeros(1, dtype=torch.int64), zeros(1),
+                            zeros(1, 2, dtype=torch.int64))
+            self._dev_act[slot] = False
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return self
 
         paged, null_bt, null_dbt = {}, None, None
         if self.paged:
@@ -3017,16 +3375,14 @@ class ServingEngine:
             # the free slot's table row is null, so the gather reads and
             # the ingest writes the null block alone
             slot = self._free[-1]
-            bs = self.block_size
-            rows = self.kv_blocks * bs + torch.arange(bs, device=dev)
             payload = _dec.gather_slot_state(
-                self.caches, rows, self._dev_tok, self._dev_pos,
+                self.caches, null_rows, self._dev_tok, self._dev_pos,
                 self._dev_keys, slot)[0]
-            self._ingest(slot, rows, payload,
-                         null_bt[:1], zeros(1, dtype=torch.int32),
-                         zeros(1, dtype=torch.int64), zeros(1),
-                         zeros(1, dtype=torch.int64), zeros(1),
-                         zeros(1, 2, dtype=torch.int64))
+            self._ingest_fn(slot, null_rows, payload,
+                            null_bt[:1], zeros(1, dtype=torch.int32),
+                            zeros(1, dtype=torch.int64), zeros(1),
+                            zeros(1, dtype=torch.int64), zeros(1),
+                            zeros(1, 2, dtype=torch.int64))
             self._dev_act[slot] = False
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -3062,3 +3418,1847 @@ class ServingEngine:
             "ServingEngine.attach_ps: hot weight reload from a parameter "
             "server comes with the async host-PS family (ROADMAP queue A "
             "item 6)")
+
+
+# ---------------------------------------------------------------------------
+# wire layer: the serving protocol over the shared frame codec
+# ---------------------------------------------------------------------------
+
+#: serving-protocol opcodes (this protocol's own namespace — a serving
+#: server port never speaks the PS protocol): 'q' enqueue request (frame:
+#: prompt + sampling params → ack/backpressure reply), 'r' stream reply
+#: (frame: {"id"} → chunk frames until {"done": True}), 'x' cancel (frame:
+#: {"id"} → ack; mid-stream it is unacked — the stream's final frame
+#: carries finish="cancel").
+OP_ENQUEUE = networking.SERVING_OP_ENQUEUE
+OP_STREAM = networking.SERVING_OP_STREAM
+OP_CANCEL = networking.SERVING_OP_CANCEL
+OP_KVBLOCKS = networking.SERVING_OP_KVBLOCKS
+OP_STATS = networking.SERVING_OP_STATS
+
+#: the selectable serving transport cores (``server_core=`` on
+#: :class:`ServingServer`): ``"threaded"`` is the seed's
+#: thread-per-connection handler, ``"event"`` the one-selector I/O loop
+#: (the ``parameter_servers.PS_CORES`` twin — same knob idiom)
+SERVING_CORES = ("threaded", "event")
+
+#: event-core receive chunk: big enough that a steady-state request frame
+#: lands complete in ONE recv (the parser's zero-copy fast path); larger
+#: frames reassemble through the parser accumulator
+_EV_RECV_CHUNK = 1 << 20
+
+#: frames coalesced per ``sendmsg`` — comfortably under IOV_MAX, and one
+#: loop wake rarely owes a connection more than a few token chunks
+_EV_SENDMSG_BATCH = 64
+
+
+class _EvPoisoned:
+    """A deferred KV-block payload that failed its transport-boundary
+    ``validate()`` while being deep-copied out of the receive scratch —
+    the rejection is replayed when the deferred op is dispatched, so a
+    hostile pipelined ``'k'`` sheds the connection through the same
+    ``ProtocolError`` path the threaded core uses."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: str):
+        self.error = str(error)
+
+
+def _deepcopy_wire_msg(msg: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep-copy a parsed wire message whose ndarray leaves are zero-copy
+    views into the connection's receive scratch.  Deferred (pipelined)
+    ops outlive that scratch — the next ``recv_into`` overwrites it — so
+    views must be promoted to owned memory at deferral time."""
+    out: Dict[str, Any] = {}
+    for k, v in msg.items():
+        if isinstance(v, np.ndarray):
+            out[k] = np.array(v, copy=True)
+        elif isinstance(v, networking.KVBlocks):
+            try:
+                out[k] = v.validate().decoded()
+            except ValueError as e:  # replayed at dispatch (see above)
+                out[k] = _EvPoisoned(str(e))
+        else:
+            out[k] = v
+    return out
+
+
+class _ServingConn:
+    """Per-connection state on the serving event loop: the incremental
+    frame parser over a pooled receive scratch, the pending-write queue
+    with its encode pool, and the streaming-relay state (the handle being
+    pumped, ops the client pipelined past it, backpressure flags).
+
+    Touched ONLY on the loop thread — no lock.  The decoded-view lifetime
+    contract matches the PS event core: every parsed op is consumed (or
+    deep-copied into ``deferred``) before this connection's next
+    ``recv_into`` can overwrite the scratch."""
+
+    __slots__ = ("sock", "parser", "out", "out_bytes", "recv_pool",
+                 "send_pool", "want_write", "paused", "stream", "deferred",
+                 "last_progress", "closed")
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.parser = networking.FrameParser(
+            frame_ops=OP_ENQUEUE + OP_STREAM + OP_CANCEL + OP_KVBLOCKS)
+        self.out: List[memoryview] = []
+        self.out_bytes = 0
+        self.recv_pool = networking.BufferPool()
+        self.send_pool = networking.BufferPool()
+        self.want_write = False
+        self.paused = False   # backpressure: reads masked off, pump held
+        self.stream: Optional[RequestHandle] = None  # handle mid-relay
+        self.deferred: List[Tuple[bytes, Dict[str, Any]]] = []
+        self.last_progress = 0.0  # perf_counter of the last stream chunk
+        self.closed = False
+
+
+class ServingServer:
+    """TCP front-end for a :class:`ServingEngine` — same accept-loop /
+    frame-codec / BufferPool idiom as ``SocketParameterServer``, so serving
+    clients speak the exact wire the PS stack already speaks.
+
+    Two transport cores behind one constructor knob (``server_core``, the
+    ``parameter_servers.PS_CORES`` idiom): ``"threaded"`` (default) keeps
+    the seed's thread-per-connection handler bit-identical; ``"event"``
+    multiplexes every connection on ONE selector I/O thread
+    (``dkt-serving-io``) — per-connection read/write buffers over the
+    incremental ``networking.FrameParser``, token frames flushed through
+    a socketpair waker when the engine thread pushes (no per-connection
+    thread), non-blocking coalesced writes so a slow client never pins
+    the relay, and a per-connection outbound cap (``max_conn_buffer``)
+    that stops reading from — and pumping to — a client that stops
+    reading us.  Protocol, typed errors, counters, and the failure matrix
+    below are identical on both cores (docs/serving.md "Event
+    transport").
+
+    Per connection: ``'q'`` + request frame → ack ``{"ok": True, "id": n}``
+    or a typed rejection (``kind`` ``"backpressure"`` / ``"draining"`` /
+    ``"engine_dead"`` / ``"bad_request"``); ``'r'`` + ``{"id": n}`` → a
+    stream of ``{"id", "tokens", "done"}`` chunk frames, the last one
+    carrying ``done=True`` + ``finish`` (eos/length/deadline/cancel/…) +
+    the final padded ``row`` (or a typed error instead of a row when the
+    engine died); ``'x'`` + ``{"id": n}`` → cancel ack.  EOF closes the
+    connection; the engine keeps running.
+
+    Failure semantics (this is the client-disconnect reclamation layer):
+
+     - every empty stream-poll slice (``poll_s``) checks the client socket
+       — EOF/RST cancels the streamed request, so an abandoned connection
+       reclaims its KV slot within one scheduler iteration of detection
+       instead of decoding to completion;
+     - a request is *owned* by the connection that submitted it (ownership
+       transfers to whichever connection streams it); when a connection
+       dies, its unfinished owned requests are cancelled
+       (``cancel_on_disconnect``, default True) and their handles
+       released — a dead client leaks neither slots nor handle entries;
+     - a stream that makes no progress is bounded by the request deadline
+       (plus a grace period) or, for deadline-less requests, by
+       ``stream_timeout_s`` — a stalled engine gets a typed ``"stall"``
+       error frame instead of pinning the handler thread for a fixed
+       minute;
+     - a torn/corrupt frame (``protocol_errors``) or transport fault
+       (``disconnects``) sheds the connection silently; its pooled
+       buffers are per-handler locals so they are released with it, and
+       ``live_connections`` decrements (asserted in
+       tests/test_torch_serving_wire*.py).
+    """
+
+    def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
+                 port: int = 0, stream_timeout_s: float = 60.0,
+                 poll_s: float = 0.02, cancel_on_disconnect: bool = True,
+                 server_core: str = "threaded",
+                 max_conn_buffer: int = 1 << 20):
+        if server_core not in SERVING_CORES:
+            raise ValueError(f"server_core must be one of "
+                             f"{sorted(SERVING_CORES)}, got {server_core!r}")
+        self.engine = engine
+        self.host = host
+        self.port = int(port)
+        self.stream_timeout_s = float(stream_timeout_s)
+        self.poll_s = float(poll_s)
+        self.cancel_on_disconnect = bool(cancel_on_disconnect)
+        self.server_core = server_core
+        #: event core only: per-connection outbound-buffer cap in bytes.
+        #: A client that stops reading its token stream grows the pending
+        #: write queue; past this cap the loop stops reading from AND
+        #: pumping to that connection until the flush drains below half
+        #: the cap (the PS core's oversize-guard idiom, per connection).
+        self.max_conn_buffer = int(max_conn_buffer)
+        self._handles: Dict[int, RequestHandle] = {}
+        #: request id → owning connection (submitting conn, re-claimed by
+        #: the streaming conn) — the disconnect-reclamation bookkeeping
+        self._owner: Dict[int, socket.socket] = {}
+        self._hlock = threading.Lock()
+        self._server: Optional[socket.socket] = None
+        self._accept_thread: Optional[threading.Thread] = None
+        self._conns: List[socket.socket] = []
+        self._lock = threading.Lock()  # guards: _conns
+        #: lock-free stop flag: written once by start()/stop(), polled by
+        #: the accept path on either core — monotonic, so races are benign
+        self._running = False
+        #: event core: the shared I/O loop and its per-socket conn state
+        #: (the latter touched ONLY on the loop thread — no lock)
+        self._loop: Optional[networking.EventLoop] = None
+        self._econns: Dict[socket.socket, _ServingConn] = {}
+        self.disconnects = 0       # transport faults / EOF mid-frame
+        self.protocol_errors = 0   # corrupt frames (bad magic, length lies)
+        self.disconnect_cancels = 0  # requests reclaimed from dead clients
+
+    @property
+    def addr(self) -> Tuple[str, int]:
+        return (self.host, self.port)
+
+    @property
+    def live_connections(self) -> int:
+        """Open client connections with a live handler (the serving twin of
+        ``SocketParameterServer.live_connections`` — shed connections must
+        decrement this, pooled buffers and all)."""
+        with self._lock:
+            return len(self._conns)
+
+    def start(self) -> "ServingServer":
+        self.engine.start()
+        self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._server.bind((self.host, self.port))
+        self.port = self._server.getsockname()[1]
+        self._server.listen(128)
+        self._running = True
+        if self.server_core == "event":
+            self._server.setblocking(False)
+            self._loop = networking.EventLoop(name="dkt-serving-io")
+            self._loop.stop_hooks.append(self._ev_shutdown)
+            self._loop.start()
+            self._loop.call_soon(
+                lambda: self._loop.add(self._server, self._ev_accept))
+            # the name is load-bearing: supervisors probe server liveness
+            # through ``_accept_thread.is_alive()`` on either core
+            self._accept_thread = self._loop.thread
+        else:
+            self._accept_thread = threading.Thread(
+                target=self._accept_loop, daemon=True,
+                name="dkt-serving-accept")
+            self._accept_thread.start()
+        return self
+
+    def stop(self, join_timeout: float = 5.0) -> None:
+        self._running = False
+        if self.server_core == "event":
+            loop = self._loop
+            if loop is not None and not loop.stop(join_timeout=join_timeout):
+                # wedged inside a callback (the loop itself never blocks
+                # on a socket): force-close everything from here so the
+                # wedged thread fails fast on its next socket op and a
+                # same-address respawn can bind
+                logger.warning(
+                    "serving I/O loop still alive after stop(join_timeout="
+                    "%.1fs); force-closing its connections and listener",
+                    join_timeout)
+                with self._lock:
+                    conns = list(self._conns)
+                    self._conns.clear()
+                for c in conns:
+                    networking._hard_close(c)
+                if self._server is not None:
+                    try:
+                        self._server.close()
+                    except OSError:
+                        pass
+            self.engine.stop()
+            return
+        if self._server is not None:
+            try:  # wake the blocked accept()
+                socket.create_connection((self.host, self.port),
+                                         timeout=1.0).close()
+            except OSError:
+                pass
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=join_timeout)
+        if self._server is not None:
+            try:
+                self._server.close()
+            except OSError:
+                pass
+        with self._lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+        self.engine.stop()
+
+    def respawn_clone(self, engine: Optional[ServingEngine] = None
+                      ) -> "ServingServer":
+        """A same-core replacement server on this address with every
+        transport knob carried over — ``server_core`` included, so a
+        supervisor restart never silently changes the I/O architecture.
+        ``engine`` defaults to this server's (an engine supervisor
+        re-points ``.engine`` in place; this seam is for the
+        whole-server restart path, mirroring
+        ``SocketParameterServer.respawn_clone``)."""
+        return ServingServer(
+            engine if engine is not None else self.engine,
+            host=self.host, port=self.port,
+            stream_timeout_s=self.stream_timeout_s, poll_s=self.poll_s,
+            cancel_on_disconnect=self.cancel_on_disconnect,
+            server_core=self.server_core,
+            max_conn_buffer=self.max_conn_buffer)
+
+    def __enter__(self) -> "ServingServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _accept_loop(self) -> None:
+        while True:
+            try:
+                conn, _ = self._server.accept()
+            except OSError:
+                return
+            if not self._running:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._lock:
+                self._conns.append(conn)
+            threading.Thread(target=self._handle, args=(conn,),
+                             daemon=True, name="dkt-serving-conn").start()
+
+    def _handle(self, conn: socket.socket) -> None:
+        # per-connection pools: requests land in a reusable receive buffer,
+        # replies re-serialize into a reusable send buffer.  The send pool
+        # is per-connection (BufferPool is lock-protected, but a shared
+        # pool would still let another connection's encode overwrite a
+        # frame between encode and sendall).  Both are handler locals, so
+        # every exit path — clean EOF, torn frame, transport fault —
+        # releases them with the handler.
+        recv_pool = networking.BufferPool()
+        send_pool = networking.BufferPool()
+        pending_op = b""  # opcode the client pipelined during a stream
+        try:
+            while True:
+                if pending_op:
+                    op, pending_op = pending_op, b""
+                else:
+                    op = networking.recv_opcode(conn)
+                if op == b"":
+                    return
+                if op == OP_ENQUEUE:
+                    msg = networking.recv_data(conn, pool=recv_pool)
+                    try:
+                        h = self.engine.submit(
+                            np.array(msg["prompt"], np.int32, copy=True),
+                            int(msg["num_steps"]),
+                            temperature=float(msg.get("temperature", 0.0)),
+                            top_k=msg.get("top_k"),
+                            top_p=msg.get("top_p"),
+                            eos_id=msg.get("eos_id"),
+                            pad_id=msg.get("pad_id"),
+                            seed=int(msg.get("seed", 0)),
+                            deadline_s=msg.get("deadline_s"),
+                            tenant=msg.get("tenant"),
+                            priority=int(msg.get("priority", 0)),
+                            block=False)
+                    except QuotaExceeded as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "quota"}, pool=send_pool)
+                        continue
+                    except QueueFull:
+                        networking.send_data(
+                            conn, {"ok": False, "error": "queue full",
+                                   "kind": "backpressure"},
+                            pool=send_pool)
+                        continue
+                    except Draining as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "draining"}, pool=send_pool)
+                        continue
+                    except EngineDead as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "engine_dead"}, pool=send_pool)
+                        continue
+                    except ValueError as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "bad_request"}, pool=send_pool)
+                        continue
+                    with self._hlock:
+                        self._handles[h.id] = h
+                        self._owner[h.id] = conn
+                    networking.send_data(conn, {"ok": True, "id": h.id},
+                                         pool=send_pool)
+                elif op == OP_KVBLOCKS:
+                    # disaggregated hand-off: a prefill engine (via
+                    # DisaggPair) ships a request's filled KV blocks.
+                    # validate() runs BEFORE any engine call — a
+                    # hostile/torn payload raises ProtocolError (a
+                    # ValueError) out to the shed path below with the
+                    # receiving pool untouched; decoded() copies the
+                    # pooled recv views before they die on the next recv.
+                    msg = networking.recv_data(conn, pool=recv_pool)
+                    kvb = msg.get("blocks")
+                    if not isinstance(kvb, networking.KVBlocks):
+                        raise networking.ProtocolError(
+                            "kv-block frame carries no KVBlocks payload")
+                    kvb = kvb.validate().decoded()
+                    try:
+                        h = self.engine.submit_prefilled(
+                            kvb,
+                            np.array(msg["prompt"], np.int32, copy=True),
+                            int(msg["first_token"]),
+                            int(msg["num_steps"]),
+                            temperature=float(msg.get("temperature", 0.0)),
+                            top_k=msg.get("top_k"),
+                            top_p=msg.get("top_p"),
+                            eos_id=msg.get("eos_id"),
+                            pad_id=msg.get("pad_id"),
+                            deadline_s=msg.get("deadline_s"),
+                            tenant=msg.get("tenant"),
+                            priority=int(msg.get("priority", 0)),
+                            block=False)
+                    except QuotaExceeded as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "quota"}, pool=send_pool)
+                        continue
+                    except QueueFull:
+                        networking.send_data(
+                            conn, {"ok": False, "error": "queue full",
+                                   "kind": "backpressure"},
+                            pool=send_pool)
+                        continue
+                    except Draining as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "draining"}, pool=send_pool)
+                        continue
+                    except EngineDead as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "engine_dead"}, pool=send_pool)
+                        continue
+                    except ValueError as e:
+                        networking.send_data(
+                            conn, {"ok": False, "error": str(e),
+                                   "kind": "bad_request"}, pool=send_pool)
+                        continue
+                    with self._hlock:
+                        self._handles[h.id] = h
+                        self._owner[h.id] = conn
+                    networking.send_data(conn, {"ok": True, "id": h.id},
+                                         pool=send_pool)
+                elif op == OP_STREAM:
+                    msg = networking.recv_data(conn, pool=recv_pool)
+                    rid = int(msg["id"])
+                    with self._hlock:
+                        h = self._handles.get(rid)
+                        if h is not None:
+                            self._owner[rid] = conn  # stream claims it
+                    if h is None:
+                        networking.send_data(
+                            conn, {"ok": False, "done": True,
+                                   "kind": "unknown_id",
+                                   "error": f"unknown id {rid}"},
+                            pool=send_pool)
+                        continue
+                    alive, pending_op = self._stream(conn, h, recv_pool,
+                                                     send_pool)
+                    if not alive:
+                        return  # client gone mid-stream (finally reclaims)
+                elif op == OP_CANCEL:
+                    msg = networking.recv_data(conn, pool=recv_pool)
+                    with self._hlock:
+                        h = self._handles.get(int(msg["id"]))
+                    ok = h is not None and self.engine.cancel(h)
+                    networking.send_data(
+                        conn, {"ok": True, "cancelled": bool(ok)},
+                        pool=send_pool)
+                elif op == OP_STATS:
+                    # load probe (no request body): the engine's lock-free
+                    # snapshot, the signal a ServingRouter dispatches on
+                    networking.send_data(
+                        conn, {"ok": True, "load": self.engine.load()},
+                        pool=send_pool)
+                else:
+                    return  # protocol violation: drop the connection
+        except ValueError:
+            self.protocol_errors += 1  # corrupt frame: shed silently
+            return
+        except (ConnectionError, OSError):
+            self.disconnects += 1  # incl. a half-frame EOF/RST mid-recv
+            return
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+            with self._lock:
+                if conn in self._conns:
+                    self._conns.remove(conn)
+            self._release_owned(conn)
+
+    def _release_owned(self, conn: socket.socket) -> None:
+        """Disconnect reclamation: cancel this connection's unfinished
+        requests and drop their handle entries — a dead client's KV slot is
+        back in the pool within one scheduler iteration, and the handle
+        table does not grow with abandoned ids."""
+        with self._hlock:
+            owned = [rid for rid, c in self._owner.items() if c is conn]
+            handles = [self._handles.pop(rid, None) for rid in owned]
+            for rid in owned:
+                self._owner.pop(rid, None)
+        if not self.cancel_on_disconnect:
+            return
+        for h in handles:
+            if h is not None and self.engine.cancel(h):
+                self.disconnect_cancels += 1
+
+    def _stream(self, conn: socket.socket, h: RequestHandle,
+                recv_pool: "networking.BufferPool",
+                send_pool: "networking.BufferPool"
+                ) -> Tuple[bool, bytes]:
+        """Relay ``h``'s token chunks until its final frame.  Bounded
+        waits: each empty ``poll_s`` slice checks the client socket for
+        EOF/RST (→ cancel + reclaim) or a mid-stream ``'x'`` cancel
+        opcode; a stream with no progress past the request deadline (+
+        grace) or ``stream_timeout_s`` sends a typed ``"stall"`` error
+        frame.  Returns ``(alive, pending_op)``: ``alive`` is False when
+        the connection is gone; ``pending_op`` is an opcode the client
+        pipelined while the stream was relaying, for ``_handle`` to
+        process after the final frame."""
+        grace = max(1.0, 4 * self.poll_s)
+        waited = 0.0
+        pending = b""
+        while True:
+            # check the client side EVERY iteration (not just idle slices):
+            # a mid-stream cancel or disconnect must land even while chunks
+            # are flowing back-to-back.  Once the client pipelines its next
+            # opcode ('q'/'r'), STOP reading — the following bytes are that
+            # request's frame, owned by _handle after this stream's final
+            # frame (a disconnect is still caught by the send path below).
+            if not pending:
+                status = self._poll_client(conn, recv_pool)
+                if status == "dead":
+                    if self.cancel_on_disconnect:
+                        self.engine.cancel(h)
+                    return False, b""
+                if isinstance(status, bytes):
+                    pending = status
+            chunk, done = h.next_chunk(timeout=self.poll_s)
+            if not done and not len(chunk):
+                waited += self.poll_s
+                now = time.perf_counter()
+                stalled = (now > h.deadline + grace
+                           if h.deadline is not None
+                           else waited >= self.stream_timeout_s)
+                if stalled:
+                    # the engine should have retired this request by now —
+                    # it is wedged or dead; unblock the client with a typed
+                    # error frame instead of holding the handler thread
+                    with self._hlock:
+                        self._handles.pop(h.id, None)
+                        self._owner.pop(h.id, None)
+                    try:
+                        networking.send_data(
+                            conn, {"id": h.id, "ok": False, "done": True,
+                                   "tokens": np.zeros(0, np.int32),
+                                   "finish": "error", "kind": "stall",
+                                   "error": f"no progress on request "
+                                            f"{h.id} (engine stalled)"},
+                            pool=send_pool)
+                    except (ConnectionError, OSError):
+                        return False, b""
+                    return True, pending
+                continue
+            waited = 0.0
+            reply: Dict[str, Any] = {"id": h.id, "tokens": chunk,
+                                     "done": done}
+            if done:
+                reply["finish"] = h.finish
+                if h.error is not None:
+                    reply["ok"] = False
+                    reply["kind"] = "engine_dead"
+                    reply["error"] = str(h.error)
+                else:
+                    reply["row"] = h.result()
+            try:
+                networking.send_data(conn, reply, pool=send_pool)
+            except (ConnectionError, OSError):
+                if self.cancel_on_disconnect:
+                    self.engine.cancel(h)
+                return False, b""
+            if done:
+                with self._hlock:
+                    self._handles.pop(h.id, None)
+                    self._owner.pop(h.id, None)
+                return True, pending
+
+    def _poll_client(self, conn: socket.socket,
+                     recv_pool: "networking.BufferPool"
+                     ) -> Union[str, bytes]:
+        """Non-blocking client-socket check between stream chunks:
+        ``"idle"`` (nothing to read — the normal case), ``"dead"``
+        (EOF/RST/garbage — the disconnect-reclamation trigger), ``"ok"``
+        after consuming a mid-stream ``'x'`` cancel (any id; unacked —
+        the stream's final frame is the acknowledgement), or the opcode
+        byte itself when the client pipelined its next ``'q'``/``'r'``
+        request while this stream is still relaying (stashed by
+        ``_stream``, processed after the final frame — pipelining is not
+        a protocol violation)."""
+        try:
+            readable, _, _ = select.select([conn], [], [], 0)
+            if not readable:
+                return "idle"
+            op = conn.recv(1)
+            if op == OP_CANCEL:
+                # the cancel payload may trail the opcode across packets:
+                # bound the recv so a torn/stalled cancel frame cannot pin
+                # the stream relay (timeout → OSError → "dead")
+                conn.settimeout(1.0)
+                try:
+                    msg = networking.recv_data(conn, pool=recv_pool)
+                finally:
+                    conn.settimeout(None)
+                with self._hlock:
+                    target = self._handles.get(int(msg["id"]))
+                if target is not None:
+                    self.engine.cancel(target)
+                return "ok"
+            if op in (OP_ENQUEUE, OP_STREAM, OP_KVBLOCKS):
+                return op  # pipelined next request, not a dead client
+        except (ConnectionError, OSError, ValueError):
+            return "dead"
+        # EOF (b"") or mid-stream protocol violation: the client is gone
+        return "dead"
+
+    # -- the event core ------------------------------------------------------
+    # One selector I/O thread ("dkt-serving-io") multiplexes every client
+    # connection: accept, parse, dispatch, stream-relay, and flush all run
+    # as EventLoop callbacks, so 64 concurrent wire streams cost 64
+    # registered fds instead of 64 handler threads.  Token frames reach
+    # the loop through RequestHandle.set_listener → call_soon (the
+    # socketpair waker), and every method below runs ON the loop thread —
+    # _econns and _ServingConn state need no lock.  Semantics (typed
+    # rejections, mid-stream 'x', pipelining, stall bounds, disconnect
+    # reclamation, counters) mirror the threaded handler above, clause
+    # for clause.
+
+    def _ev_accept(self, mask: int) -> None:
+        while True:
+            try:
+                sock, _ = self._server.accept()
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                return
+            if not self._running:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                return
+            try:
+                sock.setblocking(False)
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
+            conn = _ServingConn(sock)
+            self._econns[sock] = conn
+            with self._lock:
+                self._conns.append(sock)
+            self._loop.add(sock, lambda m, c=conn: self._ev_io(c, m))
+
+    def _ev_io(self, conn: _ServingConn, mask: int) -> None:
+        if conn.closed:
+            return
+        if mask & selectors.EVENT_WRITE:
+            self._ev_flush(conn)
+        if conn.closed or conn.paused:
+            return
+        if mask & selectors.EVENT_READ:
+            self._ev_read(conn)
+
+    def _ev_read(self, conn: _ServingConn) -> None:
+        # drain ops already parsed first (a mid-batch backpressure pause
+        # abandons the messages() walk; the resume path re-enters here
+        # with no new bytes owed by the socket)
+        if self._ev_drain_parsed(conn):
+            return
+        while not conn.closed and not conn.paused:
+            # direct-fill continuation for a frame torn across recvs,
+            # else land the bytes in the pooled scratch and decode
+            # zero-copy views over it (the PS event core's read path)
+            target = conn.parser.writable()
+            fed_scratch = target is None
+            if fed_scratch:
+                target = memoryview(conn.recv_pool.get(_EV_RECV_CHUNK))
+            try:
+                n = conn.sock.recv_into(target)
+            except (BlockingIOError, InterruptedError):
+                return
+            except (ConnectionError, OSError):
+                self._ev_conn_lost(conn, fault=conn.parser.midframe)
+                return
+            if not n:
+                # EOF: clean at a frame boundary (no counter — the
+                # threaded recv_opcode contract), a torn frame otherwise
+                self._ev_conn_lost(conn, fault=conn.parser.midframe)
+                return
+            if fed_scratch:
+                conn.parser.feed(target[:n])
+            else:
+                conn.parser.advance(n)
+            if self._ev_drain_parsed(conn):
+                return  # dispatched >= 1 op: yield the loop (fairness);
+                # the level-triggered selector re-arms for the rest
+
+    def _ev_drain_parsed(self, conn: _ServingConn) -> bool:
+        """Dispatch every op the parser has buffered.  Returns True when
+        at least one op was dispatched or the connection died (the read
+        loop yields), False when more bytes are needed."""
+        got = False
+        try:
+            for op, msg in conn.parser.messages():
+                got = True
+                self._ev_dispatch(conn, op, msg)
+                if conn.closed or conn.paused:
+                    return True
+        except ValueError:
+            if conn.stream is not None:
+                # mid-stream garbage/torn frame: the threaded core's
+                # _poll_client "dead" verdict — cancel + shed, no counter
+                self._ev_conn_lost(conn, fault=False)
+            else:
+                self.protocol_errors += 1  # corrupt frame: shed silently
+                self._ev_close(conn)
+            return True
+        except Exception:
+            logger.exception(
+                "serving event dispatch failed; shedding the connection "
+                "(threaded-core parity: its handler thread died with it)")
+            self._ev_close(conn)
+            return True
+        return got
+
+    def _ev_dispatch(self, conn: _ServingConn, op: Optional[bytes],
+                     msg) -> None:
+        if conn.stream is not None:
+            # mid-stream: the threaded core's _poll_client contract
+            if op == OP_CANCEL:
+                with self._hlock:
+                    target = self._handles.get(int(msg["id"]))
+                if target is not None:
+                    self.engine.cancel(target)
+                return  # unacked: the stream's final frame acknowledges
+            if op in (OP_ENQUEUE, OP_STREAM, OP_KVBLOCKS):
+                # pipelined next request: deferred past the final frame,
+                # deep-copied out of the recv scratch its views die with
+                conn.deferred.append((op, _deepcopy_wire_msg(msg)))
+                return
+            self._ev_conn_lost(conn, fault=False)  # protocol violation
+            return
+        if msg is None:
+            if op == OP_STATS:
+                # load probe, answered inline on the loop (no request
+                # body): the engine's lock-free snapshot, piggybacked on
+                # whatever flush this wake already owes the connection
+                self._ev_queue(conn, {"ok": True,
+                                      "load": self.engine.load()})
+            else:
+                self._ev_close(conn)  # protocol violation: drop silently
+            return
+        if op in (OP_ENQUEUE, OP_KVBLOCKS):
+            self._ev_submit(conn, op, msg)
+        elif op == OP_STREAM:
+            rid = int(msg["id"])
+            with self._hlock:
+                h = self._handles.get(rid)
+                if h is not None:
+                    self._owner[rid] = conn.sock  # stream claims it
+            if h is None:
+                self._ev_queue(conn, {"ok": False, "done": True,
+                                      "kind": "unknown_id",
+                                      "error": f"unknown id {rid}"})
+                return
+            self._ev_start_stream(conn, h)
+        elif op == OP_CANCEL:
+            with self._hlock:
+                h = self._handles.get(int(msg["id"]))
+            ok = h is not None and self.engine.cancel(h)
+            self._ev_queue(conn, {"ok": True, "cancelled": bool(ok)})
+
+    def _ev_submit(self, conn: _ServingConn, op: bytes, msg) -> None:
+        """``'q'``/``'k'`` admission with the threaded core's exact typed
+        rejection chain.  A ``ProtocolError`` (hostile KV payload)
+        re-raises past the bad_request catch so the connection is shed
+        and counted as a protocol error, with no engine call made."""
+        try:
+            if op == OP_KVBLOCKS:
+                kvb = msg.get("blocks")
+                if isinstance(kvb, _EvPoisoned):
+                    raise networking.ProtocolError(kvb.error)
+                if not isinstance(kvb, networking.KVBlocks):
+                    raise networking.ProtocolError(
+                        "kv-block frame carries no KVBlocks payload")
+                kvb = kvb.validate().decoded()
+                h = self.engine.submit_prefilled(
+                    kvb, np.array(msg["prompt"], np.int32, copy=True),
+                    int(msg["first_token"]), int(msg["num_steps"]),
+                    temperature=float(msg.get("temperature", 0.0)),
+                    top_k=msg.get("top_k"), top_p=msg.get("top_p"),
+                    eos_id=msg.get("eos_id"), pad_id=msg.get("pad_id"),
+                    deadline_s=msg.get("deadline_s"),
+                    tenant=msg.get("tenant"),
+                    priority=int(msg.get("priority", 0)), block=False)
+            else:
+                h = self.engine.submit(
+                    np.array(msg["prompt"], np.int32, copy=True),
+                    int(msg["num_steps"]),
+                    temperature=float(msg.get("temperature", 0.0)),
+                    top_k=msg.get("top_k"), top_p=msg.get("top_p"),
+                    eos_id=msg.get("eos_id"), pad_id=msg.get("pad_id"),
+                    seed=int(msg.get("seed", 0)),
+                    deadline_s=msg.get("deadline_s"),
+                    tenant=msg.get("tenant"),
+                    priority=int(msg.get("priority", 0)), block=False)
+        except QuotaExceeded as e:
+            self._ev_queue(conn, {"ok": False, "error": str(e),
+                                  "kind": "quota"})
+            return
+        except QueueFull:
+            self._ev_queue(conn, {"ok": False, "error": "queue full",
+                                  "kind": "backpressure"})
+            return
+        except Draining as e:
+            self._ev_queue(conn, {"ok": False, "error": str(e),
+                                  "kind": "draining"})
+            return
+        except EngineDead as e:
+            self._ev_queue(conn, {"ok": False, "error": str(e),
+                                  "kind": "engine_dead"})
+            return
+        except networking.ProtocolError:
+            raise  # transport-boundary rejection: shed, don't reply
+        except ValueError as e:
+            self._ev_queue(conn, {"ok": False, "error": str(e),
+                                  "kind": "bad_request"})
+            return
+        with self._hlock:
+            self._handles[h.id] = h
+            self._owner[h.id] = conn.sock
+        self._ev_queue(conn, {"ok": True, "id": h.id})
+
+    # -- event-core stream relay --------------------------------------------
+    def _ev_start_stream(self, conn: _ServingConn,
+                         h: RequestHandle) -> None:
+        conn.stream = h
+        conn.last_progress = time.perf_counter()
+        loop = self._loop
+
+        def poke(c=conn, hh=h):
+            loop.call_soon(lambda: self._ev_pump(c, hh))
+
+        h.set_listener(poke)  # fires once now if progress predates it
+        self._ev_schedule_stall(conn, h)
+        self._ev_pump(conn, h)
+
+    def _ev_pump(self, conn: _ServingConn, h: RequestHandle) -> None:
+        """Relay every token chunk ``h`` has ready onto ``conn``'s write
+        queue — the event twin of ``_stream``'s relay body.  Invoked via
+        the handle's listener on every engine push (duplicate wakes are
+        cheap no-ops) and from the backpressure resume path."""
+        if conn.closed or conn.stream is not h or conn.paused:
+            return
+        while True:
+            chunk, done = h.next_chunk(timeout=0)
+            if not done and not len(chunk):
+                return
+            conn.last_progress = time.perf_counter()
+            reply: Dict[str, Any] = {"id": h.id, "tokens": chunk,
+                                     "done": done}
+            if done:
+                reply["finish"] = h.finish
+                if h.error is not None:
+                    reply["ok"] = False
+                    reply["kind"] = "engine_dead"
+                    reply["error"] = str(h.error)
+                else:
+                    reply["row"] = h.result()
+            self._ev_queue(conn, reply)
+            if conn.closed:
+                return  # the flush tore the connection down mid-relay
+            if done:
+                self._ev_end_stream(conn, h)
+                return
+            if conn.paused:
+                return  # backpressure: the flush path resumes the pump
+
+    def _ev_end_stream(self, conn: _ServingConn,
+                       h: RequestHandle) -> None:
+        with self._hlock:
+            self._handles.pop(h.id, None)
+            self._owner.pop(h.id, None)
+        h.set_listener(None)
+        conn.stream = None
+        self._ev_drain_deferred(conn)
+
+    def _ev_drain_deferred(self, conn: _ServingConn) -> None:
+        """Dispatch ops the client pipelined during a stream (the
+        threaded core's ``pending_op``, processed after the final
+        frame).  A deferred ``'r'`` re-enters streaming; anything still
+        queued behind it stays deferred, in order, for that stream's
+        end."""
+        while (conn.deferred and not conn.closed and not conn.paused
+                and conn.stream is None):
+            op, msg = conn.deferred.pop(0)
+            try:
+                self._ev_dispatch(conn, op, msg)
+            except ValueError:
+                if conn.stream is not None:
+                    self._ev_conn_lost(conn, fault=False)
+                else:
+                    self.protocol_errors += 1
+                    self._ev_close(conn)
+                return
+            except Exception:
+                logger.exception("serving event dispatch failed; "
+                                 "shedding the connection")
+                self._ev_close(conn)
+                return
+
+    def _ev_schedule_stall(self, conn: _ServingConn,
+                           h: RequestHandle) -> None:
+        grace = max(1.0, 4 * self.poll_s)
+        now = time.perf_counter()
+        if h.deadline is not None:
+            delay = h.deadline + grace - now
+        else:
+            delay = conn.last_progress + self.stream_timeout_s - now
+        self._loop.call_later(max(self.poll_s, delay),
+                              lambda: self._ev_check_stall(conn, h))
+
+    def _ev_check_stall(self, conn: _ServingConn,
+                        h: RequestHandle) -> None:
+        """Stall watchdog: a stream with no progress past the request
+        deadline (+ grace) or ``stream_timeout_s`` gets the typed
+        ``"stall"`` error frame instead of pinning the relay — the
+        threaded core's bounded-wait contract, on a timer instead of a
+        poll loop.  Stale timers (stream already retired) no-op."""
+        if conn.closed or conn.stream is not h:
+            return
+        grace = max(1.0, 4 * self.poll_s)
+        now = time.perf_counter()
+        if h.deadline is not None:
+            # one empty poll slice of silence required, like the threaded
+            # loop which only diagnoses a stall from an empty slice
+            stalled = (now > h.deadline + grace
+                       and now - conn.last_progress >= self.poll_s)
+        else:
+            stalled = now - conn.last_progress >= self.stream_timeout_s
+        if not stalled:
+            self._ev_schedule_stall(conn, h)
+            return
+        with self._hlock:
+            self._handles.pop(h.id, None)
+            self._owner.pop(h.id, None)
+        self._ev_queue(conn, {"id": h.id, "ok": False, "done": True,
+                              "tokens": np.zeros(0, np.int32),
+                              "finish": "error", "kind": "stall",
+                              "error": f"no progress on request {h.id} "
+                                       f"(engine stalled)"})
+        if conn.closed:
+            return
+        h.set_listener(None)
+        conn.stream = None
+        self._ev_drain_deferred(conn)
+
+    # -- event-core write path ----------------------------------------------
+    def _ev_queue(self, conn: _ServingConn, obj) -> None:
+        if conn.closed:
+            return
+        if conn.out:
+            # the pooled buffer still backs an in-flight frame: encode
+            # into fresh bytes (the PS _queue_reply discipline)
+            data = memoryview(networking.encode_message(obj))
+        else:
+            data = memoryview(networking.encode_message_into(
+                obj, conn.send_pool))
+        conn.out.append(data)
+        conn.out_bytes += len(data)
+        self._ev_flush(conn)
+
+    def _ev_flush(self, conn: _ServingConn) -> None:
+        if conn.closed:
+            return
+        was_paused = conn.paused
+        while conn.out:
+            try:
+                if len(conn.out) > 1:
+                    # write batching: every frame owed to this connection
+                    # in ONE syscall — token chunks queued by successive
+                    # pumps coalesce per loop wake
+                    sent = conn.sock.sendmsg(conn.out[:_EV_SENDMSG_BATCH])
+                else:
+                    sent = conn.sock.send(conn.out[0])
+            except (BlockingIOError, InterruptedError):
+                break
+            except (ConnectionError, OSError):
+                self._ev_conn_lost(conn, fault=True)
+                return
+            conn.out_bytes -= sent
+            while conn.out and sent >= len(conn.out[0]):
+                sent -= len(conn.out[0])
+                conn.out.pop(0)
+            if sent:
+                conn.out[0] = conn.out[0][sent:]
+                break  # partial write: the kernel buffer is full
+        self._ev_update_mask(conn)
+        if was_paused and not conn.paused and not conn.closed:
+            self._loop.call_soon(lambda: self._ev_resume(conn))
+
+    def _ev_update_mask(self, conn: _ServingConn) -> None:
+        if conn.closed:
+            return
+        if conn.paused:
+            if conn.out_bytes <= self.max_conn_buffer // 2:
+                conn.paused = False  # drained: resume reads + pump
+        elif conn.out_bytes > self.max_conn_buffer:
+            conn.paused = True  # never-reading client: stop reading too
+        want = bool(conn.out)
+        conn.want_write = want
+        mask = ((0 if conn.paused else selectors.EVENT_READ)
+                | (selectors.EVENT_WRITE if want else 0))
+        if not mask:  # unreachable (paused implies pending writes), but
+            mask = selectors.EVENT_READ  # a 0 mask would be an error
+        self._loop.set_mask(conn.sock, mask)
+
+    def _ev_resume(self, conn: _ServingConn) -> None:
+        """Backpressure release: re-pump the stream (tokens queued while
+        paused sit in the handle — bounded by its ``num_steps``), then
+        re-drain parsed/deferred ops before going back to the socket."""
+        if conn.closed or conn.paused:
+            return
+        if conn.stream is not None:
+            self._ev_pump(conn, conn.stream)
+        if conn.closed or conn.paused:
+            return
+        if conn.stream is None:
+            self._ev_drain_deferred(conn)
+        if not conn.closed and not conn.paused:
+            self._ev_read(conn)
+
+    # -- event-core teardown -------------------------------------------------
+    def _ev_conn_lost(self, conn: _ServingConn, fault: bool) -> None:
+        """Transport-level death.  Counting mirrors the threaded core:
+        mid-stream death is ``_poll_client``'s "dead" verdict (cancel the
+        streamed request, no counter); outside a stream a torn frame or
+        send fault counts ``disconnects``; a clean EOF counts nothing."""
+        if conn.closed:
+            return
+        h = conn.stream
+        if h is not None:
+            if self.cancel_on_disconnect:
+                self.engine.cancel(h)
+        elif fault:
+            self.disconnects += 1
+        self._ev_close(conn)
+
+    def _ev_close(self, conn: _ServingConn) -> None:
+        if conn.closed:
+            return
+        conn.closed = True
+        h = conn.stream
+        conn.stream = None
+        if h is not None:
+            h.set_listener(None)
+        if self._loop is not None:
+            self._loop.remove(conn.sock)
+        self._econns.pop(conn.sock, None)
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+        with self._lock:
+            if conn.sock in self._conns:
+                self._conns.remove(conn.sock)
+        del conn.out[:]
+        conn.out_bytes = 0
+        del conn.deferred[:]
+        self._release_owned(conn.sock)
+
+    def _ev_shutdown(self) -> None:
+        """Loop-exit hook (runs ON the loop thread, before the selector
+        and waker close): flush pending writes bounded-best-effort, close
+        every registered connection, reclaim their owned requests, close
+        the listener.  ``stop(join_timeout)`` drains through here — zero
+        leaked fds (tests/test_torch_serving_event.py)."""
+        conns = list(self._econns.values())
+        self._econns.clear()
+        with self._lock:
+            self._conns.clear()
+        for conn in conns:
+            if conn.out:
+                try:
+                    conn.sock.setblocking(True)
+                    conn.sock.settimeout(0.5)
+                    for buf in conn.out:
+                        conn.sock.sendall(buf)
+                except (ConnectionError, OSError, socket.timeout):
+                    pass
+            h = conn.stream
+            conn.stream = None
+            if h is not None:
+                h.set_listener(None)
+            conn.closed = True
+            try:
+                conn.sock.close()
+            except OSError:
+                pass
+            self._release_owned(conn.sock)
+        if self._server is not None:
+            try:
+                self._server.close()
+            except OSError:
+                pass
+
+
+def _raise_typed(kind: Optional[str], err: str):
+    """Map a typed error reply back to the exception the engine raised."""
+    if kind == "quota":  # before backpressure: QuotaExceeded IS a QueueFull
+        raise QuotaExceeded(err)
+    if kind == "backpressure" or "queue full" in err:
+        raise QueueFull(err)
+    if kind == "draining":
+        raise Draining(err)
+    if kind in ("engine_dead", "stall"):
+        raise EngineDead(err)
+    raise ValueError(err)
+
+
+class ServingClient:
+    """Minimal client for :class:`ServingServer` — one socket, the shared
+    frame codec, pooled receives.  ``generate`` is the one-call form whose
+    returned row matches offline ``generate`` for the same request; with a
+    ``retry_policy`` (``resilience.RetryPolicy``) it re-dials and
+    resubmits across engine deaths and connection resets — requests are
+    deterministic in their seed, so the retry is idempotent."""
+
+    def __init__(self, host: str, port: int):
+        self.host, self.port = host, int(port)
+        self.sock = networking.connect(self.host, self.port)
+        self._pool = networking.BufferPool()
+        self._send_pool = networking.BufferPool()
+
+    def close(self) -> None:
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+    def _redial(self) -> None:
+        self.close()
+        self.sock = networking.connect(self.host, self.port)
+
+    def __enter__(self) -> "ServingClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def submit(self, prompt, num_steps: int, **kw) -> int:
+        """Enqueue a request; returns the server-assigned id.  Raises the
+        typed rejection: :class:`QueueFull` (backpressure),
+        :class:`Draining`, :class:`EngineDead`, or ``ValueError``."""
+        req = {"prompt": np.asarray(prompt, np.int32),
+               "num_steps": int(num_steps), **kw}
+        networking.send_opcode(self.sock, OP_ENQUEUE)
+        networking.send_data(self.sock, req, pool=self._send_pool)
+        ack = networking.recv_data(self.sock, pool=self._pool)
+        if not ack.get("ok"):
+            _raise_typed(ack.get("kind"), str(ack.get("error", "rejected")))
+        return int(ack["id"])
+
+    def submit_prefilled(self, blocks, prompt, first_token: int,
+                         num_steps: int, **kw) -> int:
+        """Ship a prefilled request's KV blocks to a decode-role server
+        (``SERVING_OP_KVBLOCKS``) — the wire half of the disaggregated
+        hand-off.  ``blocks`` is a :class:`networking.KVBlocks`; the block
+        payloads ride the frame codec's zero-copy buffer path.  Returns
+        the server-assigned id; raises the same typed rejections as
+        :meth:`submit`."""
+        req = {"blocks": blocks,
+               "prompt": np.asarray(prompt, np.int32),
+               "first_token": int(first_token),
+               "num_steps": int(num_steps), **kw}
+        networking.send_opcode(self.sock, OP_KVBLOCKS)
+        networking.send_data(self.sock, req, pool=self._send_pool)
+        ack = networking.recv_data(self.sock, pool=self._pool)
+        if not ack.get("ok"):
+            _raise_typed(ack.get("kind"), str(ack.get("error", "rejected")))
+        return int(ack["id"])
+
+    def cancel(self, rid: int, await_ack: bool = True) -> bool:
+        """Cancel request ``rid``.  With ``await_ack=False`` the cancel is
+        fire-and-forget — the form to use from another thread while THIS
+        socket is mid-stream (the ack would interleave with chunk frames;
+        the stream's final ``finish="cancel"`` frame is the
+        acknowledgement there)."""
+        networking.send_opcode(self.sock, OP_CANCEL)
+        networking.send_data(self.sock, {"id": int(rid)},
+                             pool=self._send_pool)
+        if not await_ack:
+            return True
+        ack = networking.recv_data(self.sock, pool=self._pool)
+        return bool(ack.get("cancelled"))
+
+    def load(self) -> Dict[str, Any]:
+        """Probe the server's engine load (``SERVING_OP_STATS``): the
+        lock-free :meth:`ServingEngine.load` snapshot — queue depth, free
+        slots, trie-cached block count, draining/dead flags.  Cheap enough
+        for a router to poll per dispatch."""
+        networking.send_opcode(self.sock, OP_STATS)
+        reply = networking.recv_data(self.sock, pool=self._pool)
+        if not reply.get("ok"):
+            _raise_typed(reply.get("kind"),
+                         str(reply.get("error", "stats probe rejected")))
+        return dict(reply["load"])
+
+    def stream(self, rid: int):
+        """Yield ``(tokens, done_reply)`` chunk by chunk; ``done_reply`` is
+        None until the final frame (which carries ``finish`` —
+        eos/length/deadline/cancel — and the padded ``row``).  Typed error
+        frames raise: :class:`EngineDead` for ``engine_dead``/``stall``,
+        ``ValueError`` otherwise."""
+        networking.send_opcode(self.sock, OP_STREAM)
+        networking.send_data(self.sock, {"id": int(rid)},
+                             pool=self._send_pool)
+        while True:
+            reply = networking.recv_data(self.sock, pool=self._pool)
+            if reply.get("error"):
+                _raise_typed(reply.get("kind"), str(reply["error"]))
+            tokens = np.array(reply["tokens"], np.int32, copy=True)
+            if reply["done"]:
+                yield tokens, {"finish": reply["finish"],
+                               "row": np.array(reply["row"], np.int32,
+                                               copy=True)}
+                return
+            yield tokens, None
+
+    def generate(self, prompt, num_steps: int, retry_policy=None,
+                 **kw) -> np.ndarray:
+        """Submit + stream to completion; returns the full padded row
+        (prompt + tokens), exactly ``generate``-shaped.  ``retry_policy``
+        (a ``resilience.RetryPolicy``) retries the whole submit+stream on
+        :class:`EngineDead` or a transport fault, re-dialing first — the
+        client-side half of the supervised-restart story."""
+        def attempt() -> np.ndarray:
+            rid = self.submit(prompt, num_steps, **kw)
+            for _, done in self.stream(rid):
+                if done is not None:
+                    return done["row"]
+            raise ConnectionError("stream ended without a done frame")
+
+        if retry_policy is None:
+            return attempt()
+        return retry_policy.call_reconnecting(
+            attempt, self._redial,
+            retry_on=(EngineDead, ConnectionError, OSError))
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode
+# ---------------------------------------------------------------------------
+
+class _DisaggRequest:
+    """One in-flight request's routing record inside a :class:`DisaggPair`:
+    the client-facing proxy handle, the current upstream handle it mirrors
+    (prefill first, decode after the hand-off), and a cancel relay that
+    always points at whichever engine owns the upstream right now."""
+
+    __slots__ = ("proxy", "upstream", "cancel_fn", "cancelled", "thread",
+                 "kw", "attempts")
+
+    def __init__(self, proxy: RequestHandle, kw: Optional[Dict[str, Any]]
+                 = None):
+        self.proxy = proxy
+        self.upstream: Optional[RequestHandle] = None
+        self.cancel_fn = None
+        self.cancelled = False
+        self.thread: Optional[threading.Thread] = None
+        self.kw: Dict[str, Any] = dict(kw or {})
+        self.attempts = 1  # prefill admissions so far (re-route budget)
+
+
+class DisaggPair:
+    """Disaggregated serving: N ``role="prefill"`` engines feeding ONE
+    ``role="decode"`` engine, behind the unified engine's client surface
+    (``submit`` → :class:`RequestHandle` → ``next_chunk``/``result``).
+
+    Admissions route to a prefill engine (round-robin); when its half
+    retires (``finish="prefilled"``), the request's filled KV blocks ship
+    to the decode engine — in-process via ``submit_prefilled`` when
+    ``decode`` is an engine, or over the serving wire
+    (``SERVING_OP_KVBLOCKS`` through :class:`ServingClient`) when
+    ``decode_addr`` names a remote decode-role :class:`ServingServer`.
+    The client-visible stream is unchanged: tokens relay into the proxy
+    handle as the decode engine emits them, and greedy output is
+    token-identical to a unified engine (the decode engine resumes from
+    bit-exact shipped KV at the shipped position with the same RNG key).
+
+    Failure matrix (docs/serving.md):
+
+     - **prefill death** mid-prefill or mid-transfer re-routes: the
+       request resubmits to the next live prefill engine with its
+       ORIGINAL rng key (deterministic, so the retry is idempotent),
+       bounded by one attempt per engine; blocks the dead engine held are
+       reclaimed by its own death path, and the decode pool never saw the
+       torn transfer (``kv_blocks_in_use == 0`` on both sides).
+     - **decode death** is terminal: the proxy fails with the typed
+       :class:`EngineDead` (no silent re-route — the decode engine owns
+       all live KV state, exactly the supervised-restart seam
+       the pair supervisor of ROADMAP queue A item 4 covers).
+     - **cancel/deadline** land on whichever engine currently owns the
+       request; the proxy mirrors the upstream finish reason.
+    """
+
+    def __init__(self, prefills, decode: Optional[ServingEngine] = None,
+                 decode_addr: Optional[Tuple[str, int]] = None,
+                 poll_s: float = 0.02):
+        if isinstance(prefills, ServingEngine):
+            prefills = [prefills]
+        if not prefills:
+            raise ValueError("DisaggPair needs at least one prefill engine")
+        for e in prefills:
+            if e.role != "prefill":
+                raise ValueError(f"prefill engines must be role='prefill', "
+                                 f"got role={e.role!r}")
+        if (decode is None) == (decode_addr is None):
+            raise ValueError("pass exactly one of decode= (in-process "
+                             "engine) or decode_addr= (remote server)")
+        if decode is not None and decode.role != "decode":
+            raise ValueError(f"decode engine must be role='decode', got "
+                             f"role={decode.role!r}")
+        self._prefills: List[ServingEngine] = list(prefills)
+        self._decode = decode
+        self._decode_addr = decode_addr
+        self.poll_s = float(poll_s)
+        self._lock = threading.Lock()
+        self._live: Dict[int, _DisaggRequest] = {}
+        self._next_id = 0
+        self._rr = 0  # round-robin cursor over prefill engines
+        #: shared event relay: ONE loop watches every in-flight
+        #: request across both halves — prefill completion, the KV
+        #: hand-off, and the decode token relay — instead of a routing
+        #: thread per request.  Lazily started on first submit.
+        self._relay_loop: Optional[networking.EventLoop] = None
+        # the pair's OWN terminal accounting: engine counters double-count
+        # a re-routed request (every attempt is a submission somewhere), so
+        # client-facing totals live here
+        self.counters: Dict[str, int] = {
+            "requests_submitted": 0, "requests_completed": 0,
+            "requests_failed": 0, "requests_rejected": 0,
+            "requests_cancelled": 0, "requests_expired": 0,
+            "prefill_reroutes": 0,
+        }
+
+    # ------------------------------------------------------------ lifecycle
+    def warmup(self) -> "DisaggPair":
+        """Compile every engine's role-specific programs (prefill buckets
+        + gather on the prefill side, decode step + ingest on the decode
+        side) before traffic — the pair-level twin of
+        ``ServingEngine.warmup``."""
+        for e in self.engines:
+            e.warmup()
+        return self
+
+    def start(self) -> "DisaggPair":
+        for e in self.engines:  # prefill engines first, then decode
+            e.start()
+        return self
+
+    def stop(self, join_timeout: float = 10.0) -> None:
+        for e in self.engines:
+            e.stop(join_timeout=join_timeout)
+        self._ev_wait_idle(join_timeout)
+        with self._lock:
+            loop, self._relay_loop = self._relay_loop, None
+        if loop is not None:
+            loop.stop(join_timeout=join_timeout)
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful drain, prefill side first (no new hand-offs) then the
+        decode engine; the event relay pumps the final laps out so every
+        proxy reaches a terminal state before this returns."""
+        with self._lock:
+            pres, dec = list(self._prefills), self._decode
+        clean = all([e.drain(timeout=timeout) for e in pres])
+        if dec is not None:
+            clean = dec.drain(timeout=timeout) and clean
+        self._ev_wait_idle(5.0)
+        return clean
+
+    def __enter__(self) -> "DisaggPair":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # ------------------------------------------------------------ admission
+    def submit(self, prompt, num_steps: int, **kw) -> RequestHandle:
+        """Unified-engine ``submit`` surface.  Returns a proxy handle whose
+        stream spans both halves: TTFT is the prefill engine's first
+        token, every later token is the decode engine's."""
+        prompt = np.asarray(prompt, np.int32)
+        ph, eng = self._submit_prefill(prompt, num_steps, kw, first=True)
+        if num_steps == 0:
+            # the prefill engine completed it in place ("empty"): nothing
+            # to hand off, and the engine's own counters saw it — mirror
+            # into the pair's
+            with self._lock:
+                self.counters["requests_submitted"] += 1
+                self.counters["requests_completed"] += 1
+            return ph
+        with self._lock:
+            self._next_id += 1
+            proxy = RequestHandle(
+                self._next_id, prompt, num_steps,
+                float(kw.get("temperature", 0.0)), kw.get("top_k"),
+                kw.get("top_p"), kw.get("eos_id"), kw.get("pad_id"),
+                ph.key, deadline_s=kw.get("deadline_s"))
+            rec = _DisaggRequest(proxy, kw)
+            rec.upstream = ph
+            rec.cancel_fn = (lambda e=eng, h=ph: e.cancel(h))
+            self._live[proxy.id] = rec
+            self.counters["requests_submitted"] += 1
+        self._ev_watch_prefill(rec, ph)
+        return proxy
+
+    def _submit_prefill(self, prompt, num_steps, kw, first: bool,
+                        rng=None):
+        """Round-robin submit over LIVE prefill engines; on the first
+        admission typed backpressure propagates to the caller after every
+        engine refused, on a re-route the caller handles it."""
+        last: Optional[BaseException] = None
+        with self._lock:
+            attempts_budget = len(self._prefills)
+        for _ in range(attempts_budget):
+            with self._lock:
+                eng = self._prefills[self._rr % len(self._prefills)]
+                self._rr += 1
+            try:
+                sub = dict(kw)
+                # pair admission is non-blocking by construction: a full
+                # prefill queue tries the next engine instead of parking
+                sub.pop("block", None)
+                sub.pop("timeout", None)
+                if rng is not None:
+                    sub.pop("seed", None)
+                    sub["rng"] = rng
+                return eng.submit(prompt, num_steps, block=False,
+                                  **sub), eng
+            except (EngineDead, QueueFull, Draining) as e:
+                last = e
+        if first:
+            with self._lock:
+                self.counters["requests_rejected"] += 1
+        raise last if last is not None else EngineDead(
+            "no live prefill engine")
+
+    # -------------------------------------------------------------- routing
+    #
+    # The whole request lifecycle rides the pair's shared event loop:
+    # the prefill handle's listener wakes the loop when its half
+    # retires, the KV hand-off runs as a loop callback (non-blocking
+    # decode admission, with a ``call_later`` retry while the decode
+    # queue is full), and the decode half relays listener-driven — no
+    # per-request routing thread anywhere on the path.
+
+    def _ev_loop(self) -> "networking.EventLoop":
+        with self._lock:
+            loop = self._relay_loop
+            if loop is None or not loop.alive:
+                loop = networking.EventLoop(name="dkt-disagg-relay")
+                loop.start()
+                self._relay_loop = loop
+            return loop
+
+    def _ev_watch_prefill(self, rec: _DisaggRequest,
+                          ph: RequestHandle) -> None:
+        loop = self._ev_loop()
+        ph.set_listener(lambda: loop.call_soon(
+            lambda: self._ev_prefill_done(rec, ph)))
+        loop.call_soon(lambda: self._ev_prefill_done(rec, ph))
+
+    def _ev_prefill_done(self, rec: _DisaggRequest,
+                         ph: RequestHandle) -> None:
+        """Loop-side prefill watcher: when the prefill half retires, hand
+        off (``finish="prefilled"``), re-route a death with the ORIGINAL
+        key (bit-identical retry, bounded by one attempt per engine), or
+        mirror a cancel/deadline/drain finish."""
+        proxy = rec.proxy
+        if rec.upstream is not ph or not ph.done:
+            return  # stale wake, or woken by a token push mid-prefill
+        ph.set_listener(None)
+        rec.upstream = None  # claim the transition exactly once
+        if ph.finish == "prefilled":
+            kvb = ph.kvblocks
+            first_token = int(ph.tokens[0])
+            with self._lock:
+                dec = self._decode  # in-flight hand-offs keep their engine
+            if dec is not None:
+                self._ev_handoff_local(rec, kvb, first_token, dec)
+            else:
+                self._ev_handoff_wire(rec, kvb, first_token)
+            return
+        if ph.error is not None:
+            # prefill engine died with the request in flight: re-route
+            # with the ORIGINAL key so the retry is bit-identical
+            with self._lock:
+                budget = len(self._prefills) + 1
+            if rec.attempts >= budget:
+                self._retire(rec, error=EngineDead(
+                    f"request {proxy.id}: every prefill re-route "
+                    f"failed ({ph.error})"))
+                return
+            with self._lock:
+                self.counters["prefill_reroutes"] += 1
+                cancelled = rec.cancelled
+            if cancelled:
+                self._retire(rec, finish="cancel")
+                return
+            try:
+                nph, eng = self._submit_prefill(
+                    proxy.prompt, proxy.num_steps, rec.kw, first=False,
+                    rng=proxy.key)
+            except (EngineDead, QueueFull, Draining) as e:
+                self._retire(rec, error=e)
+                return
+            with self._lock:
+                rec.upstream = nph
+                rec.cancel_fn = (lambda e=eng, h=nph: e.cancel(h))
+                if rec.cancelled:
+                    rec.cancel_fn()
+            rec.attempts += 1
+            self._ev_watch_prefill(rec, nph)
+            return
+        # cancel / deadline / drain on the prefill half: mirror it
+        self._retire(rec, finish=ph.finish)
+
+    def _ev_handoff_local(self, rec: _DisaggRequest, kvb,
+                          first_token: int, dec: ServingEngine) -> None:
+        """In-process hand-off on the loop: non-blocking decode admission,
+        re-armed via ``call_later`` while the decode queue is full (the
+        event-core analogue of the old thread's ``block=True`` park)."""
+        proxy = rec.proxy
+        if rec.cancelled:
+            self._retire(rec, finish="cancel")
+            return
+        try:
+            dh = dec.submit_prefilled(
+                kvb, proxy.prompt, first_token, proxy.num_steps,
+                temperature=proxy.temperature, top_k=proxy.top_k,
+                top_p=proxy.top_p, eos_id=proxy.eos_id,
+                pad_id=proxy.pad_id, deadline_s=rec.kw.get("deadline_s"),
+                block=False)
+        except QueueFull:
+            self._relay_loop.call_later(
+                self.poll_s, lambda: self._ev_handoff_local(
+                    rec, kvb, first_token, dec))
+            return
+        except (EngineDead, Draining) as e:
+            # decode death is terminal (typed), never silently re-routed:
+            # the decode engine owns all live KV state
+            self._retire(rec, error=e)
+            return
+        except ValueError as e:
+            self._retire(rec, error=e)
+            return
+        with self._lock:
+            rec.upstream = dh
+            rec.cancel_fn = (lambda e=dec, h=dh: e.cancel(h))
+            if rec.cancelled:
+                rec.cancel_fn()
+        loop = self._relay_loop
+        dh.set_listener(lambda: loop.call_soon(
+            lambda: self._ev_pump_decode(rec, dh)))
+        self._ev_pump_decode(rec, dh)
+
+    def _ev_pump_decode(self, rec: _DisaggRequest,
+                        dh: RequestHandle) -> None:
+        """Loop-side decode relay: drain ready chunks into the proxy."""
+        if rec.upstream is not dh:
+            return  # stale wake
+        proxy = rec.proxy
+        while True:
+            chunk, done = dh.next_chunk(timeout=0)
+            for t in chunk:
+                proxy._push(int(t))
+            if done:
+                dh.set_listener(None)
+                rec.upstream = None
+                if dh.error is not None:
+                    self._retire(rec, error=dh.error)
+                else:
+                    self._retire(rec, finish=dh.finish)
+                return
+            if not len(chunk):
+                return  # drained; the listener wakes us on more
+
+    def _ev_handoff_wire(self, rec: _DisaggRequest, kvb,
+                         first_token: int) -> None:
+        """Wire hand-off on the loop: ship the block set to the remote
+        decode server (``SERVING_OP_KVBLOCKS``), then relay its reply
+        stream non-blocking off a bare-frame parser."""
+        proxy = rec.proxy
+        client = ServingClient(*self._decode_addr)
+        try:
+            rid = client.submit_prefilled(
+                kvb, proxy.prompt, first_token, proxy.num_steps,
+                temperature=proxy.temperature, top_k=proxy.top_k,
+                top_p=proxy.top_p, eos_id=proxy.eos_id,
+                pad_id=proxy.pad_id, deadline_s=rec.kw.get("deadline_s"))
+            networking.send_opcode(client.sock, OP_STREAM)
+            networking.send_data(client.sock, {"id": int(rid)},
+                                 pool=client._send_pool)
+            client.sock.setblocking(False)
+        except (EngineDead, ConnectionError, OSError) as e:
+            client.close()
+            self._retire(rec, error=e if isinstance(e, EngineDead)
+                         else EngineDead(f"decode engine unreachable: "
+                                         f"{e!r}"))
+            return
+        except ValueError as e:
+            client.close()
+            self._retire(rec, error=e)
+            return
+        with self._lock:
+            rec.cancel_fn = (lambda c=client, r=rid:
+                             c.cancel(r, await_ack=False))
+            if rec.cancelled:
+                try:
+                    rec.cancel_fn()
+                except (ConnectionError, OSError):
+                    pass
+        parser = networking.FrameParser(frame_ops=None)
+        scratch = networking.BufferPool()
+        loop = self._relay_loop
+        if loop is None:
+            client.close()
+            return
+        loop.add(client.sock,
+                 lambda mask: self._ev_wire_read(rec, client, parser,
+                                                 scratch))
+
+    def _ev_wire_read(self, rec: _DisaggRequest, client, parser,
+                      scratch) -> None:
+        sock = client.sock
+        while True:
+            target = parser.writable()
+            fed_scratch = target is None
+            if fed_scratch:
+                target = memoryview(scratch.get(_EV_RECV_CHUNK))
+            try:
+                n = sock.recv_into(target)
+            except (BlockingIOError, InterruptedError):
+                return
+            except (ConnectionError, OSError) as e:
+                self._ev_wire_lost(rec, client, e)
+                return
+            if not n:
+                self._ev_wire_lost(rec, client,
+                                   ConnectionError("stream ended without "
+                                                   "a done frame"))
+                return
+            if fed_scratch:
+                parser.feed(target[:n])
+            else:
+                parser.advance(n)
+            try:
+                for _op, msg in parser.messages():
+                    if self._ev_wire_frame(rec, client, msg):
+                        return  # stream finished / typed failure
+            except ValueError as e:
+                self._ev_wire_lost(rec, client, e)
+                return
+
+    def _ev_wire_frame(self, rec: _DisaggRequest, client, msg) -> bool:
+        """One decode-server reply frame.  Returns True when the stream
+        detached (done or failed) — decode death is terminal, typed."""
+        if msg.get("error"):
+            kind = msg.get("kind")
+            err = str(msg["error"])
+            self._ev_wire_detach(rec, client)
+            if kind in ("engine_dead", "stall"):
+                self._retire(rec, error=EngineDead(err))
+            else:
+                self._retire(rec, error=ValueError(err))
+            return True
+        for t in msg["tokens"]:
+            rec.proxy._push(int(t))
+        if msg["done"]:
+            self._ev_wire_detach(rec, client)
+            self._retire(rec, finish=msg["finish"])
+            return True
+        return False
+
+    def _ev_wire_detach(self, rec: _DisaggRequest, client) -> None:
+        loop = self._relay_loop
+        if loop is not None:
+            loop.remove(client.sock)
+        client.close()
+
+    def _ev_wire_lost(self, rec: _DisaggRequest, client,
+                      err: BaseException) -> None:
+        self._ev_wire_detach(rec, client)
+        self._retire(rec, error=err if isinstance(err, EngineDead)
+                     else EngineDead(f"decode engine unreachable: "
+                                     f"{err!r}"))
+
+    def _ev_wait_idle(self, timeout: float) -> None:
+        """Bounded wait for the loop to retire the in-flight requests —
+        stopping/draining the engines makes their handles terminal, and
+        the loop pumps those final laps out asynchronously."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                busy = bool(self._live)
+            if not busy or time.monotonic() >= deadline:
+                return
+            time.sleep(0.005)
+
+    def _retire(self, rec: _DisaggRequest, finish: Optional[str] = None,
+                error: Optional[BaseException] = None) -> None:
+        """Make the proxy terminal exactly once and book the pair-level
+        counter for its reason."""
+        proxy = rec.proxy
+        if error is not None:
+            exc = (error if isinstance(error, EngineDead)
+                   else EngineDead(str(error)))
+            counted = proxy._fail(exc)
+            key = "requests_failed"
+        else:
+            counted = proxy._finish(finish)
+            key = {"cancel": "requests_cancelled",
+                   "deadline": "requests_expired"}.get(
+                       finish, "requests_completed")
+        with self._lock:
+            if counted:
+                self.counters[key] += 1
+            self._live.pop(proxy.id, None)
+
+    # ------------------------------------------------------------- controls
+    def cancel(self, handle: RequestHandle) -> bool:
+        """Cancel a proxy handle wherever its request currently lives
+        (queued/prefilling, mid-transfer, or decoding).  Returns False if
+        it already finished."""
+        with handle._cond:
+            if handle.finish is not None:
+                return False
+        with self._lock:
+            rec = self._live.get(handle.id)
+            if rec is None or rec.proxy is not handle:
+                return False
+            rec.cancelled = True
+            fn = rec.cancel_fn
+        if fn is not None:
+            try:
+                fn()
+            except (ConnectionError, OSError):
+                pass  # upstream gone: its death path retires the proxy
+        return True
+
+    def replace_engine(self, old: ServingEngine,
+                       new: ServingEngine) -> None:
+        """Swap a respawned engine into the pair (the pair supervisor's
+        restart seam, ROADMAP queue A item 4).  In-flight requests on the
+        old engine fail through its death path and re-route."""
+        with self._lock:
+            for i, e in enumerate(self._prefills):
+                if e is old:
+                    self._prefills[i] = new
+                    return
+            if self._decode is old:
+                self._decode = new
+                return
+        raise ValueError("engine to replace is not part of this pair")
+
+    # ------------------------------------------------------------ telemetry
+    @property
+    def engines(self) -> List[ServingEngine]:
+        with self._lock:
+            return self._prefills + ([self._decode]
+                                     if self._decode is not None else [])
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        """Merged engine stats (numeric counters summed, sample lists
+        concatenated) with the request-level terminal counters OVERRIDDEN
+        by the pair's own: a re-routed request is one client request, not
+        one per attempt."""
+        merged: Dict[str, Any] = {}
+        for e in self.engines:
+            for k, v in e.stats.items():
+                if isinstance(v, bool) or not isinstance(
+                        v, (int, float, list)):
+                    merged.setdefault(k, v)
+                elif isinstance(v, list):
+                    merged.setdefault(k, [])
+                    merged[k] = merged[k] + list(v)
+                else:
+                    merged[k] = merged.get(k, 0) + v
+        with self._lock:
+            merged.update(self.counters)
+        return merged
+
+    @property
+    def kv_blocks_in_use(self) -> Optional[int]:
+        """Sum across BOTH sides — the zero-leak assertion surface."""
+        vals = [e.kv_blocks_in_use for e in self.engines]
+        vals = [v for v in vals if v is not None]
+        return sum(vals) if vals else None
+
+    @property
+    def slot_occupancy(self) -> Optional[float]:
+        """The DECODE engine's occupancy (None for wire-mode pairs): the
+        continuous-batching health metric disaggregation exists to
+        protect."""
+        with self._lock:
+            dec = self._decode
+        return dec.slot_occupancy if dec is not None else None
+
+    @property
+    def max_len(self) -> int:
+        return min(e.max_len for e in self.engines)
+
+    @property
+    def queue_depth(self) -> int:
+        return sum(e.queue_depth for e in self.engines)
+
+    @property
+    def dead(self) -> Optional[BaseException]:
+        """The first dead engine's error, or None while every engine in
+        the pair is live."""
+        for e in self.engines:
+            if e.dead is not None:
+                return e.dead
+        return None

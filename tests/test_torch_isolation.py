@@ -20,7 +20,7 @@ from distkeras_tpu_torch import (Dense, FittedModel, ModelPredictor,
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = {"jax", "jaxlib", "flax", "optax", "distkeras_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "distkeras_tpu", "ml_dtypes"}
 TINY = dict(vocab_size=16, seq_len=8, d_model=8, num_heads=2,
             num_layers=1, mlp_dim=8)
 
@@ -49,11 +49,11 @@ def imported_roots(path):
     return roots
 
 
-#: the modules of the decode, packing and serving slices (data/packing.py
-#: and resilience.py are copies of numpy-only modules of the JAX package,
-#: kept in the port)
+#: the modules of the decode, packing and serving slices (data/packing.py,
+#: resilience.py and networking.py are copies of numpy-only modules of the
+#: JAX package, kept in the port)
 NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
-               "serving.py", "resilience.py")
+               "serving.py", "resilience.py", "networking.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -71,7 +71,8 @@ def test_importing_the_port_loads_no_jax():
             "import distkeras_tpu_torch.core.decode, "
             "distkeras_tpu_torch.core.quant, "
             "distkeras_tpu_torch.data.packing, "
-            "distkeras_tpu_torch.serving, distkeras_tpu_torch.resilience; "
+            "distkeras_tpu_torch.serving, distkeras_tpu_torch.resilience, "
+            "distkeras_tpu_torch.networking; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

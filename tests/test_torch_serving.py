@@ -348,9 +348,13 @@ def test_background_thread_drives_requests(fitted):
 @pytest.mark.parametrize("knob", [
     {"role": "prefill"}, {"tenants": []},
 ])
-def test_later_knobs_raise_their_item(fitted, knob):
-    """The roles still wait for ROADMAP queue A item 4; tenants are taken
-    now (an empty policy list is an engine without tenants)."""
+def test_later_knobs_raise_their_item(pair, knob):
+    """The roles are taken now and validate as the JAX engine's do: a
+    prefill or decode role needs the paged arena without a rolling pool
+    (``ValueError``, message for message), a bad role name raises, and a
+    paged engine takes the role; tenants are taken too (an empty policy
+    list is an engine without tenants)."""
+    jf, fitted = pair
     if "tenants" in knob:
         eng = ServingEngine(fitted, num_slots=1, max_len=24, **knob)
         assert eng._tenants == {} and eng.stats["tenants"] == {}
@@ -359,8 +363,18 @@ def test_later_knobs_raise_their_item(fitted, knob):
         np.testing.assert_array_equal(h.result(),
                                       gen(fitted, PROMPT, 3, max_len=24))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        ServingEngine(fitted, num_slots=1, max_len=24, **knob)
+    wf = both(seed=2, attention_window=6)
+    for engine, f, w in ((ServingEngine, fitted, wf[1]),
+                         (JEngine, jf, wf[0])):
+        with pytest.raises(ValueError, match="needs the paged block arena"):
+            engine(f, num_slots=1, max_len=24, **knob)
+        with pytest.raises(ValueError, match="rolling pools"):
+            engine(w, num_slots=1, max_len=24, paged=True, rolling=True,
+                   **knob)
+        with pytest.raises(ValueError, match="role must be"):
+            engine(f, num_slots=1, max_len=24, paged=True, role="both")
+        eng = engine(f, num_slots=1, max_len=24, paged=True, **knob)
+        assert eng.role == knob["role"]
 
 
 @pytest.mark.parametrize("knob,match", [
@@ -383,10 +397,13 @@ def test_spec_and_quant_knobs_validate_as_jax(pair, knob, match):
             engine(f, num_slots=1, max_len=24, **kw)
 
 
-def test_spec_draft_tenant_and_attach_ps_raise_their_items(fitted):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
-                      role="decode")
+def test_spec_draft_tenant_and_attach_ps_raise_their_items(pair):
+    jf, fitted = pair
+    for engine, f in ((ServingEngine, fitted), (JEngine, jf)):
+        with pytest.raises(ValueError, match="does not compose with "
+                                             "spec_draft"):
+            engine(f, num_slots=1, max_len=24, spec_draft=f, paged=True,
+                   role="decode")
     eng = ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
                         spec_len=2, quantize="int8", kv_dtype="int8")
     assert eng._draft_model is not None and eng.spec_len == 2

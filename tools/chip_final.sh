@@ -9,10 +9,11 @@
 #   git archive PARENT_COMMIT | tar -x -C build/parent
 #
 # It runs chip_smoke.py from build/archive (the committed files alone;
-# phases spec and qos among its phases), profiles the slices named by its
-# second argument from there (default: the decode steps, the dense and
-# paged serving engines' decode iterations and the speculative engine's
-# rounds), runs the phases named by its first argument (default: qos; a
+# phases spec, qos and disagg among its phases), profiles the slices named
+# by its second argument from there (default: the decode steps, the dense
+# and paged serving engines' decode iterations and the speculative
+# engine's rounds), runs the phases named by its first argument (default:
+# disagg, the disaggregated roles and the wire front-end; a
 # comma-separated list runs each in turn, a side whose chip_smoke.py
 # lacks a phase logs it as absent) in the order parent, change, change,
 # parent when build/parent exists, and last runs the script chip_smoke.py
@@ -21,7 +22,7 @@
 #
 #   bash tools/chip_final.sh [PHASES [SLICES]]
 set -u
-phase="${1:-qos}"
+phase="${1:-disagg}"
 slices="${2:-decode,serve,paged,spec}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
