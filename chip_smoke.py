@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-one phases, each printing JSON lines, and fails with a non-zero
+twenty-two phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -211,12 +211,30 @@ exit if any phase fails:
     that frees its blocks; at f32 on 2 layers the pair equals the unified
     engine and the CPU; no block leaked and no kernel launched on any of
     it.
+22. fleet: the serving router and the supervisors (``router.py``,
+    ``resilience.py``; the LM at full width, bf16, paged, blocks of 16,
+    form full, 8 slots a replica, N in-process replicas on the one card):
+    phase serve's trace through a 1-replica and a 2-replica ``"prefix"``
+    router, every row equal to the single paged engine's;
+    ``serving_fleet_tokens_per_sec`` at 1, 2 and 4 replicas (closed loop
+    at 4 users a replica); ``serving_fleet_prefix_hit_rate`` under
+    ``"prefix"`` and ``"random"`` over phase paged's shared-prefix trace;
+    ``serving_fleet_failover_lost_requests`` (0) when one of two replicas
+    is killed with every request on it mid-stream, the resubmitted rows
+    equal; a ``FleetSupervisor`` restarting a replica killed under
+    traffic, a ``rolling_swap`` under traffic (every response attributed
+    to one generation) and an ``EngineSupervisor`` restarting a
+    ``ServingServer``'s crashed engine under a retrying client, each
+    clone's decode graph captured while the other replicas serve: the
+    recovery and capture ms, the longest scheduler iteration against the
+    liveness deadline; no block leaked and no kernel launched on any of
+    it.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
-QoS and disaggregated serving paths), the
+QoS, disaggregated serving and fleet paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -629,6 +647,29 @@ QOS_TIMEOUT_S = 300.0
 DISAGG_PROMPT_LENS, DISAGG_LONG_FRACTION, DISAGG_REQUESTS = (16, 1024), \
     0.3, 32
 DISAGG_WIRE_REQUESTS, DISAGG_WIRE_REPS = 8, 3
+# the serving router and the supervisors (ROADMAP queue A item 4): the LM
+# at full width, bf16, paged with PAGED_BLOCK-token blocks, form full,
+# SERVE_SLOTS slots a replica, chunks of SERVE_CHUNK, max_len its seq; N
+# in-process unified replicas of one model on the card, built by the
+# phase's own engine factory (examples/loadgen.py:620 build_fleet at full
+# width).  (a) phase serve's trace through a 1-replica router and a
+# 2-replica "prefix" router, every row equal to the single paged engine's;
+# (b) bench.py:951-968: "least-loaded", N in FLEET_SIZES, a closed loop at
+# concurrency FLEET_USERS_PER_REPLICA * N over phase serve's trace:
+# serving_fleet_tokens_per_sec; (c) bench.py:970-986: phase paged's
+# shared-prefix trace (the prefix warmed once, PREFIX_USERS users) through
+# 2 replicas under "prefix" and "random" (router seed 0):
+# serving_fleet_prefix_hit_rate; (d) bench.py:988-1003: 2 replicas,
+# "least-loaded", phase serve's first FLEET_FAILOVER_REQUESTS requests,
+# replica 0 declared dead once every request on it has streamed a token:
+# serving_fleet_failover_lost_requests; (e) a FleetSupervisor
+# (FLEET_HEARTBEAT_S, FLEET_LIVENESS_S) restarts a replica killed under
+# the trace, a rolling_swap runs while phase serve's first
+# FLEET_SWAP_REQUESTS requests stream, and an EngineSupervisor restarts a
+# ServingServer's crashed engine under a retrying ServingClient
+FLEET_SIZES, FLEET_USERS_PER_REPLICA = (1, 2, 4), 4
+FLEET_FAILOVER_REQUESTS, FLEET_SWAP_REQUESTS = 12, 16
+FLEET_HEARTBEAT_S, FLEET_LIVENESS_S = 0.05, 5.0
 
 
 def emit(obj) -> None:
@@ -5032,6 +5073,480 @@ def phase_disagg(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _fleet_engine(model):
+    """One replica of phase fleet's shape, unstarted and not warmed up:
+    the phase's engine factory (the router's ``warmup``, a supervisor's
+    restart and ``rolling_swap`` warm each replica up before it goes
+    live; on the card that captures its decode graph)."""
+    from distkeras_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, num_slots=SERVE_SLOTS,
+                         max_len=LM["seq_len"], prefill_chunk=SERVE_CHUNK,
+                         paged=True, block_size=PAGED_BLOCK)
+
+
+class _FleetClock:
+    """Phase fleet's own instrumentation (installed for the phase, the
+    port untouched): every engine's scheduler iteration
+    (``ServingEngine.step``, the unit ``liveness_deadline`` must cover)
+    and every decode graph capture (``serving._capture_graph``) timed on
+    the host clock, with the number of engine threads serving while each
+    capture ran."""
+
+    def __init__(self):
+        import threading
+        from distkeras_tpu_torch import serving
+        self.serving = serving
+        self.iter_max_s = 0.0
+        self.iters = 0
+        self.captures = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import threading
+        s = self.serving
+        step, capture = self._orig = (s.ServingEngine.step,
+                                      s._capture_graph)
+        clock = self
+
+        def timed_step(eng):
+            t0 = time.perf_counter()
+            try:
+                return step(eng)
+            finally:
+                dt = time.perf_counter() - t0
+                with clock._lock:
+                    clock.iters += 1
+                    clock.iter_max_s = max(clock.iter_max_s, dt)
+
+        def timed_capture(fn, device):
+            serving_threads = sum(t.name == "dkt-serving-engine"
+                                  for t in threading.enumerate())
+            t0 = time.perf_counter()
+            graph = capture(fn, device)
+            clock.captures.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                   "engines_serving": serving_threads})
+            return graph
+
+        s.ServingEngine.step, s._capture_graph = timed_step, timed_capture
+        return self
+
+    def __exit__(self, *exc):
+        self.serving.ServingEngine.step, self.serving._capture_graph = \
+            self._orig
+
+
+def _fleet_router(model, n: int, **kw):
+    """A started router over ``n`` fresh replicas, every one warmed up."""
+    from distkeras_tpu_torch.router import ServingRouter
+    return ServingRouter([_fleet_engine(model) for _ in range(n)],
+                         **kw).warmup().start()
+
+
+def _fleet_drive(router, trace, concurrency=None, timeout: float = 600.0):
+    """``trace`` through a started router, all at once or as a closed loop
+    of ``concurrency`` users (each submits its next request when its last
+    one has finished): the proxies, the wall time and the tokens
+    streamed."""
+    import queue
+    import threading
+    finished, seen, lock = queue.Queue(), set(), threading.Lock()
+
+    def listener(h):
+        def fire():
+            if h.done:
+                with lock:
+                    if h.id in seen:
+                        return
+                    seen.add(h.id)
+                finished.put(h)
+        return fire
+
+    handles, pending, live = [], list(trace), 0
+    t0 = time.perf_counter()
+    while pending or live:
+        while pending and (concurrency is None or live < concurrency):
+            prompt, steps, kw = pending.pop(0)
+            h = router.submit(prompt, steps, **kw)
+            handles.append(h)
+            live += 1
+            h.set_listener(listener(h))
+        finished.get(timeout=timeout)
+        live -= 1
+    wall = time.perf_counter() - t0
+    return {"handles": handles, "wall_s": wall,
+            "tokens": sum(len(h.tokens) for h in handles),
+            "lost": sum(h.error is not None for h in handles)}
+
+
+def _fleet_rows(handles):
+    import numpy as np
+    return [h.result() if h.error is None
+            else np.zeros(0, np.int32) for h in handles]
+
+
+def _fleet_clean(router) -> dict:
+    """The surviving replicas' pools once their requests retired: blocks
+    in use (waited for), conservation, leftover plans; and the router's
+    terminal balance."""
+    live = [e for e in router.engines if e.dead is None]
+    _wait_state(lambda: all(e.kv_blocks_in_use == 0 for e in live), 30.0)
+    c = router.counters
+    return {"kv_blocks_in_use": [e.kv_blocks_in_use for e in live],
+            "conservation": all(e._pool.check_conservation()
+                                for e in live),
+            "plans_left": sum(len(e._plans) for e in live),
+            "balanced": c["requests_submitted"] == sum(c[k] for k in (
+                "requests_completed", "requests_failed",
+                "requests_cancelled", "requests_expired"))}
+
+
+def _fleet_is_clean(s: dict) -> bool:
+    return (not any(s["kv_blocks_in_use"]) and s["conservation"]
+            and not s["plans_left"] and s["balanced"])
+
+
+def _fleet_supervised(model, trace, want, dev: str) -> dict:
+    """(e), first part: a FleetSupervisor over 2 replicas; replica 0 is
+    declared dead once it has streamed tokens under the trace, the
+    supervisor's thread restarts it (the clone's warmup, its graph capture
+    included, runs while replica 1 serves), and the clone then serves a
+    request on its own."""
+    from distkeras_tpu_torch.resilience import FleetSupervisor
+    r = _fleet_router(model, 2, affinity="least-loaded")
+    sup = FleetSupervisor(r, heartbeat_interval=FLEET_HEARTBEAT_S,
+                          liveness_deadline=FLEET_LIVENESS_S).start()
+    try:
+        old = r.engines[0]
+        hs = [r.submit(p, n, **kw) for p, n, kw in trace]
+        on0 = [h for h in hs if r.generation_of(h)[0] == 0]
+        check(_wait_state(lambda: any(len(h.tokens) for h in on0), 120.0),
+              "fleet supervised: replica 0 streamed nothing")
+        mid = sum(0 < len(h.tokens) and not h.done for h in on0)
+        old.declare_dead("chip_smoke: replica 0 killed under traffic")
+        for h in hs:
+            h.wait(timeout=600.0)
+        restarted = _wait_state(lambda: sup.restarts >= 1, 120.0)
+        new = r.engines[0]
+        i = next(i for i, (_, _, kw) in enumerate(trace) if kw)
+        p, n, kw = trace[i]
+        solo = new.submit(p, n, **kw)
+        solo_row = solo.result(timeout=600.0)
+        out = {"rows": _fleet_rows(hs),
+               "lost": sum(h.error is not None for h in hs),
+               "on_replica_0": len(on0), "killed_mid_stream": mid,
+               "recoveries": list(sup.recoveries),
+               "restarted": restarted and new is not old
+               and new.dead is None,
+               "generation": r.fleet_snapshot()[0]["generation"],
+               "solo_request": i,
+               "solo_equal": bool((solo_row == want[i]).all()),
+               "counters": dict(r.counters)}
+    finally:
+        sup.stop()
+    out["clean"] = _fleet_clean(r)
+    r.stop()
+    return out
+
+
+def _fleet_swap(model, trace, dev: str) -> dict:
+    """(e), second part: ``rolling_swap`` while ``trace`` streams through
+    2 replicas: every response attributed to one ``(uid, generation)``,
+    the swap's wall time."""
+    r = _fleet_router(model, 2, affinity="least-loaded")
+    hs = [r.submit(p, n, **kw) for p, n, kw in trace]
+    check(_wait_state(lambda: sum(bool(h.tokens) for h in hs) >= 2,
+                      120.0), "fleet rolling swap: nothing streamed")
+    streaming = sum(not h.done for h in hs)
+    t0 = time.perf_counter()
+    swapped = r.rolling_swap(drain_timeout=600.0)
+    swap_s = time.perf_counter() - t0
+    for h in hs:
+        h.wait(timeout=600.0)
+    gens = [r.generation_of(h) for h in hs]
+    out = {"rows": _fleet_rows(hs), "swapped": swapped, "swap_s": swap_s,
+           "streaming_at_swap": streaming,
+           "lost": sum(h.error is not None for h in hs),
+           "attributions": [list(g) if g is not None else None
+                            for g in gens],
+           "generations": [s["generation"] for s in r.fleet_snapshot()],
+           "counters": dict(r.counters)}
+    out["clean"] = _fleet_clean(r)
+    r.stop()
+    return out
+
+
+def _fleet_server(model, reqs, want, dev: str) -> dict:
+    """(e), third part: an EngineSupervisor over a ServingServer whose
+    engine crashes in its decode step; a ServingClient's
+    ``generate(retry_policy=...)`` completes on the restarted engine."""
+    from distkeras_tpu_torch.resilience import EngineSupervisor, RetryPolicy
+    from distkeras_tpu_torch.serving import ServingClient, ServingServer
+    eng = _fleet_engine(model).warmup()
+    srv = ServingServer(eng, poll_s=0.01).start()
+    sup = EngineSupervisor(srv, heartbeat_interval=FLEET_HEARTBEAT_S,
+                           liveness_deadline=FLEET_LIVENESS_S).start()
+
+    def boom():
+        raise RuntimeError("chip_smoke: decode step crashed")
+
+    try:
+        with ServingClient(*srv.addr) as c:
+            (p0, n0, kw0), (p1, n1, kw1) = reqs
+            before = c.generate(p0, n0, **kw0)
+            eng._decode_once = boom
+            t0 = time.perf_counter()
+            after = c.generate(p1, n1, retry_policy=RetryPolicy(
+                attempts=None, backoff=0.05, deadline=300.0), **kw1)
+            retry_s = time.perf_counter() - t0
+        new = srv.engine
+        _wait_state(lambda: new.kv_blocks_in_use == 0, 30.0)
+        return {"rows_equal": [bool((before == want[0]).all()),
+                               bool((after == want[1]).all())],
+                "retry_s": retry_s, "recoveries": list(sup.recoveries),
+                "restarted": new is not eng and new.dead is None,
+                "kv_blocks_in_use": new.kv_blocks_in_use}
+    finally:
+        sup.stop()
+        srv.stop()
+
+
+def phase_fleet(card: str, dev: str = "cuda"):
+    """The serving router and the supervisors on the card (the LM at full
+    width, bf16, paged, blocks of 16, form full, 8 slots a replica, chunks
+    of 128; N in-process unified replicas of one model on the one card):
+    (a) phase serve's trace through a 1-replica and a 2-replica "prefix"
+    router, every row equal to the single paged engine's; (b)
+    ``serving_fleet_tokens_per_sec`` at N = 1, 2, 4 ("least-loaded",
+    closed loop at 4 N users); (c) ``serving_fleet_prefix_hit_rate``
+    under "prefix" and "random" over phase paged's shared-prefix trace;
+    (d) ``serving_fleet_failover_lost_requests`` (replica 0 of 2 killed
+    once every request on it has streamed a token; the rows equal); (e) a
+    FleetSupervisor's restart of a replica killed under traffic, a
+    rolling swap under traffic and an EngineSupervisor's restart behind a
+    ServingServer, each clone warmed (its decode graph captured) while
+    the other replicas serve; the recovery ms, the captures' ms, the
+    longest scheduler iteration against the liveness deadline, no block
+    leaked, no kernel launched (the JAX router and supervisors run
+    none)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    t_start = time.perf_counter()
+    _zero_counts()
+    rng = np.random.default_rng(SEED + 15)    # phase serve's trace, weights
+    trace = _serve_trace(rng)
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, _random_jax_weights(model, rng))
+    cuda = torch.device(dev).type == "cuda"
+    rows = {}
+    with _FleetClock() as clock:
+        ref = _serve_run(model, trace, False, dev, paged=True,
+                         block_size=PAGED_BLOCK)
+        want = ref["rows"]
+        # (a) rows through 1 and 2 replicas
+        arow = {"phase": "fleet_rows", "requests": len(trace),
+                "steps": SERVE_STEPS,
+                "sampled_requests": sum(bool(kw) for _, _, kw in trace),
+                "single_engine_wall_s": ref["wall_s"], "card": card}
+        for n in (1, 2):
+            r = _fleet_router(model, n, affinity="prefix")
+            d = _fleet_drive(r, trace)
+            got = _fleet_rows(d["handles"])
+            miss = _serve_mismatch(got, want, trace)
+            arow[f"replicas_{n}"] = {
+                "equal": miss is None, "share_equal": _share_equal(got, want),
+                "first_difference": miss, "wall_s": d["wall_s"],
+                "lost": d["lost"], "counters": dict(r.counters),
+                "routed": [s["routed"] for s in r.fleet_snapshot()],
+                "clean": _fleet_clean(r)}
+            r.stop()
+            del r
+        emit(arow)
+        rows["rows"] = arow
+        for n in (1, 2):
+            a = arow[f"replicas_{n}"]
+            check(a["equal"], f"fleet rows: a row through {n} replica(s) "
+                  f"differs from the single engine's: "
+                  f"{a['first_difference']}")
+            check(a["lost"] == 0 and _fleet_is_clean(a["clean"]),
+                  f"fleet rows {n}: lost {a['lost']}, {a['clean']}")
+        # (b) scaling: the closed loop at 4 N users
+        brow = {"phase": "fleet_scaling", "affinity": "least-loaded",
+                "users_per_replica": FLEET_USERS_PER_REPLICA,
+                "serving_fleet_tokens_per_sec": {}, "wall_s": {},
+                "decode_steps_per_sec": {}, "routed": {},
+                "slot_occupancy": {},
+                "switch_interval_s": sys.getswitchinterval(), "card": card}
+        for n in FLEET_SIZES:
+            r = _fleet_router(model, n, affinity="least-loaded")
+            d = _fleet_drive(r, trace,
+                             concurrency=FLEET_USERS_PER_REPLICA * n)
+            brow["serving_fleet_tokens_per_sec"][str(n)] = (d["tokens"]
+                                                            / d["wall_s"])
+            brow["wall_s"][str(n)] = d["wall_s"]
+            # every replica's decode iterations together: flat in N when
+            # the schedulers' host work serializes
+            brow["decode_steps_per_sec"][str(n)] = (
+                r.stats["decode_steps"] / d["wall_s"])
+            brow["routed"][str(n)] = [s["routed"]
+                                      for s in r.fleet_snapshot()]
+            brow["slot_occupancy"][str(n)] = r.slot_occupancy
+            clean = _fleet_clean(r)
+            r.stop()
+            check(d["lost"] == 0 and _fleet_is_clean(clean),
+                  f"fleet scaling {n}: lost {d['lost']}, {clean}")
+        tps = brow["serving_fleet_tokens_per_sec"]
+        brow["speedup_vs_1"] = {k: v / tps["1"] for k, v in tps.items()}
+        emit(brow)
+        rows["scaling"] = brow
+        # (c) prefix affinity against the random control arm
+        ptrace = _prefix_trace(LM["vocab_size"])
+        crow = {"phase": "fleet_affinity", "replicas": 2,
+                "requests": len(ptrace), "users": PREFIX_USERS,
+                "serving_fleet_prefix_hit_rate": {}, "counters": {},
+                "routed": {}, "card": card}
+        for policy in ("prefix", "random"):
+            r = _fleet_router(model, 2, affinity=policy, seed=0)
+            r.submit(*ptrace[0][:2]).result(timeout=600.0)  # warm once
+            st0 = r.stats
+            d = _fleet_drive(r, ptrace, concurrency=PREFIX_USERS)
+            st = r.stats
+            hits = st["prefix_hit_tokens"] - st0["prefix_hit_tokens"]
+            pre = st["prefill_tokens"] - st0["prefill_tokens"]
+            crow["serving_fleet_prefix_hit_rate"][policy] = (
+                hits / (hits + pre) if hits + pre else None)
+            crow["counters"][policy] = dict(r.counters)
+            crow["routed"][policy] = [s["routed"]
+                                      for s in r.fleet_snapshot()]
+            clean = _fleet_clean(r)
+            r.stop()
+            check(d["lost"] == 0 and _fleet_is_clean(clean),
+                  f"fleet affinity {policy}: lost {d['lost']}, {clean}")
+        emit(crow)
+        rows["affinity"] = crow
+        hr = crow["serving_fleet_prefix_hit_rate"]
+        check(hr["prefix"] is not None and hr["random"] is not None
+              and hr["prefix"] >= hr["random"],
+              f"fleet affinity: prefix hit rate {hr['prefix']} below "
+              f"random {hr['random']}")
+        # (d) failover: replica 0 of 2 killed with every request on it
+        # mid-stream
+        ftrace = trace[:FLEET_FAILOVER_REQUESTS]
+        r = _fleet_router(model, 2, affinity="least-loaded")
+        hs = [r.submit(p, n, **kw) for p, n, kw in ftrace]
+        on0 = [h for h in hs if r.generation_of(h)[0] == 0]
+        check(_wait_state(lambda: all(len(h.tokens) for h in on0), 300.0),
+              "fleet failover: a request on replica 0 streamed nothing")
+        mid = sum(not h.done for h in on0)
+        r.engines[0].declare_dead("chip_smoke: fleet failover leg")
+        for h in hs:
+            h.wait(timeout=600.0)
+        got = _fleet_rows(hs)
+        miss = _serve_mismatch(got, want[:len(ftrace)], ftrace)
+        drow = {"phase": "fleet_failover", "requests": len(ftrace),
+                "on_replica_0": len(on0), "mid_stream_at_kill": mid,
+                "serving_fleet_failover_lost_requests":
+                    sum(h.error is not None or not h.done for h in hs),
+                "resubmissions": r.counters["resubmissions"],
+                "equal": miss is None,
+                "share_equal": _share_equal(got, want[:len(ftrace)]),
+                "first_difference": miss, "counters": dict(r.counters),
+                "clean": _fleet_clean(r), "card": card}
+        r.stop()
+        emit(drow)
+        rows["failover"] = drow
+        check(drow["serving_fleet_failover_lost_requests"] == 0,
+              f"fleet failover: {drow['serving_fleet_failover_lost_requests']}"
+              " requests lost")
+        check(drow["resubmissions"] >= len(on0) > 0,
+              f"fleet failover: {drow['resubmissions']} resubmissions for "
+              f"{len(on0)} requests on the killed replica")
+        check(miss is None, f"fleet failover: a resubmitted row differs: "
+              f"{miss}")
+        check(_fleet_is_clean(drow["clean"]),
+              f"fleet failover: {drow['clean']}")
+        # (e) supervisors and swaps under traffic
+        sup = _fleet_supervised(model, trace, want, dev)
+        swap = _fleet_swap(model, trace[:FLEET_SWAP_REQUESTS], dev)
+        si = next(i for i, (_, _, kw) in enumerate(trace) if kw)
+        server = _fleet_server(model, [trace[0], trace[si]],
+                               [want[0], want[si]], dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    smiss = _serve_mismatch(sup["rows"], want, trace)
+    wmiss = _serve_mismatch(swap["rows"], want[:FLEET_SWAP_REQUESTS],
+                            trace[:FLEET_SWAP_REQUESTS])
+    captures = clock.captures
+    erow = {"phase": "fleet_supervisors",
+            "liveness_deadline_s": FLEET_LIVENESS_S,
+            "heartbeat_interval_s": FLEET_HEARTBEAT_S,
+            "max_iteration_ms": clock.iter_max_s * 1e3,
+            "iterations": clock.iters,
+            "graph_captures": len(captures),
+            "capture_ms": [c["ms"] for c in captures],
+            "capture_ms_under_traffic": [c["ms"] for c in captures
+                                         if c["engines_serving"]],
+            "supervised": {k: sup[k] for k in (
+                "lost", "on_replica_0", "killed_mid_stream", "recoveries",
+                "restarted",
+                "generation", "solo_request", "solo_equal", "counters",
+                "clean")},
+            "supervised_equal": smiss is None,
+            "supervised_share_equal": _share_equal(sup["rows"], want),
+            "recovery_ms": [rec.get("recovery_ms")
+                            for rec in sup["recoveries"]],
+            "swap": {k: swap[k] for k in (
+                "swapped", "swap_s", "streaming_at_swap", "lost",
+                "attributions", "generations", "counters", "clean")},
+            "swap_equal": wmiss is None,
+            "swap_share_equal": _share_equal(swap["rows"],
+                                             want[:FLEET_SWAP_REQUESTS]),
+            "server": server, "card": card}
+    if smiss is not None:
+        erow["supervised_first_difference"] = smiss
+    if wmiss is not None:
+        erow["swap_first_difference"] = wmiss
+    emit(erow)
+    rows["supervisors"] = erow
+    check(sup["lost"] == 0 and sup["restarted"] and sup["solo_equal"]
+          and len(sup["recoveries"]) == 1
+          and sup["recoveries"][0]["restarted"] and sup["generation"] == 1,
+          f"fleet supervised restart: lost {sup['lost']}, restarted "
+          f"{sup['restarted']}, solo row equal {sup['solo_equal']}, "
+          f"recoveries {sup['recoveries']}")
+    check(smiss is None, f"fleet supervised restart: a row differs: {smiss}")
+    check(_fleet_is_clean(sup["clean"]), f"fleet supervised: {sup['clean']}")
+    s = swap
+    check(s["swapped"] == 2 and s["counters"]["generation_swaps"] == 2
+          and s["lost"] == 0 and s["generations"] == [1, 1]
+          and all(a is not None and a[1] in (0, 1)
+                  for a in s["attributions"]),
+          f"fleet rolling swap: swapped {s['swapped']}, counters "
+          f"{s['counters']}, attributions {s['attributions']}")
+    check(wmiss is None, f"fleet rolling swap: a row differs: {wmiss}")
+    check(_fleet_is_clean(s["clean"]), f"fleet rolling swap: {s['clean']}")
+    check(server["restarted"] and all(server["rows_equal"])
+          and len(server["recoveries"]) == 1
+          and not server["kv_blocks_in_use"],
+          f"fleet server restart: {server}")
+    check(clock.iter_max_s < FLEET_LIVENESS_S,
+          f"fleet: an iteration took {clock.iter_max_s:.3f} s, over the "
+          f"liveness deadline {FLEET_LIVENESS_S} s")
+    if cuda:  # the supervised clone and the two swapped-in clones
+        check(len(erow["capture_ms_under_traffic"]) >= 3,
+              f"fleet: fewer than 3 captures ran while other replicas "
+              f"served: {captures}")
+    launches = _read_counts()
+    emit({"phase": "fleet_launches", "launches": launches})
+    check(not any(n for n in launches.values() if isinstance(n, int))
+          and not any(any(n.values()) for n in launches.values()
+                      if isinstance(n, dict)),
+          f"fleet: attention or CE kernel launches {launches}, want none")
+    emit({"phase": "fleet_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5065,6 +5580,7 @@ def main() -> int:
     _, spec_launches = phase_spec(smi)
     _, qos_launches = phase_qos(smi)
     _, disagg_launches = phase_disagg(smi)
+    _, fleet_launches = phase_fleet(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -5222,8 +5738,8 @@ def main() -> int:
                             "library_bwd_ms": w32["library_bwd_ms"]}}
     def new_paths(entry):
         """The entry's launches on the packing, decode, serving, paged
-        serving, speculative serving, QoS serving and disaggregated
-        serving paths (each counted from 0 over its phase's runs; all
+        serving, speculative serving, QoS serving, disaggregated serving
+        and fleet paths (each counted from 0 over its phase's runs; all
         must be 0)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
@@ -5238,6 +5754,7 @@ def main() -> int:
         entry["launches_spec"] = spec_launches[key]
         entry["launches_qos"] = qos_launches[key]
         entry["launches_disagg"] = disagg_launches[key]
+        entry["launches_fleet"] = fleet_launches[key]
         return entry
 
     emit(north_star)

@@ -16,7 +16,10 @@ continuous-batching ``serving.ServingEngine`` (paged KV pool and prefix
 trie, speculation, quantization, multi-tenant QoS with preemption,
 disaggregated prefill and decode roles) behind its socket front-end
 (``ServingServer``, ``ServingClient``, ``DisaggPair``) over ``networking``,
-the serving wire of the JAX package byte for byte.  The port imports
+the serving wire of the JAX package byte for byte, and routes a
+replicated fleet of engines (``router.ServingRouter``: prefix-affinity
+dispatch, zero-loss failover, rolling swaps) under the
+``resilience`` supervisors.  The port imports
 torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
@@ -44,6 +47,9 @@ from .networking import ChaosFault, ChaosProxy
 from .serving import (DisaggPair, Draining, EngineDead, QueueFull,
                       QuotaExceeded, RequestHandle, ServingClient,
                       ServingEngine, ServingServer, TenantPolicy)
+from . import resilience, router
+from .resilience import EngineSupervisor, FleetSupervisor, RetryPolicy
+from .router import ServingRouter
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
@@ -74,4 +80,6 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "parallel", "serving", "ServingEngine", "RequestHandle",
            "QueueFull", "QuotaExceeded", "Draining", "EngineDead",
            "TenantPolicy", "ServingServer", "ServingClient", "DisaggPair",
-           "networking", "ChaosFault", "ChaosProxy"]
+           "networking", "ChaosFault", "ChaosProxy", "resilience",
+           "router", "ServingRouter", "EngineSupervisor", "FleetSupervisor",
+           "RetryPolicy"]

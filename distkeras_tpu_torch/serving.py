@@ -4736,7 +4736,7 @@ class DisaggPair:
      - **decode death** is terminal: the proxy fails with the typed
        :class:`EngineDead` (no silent re-route — the decode engine owns
        all live KV state, exactly the supervised-restart seam
-       the pair supervisor of ROADMAP queue A item 4 covers).
+       ``resilience.PairSupervisor`` covers).
      - **cancel/deadline** land on whichever engine currently owns the
        request; the proxy mirrors the upstream finish reason.
     """
@@ -5189,8 +5189,9 @@ class DisaggPair:
 
     def replace_engine(self, old: ServingEngine,
                        new: ServingEngine) -> None:
-        """Swap a respawned engine into the pair (the pair supervisor's
-        restart seam, ROADMAP queue A item 4).  In-flight requests on the
+        """Swap a respawned engine into the pair
+        (``resilience.PairSupervisor``'s restart seam).  In-flight
+        requests on the
         old engine fail through its death path and re-route."""
         with self._lock:
             for i, e in enumerate(self._prefills):

@@ -11,8 +11,8 @@ request's slot (and, paged, its blocks; speculative, its draft rows) is
 reclaimed, no handle or handle-table entry leaks, and an unaffected
 concurrent request stays bit-identical to ``generate``; a client that
 dies mid-chunked-prefill or stalls past its deadline is reclaimed too.
-The supervisor legs wait for the supervisors' slice (ROADMAP queue A
-item 4).
+The supervisor legs (``EngineSupervisor`` over a ``ServingServer``) are
+in ``tests/test_torch_supervisors.py``.
 """
 
 import threading

@@ -20,8 +20,9 @@ blocks of 4, 30 blocks), one numpy weight set in both packages:
    JAX ``ServingClient``, decodes on a port decode server into the JAX
    unified rows, and a port prefill engine's into a JAX decode server.
 
-The supervisor leg and the JAX load generator's builder wait for the
-supervisors' slice (ROADMAP queue A item 4).
+The supervisor leg (``PairSupervisor``) is in
+``tests/test_torch_supervisors.py``; the JAX load generator's builder
+waits for the examples (ROADMAP queue A item 8).
 """
 
 import time

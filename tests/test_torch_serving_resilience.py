@@ -1,7 +1,9 @@
 """Failure semantics of the port's ``ServingEngine``: deadlines,
 cancellation, graceful drain, a crashed or wedged loop, respawn — the
 engine-only cases of the JAX package's ``tests/test_serving_resilience.py``
-(the wire server and the engine supervisor come with a later slice).
+(the wire server's cases are in ``tests/test_torch_serving_wire.py`` and
+``tests/test_torch_serving_chaos.py``, the engine supervisor's in
+``tests/test_torch_supervisors.py``).
 
 Every request retired early returns its slot to the pool within one
 scheduler iteration, no handle ever blocks forever, and the requests
