@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-two phases, each printing JSON lines, and fails with a non-zero
+twenty-three phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -229,12 +229,26 @@ exit if any phase fails:
     recovery and capture ms, the longest scheduler iteration against the
     liveness deadline; no block leaked and no kernel launched on any of
     it.
+23. host_ps: the in-process host parameter server
+    (``execution="host_ps"``: every worker a thread training its own
+    copy of the model on the card, a socket PS on loopback applying the
+    commits on the host): the north-star ConvNet (bf16, 60000 rows, batch
+    512, window 12, adam) under ADAG with 2 threads, one epoch with
+    ``comm_overlap`` on and off (examples/s, round trips a window exactly
+    1.0 and 2.0, first and last window losses, accuracy on 1,024
+    held-out rows); DOWNPOUR, DynSGD, AEASGD and EAMSGD for 4 windows a
+    worker (each loss falls, the PS clock = the workers' commits); one
+    worker, serial, twice bit for bit, and with bf16 and int8 commits
+    (half and a quarter of the f32 delta bytes); the LM at full width
+    under ADAG from 2 threads, the sm90 forward, dq and dk/dv launched
+    exactly once per layer, step and worker; the ConvNet's examples/s at
+    1, 2 and 4 threads; the ConvNet legs launch no kernel.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
-QoS, disaggregated serving and fleet paths), the
+QoS, disaggregated serving, fleet and host-PS paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -670,6 +684,27 @@ DISAGG_WIRE_REQUESTS, DISAGG_WIRE_REPS = 8, 3
 FLEET_SIZES, FLEET_USERS_PER_REPLICA = (1, 2, 4), 4
 FLEET_FAILOVER_REQUESTS, FLEET_SWAP_REQUESTS = 12, 16
 FLEET_HEARTBEAT_S, FLEET_LIVENESS_S = 0.05, 5.0
+# the in-process host parameter server (ROADMAP queue A item 6, its first
+# part): execution="host_ps", every worker a thread training its own copy
+# of the model on the card against a socket PS on loopback that applies
+# the commits on the host.  (1) the north-star ConvNet (mnist_convnet
+# bf16, adam, phase adag's ADAG_ROWS rows, batch ADAG_BATCH, window
+# ADAG_WINDOW) under ADAG with HOST_PS_WORKERS threads, one epoch with
+# comm_overlap on and off (round trips a window as bench.py:140-170
+# counts them: 1.0 and 2.0), accuracy on HOST_PS_TEST_ROWS held-out rows;
+# (2) DOWNPOUR, DynSGD, AEASGD and EAMSGD (phase adag's ALGO_RUNS
+# optimizers) for HOST_PS_ALGO_WINDOWS windows a worker, the PS clock
+# against the workers' commits; (3) one worker, serial, twice (cuDNN's
+# deterministic algorithms): bit-identical centers; the same run with
+# wire_dtype bfloat16 and int8 (half and a quarter of the f32 delta
+# bytes); (4) the LM (transformer_lm(**LM), bf16) under ADAG with
+# HOST_PS_WORKERS threads on HOST_PS_LM_ROWS rows of phase train's x+1
+# task, window HOST_PS_LM_WINDOW, batch BATCH, adam 3e-3: every layer of
+# every step launches the sm90 forward, dq and dk/dv once; (5) the
+# ConvNet's examples/s at HOST_PS_SCALING threads (printed only)
+HOST_PS_WORKERS, HOST_PS_TEST_ROWS, HOST_PS_ALGO_WINDOWS = 2, 1024, 4
+HOST_PS_LM_ROWS, HOST_PS_LM_WINDOW = 128, 2
+HOST_PS_SCALING = (1, 2, 4)
 
 
 def emit(obj) -> None:
@@ -5547,6 +5582,212 @@ def phase_fleet(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _host_ps_rows():
+    """phase adag's rows (features scaled by 1/255, one-hot labels) and
+    HOST_PS_TEST_ROWS held-out rows with their class ids."""
+    import numpy as np
+    from distkeras_tpu_torch.data import load_mnist
+    train, test = load_mnist(n_train=ADAG_ROWS, n_test=HOST_PS_TEST_ROWS)
+    x = np.asarray(train["features"], np.float32) / 255.0
+    y = np.eye(10, dtype=np.float32)[np.asarray(train["label"])]
+    return (x, y, np.asarray(test["features"], np.float32) / 255.0,
+            np.asarray(test["label"]))
+
+
+def _host_ps_run(trainer_cls, model, x, y, dev: str, workers: int,
+                 **kw) -> dict:
+    """One host-PS training run on the card: examples/s on the host clock
+    (the whole train() call: the server, the workers' models, the
+    epochs), round trips a window, the window losses, the PS clock."""
+    import numpy as np
+    from distkeras_tpu_torch import Dataset
+    kw.setdefault("batch_size", ADAG_BATCH)
+    kw.setdefault("communication_window", ADAG_WINDOW)
+    t = trainer_cls(model, num_workers=workers, num_epoch=1,
+                    execution="host_ps", device=dev, seed=SEED, **kw)
+    t0 = time.perf_counter()
+    fitted = t.train(Dataset({"features": x, "label": y}))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    ws = t._ps_workers
+    commits = sum(w._commits for w in ws)
+    center = t._ps_server.ps.center
+    return {"trainer": t, "fitted": fitted, "seconds": seconds,
+            "examples_per_sec": len(x) / seconds,
+            "comm_overlap": t.comm_overlap,
+            # bench.py:140-170: messages a window beyond each worker's
+            # initial pull
+            "rtts_per_window": (sum(w.transport_ops for w in ws)
+                                - len(ws)) / commits,
+            "commits": commits, "clock": t._ps_server.ps.num_updates,
+            "commit_bytes": sum(w.commit_bytes for w in ws),
+            "windows_per_worker": [len(w.history) for w in ws],
+            "first_last_loss": [[w.history[0], w.history[-1]] for w in ws],
+            "loss_falls": all(w.history[-1] < w.history[0] for w in ws),
+            "center_finite": all(np.isfinite(c).all() for c in center)}
+
+
+def _host_ps_row(run: dict, **extra) -> dict:
+    return {k: v for k, v in run.items()
+            if k not in ("trainer", "fitted")} | extra
+
+
+def _host_ps_convnet(card: str, dev: str, rows) -> dict:
+    """Legs 1-3 and 5 of phase host_ps (the ConvNet); returns the
+    examples/s of the 2-thread overlapped run for the scaling line."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (ADAG, AEASGD, DOWNPOUR, EAMSGD, DynSGD,
+                                     models)
+    x, y, xt, lt = rows
+    convnet = lambda: models.mnist_convnet("bfloat16", device=dev)
+    # a one-window warm-up first: a process's first convolutions (cuDNN's
+    # algorithm choice, each thread's handle) would land in the first
+    # timed leg (an H100 at 700 W read 16,741 examples/s there cold
+    # against 54,815 for the same epoch run next)
+    n = HOST_PS_WORKERS * ADAG_WINDOW * ADAG_BATCH
+    warm = _host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, HOST_PS_WORKERS,
+                        worker_optimizer="adam")
+    emit({"phase": "host_ps_warmup", "seconds": warm["seconds"],
+          "card": card})
+    # (1) the north-star workload through the PS, overlap on and off
+    for overlap, rtts in ((True, 1.0), (False, 2.0)):
+        r = _host_ps_run(ADAG, convnet(), x, y, dev, HOST_PS_WORKERS,
+                         worker_optimizer="adam", comm_overlap=overlap)
+        acc = float(np.mean(np.argmax(r["fitted"].predict(xt), axis=1)
+                            == lt))
+        emit({"phase": "host_ps_convnet",
+              **_host_ps_row(r, accuracy_held_out=acc), "card": card})
+        check(r["comm_overlap"] is overlap and r["rtts_per_window"] == rtts,
+              f"host_ps convnet: {r['rtts_per_window']} round trips a "
+              f"window with comm_overlap={overlap}, want {rtts}")
+        check(r["loss_falls"] and r["center_finite"]
+              and r["clock"] == r["commits"],
+              f"host_ps convnet (overlap {overlap}): losses "
+              f"{r['first_last_loss']}, finite {r['center_finite']}, clock "
+              f"{r['clock']} vs {r['commits']} commits")
+        if overlap:
+            two_threads = r["examples_per_sec"]
+    # (2) every other algorithm, a few windows a worker
+    n = HOST_PS_WORKERS * HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    for cls in (DOWNPOUR, DynSGD, AEASGD, EAMSGD):
+        kw = dict(ALGO_RUNS[cls.__name__], communication_window=ADAG_WINDOW)
+        r = _host_ps_run(cls, convnet(), x[:n], y[:n], dev,
+                         HOST_PS_WORKERS, **kw)
+        emit({"phase": "host_ps_algorithm", "algorithm": cls.__name__,
+              **_host_ps_row(r), "card": card})
+        check(r["loss_falls"] and r["center_finite"]
+              and r["clock"] == r["commits"],
+              f"host_ps {cls.__name__}: losses {r['first_last_loss']}, "
+              f"clock {r['clock']} vs {r['commits']} commits")
+    # (3) one worker, serial: twice bit for bit, then the wire codings
+    n = HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    one = dict(worker_optimizer="adam", comm_overlap=False)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        runs = [_host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, 1, **one)
+                for _ in range(2)]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    same = all(np.array_equal(a, b) for a, b in zip(
+        runs[0]["fitted"].get_weights(), runs[1]["fitted"].get_weights()))
+    f32_bytes = runs[0]["commit_bytes"] / runs[0]["commits"]
+    emit({"phase": "host_ps_repeat", "bit_identical": same,
+          "histories_equal": (runs[0]["trainer"].get_history()
+                              == runs[1]["trainer"].get_history()),
+          "f32_bytes_per_commit": f32_bytes, "card": card})
+    check(same, "host_ps: the one-worker serial repeat is not "
+          "bit-identical")
+    for coding, share in (("bfloat16", 0.5), ("int8", 0.25)):
+        r = _host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, 1,
+                         wire_dtype=coding, **one)
+        per_commit = r["commit_bytes"] / r["commits"]
+        emit({"phase": "host_ps_wire", "wire_dtype": coding,
+              "bytes_per_commit": per_commit,
+              "share_of_f32": per_commit / f32_bytes,
+              "scales_per_commit": (len(r["fitted"].get_weights())
+                                    if coding == "int8" else 0),
+              **_host_ps_row(r), "card": card})
+        check(per_commit == share * f32_bytes and r["loss_falls"]
+              and r["center_finite"],
+              f"host_ps wire {coding}: {per_commit} bytes a commit "
+              f"(f32 {f32_bytes}), losses {r['first_last_loss']}")
+    # (5) scaling: examples/s at 1, 2 and 4 threads (printed only)
+    scaling = {}
+    for workers in HOST_PS_SCALING:
+        r = _host_ps_run(ADAG, convnet(), x, y, dev, workers,
+                         worker_optimizer="adam")
+        scaling[workers] = r["examples_per_sec"]
+        check(r["center_finite"], f"host_ps scaling {workers}: non-finite")
+    emit({"phase": "host_ps_scaling", "examples_per_sec": scaling,
+          "convnet_two_threads_leg": two_threads, "card": card})
+    return scaling
+
+
+def _host_ps_lm(card: str, dev: str) -> dict:
+    """Leg 4 of phase host_ps: the full LM under ADAG from two worker
+    threads at once; the flash kernels' launches counted from 0."""
+    import numpy as np
+    from distkeras_tpu_torch import ADAG, Dataset, transformer_lm
+    rng = np.random.default_rng(SEED + 17)
+    x = rng.integers(0, LM["vocab_size"],
+                     (HOST_PS_LM_ROWS, LM["seq_len"])).astype(np.int32)
+    y = ((x + 1) % LM["vocab_size"]).astype(np.int64)
+    t = ADAG(transformer_lm(**LM, device=dev),
+             num_workers=HOST_PS_WORKERS, batch_size=BATCH, num_epoch=1,
+             communication_window=HOST_PS_LM_WINDOW,
+             loss="sparse_categorical_crossentropy_from_logits",
+             worker_optimizer="adam", learning_rate=3e-3, seed=SEED,
+             execution="host_ps", device=dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    t.train(Dataset({"features": x, "label": y}))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    ws = t._ps_workers
+    steps = sum(len(w.history) for w in ws) * HOST_PS_LM_WINDOW
+    want = LM["num_layers"] * steps
+    row = {"phase": "host_ps_lm", "workers": len(ws), "steps": steps,
+           "seconds": seconds,
+           "tokens_per_sec": HOST_PS_LM_ROWS * LM["seq_len"] / seconds,
+           "first_last_loss": [[w.history[0], w.history[-1]] for w in ws],
+           "launches_sm90": {k: launches[f"flash_{k}_sm90"]
+                             for k in ("fwd_lse", "dq", "dkv")},
+           "want_each": want, "card": card}
+    emit(row)
+    check(all(w.history[-1] < w.history[0] for w in ws),
+          f"host_ps lm: the loss did not fall {row['first_last_loss']}")
+    if dev == "cuda":
+        check(all(n == want for n in row["launches_sm90"].values()),
+              f"host_ps lm: sm90 launches {row['launches_sm90']}, want "
+              f"{want} each (layers x steps x workers)")
+    return launches
+
+
+def phase_host_ps(card: str, dev: str = "cuda"):
+    """The in-process host parameter server on the card (legs 1-5 of the
+    HOST_PS_* comment): the ConvNet legs launch no attention or CE
+    kernel; the LM leg's two worker threads launch the sm90 training
+    kernels exactly once per layer and step.  Returns (the scaling line,
+    the phase's launches)."""
+    t_start = time.perf_counter()
+    _zero_counts()
+    scaling = _host_ps_convnet(card, dev, _host_ps_rows())
+    convnet_launches = _read_counts()
+    check(not any(convnet_launches.values()),
+          f"host_ps convnet: kernel launches {convnet_launches}, want none")
+    launches = _host_ps_lm(card, dev)
+    emit({"phase": "host_ps_launches", "launches": launches})
+    emit({"phase": "host_ps_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return scaling, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5581,6 +5822,7 @@ def main() -> int:
     _, qos_launches = phase_qos(smi)
     _, disagg_launches = phase_disagg(smi)
     _, fleet_launches = phase_fleet(smi)
+    _, host_ps_launches = phase_host_ps(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -5740,7 +5982,8 @@ def main() -> int:
         """The entry's launches on the packing, decode, serving, paged
         serving, speculative serving, QoS serving, disaggregated serving
         and fleet paths (each counted from 0 over its phase's runs; all
-        must be 0)."""
+        must be 0), and on the host-PS path (phase host_ps's LM leg: the
+        sm90 training kernels, once per layer, step and worker)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -5755,6 +5998,7 @@ def main() -> int:
         entry["launches_qos"] = qos_launches[key]
         entry["launches_disagg"] = disagg_launches[key]
         entry["launches_fleet"] = fleet_launches[key]
+        entry["launches_host_ps"] = host_ps_launches[key]
         return entry
 
     emit(north_star)

@@ -19,7 +19,10 @@ disaggregated prefill and decode roles) behind its socket front-end
 the serving wire of the JAX package byte for byte, and routes a
 replicated fleet of engines (``router.ServingRouter``: prefix-affinity
 dispatch, zero-loss failover, rolling swaps) under the
-``resilience`` supervisors.  The port imports
+``resilience`` supervisors; and runs the asynchronous trainers against a
+live socket parameter server (``execution="host_ps"``:
+``parameter_servers``, ``workers``, ``applykernel``), each worker a thread
+training its own copy of the model on the card.  The port imports
 torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
@@ -53,6 +56,7 @@ from .router import ServingRouter
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
+from . import applykernel, parameter_servers, workers
 from .trainers import (ADAG, AEASGD, DOWNPOUR, EAMSGD,
                        AsynchronousDistributedTrainer, AveragingTrainer,
                        DistributedTrainer, DynSGD, EnsembleTrainer,
@@ -82,4 +86,4 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "TenantPolicy", "ServingServer", "ServingClient", "DisaggPair",
            "networking", "ChaosFault", "ChaosProxy", "resilience",
            "router", "ServingRouter", "EngineSupervisor", "FleetSupervisor",
-           "RetryPolicy"]
+           "RetryPolicy", "applykernel", "parameter_servers", "workers"]

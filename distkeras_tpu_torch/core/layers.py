@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -572,19 +573,27 @@ def _nchw(x: torch.Tensor, pads, fill: float) -> torch.Tensor:
     return x
 
 
+#: held while a convolution runs under :func:`_cudnn_tf32`: the switch is
+#: process-wide, and the host parameter server's workers are threads
+_CUDNN_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _cudnn_tf32(operand_dtype: torch.dtype):
     """cuDNN's TF32 switch for convolutions of ``operand_dtype``-rounded
     operands, whatever the process-wide setting: on for bf16 and f16
     operands (their 8- and 11-bit significands are exact in TF32, so the
     products are exact and the sums f32: the same function, on the tensor
-    cores), off for f32 operands (TF32 would round them)."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = operand_dtype != torch.float32
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
+    cores), off for f32 operands (TF32 would round them).  The switch is
+    one flag for the whole process, so the convolution runs under a lock:
+    another thread's convolution cannot flip it in between."""
+    with _CUDNN_TF32_LOCK:
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = operand_dtype != torch.float32
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
 
 
 class _ConvF32Acc(torch.autograd.Function):

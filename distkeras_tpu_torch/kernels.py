@@ -10,7 +10,14 @@ redone when the source, or a header under ``csrc/`` (``*.cuh``), is newer
 than the library.  A failed build raises; nothing falls back.
 
 It also holds :func:`kernel_operand`, the layout rule that the public
-entry points apply to a kernel's operands before the wrappers check them.
+entry points apply to a kernel's operands before the wrappers check them,
+and :func:`count_launch`, the one increment of the wrappers' launch
+counters.
+
+Kernels launch from more than one thread (the host parameter server's
+workers are threads): one lock makes a library compile and load once
+however many threads reach it first, and another makes every counter's
+increment atomic.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no card.
@@ -22,6 +29,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Sequence
 
@@ -37,6 +45,12 @@ KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90",
            "flash_attention_bwd", "flash_attention_bwd_sm90", "fused_ce")
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: held while a library is checked, compiled and loaded, so that two
+#: threads never start ``nvcc`` into one path or load a half-written file
+_BUILD_LOCK = threading.RLock()
+#: held while a launch counter is bumped (``+=`` is not atomic)
+_COUNT_LOCK = threading.Lock()
+
 #: where every kernel operand must start: the sm90 kernels' TMA tensor maps
 #: and the 16-byte vector loads
 ALIGN_BYTES = 16
@@ -79,6 +93,11 @@ def build(names: Sequence[str] = KERNELS) -> List[str]:
     """Compile every stale library among ``names``, one ``nvcc`` process
     per source, all started together.  Returns the names it compiled;
     raises if any compile fails."""
+    with _BUILD_LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: Sequence[str]) -> List[str]:
     todo = [n for n in names if _stale(n)]
     if not todo:
         return []
@@ -100,9 +119,23 @@ def build(names: Sequence[str] = KERNELS) -> List[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build ``name`` if needed and load its shared library."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """Build ``name`` if needed and load its shared library (under the
+    build lock: a thread that finds the library being compiled waits for
+    it)."""
+    with _BUILD_LOCK:
+        build([name])
+        return ctypes.CDLL(str(library_path(name)))
+
+
+def count_launch(fn, attr: str = "launches", by_variant: str = None,
+                 variant: str = None) -> None:
+    """Add one to the counter ``attr`` of the wrapper ``fn`` and, with
+    ``by_variant``, to ``variant``'s entry of that dict attribute, as one
+    atomic step (launches come from several threads)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        if by_variant is not None:
+            getattr(fn, by_variant)[variant] += 1
 
 
 def _needs_copy(t: torch.Tensor) -> bool:

@@ -56,11 +56,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
 
-from ..kernels import kernel_operand
+from ..kernels import count_launch, kernel_operand
 from .attention import validate_window
 
 #: the SIMT kernels' chunk width in the head dim: ``flash_attention_fwd.cu``
@@ -102,19 +103,25 @@ _ENTRIES = {
     "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_sm90", 8),
 }
 _fns = {}  # entry name -> bound C function, loaded at first launch
+#: held while an entry is bound, so two threads' first launches bind once
+_fns_lock = threading.Lock()
 
 
 def _entry(name: str):
     fn = _fns.get(name)
     if fn is None:
-        from ..kernels import load
-        lib_name, n_ptrs = _ENTRIES[name]
-        fn = getattr(load(lib_name), name)
-        # pointers, then B, S, H, Hkv, D, dtype, scale, causal, window, stream
-        fn.argtypes = ([_PTR] * n_ptrs + [_INT] * 6
-                       + [_FLOAT, _INT, _INT, _PTR])
-        fn.restype = _INT
-        _fns[name] = fn
+        with _fns_lock:
+            fn = _fns.get(name)
+            if fn is None:
+                from ..kernels import load
+                lib_name, n_ptrs = _ENTRIES[name]
+                fn = getattr(load(lib_name), name)
+                # pointers, then B, S, H, Hkv, D, dtype, scale, causal,
+                # window, stream
+                fn.argtypes = ([_PTR] * n_ptrs + [_INT] * 6
+                               + [_FLOAT, _INT, _INT, _PTR])
+                fn.restype = _INT
+                _fns[name] = fn
     return fn
 
 
@@ -328,8 +335,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     out = torch.empty_like(q)
     variant = _launch_forward(q, k, v, out, None, scale, causal, window)
-    flash_attention.launches += 1
-    flash_attention.launches_by_variant[variant] += 1
+    count_launch(flash_attention, "launches", "launches_by_variant", variant)
     return out
 
 
@@ -356,8 +362,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     variant = _launch_forward(q, k, v, out, lse, scale, causal, window)
-    flash_attention_forward.launches += 1
-    flash_attention_forward.launches_by_variant[variant] += 1
+    count_launch(flash_attention_forward, "launches", "launches_by_variant",
+                 variant)
     return out, lse
 
 
@@ -392,8 +398,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, scale=None,
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr()),
             q, k.shape[2], _scale(q, scale), causal, window)
-    flash_attention_backward.dq_launches += 1
-    flash_attention_backward.dq_launches_by_variant[variant] += 1
+    count_launch(flash_attention_backward, "dq_launches",
+                 "dq_launches_by_variant", variant)
     return dq, delta
 
 
@@ -424,8 +430,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, causal=False,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k.shape[2], _scale(q, scale), causal, window)
-    flash_attention_backward.dkv_launches += 1
-    flash_attention_backward.dkv_launches_by_variant[variant] += 1
+    count_launch(flash_attention_backward, "dkv_launches",
+                 "dkv_launches_by_variant", variant)
     return dk, dv
 
 

@@ -31,11 +31,12 @@ are a non-contiguous or misaligned view into a fresh tensor
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
 
-from ..kernels import kernel_operand
+from ..kernels import count_launch, kernel_operand
 
 #: the dtypes the kernels take (codes of the C calls)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -46,17 +47,22 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: each C entry point of csrc/fused_ce.cu: its number of pointers
 _ENTRIES = {"fused_ce_fwd": 4, "fused_ce_bwd": 5}
 _fns = {}  # entry name -> bound C function, loaded at first launch
+#: held while an entry is bound, so two threads' first launches bind once
+_fns_lock = threading.Lock()
 
 
 def _entry(name: str):
     fn = _fns.get(name)
     if fn is None:
-        from ..kernels import load
-        fn = getattr(load("fused_ce"), name)
-        # pointers, then T, V, dtype, stream
-        fn.argtypes = [_PTR] * _ENTRIES[name] + [_INT] * 3 + [_PTR]
-        fn.restype = _INT
-        _fns[name] = fn
+        with _fns_lock:
+            fn = _fns.get(name)
+            if fn is None:
+                from ..kernels import load
+                fn = getattr(load("fused_ce"), name)
+                # pointers, then T, V, dtype, stream
+                fn.argtypes = [_PTR] * _ENTRIES[name] + [_INT] * 3 + [_PTR]
+                fn.restype = _INT
+                _fns[name] = fn
     return fn
 
 
@@ -129,7 +135,7 @@ def fused_ce_fwd(logits: torch.Tensor, labels: torch.Tensor
     lse = torch.empty_like(loss)
     _launch("fused_ce_fwd", (logits.data_ptr(), labels.data_ptr(),
                              loss.data_ptr(), lse.data_ptr()), logits)
-    fused_ce_fwd.launches += 1
+    count_launch(fused_ce_fwd)
     return loss, lse
 
 
@@ -158,7 +164,7 @@ def fused_ce_bwd(logits: torch.Tensor, labels: torch.Tensor,
     _launch("fused_ce_bwd", (logits.data_ptr(), labels.data_ptr(),
                              lse.data_ptr(), ct.data_ptr(),
                              dlogits.data_ptr()), logits)
-    fused_ce_bwd.launches += 1
+    count_launch(fused_ce_bwd)
     return dlogits
 
 

@@ -13,9 +13,12 @@ surface (``dead``, ``last_beat``, ``declare_dead``, ``respawn_clone``,
 ``warmup``, ``start``); a restarted clone is warmed, which on a CUDA card
 captures its decode graph, before it goes live.
 
-Still to come with the async host-PS family (ROADMAP queue A item 6):
-``dial``, ``wire_heartbeat``, ``Partitioned``, ``ShardJournal``,
-``ShardSupervisor``, the lease classes and ``WorkerSupervisor``.
+Copied for the host parameter server: ``RETRYABLE_CONNECT``, ``dial``
+(the workers' connect under a ``RetryPolicy``), ``wire_heartbeat`` (one
+``'h'`` probe of a PS address) and ``Partitioned``.  Still to come with
+the rest of the async host-PS family (ROADMAP queue A item 6):
+``ShardJournal``, ``ShardSupervisor``, the lease classes and
+``WorkerSupervisor``.
 """
 
 from __future__ import annotations
@@ -23,9 +26,12 @@ from __future__ import annotations
 import dataclasses
 import logging
 import random
+import socket
 import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
+
+from . import networking
 
 logger = logging.getLogger("distkeras_tpu_torch.resilience")
 
@@ -127,6 +133,68 @@ DEFAULT_CONNECT_POLICY = RetryPolicy(attempts=10, backoff=0.05)
 #: before the address answers again.
 DEFAULT_RECOVERY_POLICY = RetryPolicy(attempts=None, backoff=0.05,
                                       max_backoff=0.5, deadline=15.0)
+
+
+#: transport faults a (re)dial retries: nothing listening yet, a reset
+#: from a PS mid-start, or a stalled handshake
+RETRYABLE_CONNECT = (ConnectionRefusedError, ConnectionResetError,
+                     socket.timeout)
+
+
+def dial(host: str, port: int, policy: RetryPolicy) -> socket.socket:
+    """Dial under ``policy``; raises the last transport fault when the
+    policy is exhausted (callers wrap it in their own error type)."""
+    return policy.call(lambda: networking.connect(host, port),
+                       RETRYABLE_CONNECT)
+
+
+def wire_heartbeat(host: str, port: int, timeout: float = 1.0) -> bool:
+    """One ``'h'`` probe against a PS address: True iff it answers with a
+    clock within ``timeout``.  Any transport fault, stall, or garbage reply
+    is a failed probe.  The heartbeat handler runs through the server's
+    apply lock, so a server wedged inside an apply fails this even though
+    its process is alive."""
+    try:
+        sock = networking.connect(host, port, timeout=timeout)
+    except (ConnectionError, OSError, socket.timeout):
+        return False
+    try:
+        sock.settimeout(timeout)
+        networking.send_opcode(sock, b"h")
+        msg = networking.recv_data(sock)
+        networking.send_opcode(sock, b"q")
+        return isinstance(msg, dict) and "clock" in msg
+    except (ConnectionError, OSError, ValueError, socket.timeout):
+        return False
+    finally:
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+
+class Partitioned(ConnectionError):
+    """A worker's PS link is network-partitioned past its tolerance.
+
+    Typed apart from ``ps_sharding.PSShardDown``: a partition means the
+    *path* to a (probably healthy) PS is gone — the worker buffered
+    ``pending_windows`` windows of committed mass locally and exhausted its
+    heal budget — whereas ``PSShardDown`` means the endpoint itself is
+    unrecovered.  Supervisors treat the two differently: a partitioned
+    worker's PS must NOT be respawned (its state is fine; respawning it
+    would drop post-snapshot windows for nothing)."""
+
+    def __init__(self, addr=None, detail: str = "",
+                 pending_windows: int = 0):
+        self.addr = tuple(addr) if addr is not None else None
+        self.pending_windows = int(pending_windows)
+        where = f" to {addr[0]}:{addr[1]}" if addr else ""
+        msg = f"PS link{where} partitioned"
+        if pending_windows:
+            msg += f" with {pending_windows} pending window(s) buffered"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,18 @@ the CUDA card, and raises without one).  The distributed trainers run on
 a worker mesh (``parallel.get_mesh``): by default one worker per visible
 card; ``mesh=get_mesh(N, devices=[device] * N)`` runs N workers on one
 device.  ``segment_col`` trains on packed rows (``data/packing.py``) with
-a ``*_masked`` loss, on ``SingleTrainer`` and on the SPMD engine.  What
-waits for later slices raises: the parameter-server engines
-(``execution="host_ps"``/``"process_ps"``, ROADMAP queue A item 6), the
-orbax checkpoint backend and the Keras adapter.
+a ``*_masked`` loss, on ``SingleTrainer`` and on the SPMD engine.
+
+``execution="host_ps"`` runs the asynchronous family (ADAG, DOWNPOUR,
+DynSGD, AEASGD, EAMSGD) against a live socket parameter server on
+loopback (``parameter_servers.py``): ``num_workers × parallelism_factor``
+worker threads, each training its own copy of the model on the trainer's
+one device (``workers.py``), with the dense wire codings, both server
+cores and ``comm_overlap``.  What waits for later slices raises: the
+process engine (``execution="process_ps"``), sharding, recovery, the
+elastic and streaming engines, top-k and row-sparse commits and fault
+injection (ROADMAP queue A item 6), the orbax checkpoint backend and the
+Keras adapter.
 """
 
 from __future__ import annotations
@@ -298,15 +306,21 @@ class SingleTrainer(Trainer):
         return self._fitted
 
 
-#: the parameter-server engines of the JAX package, not ported yet
-_PS_ENGINES = ("host_ps", "process_ps")
+#: the execution engines of the port's distributed trainers
+_ENGINES = ("spmd", "host_ps")
 
 
 class DistributedTrainer(Trainer):
     """Base of the multi-worker trainers: the worker count, batch and
-    window, and the ``train()`` lifecycle on the SPMD engine.  The JAX
+    window, and the ``train()`` lifecycle on the SPMD engine, or on the
+    host parameter server with ``execution="host_ps"``.  The JAX
     package's ``service()`` (the parameter server's start) maps to the
-    engine's construction here."""
+    SPMD engine's construction here.
+
+    On ``"spmd"`` the workers are a mesh (``parallel.get_mesh``: one per
+    card by default).  On ``"host_ps"`` ``num_workers`` (default 1) counts
+    worker threads that all run on the trainer's one device; a ``mesh``
+    given there only names that device and the count."""
 
     ALGORITHM = "local"
     DEFAULT_WINDOW = 5
@@ -334,33 +348,41 @@ class DistributedTrainer(Trainer):
                  fault_injection: Optional[dict] = None,
                  segment_col: Optional[str] = None,
                  device: DeviceLike = None):
-        if execution in _PS_ENGINES:
+        if execution == "process_ps":
             raise NotImplementedError(
-                f"execution={execution!r}: the parameter-server engines are "
-                "not ported yet (ROADMAP queue A item 6); use "
-                "execution='spmd'")
-        if execution != "spmd":
+                "execution='process_ps': the cross-process parameter-server "
+                "engine is not ported yet (ROADMAP queue A item 6); use "
+                "execution='host_ps' or 'spmd'")
+        if execution not in _ENGINES:
             raise ValueError(f"unknown execution {execution!r}; the port "
-                             "runs execution='spmd'")
+                             f"runs execution in {list(_ENGINES)}")
         if segment_col is not None:
             _require_masked_loss(loss)
-        if mesh is None:
-            mesh = mesh_lib.get_mesh(
-                num_workers, devices=None if device is None else [device])
-        mesh_device = mesh_lib.worker_device(mesh)
-        if device is not None and not mesh_lib.same_device(
-                resolve_device(device), mesh_device):
-            raise ValueError(f"device={device!r} but the worker mesh is on "
-                             f"{mesh_device}")
+        if execution == "host_ps" and mesh is None:
+            # worker threads on one device: the count is not a mesh
+            workers = 1 if num_workers is None else int(num_workers)
+            if workers < 1:
+                raise ValueError(f"num_workers must be >= 1, got {workers}")
+            worker_dev = resolve_device(device)
+        else:
+            if mesh is None:
+                mesh = mesh_lib.get_mesh(
+                    num_workers, devices=None if device is None else [device])
+            worker_dev = mesh_lib.worker_device(mesh)
+            if device is not None and not mesh_lib.same_device(
+                    resolve_device(device), worker_dev):
+                raise ValueError(f"device={device!r} but the worker mesh is "
+                                 f"on {worker_dev}")
+            workers = int(mesh.devices.size)
         super().__init__(keras_model, loss, worker_optimizer, learning_rate,
                          seed, lr_schedule, gradient_accumulation,
                          gradient_clip_norm, early_stopping_patience,
-                         early_stopping_min_delta, mesh_device)
+                         early_stopping_min_delta, worker_dev)
         # sequence packing on the SPMD engine (the distributed twin of
         # SingleTrainer(segment_col=...)): the segment-ids column
         self.segment_col = segment_col
         self.mesh = mesh
-        self.num_workers = int(mesh.devices.size)
+        self.num_workers = workers
         self.batch_size = int(batch_size)
         self.features_col = features_col
         self.label_col = label_col
@@ -370,9 +392,10 @@ class DistributedTrainer(Trainer):
             else self.DEFAULT_WINDOW)
         self.execution = execution
         # the wire codings of the parameter-server commits: a value the JAX
-        # class refuses is refused with its ValueError; any other coding
-        # is refused as not ported, since the SPMD engine has no wire and
-        # the PS engines are not here (ROADMAP queue A item 6)
+        # class refuses is refused with its ValueError.  host_ps takes the
+        # dense codings (bfloat16, float16, int8); top-k waits for ROADMAP
+        # queue A item 6; the SPMD engine has no wire, and where the JAX
+        # class ignores a coding there the port refuses it
         if wire_topk_dtype is not None and wire_dtype != "topk":
             raise ValueError(
                 "wire_topk_dtype applies to wire_dtype='topk' only")
@@ -383,11 +406,21 @@ class DistributedTrainer(Trainer):
             raise ValueError(
                 "wire_topk_dtype must be None, 'bfloat16' or 'int8', got "
                 f"{wire_topk_dtype!r}")
-        if wire_dtype is not None or float(wire_topk) != 0.01:
+        if execution == "host_ps" and (wire_dtype == "topk"
+                                       or float(wire_topk) != 0.01):
             raise NotImplementedError(
-                "wire_dtype/wire_topk code the parameter-server commits, "
-                "and the PS engines are not ported yet (ROADMAP queue A "
-                "item 6); the SPMD engine has no wire: leave them unset")
+                "wire_dtype='topk' (sparse top-k commits) is not ported yet "
+                "(ROADMAP queue A item 6); host_ps takes wire_dtype None, "
+                "'bfloat16', 'float16' or 'int8'")
+        if execution == "spmd" and (wire_dtype is not None
+                                    or float(wire_topk) != 0.01):
+            raise NotImplementedError(
+                "wire_dtype/wire_topk code the parameter-server commits "
+                "(execution='host_ps'); the SPMD engine has no wire: leave "
+                "them unset")
+        self.wire_dtype = wire_dtype
+        self.wire_topk = float(wire_topk)
+        self.wire_topk_dtype = wire_topk_dtype
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = max(int(checkpoint_every), 1)
         if checkpoint_unit not in ("epoch", "round"):
@@ -431,6 +464,26 @@ class DistributedTrainer(Trainer):
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False,
               validation_data: Optional[Dataset] = None) -> FittedModel:
+        if self.execution == "host_ps":
+            if (validation_data is not None
+                    or self.early_stopping_patience is not None):
+                raise ValueError(
+                    "validation_data/early stopping run between SPMD "
+                    "epochs; the async PS engines have no between-epoch "
+                    "hook (workers own their epoch loops) — use "
+                    "execution='spmd'")
+            if self.segment_col is not None:
+                raise ValueError(
+                    "segment_col (packed training) runs on the SPMD engine "
+                    "only — the PS workers don't thread segment ids; use "
+                    "execution='spmd'")
+            if self.fault_tolerance or self.fault_injection:
+                raise NotImplementedError(
+                    "fault_tolerance/fault_injection on execution='host_ps' "
+                    "are not ported yet (ROADMAP queue A item 6)")
+            from .parameter_servers import run_host_ps_training
+            return run_host_ps_training(self, dataset, shuffle,
+                                        resume=resume)
         if self.fault_tolerance or self.fault_injection:
             raise ValueError(
                 "fault_tolerance/fault_injection apply to the PS engines "
@@ -586,16 +639,27 @@ class DistributedTrainer(Trainer):
 
 class AsynchronousDistributedTrainer(DistributedTrainer):
     """Base of the asynchronous family.  On the SPMD engine the async
-    commits execute as deterministic rounds (``parallel/spmd.py``).
+    commits execute as deterministic rounds (``parallel/spmd.py``); with
+    ``execution="host_ps"`` they run against a live socket parameter
+    server (``parameter_servers.py``).
 
-    The JAX class's parameter-server knobs (``parallelism_factor``,
-    ``comm_overlap``, ``ps_shards``, ``recovery``, ``elastic``, the lease,
-    server-core, streaming, row-sparse, address and supervision knobs)
-    configure ``execution='host_ps'``/``'process_ps'``, which are not
-    ported (ROADMAP queue A item 6).  Each is checked as the JAX class
-    checks it, and a value the JAX class refuses on the SPMD engine is
-    refused here with the same ``ValueError``.
+    The host-PS knobs of the JAX class that the port runs:
+    ``parallelism_factor`` (``num_workers × parallelism_factor`` worker
+    threads), ``comm_overlap`` (one combined commit+pull round trip per
+    window, received while the next window computes; ``None`` resolves
+    per algorithm: ON for DOWNPOUR/ADAG/DynSGD, OFF for the elastic
+    family), ``ps_core`` (``"event"`` or ``"threaded"``), ``coalesce`` and
+    ``apply_kernel``, and the address pair ``ps_bind_host`` /
+    ``ps_advertise_host``.  Each is checked as the JAX class checks it,
+    and a value the JAX class refuses is refused here with the same
+    ``ValueError``.  The knobs of the engines still to come (``ps_shards``,
+    ``recovery``, ``elastic``, ``stream``, ``row_sparse``,
+    ``partition_windows``) raise ``NotImplementedError`` on ``host_ps``
+    (ROADMAP queue A item 6).
     """
+
+    #: algorithms whose per-algorithm comm_overlap default is ON
+    _OVERLAP_DEFAULT_ON = ("downpour", "adag", "dynsgd")
 
     def __init__(self, keras_model, *, parallelism_factor: int = 1,
                  comm_overlap: Optional[bool] = None, ps_shards: int = 1,
@@ -617,24 +681,26 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                  scratch_dir: Optional[str] = None,
                  **kw):
         super().__init__(keras_model, **kw)
+        host_ps = self.execution == "host_ps"
         ps_only = ("applies to the parameter-server engines "
                    "(execution='host_ps'/'process_ps'); the SPMD engine "
                    "has no parameter server")
         refusals = (
             (int(parallelism_factor) < 1,
              "parallelism_factor must be >= 1"),
-            (int(parallelism_factor) > 1,
+            (int(parallelism_factor) > 1 and not host_ps,
              "parallelism_factor > 1 requires execution='host_ps' (the "
              "SPMD engine runs exactly one worker per mesh slot)"),
-            (comm_overlap is not None, f"comm_overlap {ps_only}"),
+            (comm_overlap is not None and not host_ps,
+             f"comm_overlap {ps_only}"),
             (int(ps_shards) < 1, "ps_shards must be >= 1"),
-            (int(ps_shards) > 1, f"ps_shards > 1 {ps_only}"),
-            (bool(recovery), "recovery=True requires a PS engine; the SPMD "
-             "engine's recovery story is checkpoint_dir + "
-             "train(resume=True)"),
-            (bool(elastic), "elastic=True requires a PS engine; the SPMD "
-             "engine is bulk-synchronous — a lost participant is a lost "
-             "collective"),
+            (int(ps_shards) > 1 and not host_ps, f"ps_shards > 1 {ps_only}"),
+            (bool(recovery) and not host_ps,
+             "recovery=True requires a PS engine; the SPMD engine's "
+             "recovery story is checkpoint_dir + train(resume=True)"),
+            (bool(elastic) and not host_ps,
+             "elastic=True requires a PS engine; the SPMD engine is "
+             "bulk-synchronous — a lost participant is a lost collective"),
             (lease_windows is not None and int(lease_windows) < 1,
              "lease_windows must be >= 1"),
             (float(lease_timeout) <= 0, "lease_timeout must be > 0"),
@@ -644,22 +710,34 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             (apply_kernel not in (None, "numpy", "native", "auto"),
              f"apply_kernel must be one of (None, 'numpy', 'native', "
              f"'auto'), got {apply_kernel!r}"),
-            (ps_core != "event" or not coalesce or apply_kernel is not None,
+            ((ps_core != "event" or not coalesce
+              or apply_kernel is not None) and not host_ps,
              f"ps_core/coalesce/apply_kernel {ps_only}"),
-            (bool(stream), "stream=True requires execution='host_ps'"),
+            (bool(stream) and not host_ps,
+             "stream=True requires execution='host_ps'"),
             (horizon_windows is not None and int(horizon_windows) < 1,
              "horizon_windows must be >= 1"),
-            (horizon_windows is not None,
+            (horizon_windows is not None and not stream,
              "horizon_windows applies to stream=True"),
             (max_horizons is not None and int(max_horizons) < 1,
              "max_horizons must be >= 1"),
-            (max_horizons is not None, "max_horizons applies to stream=True"),
-            (bool(row_sparse), "row_sparse requires execution='host_ps'"),
+            (max_horizons is not None and not stream,
+             "max_horizons applies to stream=True"),
+            (bool(row_sparse) and not host_ps,
+             "row_sparse requires execution='host_ps'"),
+            (bool(row_sparse) and self.ALGORITHM not in
+             self._OVERLAP_DEFAULT_ON,
+             "row_sparse applies to the delta family (DOWNPOUR/ADAG/"
+             "DynSGD); the elastic family's force term is dense by "
+             "construction"),
+            (bool(row_sparse) and self.wire_dtype is not None,
+             "row_sparse is the exact sparse profile and does not compose "
+             "with lossy wire_dtype codings — use wire_dtype=None"),
             (ps_bind_host == "" or ps_advertise_host == "",
              "ps_bind_host/ps_advertise_host must be a host string or None "
              "(empty string is neither bindable nor dialable)"),
-            (ps_bind_host is not None or ps_advertise_host is not None,
-             f"ps_bind_host/ps_advertise_host {ps_only}"),
+            ((ps_bind_host is not None or ps_advertise_host is not None)
+             and not host_ps, f"ps_bind_host/ps_advertise_host {ps_only}"),
             (ps_placement not in ("driver", "process"),
              f"ps_placement must be 'driver' or 'process', got "
              f"{ps_placement!r}"),
@@ -671,11 +749,56 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
              "ps_placement='process'/freeze_deadline/scratch_dir apply to "
              "the supervised cross-process engine — execution='process_ps' "
              "with elastic=True"),
-            (int(partition_windows) != 0, f"partition_windows {ps_only}"),
+            (int(partition_windows) != 0 and not host_ps,
+             f"partition_windows {ps_only}"),
+            (int(partition_windows) != 0 and int(ps_shards) > 1,
+             "partition_windows requires ps_shards=1 — sharded workers "
+             "heal by blocking reconnect-resume"),
+            (int(partition_windows) != 0 and bool(recovery),
+             "partition_windows with recovery is a process_ps feature — "
+             "host_ps recovery routes workers through the sharded client"),
         )
         for refused, message in refusals:
             if refused:
                 raise ValueError(message)
+        # the knobs of the host-PS engines still to come
+        for knob, is_set in (("ps_shards > 1", int(ps_shards) > 1),
+                             ("recovery=True", bool(recovery)),
+                             ("elastic=True", bool(elastic)),
+                             ("stream=True", bool(stream)),
+                             ("row_sparse", bool(row_sparse)),
+                             ("partition_windows",
+                              int(partition_windows) != 0)):
+            if is_set:
+                raise NotImplementedError(
+                    f"{knob} on execution='host_ps' is not ported yet "
+                    "(ROADMAP queue A item 6)")
+        if host_ps:
+            # resolved eagerly, as the JAX class does: 'native' raises here
+            # (the port's build of the apply kernel waits for item 8)
+            from . import applykernel
+            applykernel.resolve(apply_kernel)
+        self.parallelism_factor = int(parallelism_factor)
+        self._comm_overlap = comm_overlap
+        self.ps_shards = int(ps_shards)
+        self.recovery = bool(recovery)
+        self.elastic = bool(elastic)
+        self.lease_windows = (None if lease_windows is None
+                              else int(lease_windows))
+        self.lease_timeout = float(lease_timeout)
+        self.ps_core = str(ps_core)
+        self.coalesce = bool(coalesce)
+        self.apply_kernel = apply_kernel
+        self.ps_bind_host = ps_bind_host
+        self.ps_advertise_host = ps_advertise_host
+
+    @property
+    def comm_overlap(self) -> bool:
+        """The host-PS transport pipelining in effect: the explicit knob,
+        else ON for the delta family and OFF for the elastic family."""
+        if self._comm_overlap is not None:
+            return bool(self._comm_overlap)
+        return self.ALGORITHM in self._OVERLAP_DEFAULT_ON
 
 
 class SynchronousDistributedTrainer(DistributedTrainer):

@@ -300,9 +300,22 @@ def test_train_refusals_match_jax(tmp_path):
 
 @pytest.mark.parametrize("execution", ["host_ps", "process_ps"])
 def test_parameter_server_engines_wait_for_item_6(execution):
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2),
-                  execution=execution)
+    # host_ps arrived (A6a): its training is held to the JAX package's in
+    # tests/test_torch_host_ps_parity.py; a mesh given there names the
+    # device and the worker count.  process_ps still waits for item 6
+    if execution == "process_ps":
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2),
+                      execution=execution)
+        return
+    _, pdata = dataset(rows=64)
+    t = port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2),
+                  execution=execution, batch_size=8,
+                  label_col="label_encoded", communication_window=2)
+    assert t.num_workers == 2 and t.device == torch.device("cpu")
+    t.train(pdata)
+    assert len(t.get_history()) == 4  # 32 rows a worker, 2 windows of 16
+    assert t._ps_server.ps.num_updates == 4
 
 
 WIRE_CODINGS = [dict(wire_dtype="bfloat16"), dict(wire_dtype="int8"),
@@ -319,8 +332,105 @@ def test_wire_codings_wait_for_item_6(kw):
     # the JAX class takes them on its SPMD engine and ignores them there;
     # the port refuses them rather than run an uncoded exchange silently
     jdk.ADAG(jax_model(numpy_weights()), num_workers=2, **kw)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    with pytest.raises(NotImplementedError, match="no wire"):
         port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2), **kw)
+    # host_ps takes the dense codings; sparse top-k waits for item 6
+    if kw.get("wire_dtype") in ("bfloat16", "int8"):
+        t = port.ADAG(port_model(numpy_weights()), num_workers=2,
+                      device="cpu", execution="host_ps", **kw)
+        assert t.wire_dtype == kw["wire_dtype"]
+    else:
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            port.ADAG(port_model(numpy_weights()), num_workers=2,
+                      device="cpu", execution="host_ps", **kw)
+
+
+# the parameter-server knobs that the port refuses on the SPMD engine
+# (SPMD_REFUSALS) and takes on host_ps, as the JAX class takes them there
+HOST_PS_KNOBS = [
+    ("ADAG", dict(parallelism_factor=2)),
+    ("ADAG", dict(comm_overlap=True)),
+    ("DOWNPOUR", dict(comm_overlap=False)),
+    ("ADAG", dict(ps_core="threaded")),
+    ("ADAG", dict(coalesce=False)),
+    ("ADAG", dict(apply_kernel="numpy")),
+    ("ADAG", dict(apply_kernel="auto")),
+    ("ADAG", dict(ps_bind_host="127.0.0.1")),
+    ("ADAG", dict(ps_advertise_host="127.0.0.1")),
+    ("ADAG", dict(lease_windows=3, lease_timeout=2.0)),
+]
+# ... the knobs of the host-PS engines still to come (item 6) ...
+HOST_PS_WAITS = [
+    ("ADAG", dict(ps_shards=2)),
+    ("ADAG", dict(recovery=True)),
+    ("DynSGD", dict(elastic=True)),
+    ("ADAG", dict(stream=True)),
+    ("ADAG", dict(row_sparse=True)),
+    ("ADAG", dict(partition_windows=2)),
+]
+# ... and the values the JAX class refuses on host_ps too
+HOST_PS_REFUSALS = [
+    ("ADAG", dict(parallelism_factor=0)),
+    ("ADAG", dict(ps_shards=0)),
+    ("ADAG", dict(ps_core="nope")),
+    ("ADAG", dict(apply_kernel="bogus")),
+    ("ADAG", dict(horizon_windows=4)),
+    ("AEASGD", dict(row_sparse=True)),
+    ("ADAG", dict(row_sparse=True, wire_dtype="int8")),
+    ("ADAG", dict(ps_bind_host="")),
+    ("ADAG", dict(ps_placement="process")),
+    ("ADAG", dict(partition_windows=2, ps_shards=2)),
+    ("ADAG", dict(checkpoint_unit="step")),
+]
+
+
+def _ids(cases):
+    return [f"{n}-{'-'.join(k)}" for n, k in cases]
+
+
+@pytest.mark.parametrize("name,kw", HOST_PS_KNOBS, ids=_ids(HOST_PS_KNOBS))
+def test_host_ps_takes_the_ps_knobs(name, kw):
+    weights = numpy_weights()
+    getattr(jdk, name)(jax_model(weights), num_workers=2,
+                       execution="host_ps", **kw)
+    t = getattr(port, name)(port_model(weights), num_workers=2,
+                            device="cpu", execution="host_ps", **kw)
+    for knob, value in kw.items():
+        assert getattr(t, knob) == value
+
+
+@pytest.mark.parametrize("name,kw", HOST_PS_WAITS, ids=_ids(HOST_PS_WAITS))
+def test_host_ps_knobs_waiting_for_item_6(name, kw):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        getattr(port, name)(port_model(numpy_weights()), num_workers=2,
+                            device="cpu", execution="host_ps", **kw)
+
+
+@pytest.mark.parametrize("name,kw", HOST_PS_REFUSALS,
+                         ids=_ids(HOST_PS_REFUSALS))
+def test_host_ps_refusals_match_jax(name, kw):
+    weights = numpy_weights()
+    with pytest.raises(ValueError):
+        getattr(jdk, name)(jax_model(weights), num_workers=2,
+                           execution="host_ps", **kw)
+    with pytest.raises(ValueError):
+        getattr(port, name)(port_model(weights), num_workers=2,
+                            device="cpu", execution="host_ps", **kw)
+
+
+def test_host_ps_workers_are_threads_on_one_device():
+    model = port_model(numpy_weights())
+    t = port.ADAG(model, num_workers=3, parallelism_factor=2,
+                  execution="host_ps", device="cpu")
+    assert t.num_workers == 3 and t.mesh is None
+    assert t.device == torch.device("cpu")
+    assert port.ADAG(model, execution="host_ps", device="cpu"
+                     ).num_workers == 1
+    with pytest.raises(ValueError, match="num_workers"):
+        port.ADAG(model, num_workers=0, execution="host_ps", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.ADAG(model, num_workers=2, execution="host_ps")
 
 
 def test_what_waits_for_later_slices_raises():

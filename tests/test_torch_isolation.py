@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``distkeras_tpu_torch``, and none
 of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
 ``tools/compare_simt_builds.py``, ``tools/time_simt_builds.py``,
-``tools/simt_backward_share.py``, ``tools/simt_forward_share.py``), imports
+``tools/simt_backward_share.py``, ``tools/simt_forward_share.py``,
+``tools/host_ps_threads.py``), imports
 jax or the JAX package; importing the port pulls in no jax; and its
 entry points refuse to drop to the CPU when no CUDA card is present."""
 
@@ -32,7 +33,8 @@ def port_files():
                     ROOT / "tools" / "compare_simt_builds.py",
                     ROOT / "tools" / "time_simt_builds.py",
                     ROOT / "tools" / "simt_backward_share.py",
-                    ROOT / "tools" / "simt_forward_share.py"]
+                    ROOT / "tools" / "simt_forward_share.py",
+                    ROOT / "tools" / "host_ps_threads.py"]
 
 
 def imported_roots(path):
@@ -49,11 +51,14 @@ def imported_roots(path):
     return roots
 
 
-#: the modules of the decode, packing and serving slices (data/packing.py,
-#: resilience.py and networking.py are copies of numpy-only modules of the
-#: JAX package, kept in the port)
+#: the modules of the decode, packing, serving and host-PS slices
+#: (data/packing.py, resilience.py, networking.py, applykernel.py and
+#: ps_sharding.py are copies of numpy-only modules of the JAX package,
+#: kept in the port)
 NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
-               "serving.py", "resilience.py", "networking.py")
+               "serving.py", "resilience.py", "networking.py",
+               "parameter_servers.py", "workers.py", "applykernel.py",
+               "ps_sharding.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -72,7 +77,10 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.core.quant, "
             "distkeras_tpu_torch.data.packing, "
             "distkeras_tpu_torch.serving, distkeras_tpu_torch.resilience, "
-            "distkeras_tpu_torch.networking; "
+            "distkeras_tpu_torch.networking, "
+            "distkeras_tpu_torch.parameter_servers, "
+            "distkeras_tpu_torch.workers, distkeras_tpu_torch.applykernel, "
+            "distkeras_tpu_torch.ps_sharding; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")
@@ -102,4 +110,11 @@ def test_entry_points_default_to_the_card(tmp_path):
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
+    # the host-PS trainer's worker threads run on the card too
+    if torch.cuda.is_available():
+        trainer = port.ADAG(fitted, num_workers=2, execution="host_ps")
+        assert trainer.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.ADAG(fitted, num_workers=2, execution="host_ps")
     assert "transformer_lm" in port.__all__

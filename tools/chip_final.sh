@@ -9,11 +9,11 @@
 #   git archive PARENT_COMMIT | tar -x -C build/parent
 #
 # It runs chip_smoke.py from build/archive (the committed files alone;
-# phases spec, qos, disagg and fleet among its phases), profiles the
+# phases spec, qos, disagg, fleet and host_ps among its phases), profiles the
 # slices named by its second argument from there (default: the decode steps, the dense
 # and paged serving engines' decode iterations and the speculative
 # engine's rounds), runs the phases named by its first argument (default:
-# fleet, the serving router and the supervisors; a
+# host_ps, the in-process host parameter server; a
 # comma-separated list runs each in turn, a side whose chip_smoke.py
 # lacks a phase logs it as absent) in the order parent, change, change,
 # parent when build/parent exists, and last runs the script chip_smoke.py
@@ -22,7 +22,7 @@
 #
 #   bash tools/chip_final.sh [PHASES [SLICES]]
 set -u
-phase="${1:-fleet}"
+phase="${1:-host_ps}"
 slices="${2:-decode,serve,paged,spec}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
