@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-three phases, each printing JSON lines, and fails with a non-zero
+twenty-four phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -243,12 +243,26 @@ exit if any phase fails:
     under ADAG from 2 threads, the sm90 forward, dq and dk/dv launched
     exactly once per layer, step and worker; the ConvNet's examples/s at
     1, 2 and 4 threads; the ConvNet legs launch no kernel.
+24. ps_sparse: sharded parameter servers, top-k and row-sparse commits
+    (``ps_shards``, ``wire_dtype="topk"``, ``row_sparse``): phase
+    host_ps's ConvNet under ADAG, one worker, serial, at 1 and 3 shards
+    equal to the bit; 2 threads with overlap at 1 and 4 shards
+    (examples/s, one ``'u'`` a window a shard, each shard's receive pool
+    1 miss and a hit a commit, accuracy >= 0.9); top-k at density 0.01
+    with f32, bf16 and int8 values and once at 3 shards (bytes a commit
+    <= 5% of dense, the loss falls, accuracy within 0.05 of dense), one
+    device selection held against the window's own dense delta; the LM
+    at full width under DOWNPOUR, row-sparse against dense and at 3
+    shards against 1, equal to the bit, each run launching the sm90
+    forward, dq and dk/dv once per layer and step and nothing else; the
+    (20000, 32) embedding model of ``bench.py:365-397``, its row-sparse
+    commits <= 5% of its dense ones.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
-QoS, disaggregated serving, fleet and host-PS paths), the
+QoS, disaggregated serving, fleet, host-PS and sparse host-PS paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -705,6 +719,35 @@ FLEET_HEARTBEAT_S, FLEET_LIVENESS_S = 0.05, 5.0
 HOST_PS_WORKERS, HOST_PS_TEST_ROWS, HOST_PS_ALGO_WINDOWS = 2, 1024, 4
 HOST_PS_LM_ROWS, HOST_PS_LM_WINDOW = 128, 2
 HOST_PS_SCALING = (1, 2, 4)
+# sharded parameter servers, top-k and row-sparse commits (ROADMAP queue A
+# item 6, its second part): (a) phase host_ps's ConvNet (bench.py:1109-
+# 1121: mnist_convnet bf16, adam, batch ADAG_BATCH, window ADAG_WINDOW)
+# under ADAG, one worker, serial, on HOST_PS_ALGO_WINDOWS windows at
+# ps_shards PS_SPARSE_SERIAL_SHARDS (cuDNN deterministic): equal weights
+# and histories; HOST_PS_WORKERS threads with overlap on ADAG_ROWS rows at
+# 1 and PS_SPARSE_SHARDS shards: examples/s (bench.py:178's observable),
+# one 'u' a window a shard, each shard's receive pool 1 miss and a hit a
+# commit, held-out accuracy >= PS_SPARSE_ACC_MIN; (b) the same 2-thread
+# run with wire_dtype="topk" at PS_SPARSE_TOPK, values f32, bf16 and int8,
+# and f32 once at PS_SPARSE_TOPK_SHARDS shards: bytes a commit <= 5% of
+# the dense commit, the loss falls, accuracy within PS_SPARSE_ACC_BAND of
+# the dense run; one window's device selection against the window's own
+# dense delta (identity within 1e-5 max|delta|, selected magnitudes over
+# the residual's); (c) the LM (transformer_lm(**LM)) under DOWNPOUR, one
+# worker, serial, on phase host_ps's HOST_PS_LM_ROWS rows of x+1, window
+# HOST_PS_LM_WINDOW, batch BATCH: row_sparse True against None and True at
+# PS_SPARSE_SERIAL_SHARDS shards, equal weights, each run launching the
+# sm90 forward, dq and dk/dv layers x steps times and nothing else; then
+# bench.py:365-397's embedding model (a PS_SPARSE_EMB table, Flatten,
+# Dense(4)), f32, DOWNPOUR sgd, PS_SPARSE_EMB_ROWS rows in windows of
+# PS_SPARSE_EMB_WINDOW x PS_SPARSE_EMB_BATCH (<= 1% of the rows touched a
+# window): the row-sparse commit <= 5% of the dense one, which exceeds
+# the table's f32 bytes
+PS_SPARSE_SERIAL_SHARDS, PS_SPARSE_SHARDS = (1, 3), 4
+PS_SPARSE_TOPK, PS_SPARSE_TOPK_SHARDS = 0.01, 3
+PS_SPARSE_ACC_MIN, PS_SPARSE_ACC_BAND = 0.9, 0.05
+PS_SPARSE_EMB, PS_SPARSE_EMB_ROWS = (20000, 32), 4096
+PS_SPARSE_EMB_WINDOW, PS_SPARSE_EMB_BATCH = 2, 64
 
 
 def emit(obj) -> None:
@@ -5611,15 +5654,20 @@ def _host_ps_run(trainer_cls, model, x, y, dev: str, workers: int,
     seconds = time.perf_counter() - t0
     ws = t._ps_workers
     commits = sum(w._commits for w in ws)
-    center = t._ps_server.ps.center
+    shards = t.ps_shards
+    server = t._ps_server
+    if hasattr(server, "snapshot"):  # a sharded group: a clock a shard
+        center, clock = server.snapshot()
+    else:
+        center, clock = server.ps.center, server.ps.num_updates
     return {"trainer": t, "fitted": fitted, "seconds": seconds,
             "examples_per_sec": len(x) / seconds,
             "comm_overlap": t.comm_overlap,
             # bench.py:140-170: messages a window beyond each worker's
-            # initial pull
-            "rtts_per_window": (sum(w.transport_ops for w in ws)
+            # initial pull (per shard: every op goes to each shard)
+            "rtts_per_window": (sum(w.transport_ops for w in ws) / shards
                                 - len(ws)) / commits,
-            "commits": commits, "clock": t._ps_server.ps.num_updates,
+            "commits": commits, "clock": clock,
             "commit_bytes": sum(w.commit_bytes for w in ws),
             "windows_per_worker": [len(w.history) for w in ws],
             "first_last_loss": [[w.history[0], w.history[-1]] for w in ws],
@@ -5728,15 +5776,20 @@ def _host_ps_convnet(card: str, dev: str, rows) -> dict:
     return scaling
 
 
-def _host_ps_lm(card: str, dev: str) -> dict:
-    """Leg 4 of phase host_ps: the full LM under ADAG from two worker
-    threads at once; the flash kernels' launches counted from 0."""
+def _host_ps_lm_rows():
+    """HOST_PS_LM_ROWS rows of phase train's x+1 task at the LM's width."""
     import numpy as np
-    from distkeras_tpu_torch import ADAG, Dataset, transformer_lm
     rng = np.random.default_rng(SEED + 17)
     x = rng.integers(0, LM["vocab_size"],
                      (HOST_PS_LM_ROWS, LM["seq_len"])).astype(np.int32)
-    y = ((x + 1) % LM["vocab_size"]).astype(np.int64)
+    return x, ((x + 1) % LM["vocab_size"]).astype(np.int64)
+
+
+def _host_ps_lm(card: str, dev: str) -> dict:
+    """Leg 4 of phase host_ps: the full LM under ADAG from two worker
+    threads at once; the flash kernels' launches counted from 0."""
+    from distkeras_tpu_torch import ADAG, Dataset, transformer_lm
+    x, y = _host_ps_lm_rows()
     t = ADAG(transformer_lm(**LM, device=dev),
              num_workers=HOST_PS_WORKERS, batch_size=BATCH, num_epoch=1,
              communication_window=HOST_PS_LM_WINDOW,
@@ -5788,6 +5841,310 @@ def phase_host_ps(card: str, dev: str = "cuda"):
     return scaling, launches
 
 
+def _add_counts(total: dict, more: dict) -> dict:
+    """Two launch-count dicts summed key by key."""
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def _ps_sparse_shards(card: str, dev: str, rows) -> dict:
+    """Leg (a) of phase ps_sparse: the ConvNet at 1 and 3 shards, one
+    worker, serial, to the bit; 2 threads with overlap at 1 and
+    PS_SPARSE_SHARDS shards.  Returns the 1-shard 2-thread run (the dense
+    reference of leg (b))."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import ADAG, models
+    x, y, xt, lt = rows
+    convnet = lambda: models.mnist_convnet("bfloat16", device=dev)
+    n = HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    serial = dict(worker_optimizer="adam", comm_overlap=False)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        runs = [_host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, 1,
+                             ps_shards=k, **serial)
+                for k in PS_SPARSE_SERIAL_SHARDS]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    same = all(np.array_equal(a, b) for a, b in zip(
+        runs[0]["fitted"].get_weights(), runs[1]["fitted"].get_weights()))
+    hist = [r["trainer"].get_history() for r in runs]
+    emit({"phase": "ps_sparse_serial_shards",
+          "shards": list(PS_SPARSE_SERIAL_SHARDS), "bit_identical": same,
+          "histories_equal": hist[0] == hist[1],
+          "transport_ops": [r["trainer"]._ps_workers[0].transport_ops
+                            for r in runs],
+          "commits": [r["commits"] for r in runs], "card": card})
+    check(same and hist[0] == hist[1],
+          f"ps_sparse: one worker at {PS_SPARSE_SERIAL_SHARDS} shards is "
+          "not bit-identical")
+    out = {}
+    for shards in (1, PS_SPARSE_SHARDS):
+        r = _host_ps_run(ADAG, convnet(), x, y, dev, HOST_PS_WORKERS,
+                         worker_optimizer="adam", ps_shards=shards)
+        ws = r["trainer"]._ps_workers
+        acc = float(np.mean(np.argmax(r["fitted"].predict(xt), axis=1)
+                            == lt))
+        one_u = all(w.transport_ops == shards * (1 + w._commits)
+                    for w in ws)
+        pools = ([[(p.misses, p.hits) for p in w._shard_client.pools]
+                  for w in ws] if shards > 1 else None)
+        emit({"phase": "ps_sparse_overlap", "ps_shards": shards,
+              **_host_ps_row(r, accuracy_held_out=acc,
+                             one_u_per_window_per_shard=one_u,
+                             pool_misses_hits=pools), "card": card})
+        clocks = r["clock"] if shards > 1 else [r["clock"]]
+        check(r["comm_overlap"] and one_u and r["loss_falls"]
+              and r["center_finite"] and acc >= PS_SPARSE_ACC_MIN
+              and all(c == r["commits"] for c in clocks),
+              f"ps_sparse overlap at {shards} shards: one 'u' a window a "
+              f"shard {one_u}, losses {r['first_last_loss']}, accuracy "
+              f"{acc}, clocks {clocks} vs {r['commits']} commits")
+        if pools is not None:
+            check(all(p == (1, w._commits) for w, ps in zip(ws, pools)
+                      for p in ps),
+                  f"ps_sparse: shard receive pools {pools}, want 1 miss "
+                  "and a hit a commit")
+        out[shards] = dict(r, accuracy=acc)
+    emit({"phase": "ps_sparse_shard_scaling",
+          "examples_per_sec": {k: v["examples_per_sec"]
+                               for k, v in out.items()}, "card": card})
+    return out[1]
+
+
+def _ps_sparse_selection(card: str, dev: str, x, y) -> list:
+    """Leg (b)'s check of one device selection a code: a worker's top-k
+    window on the first window of rows against that window's own dense
+    delta on the card."""
+    import numpy as np
+    from distkeras_tpu_torch import models
+    from distkeras_tpu_torch.core.model import serialize_model
+    from distkeras_tpu_torch.device import host_to_device
+    from distkeras_tpu_torch.workers import ADAGWorker
+    blob = serialize_model(models.mnist_convnet("bfloat16", device=dev))
+    n = ADAG_WINDOW * ADAG_BATCH
+    shape = (ADAG_WINDOW, ADAG_BATCH)
+    xw = host_to_device(x[:n].reshape(shape + x.shape[1:]), dev)
+    yw = host_to_device(y[:n].reshape(shape + y.shape[1:]), dev)
+    mw = np.ones(shape, np.float32)
+    rows = []
+    for code in (None, "bfloat16", "int8"):
+        w = ADAGWorker(blob, "adam", "categorical_crossentropy",
+                       "127.0.0.1", 1, communication_window=ADAG_WINDOW,
+                       batch_size=ADAG_BATCH, wire_dtype="topk",
+                       wire_topk=PS_SPARSE_TOPK, wire_topk_dtype=code,
+                       device=dev)
+        w._ensure_model()
+        flat = lambda: np.concatenate([a.reshape(-1)
+                                       for a in w._params_to_weights()])
+        base = flat()
+        p = w._params
+        _, _, packed = w._run_topk_window(
+            p, w._tx.init(list(p.values())), xw, yw, mw, w._generator(0))
+        sparse, loss = w._fetch_sparse(packed)
+        delta = flat() - base
+        res = w._residual_dev.cpu().numpy()
+        peak = float(np.max(np.abs(delta)))
+        err = float(np.max(np.abs(delta - (sparse.to_dense() + res))))
+        gap = (float(np.min(np.abs(sparse.f32_values())))
+               - float(np.max(np.abs(res))))
+        row = {"phase": "ps_sparse_selection", "code": code,
+               "k": sparse.nnz, "n": int(delta.size),
+               "max_abs_delta": peak, "identity_err": err,
+               "min_selected_minus_max_residual": gap, "loss": loss,
+               "card": card}
+        emit(row)
+        check(err <= 1e-5 * peak and sparse.nnz == w._wire_k,
+              f"ps_sparse selection ({code}): after - base differs from "
+              f"densify(selected) + residual by {err} (max |delta| {peak})")
+        if code is None:  # coded values carry their coding error
+            check(gap >= -1e-5,
+                  f"ps_sparse selection: a residual outweighs a selected "
+                  f"value by {-gap}")
+        rows.append(row)
+    return rows
+
+
+def _ps_sparse_topk(card: str, dev: str, rows, dense: dict) -> dict:
+    """Leg (b) of phase ps_sparse: top-k commits from 2 threads with
+    overlap, f32, bf16 and int8 values and f32 at PS_SPARSE_TOPK_SHARDS
+    shards, against the dense run of leg (a)."""
+    import numpy as np
+    from distkeras_tpu_torch import ADAG, models
+    x, y, xt, lt = rows
+    dense_bytes = dense["commit_bytes"] / dense["commits"]
+    out = {}
+    for code, shards in ((None, 1), ("bfloat16", 1), ("int8", 1),
+                         (None, PS_SPARSE_TOPK_SHARDS)):
+        r = _host_ps_run(ADAG, models.mnist_convnet("bfloat16", device=dev),
+                         x, y, dev, HOST_PS_WORKERS, worker_optimizer="adam",
+                         wire_dtype="topk", wire_topk=PS_SPARSE_TOPK,
+                         wire_topk_dtype=code, ps_shards=shards)
+        acc = float(np.mean(np.argmax(r["fitted"].predict(xt), axis=1)
+                            == lt))
+        per = r["commit_bytes"] / r["commits"]
+        key = f"{code or 'float32'}@{shards}"
+        emit({"phase": "ps_sparse_topk", "code": code, "ps_shards": shards,
+              **_host_ps_row(r, accuracy_held_out=acc, bytes_per_commit=per,
+                             share_of_dense=per / dense_bytes,
+                             examples_per_sec_dense=dense[
+                                 "examples_per_sec"]), "card": card})
+        check(per <= 0.05 * dense_bytes and r["loss_falls"]
+              and r["center_finite"]
+              and acc >= dense["accuracy"] - PS_SPARSE_ACC_BAND,
+              f"ps_sparse topk {key}: {per} bytes a commit (dense "
+              f"{dense_bytes}), losses {r['first_last_loss']}, accuracy "
+              f"{acc} vs dense {dense['accuracy']}")
+        out[key] = r["examples_per_sec"]
+    out["selection"] = _ps_sparse_selection(card, dev, x, y)
+    return out
+
+
+def _ps_sparse_lm(card: str, dev: str) -> dict:
+    """Leg (c) of phase ps_sparse, the LM: a one-window warm-up, then
+    row-sparse against dense and 3 shards against 1, each run's kernel
+    launches counted from 0.  Returns the leg's launches summed (the
+    warm-up's included)."""
+    import numpy as np
+    from distkeras_tpu_torch import DOWNPOUR, Dataset, transformer_lm
+    x, y = _host_ps_lm_rows()
+
+    def trainer(rs, shards):
+        return DOWNPOUR(transformer_lm(**LM, device=dev), num_workers=1,
+                        batch_size=BATCH, num_epoch=1,
+                        communication_window=HOST_PS_LM_WINDOW,
+                        loss="sparse_categorical_crossentropy_from_logits",
+                        worker_optimizer="adam", learning_rate=3e-3,
+                        seed=SEED, execution="host_ps", row_sparse=rs,
+                        ps_shards=shards, device=dev)
+
+    # one window first: the process's first LM steps (cuBLAS handles, the
+    # allocator) would land in the first timed run (an H100 at 700 W
+    # read 97,752 tokens/s there against 207,159 for the run after it)
+    n = BATCH * HOST_PS_LM_WINDOW
+    _zero_counts()
+    trainer(True, 1).train(Dataset({"features": x[:n], "label": y[:n]}))
+    _sync(dev)
+    total, weights, hists = _read_counts(), {}, {}
+    for rs, shards in ((True, 1), (None, 1),
+                       (True, PS_SPARSE_SERIAL_SHARDS[1])):
+        t = trainer(rs, shards)
+        _zero_counts()
+        t0 = time.perf_counter()
+        fitted = t.train(Dataset({"features": x, "label": y}))
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        launches = _read_counts()
+        total = _add_counts(total, launches)
+        w = t._ps_workers[0]
+        steps = len(w.history) * HOST_PS_LM_WINDOW
+        want = LM["num_layers"] * steps
+        sm90 = {k: launches[f"flash_{k}_sm90"]
+                for k in ("fwd_lse", "dq", "dkv")}
+        trained = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+                   for v in ("", "_sm90")}
+        others = {k: n for k, n in launches.items()
+                  if n and k not in trained}
+        key = f"{'row_sparse' if rs else 'dense'}@{shards}"
+        weights[key] = fitted.get_weights()
+        hists[key] = list(w.history)
+        emit({"phase": "ps_sparse_lm", "run": key,
+              "row_sparse_tables": list(w.row_sparse_tables),
+              "steps": steps, "seconds": seconds,
+              "tokens_per_sec": HOST_PS_LM_ROWS * LM["seq_len"] / seconds,
+              "commit_bytes_per_commit": w.commit_bytes / w._commits,
+              "first_last_loss": [w.history[0], w.history[-1]],
+              "launches_sm90": sm90, "launches_other": others,
+              "want_each": want, "card": card})
+        check(w.history[-1] < w.history[0],
+              f"ps_sparse lm {key}: the loss did not fall {w.history}")
+        if dev == "cuda":
+            check(all(n == want for n in sm90.values()) and not others,
+                  f"ps_sparse lm {key}: sm90 launches {sm90}, others "
+                  f"{others}, want {want} each and nothing else")
+    runs = list(weights)
+    equal = {f"{a}=={b}": (all(np.array_equal(p, q) for p, q in
+                                zip(weights[a], weights[b]))
+                            and hists[a] == hists[b])
+             for a, b in ((runs[0], runs[1]), (runs[0], runs[2]))}
+    emit({"phase": "ps_sparse_lm_equal", **equal, "card": card})
+    check(all(equal.values()), f"ps_sparse lm: runs differ {equal}")
+    return total
+
+
+def _ps_sparse_embedding(card: str, dev: str) -> dict:
+    """Leg (c) of phase ps_sparse, the embedding model: commit bytes a
+    window, row-sparse against dense."""
+    import numpy as np
+    from distkeras_tpu_torch import DOWNPOUR, Dataset, Sequential
+    from distkeras_tpu_torch.core.layers import Dense, Embedding, Flatten
+    vocab, dim = PS_SPARSE_EMB
+    rng = np.random.default_rng(SEED + 23)
+    mapping = rng.integers(0, 4, vocab)
+    items = rng.integers(0, vocab, PS_SPARSE_EMB_ROWS).astype(
+        np.int32).reshape(-1, 1)
+    ds = Dataset({"features": items,
+                  "label": np.eye(4, dtype=np.float32)[mapping[items[:, 0]]]})
+    out = {}
+    for rs in (None, True):
+        model = Sequential([Embedding(vocab, dim), Flatten(),
+                            Dense(4, activation="softmax")],
+                           input_shape=(1,), compute_dtype="float32",
+                           device=dev)
+        t = DOWNPOUR(model, num_workers=1, batch_size=PS_SPARSE_EMB_BATCH,
+                     num_epoch=1, communication_window=PS_SPARSE_EMB_WINDOW,
+                     worker_optimizer="sgd", learning_rate=0.5, seed=SEED,
+                     execution="host_ps", row_sparse=rs, comm_overlap=False,
+                     device=dev)
+        t0 = time.perf_counter()
+        t.train(ds)
+        _sync(dev)
+        w = t._ps_workers[0]
+        out["row_sparse" if rs else "dense"] = {
+            "bytes_per_commit": w.commit_bytes / w._commits,
+            "commits": w._commits,
+            "seconds": time.perf_counter() - t0,
+            "first_last_loss": [w.history[0], w.history[-1]]}
+    dense, sparse = (out[k]["bytes_per_commit"]
+                     for k in ("dense", "row_sparse"))
+    emit({"phase": "ps_sparse_embedding", "table": list(PS_SPARSE_EMB),
+          "rows_touched_max_share": (PS_SPARSE_EMB_WINDOW
+                                     * PS_SPARSE_EMB_BATCH / vocab),
+          **out, "share_of_dense": sparse / dense, "card": card})
+    check(sparse <= 0.05 * dense and dense > vocab * dim * 4,
+          f"ps_sparse embedding: {sparse} bytes a row-sparse commit "
+          f"against {dense} dense (table {vocab * dim * 4} B)")
+    return out
+
+
+def phase_ps_sparse(card: str, dev: str = "cuda"):
+    """Sharded parameter servers, top-k and row-sparse commits on the card
+    (legs (a)-(c) of the PS_SPARSE_* comment): the ConvNet and embedding
+    legs launch no attention or CE kernel; the LM leg's runs launch the
+    sm90 training kernels once per layer and step each.  Returns (the
+    throughput lines, the phase's launches)."""
+    t_start = time.perf_counter()
+    _zero_counts()
+    rows = _host_ps_rows()
+    dense = _ps_sparse_shards(card, dev, rows)
+    topk = _ps_sparse_topk(card, dev, rows, dense)
+    embedding = _ps_sparse_embedding(card, dev)
+    quiet = _read_counts()
+    check(not any(quiet.values()),
+          f"ps_sparse convnet/embedding: kernel launches {quiet}, want none")
+    launches = _add_counts(quiet, _ps_sparse_lm(card, dev))
+    emit({"phase": "ps_sparse_launches", "launches": launches})
+    emit({"phase": "ps_sparse_wall",
+          "seconds": time.perf_counter() - t_start, "card": card})
+    return {"dense_examples_per_sec": dense["examples_per_sec"],
+            "topk_examples_per_sec": {k: v for k, v in topk.items()
+                                      if k != "selection"},
+            "embedding": embedding}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5823,6 +6180,7 @@ def main() -> int:
     _, disagg_launches = phase_disagg(smi)
     _, fleet_launches = phase_fleet(smi)
     _, host_ps_launches = phase_host_ps(smi)
+    _, ps_sparse_launches = phase_ps_sparse(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -5982,8 +6340,10 @@ def main() -> int:
         """The entry's launches on the packing, decode, serving, paged
         serving, speculative serving, QoS serving, disaggregated serving
         and fleet paths (each counted from 0 over its phase's runs; all
-        must be 0), and on the host-PS path (phase host_ps's LM leg: the
-        sm90 training kernels, once per layer, step and worker)."""
+        must be 0), on the host-PS path (phase host_ps's LM leg: the
+        sm90 training kernels, once per layer, step and worker) and on the
+        sparse host-PS path (phase ps_sparse's three LM runs: the sm90
+        training kernels once per layer and step of each)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -5999,6 +6359,7 @@ def main() -> int:
         entry["launches_disagg"] = disagg_launches[key]
         entry["launches_fleet"] = fleet_launches[key]
         entry["launches_host_ps"] = host_ps_launches[key]
+        entry["launches_ps_sparse"] = ps_sparse_launches[key]
         return entry
 
     emit(north_star)

@@ -56,7 +56,8 @@ from .router import ServingRouter
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
-from . import applykernel, parameter_servers, workers
+from . import applykernel, parameter_servers, ps_sharding, streaming, workers
+from .ps_sharding import PSShardDown
 from .trainers import (ADAG, AEASGD, DOWNPOUR, EAMSGD,
                        AsynchronousDistributedTrainer, AveragingTrainer,
                        DistributedTrainer, DynSGD, EnsembleTrainer,
@@ -86,4 +87,5 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "TenantPolicy", "ServingServer", "ServingClient", "DisaggPair",
            "networking", "ChaosFault", "ChaosProxy", "resilience",
            "router", "ServingRouter", "EngineSupervisor", "FleetSupervisor",
-           "RetryPolicy", "applykernel", "parameter_servers", "workers"]
+           "RetryPolicy", "applykernel", "parameter_servers", "workers",
+           "ps_sharding", "streaming", "PSShardDown"]

@@ -11,8 +11,9 @@ It keeps the JAX module's wire byte for byte (its frames, opcodes,
    ``torch.bfloat16`` goes out as its raw bytes under the wire dtype name
    ``"bfloat16"`` (the name the JAX package gives an ``ml_dtypes``
    bfloat16 array), and a ``"bfloat16"`` descriptor comes back as a
-   ``torch.bfloat16`` tensor over the same bytes.  Other torch leaves go
-   out as their numpy arrays.
+   ``torch.bfloat16`` tensor over the same bytes.  A ``SparseDelta``'s
+   bfloat16 values (``wire_topk_dtype="bfloat16"``) travel the same way.
+   Other torch leaves go out as their numpy arrays.
 
 The JAX module's description follows.
 
@@ -94,6 +95,21 @@ class ProtocolError(ValueError):
     """
 
 
+def _sparse_values(values):
+    """A sparse node's values as the wire carries them: numpy, or for
+    bfloat16 codes a CPU ``torch.bfloat16`` tensor (the form dense bf16
+    leaves take here, without ``ml_dtypes``); any other torch tensor is
+    held as its numpy array.  Values on a card raise: the wire carries
+    host memory only."""
+    if not isinstance(values, torch.Tensor):
+        return np.asarray(values)
+    if values.device.type != "cpu":
+        raise ValueError(f"sparse values must be host tensors, got one on "
+                         f"{values.device}")
+    values = values.detach()
+    return values if values.dtype == torch.bfloat16 else values.numpy()
+
+
 class SparseDelta:
     """A k-sparse view of a flat float32 vector of dense length ``length``.
 
@@ -116,25 +132,30 @@ class SparseDelta:
     def __init__(self, indices, values, length: int,
                  scale: Optional[float] = None):
         self.indices = np.asarray(indices)
-        self.values = np.asarray(values)
+        self.values = _sparse_values(values)
         self.length = int(length)
         self.scale = None if scale is None else float(scale)
         if self.indices.ndim != 1 or self.values.ndim != 1:
             raise ValueError("SparseDelta indices/values must be 1-D")
-        if self.indices.shape != self.values.shape:
+        if tuple(self.indices.shape) != tuple(self.values.shape):
             raise ValueError(
-                f"SparseDelta carries {self.indices.size} indices but "
-                f"{self.values.size} values")
+                f"SparseDelta carries {self.indices.shape[0]} indices but "
+                f"{self.values.shape[0]} values")
 
     @property
     def nnz(self) -> int:
         return int(self.indices.size)
 
     def f32_values(self) -> np.ndarray:
-        """Decode the (possibly coded) values to float32."""
+        """Decode the (possibly coded) values to float32: a bfloat16 code is
+        a CPU ``torch.bfloat16`` tensor, widened exactly with ``.float()``
+        (what ``astype(np.float32)`` does to ``ml_dtypes`` bfloat16)."""
+        vals = self.values
+        if isinstance(vals, torch.Tensor):
+            vals = vals.float().numpy()
         if self.scale is not None:
-            return self.values.astype(np.float32) * np.float32(self.scale)
-        return self.values.astype(np.float32, copy=False)
+            return vals.astype(np.float32) * np.float32(self.scale)
+        return vals.astype(np.float32, copy=False)
 
     def decoded(self) -> "SparseDelta":
         """A defensively-copied, f32-valued twin (safe across pooled
@@ -448,8 +469,13 @@ def _copy_leaf(v):
 def _encode_node(obj: Any, buffers: List[np.ndarray]):
     """Recursively replace ndarray leaves with buffer descriptors."""
     if isinstance(obj, SparseDelta):
+        vals = obj.values
+        if not isinstance(vals, torch.Tensor):
+            vals = np.ascontiguousarray(vals)
+        # a bf16 tensor goes through _host_array: int16 bytes named
+        # "bfloat16", as the JAX encoder frames an ml_dtypes array
         node = {"i": _encode_node(np.ascontiguousarray(obj.indices), buffers),
-                "v": _encode_node(np.ascontiguousarray(obj.values), buffers),
+                "v": _encode_node(vals, buffers),
                 "n": int(obj.length)}
         if obj.scale is not None:
             node["s"] = float(obj.scale)

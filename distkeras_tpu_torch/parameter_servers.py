@@ -19,9 +19,11 @@ Differences from the JAX module:
  - ``apply_kernel`` resolves through the port's ``applykernel``, whose
    native build waits for ROADMAP queue A item 8 (numpy is the reference
    and bit-identical either way);
- - ``run_host_ps_training`` keeps the non-elastic, unsharded engine: the
-   round-robin deal, the epoch waves and the npz checkpoint.  Sharding,
-   recovery, the elastic and streaming engines and the process engine
+ - ``run_host_ps_training`` keeps the non-elastic engine: the round-robin
+   deal, the epoch waves and the npz checkpoint, over one server or a
+   ``ps_sharding.ShardedServerGroup`` (``ps_shards > 1``), with
+   ``row_sparse`` resolved by ``streaming.resolve_row_sparse_tables``.
+   Recovery, the elastic and streaming engines and the process engine
    wait for ROADMAP queue A item 6, and the trainers refuse their knobs.
 
 The JAX module's description follows.
@@ -69,7 +71,7 @@ import torch
 from . import applykernel, networking
 from .core.model import FittedModel, deserialize_model, serialize_model
 from .device import DeviceLike
-from .ps_sharding import PSShardDown
+from .ps_sharding import PSShardDown, ShardedServerGroup
 from .workers import WORKER_CLASSES, share_compiled_state
 
 logger = logging.getLogger("distkeras_tpu_torch.parameter_servers")
@@ -1451,12 +1453,12 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
             "path checkpoints at epoch waves")
     if resume and trainer.checkpoint_dir is None:
         raise ValueError("train(resume=True) needs checkpoint_dir")
-    # the sharded, recovering and elastic engines (the trainers refuse
+    # the recovering, elastic and streaming engines (the trainers refuse
     # their knobs until then)
     for knob, is_set in (
-            ("ps_shards > 1", int(getattr(trainer, "ps_shards", 1)) > 1),
             ("recovery=True", bool(getattr(trainer, "recovery", False))),
-            ("elastic=True", bool(getattr(trainer, "elastic", False)))):
+            ("elastic=True", bool(getattr(trainer, "elastic", False))),
+            ("stream=True", bool(getattr(trainer, "stream", False)))):
         if is_set:
             raise NotImplementedError(
                 f"{knob} on execution='host_ps' is not ported yet (ROADMAP "
@@ -1468,7 +1470,8 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     if shuffle:
         perm = np.random.default_rng(trainer.seed).permutation(len(x))
         x, y = x[perm], y[perm]
-    blob = serialize_model(trainer._initial_params(x.shape[1:]))
+    model0 = trainer._initial_params(x.shape[1:])
+    blob = serialize_model(model0)
 
     # reference parity (SURVEY §2.1 row 6): async trainers may run
     # parallelism_factor x num_workers concurrent tasks against the PS
@@ -1483,21 +1486,51 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     xs = [x[i::n] for i in range(n)]
     ys = [y[i::n] for i in range(n)]
     bind_host, advertise_host = resolve_ps_hosts(trainer)
-    ps = allocate_parameter_server(
-        algorithm, blob, n, apply_kernel=getattr(trainer, "apply_kernel",
-                                                 None))
-    server = make_socket_server(
-        ps, host=bind_host,
-        ps_core=getattr(trainer, "ps_core", "event") or "event",
-        coalesce=bool(getattr(trainer, "coalesce", True)))
+    ps_shards = int(getattr(trainer, "ps_shards", 1) or 1)
+    ps_core = getattr(trainer, "ps_core", "event") or "event"
+    coalesce = bool(getattr(trainer, "coalesce", True))
+    apply_kernel = getattr(trainer, "apply_kernel", None)
+    sharded = ps_shards > 1
+    if sharded:
+        # PS sharding (ps_sharding.py): the center partitioned over N shard
+        # servers, each wrapping the UNCHANGED apply rule on its slice with
+        # its own lock and clock, so staleness is per-shard identical to
+        # the single-PS path
+        server = ShardedServerGroup(algorithm, blob, n, ps_shards,
+                                    host=bind_host, ps_core=ps_core,
+                                    coalesce=coalesce,
+                                    apply_kernel=apply_kernel)
+        ps = None
+    else:
+        ps = allocate_parameter_server(algorithm, blob, n,
+                                       apply_kernel=apply_kernel)
+        server = make_socket_server(ps, host=bind_host, ps_core=ps_core,
+                                    coalesce=coalesce)
     ckpt = None
     try:
         server.start()
         trainer._ps_server = server  # observability: the clock (smoke run)
         kw = _worker_kwargs(trainer, n, len(x))
         kw.update(worker_optimizer=trainer.worker_optimizer,
-                  ps_host=advertise_host, ps_port=server.port,
+                  ps_host=advertise_host,
+                  ps_port=server.ports[0] if sharded else server.port,
                   device=trainer.device)
+        rs = getattr(trainer, "row_sparse", None)
+        if rs:
+            # row-sparse embedding commits: True = every Embedding table
+            # of the model, or explicit weight indices
+            from .streaming import resolve_row_sparse_tables
+            kw.update(row_sparse_tables=resolve_row_sparse_tables(
+                rs, model0))
+        if sharded:
+            # workers scatter-commit / gather-pull through a
+            # ShardedPSClient; _shard_addr_hook lets a test interpose a
+            # proxy per shard
+            addrs = [(advertise_host, int(p)) for _, p in server.addrs]
+            hook = getattr(trainer, "_shard_addr_hook", None)
+            if hook is not None:
+                addrs = [(str(h), int(p)) for h, p in hook(list(addrs))]
+            kw.update(shard_plan=server.plan, shard_addrs=addrs)
         workers = [WORKER_CLASSES[algorithm](blob, **kw) for _ in range(n)]
         share_compiled_state(workers)
         trainer._ps_workers = workers  # observability: transport counters
@@ -1506,10 +1539,17 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
 
         def full_state():
             """The complete async-training state: the center, the clock and
-            every worker's (params, optimizer state)."""
-            with ps._lock:
-                center = [w.copy() for w in ps.center]
-                clock = np.int64(ps.num_updates)
+            every worker's (params, optimizer state).  Sharded runs store
+            the GATHERED center and the per-shard clock vector, so the
+            layout is shard-count-explicit (resume checks it against this
+            run's ps_shards through the meta)."""
+            if sharded:
+                center, clocks = server.snapshot()
+                clock = np.asarray(clocks, np.int64)
+            else:
+                with ps._lock:
+                    center = [w.copy() for w in ps.center]
+                    clock = np.int64(ps.num_updates)
             return {"center": center, "clock": clock,
                     "workers": [tuple(s) for s in states]}
 
@@ -1535,19 +1575,24 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
                         f"by engine={meta.get('engine', 'spmd')!r}; this "
                         "trainer is host_ps — resume with the same "
                         "configuration")
-                if int(meta.get("ps_shards", 1)) != 1:
+                if int(meta.get("ps_shards", 1)) != ps_shards:
                     raise ValueError(
                         f"checkpoint was saved with ps_shards="
-                        f"{meta.get('ps_shards')}; this trainer has "
-                        "ps_shards=1 — resume with the same configuration")
+                        f"{meta.get('ps_shards', 1)}; this trainer has "
+                        f"ps_shards={ps_shards} — resume with the same "
+                        "configuration")
                 # a template of the right structure, then refill: the
                 # restored tensors land on the trainer's device
                 states = [w.state_template() for w in workers]
                 restored = ckpt.restore(full_state(), latest)
-                with ps._lock:
-                    ps.center = [np.asarray(w, np.float32)
-                                 for w in restored["center"]]
-                    ps.num_updates = int(restored["clock"])
+                if sharded:
+                    server.restore_state(restored["center"],
+                                         restored["clock"])
+                else:
+                    with ps._lock:
+                        ps.center = [np.asarray(w, np.float32)
+                                     for w in restored["center"]]
+                        ps.num_updates = int(restored["clock"])
                 states = [tuple(s) for s in restored["workers"]]
                 start_epoch = latest
 
@@ -1564,6 +1609,8 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
         for epoch_range in waves:
             results: List[Optional[dict]] = [None] * n
             errors: List[tuple] = []
+            clocks0 = _clocks(server)
+            commits0 = sum(w._commits for w in workers)
 
             def run(i, epoch_range=epoch_range):
                 try:
@@ -1589,12 +1636,14 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
                 shard_err = next((e for _, e in errors
                                   if isinstance(e, PSShardDown)), None)
                 raise shard_err if shard_err is not None else errors[0][1]
+            new = sum(w._commits for w in workers) - commits0
+            _await_applied(server, [c + new for c in clocks0])
             states = [r["state"] for r in results]
             if ckpt is not None and (
                     epoch_range[1] % trainer.checkpoint_every == 0):
                 ckpt.save(epoch_range[1], full_state(),
                           meta={"engine": "host_ps", "unit": "epoch",
-                                "ps_shards": 1})
+                                "ps_shards": ps_shards})
     finally:
         server.stop()
         # coalescing observability: counters survive the stop; None on
@@ -1610,6 +1659,29 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     trainer._fitted = fitted
     trainer.record_training_stop()
     return fitted
+
+
+def _clocks(server) -> List[int]:
+    """The update clock of a socket server, or of each shard of a
+    ``ShardedServerGroup``."""
+    return [s.ps.num_updates for s in getattr(server, "servers", [server])]
+
+
+def _await_applied(server, clocks: List[int],
+                   timeout: float = 30.0) -> None:
+    """Wait until the server (each shard) has applied commits up to
+    ``clocks``.  A worker's last commit on the serial elastic loop is a
+    fire-and-forget 'c': when its thread joins, the frame may still sit in
+    the server's socket buffer, and a center read then (a checkpoint, the
+    fitted model) would miss it.  A server that does not get there within
+    ``timeout`` is logged, not waited for."""
+    deadline = time.monotonic() + timeout
+    while any(c < want for c, want in zip(_clocks(server), clocks)):
+        if time.monotonic() > deadline:
+            logger.warning("PS clocks %s short of the %s commits sent",
+                           _clocks(server), clocks)
+            return
+        time.sleep(0.001)
 
 
 def _worker_kwargs(trainer, n: int, rows: int) -> dict:
@@ -1634,6 +1706,8 @@ def _worker_kwargs(trainer, n: int, rows: int) -> dict:
         gradient_accumulation=accum,
         gradient_clip_norm=getattr(trainer, "gradient_clip_norm", None),
         wire_dtype=getattr(trainer, "wire_dtype", None),
+        wire_topk=getattr(trainer, "wire_topk", 0.01),
+        wire_topk_dtype=getattr(trainer, "wire_topk_dtype", None),
         comm_overlap=getattr(trainer, "comm_overlap", False))
     if trainer.ALGORITHM in ("aeasgd", "eamsgd"):
         kw["rho"] = getattr(trainer, "rho", 5.0)

@@ -20,12 +20,12 @@ a ``*_masked`` loss, on ``SingleTrainer`` and on the SPMD engine.
 DynSGD, AEASGD, EAMSGD) against a live socket parameter server on
 loopback (``parameter_servers.py``): ``num_workers × parallelism_factor``
 worker threads, each training its own copy of the model on the trainer's
-one device (``workers.py``), with the dense wire codings, both server
-cores and ``comm_overlap``.  What waits for later slices raises: the
-process engine (``execution="process_ps"``), sharding, recovery, the
-elastic and streaming engines, top-k and row-sparse commits and fault
-injection (ROADMAP queue A item 6), the orbax checkpoint backend and the
-Keras adapter.
+one device (``workers.py``), with the dense wire codings, top-k and
+row-sparse commits, both server cores, ``comm_overlap`` and the center
+sharded over ``ps_shards`` servers (``ps_sharding.py``).  What waits for
+later slices raises: the process engine (``execution="process_ps"``),
+recovery, the elastic and streaming engines and fault injection (ROADMAP
+queue A item 6), the orbax checkpoint backend and the Keras adapter.
 """
 
 from __future__ import annotations
@@ -391,27 +391,24 @@ class DistributedTrainer(Trainer):
             communication_window if communication_window is not None
             else self.DEFAULT_WINDOW)
         self.execution = execution
-        # the wire codings of the parameter-server commits: a value the JAX
-        # class refuses is refused with its ValueError.  host_ps takes the
-        # dense codings (bfloat16, float16, int8); top-k waits for ROADMAP
-        # queue A item 6; the SPMD engine has no wire, and where the JAX
-        # class ignores a coding there the port refuses it
-        if wire_topk_dtype is not None and wire_dtype != "topk":
+        # the wire codings of the parameter-server commits, checked as the
+        # JAX class checks them (its messages): host_ps takes the dense
+        # codings (bfloat16, float16, int8) and sparse top-k ("topk", its
+        # density wire_topk, its value code wire_topk_dtype); the SPMD
+        # engine has no wire, and where the JAX class ignores a coding
+        # there the port refuses it
+        if wire_dtype == "topk":
+            if not 0.0 < float(wire_topk) <= 1.0:
+                raise ValueError(
+                    f"wire_topk must be a density in (0, 1], got "
+                    f"{float(wire_topk)}")
+            if wire_topk_dtype not in (None, "bfloat16", "int8"):
+                raise ValueError(
+                    "wire_topk_dtype must be None, 'bfloat16' or 'int8', "
+                    f"got {wire_topk_dtype!r}")
+        elif wire_topk_dtype is not None:
             raise ValueError(
                 "wire_topk_dtype applies to wire_dtype='topk' only")
-        if wire_dtype == "topk" and not 0.0 < float(wire_topk) <= 1.0:
-            raise ValueError(
-                f"wire_topk must be a density in (0, 1], got {wire_topk}")
-        if wire_topk_dtype not in (None, "bfloat16", "int8"):
-            raise ValueError(
-                "wire_topk_dtype must be None, 'bfloat16' or 'int8', got "
-                f"{wire_topk_dtype!r}")
-        if execution == "host_ps" and (wire_dtype == "topk"
-                                       or float(wire_topk) != 0.01):
-            raise NotImplementedError(
-                "wire_dtype='topk' (sparse top-k commits) is not ported yet "
-                "(ROADMAP queue A item 6); host_ps takes wire_dtype None, "
-                "'bfloat16', 'float16' or 'int8'")
         if execution == "spmd" and (wire_dtype is not None
                                     or float(wire_topk) != 0.01):
             raise NotImplementedError(
@@ -649,11 +646,13 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
     window, received while the next window computes; ``None`` resolves
     per algorithm: ON for DOWNPOUR/ADAG/DynSGD, OFF for the elastic
     family), ``ps_core`` (``"event"`` or ``"threaded"``), ``coalesce`` and
-    ``apply_kernel``, and the address pair ``ps_bind_host`` /
-    ``ps_advertise_host``.  Each is checked as the JAX class checks it,
-    and a value the JAX class refuses is refused here with the same
-    ``ValueError``.  The knobs of the engines still to come (``ps_shards``,
-    ``recovery``, ``elastic``, ``stream``, ``row_sparse``,
+    ``apply_kernel``, the address pair ``ps_bind_host`` /
+    ``ps_advertise_host``, ``ps_shards`` (the center partitioned over N
+    shard servers, ``ps_sharding.py``) and ``row_sparse`` (exact
+    touched-row commits of embedding tables; it pins the serial loop).
+    Each is checked as the JAX class checks it, and a value the JAX class
+    refuses is refused here with the same ``ValueError``.  The knobs of the
+    engines still to come (``recovery``, ``elastic``, ``stream``,
     ``partition_windows``) raise ``NotImplementedError`` on ``host_ps``
     (ROADMAP queue A item 6).
     """
@@ -724,7 +723,9 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             (max_horizons is not None and not stream,
              "max_horizons applies to stream=True"),
             (bool(row_sparse) and not host_ps,
-             "row_sparse requires execution='host_ps'"),
+             "row_sparse requires execution='host_ps' (the SPMD "
+             "engine exchanges deltas over ICI; process_ps ships "
+             "config as JSON and keeps dense commits)"),
             (bool(row_sparse) and self.ALGORITHM not in
              self._OVERLAP_DEFAULT_ON,
              "row_sparse applies to the delta family (DOWNPOUR/ADAG/"
@@ -753,7 +754,8 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
              f"partition_windows {ps_only}"),
             (int(partition_windows) != 0 and int(ps_shards) > 1,
              "partition_windows requires ps_shards=1 — sharded workers "
-             "heal by blocking reconnect-resume"),
+             "heal by blocking reconnect-resume (lease stealing already "
+             "guarantees zero lost examples)"),
             (int(partition_windows) != 0 and bool(recovery),
              "partition_windows with recovery is a process_ps feature — "
              "host_ps recovery routes workers through the sharded client"),
@@ -762,11 +764,9 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             if refused:
                 raise ValueError(message)
         # the knobs of the host-PS engines still to come
-        for knob, is_set in (("ps_shards > 1", int(ps_shards) > 1),
-                             ("recovery=True", bool(recovery)),
+        for knob, is_set in (("recovery=True", bool(recovery)),
                              ("elastic=True", bool(elastic)),
                              ("stream=True", bool(stream)),
-                             ("row_sparse", bool(row_sparse)),
                              ("partition_windows",
                               int(partition_windows) != 0)):
             if is_set:
@@ -791,11 +791,20 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         self.apply_kernel = apply_kernel
         self.ps_bind_host = ps_bind_host
         self.ps_advertise_host = ps_advertise_host
+        # row-sparse embedding commits: True detects every Embedding table
+        # of the model (streaming.resolve_row_sparse_tables), or explicit
+        # weight-list indices; each table's window delta ships as an exact
+        # networking.RowSparseDelta beside the dense rest
+        self.row_sparse = row_sparse if row_sparse else None
 
     @property
     def comm_overlap(self) -> bool:
         """The host-PS transport pipelining in effect: the explicit knob,
-        else ON for the delta family and OFF for the elastic family."""
+        else ON for the delta family and OFF for the elastic family.
+        ``row_sparse`` pins the serial loop: its window step is itself one
+        blocking 'u' round trip (commit + fresh center, atomically)."""
+        if self.row_sparse is not None:
+            return False
         if self._comm_overlap is not None:
             return bool(self._comm_overlap)
         return self.ALGORITHM in self._OVERLAP_DEFAULT_ON

@@ -334,15 +334,14 @@ def test_wire_codings_wait_for_item_6(kw):
     jdk.ADAG(jax_model(numpy_weights()), num_workers=2, **kw)
     with pytest.raises(NotImplementedError, match="no wire"):
         port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2), **kw)
-    # host_ps takes the dense codings; sparse top-k waits for item 6
-    if kw.get("wire_dtype") in ("bfloat16", "int8"):
-        t = port.ADAG(port_model(numpy_weights()), num_workers=2,
-                      device="cpu", execution="host_ps", **kw)
-        assert t.wire_dtype == kw["wire_dtype"]
-    else:
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            port.ADAG(port_model(numpy_weights()), num_workers=2,
-                      device="cpu", execution="host_ps", **kw)
+    # host_ps takes every coding, dense and sparse top-k (A6b), as the
+    # JAX class does there
+    jdk.ADAG(jax_model(numpy_weights()), num_workers=2,
+             execution="host_ps", **kw)
+    t = port.ADAG(port_model(numpy_weights()), num_workers=2,
+                  device="cpu", execution="host_ps", **kw)
+    for knob, value in kw.items():
+        assert getattr(t, knob) == value
 
 
 # the parameter-server knobs that the port refuses on the SPMD engine
@@ -358,14 +357,15 @@ HOST_PS_KNOBS = [
     ("ADAG", dict(ps_bind_host="127.0.0.1")),
     ("ADAG", dict(ps_advertise_host="127.0.0.1")),
     ("ADAG", dict(lease_windows=3, lease_timeout=2.0)),
+    ("ADAG", dict(ps_shards=2)),
+    ("ADAG", dict(row_sparse=True)),
+    ("DynSGD", dict(row_sparse=[0], ps_shards=3)),
 ]
 # ... the knobs of the host-PS engines still to come (item 6) ...
 HOST_PS_WAITS = [
-    ("ADAG", dict(ps_shards=2)),
     ("ADAG", dict(recovery=True)),
     ("DynSGD", dict(elastic=True)),
     ("ADAG", dict(stream=True)),
-    ("ADAG", dict(row_sparse=True)),
     ("ADAG", dict(partition_windows=2)),
 ]
 # ... and the values the JAX class refuses on host_ps too
@@ -416,6 +416,35 @@ def test_host_ps_refusals_match_jax(name, kw):
     with pytest.raises(ValueError):
         getattr(port, name)(port_model(weights), num_workers=2,
                             device="cpu", execution="host_ps", **kw)
+
+
+# the sharding, top-k and row-sparse checks (the knobs A6b lifted): the
+# port raises the JAX class's ValueError with the JAX class's message
+A6B_REFUSALS = [
+    ("ADAG", dict(ps_shards=0)),
+    ("AEASGD", dict(row_sparse=True)),
+    ("EAMSGD", dict(row_sparse=[0])),
+    ("ADAG", dict(row_sparse=True, wire_dtype="int8")),
+    ("DOWNPOUR", dict(row_sparse=True, wire_dtype="bfloat16")),
+    ("DynSGD", dict(row_sparse=True, wire_dtype="topk")),
+    ("ADAG", dict(wire_dtype="topk", wire_topk=0.0)),
+    ("ADAG", dict(wire_dtype="topk", wire_topk=1.5)),
+    ("ADAG", dict(wire_dtype="topk", wire_topk_dtype="fp8")),
+    ("ADAG", dict(wire_dtype="int8", wire_topk_dtype="int8")),
+    ("ADAG", dict(partition_windows=2, ps_shards=2)),
+]
+
+
+@pytest.mark.parametrize("name,kw", A6B_REFUSALS, ids=_ids(A6B_REFUSALS))
+def test_host_ps_sparse_refusals_carry_the_jax_messages(name, kw):
+    weights = numpy_weights()
+    with pytest.raises(ValueError) as jax_err:
+        getattr(jdk, name)(jax_model(weights), num_workers=2,
+                           execution="host_ps", **kw)
+    with pytest.raises(ValueError) as port_err:
+        getattr(port, name)(port_model(weights), num_workers=2,
+                            device="cpu", execution="host_ps", **kw)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_host_ps_workers_are_threads_on_one_device():

@@ -329,13 +329,14 @@ def test_host_ps_trains_transformer_lm():
 
 def test_wire_dtype_resolves_eagerly():
     """float16 (numpy-native) and bad names resolve/fail at construction;
-    bfloat16 resolves to the torch dtype the port's wire carries."""
+    bfloat16 resolves to the torch dtype the port's wire carries; "topk"
+    resolves to a density and no dense coding."""
     assert _worker("float16").wire_dtype == np.dtype(np.float16)
     assert _worker("bfloat16").wire_dtype == torch.bfloat16
     with pytest.raises((TypeError, AttributeError)):
         _worker("not_a_dtype")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        _worker("topk")
+    topk = _worker("topk")
+    assert topk._topk_density == 0.01 and topk.wire_dtype is None
 
 
 def test_workers_own_their_models():

@@ -2,8 +2,7 @@
 ``'u'`` (commit+pull) opcode, the per-connection receive-buffer pool,
 connect retry-with-backoff, and the ``comm_overlap`` double-buffered
 window loop — ONE transport round trip per communication window, counted
-by a test double on the opcode stream.  The JAX file's ``"topk"`` legs
-become checks that top-k raises (ROADMAP queue A item 6)."""
+by a test double on the opcode stream, sparse top-k commits included."""
 
 import socket
 import threading
@@ -64,19 +63,16 @@ def test_update_opcode_atomic_commit_plus_pull():
 
 @pytest.mark.parametrize("wire_dtype", ["bfloat16", "int8", "topk"])
 def test_update_opcode_wire_dtypes_roundtrip(wire_dtype):
-    """The compressed-commit paths (bf16 cast / int8 codes+scales) ride the
-    'u' opcode: the PS decodes at the transport boundary, applies, and the
-    reply center equals old center + the as-applied delta.  Sparse top-k
-    commits wait for ROADMAP queue A item 6."""
+    """The compressed-commit paths (bf16 cast / int8 codes+scales / a
+    density-1.0 sparse top-k commit) ride the 'u' opcode: the PS decodes at
+    the transport boundary, applies, and the reply center equals old
+    center + the as-applied delta."""
     ps = DeltaParameterServer(_tiny_blob())
     server = SocketParameterServer(ps)
     server.start()
     try:
-        if wire_dtype == "topk":
-            with pytest.raises(NotImplementedError, match="queue A item 6"):
-                _worker(server.port, wire_dtype="topk", wire_topk=1.0)
-            return
-        wk = _worker(server.port, wire_dtype=wire_dtype)
+        kw = ({"wire_topk": 1.0} if wire_dtype == "topk" else {})
+        wk = _worker(server.port, wire_dtype=wire_dtype, **kw)
         wk.connect()
         center0 = [np.array(w) for w in wk.pull()]
         delta = [np.full(w.shape, 0.25, np.float32) for w in center0]
@@ -363,13 +359,21 @@ def test_host_ps_training_learns_overlap_complement(cls, overlap, kw):
 
 
 def test_overlap_topk_wire_compression_refused():
-    """Sparse top-k commits (the JAX file's overlap + top-k leg) wait for
-    ROADMAP queue A item 6: the trainer refuses them on host_ps."""
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ADAG(make_model(), num_workers=2, batch_size=32, num_epoch=2,
+    """The JAX file's overlap + top-k leg (the name is the one the test had
+    while top-k was refused): device selection rides the same pipelined
+    'u' stream (exactly one round trip per window) and the error-feedback
+    rebase still learns."""
+    ds = make_dataset(n=1024)
+    t = ADAG(make_model(), num_workers=2, batch_size=32, num_epoch=2,
              communication_window=4, label_col="label_encoded",
              learning_rate=0.1, execution="host_ps", wire_dtype="topk",
              wire_topk=0.1, comm_overlap=True, device="cpu")
+    with _OpcodeRecorder() as rec:
+        fitted = t.train(ds)
+    windows = 16  # 1024 rows / 2 workers, window*batch=128, 2 epochs
+    assert rec.count(b"u") == windows and rec.count(b"c") == 0
+    assert rec.count(b"p") == 2
+    assert _accuracy(fitted, ds) > 0.6
 
 
 def test_overlap_int8_wire_compression_learns():

@@ -52,13 +52,13 @@ def imported_roots(path):
 
 
 #: the modules of the decode, packing, serving and host-PS slices
-#: (data/packing.py, resilience.py, networking.py, applykernel.py and
-#: ps_sharding.py are copies of numpy-only modules of the JAX package,
-#: kept in the port)
+#: (data/packing.py, resilience.py, networking.py, applykernel.py,
+#: ps_sharding.py and streaming.py are copies of numpy-only parts of the
+#: JAX package, kept in the port)
 NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "serving.py", "resilience.py", "networking.py",
                "parameter_servers.py", "workers.py", "applykernel.py",
-               "ps_sharding.py")
+               "ps_sharding.py", "streaming.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -80,7 +80,7 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.networking, "
             "distkeras_tpu_torch.parameter_servers, "
             "distkeras_tpu_torch.workers, distkeras_tpu_torch.applykernel, "
-            "distkeras_tpu_torch.ps_sharding; "
+            "distkeras_tpu_torch.ps_sharding, distkeras_tpu_torch.streaming; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

@@ -19,7 +19,12 @@ The contract pinned here:
    scale payloads, ``None`` layers and a ``uint32`` key — and each package
    decodes the other's frames to equal bits;
  - in a process where ``ml_dtypes`` cannot be imported the port still
-   encodes and decodes a bf16 ``KVBlocks``.
+   encodes and decodes a bf16 ``KVBlocks``;
+ - a top-k ``SparseDelta`` with f32, bf16 or int8 values encodes to the
+   same bytes in both packages and each decodes the other's frame to the
+   same f32 values (a bf16 one as a CPU ``torch.bfloat16`` tensor), and a
+   JAX worker's ``wire_topk_dtype="bfloat16"`` commits apply in a port
+   parameter server (both cores) exactly as in a JAX one.
 """
 
 import socket
@@ -34,7 +39,12 @@ import pytest
 import torch
 
 from distkeras_tpu import networking as jnet
+from distkeras_tpu import parameter_servers as jps
+from distkeras_tpu import workers as jworkers
+from distkeras_tpu.core import layers as jl
+from distkeras_tpu.core.model import Sequential as JaxSequential
 from distkeras_tpu_torch import networking
+from distkeras_tpu_torch import parameter_servers as pps
 
 torch.set_num_threads(1)
 
@@ -394,3 +404,95 @@ def test_bf16_kvblocks_without_ml_dtypes():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert bytes.fromhex(out.stdout) == want
+
+
+# ---------------------------------------------------------------------------
+# bf16 sparse values on the wire
+# ---------------------------------------------------------------------------
+
+def _sparse_pair(code, rng, n=200, k=17):
+    idx = np.sort(rng.choice(n, k, replace=False)).astype(np.int32)
+    vals = rng.standard_normal(k).astype(np.float32)
+    if code == "bfloat16":
+        return (jnet.SparseDelta(idx, vals.astype(ml_dtypes.bfloat16), n),
+                networking.SparseDelta(
+                    idx, torch.from_numpy(vals).to(torch.bfloat16), n))
+    if code == "int8":
+        scale = float(np.max(np.abs(vals)) / 127.0)
+        q = np.clip(np.rint(vals / scale), -127, 127).astype(np.int8)
+        return (jnet.SparseDelta(idx, q, n, scale),
+                networking.SparseDelta(idx, q.copy(), n, scale))
+    return (jnet.SparseDelta(idx, vals, n),
+            networking.SparseDelta(idx, vals, n))
+
+
+def _mlp_blob(d=16, hidden=32, classes=4, seed=0):
+    model = JaxSequential([jl.Dense(hidden, activation="relu"),
+                           jl.Dense(classes, activation="softmax")],
+                          input_shape=(d,), compute_dtype="float32")
+    rng = np.random.default_rng(seed)
+    shapes = [(hidden,), (d, hidden), (classes,), (hidden, classes)]
+    return {"model": model.to_json(),
+            "weights": [(0.3 * rng.standard_normal(s)).astype(np.float32)
+                        for s in shapes]}
+
+
+def _mlp_rows(n=64, d=16, classes=4, seed=1):
+    rng = np.random.default_rng(seed)
+    protos = rng.uniform(-1, 1, (classes, d))
+    labels = rng.integers(0, classes, n)
+    x = (protos[labels] + 0.3 * rng.standard_normal((n, d))).astype(
+        np.float32)
+    return {"features": x, "label": np.eye(classes, dtype=np.float32)[labels]}
+
+
+@pytest.mark.parametrize("code", [None, "bfloat16", "int8"])
+def test_sparse_frames_byte_identical_both_ways(code):
+    jsp, psp = _sparse_pair(code, np.random.default_rng(5))
+    msg = {"worker_id": 1, "clock": 4}
+    jframe = jnet.encode_message(dict(msg, delta=jsp))
+    pframe = networking.encode_message(dict(msg, delta=psp))
+    assert jframe == pframe
+    np.testing.assert_array_equal(psp.f32_values(), jsp.f32_values())
+    from_jax = networking.decode_message(jframe)["delta"]
+    from_port = jnet.decode_message(pframe)["delta"]
+    np.testing.assert_array_equal(from_jax.indices, jsp.indices)
+    np.testing.assert_array_equal(from_jax.f32_values(), jsp.f32_values())
+    np.testing.assert_array_equal(from_port.f32_values(), psp.f32_values())
+    assert networking.encode_message(dict(msg, delta=from_jax)) == jframe
+    if code == "bfloat16":
+        assert from_jax.values.dtype == torch.bfloat16
+        np.testing.assert_array_equal(from_jax.to_dense(), jsp.to_dense())
+        twin = from_jax.decoded()
+        assert twin.values.dtype == np.float32
+        np.testing.assert_array_equal(twin.values, jsp.f32_values())
+
+
+@pytest.mark.parametrize("core", ["event", "threaded"])
+def test_jax_bf16_topk_worker_commits_into_port_ps(core):
+    """A JAX DOWNPOUR worker with wire_topk_dtype="bfloat16" trains into a
+    port server; the same worker (its compiled state shared) trains into a
+    JAX server: the two centers and clocks are identical."""
+    blob, rows = _mlp_blob(), _mlp_rows()
+    kw = dict(wire_dtype="topk", wire_topk=0.05, wire_topk_dtype="bfloat16",
+              communication_window=2, batch_size=8, learning_rate=0.1,
+              comm_overlap=True)
+    servers = [mod.make_socket_server(mod.DeltaParameterServer(blob),
+                                      ps_core=core) for mod in (pps, jps)]
+    try:
+        for s in servers:
+            s.start()
+        workers = [jworkers.DOWNPOURWorker(
+            blob, "sgd", "categorical_crossentropy", "127.0.0.1", s.port,
+            **kw) for s in servers]
+        jworkers.share_compiled_state(workers)
+        for w in workers:
+            w.train(0, rows)
+    finally:
+        for s in servers:
+            s.stop()
+    port_ps, jax_ps = (s.ps for s in servers)
+    assert port_ps.num_updates == jax_ps.num_updates == 4  # 64 / (2 x 8)
+    for a, b in zip(port_ps.center, jax_ps.center):
+        np.testing.assert_array_equal(a, b)
+    assert workers[0].history == workers[1].history

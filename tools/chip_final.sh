@@ -9,11 +9,12 @@
 #   git archive PARENT_COMMIT | tar -x -C build/parent
 #
 # It runs chip_smoke.py from build/archive (the committed files alone;
-# phases spec, qos, disagg, fleet and host_ps among its phases), profiles the
-# slices named by its second argument from there (default: the decode steps, the dense
-# and paged serving engines' decode iterations and the speculative
-# engine's rounds), runs the phases named by its first argument (default:
-# host_ps, the in-process host parameter server; a
+# phases spec, qos, disagg, fleet, host_ps and ps_sparse among its
+# phases), profiles the slices named by its second argument from there
+# (default: the decode steps, the dense and paged serving engines' decode
+# iterations and the speculative engine's rounds), runs the phases named
+# by its first argument (default: host_ps,ps_sparse, the in-process host
+# parameter server and its sharded, top-k and row-sparse commits; a
 # comma-separated list runs each in turn, a side whose chip_smoke.py
 # lacks a phase logs it as absent) in the order parent, change, change,
 # parent when build/parent exists, and last runs the script chip_smoke.py
@@ -22,7 +23,7 @@
 #
 #   bash tools/chip_final.sh [PHASES [SLICES]]
 set -u
-phase="${1:-host_ps}"
+phase="${1:-host_ps,ps_sparse}"
 slices="${2:-decode,serve,paged,spec}"
 out="$(pwd)/chiprun_out"
 mkdir -p "$out"
