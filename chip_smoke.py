@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-four phases, each printing JSON lines, and fails with a non-zero
+twenty-five phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -144,7 +144,7 @@ exit if any phase fails:
     agreement; no kernel launched on any of it.
 17. serve: the ``ServingEngine`` (``serving.py``) over the LM at full
     width in bf16, both forms, 8 slots, chunks of 128: a seeded trace of
-    32 requests (prompts of 16, 64, 256 and 1024 tokens, 128 new tokens
+    16 requests (prompts of 16, 64, 256 and 1024 tokens, 128 new tokens
     each, half greedy, half sampled at temperature 0.7 with seeds of
     their own, some with top-k 40 or top-p 0.9) through the engine with
     its decode step as a CUDA graph and through the same engine with the
@@ -257,12 +257,29 @@ exit if any phase fails:
     forward, dq and dk/dv once per layer and step and nothing else; the
     (20000, 32) embedding model of ``bench.py:365-397``, its row-sparse
     commits <= 5% of its dense ones.
+25. resilience: survivable parameter servers, elastic workers and fault
+    tolerance (``recovery``, ``elastic``, ``fault_tolerance``,
+    ``fault_injection``): phase host_ps's ConvNet for 2 epochs under ADAG,
+    one worker with ``recovery=True`` at one shard equal to the bit to
+    the run without it; 2 overlapped threads at 3 shards under recovery,
+    as is and with shard 1 crash-killed at clock 5 (one respawn at
+    generation 1, every worker resumed, at most 4 updates dropped,
+    accuracy >= 0.9; examples/s and respawn_ms); 4 workers static and
+    elastic (examples/s side by side), elastic with an ``'exit'`` and a
+    ``'raise'`` death (2 respawns, every lease once, accuracy >= 0.9) and
+    with a ``'hang'`` (a lease stolen, the wedged thread released);
+    ``fault_tolerance`` with one death (``failed_workers == [1]``); the LM
+    at full width under DOWNPOUR, 2 elastic workers over 2 recovering
+    shards, one death: one respawn, the loss falls, the sm90 forward, dq
+    and dk/dv each launched once per layer, step and window that ran and
+    nothing else; no run logs the wait's "short of" warning.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
-QoS, disaggregated serving, fleet, host-PS and sparse host-PS paths), the
+QoS, disaggregated serving, fleet, host-PS, sparse host-PS and survivable
+host-PS paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -551,7 +568,8 @@ DECODE_CONFIGS = {
                        False),
     "rolling_window_int8": (dict(attention_window=256, positional="rope"),
                             True, True)}
-DECODE_BATCH, DECODE_STEPS, DECODE_REPS = 8, 256, 3
+# (one timed run keeps the whole script under half its time limit)
+DECODE_BATCH, DECODE_STEPS, DECODE_REPS = 8, 256, 1
 # the decode checks, at f32 on 2 rows: the cached steps' logits against
 # the plain full forward's over a 1024-token prompt and DECODE_FORCED
 # teacher-forced steps (both compute the same function in other orders of
@@ -583,7 +601,9 @@ SERVE_FORMS = {"full": (dict(), False),
                "rolling_window": (dict(attention_window=256,
                                        positional="rope"), True)}
 SERVE_SLOTS, SERVE_CHUNK = 8, 128
-SERVE_REQUESTS, SERVE_STEPS = 32, 128
+# (16 requests keep the whole script under half its time limit; their
+# prompts take all four lengths)
+SERVE_REQUESTS, SERVE_STEPS = 16, 128
 SERVE_PROMPT_LENS = (16, 64, 256, 1024)
 SERVE_TEMP, SERVE_TOPK, SERVE_TOPP = 0.7, 40, 0.9
 SERVE_CHECK_LAYERS = 2
@@ -748,6 +768,45 @@ PS_SPARSE_TOPK, PS_SPARSE_TOPK_SHARDS = 0.01, 3
 PS_SPARSE_ACC_MIN, PS_SPARSE_ACC_BAND = 0.9, 0.05
 PS_SPARSE_EMB, PS_SPARSE_EMB_ROWS = (20000, 32), 4096
 PS_SPARSE_EMB_WINDOW, PS_SPARSE_EMB_BATCH = 2, 64
+# survivable parameter servers, elastic workers and fault tolerance
+# (ROADMAP queue A item 6, its third part), over phase host_ps's ConvNet
+# (bench.py:1109-1121: mnist_convnet bf16, adam, batch ADAG_BATCH, window
+# ADAG_WINDOW, ADAG_ROWS rows) for RESILIENCE_EPOCHS epochs (one epoch is
+# only ~10 windows, too few for a fault budget), mirroring bench.py:516,
+# :561 and :587.  (a) survivable PS: ADAG, one worker, serial, on
+# HOST_PS_ALGO_WINDOWS windows, recovery=True at ps_shards 1 against
+# recovery=False (cuDNN deterministic): equal weights and histories (the
+# one-shard plan is the identity); then HOST_PS_WORKERS threads with
+# overlap at RESILIENCE_SHARDS shards under recovery, once as is and once
+# with shard RESILIENCE_KILL_SHARD crash-killed when its clock reaches
+# RESILIENCE_KILL_CLOCK: one respawn at generation 1, every worker
+# resumed, at most RESILIENCE_DROPPED_MAX updates dropped, held-out
+# accuracy >= RESILIENCE_ACC_MIN, examples/s and respawn_ms printed; (b)
+# elastic workers: ADAG with RESILIENCE_ELASTIC_WORKERS workers, static
+# and elastic=True without a fault (examples/s side by side), then with
+# RESILIENCE_ELASTIC_FAULTS (two respawns, every lease once, the rows
+# summing to ADAG_ROWS, accuracy >= RESILIENCE_ACC_MIN), then with
+# RESILIENCE_HANG_FAULTS at lease_timeout RESILIENCE_LEASE_TIMEOUT (a
+# lease stolen, the epochs complete, the wedged thread released at
+# shutdown; healthy workers declared wedged as well are printed); (c) fault_tolerance without leases: ADAG, 4 threads,
+# RESILIENCE_FT_FAULTS: failed_workers == [1], accuracy >=
+# RESILIENCE_ACC_MIN; (d) the LM (transformer_lm(**LM), bf16) on phase
+# host_ps's HOST_PS_LM_ROWS rows, window HOST_PS_LM_WINDOW, batch BATCH,
+# adam 3e-3, under DOWNPOUR with 2 workers, elastic, ps_shards 2,
+# recovery, RESILIENCE_LM_FAULTS: one respawn, every lease once, the loss
+# falls, and the sm90 forward, dq and dk/dv each launched layers x steps x
+# the windows that ran (compile_windows' windows: the one that seeds the
+# ledger and each worker's warm-up in its own thread; every history entry;
+# the window whose commit the fault aborted), every other kernel never.
+# No run may log the wait's "short of" warning.
+RESILIENCE_EPOCHS, RESILIENCE_SHARDS = 2, 3
+RESILIENCE_KILL_SHARD, RESILIENCE_KILL_CLOCK = 1, 5
+RESILIENCE_DROPPED_MAX, RESILIENCE_ACC_MIN = 4, 0.9
+RESILIENCE_ELASTIC_WORKERS = 4
+RESILIENCE_ELASTIC_FAULTS = {1: ("exit", 1), 2: ("raise", 2)}
+RESILIENCE_HANG_FAULTS, RESILIENCE_LEASE_TIMEOUT = {3: ("hang", 1)}, 1.0
+RESILIENCE_FT_FAULTS = {1: 2}
+RESILIENCE_LM_FAULTS = {1: ("raise", 2)}
 
 
 def emit(obj) -> None:
@@ -5638,7 +5697,7 @@ def _host_ps_rows():
 
 
 def _host_ps_run(trainer_cls, model, x, y, dev: str, workers: int,
-                 **kw) -> dict:
+                 epochs: int = 1, **kw) -> dict:
     """One host-PS training run on the card: examples/s on the host clock
     (the whole train() call: the server, the workers' models, the
     epochs), round trips a window, the window losses, the PS clock."""
@@ -5646,7 +5705,7 @@ def _host_ps_run(trainer_cls, model, x, y, dev: str, workers: int,
     from distkeras_tpu_torch import Dataset
     kw.setdefault("batch_size", ADAG_BATCH)
     kw.setdefault("communication_window", ADAG_WINDOW)
-    t = trainer_cls(model, num_workers=workers, num_epoch=1,
+    t = trainer_cls(model, num_workers=workers, num_epoch=epochs,
                     execution="host_ps", device=dev, seed=SEED, **kw)
     t0 = time.perf_counter()
     fitted = t.train(Dataset({"features": x, "label": y}))
@@ -5661,7 +5720,7 @@ def _host_ps_run(trainer_cls, model, x, y, dev: str, workers: int,
     else:
         center, clock = server.ps.center, server.ps.num_updates
     return {"trainer": t, "fitted": fitted, "seconds": seconds,
-            "examples_per_sec": len(x) / seconds,
+            "examples_per_sec": len(x) * epochs / seconds,
             "comm_overlap": t.comm_overlap,
             # bench.py:140-170: messages a window beyond each worker's
             # initial pull (per shard: every op goes to each shard)
@@ -6145,6 +6204,352 @@ def phase_ps_sparse(card: str, dev: str = "cuda"):
             "embedding": embedding}, launches
 
 
+def _dataset(x, y):
+    """Rows as the trainers' Dataset."""
+    from distkeras_tpu_torch import Dataset
+    return Dataset({"features": x, "label": y})
+
+
+def _short_of_watch():
+    """A handler on the PS module's logger that keeps every "short of"
+    warning of the wait for commits that can still land; returns (the
+    list it fills, a function that detaches it)."""
+    import logging
+    log = logging.getLogger("distkeras_tpu_torch.parameter_servers")
+    seen: list = []
+
+    class Watch(logging.Handler):
+        def emit(self, record):
+            if "short of" in record.getMessage():
+                seen.append(record.getMessage())
+
+    handler = Watch(logging.WARNING)
+    log.addHandler(handler)
+    return seen, lambda: log.removeHandler(handler)
+
+
+def _held_out(fitted, xt, lt) -> float:
+    import numpy as np
+    return float(np.mean(np.argmax(fitted.predict(xt), axis=1) == lt))
+
+
+def _kill_when(t, shard: int, clock: int):
+    """A thread that crash-kills ``shard`` of ``t``'s supervised group
+    once its clock reaches ``clock``; returns (the thread, a stop event,
+    the dict it records the kill in)."""
+    import threading
+    stop, killed = threading.Event(), {}
+
+    def watch():
+        while getattr(t, "_ps_supervisor", None) is None \
+                and not stop.is_set():
+            time.sleep(0.001)
+        sup = t._ps_supervisor
+        while not stop.is_set():
+            n = sup.group.servers[shard].ps.num_updates
+            if n >= clock:
+                sup.kill_shard(shard)
+                killed.update(clock=n, at=time.perf_counter())
+                return
+            time.sleep(0.001)
+
+    th = threading.Thread(target=watch, name="chip-smoke-killer")
+    th.start()
+    return th, stop, killed
+
+
+def _resilience_ps(card: str, dev: str, rows) -> dict:
+    """Leg (a) of phase resilience: recovery's one-shard identity, then a
+    shard crash-killed mid-run under two overlapped workers."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import ADAG, models
+    x, y, xt, lt = rows
+    convnet = lambda: models.mnist_convnet("bfloat16", device=dev)
+    n = HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    one = dict(worker_optimizer="adam", comm_overlap=False,
+               epochs=RESILIENCE_EPOCHS)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        serial = {rec: _host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, 1,
+                                    recovery=rec, **one)
+                  for rec in (False, True)}
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    same = (all(np.array_equal(a, b) for a, b in zip(
+        serial[False]["fitted"].get_weights(),
+        serial[True]["fitted"].get_weights()))
+        and serial[False]["trainer"].get_history()
+        == serial[True]["trainer"].get_history())
+    emit({"phase": "resilience_identity", "equal": same,
+          "windows": len(serial[True]["trainer"].get_history()),
+          "recoveries": serial[True]["trainer"]._ps_supervisor.recoveries,
+          "card": card})
+    check(same, "resilience: recovery=True at one shard differs from "
+          "recovery=False")
+    check(not serial[True]["trainer"]._ps_supervisor.recoveries,
+          "resilience: a respawn without a kill")
+    out = {}
+    for kill in (False, True):
+        t = ADAG(convnet(), num_workers=HOST_PS_WORKERS,
+                 num_epoch=RESILIENCE_EPOCHS, batch_size=ADAG_BATCH,
+                 communication_window=ADAG_WINDOW, worker_optimizer="adam",
+                 execution="host_ps", ps_shards=RESILIENCE_SHARDS,
+                 recovery=True, seed=SEED, device=dev)
+        if kill:
+            th, stop, killed = _kill_when(t, RESILIENCE_KILL_SHARD,
+                                          RESILIENCE_KILL_CLOCK)
+        t0 = time.perf_counter()
+        try:
+            fitted = t.train(_dataset(x, y))
+            _sync(dev)
+        finally:
+            if kill:
+                stop.set()
+                th.join()
+        seconds = time.perf_counter() - t0
+        sup = t._ps_supervisor
+        row = {"killed": kill, "seconds": seconds,
+               "examples_per_sec": len(x) * RESILIENCE_EPOCHS / seconds,
+               "recoveries": list(sup.recoveries),
+               "generations": [s.generation for s in t._ps_server.servers],
+               "clocks": [s.ps.num_updates for s in t._ps_server.servers],
+               "commits": sum(w._commits for w in t._ps_workers),
+               "resumes": [w._shard_client.resumes for w in t._ps_workers],
+               "accuracy_held_out": _held_out(fitted, xt, lt)}
+        if kill:
+            row["killed_at_clock"] = killed.get("clock")
+        emit({"phase": "resilience_ps", **row, "card": card})
+        out["kill" if kill else "no_kill"] = row
+        check(row["accuracy_held_out"] >= RESILIENCE_ACC_MIN,
+              f"resilience ps (kill {kill}): accuracy "
+              f"{row['accuracy_held_out']}")
+        if not kill:
+            check(not row["recoveries"] and row["generations"]
+                  == [0] * RESILIENCE_SHARDS,
+                  f"resilience ps: respawns without a kill {row}")
+            continue
+        recs = row["recoveries"]
+        check(len(recs) == 1 and recs[0]["shard"] == RESILIENCE_KILL_SHARD
+              and row["generations"][RESILIENCE_KILL_SHARD] == 1,
+              f"resilience ps: want one respawn of shard "
+              f"{RESILIENCE_KILL_SHARD} at generation 1, got {recs}, "
+              f"generations {row['generations']}")
+        check(all(r >= 1 for r in row["resumes"]),
+              f"resilience ps: a worker never resumed {row['resumes']}")
+        check(recs[0]["dropped_updates"] <= RESILIENCE_DROPPED_MAX,
+              f"resilience ps: {recs[0]['dropped_updates']} updates "
+              f"dropped, want <= {RESILIENCE_DROPPED_MAX}")
+    emit({"phase": "resilience_ps_cost",
+          "respawn_ms": out["kill"]["recoveries"][0]["respawn_ms"],
+          "examples_per_sec": {k: v["examples_per_sec"]
+                               for k, v in out.items()}, "card": card})
+    return out
+
+
+def _resilience_run(dev: str, x, y, workers: int, **kw) -> dict:
+    """One ADAG run of the ConvNet with ``workers`` workers (static or
+    elastic, by ``kw``) for RESILIENCE_EPOCHS epochs: the trainer, the
+    fitted model and examples/s on the host clock."""
+    from distkeras_tpu_torch import ADAG, models
+    t = ADAG(models.mnist_convnet("bfloat16", device=dev),
+             num_workers=workers, num_epoch=RESILIENCE_EPOCHS,
+             batch_size=ADAG_BATCH, communication_window=ADAG_WINDOW,
+             worker_optimizer="adam", execution="host_ps", seed=SEED,
+             device=dev, **kw)
+    t0 = time.perf_counter()
+    fitted = t.train(_dataset(x, y))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    return {"trainer": t, "fitted": fitted, "seconds": seconds,
+            "examples_per_sec": len(x) * RESILIENCE_EPOCHS / seconds}
+
+
+def _lease_contract(t, rows: int) -> bool:
+    """Every epoch's leases completed exactly once, their rows summing to
+    the dataset."""
+    reps = t.elastic_stats["lease_completions"]
+    return (len(reps) == t.num_epoch
+            and all(r["completed"] == r["leases"]
+                    and r["rows_completed"] == rows for r in reps.values()))
+
+
+def _resilience_elastic(card: str, dev: str, rows) -> dict:
+    """Leg (b) of phase resilience: static against elastic without a
+    fault, then deaths, then a wedge."""
+    x, y, xt, lt = rows
+    n = RESILIENCE_ELASTIC_WORKERS
+    static = _resilience_run(dev, x, y, n)
+    out = {"static": static["examples_per_sec"]}
+    for name, kw in (("clean", {}),
+                     ("deaths", dict(fault_injection=
+                                     RESILIENCE_ELASTIC_FAULTS)),
+                     ("hang", dict(fault_injection=RESILIENCE_HANG_FAULTS,
+                                   lease_timeout=RESILIENCE_LEASE_TIMEOUT))):
+        r = _resilience_run(dev, x, y, n, elastic=True, **kw)
+        t = r["trainer"]
+        st = t.elastic_stats
+        sup = t._worker_supervisor
+        row = {"run": name, "seconds": r["seconds"],
+               "examples_per_sec": r["examples_per_sec"],
+               "respawns": st["respawns"],
+               "respawn_records": st["respawn_records"],
+               "leases_reassigned": st["leases_reassigned"],
+               "windows_per_worker": st["windows_per_worker"],
+               "lease_completions": {e: {k: v for k, v in rep.items()
+                                         if k != "by_worker"}
+                                     for e, rep in
+                                     st["lease_completions"].items()},
+               "failed_workers": t.failed_workers,
+               "accuracy_held_out": _held_out(r["fitted"], xt, lt)}
+        emit({"phase": "resilience_elastic", **row, "card": card})
+        out[name] = row
+        check(_lease_contract(t, len(x)),
+              f"resilience elastic {name}: leases {row['lease_completions']}")
+        check(row["accuracy_held_out"] >= RESILIENCE_ACC_MIN,
+              f"resilience elastic {name}: accuracy "
+              f"{row['accuracy_held_out']}")
+        if name == "clean":
+            check(row["respawns"] == 0 and not row["failed_workers"],
+                  f"resilience elastic clean: {row}")
+        elif name == "deaths":
+            check(row["respawns"] == 2 and row["failed_workers"]
+                  == sorted(RESILIENCE_ELASTIC_FAULTS),
+                  f"resilience elastic deaths: respawns {row['respawns']}, "
+                  f"failed {row['failed_workers']}")
+        else:
+            (hung,) = RESILIENCE_HANG_FAULTS
+            th = sup._threads.get(hung)
+            if th is not None:
+                th.join(timeout=10.0)
+            released = (sup.workers[hung]._hang_released.is_set()
+                        and (th is None or not th.is_alive()))
+            row["hung_thread_released"] = released
+            # healthy workers declared wedged too: their deadline (the
+            # 1.0 s floor binds) passed while another thread stalled the
+            # card or the interpreter (printed, not failed)
+            row["false_wedges"] = len(set(row["failed_workers"]) - {hung})
+            emit({"phase": "resilience_elastic_wedges",
+                  "false_wedges": row["false_wedges"], "card": card})
+            check(row["leases_reassigned"] >= 1 and released
+                  and hung in row["failed_workers"],
+                  f"resilience elastic hang: reassigned "
+                  f"{row['leases_reassigned']}, released {released}, "
+                  f"respawns {row['respawns']}, failed "
+                  f"{row['failed_workers']}")
+    emit({"phase": "resilience_elastic_cost",
+          "examples_per_sec": {"static": out["static"],
+                               "elastic": out["clean"]["examples_per_sec"]},
+          "elastic_over_static": (out["clean"]["examples_per_sec"]
+                                  / out["static"]), "card": card})
+    return out
+
+
+def _resilience_ft(card: str, dev: str, rows) -> dict:
+    """Leg (c) of phase resilience: fault_tolerance without leases."""
+    x, y, xt, lt = rows
+    r = _resilience_run(dev, x, y, RESILIENCE_ELASTIC_WORKERS,
+                     fault_tolerance=True,
+                     fault_injection=RESILIENCE_FT_FAULTS)
+    t = r["trainer"]
+    row = {"seconds": r["seconds"], "examples_per_sec": r["examples_per_sec"],
+           "failed_workers": t.failed_workers,
+           "commits": [w._commits for w in t._ps_workers],
+           "accuracy_held_out": _held_out(r["fitted"], xt, lt)}
+    emit({"phase": "resilience_fault_tolerance", **row, "card": card})
+    check(row["failed_workers"] == sorted(RESILIENCE_FT_FAULTS)
+          and row["accuracy_held_out"] >= RESILIENCE_ACC_MIN,
+          f"resilience fault_tolerance: {row}")
+    return row
+
+
+def _resilience_lm(card: str, dev: str) -> dict:
+    """Leg (d) of phase resilience: the LM, elastic over recovering
+    shards, one worker death; the flash kernels' launches counted from 0.
+    Returns the leg's launches."""
+    from distkeras_tpu_torch import DOWNPOUR, transformer_lm
+    x, y = _host_ps_lm_rows()
+    t = DOWNPOUR(transformer_lm(**LM, device=dev), num_workers=2,
+                 batch_size=BATCH, num_epoch=1,
+                 communication_window=HOST_PS_LM_WINDOW,
+                 loss="sparse_categorical_crossentropy_from_logits",
+                 worker_optimizer="adam", learning_rate=3e-3, seed=SEED,
+                 execution="host_ps", elastic=True, ps_shards=2,
+                 recovery=True, fault_injection=RESILIENCE_LM_FAULTS,
+                 device=dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    t.train(_dataset(x, y))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    ws = t._ps_workers
+    # compile_windows' windows (the one that seeds the ledger, and each
+    # worker's warm-up in its own thread), every window with a history
+    # entry, and the window whose commit the injected fault aborted
+    windows = (1 + len(ws) + sum(len(w.history) for w in ws)
+               + len(RESILIENCE_LM_FAULTS))
+    want = LM["num_layers"] * HOST_PS_LM_WINDOW * windows
+    sm90 = {k: launches[f"flash_{k}_sm90"] for k in ("fwd_lse", "dq", "dkv")}
+    trained = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+               for v in ("", "_sm90")}
+    others = {k: n for k, n in launches.items() if n and k not in trained}
+    longest = max(ws, key=lambda w: len(w.history))
+    row = {"phase": "resilience_lm", "seconds": seconds,
+           "tokens_per_sec": HOST_PS_LM_ROWS * LM["seq_len"] / seconds,
+           "respawns": t.elastic_stats["respawns"],
+           "failed_workers": t.failed_workers,
+           "windows_per_worker": t.elastic_stats["windows_per_worker"],
+           "windows_ran": windows,
+           "first_last_loss": [longest.history[0], longest.history[-1]],
+           "launches_sm90": sm90, "launches_other": others,
+           "want_each": want, "card": card}
+    emit(row)
+    check(row["respawns"] == 1 and _lease_contract(t, len(x)),
+          f"resilience lm: respawns {row['respawns']}, leases "
+          f"{t.elastic_stats['lease_completions']}")
+    check(longest.history[-1] < longest.history[0],
+          f"resilience lm: the loss did not fall {longest.history}")
+    if dev == "cuda":
+        check(all(n == want for n in sm90.values()) and not others,
+              f"resilience lm: sm90 launches {sm90}, others {others}, "
+              f"want {want} each (layers x steps x windows) and nothing "
+              "else")
+    return launches
+
+
+def phase_resilience(card: str, dev: str = "cuda"):
+    """Survivable parameter servers, elastic workers and fault tolerance on
+    the card (legs (a)-(d) of the RESILIENCE_* comment): the ConvNet legs
+    launch no attention or CE kernel; the LM leg launches the sm90
+    training kernels once per layer, step and window that ran; no run
+    logs the wait's "short of" warning.  Returns (the leg lines, the
+    phase's launches)."""
+    t_start = time.perf_counter()
+    shorts, detach = _short_of_watch()
+    try:
+        _zero_counts()
+        rows = _host_ps_rows()
+        ps = _resilience_ps(card, dev, rows)
+        elastic = _resilience_elastic(card, dev, rows)
+        ft = _resilience_ft(card, dev, rows)
+        quiet = _read_counts()
+        check(not any(quiet.values()),
+              f"resilience convnet: kernel launches {quiet}, want none")
+        launches = _add_counts(quiet, _resilience_lm(card, dev))
+    finally:
+        detach()
+    emit({"phase": "resilience_launches", "launches": launches})
+    check(not shorts, f"resilience: the wait fell short: {shorts}")
+    emit({"phase": "resilience_wall",
+          "seconds": time.perf_counter() - t_start, "card": card})
+    return {"ps": ps, "elastic": elastic, "fault_tolerance": ft}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6181,6 +6586,7 @@ def main() -> int:
     _, fleet_launches = phase_fleet(smi)
     _, host_ps_launches = phase_host_ps(smi)
     _, ps_sparse_launches = phase_ps_sparse(smi)
+    _, resilience_launches = phase_resilience(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -6341,9 +6747,12 @@ def main() -> int:
         serving, speculative serving, QoS serving, disaggregated serving
         and fleet paths (each counted from 0 over its phase's runs; all
         must be 0), on the host-PS path (phase host_ps's LM leg: the
-        sm90 training kernels, once per layer, step and worker) and on the
+        sm90 training kernels, once per layer, step and worker), on the
         sparse host-PS path (phase ps_sparse's three LM runs: the sm90
-        training kernels once per layer and step of each)."""
+        training kernels once per layer and step of each) and on the
+        survivable host-PS path (phase resilience's elastic LM run: the
+        sm90 training kernels once per layer, step and window that
+        ran)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -6360,6 +6769,7 @@ def main() -> int:
         entry["launches_fleet"] = fleet_launches[key]
         entry["launches_host_ps"] = host_ps_launches[key]
         entry["launches_ps_sparse"] = ps_sparse_launches[key]
+        entry["launches_resilience"] = resilience_launches[key]
         return entry
 
     emit(north_star)

@@ -19,12 +19,18 @@ Differences from the JAX module:
  - ``apply_kernel`` resolves through the port's ``applykernel``, whose
    native build waits for ROADMAP queue A item 8 (numpy is the reference
    and bit-identical either way);
- - ``run_host_ps_training`` keeps the non-elastic engine: the round-robin
-   deal, the epoch waves and the npz checkpoint, over one server or a
-   ``ps_sharding.ShardedServerGroup`` (``ps_shards > 1``), with
-   ``row_sparse`` resolved by ``streaming.resolve_row_sparse_tables``.
-   Recovery, the elastic and streaming engines and the process engine
-   wait for ROADMAP queue A item 6, and the trainers refuse their knobs.
+ - ``run_host_ps_training`` runs the static engine (the round-robin
+   deal, the epoch waves and the npz checkpoint) and the elastic one
+   (``_run_elastic_host_ps``: leases, a ``WorkerSupervisor``), over one
+   server or a ``ps_sharding.ShardedServerGroup`` (``ps_shards > 1``, or
+   any count under ``recovery``, with a ``resilience.ShardSupervisor``),
+   with ``fault_tolerance``'s degraded completion and ``row_sparse``
+   resolved by ``streaming.resolve_row_sparse_tables``.  Before it reads
+   the center it waits until every server has applied the commits that
+   can still land (``_await_applied``): each shard's clock at the start
+   of its generation plus the commits the workers sent it at that
+   generation.  The streaming and process engines wait for ROADMAP queue
+   A item 6, and the trainers refuse their knobs.
 
 The JAX module's description follows.
 
@@ -61,8 +67,10 @@ from __future__ import annotations
 import logging
 import selectors
 import socket
+import sys
 import threading
 import time
+import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -72,7 +80,9 @@ from . import applykernel, networking
 from .core.model import FittedModel, deserialize_model, serialize_model
 from .device import DeviceLike
 from .ps_sharding import PSShardDown, ShardedServerGroup
-from .workers import WORKER_CLASSES, share_compiled_state
+from .resilience import LeaseLedger, ShardSupervisor, WorkerSupervisor
+from .workers import (WORKER_CLASSES, parse_fault_injection,
+                      share_compiled_state)
 
 logger = logging.getLogger("distkeras_tpu_torch.parameter_servers")
 
@@ -1440,6 +1450,14 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     ``Checkpointer``.  Within an epoch commits stay truly asynchronous;
     bit-exact resume holds only where the interleaving is fixed (one
     worker) — the deterministic path is ``execution='spmd'``.
+
+    ``recovery=True`` puts the center behind a ``ShardedServerGroup`` for
+    any shard count (the one-shard plan is the identity partition) with a
+    ``resilience.ShardSupervisor`` (``trainer._ps_supervisor``) that
+    journals and respawns shards; the workers reconnect-resume.
+    ``fault_tolerance=True`` finishes on the surviving workers
+    (``trainer.failed_workers``, ``worker_failures``); ``elastic=True``
+    replaces the static deal with leases (``_run_elastic_host_ps``).
     """
     algorithm = trainer.ALGORITHM
     if algorithm not in WORKER_CLASSES:
@@ -1453,18 +1471,30 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
             "path checkpoints at epoch waves")
     if resume and trainer.checkpoint_dir is None:
         raise ValueError("train(resume=True) needs checkpoint_dir")
-    # the recovering, elastic and streaming engines (the trainers refuse
-    # their knobs until then)
-    for knob, is_set in (
-            ("recovery=True", bool(getattr(trainer, "recovery", False))),
-            ("elastic=True", bool(getattr(trainer, "elastic", False))),
-            ("stream=True", bool(getattr(trainer, "stream", False)))):
-        if is_set:
-            raise NotImplementedError(
-                f"{knob} on execution='host_ps' is not ported yet (ROADMAP "
-                "queue A item 6)")
+    if getattr(trainer, "stream", False):
+        # the streaming engine (the trainers refuse the knob until then)
+        raise NotImplementedError(
+            "stream=True on execution='host_ps' is not ported yet (ROADMAP "
+            "queue A item 6)")
+    elastic = bool(getattr(trainer, "elastic", False))
+    fault_kinds = parse_fault_injection(getattr(trainer, "fault_injection",
+                                                None))
+    if elastic and (resume or trainer.checkpoint_dir is not None):
+        raise ValueError(
+            "elastic=True owns its own lease-based epoch loop and does not "
+            "compose with checkpoint/resume yet — use elastic=False for "
+            "checkpointed host_ps runs")
+    if not elastic and any(k == "hang" for k, _ in fault_kinds.values()):
+        raise ValueError(
+            "fault_injection kind 'hang' wedges a worker until teardown; "
+            "without elastic=True nothing ever revokes its work and the "
+            "epoch join would deadlock — use elastic=True (or kinds "
+            "'raise'/'exit')")
 
     trainer.record_training_start()
+    trainer.failed_workers = []
+    trainer.worker_failures = {}
+    trainer.elastic_stats = {}
     x = np.asarray(dataset[trainer.features_col])
     y = np.asarray(dataset[trainer.label_col])
     if shuffle:
@@ -1487,10 +1517,15 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     ys = [y[i::n] for i in range(n)]
     bind_host, advertise_host = resolve_ps_hosts(trainer)
     ps_shards = int(getattr(trainer, "ps_shards", 1) or 1)
+    recovery = bool(getattr(trainer, "recovery", False))
     ps_core = getattr(trainer, "ps_core", "event") or "event"
     coalesce = bool(getattr(trainer, "coalesce", True))
     apply_kernel = getattr(trainer, "apply_kernel", None)
-    sharded = ps_shards > 1
+    # recovery routes through the ShardedServerGroup for ANY shard count
+    # (the one-shard plan is the identity partition, bit-identical), so
+    # there is one supervised lifecycle: servers held in a list the
+    # supervisor can respawn into
+    sharded = ps_shards > 1 or recovery
     if sharded:
         # PS sharding (ps_sharding.py): the center partitioned over N shard
         # servers, each wrapping the UNCHANGED apply rule on its slice with
@@ -1506,10 +1541,17 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
                                        apply_kernel=apply_kernel)
         server = make_socket_server(ps, host=bind_host, ps_core=ps_core,
                                     coalesce=coalesce)
-    ckpt = None
+    supervisor = ckpt = None
     try:
         server.start()
         trainer._ps_server = server  # observability: the clock (smoke run)
+        if recovery:
+            # periodic per-shard snapshots + heartbeat-driven respawn from
+            # the last snapshot on the same address; windows committed
+            # after a shard's last snapshot are dropped (bounded loss)
+            supervisor = ShardSupervisor(server, algorithm, n)
+            supervisor.start()
+        trainer._ps_supervisor = supervisor  # observability (tests, smoke)
         kw = _worker_kwargs(trainer, n, len(x))
         kw.update(worker_optimizer=trainer.worker_optimizer,
                   ps_host=advertise_host,
@@ -1525,126 +1567,37 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
         if sharded:
             # workers scatter-commit / gather-pull through a
             # ShardedPSClient; _shard_addr_hook lets a test interpose a
-            # proxy per shard
+            # proxy per shard (the supervisor heartbeats the shards
+            # directly)
             addrs = [(advertise_host, int(p)) for _, p in server.addrs]
             hook = getattr(trainer, "_shard_addr_hook", None)
             if hook is not None:
                 addrs = [(str(h), int(p)) for h, p in hook(list(addrs))]
             kw.update(shard_plan=server.plan, shard_addrs=addrs)
-        workers = [WORKER_CLASSES[algorithm](blob, **kw) for _ in range(n)]
-        share_compiled_state(workers)
-        trainer._ps_workers = workers  # observability: transport counters
-        start_epoch = 0
-        states: List[Any] = [None] * n
-
-        def full_state():
-            """The complete async-training state: the center, the clock and
-            every worker's (params, optimizer state).  Sharded runs store
-            the GATHERED center and the per-shard clock vector, so the
-            layout is shard-count-explicit (resume checks it against this
-            run's ps_shards through the meta)."""
-            if sharded:
-                center, clocks = server.snapshot()
-                clock = np.asarray(clocks, np.int64)
-            else:
-                with ps._lock:
-                    center = [w.copy() for w in ps.center]
-                    clock = np.int64(ps.num_updates)
-            return {"center": center, "clock": clock,
-                    "workers": [tuple(s) for s in states]}
-
-        if trainer.checkpoint_dir is not None:
-            from .checkpoint import foreign_checkpoints, make_checkpointer
-            backend = trainer.checkpoint_backend
-            ckpt = make_checkpointer(trainer.checkpoint_dir, backend)
-            latest = ckpt.latest_step()
-            if resume and latest is None:
-                foreign = foreign_checkpoints(trainer.checkpoint_dir, backend)
-                if foreign:
-                    raise ValueError(
-                        f"resume=True with checkpoint_backend={backend!r}, "
-                        f"but {trainer.checkpoint_dir} holds steps {foreign} "
-                        "written by the other backend — resuming now would "
-                        "silently retrain from scratch; use the backend that "
-                        "wrote the checkpoints")
-            if resume and latest is not None:
-                meta = ckpt.read_meta(latest)
-                if meta.get("engine", "spmd") != "host_ps":
-                    raise ValueError(
-                        f"checkpoint at {trainer.checkpoint_dir} was saved "
-                        f"by engine={meta.get('engine', 'spmd')!r}; this "
-                        "trainer is host_ps — resume with the same "
-                        "configuration")
-                if int(meta.get("ps_shards", 1)) != ps_shards:
-                    raise ValueError(
-                        f"checkpoint was saved with ps_shards="
-                        f"{meta.get('ps_shards', 1)}; this trainer has "
-                        f"ps_shards={ps_shards} — resume with the same "
-                        "configuration")
-                # a template of the right structure, then refill: the
-                # restored tensors land on the trainer's device
-                states = [w.state_template() for w in workers]
-                restored = ckpt.restore(full_state(), latest)
-                if sharded:
-                    server.restore_state(restored["center"],
-                                         restored["clock"])
-                else:
-                    with ps._lock:
-                        ps.center = [np.asarray(w, np.float32)
-                                     for w in restored["center"]]
-                        ps.num_updates = int(restored["clock"])
-                states = [tuple(s) for s in restored["workers"]]
-                start_epoch = latest
-
-        # Without checkpointing there is no reason to barrier between
-        # epochs: each worker runs all its epochs in one fully-async wave
-        # (one connect, no stragglers at epoch joins) — the reference
-        # execution model.  With a checkpoint_dir, epochs run as waves and
-        # the joined state is saved.
-        if ckpt is None:
-            waves = [None]  # one wave, all epochs (worker default)
+        if recovery:
+            kw.update(recovery=True,
+                      retry_policy=getattr(trainer, "recovery_policy", None))
+        worker_cls = WORKER_CLASSES[algorithm]
+        if elastic:
+            # lease-based redistribution, death-respawn and straggler
+            # stealing replace the static deal and the epoch waves below
+            workers = _run_elastic_host_ps(trainer, x, y, n, worker_cls,
+                                           blob, kw, server, supervisor)
         else:
-            waves = [(e, e + 1)
-                     for e in range(start_epoch, trainer.num_epoch)]
-        for epoch_range in waves:
-            results: List[Optional[dict]] = [None] * n
-            errors: List[tuple] = []
-            clocks0 = _clocks(server)
-            commits0 = sum(w._commits for w in workers)
-
-            def run(i, epoch_range=epoch_range):
-                try:
-                    results[i] = workers[i].train(
-                        i,
-                        {trainer.features_col: xs[i],
-                         trainer.label_col: ys[i]},
-                        initial_state=states[i],
-                        epoch_range=epoch_range)
-                except BaseException as e:  # propagate to the driver thread
-                    errors.append((i, e))
-
-            threads = [threading.Thread(target=run, args=(i,),
-                                        name=f"dkt-worker-{i}")
-                       for i in range(n)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            if errors:
-                # a dead shard is not a dead worker: it holds part of the
-                # center, so it surfaces as itself
-                shard_err = next((e for _, e in errors
-                                  if isinstance(e, PSShardDown)), None)
-                raise shard_err if shard_err is not None else errors[0][1]
-            new = sum(w._commits for w in workers) - commits0
-            _await_applied(server, [c + new for c in clocks0])
-            states = [r["state"] for r in results]
-            if ckpt is not None and (
-                    epoch_range[1] % trainer.checkpoint_every == 0):
-                ckpt.save(epoch_range[1], full_state(),
-                          meta={"engine": "host_ps", "unit": "epoch",
-                                "ps_shards": ps_shards})
+            workers = [worker_cls(blob, **kw) for _ in range(n)]
+            share_compiled_state(workers)
+            trainer._ps_workers = workers  # observability: counters
+            if trainer.checkpoint_dir is not None:
+                from .checkpoint import make_checkpointer
+                ckpt = make_checkpointer(trainer.checkpoint_dir,
+                                         trainer.checkpoint_backend)
+            _run_static_waves(trainer, server, ps, workers, xs, ys,
+                              ps_shards, resume, supervisor, ckpt)
     finally:
+        if supervisor is not None:
+            # stop the supervisor FIRST: the group teardown below must not
+            # read as N shard deaths and trigger a respawn storm
+            supervisor.stop()
         server.stop()
         # coalescing observability: counters survive the stop; None on
         # the threaded core
@@ -1661,25 +1614,341 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
     return fitted
 
 
+def _run_static_waves(trainer, server, ps, workers, xs, ys, ps_shards: int,
+                      resume: bool, supervisor, ckpt) -> None:
+    """The static engine: every worker trains its round-robin shard, as
+    one fully-async wave without a checkpointer or as epoch waves with the
+    joined state saved to ``ckpt`` between them (resumed from it first
+    when ``resume`` asks and it holds a step)."""
+    n = len(workers)
+    sharded = ps is None
+    states: List[Any] = [None] * n
+
+    def full_state():
+        """The complete async-training state: the center, the clock and
+        every worker's (params, optimizer state).  Sharded runs store
+        the GATHERED center and the per-shard clock vector, so the
+        layout is shard-count-explicit (resume checks it against this
+        run's ps_shards through the meta)."""
+        if sharded:
+            center, clocks = server.snapshot()
+            clock = np.asarray(clocks, np.int64)
+        else:
+            with ps._lock:
+                center = [w.copy() for w in ps.center]
+                clock = np.int64(ps.num_updates)
+        return {"center": center, "clock": clock,
+                "workers": [tuple(s) for s in states]}
+
+    start_epoch = 0
+    if ckpt is not None:
+        from .checkpoint import foreign_checkpoints
+        backend = trainer.checkpoint_backend
+        latest = ckpt.latest_step()
+        if resume and latest is None:
+            foreign = foreign_checkpoints(trainer.checkpoint_dir, backend)
+            if foreign:
+                raise ValueError(
+                    f"resume=True with checkpoint_backend={backend!r}, "
+                    f"but {trainer.checkpoint_dir} holds steps {foreign} "
+                    "written by the other backend — resuming now would "
+                    "silently retrain from scratch; use the backend that "
+                    "wrote the checkpoints")
+        if resume and latest is not None:
+            meta = ckpt.read_meta(latest)
+            if meta.get("engine", "spmd") != "host_ps":
+                raise ValueError(
+                    f"checkpoint at {trainer.checkpoint_dir} was saved "
+                    f"by engine={meta.get('engine', 'spmd')!r}; this "
+                    "trainer is host_ps — resume with the same "
+                    "configuration")
+            if int(meta.get("ps_shards", 1)) != ps_shards:
+                raise ValueError(
+                    f"checkpoint was saved with ps_shards="
+                    f"{meta.get('ps_shards', 1)}; this trainer has "
+                    f"ps_shards={ps_shards} — resume with the same "
+                    "configuration")
+            # a template of the right structure, then refill: the
+            # restored tensors land on the trainer's device
+            states = [w.state_template() for w in workers]
+            restored = ckpt.restore(full_state(), latest)
+            if sharded:
+                server.restore_state(restored["center"],
+                                     restored["clock"])
+            else:
+                with ps._lock:
+                    ps.center = [np.asarray(w, np.float32)
+                                 for w in restored["center"]]
+                    ps.num_updates = int(restored["clock"])
+            states = [tuple(s) for s in restored["workers"]]
+            start_epoch = latest
+
+    # Without checkpointing there is no reason to barrier between epochs:
+    # each worker runs all its epochs in one fully-async wave (one
+    # connect, no stragglers at epoch joins) — the reference execution
+    # model.  With a checkpoint_dir, epochs run as waves and the joined
+    # state is saved.
+    if ckpt is None:
+        waves = [None]  # one wave, all epochs (worker default)
+    else:
+        waves = [(e, e + 1) for e in range(start_epoch, trainer.num_epoch)]
+    alive = [True] * n
+    for epoch_range in waves:
+        results: List[Optional[dict]] = [None] * n
+        errors: List[tuple] = []
+        mark = _applied_mark(server, workers)
+
+        def run(i, epoch_range=epoch_range):
+            try:
+                results[i] = workers[i].train(
+                    i,
+                    {trainer.features_col: xs[i], trainer.label_col: ys[i]},
+                    initial_state=states[i], epoch_range=epoch_range)
+            except BaseException as e:  # propagate to the trainer's thread
+                errors.append((i, e))
+
+        threads = [threading.Thread(target=run, args=(i,),
+                                    name=f"dkt-worker-{i}")
+                   for i in range(n) if alive[i]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            _settle_errors(trainer, errors, alive)
+        _await_applied(server, lambda: _landing_targets(
+            server, workers, mark, supervisor))
+        states = [r["state"] if r is not None else states[i]
+                  for i, r in enumerate(results)]
+        if ckpt is not None and (
+                epoch_range[1] % trainer.checkpoint_every == 0):
+            ckpt.save(epoch_range[1], full_state(),
+                      meta={"engine": "host_ps", "unit": "epoch",
+                            "ps_shards": ps_shards})
+
+
+def _settle_errors(trainer, errors: List[tuple], alive: List[bool]) -> None:
+    """A wave's worker errors: a dead shard surfaces as itself, a death
+    without ``fault_tolerance`` raises (an 'exit' as a RuntimeError, never
+    as the process's own exit), and under ``fault_tolerance`` the dead are
+    recorded with their tracebacks and the run goes on with the
+    survivors (all of them dead raises)."""
+    # a dead SHARD is not a dead worker: it holds a partition of the
+    # center that no survivor can reconstruct, so degraded completion is
+    # impossible — surface it regardless of fault_tolerance
+    shard_err = next((e for _, e in errors if isinstance(e, PSShardDown)),
+                     None)
+    if shard_err is not None:
+        raise shard_err
+    if not getattr(trainer, "fault_tolerance", False):
+        i, err = errors[0]
+        if isinstance(err, SystemExit):
+            raise RuntimeError(f"worker {i} exited: {err}") from err
+        raise err
+    # degraded completion (the reference relied on Spark retry; we go on
+    # with the survivors, and the center keeps every commit applied before
+    # the death).  A tolerated death stays diagnosable: the traceback text
+    # on the trainer and a line on stderr.
+    for i, e in errors:
+        alive[i] = False
+        if i not in trainer.failed_workers:
+            trainer.failed_workers.append(i)
+            trainer.worker_failures[i] = "".join(
+                traceback.format_exception(e)).strip()
+        print(f"[distkeras_tpu_torch] worker {i} died ({e!r}); "
+              "fault_tolerance: continuing with survivors", file=sys.stderr)
+    if not any(alive):
+        raise RuntimeError(
+            f"all {len(alive)} workers failed (fault_tolerance can survive "
+            "some, not all)") from errors[0][1]
+
+
+def _run_elastic_host_ps(trainer, x, y, n: int, worker_cls, blob: dict,
+                         kw: dict, server, supervisor):
+    """The elastic worker engine (``elastic=True``).
+
+    Replaces the static round-robin deal with a per-epoch ``LeaseLedger``:
+    the epoch's rows are globally shuffled (``default_rng(seed + 7919 ·
+    epoch)``, the JAX engine's permutation) and tiled into window-aligned
+    leases that the worker threads acquire, renew and complete; a
+    ``WorkerSupervisor`` revokes the leases of dead or wedged workers
+    (survivors steal them) and respawns replacements under fresh ids from
+    a live center pull.  One masked window (``compile_windows``) timed in
+    a fresh thread seeds the ledger's cold estimate, and every worker runs
+    one more in its own thread before its first lease.  After
+    every epoch the server has applied every commit that can still land
+    and the ledger's exactly-once contract is asserted: killing k of N
+    workers mid-epoch loses zero examples.
+
+    Returns the full worker list (original ids + respawns, id order) for
+    history collection; observability lands on the trainer as
+    ``elastic_stats``, ``failed_workers``, ``worker_failures``,
+    ``_worker_supervisor`` and ``_ps_workers``.
+    """
+    win_rows = trainer.communication_window * trainer.batch_size
+    total_windows = -(-len(x) // win_rows)
+    lease_windows = getattr(trainer, "lease_windows", None)
+    if lease_windows is None:
+        # ~4 leases per worker per epoch: enough granularity for stealing
+        # and respawn pickup without drowning in ledger round trips
+        lease_windows = max(1, total_windows // (4 * n))
+    head = worker_cls(blob, **kw)
+    # time one window before the ledger clock starts and seed the
+    # cold-start window estimate with it, × n for the n-way contention.
+    # The JAX estimate is generous because its window pays the compile;
+    # the port's counterpart is a thread's first window (its cuDNN and
+    # cuBLAS handles, its convolution algorithms), so it is timed in a
+    # fresh thread
+    warm: Dict[str, Any] = {}
+
+    def time_window():
+        try:
+            warm["seconds"] = head.compile_windows(x, y)
+        except BaseException as e:  # re-raised in the trainer's thread
+            warm["error"] = e
+
+    th = threading.Thread(target=time_window, name="dkt-elastic-warmup")
+    th.start()
+    th.join()
+    if "error" in warm:
+        raise warm["error"]
+    t_window = warm["seconds"]
+    ledger = LeaseLedger(len(x), win_rows, lease_windows,
+                         min_deadline=getattr(trainer, "lease_timeout", 5.0),
+                         default_window_s=t_window * n)
+
+    def factory(wid: int):
+        w = head if wid == 0 else worker_cls(blob, **kw)
+        share_compiled_state([head, w])  # the update rule, the top-k layout
+        return w
+
+    epoch_data: Dict[str, np.ndarray] = {}
+    warmed: set = set()
+
+    def run_fn(wid: int, worker):
+        xe, ye = epoch_data["x"], epoch_data["y"]
+        if wid not in warmed:
+            # a worker's first window in its own thread also builds that
+            # thread's cuDNN and cuBLAS handles and picks its convolution
+            # algorithms (the JAX program compiles once for every thread):
+            # warm each worker in its thread before its first lease, off
+            # the ledger clock, or a healthy worker reads as wedged
+            worker.compile_windows(xe, ye)
+            warmed.add(wid)
+
+        def data_fn(lease):
+            return xe[lease.start:lease.stop], ye[lease.start:lease.stop]
+
+        res = worker.train_leases(wid, ledger, data_fn,
+                                  initial_state=sup.states.get(wid))
+        sup.states[wid] = res["state"]
+        return res
+
+    sup = WorkerSupervisor(ledger, factory, run_fn, n)
+    trainer._worker_supervisor = sup  # observability (tests, smoke)
+    epoch_reports = {}
+    try:
+        for epoch in range(trainer.num_epoch):
+            # global per-epoch shuffle: leases are contiguous row ranges of
+            # this permutation, so lease boundaries resample every epoch
+            perm = np.random.default_rng(
+                trainer.seed + 7919 * epoch).permutation(len(x))
+            epoch_data["x"], epoch_data["y"] = x[perm], y[perm]
+            workers = list(sup.workers.values())
+            mark = _applied_mark(server, workers)
+            sup.run_epoch(epoch)
+            # a lease loop's last commit may be a fire-and-forget 'c'
+            _await_applied(server, lambda: _landing_targets(
+                server, list(sup.workers.values()), mark, supervisor))
+            # the zero-data-loss contract, asserted per epoch
+            epoch_reports[epoch] = ledger.assert_epoch_complete(epoch)
+    finally:
+        sup.shutdown()  # release 'hang'-faulted threads, join stragglers
+        trainer.failed_workers = sorted(sup.failures)
+        trainer.worker_failures = dict(sup.failures)
+        trainer.elastic_stats = {
+            "respawns": sup.respawns,
+            "respawn_records": list(sup.respawn_records),
+            "leases_reassigned": ledger.reassigned,
+            "windows_per_worker": dict(ledger.windows_by_worker),
+            "lease_completions": epoch_reports,
+            "events": list(sup.events),
+        }
+        workers = [sup.workers[wid] for wid in sorted(sup.workers)]
+        trainer._ps_workers = workers
+    return workers
+
+
+def _servers(server) -> list:
+    """The socket servers behind ``server``: its shards, or itself."""
+    return list(getattr(server, "servers", [server]))
+
+
 def _clocks(server) -> List[int]:
     """The update clock of a socket server, or of each shard of a
     ``ShardedServerGroup``."""
-    return [s.ps.num_updates for s in getattr(server, "servers", [server])]
+    return [s.ps.num_updates for s in _servers(server)]
 
 
-def _await_applied(server, clocks: List[int],
+def _sent(workers, shard: int, gen: Optional[int]) -> int:
+    """Commits the workers sent ``shard`` stamped with generation ``gen``
+    (plus unstamped ones), less those whose connection died unanswered."""
+    out = 0
+    for w in workers:
+        sent = getattr(w, "sent_by_gen", {})
+        out += sent.get((shard, gen), 0) + sent.get((shard, None), 0)
+    return out
+
+
+def _applied_mark(server, workers) -> tuple:
+    """Where a wave's wait starts from: each server's generation and
+    clock, and the commits already sent to it at that generation."""
+    gens = [s.generation for s in _servers(server)]
+    return (gens, _clocks(server),
+            [_sent(workers, j, g) for j, g in enumerate(gens)])
+
+
+def _landing_targets(server, workers, mark: tuple,
+                     supervisor=None) -> List[Optional[int]]:
+    """The clock each server reaches once every commit that can still land
+    has applied: a server still at the generation of ``mark`` adds the
+    commits sent since then to its clock then; a respawned one starts
+    from its restored clock (the supervisor's record) and adds every
+    commit sent at its generation.  A commit stamped with an older
+    generation is rejected and one a fault aborted was never sent, so
+    neither counts.  None: the respawn record is not written yet."""
+    gens0, clocks0, sent0 = mark
+    out: List[Optional[int]] = []
+    for j, s in enumerate(_servers(server)):
+        g = s.generation
+        sent = _sent(workers, j, g)
+        if g == gens0[j]:
+            out.append(clocks0[j] + sent - sent0[j])
+            continue
+        recs = [r for r in getattr(supervisor, "recoveries", [])
+                if r["shard"] == j and r["generation"] == g]
+        out.append(recs[-1]["restored_clock"] + sent if recs else None)
+    return out
+
+
+def _await_applied(server, clocks: List[Optional[int]],
                    timeout: float = 30.0) -> None:
     """Wait until the server (each shard) has applied commits up to
-    ``clocks``.  A worker's last commit on the serial elastic loop is a
+    ``clocks``.  A worker's last commit on a serial loop is a
     fire-and-forget 'c': when its thread joins, the frame may still sit in
     the server's socket buffer, and a center read then (a checkpoint, the
     fitted model) would miss it.  A server that does not get there within
-    ``timeout`` is logged, not waited for."""
+    ``timeout`` is logged, not waited for.  ``clocks`` may be a callable
+    that recomputes the targets (a shard can respawn while we wait)."""
     deadline = time.monotonic() + timeout
-    while any(c < want for c, want in zip(_clocks(server), clocks)):
+    while True:
+        want = clocks() if callable(clocks) else clocks
+        have = _clocks(server)
+        if all(w is not None and c >= w for c, w in zip(have, want)):
+            return
         if time.monotonic() > deadline:
             logger.warning("PS clocks %s short of the %s commits sent",
-                           _clocks(server), clocks)
+                           have, want)
             return
         time.sleep(0.001)
 
@@ -1708,7 +1977,11 @@ def _worker_kwargs(trainer, n: int, rows: int) -> dict:
         wire_dtype=getattr(trainer, "wire_dtype", None),
         wire_topk=getattr(trainer, "wire_topk", 0.01),
         wire_topk_dtype=getattr(trainer, "wire_topk_dtype", None),
-        comm_overlap=getattr(trainer, "comm_overlap", False))
+        comm_overlap=getattr(trainer, "comm_overlap", False),
+        fault_injection=getattr(trainer, "fault_injection", None))
+    pw = int(getattr(trainer, "partition_windows", 0) or 0)
+    if pw:
+        kw["partition_windows"] = pw
     if trainer.ALGORITHM in ("aeasgd", "eamsgd"):
         kw["rho"] = getattr(trainer, "rho", 5.0)
     return kw

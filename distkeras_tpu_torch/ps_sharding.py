@@ -13,10 +13,11 @@ parameter server (``tests/test_torch_sparse_parity.py``).  What differs:
  - ``ShardedServerGroup`` holds the port's socket servers, and
    ``get_model(device=)`` builds the fitted model on a torch device.
 
-``ShardedPSClient`` keeps its reconnect-resume half (``_redial_once``,
-``_with_resume``, the generations and ``last_stale``), but the trainers
-and workers refuse ``recovery=True`` until the shard supervisor arrives
-(ROADMAP queue A item 6).
+``ShardedPSClient`` carries the reconnect-resume half (``_redial_once``,
+``_with_resume``, the generations and ``last_stale``) that
+``resilience.ShardSupervisor`` drives under ``recovery=True``, and it
+counts the commits that can still land per (shard, generation) in
+``sent``, which ``run_host_ps_training`` waits for.
 
 The JAX module's description follows.
 
@@ -371,6 +372,13 @@ class ShardedPSClient:
         self.resumes = 0          # successful mid-run reconnect-resumes
         self.stale_replies = 0    # duplicated/stale 'u' replies discarded
         self.clock_regressions = 0  # replies whose clock ran backwards
+        #: commits sent, by (shard, the generation they were stamped
+        #: with), less those whose connection died before a reply: what
+        #: can still land (a worker hands in its own dict, so the count
+        #: outlives the client it rebuilds on every connect)
+        self.sent: Dict[Tuple[int, Optional[int]], int] = {}
+        self._unconfirmed: List[List[Tuple[int, Optional[int]]]] = [
+            [] for _ in range(plan.num_shards)]
 
     @property
     def num_shards(self) -> int:
@@ -437,6 +445,14 @@ class ShardedPSClient:
         self._send_pools[j] = networking.BufferPool()
         self._conn_clocks[j] = None
 
+    def _drop_unconfirmed(self, j: int):
+        """Shard ``j``'s connection died: the commits sent on it since its
+        last reply may or may not have applied, so they no longer count as
+        landing (``sent`` is read as a lower bound)."""
+        for key in self._unconfirmed[j]:
+            self.sent[key] -= 1
+        self._unconfirmed[j].clear()
+
     def _with_resume(self, j: int, fn, fault: BaseException):
         """Mid-run reconnect-resume for shard ``j``: repeatedly (re-dial +
         ``fn()``) under the recovery policy — the deadline budgets the
@@ -447,6 +463,7 @@ class ShardedPSClient:
         last = fault
         for d in policy.delays():
             try:
+                self._drop_unconfirmed(j)
                 self._redial_once(j)
                 out = fn()
                 self.resumes += 1
@@ -513,6 +530,10 @@ class ShardedPSClient:
                     self._send_frame(j, payload)
 
             self._with_resume(j, resend, e)
+        if payload is not None:
+            key = (j, payload.get("gen"))
+            self.sent[key] = self.sent.get(key, 0) + 1
+            self._unconfirmed[j].append(key)
 
     def _recv(self, j: int) -> Tuple[Dict[str, Any], bool]:
         """One reply from shard ``j`` as ``(reply, resumed)``.  On a
@@ -635,6 +656,7 @@ class ShardedPSClient:
         if c < self._clocks[j]:
             self.clock_regressions += 1
         self._clocks[j] = max(self._clocks[j], c)
+        self._unconfirmed[j].clear()  # a reply confirms what came before
 
     def _gather_replies(self, dedupe: bool = False) -> List[np.ndarray]:
         slices = []

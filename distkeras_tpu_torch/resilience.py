@@ -15,21 +15,36 @@ captures its decode graph, before it goes live.
 
 Copied for the host parameter server: ``RETRYABLE_CONNECT``, ``dial``
 (the workers' connect under a ``RetryPolicy``), ``wire_heartbeat`` (one
-``'h'`` probe of a PS address) and ``Partitioned``.  Still to come with
-the rest of the async host-PS family (ROADMAP queue A item 6):
-``ShardJournal``, ``ShardSupervisor``, the lease classes and
-``WorkerSupervisor``.
+``'h'`` probe of a PS address) and ``Partitioned``; the survivable
+servers' ``ShardJournal`` (atomic per-shard npz snapshots through the
+port's ``checkpoint.Checkpointer``, in the JAX journal's layout:
+``shard_<jjj>/ckpt_<n>.npz`` with the same meta keys, so a snapshot
+written by either package restores in the other) and ``ShardSupervisor``
+(heartbeat liveness through the apply lock, same-address respawn from
+the last snapshot with the generation bumped); and the elastic workers'
+``Lease``, ``LeaseLedger`` (window-aligned leases, EWMA deadlines,
+exactly-once completion: call for call the JAX ledger) and
+``WorkerSupervisor`` (death and wedge detection, respawn under fresh
+ids).  All of it is host code: numpy and the standard library.  The
+cross-process lease rail (``LeaseServer``, ``LeaseClient``) and
+``ProcessSupervisor`` wait for ROADMAP queue A item 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import random
+import shutil
 import socket
+import tempfile
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Tuple)
+
+import numpy as np
 
 from . import networking
 
@@ -195,6 +210,259 @@ class Partitioned(ConnectionError):
         if detail:
             msg += f": {detail}"
         super().__init__(msg)
+
+
+# ---------------------------------------------------------------------------
+# per-shard snapshot journal
+# ---------------------------------------------------------------------------
+
+class ShardJournal:
+    """Atomic per-shard snapshots of (center slice, update clock).
+
+    One ``Checkpointer`` directory per shard (``shard_<j>/ckpt_<n>.npz`` —
+    tempfile + ``os.replace``, so a crash mid-write never corrupts the last
+    good snapshot), with retention.  The snapshot *is* the recovery contract:
+    a respawned shard resumes from exactly this state and every window
+    committed after it is dropped.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self.directory = directory
+        self.max_to_keep = int(max_to_keep)
+        os.makedirs(directory, exist_ok=True)
+        self._ckpts: Dict[int, Any] = {}
+
+    def _ckpt(self, shard_id: int):
+        ck = self._ckpts.get(shard_id)
+        if ck is None:
+            from .checkpoint import Checkpointer
+            ck = Checkpointer(
+                os.path.join(self.directory, f"shard_{int(shard_id):03d}"),
+                max_to_keep=self.max_to_keep)
+            self._ckpts[shard_id] = ck
+        return ck
+
+    def save(self, shard_id: int, snap_id: int,
+             center: List[np.ndarray], clock: int, generation: int) -> str:
+        center = [np.asarray(w, np.float32) for w in center]
+        state = {"center": center, "clock": np.int64(clock)}
+        meta = {"shard": int(shard_id), "generation": int(generation),
+                "clock": int(clock),
+                "shapes": [list(w.shape) for w in center]}
+        return self._ckpt(shard_id).save(int(snap_id), state, meta=meta)
+
+    def latest(self, shard_id: int) -> Optional[Dict[str, Any]]:
+        """The newest snapshot for ``shard_id`` as
+        ``{"center", "clock", "generation", "snap_id"}``, or None."""
+        ck = self._ckpt(shard_id)
+        step = ck.latest_step()
+        if step is None:
+            return None
+        meta = ck.read_meta(step)
+        target = {"center": [np.zeros(tuple(s), np.float32)
+                             for s in meta["shapes"]],
+                  "clock": np.int64(0)}
+        restored = ck.restore(target, step)
+        return {"center": [np.asarray(w, np.float32)
+                           for w in restored["center"]],
+                "clock": int(restored["clock"]),
+                "generation": int(meta.get("generation", 0)),
+                "snap_id": step}
+
+
+# ---------------------------------------------------------------------------
+# the shard supervisor
+# ---------------------------------------------------------------------------
+
+class ShardSupervisor:
+    """Detect-and-respawn loop over a ``ShardedServerGroup``.
+
+    Liveness has two layers: the accept thread must be running (a crashed
+    shard fails this instantly), and a ``'h'`` heartbeat must answer within
+    ``liveness_deadline`` — the heartbeat handler takes the shard's **apply
+    lock**, so a shard wedged inside an apply (deadlocked rule, stuck numpy
+    op) fails the probe even though its process is "alive".
+
+    On detection the shard is respawned **on the same address** with the
+    last journal snapshot restored and ``generation`` bumped; reconnecting
+    workers learn the new generation from their first reply, and the shard
+    rejects any in-flight commit still stamped with the old generation
+    (``parameter_servers.SocketParameterServer`` — the epoch/generation
+    handshake).  ``recoveries`` records one entry per respawn for
+    observability (tests + ``bench.py``'s ``host_ps_recovery_ms``).
+    """
+
+    def __init__(self, group, algorithm: str, num_workers: int,
+                 snapshot_dir: Optional[str] = None,
+                 heartbeat_interval: float = 0.2,
+                 liveness_deadline: float = 1.0,
+                 snapshot_interval: float = 0.25,
+                 max_restarts: int = 20):
+        self.group = group
+        self.algorithm = algorithm
+        self.num_workers = int(num_workers)
+        self.heartbeat_interval = float(heartbeat_interval)
+        self.liveness_deadline = float(liveness_deadline)
+        self.snapshot_interval = float(snapshot_interval)
+        self.max_restarts = int(max_restarts)
+        self._own_dir = snapshot_dir is None
+        if snapshot_dir is None:
+            snapshot_dir = tempfile.mkdtemp(prefix="dkt_ps_journal_")
+        self.journal = ShardJournal(snapshot_dir)
+        n = group.num_shards
+        self._snap_ids = [0] * n
+        self.restarts = [0] * n
+        #: one dict per respawn: shard, generation, restored_clock,
+        #: dropped_updates (in-memory clock minus restored clock — the
+        #: bounded loss this restart cost), respawn_ms
+        self.recoveries: List[Dict[str, Any]] = []
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()  # guards: recoveries (and serializes respawn_shard bodies vs. chaos hooks)
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self):
+        """Snapshot every shard once (a kill before the first periodic tick
+        must restore *initial* state, not nothing), then start the loop."""
+        for j in range(self.group.num_shards):
+            self.snapshot_shard(j)
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="dkt-ps-supervisor")
+        self._thread.start()
+
+    def stop(self):
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        if self._own_dir:
+            shutil.rmtree(self.journal.directory, ignore_errors=True)
+
+    # -- snapshots -----------------------------------------------------------
+    def snapshot_shard(self, j: int,
+                       lock_timeout: Optional[float] = None) -> bool:
+        """Journal shard ``j``'s (center slice, clock) under its apply lock.
+
+        The lock is taken with a TIMEOUT (default: the liveness deadline):
+        a *wedged* shard holds its apply lock forever, and a supervisor
+        that blocked here could never reach the detection that cures the
+        wedge.  A timed-out snapshot returns False and leaves the previous
+        snapshot as the recovery point — consistent with the bounded-loss
+        contract either way."""
+        s = self.group.servers[j]
+        timeout = (self.liveness_deadline if lock_timeout is None
+                   else float(lock_timeout))
+        if not s.ps._lock.acquire(timeout=timeout):
+            return False  # wedged: heartbeat detection owns this case
+        try:
+            center = [w.copy() for w in s.ps.center]
+            clock = s.ps.num_updates
+        finally:
+            s.ps._lock.release()
+        self._snap_ids[j] += 1
+        self.journal.save(j, self._snap_ids[j], center, clock, s.generation)
+        return True
+
+    # -- liveness ------------------------------------------------------------
+    def heartbeat(self, j: int, timeout: Optional[float] = None) -> bool:
+        """One ``'h'`` probe against shard ``j``: True iff it answers with a
+        clock within ``timeout``.  Any transport fault, stall, or garbage
+        reply is a failed probe."""
+        timeout = self.liveness_deadline if timeout is None else timeout
+        s = self.group.servers[j]
+        return wire_heartbeat(s.host, s.port, timeout=timeout)
+
+    def kill_shard(self, j: int):
+        """Chaos/bench hook: crash-stop shard ``j`` (no graceful shutdown,
+        in-memory state abandoned) — the signature of a SIGKILLed shard
+        process.  The supervisor loop detects and respawns it."""
+        self.group.servers[j].crash()
+
+    # -- respawn -------------------------------------------------------------
+    def respawn_shard(self, j: int) -> Dict[str, Any]:
+        """Stop whatever is left of shard ``j``, restore its last snapshot,
+        and re-listen on the same address with ``generation + 1``.  The
+        replacement is a ``respawn_clone`` of the dead server, so the PS
+        core (event/threaded) and its coalescing/apply-kernel knobs survive
+        the restart."""
+        from .parameter_servers import allocate_parameter_server
+        with self._lock:
+            t0 = time.monotonic()
+            old = self.group.servers[j]
+            # in-memory clock at death (best effort) — the observable for
+            # the bounded-loss contract: dropped = died_at - restored
+            died_at = int(old.ps.num_updates)
+            old.stop(join_timeout=0.5)  # leaked wedged threads are logged
+            snap = self.journal.latest(j)
+            if snap is None:  # start() always journals one; belt-and-braces
+                raise RuntimeError(f"no snapshot for shard {j}")
+            ps = allocate_parameter_server(
+                self.algorithm,
+                {"model": self.group.model_blob["model"],
+                 "weights": snap["center"]},
+                self.num_workers,
+                apply_kernel=getattr(old.ps, "apply_kernel", None))
+            ps.num_updates = int(snap["clock"])
+            new = old.respawn_clone(ps)
+            last: Optional[BaseException] = None
+            for d in (0.05, 0.1, 0.2, 0.4, 0.8):
+                try:
+                    new.start()
+                    last = None
+                    break
+                except OSError as e:  # port not released yet
+                    last = e
+                    time.sleep(d)
+            if last is not None:
+                new.start()  # final attempt: a persistent bind error is loud
+            self.group.servers[j] = new
+            rec = {"shard": j, "generation": new.generation,
+                   "restored_clock": int(snap["clock"]),
+                   "dropped_updates": max(died_at - int(snap["clock"]), 0),
+                   "respawn_ms": round((time.monotonic() - t0) * 1e3, 1)}
+            self.recoveries.append(rec)
+            logger.warning(
+                "PS shard %d respawned at %s:%d (generation %d, restored "
+                "clock %d, %d post-snapshot updates dropped)", j, new.host,
+                new.port, new.generation, rec["restored_clock"],
+                rec["dropped_updates"])
+            return rec
+
+    # -- the loop ------------------------------------------------------------
+    def _loop(self):
+        last_snap = time.monotonic()
+        while self._running:
+            time.sleep(self.heartbeat_interval)
+            if not self._running:
+                return
+            for j in range(self.group.num_shards):
+                if not self._running:
+                    return
+                s = self.group.servers[j]
+                dead = not (s._running and s._accept_thread is not None
+                            and s._accept_thread.is_alive())
+                if not dead:
+                    dead = not self.heartbeat(j)
+                if dead and self._running:
+                    if self.restarts[j] >= self.max_restarts:
+                        continue  # crash loop: leave it to PSShardDown
+                    self.restarts[j] += 1
+                    try:
+                        self.respawn_shard(j)
+                    except Exception:
+                        logger.exception("respawn of PS shard %d failed", j)
+            if (self._running
+                    and time.monotonic() - last_snap >= self.snapshot_interval):
+                last_snap = time.monotonic()
+                for j in range(self.group.num_shards):
+                    s = self.group.servers[j]
+                    if not s._running:
+                        continue  # dead shard: its journal must stay put
+                    try:
+                        self.snapshot_shard(j)
+                    except Exception:
+                        logger.exception("snapshot of PS shard %d failed", j)
 
 
 # ---------------------------------------------------------------------------
@@ -501,3 +769,449 @@ class FleetSupervisor(_SupervisorGroup):
     def stop(self) -> None:
         self._running = False
         super().stop()
+
+
+# ---------------------------------------------------------------------------
+# elastic workers: the lease ledger
+# ---------------------------------------------------------------------------
+
+class Lease(NamedTuple):
+    """One window-aligned slice of an epoch's (already shuffled) row range.
+
+    ``[start, stop)`` indexes the epoch's shuffled arrays; ``windows`` is the
+    number of communication windows the slice shapes into (the tail window is
+    wrap-padded and masked by the worker's shaping, the same zero-drop
+    contract as the static shards)."""
+
+    lease_id: int
+    epoch: int
+    start: int
+    stop: int
+    windows: int
+
+
+class LeaseLedger:
+    """Exactly-once lease accounting for elastic workers (one per run).
+
+    Per epoch, ``begin_epoch`` tiles the row range into leases of
+    ``lease_windows`` communication windows each (``rows_per_window`` rows
+    per window; the last lease takes the remainder).  Workers ``acquire`` a
+    lease, ``renew`` it once per committed window (the heartbeat — it rides
+    the commit cadence, no extra RPC), and ``complete`` it; a lease whose
+    deadline passes without a renewal is revoked back to the pool by
+    ``revoke_expired`` for another worker to steal, and ``revoke_worker``
+    returns a dead worker's holdings.
+
+    **Exactly-once**: a lease transitions ``held → done`` at most once, and
+    a ``renew``/``complete`` from a worker the lease was revoked from
+    returns ``False`` (the straggler abandons; the stealer's completion is
+    the one recorded).  ``assert_epoch_complete`` is the zero-data-loss
+    check: every lease of the epoch completed by exactly one worker, rows
+    summing to the full dataset.
+
+    **Deadlines** adapt per worker: each renewal feeds a per-worker
+    window-rate EWMA; a lease's deadline is ``slack`` × the holder's
+    expected time for its remaining windows (cross-worker mean for workers
+    with no history yet), floored by ``min_deadline`` — so a wedged worker
+    is detected on its own measured pace, while a merely-slow worker keeps
+    renewing and is never falsely revoked.
+
+    All methods are thread-safe under one internal lock; ``clock`` is
+    injectable for deterministic tests.
+    """
+
+    def __init__(self, num_rows: int, rows_per_window: int,
+                 lease_windows: int = 1, min_deadline: float = 5.0,
+                 slack: float = 4.0,
+                 default_window_s: Optional[float] = None,
+                 clock=time.monotonic):
+        self.num_rows = int(num_rows)
+        self.rows_per_window = max(int(rows_per_window), 1)
+        self.lease_windows = max(int(lease_windows), 1)
+        self.min_deadline = float(min_deadline)
+        self.slack = float(slack)
+        #: per-window seconds to assume before ANY renewal exists (cold
+        #: start): the trainer seeds it with the measured warmup window
+        #: (deliberately generous — it includes the compile — times the
+        #: worker count for contention); None falls back to min_deadline
+        self.default_window_s = (None if default_window_s is None
+                                 else float(default_window_s))
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._next_rows: Optional[int] = None  # resize(), applied at begin
+        self.epoch: Optional[int] = None
+        self.leases: List[Lease] = []
+        self._state: Dict[int, Dict[str, Any]] = {}
+        #: per-worker windows/sec EWMA (the straggler-detection baseline)
+        self.rates: Dict[int, float] = {}
+        self._last_beat: Dict[int, float] = {}
+        #: epoch -> {lease_id: completing worker id} (exactly-once record)
+        self.completions: Dict[int, Dict[int, int]] = {}
+        #: leases revoked (expiry or holder death) and returned to the pool
+        self.reassigned = 0
+        #: windows completed per worker id, across epochs (diagnosability)
+        self.windows_by_worker: Dict[int, int] = {}
+
+    # -- epoch lifecycle -----------------------------------------------------
+    def resize(self, num_rows: int) -> None:
+        """Set the row count the NEXT ``begin_epoch`` tiles (the streaming
+        horizon loop: each horizon re-leases however many rows the stream
+        delivered — the tail horizon is smaller, nothing else changes).
+        Takes effect at the next ``begin_epoch``; the running epoch's
+        leases and its ``assert_epoch_complete`` target are untouched."""
+        with self._lock:
+            self._next_rows = int(num_rows)
+
+    def begin_epoch(self, epoch: int) -> List[Lease]:
+        """(Re)tile the row range into pending leases for ``epoch``."""
+        with self._lock:
+            if self._next_rows is not None:
+                self.num_rows = self._next_rows
+                self._next_rows = None
+            self.epoch = int(epoch)
+            rows_per_lease = self.rows_per_window * self.lease_windows
+            self.leases = []
+            self._state = {}
+            start, lid = 0, 0
+            while start < self.num_rows:
+                stop = min(start + rows_per_lease, self.num_rows)
+                wins = -(-(stop - start) // self.rows_per_window)
+                self.leases.append(Lease(lid, self.epoch, start, stop, wins))
+                self._state[lid] = {"status": "pending", "holder": None,
+                                    "deadline": None, "done": 0}
+                lid += 1
+                start = stop
+            self.completions.setdefault(self.epoch, {})
+            return list(self.leases)
+
+    def epoch_done(self) -> bool:
+        with self._lock:
+            return all(st["status"] == "done" for st in self._state.values())
+
+    def pending(self) -> int:
+        """Leases not yet done (pending or held)."""
+        with self._lock:
+            return sum(1 for st in self._state.values()
+                       if st["status"] != "done")
+
+    # -- deadline math (lock held) -------------------------------------------
+    def _per_window_locked(self, worker: int) -> Optional[float]:
+        rate = self.rates.get(worker)
+        if rate is None and self.rates:
+            rate = sum(self.rates.values()) / len(self.rates)
+        if rate:
+            return 1.0 / rate
+        return self.default_window_s  # cold start: the warmup-seeded guess
+
+    def _deadline_locked(self, worker: int, windows_left: int,
+                         now: float) -> float:
+        per = self._per_window_locked(worker)
+        if per is None:
+            return now + self.min_deadline
+        return now + max(self.min_deadline,
+                         self.slack * per * max(int(windows_left), 1))
+
+    # -- the worker-facing protocol ------------------------------------------
+    def acquire(self, worker: int) -> Optional[Lease]:
+        """Claim the lowest-id pending lease, or None when nothing is left
+        to hand out (held leases may still revert via revocation)."""
+        worker = int(worker)
+        now = self._clock()
+        with self._lock:
+            for lease in self.leases:
+                st = self._state[lease.lease_id]
+                if st["status"] == "pending":
+                    st.update(status="held", holder=worker, done=0,
+                              deadline=self._deadline_locked(
+                                  worker, lease.windows, now))
+                    self._last_beat[worker] = now
+                    return lease
+        return None
+
+    def renew(self, lease_id: int, worker: int) -> bool:
+        """One completed window's heartbeat.  False means the lease was
+        revoked from this worker (stolen) — abandon the rest of it."""
+        worker = int(worker)
+        now = self._clock()
+        with self._lock:
+            st = self._state.get(int(lease_id))
+            if st is None or st["status"] != "held" \
+                    or st["holder"] != worker:
+                return False
+            lb = self._last_beat.get(worker)
+            if lb is not None and now > lb:
+                inst = 1.0 / max(now - lb, 1e-9)
+                old = self.rates.get(worker)
+                self.rates[worker] = (inst if old is None
+                                      else 0.5 * old + 0.5 * inst)
+            self._last_beat[worker] = now
+            st["done"] += 1
+            self.windows_by_worker[worker] = (
+                self.windows_by_worker.get(worker, 0) + 1)
+            lease = self.leases[int(lease_id)]
+            st["deadline"] = self._deadline_locked(
+                worker, lease.windows - st["done"], now)
+            return True
+
+    def complete(self, lease_id: int, worker: int) -> bool:
+        """Mark a lease done.  Recorded at most once per lease per epoch;
+        False if the lease was revoked from this worker meanwhile."""
+        worker = int(worker)
+        with self._lock:
+            st = self._state.get(int(lease_id))
+            if st is None or st["status"] != "held" \
+                    or st["holder"] != worker:
+                return False
+            st.update(status="done", deadline=None)
+            self.completions[self.epoch][int(lease_id)] = worker
+            return True
+
+    # -- the supervisor-facing protocol --------------------------------------
+    def revoke_expired(self) -> List[Tuple[Lease, int]]:
+        """Return held leases past their deadline to the pool; yields
+        ``(lease, former holder)`` per revocation."""
+        now = self._clock()
+        out: List[Tuple[Lease, int]] = []
+        with self._lock:
+            for lease in self.leases:
+                st = self._state[lease.lease_id]
+                if (st["status"] == "held" and st["deadline"] is not None
+                        and now > st["deadline"]):
+                    out.append((lease, st["holder"]))
+                    st.update(status="pending", holder=None, deadline=None,
+                              done=0)
+                    self.reassigned += 1
+        return out
+
+    def revoke_worker(self, worker: int) -> int:
+        """Return every lease a (dead) worker holds to the pool."""
+        worker = int(worker)
+        n = 0
+        with self._lock:
+            for st in self._state.values():
+                if st["status"] == "held" and st["holder"] == worker:
+                    st.update(status="pending", holder=None, deadline=None,
+                              done=0)
+                    self.reassigned += 1
+                    n += 1
+        return n
+
+    # -- the contract --------------------------------------------------------
+    def epoch_report(self, epoch: int) -> Dict[str, Any]:
+        with self._lock:
+            done = dict(self.completions.get(int(epoch), {}))
+            leases = [l for l in self.leases if l.epoch == int(epoch)]
+            rows = sum(l.stop - l.start for l in leases
+                       if l.lease_id in done)
+            return {"leases": len(leases), "completed": len(done),
+                    "rows_completed": rows, "by_worker": done}
+
+    def assert_epoch_complete(self, epoch: int) -> Dict[str, Any]:
+        """The zero-data-loss contract: every lease of ``epoch`` completed
+        exactly once (``completions`` is keyed by lease id, so at-most-once
+        holds by construction; this checks at-least-once and row coverage).
+        """
+        rep = self.epoch_report(epoch)
+        if rep["completed"] != rep["leases"] \
+                or rep["rows_completed"] != self.num_rows:
+            missing = [l.lease_id for l in self.leases
+                       if l.lease_id not in rep["by_worker"]]
+            raise RuntimeError(
+                f"epoch {epoch} lease ledger incomplete: "
+                f"{rep['completed']}/{rep['leases']} leases done, "
+                f"{rep['rows_completed']}/{self.num_rows} rows covered "
+                f"(missing leases {missing})")
+        return rep
+
+
+# ---------------------------------------------------------------------------
+# elastic workers: the supervisor
+# ---------------------------------------------------------------------------
+
+class WorkerSupervisor:
+    """Detect-and-respawn loop over elastic worker threads.
+
+    ``factory(worker_id)`` builds a worker object; ``run_fn(worker_id,
+    worker)`` runs its lease loop (``workers.PSWorker.train_leases``) and
+    returns its result dict.  Per epoch the supervisor starts one thread per
+    active worker id and polls until the ledger's epoch is done:
+
+     - a thread that raised (``RuntimeError`` from an injected fault, a
+       transport error, ``SystemExit`` from an 'exit' fault — any
+       ``BaseException``) is a **death**: its leases are revoked and a
+       replacement worker is spawned under a fresh id (``max_respawns``
+       bounds the total).  ``PSShardDown`` and ``KeyboardInterrupt`` are
+       not worker deaths and re-raise.
+     - a lease that expires while its holder thread is still alive is a
+       **wedge** (hung device, stuck commit): the lease returns to the pool
+       (stolen by survivors), the holder is declared failed, and a
+       replacement is spawned.  The wedged thread itself is left to unblock
+       on teardown (``release_hung``).
+     - if every active thread has finished but leases remain (e.g. all
+       still-pending work was revoked after the pool drained), a finished
+       worker is restarted — the epoch always converges or fails loudly.
+
+    Respawned workers start from a fresh center pull (state ``None``), the
+    same bounded-staleness class as any late-joining async worker.
+    """
+
+    def __init__(self, ledger: LeaseLedger, factory, run_fn,
+                 num_workers: int, poll_interval: float = 0.02,
+                 max_respawns: Optional[int] = None,
+                 join_timeout: float = 10.0):
+        self.ledger = ledger
+        self.factory = factory
+        self.run_fn = run_fn
+        self.num_workers = int(num_workers)
+        self.poll_interval = float(poll_interval)
+        self.max_respawns = (2 * self.num_workers if max_respawns is None
+                             else int(max_respawns))
+        self.join_timeout = float(join_timeout)
+        self._lock = threading.Lock()
+        self.workers: Dict[int, Any] = {}
+        self.states: Dict[int, Any] = {}  # worker id -> carried train state
+        self._threads: Dict[int, threading.Thread] = {}
+        self.active: set = set()
+        self.results: Dict[int, Any] = {}
+        self.errors: Dict[int, BaseException] = {}
+        self.failures: Dict[int, str] = {}  # worker id -> traceback / note
+        self.death_times: Dict[int, float] = {}
+        self._next_id = self.num_workers
+        self.respawns = 0
+        #: one dict per respawn: died, replacement, reason, recovery_ms
+        self.respawn_records: List[Dict[str, Any]] = []
+        #: resilience event log (revocations, deaths, respawns) for metrics
+        self.events: List[Dict[str, Any]] = []
+        for wid in range(self.num_workers):
+            self.workers[wid] = factory(wid)
+            self.active.add(wid)
+
+    # -- threads -------------------------------------------------------------
+    def _thread_main(self, wid: int):
+        try:
+            res = self.run_fn(wid, self.workers[wid])
+            with self._lock:
+                self.results[wid] = res
+        except BaseException as e:  # SystemExit ('exit' faults) included
+            import traceback
+            with self._lock:
+                self.errors.setdefault(wid, e)
+                # first cause wins: a wedge-declared worker's eventual
+                # unwind (e.g. a released 'hang') must not overwrite the
+                # supervisor's diagnosis
+                self.failures.setdefault(wid, "".join(
+                    traceback.format_exception(e)).strip())
+                self.death_times.setdefault(wid, time.monotonic())
+            self.ledger.revoke_worker(wid)
+
+    def _start(self, wid: int):
+        t = threading.Thread(target=self._thread_main, args=(wid,),
+                             daemon=True, name=f"dkt-elastic-{wid}")
+        self._threads[wid] = t
+        t.start()
+
+    def _alive(self, wid: int) -> bool:
+        t = self._threads.get(wid)
+        return t is not None and t.is_alive()
+
+    def _respawn(self, died: int, reason: str) -> Optional[int]:
+        if self.respawns >= self.max_respawns:
+            return None
+        nid = self._next_id
+        self._next_id += 1
+        self.workers[nid] = self.factory(nid)
+        self.active.add(nid)
+        self.respawns += 1
+        self._start(nid)
+        with self._lock:
+            t_death = self.death_times.get(died)
+        rec = {"died": died, "replacement": nid, "reason": reason,
+               "recovery_ms": (round((time.monotonic() - t_death) * 1e3, 1)
+                               if t_death is not None else None)}
+        self.respawn_records.append(rec)
+        self.events.append({"kind": "respawn", **rec})
+        logger.warning("elastic worker %d %s; respawned as worker %d",
+                       died, reason, nid)
+        return nid
+
+    def _declare_dead(self, wid: int, note: str, reason: str):
+        self.active.discard(wid)
+        with self._lock:
+            # first cause wins against the worker's own unwind path, which
+            # setdefaults the same keys from its thread (_thread_main)
+            self.failures.setdefault(wid, note)
+            self.death_times.setdefault(wid, time.monotonic())
+        self.ledger.revoke_worker(wid)
+        self.events.append({"kind": "death", "worker": wid,
+                            "reason": reason})
+        if not self.ledger.epoch_done():
+            self._respawn(wid, reason)
+
+    # -- the per-epoch loop ----------------------------------------------------
+    def run_epoch(self, epoch: int):
+        """Drive one epoch of the ledger to completion (or raise)."""
+        self.ledger.begin_epoch(epoch)
+        for wid in sorted(self.active):
+            if not self._alive(wid):
+                self._start(wid)
+        while not self.ledger.epoch_done():
+            # wedge/straggler detection: expired leases return to the pool;
+            # a holder whose thread is still alive is wedged, not dead
+            for lease, holder in self.ledger.revoke_expired():
+                self.events.append({"kind": "lease_revoked", "epoch": epoch,
+                                    "lease": lease.lease_id,
+                                    "worker": holder})
+                if holder in self.active and self._alive(holder):
+                    self._declare_dead(
+                        holder,
+                        f"wedged: lease {lease.lease_id} deadline expired "
+                        f"with no renewal (epoch {epoch})",
+                        reason="wedged")
+            # deaths: threads that raised out of their lease loop (error and
+            # note captured under the lock so a racing worker unwind cannot
+            # tear the pair)
+            with self._lock:
+                dead = [(w, self.errors[w], self.failures[w])
+                        for w in sorted(self.active) if w in self.errors]
+            for wid, err, note in dead:
+                if isinstance(err, KeyboardInterrupt):
+                    raise err
+                from .ps_sharding import PSShardDown
+                if isinstance(err, PSShardDown):
+                    raise err  # a lost center partition is not a worker death
+                self._declare_dead(wid, note, reason="died")
+            # liveness: leases remain but nobody is working on them
+            if not self.ledger.epoch_done() \
+                    and not any(self._alive(w) for w in self.active):
+                with self._lock:
+                    restartable = [w for w in sorted(self.active)
+                                   if w in self.results]
+                if restartable:
+                    # finished workers rejoin to drain revoked leases
+                    self._start(restartable[0])
+                elif self._respawn(-1, "worker pool drained") is None:
+                    last = None
+                    with self._lock:
+                        if self.errors:
+                            last = list(self.errors.values())[-1]
+                    raise RuntimeError(
+                        f"all elastic workers failed with {self.respawns} "
+                        f"respawns spent (max_respawns="
+                        f"{self.max_respawns})") from last
+            time.sleep(self.poll_interval)
+        for wid in sorted(self.active):
+            t = self._threads.get(wid)
+            if t is not None:
+                t.join(timeout=self.join_timeout)
+
+    def release_hung(self):
+        """Unblock workers wedged on an injected 'hang' fault (teardown)."""
+        for w in self.workers.values():
+            ev = getattr(w, "_hang_released", None)
+            if ev is not None:
+                ev.set()
+
+    def shutdown(self):
+        self.release_hung()
+        for t in self._threads.values():
+            t.join(timeout=1.0)

@@ -22,10 +22,14 @@ loopback (``parameter_servers.py``): ``num_workers × parallelism_factor``
 worker threads, each training its own copy of the model on the trainer's
 one device (``workers.py``), with the dense wire codings, top-k and
 row-sparse commits, both server cores, ``comm_overlap`` and the center
-sharded over ``ps_shards`` servers (``ps_sharding.py``).  What waits for
-later slices raises: the process engine (``execution="process_ps"``),
-recovery, the elastic and streaming engines and fault injection (ROADMAP
-queue A item 6), the orbax checkpoint backend and the Keras adapter.
+sharded over ``ps_shards`` servers (``ps_sharding.py``), and survives
+faults: ``recovery`` (journaled, respawned shards and reconnecting
+workers), ``elastic`` (lease-based workers, respawned on death, stolen
+from on a wedge), ``fault_tolerance``/``fault_injection`` and
+``partition_windows`` (``resilience.py``).  What waits for later slices
+raises: the process engine (``execution="process_ps"``, with its knobs)
+and the streaming engine (ROADMAP queue A item 6), the orbax checkpoint
+backend and the Keras adapter.
 """
 
 from __future__ import annotations
@@ -437,6 +441,10 @@ class DistributedTrainer(Trainer):
         # engine, whose recovery is checkpoint_dir + train(resume=True)
         self.fault_tolerance = bool(fault_tolerance)
         self.fault_injection = fault_injection
+        #: the worker ids a fault_tolerance (or elastic) run lost, and each
+        #: one's traceback text
+        self.failed_workers: List[int] = []
+        self.worker_failures: dict = {}
         self.metrics: List[dict] = []
         self._engine: Optional[SPMDEngine] = None
         self._state: Optional[DistState] = None
@@ -474,10 +482,6 @@ class DistributedTrainer(Trainer):
                     "segment_col (packed training) runs on the SPMD engine "
                     "only — the PS workers don't thread segment ids; use "
                     "execution='spmd'")
-            if self.fault_tolerance or self.fault_injection:
-                raise NotImplementedError(
-                    "fault_tolerance/fault_injection on execution='host_ps' "
-                    "are not ported yet (ROADMAP queue A item 6)")
             from .parameter_servers import run_host_ps_training
             return run_host_ps_training(self, dataset, shuffle,
                                         resume=resume)
@@ -648,13 +652,19 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
     family), ``ps_core`` (``"event"`` or ``"threaded"``), ``coalesce`` and
     ``apply_kernel``, the address pair ``ps_bind_host`` /
     ``ps_advertise_host``, ``ps_shards`` (the center partitioned over N
-    shard servers, ``ps_sharding.py``) and ``row_sparse`` (exact
-    touched-row commits of embedding tables; it pins the serial loop).
+    shard servers, ``ps_sharding.py``), ``row_sparse`` (exact
+    touched-row commits of embedding tables; it pins the serial loop),
+    ``recovery`` with ``recovery_policy`` (a ``resilience.ShardSupervisor``
+    journals and respawns shards; workers reconnect-resume), ``elastic``
+    with ``lease_windows`` and ``lease_timeout`` (lease-based workers under
+    a ``resilience.WorkerSupervisor``) and ``partition_windows`` (a
+    partitioned worker buffers its windows and flushes them on heal).
     Each is checked as the JAX class checks it, and a value the JAX class
-    refuses is refused here with the same ``ValueError``.  The knobs of the
-    engines still to come (``recovery``, ``elastic``, ``stream``,
-    ``partition_windows``) raise ``NotImplementedError`` on ``host_ps``
-    (ROADMAP queue A item 6).
+    refuses is refused here with the same ``ValueError``.  ``stream``
+    raises ``NotImplementedError`` on ``host_ps``, and the cross-process
+    engine's knobs (``ps_placement="process"``, ``freeze_deadline``,
+    ``scratch_dir``) are refused with the JAX message and a note that the
+    engine waits for ROADMAP queue A item 6.
     """
 
     #: algorithms whose per-algorithm comm_overlap default is ON
@@ -749,7 +759,7 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
              or scratch_dir is not None,
              "ps_placement='process'/freeze_deadline/scratch_dir apply to "
              "the supervised cross-process engine — execution='process_ps' "
-             "with elastic=True"),
+             "with elastic=True (not ported yet: ROADMAP queue A item 6)"),
             (int(partition_windows) != 0 and not host_ps,
              f"partition_windows {ps_only}"),
             (int(partition_windows) != 0 and int(ps_shards) > 1,
@@ -763,16 +773,11 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         for refused, message in refusals:
             if refused:
                 raise ValueError(message)
-        # the knobs of the host-PS engines still to come
-        for knob, is_set in (("recovery=True", bool(recovery)),
-                             ("elastic=True", bool(elastic)),
-                             ("stream=True", bool(stream)),
-                             ("partition_windows",
-                              int(partition_windows) != 0)):
-            if is_set:
-                raise NotImplementedError(
-                    f"{knob} on execution='host_ps' is not ported yet "
-                    "(ROADMAP queue A item 6)")
+        # the streaming engine is still to come
+        if stream:
+            raise NotImplementedError(
+                "stream=True on execution='host_ps' is not ported yet "
+                "(ROADMAP queue A item 6)")
         if host_ps:
             # resolved eagerly, as the JAX class does: 'native' raises here
             # (the port's build of the apply kernel waits for item 8)
@@ -782,7 +787,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         self._comm_overlap = comm_overlap
         self.ps_shards = int(ps_shards)
         self.recovery = bool(recovery)
+        self.recovery_policy = recovery_policy
         self.elastic = bool(elastic)
+        #: elastic-run observability: respawns, lease reassignments,
+        #: windows per worker, the per-epoch exactly-once reports, events
+        self.elastic_stats: dict = {}
+        self.partition_windows = int(partition_windows)
         self.lease_windows = (None if lease_windows is None
                               else int(lease_windows))
         self.lease_timeout = float(lease_timeout)

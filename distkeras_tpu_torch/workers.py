@@ -48,11 +48,20 @@ What differs from the JAX workers:
    the window, and the loss, the non-table leaves and the touched-row
    masks come back in one copy.
  - **Dropout** draws from a ``torch.Generator`` seeded from (seed, worker,
-   epoch): its masks are not the JAX package's.
- - What waits for ROADMAP queue A item 6 raises: partition tolerance,
-   reconnect-resume (``recovery``), the elastic lease loop
-   (``train_leases``/``compile_windows``) and the ``'exit'``/``'hang'``
-   fault kinds.
+   epoch), and in the elastic lease loop from (seed + 100 + worker, epoch,
+   lease) by the same rule (``parallel.spmd._seed``), so a stolen lease
+   retrains under the stealer's stream: its masks are not the JAX
+   package's.
+ - **``compile_windows`` clones.**  The JAX program donates throwaway
+   copies; the port's window trains the module in place, so the warm-up
+   window runs on a masked (all-padding) stack and the worker's parameters
+   are restored from clones afterwards: the model is unchanged by it.
+ - **Commits that can still land** are counted per (shard, generation)
+   at the socket (``sent_by_gen``): a commit a fault aborts is never sent,
+   one stamped with a generation a respawned shard rejects counts under
+   the old generation, and one whose connection died before any reply
+   (its fate unknown) is taken back out.  ``run_host_ps_training`` waits
+   for exactly those before it reads the center.
 
 With ``comm_overlap`` the transport is *pipelined*: each window becomes one
 combined ``'u'`` (commit+pull) round trip whose reply is received while the
@@ -65,6 +74,8 @@ worker's queued work.
 from __future__ import annotations
 
 import socket
+import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -78,19 +89,15 @@ from .core.train import TrainState, batch_epoch_data, make_masked_step, \
 from .device import DeviceLike, host_to_device, resolve_device
 from .parallel.spmd import _seed
 from .ps_sharding import ShardedPSClient
-from .resilience import (DEFAULT_CONNECT_POLICY, RETRYABLE_CONNECT,
-                         RetryPolicy, dial)
-
-#: what the workers of this slice leave to ROADMAP queue A item 6
-_ITEM_6 = "is not ported yet (ROADMAP queue A item 6)"
+from .resilience import (DEFAULT_CONNECT_POLICY, DEFAULT_RECOVERY_POLICY,
+                         RETRYABLE_CONNECT, Partitioned, RetryPolicy, dial)
 
 
 #: injectable worker fault kinds (fault_injection): 'raise' = thread raises
 #: (the legacy int form), 'exit' = the worker vanishes mid-frame (torn
 #: commit + RST, then SystemExit — the wire signature of a worker host
 #: dying), 'hang' = the worker wedges (stops renewing its lease) while its
-#: PS connection stays open, until released at teardown.  The port's
-#: workers take 'raise'; the other two wait for ROADMAP queue A item 6.
+#: PS connection stays open, until released at teardown.
 FAULT_KINDS = ("raise", "exit", "hang")
 
 
@@ -422,10 +429,6 @@ class PSWorker(Worker):
                  retry_policy: Optional[RetryPolicy] = None,
                  row_sparse_tables=None,
                  partition_windows: int = 0, **kw):
-        for knob, is_set in (("recovery=True", bool(recovery)),
-                             ("partition_windows", bool(partition_windows))):
-            if is_set:
-                raise NotImplementedError(f"{knob} {_ITEM_6}")
         super().__init__(model_blob, worker_optimizer, loss, **kw)
         self.ps_host = ps_host
         self.ps_port = ps_port
@@ -450,15 +453,19 @@ class PSWorker(Worker):
         #: wire carries them, before any shard split: a sparse commit's
         #: indices and values; int8 scales ride in the frame header)
         self.commit_bytes = 0
-        # fault injection: worker id -> (kind, budget); the worker raises
-        # at its budget+1-th commit ('raise'); 'exit'/'hang' wait for the
-        # elastic engine
+        # fault injection: worker id -> (kind, budget); the worker faults at
+        # its budget+1-th commit with 'raise', 'exit' (dies mid-frame) or
+        # 'hang' (wedges until _hang_released)
         self.fault_injection = parse_fault_injection(fault_injection)
-        for kind, _ in self.fault_injection.values():
-            if kind != "raise":
-                raise NotImplementedError(
-                    f"fault_injection kind {kind!r} {_ITEM_6}")
+        #: set at teardown to unblock a worker wedged on an injected 'hang'
+        self._hang_released = threading.Event()
         self._commits = 0
+        #: commits sent, by (shard, the generation they were stamped with;
+        #: shard 0 on the single socket), less those whose connection died
+        #: before any reply: what can still land (run_host_ps_training
+        #: waits for it before reading the center)
+        self.sent_by_gen: Dict[Tuple[int, Optional[int]], int] = {}
+        self._unconfirmed: List[Tuple[int, Optional[int]]] = []
         # "bfloat16": halve commit bytes; "int8": quarter them with
         # per-tensor affine quantization + error feedback (see commit()).
         # "topk": ship only the wire_topk·n largest-magnitude coordinates of
@@ -541,8 +548,72 @@ class PSWorker(Worker):
         self._pool: Optional[networking.BufferPool] = None
         self._send_pool: Optional[networking.BufferPool] = None
         self._last_clock = 0
+        # reconnect-resume (resilience.py): with recovery on, a mid-run
+        # transport fault re-dials the PS under retry_policy and re-syncs
+        # instead of killing the worker; PSShardDown/ConnectionError only
+        # after the recovery deadline.  The generation learned from every
+        # reply stamps commits, so a restarted PS can reject the in-flight
+        # windows its restart rolled back.
+        self.recovery = bool(recovery)
         self.retry_policy = retry_policy
         self._gen: Optional[int] = None
+        # duplicate-reply baseline: last reply clock on the CURRENT
+        # connection (reset on every dial): a restarted PS's clock
+        # legitimately restarts below the monotonic _last_clock view, but
+        # within one connection genuine replies never run backwards
+        self._conn_clock: Optional[int] = None
+        self.resumes = 0
+        self.stale_replies = 0
+        self.clock_regressions = 0
+        # partition tolerance (partition_windows > 0): instead of blocking
+        # in reconnect-resume the moment the PS link dies, the worker keeps
+        # computing for up to partition_windows windows, SUMMING each
+        # window's as-applied dense delta into a pending buffer and serving
+        # pulls from the last good center.  One heal probe per window ('h'
+        # on a fresh dial); on heal the buffer flushes as ONE commit
+        # stamped with the generation seen at partition onset, so a PS
+        # respawned during the partition gen-rejects it (bounded loss,
+        # never corruption).  Budget spent: blocking resume (with
+        # recovery), then a typed resilience.Partitioned.  Serial
+        # single-socket transport only.
+        self.partition_windows = int(partition_windows or 0)
+        if self.partition_windows < 0:
+            raise ValueError("partition_windows must be >= 0")
+        if self.partition_windows:
+            if self.shard_addrs is not None:
+                raise ValueError(
+                    "partition_windows applies to the single-socket PS "
+                    "link; the sharded client heals by reconnect-resume "
+                    "(recovery=True) instead")
+            if self.comm_overlap:
+                raise ValueError(
+                    "partition_windows uses the serial per-window "
+                    "transport; comm_overlap must be off")
+            if self.row_sparse_tables:
+                raise ValueError(
+                    "partition_windows buffers dense as-applied deltas; "
+                    "row_sparse_tables commits cannot be buffered")
+        self._pending: Optional[List[np.ndarray]] = None
+        self._pending_windows = 0
+        self._pending_gen: Optional[int] = None
+        self._cached_center: Optional[List[np.ndarray]] = None
+        #: partition episodes entered / pending buffers reconciled on heal
+        self.partitions = 0
+        self.reconciliations = 0
+
+    # -- commits that can still land -----------------------------------------
+    def _note_sent(self, key: Tuple[int, Optional[int]]):
+        """One commit went out on the single socket stamped ``key[1]``."""
+        self.sent_by_gen[key] = self.sent_by_gen.get(key, 0) + 1
+        self._unconfirmed.append(key)
+
+    def _drop_unconfirmed(self):
+        """The connection died: the commits sent on it since its last reply
+        may or may not have applied, so they no longer count as landing
+        (the wait reads the count as a lower bound)."""
+        for key in self._unconfirmed:
+            self.sent_by_gen[key] -= 1
+        self._unconfirmed.clear()
 
     # -- wire ---------------------------------------------------------------
     def _connect_policy(self, attempts: Optional[int] = None,
@@ -574,7 +645,9 @@ class PSWorker(Worker):
         socket + one buffer pool per shard)."""
         if self.shard_addrs is not None:
             self._shard_client = ShardedPSClient(
-                self.shard_plan, self.shard_addrs, policy=self.retry_policy)
+                self.shard_plan, self.shard_addrs,
+                recovery=self.recovery, policy=self.retry_policy)
+            self._shard_client.sent = self.sent_by_gen
             self._shard_client.connect(attempts=attempts, backoff=backoff,
                                        policy=policy)
             return
@@ -587,15 +660,58 @@ class PSWorker(Worker):
                 f"{pol.describe()} connection attempts") from e
         self._pool = networking.BufferPool()
         self._send_pool = networking.BufferPool()
+        self._conn_clock = None
+
+    def _with_resume(self, fn, fault: BaseException):
+        """Mid-run reconnect-resume (single-socket path): repeatedly
+        (re-dial + ``fn()``) under the recovery policy.  Dial and first use
+        retry as ONE unit: a dial can succeed against a dead listener's
+        kernel backlog and only fail on first use.  ``ConnectionError``
+        escapes only once the policy (deadline/attempts) is exhausted."""
+        pol = self.retry_policy or DEFAULT_RECOVERY_POLICY
+        t0 = time.monotonic()
+        last = fault
+        for d in pol.delays():
+            try:
+                if self._sock is not None:
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    self._sock = None
+                self._drop_unconfirmed()
+                self._sock = networking.connect(self.ps_host, self.ps_port)
+                self._pool = networking.BufferPool()
+                self._send_pool = networking.BufferPool()
+                self._conn_clock = None
+                out = fn()
+                self.resumes += 1
+                return out
+            except (ConnectionError, OSError, ValueError,
+                    socket.timeout) as e:
+                last = e
+                if (pol.deadline is not None
+                        and time.monotonic() - t0 + d > pol.deadline):
+                    break
+                time.sleep(d)
+        raise ConnectionError(
+            f"PS at {self.ps_host}:{self.ps_port} unrecovered after "
+            f"{pol.describe()} reconnect attempts") from last
 
     def _sync_reply(self, msg):
         """Fold a reply's (gen, clock) into this worker's view: generation
-        follows the server (commits carry it, as the JAX workers'
-        do); the clock stays monotonic."""
+        follows the server; the clock stays monotonic (a restored, older,
+        PS clock must not roll the staleness baseline backwards).  A reply
+        confirms every commit sent before it on this connection."""
         g = msg.get("gen")
         if g is not None:
             self._gen = int(g)
-        self._last_clock = max(self._last_clock, int(msg["clock"]))
+        c = int(msg["clock"])
+        self._conn_clock = c
+        if c < self._last_clock:
+            self.clock_regressions += 1
+        self._last_clock = max(self._last_clock, c)
+        self._unconfirmed.clear()
 
     def disconnect(self):
         if self._shard_client is not None:
@@ -625,10 +741,30 @@ class PSWorker(Worker):
             self._last_clock = self._shard_client.max_clock
             self.transport_ops += self._shard_client.num_shards
             return weights
-        networking.send_opcode(self._sock, b"p")
-        msg = networking.recv_data(self._sock, pool=self._pool)
+
+        def do_pull():
+            networking.send_opcode(self._sock, b"p")
+            return networking.recv_data(self._sock, pool=self._pool)
+
+        try:
+            msg = do_pull()
+        except (ConnectionError, OSError, ValueError) as e:
+            if self.partition_windows and self._cached_center is not None:
+                # partitioned: serve the last good center (copies: the
+                # cache must survive the next real receive); the window
+                # trains one partition staler, the staleness class the
+                # async rules already absorb
+                return [w.copy() for w in self._cached_center]
+            if not self.recovery:
+                raise
+            msg = self._with_resume(do_pull, e)
         self._sync_reply(msg)
         self.transport_ops += 1
+        if self.partition_windows:
+            # pool-backed views are only valid until the next receive; the
+            # partition cache needs owned copies
+            self._cached_center = [np.array(w, copy=True)
+                                   for w in msg["weights"]]
         return msg["weights"]
 
     # -- sparse top-k compression (wire_dtype="topk") ------------------------
@@ -902,14 +1038,52 @@ class PSWorker(Worker):
         self.commit_bytes += _payload_bytes(sp)
         return msg, self._densify(idx, applied_vals)
 
-    def _inject_fault(self, worker_id: int):
-        """The 'raise' fault: hard-close first (every shard socket when
-        sharded) so the unwind path's disconnect() is a no-op (no graceful
-        b'q'): the PS sees a plain EOF."""
-        networking._hard_close(self._sock)
-        self._sock = None
+    def _inject_fault(self, worker_id: int, kind: str):
+        """Realize one injected fault at this commit (see ``FAULT_KINDS``).
+
+        'hang' wedges the worker with its PS connection(s) left open (the
+        signature of a stuck host or device: no EOF for the server, no
+        renewal for the lease ledger) until ``_hang_released`` is set at
+        teardown; then the thread unwinds with a RuntimeError, so it never
+        completes work it abandoned.  'raise' closes first so the unwind
+        path's disconnect() is a no-op (no graceful b'q'): the PS sees a
+        plain EOF after every commit already sent.  'exit' dies MID-FRAME
+        (the opcode and half a commit frame, then an RST: the wire
+        signature of a worker host falling over mid-send, which the PS
+        must drop cleanly without a codec error) and raises SystemExit
+        instead of RuntimeError.  The aborted commit is never sent, so it
+        never counts as landing; nor do the unanswered ones an RST may
+        discard.
+        """
+        if kind == "hang":
+            self._hang_released.wait()
+            raise RuntimeError(
+                f"injected fault: worker {worker_id} hang released at "
+                f"commit {self._commits}")
+        if kind == "exit" and self._sock is not None:
+            # die mid-frame: the torn half-commit exercises the PS
+            # handler's half-frame disconnect path through the real server
+            try:
+                frame = networking.encode_message(
+                    {"delta": [np.zeros((4,), np.float32)],
+                     "worker_id": worker_id, "clock": self._last_clock})
+                self._sock.sendall(b"c" + frame[:max(9, len(frame) // 2)])
+            except OSError:
+                pass
+            networking._hard_close(self._sock)
+            self._sock = None
+            self._drop_unconfirmed()
         if self._shard_client is not None:
             self._shard_client.abort()
+        try:
+            self._sock.close()
+        except (OSError, AttributeError):
+            pass
+        self._sock = None
+        if kind == "exit":
+            raise SystemExit(
+                f"injected fault: worker {worker_id} exits at commit "
+                f"{self._commits}")
         raise RuntimeError(
             f"injected fault: worker {worker_id} dies at commit "
             f"{self._commits}")
@@ -921,7 +1095,7 @@ class PSWorker(Worker):
         self._commits += 1
         fault = self.fault_injection.get(worker_id)
         if fault is not None and self._commits > fault[1]:
-            self._inject_fault(worker_id)
+            self._inject_fault(worker_id, fault[0])
         if self._topk_density is not None:
             return self._prepare_topk_commit(delta, worker_id)
         if self._quantize:
@@ -996,15 +1170,139 @@ class PSWorker(Worker):
             self._shard_client.send_commit(msg)
             self.transport_ops += self._shard_client.num_shards
             return applied
-        self._send_request(b"c", msg)
+        if self._pending_windows:
+            # already partitioned: one heal probe per window, then either
+            # reconcile or keep buffering (until the budget runs out)
+            if self._heal_probe():
+                try:
+                    self._flush_pending(worker_id)
+                except (ConnectionError, OSError):
+                    pass  # re-partitioned mid-flush: state still buffered
+            if self._pending_windows:
+                self._buffer_pending(applied, worker_id)
+                return applied
+        try:
+            self._send_request(b"c", msg)
+        except (ConnectionError, OSError):
+            if not self.partition_windows:
+                raise
+            self.partitions += 1
+            self._buffer_pending(applied, worker_id)
+            return applied
         self.transport_ops += 1
         return applied
 
     def _send_request(self, op: bytes, msg) -> None:
-        """Opcode + frame on the socket; the commit re-serializes into the
-        connection's reusable send buffer (same wire bytes)."""
-        networking.send_opcode(self._sock, op)
-        networking.send_data(self._sock, msg, pool=self._send_pool)
+        """Opcode + frame on the single socket, re-serialized into the
+        connection's reusable send buffer, with reconnect-resume: a
+        send-side fault re-dials and re-issues the same message (still
+        stamped with the old generation: a restarted PS drops it and the
+        next reply re-syncs us; bounded loss either way).  With
+        ``partition_windows`` set the fault raises through instead: the
+        caller buffers into the pending-commit path rather than blocking
+        here."""
+
+        def send():
+            networking.send_opcode(self._sock, op)
+            networking.send_data(self._sock, msg, pool=self._send_pool)
+
+        try:
+            send()
+        except (ConnectionError, OSError) as e:
+            if self.partition_windows or not self.recovery:
+                raise
+            self._with_resume(send, e)
+        self._note_sent((0, msg.get("gen")))
+
+    # -- partition tolerance (partition_windows > 0) -------------------------
+    def _heal_probe(self, timeout: float = 0.25) -> bool:
+        """One liveness round trip on a FRESH dial: 'h' answered within
+        ``timeout`` means the path healed, and the probe socket is adopted
+        as the live connection (its reply re-syncs gen + clock).  False
+        means still partitioned; nothing changes."""
+        sock = None
+        try:
+            sock = networking.connect(self.ps_host, self.ps_port)
+            sock.settimeout(timeout)
+            networking.send_opcode(sock, b"h")
+            msg = networking.recv_data(sock)
+            if not isinstance(msg, dict) or "clock" not in msg:
+                raise ValueError("malformed heartbeat reply")
+            sock.settimeout(None)
+        except (ConnectionError, OSError, ValueError, socket.timeout):
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+            return False
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+        self._drop_unconfirmed()  # sent on the dead path: fate unknown
+        self._sock = sock
+        self._pool = networking.BufferPool()
+        self._send_pool = networking.BufferPool()
+        self._conn_clock = None
+        self._sync_reply(msg)
+        return True
+
+    def _buffer_pending(self, applied: List[np.ndarray], worker_id: int):
+        """Sum one window's as-applied dense delta into the pending buffer;
+        escalate once the budget is spent.  ``applied`` is dense and
+        weight-shaped for every wire family (top-k densifies), so one
+        buffer shape serves them all."""
+        if self._pending is None:
+            # stamp the flush with the generation seen BEFORE the
+            # partition: a PS respawned while we were dark must gen-reject
+            # this mass (it was computed against the pre-respawn center)
+            self._pending_gen = self._gen
+            self._pending = [np.array(a, dtype=np.float32, copy=True)
+                             for a in applied]
+        else:
+            for p, a in zip(self._pending, applied):
+                p += np.asarray(a, dtype=np.float32)
+        self._pending_windows += 1
+        if self._pending_windows <= self.partition_windows:
+            return
+        # budget exhausted: block in reconnect-resume (when recovery is on)
+        # and surface a typed Partitioned once that fails too
+        if self.recovery:
+            try:
+                self._with_resume(
+                    lambda: self._flush_pending(worker_id),
+                    ConnectionError("partition budget exhausted"))
+                return
+            except ConnectionError as e:
+                raise Partitioned(
+                    (self.ps_host, self.ps_port),
+                    detail="recovery deadline exhausted after the "
+                           "pending-commit budget",
+                    pending_windows=self._pending_windows) from e
+        raise Partitioned((self.ps_host, self.ps_port),
+                          pending_windows=self._pending_windows)
+
+    def _flush_pending(self, worker_id: int):
+        """Reconcile: ship the summed pending mass as ONE dense commit on
+        the healed link, stamped with the partition-onset generation.
+        Raises on a transport fault: the buffer survives for the next
+        probe."""
+        if self._pending is None:
+            return
+        msg = {"delta": self._pending, "worker_id": worker_id,
+               "clock": self._last_clock}
+        if self._pending_gen is not None:
+            msg["gen"] = self._pending_gen
+        networking.send_opcode(self._sock, b"c")
+        networking.send_data(self._sock, msg)
+        self._note_sent((0, self._pending_gen))
+        self.transport_ops += 1
+        self.reconciliations += 1
+        self._pending = None
+        self._pending_windows = 0
+        self._pending_gen = None
 
     def update_begin(self, delta: List[np.ndarray], worker_id: int):
         """'u' part 1: ship the delta (same fault-injection + compression
@@ -1044,9 +1342,37 @@ class PSWorker(Worker):
                     self._recredit(idx[mask], vals[mask])
             self._inflight = None
             return weights
-        msg = networking.recv_data(self._sock, pool=self._pool)
+        resumed = False
+        try:
+            msg = networking.recv_data(self._sock, pool=self._pool)
+        except (ConnectionError, OSError, ValueError) as e:
+            if not self.recovery:
+                raise
+
+            # the in-flight 'u' reply died with the connection: re-sync
+            # with a plain pull on the fresh connection
+            def resync():
+                networking.send_opcode(self._sock, b"p")
+                return networking.recv_data(self._sock, pool=self._pool)
+
+            msg = self._with_resume(resync, e)
+            self.transport_ops += 1
+            resumed = True
+        if self.recovery and not resumed:
+            # duplicate-reply discard against the PER-CONNECTION clock
+            # baseline (a genuine combined reply always advances the clock;
+            # "stale"-marked gen rejections legitimately leave it as it was)
+            while (not msg.get("stale")
+                   and self._conn_clock is not None
+                   and int(msg["clock"]) <= self._conn_clock):
+                self.stale_replies += 1
+                msg = networking.recv_data(self._sock, pool=self._pool)
         self._sync_reply(msg)
-        if msg.get("stale") and self._inflight is not None:
+        # a 'stale'-marked reply means a restarted server gen-rejected the
+        # in-flight sparse commit: its as-applied mass goes back into the
+        # error-feedback residual.  A resumed pull re-sync stays silent:
+        # that commit's fate is unknown (the bounded-loss class).
+        if not resumed and msg.get("stale") and self._inflight is not None:
             self._recredit(*self._inflight)
         self._inflight = None
         return msg["weights"]
@@ -1109,12 +1435,119 @@ class PSWorker(Worker):
         """One serial window: (params, opt_state, loss as a float)."""
         raise NotImplementedError
 
-    def compile_windows(self, x_sample, y_sample) -> float:
-        raise NotImplementedError(f"the elastic lease loop {_ITEM_6}")
+    # -- elastic lease loop ---------------------------------------------------
+    def compile_windows(self, x_sample: np.ndarray,
+                        y_sample: np.ndarray) -> float:
+        """Warm the window program off the lease clock; returns the
+        wall-clock seconds of one window (its first call on this device:
+        kernel builds, cuDNN's algorithm choice, the allocator's first
+        blocks).
+
+        Elastic runs measure lease deadlines from the moment a lease is
+        acquired; without this, the first window of the run pays the
+        warm-up inside a live deadline and a healthy worker can read as
+        wedged.  The returned time seeds the ledger's cold estimate
+        (``LeaseLedger.default_window_s``), an overestimate by design.
+
+        The window is the program the lease loop runs (dense, device
+        top-k or row-sparse) over a ``(window, batch, ...)`` stack of the
+        sample's dtype and row shape, every row masked as padding, with a
+        fresh optimizer state and a throwaway top-k residual.  The port's
+        window trains the module in place, so every parameter and
+        statistic is cloned first and written back after: the worker's
+        model is unchanged by the call.  The device is synchronised before
+        the clock stops."""
+        self._ensure_model()
+        x_sample, y_sample = np.asarray(x_sample), np.asarray(y_sample)
+        xw = host_to_device(np.zeros(
+            (self.window, self.batch_size) + x_sample.shape[1:],
+            x_sample.dtype), self.device)
+        yw = host_to_device(np.zeros(
+            (self.window, self.batch_size) + y_sample.shape[1:],
+            y_sample.dtype), self.device)
+        mw = np.zeros((self.window, self.batch_size), np.float32)
+        params = self._params
+        saved = [p.detach().clone() for p in params.values()]
+        opt_state = self._tx.init(list(params.values()))
+        generator = self._generator(self.seed, 0)
+        t0 = time.monotonic()
+        try:
+            if self._topk_density is not None and self._DEVICE_TOPK:
+                self._ensure_topk()
+                fn = self._build_topk_window_fn()
+                residual = torch.zeros((self._wire_total,),
+                                       dtype=torch.float32,
+                                       device=self.device)
+                fn(params, opt_state, residual, xw, yw, mw, generator)
+            elif self.row_sparse_tables:
+                self._build_rowsparse_window_fn()(params, opt_state, xw, yw,
+                                                  mw, generator)
+            else:
+                self._build_window_fn()(params, opt_state, xw, yw, mw,
+                                        generator)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            seconds = time.monotonic() - t0
+        finally:
+            with torch.no_grad():
+                for p, v in zip(params.values(), saved):
+                    p.copy_(v)
+        return seconds
 
     def train_leases(self, worker_id: int, ledger, data_fn,
                      initial_state=None) -> dict:
-        raise NotImplementedError(f"the elastic lease loop {_ITEM_6}")
+        """The elastic worker loop (``elastic=True``): acquire a lease from
+        the ``LeaseLedger``, train its windows with the per-algorithm
+        serial ``_window_step`` (commit + pull per window), renew the lease
+        once per committed window (the heartbeat rides the commit cadence,
+        no extra transport), complete it, repeat until the ledger's epoch
+        runs dry.
+
+        A ``renew`` returning False means the lease was revoked (this
+        worker was presumed dead or wedged and a survivor stole it): the
+        rest of the lease is abandoned; the stealer's completion is the
+        one the exactly-once ledger records.  A respawned replacement
+        starts with ``initial_state=None``: a fresh pull of the live
+        center.  ``data_fn(lease)`` maps a lease to its (x, y) rows of the
+        epoch's globally-shuffled arrays.  Each lease draws from its own
+        generator, seeded from (seed + 100 + worker, epoch, lease), so a
+        stolen lease retrains under the stealer's stream.
+        """
+        window_fn = self._build_window_fn()
+        self.connect()
+        try:
+            center = self.pull()
+            if initial_state is None:
+                params = self._weights_to_params(center)
+                opt_state = self._tx.init(list(params.values()))
+            else:
+                params, opt_state = self._adopt_state(initial_state)
+            while True:
+                lease = ledger.acquire(worker_id)
+                if lease is None:
+                    break
+                x, y = data_fn(lease)
+                xw, yw, mw = self._stack_windows(np.asarray(x),
+                                                 np.asarray(y))
+                xd, yd = self._to_device(xw, yw)
+                generator = self._generator(self.seed + 100 + worker_id,
+                                            lease.epoch, lease.lease_id)
+                revoked = False
+                for i in range(len(mw)):
+                    params, opt_state, loss = self._window_step(
+                        window_fn, params, opt_state, xd[i], yd[i], mw[i],
+                        generator, worker_id)
+                    self.history.append(loss)
+                    # renewal piggybacks on the commit this window just
+                    # made; False = revoked -> abandon the rest
+                    if not ledger.renew(lease.lease_id, worker_id):
+                        revoked = True
+                        break
+                if not revoked:
+                    ledger.complete(lease.lease_id, worker_id)
+        finally:
+            self.disconnect()
+        return {"history": self.history, "state": (params, opt_state)}
 
     # -- overlapped (pipelined) window loop -----------------------------------
     def _train_epoch_overlapped(self, window_fn, params, opt_state, xw, yw,

@@ -360,13 +360,14 @@ HOST_PS_KNOBS = [
     ("ADAG", dict(ps_shards=2)),
     ("ADAG", dict(row_sparse=True)),
     ("DynSGD", dict(row_sparse=[0], ps_shards=3)),
+    # the survivable servers, elastic workers and partition tolerance
+    ("ADAG", dict(recovery=True)),
+    ("DynSGD", dict(elastic=True)),
+    ("ADAG", dict(partition_windows=2)),
 ]
 # ... the knobs of the host-PS engines still to come (item 6) ...
 HOST_PS_WAITS = [
-    ("ADAG", dict(recovery=True)),
-    ("DynSGD", dict(elastic=True)),
     ("ADAG", dict(stream=True)),
-    ("ADAG", dict(partition_windows=2)),
 ]
 # ... and the values the JAX class refuses on host_ps too
 HOST_PS_REFUSALS = [

@@ -71,6 +71,24 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_resilience_imports_only_numpy_torch_and_the_stdlib():
+    """Every import of ``resilience.py``, the function-level ones of the
+    journal and the supervisors included, is the standard library, numpy,
+    torch or the port's own modules."""
+    path = ROOT / "distkeras_tpu_torch" / "resilience.py"
+    roots = imported_roots(path)
+    allowed = set(sys.stdlib_module_names) | {"__future__", "numpy",
+                                              "torch"}
+    assert roots and roots <= allowed, sorted(roots - allowed)
+    relative = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            relative |= ({node.module} if node.module
+                         else {a.name for a in node.names})
+    assert relative == {"networking", "checkpoint", "parameter_servers",
+                        "ps_sharding"}, relative
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, distkeras_tpu_torch, distkeras_tpu_torch.kernels; "
             "import distkeras_tpu_torch.core.decode, "

@@ -4,11 +4,10 @@ group against the single PS, and ``ps_shards=N`` through the trainer on
 the CPU (bit-identical single-worker runs, one ``'u'`` per window per
 shard, ``PSShardDown`` on a dead shard).
 
-The two fault-tolerance legs of the JAX file (a worker death under
-sharding, a shard death overriding ``fault_tolerance``) need
-``fault_tolerance`` on host_ps, which waits for ROADMAP queue A item 6:
-here they assert that refusal.  The JAX file's ``BufferPool`` eviction
-cases run here too (no other port file holds them)."""
+The two fault-tolerance legs of the JAX file run too: a worker death
+under sharding finishes on the survivors, and a shard death overrides
+``fault_tolerance``.  The JAX file's ``BufferPool`` eviction cases run
+here too (no other port file holds them)."""
 
 import socket
 
@@ -343,9 +342,9 @@ def test_aeasgd_overlap_through_sharded_client():
 
 
 def test_sharded_run_tolerates_worker_death():
-    """The JAX case kills a worker under sharding with fault_tolerance on;
-    fault_tolerance/fault_injection on host_ps wait for ROADMAP queue A
-    item 6, and the sharded trainer refuses them at train()."""
+    """fault_tolerance still covers WORKER death under sharding: the dying
+    worker hard-closes all its shard sockets (plain EOF on every shard) and
+    the survivors finish."""
     ds = make_dataset(n=1024)
     t = ADAG(make_model(), num_workers=4, batch_size=16, num_epoch=3,
              communication_window=4, label_col="label_encoded",
@@ -353,8 +352,9 @@ def test_sharded_run_tolerates_worker_death():
              execution="host_ps", ps_shards=2, fault_tolerance=True,
              fault_injection={1: 2}, device="cpu")
     assert t.ps_shards == 2
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        t.train(ds)
+    fitted = t.train(ds)
+    assert t.failed_workers == [1]
+    assert _accuracy(fitted, ds) > 0.8
 
 
 def test_ps_shards_knob_validation():
@@ -403,9 +403,9 @@ def test_shard_connect_failure_is_shard_down():
 
 
 def test_shard_down_overrides_fault_tolerance(monkeypatch):
-    """The JAX case: a dead shard re-raises PSShardDown even under
-    fault_tolerance=True.  fault_tolerance on host_ps waits for ROADMAP
-    queue A item 6; without it a shard death still surfaces as itself."""
+    """A dead SHARD loses a partition of the center: the trainer re-raises
+    PSShardDown even under fault_tolerance=True instead of pretending the
+    survivors can complete, and without it too."""
     from distkeras_tpu_torch import ps_sharding
 
     def dying(self):
@@ -417,8 +417,10 @@ def test_shard_down_overrides_fault_tolerance(monkeypatch):
               communication_window=4, learning_rate=0.1,
               label_col="label_encoded", execution="host_ps", ps_shards=2,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ADAG(make_model(), fault_tolerance=True, **kw).train(ds)
+    t = ADAG(make_model(), fault_tolerance=True, **kw)
+    with pytest.raises(PSShardDown, match="shard 1"):
+        t.train(ds)
+    assert t.failed_workers == []  # not misfiled as worker deaths
     with pytest.raises(PSShardDown, match="shard 1"):
         ADAG(make_model(), **kw).train(ds)
 

@@ -462,11 +462,13 @@ def test_cancel_and_deadline_while_suspended(pair):
         assert eng.cancel(h) is True
         _step_until(eng, lambda: h.finish is not None)
         assert not eng._suspended and eng.kv_blocks_in_use == 0
-        h2 = eng.submit(tenant="bulk", deadline_s=0.05, **REQS["bulk_lo"])
+        h2 = eng.submit(tenant="bulk", deadline_s=60.0, **REQS["bulk_lo"])
         _step_until(eng, lambda: len(h2.tokens) >= 2)
         assert eng.preempt(h2)
         _step_until(eng, lambda: h2.id in eng._suspended)
-        time.sleep(0.06)  # the deadline lapses while swapped out
+        # the deadline lapses while swapped out: the absolute deadline
+        # moves into the past once the state is reached (no wall-clock race)
+        h2.deadline = time.perf_counter() - 1.0
         _step_until(eng, lambda: h2.finish is not None)
         assert not eng._suspended and eng.kv_blocks_in_use == 0
         return (h.finish, h2.finish), _qos(eng), eng.stats["slot_reclaim_ms"]

@@ -648,6 +648,17 @@ def test_sampled_spec_first_token_follows_warped_target(
 # retirement under speculation
 # ---------------------------------------------------------------------------
 
+#: a deadline no engine step can outlast: the deadline cases reach the
+#: state they assert first, then move the handle's absolute deadline into
+#: the past (``_lapse``), so they wait for states, never for wall time
+LONG_DEADLINE_S = 60.0
+
+
+def _lapse(handle):
+    """Expire ``handle`` now: its absolute deadline moves into the past."""
+    handle.deadline = time.perf_counter() - 1.0
+
+
 def test_spec_cancel_mid_round_frees_slot_next_occupant_unpolluted(fitted):
     """Cancel lands while a round is in flight: the slot (target and
     draft rows) returns within one iteration, and the next occupant is
@@ -672,10 +683,11 @@ def test_spec_deadline_mid_round_and_mid_chunked_prefill(fitted):
     prefill mid-flight (both pools' staging dropped)."""
     eng = ServingEngine(fitted, num_slots=1, max_len=24, spec_draft=fitted,
                         spec_len=3, prefill_chunk=4)
-    h = eng.submit(LONG_PROMPT, 4, deadline_s=0.05)
+    h = eng.submit(LONG_PROMPT, 4, deadline_s=LONG_DEADLINE_S)
     eng.step()
     assert eng._prefilling
     assert eng._prefilling[0].d_staging is not None
+    _lapse(h)
     _wait_for(lambda: h._expired(time.perf_counter()))
     eng.run_until_idle()
     assert h.finish == "deadline" and not h.tokens
@@ -683,10 +695,12 @@ def test_spec_deadline_mid_round_and_mid_chunked_prefill(fitted):
 
     eng = ServingEngine(fitted, num_slots=2, max_len=24, spec_draft=fitted,
                         spec_len=3)
-    doomed = eng.submit(PROMPT, 16, deadline_s=0.05)
+    doomed = eng.submit(PROMPT, 16, deadline_s=LONG_DEADLINE_S)
     healthy = eng.submit(OTHER, 10)
     eng.step()
     eng.step()
+    assert doomed.slot is not None and doomed.finish is None
+    _lapse(doomed)
     _wait_for(lambda: doomed._expired(time.perf_counter()))
     eng.run_until_idle()
     assert doomed.finish == "deadline"
@@ -716,7 +730,8 @@ def test_paged_spec_retirement_matrix_zero_block_leaks(fitted, reason):
         assert running.finish == "length"
     else:
         prompt = LONG_PROMPT if chunked else PROMPT
-        kw = {"deadline_s": 0.05} if reason.startswith("deadline") else {}
+        kw = ({"deadline_s": LONG_DEADLINE_S}
+              if reason.startswith("deadline") else {})
         target = eng.submit(prompt, 8, **kw)
         eng.step()
         if chunked:
@@ -727,6 +742,7 @@ def test_paged_spec_retirement_matrix_zero_block_leaks(fitted, reason):
         if reason.startswith("cancel"):
             eng.cancel(target)
         else:
+            _lapse(target)
             _wait_for(lambda: target._expired(time.perf_counter()))
         eng.run_until_idle()
     assert target.finish == ("cancel" if reason.startswith("cancel")
