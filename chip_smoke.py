@@ -570,6 +570,10 @@ DECODE_CONFIGS = {
                             True, True)}
 # (one timed run keeps the whole script under half its time limit)
 DECODE_BATCH, DECODE_STEPS, DECODE_REPS = 8, 256, 1
+# the untimed warm-up before each configuration's timed run (its first
+# steps allocate the caches' blocks and pick the GEMMs; 32 steps keep the
+# whole script under half its time limit)
+DECODE_WARMUP_STEPS = 32
 # the decode checks, at f32 on 2 rows: the cached steps' logits against
 # the plain full forward's over a 1024-token prompt and DECODE_FORCED
 # teacher-forced steps (both compute the same function in other orders of
@@ -807,6 +811,39 @@ RESILIENCE_ELASTIC_FAULTS = {1: ("exit", 1), 2: ("raise", 2)}
 RESILIENCE_HANG_FAULTS, RESILIENCE_LEASE_TIMEOUT = {3: ("hang", 1)}, 1.0
 RESILIENCE_FT_FAULTS = {1: 2}
 RESILIENCE_LM_FAULTS = {1: ("raise", 2)}
+# the cross-process parameter server (ROADMAP queue A item 6, its fourth
+# part): execution="process_ps", every worker its own interpreter
+# (python -m distkeras_tpu_torch.ps_worker_main) with its own CUDA context
+# on the one card (no MPS: the contexts time-slice it), sharing only the
+# socket with the driver; at phase host_ps's widths.  (a) the static
+# engine: ADAG, one worker process, serial, on HOST_PS_ALGO_WINDOWS
+# windows (cuDNN deterministic) against the same run on host_ps: equal
+# weights and histories; then the ConvNet for one epoch at
+# PROCESS_PS_SCALING worker processes, examples/s beside phase host_ps's
+# threads (every child's loss falls, held-out accuracy >=
+# RESILIENCE_ACC_MIN); fault_tolerance with PROCESS_PS_FT_FAULTS:
+# failed_workers == [1].  (b) the supervised engine: DOWNPOUR (adam) with
+# 2 worker processes for RESILIENCE_EPOCHS epochs, elastic, recovery,
+# ps_shards 2 in shard processes of their own (ps_placement="process"),
+# bf16 commits, freeze_deadline PROCESS_PS_FREEZE_S; faults fired at
+# states of the run through networking.ProcessChaos: worker 1 SIGKILLed
+# once a lease of epoch 0 has completed, shard 0 SIGKILLed once epoch 1
+# has begun, then SIGSTOPped once a lease completed after its respawn and
+# SIGCONTed once the supervisor's next probe has started; every epoch's
+# ledger over every row, a worker respawn, shard 0 back at its address
+# with its generation bumped, held-out accuracy >= RESILIENCE_ACC_MIN.
+# (c) the LM (transformer_lm(**LM), bf16) under DOWNPOUR with 2 elastic
+# worker processes on HOST_PS_LM_ROWS rows, window HOST_PS_LM_WINDOW,
+# batch BATCH, adam 3e-3: each child launches the sm90 forward, dq and
+# dk/dv layers x steps x (its windows + its warm-up), every other kernel
+# never (read from the children's result files).  (d) the build lock:
+# two processes build fused_ce at once into an empty build directory with
+# a logging nvcc first on PATH: one nvcc, both load the library and hold
+# one launch against the plain version.  No run logs "short of".  The
+# scaling runs alone (it is timed); the other legs run side by side.
+PROCESS_PS_SCALING = (1, 2, 4)
+PROCESS_PS_FT_FAULTS = {1: ("exit", 1)}
+PROCESS_PS_FREEZE_S = 3.0
 
 
 def emit(obj) -> None:
@@ -1779,23 +1816,8 @@ def _zero_counts():
 
 
 def _read_counts():
-    import importlib
-    ce = importlib.import_module("distkeras_tpu_torch.ops.fused_ce")
-    fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
-    bwd = fa.flash_attention_backward
-    by_variant = {"fwd_lse": fa.flash_attention_forward.launches_by_variant,
-                  "dq": bwd.dq_launches_by_variant,
-                  "dkv": bwd.dkv_launches_by_variant}
-    by_variant["inference"] = fa.flash_attention.launches_by_variant
-    return {"fused_ce_fwd": ce.fused_ce_fwd.launches,
-            "fused_ce_bwd": ce.fused_ce_bwd.launches,
-            "flash_fwd_lse": fa.flash_attention_forward.launches,
-            "flash_dq": bwd.dq_launches,
-            "flash_dkv": bwd.dkv_launches,
-            "flash_inference": fa.flash_attention.launches,
-            **{f"flash_{kernel}_{variant}": n
-               for kernel, counts in by_variant.items()
-               for variant, n in counts.items()}}
+    from distkeras_tpu_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _parallel_route(cfg, tree, toks, labels):
@@ -2930,16 +2952,16 @@ def _decode_timing(card: str, dev: str):
         step = jit_decode_step(model, rolling=rolling)
         start = LM["seq_len"] - 1 if rolling else 0
 
-        def run():
+        def run(steps=DECODE_STEPS):
             nonlocal caches
             tok = torch.zeros(DECODE_BATCH, dtype=torch.int32, device=dev)
-            for i in range(DECODE_STEPS):
+            for i in range(steps):
                 logits, caches = step(caches, tok,
                                       start + (0 if rolling else i))
                 tok = torch.argmax(logits, -1).to(torch.int32)
             return logits
 
-        logits = run()  # warm-up
+        logits = run(DECODE_WARMUP_STEPS)  # warm-up
         _sync(dev)
         times = []
         for _ in range(DECODE_REPS):
@@ -6550,6 +6572,458 @@ def phase_resilience(card: str, dev: str = "cuda"):
     return {"ps": ps, "elastic": elastic, "fault_tolerance": ft}, launches
 
 
+def _process_run(trainer_cls, model, x, y, dev: str, workers: int,
+                 epochs: int = 1, **kw) -> dict:
+    """One process-PS training run on the card: examples/s on the host
+    clock (the whole train() call: the server, the children's start, the
+    epochs), every child's window losses and the PS clock."""
+    import numpy as np
+    kw.setdefault("batch_size", ADAG_BATCH)
+    kw.setdefault("communication_window", ADAG_WINDOW)
+    t = trainer_cls(model, num_workers=workers, num_epoch=epochs,
+                    execution="process_ps", device=dev, seed=SEED, **kw)
+    t0 = time.perf_counter()
+    fitted = t.train(_dataset(x, y))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    kids = t._process_results
+    # the children's training alone: from the first child's first pull to
+    # the last one's last window (their imports and CUDA start outside)
+    span = (max(r.train_span[1] for r in kids)
+            - min(r.train_span[0] for r in kids))
+    return {"trainer": t, "fitted": fitted, "seconds": seconds,
+            "examples_per_sec": len(x) * epochs / seconds,
+            "train_seconds": span,
+            "examples_per_sec_training": len(x) * epochs / span,
+            "windows_per_worker": [len(r.history) for r in kids],
+            "first_last_loss": [[r.history[0], r.history[-1]]
+                                for r in kids],
+            "loss_falls": all(r.history[-1] < r.history[0] for r in kids),
+            "center_finite": all(np.isfinite(w).all()
+                                 for w in fitted.get_weights())}
+
+
+def _beside(fn, *args):
+    """Start ``fn(*args)`` on a daemon thread beside the caller's work;
+    returns a function that joins it and returns its result or raises
+    its exception (a failed check included)."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["result"] = fn(*args)
+        except BaseException as e:  # re-raised by the join below
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True, name=f"chip-smoke-"
+                          f"{getattr(fn, '__name__', 'leg')}")
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+    return join
+
+
+def _process_ft(card: str, dev: str, rows) -> dict:
+    """Leg (a)'s degraded completion: two worker processes, one exits."""
+    from distkeras_tpu_torch import ADAG, models
+    x, y, _, _ = rows
+    n = 2 * HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    r = _process_run(ADAG, models.mnist_convnet("bfloat16", device=dev),
+                     x[:n], y[:n], dev, HOST_PS_WORKERS,
+                     worker_optimizer="adam", fault_tolerance=True,
+                     fault_injection=PROCESS_PS_FT_FAULTS)
+    t = r["trainer"]
+    emit({"phase": "process_ps_fault_tolerance",
+          "failed_workers": t.failed_workers,
+          "worker_failures": t.worker_failures,
+          "windows_per_worker": r["windows_per_worker"], "card": card})
+    check(t.failed_workers == sorted(PROCESS_PS_FT_FAULTS)
+          and r["center_finite"],
+          f"process_ps fault_tolerance: failed {t.failed_workers}")
+    return t.failed_workers
+
+
+def _process_identity(card: str, dev: str, rows) -> bool:
+    """Leg (a)'s identity: one worker process against one host_ps thread,
+    serial, cuDNN deterministic (the switches go to the child with its
+    config)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import ADAG, models
+    x, y, _, _ = rows
+    convnet = lambda: models.mnist_convnet("bfloat16", device=dev)
+    n = HOST_PS_ALGO_WINDOWS * ADAG_WINDOW * ADAG_BATCH
+    one = dict(worker_optimizer="adam", comm_overlap=False)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        thread = _host_ps_run(ADAG, convnet(), x[:n], y[:n], dev, 1, **one)
+        proc = _process_run(ADAG, convnet(), x[:n], y[:n], dev, 1, **one)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    same = (all(np.array_equal(a, b) for a, b in zip(
+        thread["fitted"].get_weights(), proc["fitted"].get_weights()))
+        and thread["trainer"].get_history() == proc["trainer"].get_history())
+    emit({"phase": "process_ps_identity", "bit_identical": same,
+          "windows": proc["windows_per_worker"],
+          "seconds": {"thread": thread["seconds"],
+                      "process": proc["seconds"]}, "card": card})
+    check(same, "process_ps: one worker process differs from one host_ps "
+          "thread")
+    return same
+
+
+def _mps_running() -> bool:
+    """Is an MPS control daemon running on this host (read from /proc)?
+    Without one, each worker process's CUDA context time-slices the card
+    with the others."""
+    import glob
+    for path in glob.glob("/proc/[0-9]*/comm"):
+        try:
+            with open(path) as f:
+                if f.read().startswith("nvidia-cuda-mps"):
+                    return True
+        except OSError:
+            continue
+    return False
+
+
+def _process_scaling(card: str, dev: str, rows, threads: dict) -> dict:
+    """Leg (a)'s scaling: the ConvNet epoch at PROCESS_PS_SCALING worker
+    processes, beside phase host_ps's threads (run alone: it is timed)."""
+    from distkeras_tpu_torch import ADAG, models
+    x, y, xt, lt = rows
+    scaling, training = {}, {}
+    for workers in PROCESS_PS_SCALING:
+        r = _process_run(ADAG, models.mnist_convnet("bfloat16", device=dev),
+                         x, y, dev, workers, worker_optimizer="adam")
+        acc = _held_out(r["fitted"], xt, lt)
+        scaling[workers] = r["examples_per_sec"]
+        training[workers] = r["examples_per_sec_training"]
+        emit({"phase": "process_ps_scaling_run", "workers": workers,
+              **_host_ps_row(r), "accuracy_held_out": acc, "card": card})
+        check(r["loss_falls"] and r["center_finite"]
+              and acc >= RESILIENCE_ACC_MIN,
+              f"process_ps {workers} processes: losses "
+              f"{r['first_last_loss']}, accuracy {acc}")
+    emit({"phase": "process_ps_scaling",
+          # a CUDA context a worker process; without MPS they take turns
+          # on the card
+          "contexts_per_run": {w: w for w in scaling},
+          "mps_daemon": _mps_running(),
+          "examples_per_sec_processes": scaling,
+          "examples_per_sec_processes_training": training,
+          "examples_per_sec_threads": threads,
+          "processes_over_threads": {w: scaling[w] / threads[w]
+                                     for w in scaling if w in threads},
+          "training_over_threads": {w: training[w] / threads[w]
+                                    for w in training if w in threads},
+          "card": card})
+    return {"examples_per_sec": scaling, "training": training}
+
+
+class _StateChaos:
+    """Faults fired at states of a running process-PS trainer: each rule
+    (a predicate over the supervisor, a target, an action) fires once, in
+    order, through a networking.ProcessChaos with at_s 0; ``fired_at``
+    keeps each one's monotonic time for a later rule's predicate."""
+
+    def __init__(self, trainer, targets):
+        import threading
+        self.trainer, self.targets, self.rules = trainer, targets, []
+        self.injected, self.fired, self.fired_at = [], [], {}
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="chip-smoke-chaos")
+
+    def _run(self):
+        from distkeras_tpu_torch.networking import ProcessChaos, ProcessFault
+        pending = list(self.rules)
+        while pending and not self.stop.is_set():
+            sup = getattr(self.trainer, "_process_supervisor", None)
+            if sup is not None and sup.ledger.epoch is not None \
+                    and pending[0][0](sup):
+                _, target, action = pending.pop(0)
+                chaos = ProcessChaos(
+                    {k: (lambda f=f, s=sup: f(s))
+                     for k, f in self.targets.items()},
+                    faults=[ProcessFault(target, 0.0, action)])
+                chaos.start()
+                while not chaos.injected and not self.stop.is_set():
+                    time.sleep(0.001)
+                chaos.stop(thaw=False)
+                self.injected += chaos.injected
+                self.fired.append([target, action, sup.ledger.epoch])
+                self.fired_at[(target, action)] = time.monotonic()
+                continue
+            time.sleep(0.001)
+
+
+def _process_supervised(card: str, dev: str, rows) -> dict:
+    """Leg (b) of phase process_ps: the supervised engine, shard
+    processes, state-triggered worker and shard deaths and a freeze."""
+    import tempfile
+    from distkeras_tpu_torch import DOWNPOUR, models
+    from distkeras_tpu_torch.ps_shard_main import read_addr, read_restored
+    x, y, xt, lt = rows
+    completed = lambda sup, e: sup.ledger.epoch_report(e)["completed"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procps_") as tmp:
+        t = DOWNPOUR(models.mnist_convnet("bfloat16", device=dev),
+                     num_workers=2, num_epoch=RESILIENCE_EPOCHS,
+                     batch_size=ADAG_BATCH, communication_window=ADAG_WINDOW,
+                     worker_optimizer="adam", seed=SEED, device=dev,
+                     execution="process_ps", elastic=True, recovery=True,
+                     ps_shards=2, ps_placement="process",
+                     wire_dtype="bfloat16",
+                     freeze_deadline=PROCESS_PS_FREEZE_S, scratch_dir=tmp)
+        chaos = _StateChaos(t, {"worker1": lambda sup: sup.procs.get(1),
+                                "shard0": lambda sup: sup.ps_procs[0]})
+        chaos.rules = [
+            (lambda sup: completed(sup, 0) >= 1, "worker1", "kill"),
+            (lambda sup: sup.ledger.epoch >= 1, "shard0", "kill"),
+            (lambda sup: sup.ps_restarts[0] >= 1
+             and completed(sup, 1) >= 1, "shard0", "stop"),
+            (lambda sup: sup._last_ps_probe
+             > chaos.fired_at[("shard0", "stop")], "shard0", "cont")]
+        chaos.thread.start()
+        t0 = time.perf_counter()
+        try:
+            fitted = t.train(_dataset(x, y))
+            _sync(dev)
+        finally:
+            chaos.stop.set()
+            chaos.thread.join()
+        seconds = time.perf_counter() - t0
+        sup = t._process_supervisor
+        addr_dir = os.path.join(tmp, "addrs")
+        host, port, gen = read_addr(os.path.join(addr_dir, "shard_0.addr"))
+        restored = read_restored(addr_dir, 0, gen)
+    st = t.elastic_stats
+    row = {"phase": "process_ps_supervised", "seconds": seconds,
+           "examples_per_sec": len(x) * RESILIENCE_EPOCHS / seconds,
+           "faults": chaos.fired, "respawns": st["respawns"],
+           "respawn_records": st["respawn_records"],
+           "ps_restarts": st["ps_restarts"],
+           "ps_recoveries": st["ps_recoveries"],
+           "leases_reassigned": st["leases_reassigned"],
+           "events": [e["kind"] for e in st["events"]],
+           "lease_completions": {e: {k: v for k, v in rep.items()
+                                     if k != "by_worker"}
+                                 for e, rep in
+                                 st["lease_completions"].items()},
+           "failed_workers": t.failed_workers,
+           "shard0": {"address": [host, port],
+                      "first_address": list(sup.ps_addrs[0]),
+                      "generation": gen, "restored_clock": restored},
+           "accuracy_held_out": _held_out(fitted, xt, lt), "card": card}
+    emit(row)
+    check([f[:2] for f in chaos.fired] == [
+        ["worker1", "kill"], ["shard0", "kill"], ["shard0", "stop"],
+        ["shard0", "cont"]], f"process_ps supervised: faults {chaos.fired}")
+    check(_lease_contract(t, len(x)),
+          f"process_ps supervised: leases {row['lease_completions']}")
+    check(row["respawns"] >= 1 and 1 in t.failed_workers,
+          f"process_ps supervised: respawns {row['respawns']}, failed "
+          f"{t.failed_workers}")
+    check(row["ps_restarts"][0] >= 1 and [host, port]
+          == list(sup.ps_addrs[0]) and gen >= 1 and restored is not None,
+          f"process_ps supervised: shard 0 {row['shard0']}, restarts "
+          f"{row['ps_restarts']}")
+    check(row["accuracy_held_out"] >= RESILIENCE_ACC_MIN,
+          f"process_ps supervised: accuracy {row['accuracy_held_out']}")
+    return row
+
+
+def _process_lm(card: str, dev: str) -> dict:
+    """Leg (c) of phase process_ps: the LM from two elastic worker
+    processes; the children's launches read from their result files.
+    Returns the children's launches summed."""
+    from distkeras_tpu_torch import DOWNPOUR, transformer_lm
+    x, y = _host_ps_lm_rows()
+    t = DOWNPOUR(transformer_lm(**LM, device=dev), num_workers=2,
+                 batch_size=BATCH, num_epoch=1,
+                 communication_window=HOST_PS_LM_WINDOW,
+                 loss="sparse_categorical_crossentropy_from_logits",
+                 worker_optimizer="adam", learning_rate=3e-3, seed=SEED,
+                 execution="process_ps", elastic=True, device=dev)
+    t0 = time.perf_counter()
+    t.train(_dataset(x, y))
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    kids = t._process_results
+    trained = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+               for v in ("", "_sm90")}
+    per_child, ok = [], True
+    for r in kids:
+        # every window with a history entry and the child's warm-up
+        want = LM["num_layers"] * HOST_PS_LM_WINDOW * (len(r.history) + 1)
+        sm90 = {k: r.launches[f"flash_{k}_sm90"]
+                for k in ("fwd_lse", "dq", "dkv")}
+        others = {k: v for k, v in r.launches.items()
+                  if v and k not in trained}
+        per_child.append({"worker": r.worker_id, "windows": len(r.history),
+                          "launches_sm90": sm90, "launches_other": others,
+                          "want_each": want})
+        ok = ok and all(v == want for v in sm90.values()) and not others
+    longest = max(kids, key=lambda r: len(r.history))
+    row = {"phase": "process_ps_lm", "seconds": seconds,
+           "tokens_per_sec": HOST_PS_LM_ROWS * LM["seq_len"] / seconds,
+           "children": per_child,
+           "first_last_loss": [longest.history[0], longest.history[-1]],
+           "card": card}
+    emit(row)
+    check(_lease_contract(t, len(x)),
+          f"process_ps lm: leases {t.elastic_stats['lease_completions']}")
+    check(longest.history[-1] < longest.history[0],
+          f"process_ps lm: the loss did not fall {longest.history}")
+    if dev == "cuda":
+        check(ok, f"process_ps lm: children's launches {per_child}")
+    return t.process_launches
+
+
+_BUILD_CHILD = """
+import json, os, sys, time
+import torch
+from distkeras_tpu_torch import kernels
+import distkeras_tpu_torch.ops.fused_ce as ce
+go, ready = sys.argv[1], sys.argv[2]
+open(ready, "w").close()
+while not os.path.exists(go):
+    time.sleep(0.001)
+built = kernels.build(["fused_ce"])
+torch.manual_seed(int(sys.argv[3]))
+logits = torch.randn(256, 4096, device="cuda")
+labels = torch.randint(0, 4096, (256,), device="cuda")
+loss, lse = ce.fused_ce_fwd(logits, labels)
+ref, ref_lse = ce.fused_ce_forward_reference(logits, labels)
+share = max(((a - b).abs() / (1e-5 * b.abs() + 1e-5)).max().item()
+            for a, b in ((loss, ref), (lse, ref_lse)))
+err = max((loss - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+print(json.dumps({"built": built, "launches": ce.fused_ce_fwd.launches,
+                  "max_abs_err": err, "err_share": share}))
+"""
+
+
+def _process_build_lock(card: str) -> dict:
+    """Leg (d) of phase process_ps: two processes build fused_ce at once
+    into an empty build directory; a logging nvcc wrapper counts the
+    compiles."""
+    import json
+    import subprocess
+    import tempfile
+    from distkeras_tpu_torch import kernels
+    real = kernels._nvcc()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as tmp:
+        bindir, log = os.path.join(tmp, "bin"), os.path.join(tmp, "nvcc.log")
+        os.makedirs(bindir)
+        wrapper = os.path.join(bindir, "nvcc")
+        with open(wrapper, "w") as f:
+            f.write(f"#!/bin/sh\necho $$ >> {log}\nexec {real} \"$@\"\n")
+        os.chmod(wrapper, 0o755)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PATH=f"{bindir}{os.pathsep}"
+                   f"{os.environ.get('PATH', '')}",
+                   DISTKERAS_TPU_TORCH_BUILD_DIR=os.path.join(tmp, "build"),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        go = os.path.join(tmp, "go")
+        ready = [os.path.join(tmp, f"ready{i}") for i in range(2)]
+        t0 = time.perf_counter()
+        kids = [subprocess.Popen([sys.executable, "-c", _BUILD_CHILD, go,
+                                  r, str(i)], env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+                for i, r in enumerate(ready)]
+        try:
+            while not all(os.path.exists(r) for r in ready):
+                if any(k.poll() is not None for k in kids):
+                    check(False, f"process_ps build: a child died "
+                          f"{[k.communicate() for k in kids]}")
+                time.sleep(0.005)
+            open(go, "w").close()
+            outs = [k.communicate(timeout=600) for k in kids]
+        finally:
+            for k in kids:
+                if k.poll() is None:
+                    k.kill()
+                    k.wait()
+        seconds = time.perf_counter() - t0
+        with open(log) as f:
+            compiles = len(f.read().split())
+        files = sorted(os.listdir(os.path.join(tmp, "build")))
+    results = []
+    for k, (out, err) in zip(kids, outs):
+        check(k.returncode == 0, f"process_ps build: a child failed {err}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    row = {"phase": "process_ps_build_lock", "nvcc_runs": compiles,
+           "children": results, "build_dir": files, "seconds": seconds,
+           "card": card}
+    emit(row)
+    check(compiles == 1 and sorted(len(r["built"]) for r in results)
+          == [0, 1] and files == [".lock", "libfused_ce.so"],
+          f"process_ps build: {compiles} nvcc runs, {results}, {files}")
+    check(all(r["launches"] == 1 and r["err_share"] <= 1.0
+              for r in results),
+          f"process_ps build: launches or errors {results}")
+    return row
+
+
+def phase_process_ps(card: str, threads: dict = None, dev: str = "cuda"):
+    """The cross-process parameter server on the card (legs (a)-(d) of
+    the PROCESS_PS_* comment): the ConvNet legs launch no attention or CE
+    kernel in any process; the LM leg's children launch the sm90 training
+    kernels once per layer, step and window they ran, their warm-up
+    included; two processes building one kernel run one nvcc.
+    ``threads`` is phase host_ps's examples/s by thread count, printed
+    beside the processes' (None: the processes' alone).  Returns (the
+    leg lines, the children's launches on the LM leg)."""
+    t_start = time.perf_counter()
+    shorts, detach = _short_of_watch()
+    try:
+        _zero_counts()
+        rows = _host_ps_rows()
+        # the timed leg alone, then every other leg side by side (their
+        # checks read per-process counts and states, not times)
+        scaling = _process_scaling(card, dev, rows, threads or {})
+        lm = _beside(_process_lm, card, dev)
+        build = (_beside(_process_build_lock, card) if dev == "cuda"
+                 else lambda: None)
+        identity = _beside(_process_identity, card, dev, rows)
+        ft = _beside(_process_ft, card, dev, rows)
+        supervised = _process_supervised(card, dev, rows)
+        identity, ft = identity(), ft()
+        launches, build = lm(), build()
+        # the driver launched only the LM leg's window that seeds the
+        # ledger, once per layer and step
+        driver = _read_counts()
+        want = LM["num_layers"] * HOST_PS_LM_WINDOW
+        sm90 = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+                for v in ("", "_sm90")}
+        emit({"phase": "process_ps_driver_launches", "launches": driver,
+              "want_sm90_each": want})
+        if dev == "cuda":
+            check(all(driver[k] == want for k in sm90)
+                  and not any(v for k, v in driver.items() if k not in sm90),
+                  f"process_ps: the driver's launches {driver}, want "
+                  f"{want} of each sm90 training kernel and nothing else")
+    finally:
+        detach()
+    emit({"phase": "process_ps_launches", "launches": launches})
+    check(not shorts, f"process_ps: the wait fell short: {shorts}")
+    emit({"phase": "process_ps_wall",
+          "seconds": time.perf_counter() - t_start, "card": card})
+    return {"scaling": scaling, "identity": identity, "fault_tolerance": ft,
+            "supervised": supervised, "build": build}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6584,9 +7058,10 @@ def main() -> int:
     _, qos_launches = phase_qos(smi)
     _, disagg_launches = phase_disagg(smi)
     _, fleet_launches = phase_fleet(smi)
-    _, host_ps_launches = phase_host_ps(smi)
+    host_ps_scaling, host_ps_launches = phase_host_ps(smi)
     _, ps_sparse_launches = phase_ps_sparse(smi)
     _, resilience_launches = phase_resilience(smi)
+    _, process_ps_launches = phase_process_ps(smi, host_ps_scaling)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -6752,7 +7227,10 @@ def main() -> int:
         training kernels once per layer and step of each) and on the
         survivable host-PS path (phase resilience's elastic LM run: the
         sm90 training kernels once per layer, step and window that
-        ran)."""
+        ran) and on the cross-process path (phase process_ps's LM leg,
+        summed over its worker processes' result files: the sm90
+        training kernels once per layer, step and window each child ran,
+        its warm-up included)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -6770,6 +7248,7 @@ def main() -> int:
         entry["launches_host_ps"] = host_ps_launches[key]
         entry["launches_ps_sparse"] = ps_sparse_launches[key]
         entry["launches_resilience"] = resilience_launches[key]
+        entry["launches_process_ps"] = process_ps_launches.get(key, 0)
         return entry
 
     emit(north_star)

@@ -22,7 +22,9 @@ dispatch, zero-loss failover, rolling swaps) under the
 ``resilience`` supervisors; and runs the asynchronous trainers against a
 live socket parameter server (``execution="host_ps"``:
 ``parameter_servers``, ``workers``, ``applykernel``), each worker a thread
-training its own copy of the model on the card.  The port imports
+training its own copy of the model on the card, or an OS process of its
+own (``execution="process_ps"``: ``ps_worker_main``, ``ps_shard_main``,
+launched through ``job_deployment``).  The port imports
 torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
@@ -56,7 +58,8 @@ from .router import ServingRouter
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
-from . import applykernel, parameter_servers, ps_sharding, streaming, workers
+from . import (applykernel, job_deployment, parameter_servers, ps_sharding,
+               streaming, workers)
 from .ps_sharding import PSShardDown
 from .trainers import (ADAG, AEASGD, DOWNPOUR, EAMSGD,
                        AsynchronousDistributedTrainer, AveragingTrainer,
@@ -88,4 +91,4 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "networking", "ChaosFault", "ChaosProxy", "resilience",
            "router", "ServingRouter", "EngineSupervisor", "FleetSupervisor",
            "RetryPolicy", "applykernel", "parameter_servers", "workers",
-           "ps_sharding", "streaming", "PSShardDown"]
+           "ps_sharding", "streaming", "PSShardDown", "job_deployment"]

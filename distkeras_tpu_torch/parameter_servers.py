@@ -29,8 +29,14 @@ Differences from the JAX module:
    the center it waits until every server has applied the commits that
    can still land (``_await_applied``): each shard's clock at the start
    of its generation plus the commits the workers sent it at that
-   generation.  The streaming and process engines wait for ROADMAP queue
-   A item 6, and the trainers refuse their knobs.
+   generation;
+ - ``run_process_ps_training`` runs the same workers as OS processes
+   (``ps_worker_main``, launched through ``job_deployment``), static or
+   elastic under a ``resilience.ProcessSupervisor`` over the lease rail,
+   with the PS in the driver or in shard processes (``ps_shard_main``);
+   its wait counts the commits each child reports in its result file.
+   The streaming engine waits for ROADMAP queue A item 6, and the
+   trainers refuse its knobs.
 
 The JAX module's description follows.
 
@@ -80,7 +86,8 @@ from . import applykernel, networking
 from .core.model import FittedModel, deserialize_model, serialize_model
 from .device import DeviceLike
 from .ps_sharding import PSShardDown, ShardedServerGroup
-from .resilience import LeaseLedger, ShardSupervisor, WorkerSupervisor
+from .resilience import (LeaseLedger, ShardSupervisor, WorkerSupervisor,
+                         wire_probe)
 from .workers import (WORKER_CLASSES, parse_fault_injection,
                       share_compiled_state)
 
@@ -1931,6 +1938,23 @@ def _landing_targets(server, workers, mark: tuple,
     return out
 
 
+def _await_clocks(read, timeout: float = 30.0) -> None:
+    """Poll ``read() -> (clocks, targets)`` until every clock has reached
+    its target (None on either side: not known yet); a shortfall left at
+    ``timeout`` is logged, not waited for."""
+    deadline = time.monotonic() + timeout
+    while True:
+        have, want = read()
+        if all(c is not None and w is not None and c >= w
+               for c, w in zip(have, want)):
+            return
+        if time.monotonic() > deadline:
+            logger.warning("PS clocks %s short of the %s commits sent",
+                           have, want)
+            return
+        time.sleep(0.001)
+
+
 def _await_applied(server, clocks: List[Optional[int]],
                    timeout: float = 30.0) -> None:
     """Wait until the server (each shard) has applied commits up to
@@ -1940,17 +1964,9 @@ def _await_applied(server, clocks: List[Optional[int]],
     fitted model) would miss it.  A server that does not get there within
     ``timeout`` is logged, not waited for.  ``clocks`` may be a callable
     that recomputes the targets (a shard can respawn while we wait)."""
-    deadline = time.monotonic() + timeout
-    while True:
-        want = clocks() if callable(clocks) else clocks
-        have = _clocks(server)
-        if all(w is not None and c >= w for c, w in zip(have, want)):
-            return
-        if time.monotonic() > deadline:
-            logger.warning("PS clocks %s short of the %s commits sent",
-                           have, want)
-            return
-        time.sleep(0.001)
+    _await_clocks(lambda: (_clocks(server),
+                           clocks() if callable(clocks) else clocks),
+                  timeout)
 
 
 def _worker_kwargs(trainer, n: int, rows: int) -> dict:
@@ -1985,3 +2001,551 @@ def _worker_kwargs(trainer, n: int, rows: int) -> dict:
     if trainer.ALGORITHM in ("aeasgd", "eamsgd"):
         kw["rho"] = getattr(trainer, "rho", 5.0)
     return kw
+
+
+# ---------------------------------------------------------------------------
+# the cross-process engine: worker (and shard) OS processes
+# ---------------------------------------------------------------------------
+
+class _ChildResult:
+    """What a worker process left in its result file
+    (``ps_worker_main.write_result``): its window losses, the commits it
+    sent by (shard, generation) (``sent_by_gen``, read by ``_sent``) and
+    its kernel launch counters (a JAX worker's file has its losses
+    only)."""
+
+    def __init__(self, worker_id: int, path: str):
+        with np.load(path) as z:
+            self.history = z["history"].tolist()
+            sent = z["sent"] if "sent" in z.files else np.zeros((0, 3))
+            names = z["launch_names"] if "launch_names" in z.files else []
+            counts = z["launches"] if "launches" in z.files else []
+            span = (z["train_span"].tolist() if "train_span" in z.files
+                    else None)
+        self.worker_id = int(worker_id)
+        self.sent_by_gen = {(int(j), None if int(g) < 0 else int(g)): int(c)
+                            for j, g, c in sent}
+        self.launches = {str(k): int(n) for k, n in zip(names, counts)}
+        #: (start, end) on the host's wall clock of the child's training
+        self.train_span = span
+
+
+def _sum_launches(results: List[_ChildResult]) -> Dict[str, int]:
+    """The children's kernel launches, summed counter by counter (each
+    process counts its own)."""
+    total: Dict[str, int] = {}
+    for r in results:
+        for k, v in r.launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _child_env() -> Dict[str, str]:
+    """The repo root on ``PYTHONPATH``, so ``-m distkeras_tpu_torch.<main>``
+    resolves in a child without an installed package (the children
+    inherit the rest of ``os.environ``)."""
+    import os
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return {"PYTHONPATH": os.pathsep.join(
+        p for p in (pkg_root, os.environ.get("PYTHONPATH")) if p)}
+
+
+def _backend_flags() -> Dict[str, bool]:
+    """The driver's process-wide numerics switches, which a worker thread
+    shares and a worker process must be given: TF32 in matmuls and
+    convolutions, cuDNN's deterministic and benchmark choices, and the
+    intra-op thread count (on the CPU it sets the order of a reduction)
+    (``ps_worker_main`` applies them before it builds its model)."""
+    return {
+        "num_threads": int(torch.get_num_threads()),
+        "matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+        "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
+        "cudnn_deterministic": bool(torch.backends.cudnn.deterministic),
+        "cudnn_benchmark": bool(torch.backends.cudnn.benchmark)}
+
+
+def _await_shard_processes(addrs, addr_dir: str,
+                           results: List[_ChildResult],
+                           timeout: float = 30.0) -> None:
+    """``_await_applied`` for shards in their own processes: each shard's
+    (generation, clock) comes from an ``'h'`` probe, and its target is the
+    clock its generation started from (``ps_shard_main.read_restored``)
+    plus the commits the workers sent it at that generation."""
+    from .ps_shard_main import read_restored
+
+    def read():
+        have, want = [], []
+        for j, (h, p) in enumerate(addrs):
+            probe = wire_probe(h, p, timeout=2.0)
+            start = (None if probe is None
+                     else read_restored(addr_dir, j, probe[0]))
+            have.append(None if probe is None else probe[1])
+            want.append(None if start is None
+                        else start + _sent(results, j, probe[0]))
+        return have, want
+
+    _await_clocks(read, timeout)
+
+
+def run_process_ps_training(trainer, dataset, shuffle: bool = False
+                            ) -> FittedModel:
+    """Execute a DistributedTrainer with workers as separate OS PROCESSES
+    (``execution="process_ps"``).
+
+    The driver hosts the socket PS (one server, or a ``ShardedServerGroup``
+    with ``ps_shards > 1``); each worker is its own interpreter
+    (``python -m distkeras_tpu_torch.ps_worker_main``) launched through
+    ``job_deployment.Job`` and ``LocalJobRunner`` on loopback,
+    uncoordinated, and shares nothing with the driver but the socket.  Its
+    device is the trainer's (``"cuda"`` on the card: the children's CUDA
+    contexts time-slice the one card; ``"cpu"`` in tests).  The model blob
+    and the round-robin shards (the thread engine's deal) go through a
+    scratch directory, the histories come back the same way, in worker
+    order, with each child's sent commits and kernel launches
+    (``trainer.process_launches``: the children's counters summed).  The
+    driver's TF32 and cuDNN switches go to the children with the config,
+    so a one-worker process run is the one-thread host-PS run, bit for
+    bit.
+
+    ``fault_tolerance`` finishes on the surviving processes, read from the
+    exit codes (``trainer.failed_workers``).  Before it reads the center
+    the driver waits until every server has applied the commits the
+    surviving children sent (a serial worker's last ``'c'`` is
+    fire-and-forget: its frame may sit in the server's socket buffer when
+    the process exits).  ``elastic=True`` is the supervised engine
+    (``_run_process_elastic``).  Refused, as in the JAX package: the
+    checkpoint directory, the ``'hang'`` fault without ``elastic`` and a
+    callable ``lr_schedule``.
+    """
+    import json
+    import os
+    import tempfile
+
+    from .job_deployment import Job, LocalJobRunner
+    from .ps_worker_main import save_model_blob
+
+    algorithm = trainer.ALGORITHM
+    if algorithm not in WORKER_CLASSES:
+        raise ValueError(
+            f"execution='process_ps' supports PS algorithms "
+            f"{sorted(WORKER_CLASSES)}, not {algorithm!r} "
+            f"({type(trainer).__name__})")
+    if trainer.checkpoint_dir is not None:
+        raise ValueError(
+            "checkpoint/resume is not supported on execution='process_ps' "
+            "(use 'host_ps' for epoch-wave checkpoints)")
+    if not getattr(trainer, "elastic", False) and any(
+            k == "hang" for k, _ in parse_fault_injection(
+                getattr(trainer, "fault_injection", None)).values()):
+        raise ValueError(
+            "fault_injection kind 'hang' wedges a worker process forever; "
+            "the static process engine has no lease ledger to revoke its "
+            "work — use elastic=True (any execution) so the leases of a "
+            "wedged worker are revoked and stolen")
+
+    trainer.record_training_start()
+    trainer.failed_workers = []
+    trainer.worker_failures = {}
+    trainer.elastic_stats = {}
+    trainer.process_launches = {}
+    x = np.asarray(dataset[trainer.features_col])
+    y = np.asarray(dataset[trainer.label_col])
+    if shuffle:
+        perm = np.random.default_rng(trainer.seed).permutation(len(x))
+        x, y = x[perm], y[perm]
+    blob = serialize_model(trainer._initial_params(x.shape[1:]))
+
+    n = trainer.num_workers * getattr(trainer, "parallelism_factor", 1)
+    if len(x) < n:
+        raise ValueError(
+            f"dataset of {len(x)} rows has fewer rows than workers ({n})")
+    # all validation/config prep BEFORE the server starts: an error here
+    # must not leak the listener thread
+    optimizer = trainer.worker_optimizer
+    if not isinstance(optimizer, str):  # Optimizer object → JSON config
+        optimizer = optimizer.get_config()
+    kw = _worker_kwargs(trainer, n, len(x))
+    if callable(kw["lr_schedule"]):
+        raise ValueError(
+            "execution='process_ps' cannot ship a callable lr_schedule to "
+            "worker processes — pass a name or config dict "
+            "(e.g. 'warmup_cosine'), or use execution='host_ps'")
+    # the children's device: the trainer's, as a string ("cuda", "cuda:0",
+    # "cpu"); the worker raises where the card is asked for and absent
+    kw["device"] = str(trainer.device)
+
+    if getattr(trainer, "elastic", False):
+        # the supervised cross-process engine: lease rail + process-level
+        # supervision + (optionally) PS shards as their own OS processes
+        return _run_process_elastic(trainer, x, y, n, blob, kw, optimizer,
+                                    algorithm)
+
+    num_shards = int(getattr(trainer, "ps_shards", 1) or 1)
+    bind_host, advertise_host = resolve_ps_hosts(trainer)
+    ps_core = getattr(trainer, "ps_core", "event") or "event"
+    coalesce = bool(getattr(trainer, "coalesce", True))
+    apply_kernel = getattr(trainer, "apply_kernel", None)
+    if num_shards > 1:
+        # sharded static path: the worker processes scatter/gather through
+        # a ShardedPSClient — the process boundary is invisible to the
+        # shard wire protocol
+        server = ShardedServerGroup(algorithm, blob, n, num_shards,
+                                    host=bind_host, ps_core=ps_core,
+                                    coalesce=coalesce,
+                                    apply_kernel=apply_kernel)
+    else:
+        server = make_socket_server(
+            allocate_parameter_server(algorithm, blob, n,
+                                      apply_kernel=apply_kernel),
+            host=bind_host, ps_core=ps_core, coalesce=coalesce)
+    server.start()
+    trainer._ps_server = server  # observability: the clock
+    try:
+        mark = _applied_mark(server, [])
+        with tempfile.TemporaryDirectory(prefix="dkt_procps_") as tmp:
+            model_path = os.path.join(tmp, "model.npz")
+            save_model_blob(model_path, blob)
+            shard_paths, result_paths = [], []
+            for i in range(n):  # round-robin deal, as the thread engine
+                p = os.path.join(tmp, f"shard_{i}.npz")
+                np.savez(p, x=x[i::n], y=y[i::n])
+                shard_paths.append(p)
+                result_paths.append(os.path.join(tmp, f"result_{i}.npz"))
+            if num_shards > 1:
+                endpoint = {
+                    "ps_host": advertise_host,
+                    "ps_port": server.ports[0],
+                    "num_shards": num_shards,
+                    "shard_addrs": [[advertise_host, int(p)]
+                                    for _, p in server.addrs],
+                }
+            else:
+                endpoint = {"ps_host": advertise_host,
+                            "ps_port": server.port}
+            cfg_path = os.path.join(tmp, "worker_config.json")
+            with open(cfg_path, "w") as f:
+                json.dump({**kw, **endpoint, "algorithm": algorithm,
+                           "model_path": model_path,
+                           "shard_paths": shard_paths,
+                           "result_paths": result_paths,
+                           "worker_optimizer": optimizer,
+                           "backends": _backend_flags()}, f)
+            job = Job(name=f"{algorithm}-process-ps", script="-m",
+                      args=["distkeras_tpu_torch.ps_worker_main", cfg_path],
+                      hosts=["127.0.0.1"] * n, env=_child_env(),
+                      coordinated=False)
+            job.run(LocalJobRunner())
+            # max() would mask signal deaths (negative codes) behind a 0
+            failed = [i for i, c in enumerate(job.returncodes) if c != 0]
+            if failed:
+                if not getattr(trainer, "fault_tolerance", False):
+                    raise RuntimeError(
+                        f"worker process failed (exit codes "
+                        f"{job.returncodes})")
+                if len(failed) == n:
+                    raise RuntimeError(
+                        f"all {n} worker processes failed (exit codes "
+                        f"{job.returncodes}); fault_tolerance can survive "
+                        "some, not all")
+                # degraded completion: the PS already holds every commit
+                # the dead workers applied before dying (their EOF was a
+                # normal disconnect to the server)
+                trainer.failed_workers = failed
+                for i in failed:
+                    trainer.worker_failures[i] = (
+                        f"exit code {job.returncodes[i]}")
+                print(f"[distkeras_tpu_torch] worker processes {failed} "
+                      f"exited nonzero ({job.returncodes}); "
+                      "fault_tolerance: continuing with survivors",
+                      file=sys.stderr)
+            results = [_ChildResult(i, p) for i, p in enumerate(result_paths)
+                       if i not in failed]  # no result from a dead worker
+        # the survivors' last commits may still sit in the server's socket
+        # buffers: wait for them before reading the center
+        _await_applied(server, lambda: _landing_targets(server, results,
+                                                        mark))
+    finally:
+        server.stop()
+        trainer.ps_coalesce_stats = getattr(server, "coalesce_stats", None)
+
+    trainer.history.clear()
+    for r in results:
+        trainer.history.extend(r.history)
+    trainer._process_results = results
+    trainer.process_launches = _sum_launches(results)
+    fitted = server.get_model(device=trainer.device)
+    trainer._fitted = fitted
+    trainer.record_training_stop()
+    return fitted
+
+
+def _run_process_elastic(trainer, x, y, n: int, blob: dict, kw: dict,
+                         optimizer, algorithm: str) -> FittedModel:
+    """The supervised cross-process engine (``execution='process_ps'``
+    with ``elastic=True``).
+
+    Worker *processes* lease row ranges from a ``resilience.LeaseServer``
+    over the wire; a ``resilience.ProcessSupervisor`` detects SIGKILLed
+    (waitpid) and SIGSTOPped (wire-heartbeat-silent, ``freeze_deadline``)
+    workers, revokes their leases so survivors steal the work, and
+    respawns replacements under fresh ids through the ``Job`` rail; the
+    per-epoch ``assert_epoch_complete`` keeps the zero-data-loss contract.
+    Each child warms one window before its first lease (its CUDA context
+    and handles), and one window timed in a fresh thread of the driver
+    seeds the ledger's cold estimate.
+
+    The PS has two placements (``trainer.ps_placement``): ``"driver"``, a
+    ``ShardedServerGroup`` inside this process, and ``"process"``, one
+    ``ps_shard_main`` process a shard, journaling to the scratch
+    directory (``snapshot_interval``) and respawned at the same address
+    by the supervisor; the fresh process restores its journal with its
+    generation bumped.  The whole dataset goes to every worker once (one
+    npz); each epoch's shuffle is reproduced in every process from
+    ``seed + 7919 * epoch``.  After the workers exit the driver waits for
+    the commits they sent (a killed worker's are not known, so the wait is
+    a lower bound there), gathers the final center (over the wire from
+    shard processes, before they are retired) and globs the histories
+    from ``result_*.npz``.  Observability: ``trainer.elastic_stats`` (the
+    supervisor's ``stats()`` plus ``lease_completions``),
+    ``_process_supervisor``, ``failed_workers``, ``process_launches``.
+    """
+    import contextlib
+    import glob as globmod
+    import json
+    import os
+    import tempfile
+
+    from .job_deployment import Job, LocalJobRunner
+    from .ps_sharding import ShardedPSClient, make_shard_plan
+    from .ps_worker_main import save_model_blob
+    from .resilience import LeaseServer, ProcessSupervisor
+
+    num_shards = int(getattr(trainer, "ps_shards", 1) or 1)
+    placement = getattr(trainer, "ps_placement", "driver") or "driver"
+    if placement not in ("driver", "process"):
+        raise ValueError(
+            f"ps_placement must be 'driver' or 'process', got {placement!r}")
+    recovery = bool(getattr(trainer, "recovery", False))
+    bind_host, advertise_host = resolve_ps_hosts(trainer)
+    ps_core = getattr(trainer, "ps_core", "event") or "event"
+    coalesce = bool(getattr(trainer, "coalesce", True))
+    apply_kernel = getattr(trainer, "apply_kernel", None)
+
+    # lease geometry — identical to the in-process elastic engine
+    win_rows = trainer.communication_window * trainer.batch_size
+    total_windows = -(-len(x) // win_rows)
+    lease_windows = getattr(trainer, "lease_windows", None)
+    if lease_windows is None:
+        lease_windows = max(1, total_windows // (4 * n))
+    # cold-start deadline seed: one window of the program the workers run,
+    # timed in a fresh thread (its first window builds the thread's
+    # handles, as a child's does), × n for contention
+    head = WORKER_CLASSES[algorithm](
+        blob, worker_optimizer=trainer.worker_optimizer,
+        ps_host=advertise_host, ps_port=0, **kw)
+    warm: Dict[str, Any] = {}
+
+    def time_window():
+        try:
+            warm["seconds"] = head.compile_windows(x, y)
+        except BaseException as e:  # re-raised in the trainer's thread
+            warm["error"] = e
+
+    th = threading.Thread(target=time_window, name="dkt-process-warmup")
+    th.start()
+    th.join()
+    if "error" in warm:
+        raise warm["error"]
+    ledger = LeaseLedger(len(x), win_rows, lease_windows,
+                         min_deadline=getattr(trainer, "lease_timeout", 5.0),
+                         default_window_s=warm["seconds"] * n)
+    env = _child_env()
+
+    with contextlib.ExitStack() as stack:
+        scratch = getattr(trainer, "scratch_dir", None)
+        if scratch is None:
+            scratch = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="dkt_procel_"))
+        else:
+            os.makedirs(scratch, exist_ok=True)
+        model_path = os.path.join(scratch, "model.npz")
+        save_model_blob(model_path, blob)
+        data_path = os.path.join(scratch, "data.npz")
+        np.savez(data_path, x=x, y=y)
+        result_dir = os.path.join(scratch, "results")
+        os.makedirs(result_dir, exist_ok=True)
+
+        # -- bring up the PS ------------------------------------------------
+        group = None
+        ps_procs: List[Any] = []
+        respawn_ps = None
+        addr_dir = os.path.join(scratch, "addrs")
+        if placement == "driver":
+            group = ShardedServerGroup(algorithm, blob, n, num_shards,
+                                       host=bind_host, ps_core=ps_core,
+                                       coalesce=coalesce,
+                                       apply_kernel=apply_kernel)
+            group.start()
+            stack.callback(group.stop)
+            trainer._ps_server = group
+            shard_addrs = [(advertise_host, int(p))
+                           for _, p in group.addrs]
+        else:
+            from .ps_shard_main import read_addr
+            journal_dir = os.path.join(scratch, "journal")
+            os.makedirs(addr_dir, exist_ok=True)
+            os.makedirs(journal_dir, exist_ok=True)
+            ps_cfg_path = os.path.join(scratch, "shard_config.json")
+            with open(ps_cfg_path, "w") as f:
+                json.dump({
+                    "algorithm": algorithm, "model_path": model_path,
+                    "num_workers": n, "num_shards": num_shards,
+                    "bind_host": bind_host, "addr_dir": addr_dir,
+                    "journal_dir": journal_dir, "ps_core": ps_core,
+                    "coalesce": coalesce, "apply_kernel": apply_kernel,
+                    "snapshot_interval":
+                        getattr(trainer, "snapshot_interval", 0.5),
+                }, f)
+
+            def spawn_shard(j: int):
+                job = Job(name=f"{algorithm}-ps-shard{j}", script="-m",
+                          args=["distkeras_tpu_torch.ps_shard_main",
+                                ps_cfg_path, str(j)],
+                          hosts=["127.0.0.1"], env=env, coordinated=False)
+                job.run(LocalJobRunner(), wait=False)
+                return job.processes[0]
+
+            respawn_ps = spawn_shard
+            ps_procs = [spawn_shard(j) for j in range(num_shards)]
+
+            def _stop_shards():
+                procs = (trainer._process_supervisor.ps_procs
+                         if getattr(trainer, "_process_supervisor", None)
+                         else ps_procs)
+                for p in procs:
+                    if p.poll() is None:
+                        p.terminate()
+                for p in procs:
+                    try:
+                        p.wait(timeout=15)
+                    except Exception:
+                        p.kill()
+
+            stack.callback(_stop_shards)
+            trainer._process_supervisor = None
+            shard_addrs = []
+            deadline = time.monotonic() + 180  # cold imports
+            for j in range(num_shards):
+                path = os.path.join(addr_dir, f"shard_{j}.addr")
+                while not os.path.exists(path):
+                    if ps_procs[j].poll() is not None:
+                        raise RuntimeError(
+                            f"PS shard process {j} exited with code "
+                            f"{ps_procs[j].returncode} before publishing "
+                            "its address")
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"PS shard process {j} never published its "
+                            "address")
+                    time.sleep(0.05)
+                h, port, _gen = read_addr(path)
+                shard_addrs.append((advertise_host if h in _WILDCARD_HOSTS
+                                    else h, port))
+
+        # -- the lease rail --------------------------------------------------
+        lease_server = stack.enter_context(LeaseServer(ledger,
+                                                       host=bind_host))
+        wcfg = {**kw, "algorithm": algorithm, "model_path": model_path,
+                "data_path": data_path, "result_dir": result_dir,
+                "worker_optimizer": optimizer,
+                "lease_host": advertise_host,
+                "lease_port": lease_server.port,
+                "ps_host": shard_addrs[0][0], "ps_port": shard_addrs[0][1],
+                "backends": _backend_flags()}
+        if num_shards > 1:
+            wcfg["num_shards"] = num_shards
+            wcfg["shard_addrs"] = [[h, p] for h, p in shard_addrs]
+        if recovery:
+            wcfg["recovery"] = True
+        pw = int(getattr(trainer, "partition_windows", 0) or 0)
+        if pw:
+            wcfg["partition_windows"] = pw
+            wcfg["recovery"] = True  # heal-exhaustion falls back to resume
+        wcfg_path = os.path.join(scratch, "worker_config.json")
+        with open(wcfg_path, "w") as f:
+            json.dump(wcfg, f)
+
+        def spawn_worker(wid: int):
+            job = Job(name=f"{algorithm}-elastic-w{wid}", script="-m",
+                      args=["distkeras_tpu_torch.ps_worker_main", wcfg_path,
+                            str(wid)],
+                      hosts=["127.0.0.1"], env=env, coordinated=False,
+                      process_ids=[wid])
+            job.run(LocalJobRunner(), wait=False)
+            return job.processes[0]
+
+        sup = ProcessSupervisor(
+            ledger, lease_server, spawn_worker, n,
+            freeze_deadline=getattr(trainer, "freeze_deadline", None),
+            max_respawns=getattr(trainer, "max_respawns", None),
+            ps_procs=ps_procs or None,
+            ps_addrs=shard_addrs if ps_procs else None,
+            respawn_ps=respawn_ps)
+        trainer._process_supervisor = sup  # observability (tests, smoke)
+
+        epoch_reports: Dict[int, Any] = {}
+        try:
+            sup.start()
+            for epoch in range(trainer.num_epoch):
+                sup.run_epoch(epoch)
+                # the zero-data-loss contract, asserted per epoch
+                epoch_reports[epoch] = ledger.assert_epoch_complete(epoch)
+        finally:
+            sup.shutdown()
+            trainer.failed_workers = sorted(sup.failures)
+            trainer.worker_failures = dict(sup.failures)
+            trainer.elastic_stats = {**sup.stats(),
+                                     "lease_completions": epoch_reports}
+
+        # histories from every worker that ever ran (original ids +
+        # respawned fresh ids), id order — files are globbed because
+        # replacements land under ids the launch config never knew
+        results = [
+            _ChildResult(int(os.path.basename(p)[len("result_"):-4]), p)
+            for p in globmod.glob(os.path.join(result_dir, "result_*.npz"))]
+        results.sort(key=lambda r: r.worker_id)
+        trainer.history.clear()
+        for r in results:
+            trainer.history.extend(r.history)
+        trainer._process_results = results
+        trainer.process_launches = _sum_launches(results)
+
+        # -- final model -----------------------------------------------------
+        if group is not None:
+            _await_applied(group, lambda: _landing_targets(
+                group, results, ([0] * num_shards, [0] * num_shards,
+                                 [0] * num_shards)))
+            trainer.ps_coalesce_stats = group.coalesce_stats
+            fitted = group.get_model(device=trainer.device)
+        else:
+            # gather the final center over the wire before retiring the
+            # shard processes (the ExitStack SIGTERMs them on the way out;
+            # each journals a final snapshot — clean handoff)
+            _await_shard_processes(shard_addrs, addr_dir, results)
+            trainer.ps_coalesce_stats = None
+            weights = [np.asarray(w) for w in blob["weights"]]
+            plan = make_shard_plan([w.shape for w in weights],
+                                   [w.dtype for w in weights], num_shards)
+            client = ShardedPSClient(plan, shard_addrs, recovery=True)
+            try:
+                client.connect()
+                center = client.pull()
+            finally:
+                client.disconnect()
+            fitted = FittedModel(deserialize_model(
+                {"model": blob["model"], "weights": center},
+                device=trainer.device))
+
+    trainer._fitted = fitted
+    trainer.record_training_stop()
+    return fitted

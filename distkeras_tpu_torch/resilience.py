@@ -15,7 +15,8 @@ captures its decode graph, before it goes live.
 
 Copied for the host parameter server: ``RETRYABLE_CONNECT``, ``dial``
 (the workers' connect under a ``RetryPolicy``), ``wire_heartbeat`` (one
-``'h'`` probe of a PS address) and ``Partitioned``; the survivable
+``'h'`` probe of a PS address; the port's ``wire_probe`` under it also
+returns the server's generation and clock) and ``Partitioned``; the survivable
 servers' ``ShardJournal`` (atomic per-shard npz snapshots through the
 port's ``checkpoint.Checkpointer``, in the JAX journal's layout:
 ``shard_<jjj>/ckpt_<n>.npz`` with the same meta keys, so a snapshot
@@ -25,9 +26,21 @@ the last snapshot with the generation bumped); and the elastic workers'
 ``Lease``, ``LeaseLedger`` (window-aligned leases, EWMA deadlines,
 exactly-once completion: call for call the JAX ledger) and
 ``WorkerSupervisor`` (death and wedge detection, respawn under fresh
-ids).  All of it is host code: numpy and the standard library.  The
-cross-process lease rail (``LeaseServer``, ``LeaseClient``) and
-``ProcessSupervisor`` wait for ROADMAP queue A item 6.
+ids; its death and respawn rules, ``_RespawnRules``, are shared with
+the process supervisor below).  Copied for the cross-process engine
+(``execution="process_ps"``): the lease rail, ``LeaseServer`` (the
+ledger behind the framed dict protocol over the port's ``networking``
+codec; acquire and renew stamp each worker's wire heartbeat) and
+``LeaseClient`` (the ledger's worker surface over the wire, so
+``workers.PSWorker.train_leases`` drives it unchanged: a blocking
+``acquire``, re-dials under ``DEFAULT_RECOVERY_POLICY``), and
+``ProcessSupervisor`` (waitpid deaths and heartbeat freezes of worker
+processes, their leases revoked and a replacement spawned under a fresh
+id through the ``job_deployment.Job`` rail; PS shard processes probed
+and respawned at the same address within a grace window).  The frames
+are the JAX package's, so a port client works against a JAX lease
+server and back.  All of it is host code: numpy and the standard
+library.
 """
 
 from __future__ import annotations
@@ -163,29 +176,37 @@ def dial(host: str, port: int, policy: RetryPolicy) -> socket.socket:
                        RETRYABLE_CONNECT)
 
 
-def wire_heartbeat(host: str, port: int, timeout: float = 1.0) -> bool:
-    """One ``'h'`` probe against a PS address: True iff it answers with a
-    clock within ``timeout``.  Any transport fault, stall, or garbage reply
-    is a failed probe.  The heartbeat handler runs through the server's
-    apply lock, so a server wedged inside an apply fails this even though
-    its process is alive."""
+def wire_probe(host: str, port: int, timeout: float = 1.0
+               ) -> Optional[Tuple[int, int]]:
+    """One ``'h'`` probe against a PS address: its (generation, clock), or
+    None unless it answers with a clock within ``timeout``.  Any transport
+    fault, stall, or garbage reply is a failed probe.  The heartbeat
+    handler runs through the server's apply lock, so a server wedged
+    inside an apply fails this even though its process is alive."""
     try:
         sock = networking.connect(host, port, timeout=timeout)
     except (ConnectionError, OSError, socket.timeout):
-        return False
+        return None
     try:
         sock.settimeout(timeout)
         networking.send_opcode(sock, b"h")
         msg = networking.recv_data(sock)
         networking.send_opcode(sock, b"q")
-        return isinstance(msg, dict) and "clock" in msg
+        if not (isinstance(msg, dict) and "clock" in msg):
+            return None
+        return int(msg.get("gen") or 0), int(msg["clock"])
     except (ConnectionError, OSError, ValueError, socket.timeout):
-        return False
+        return None
     finally:
         try:
             sock.close()
         except OSError:
             pass
+
+
+def wire_heartbeat(host: str, port: int, timeout: float = 1.0) -> bool:
+    """True iff one :func:`wire_probe` of the address answers in time."""
+    return wire_probe(host, port, timeout) is not None
 
 
 class Partitioned(ConnectionError):
@@ -1028,7 +1049,56 @@ class LeaseLedger:
 # elastic workers: the supervisor
 # ---------------------------------------------------------------------------
 
-class WorkerSupervisor:
+class _RespawnRules:
+    """The death-and-respawn rules that :class:`WorkerSupervisor` (worker
+    threads) and :class:`ProcessSupervisor` (worker processes) share: a
+    dead worker leaves the active set, its first failure note and death
+    time are kept, its leases go back to the pool, and while the epoch
+    still has work a replacement starts under a fresh id (at most
+    ``max_respawns`` in all), with its recovery time recorded.  A
+    subclass says how a worker starts (``_spawn``)."""
+
+    #: how the log names a worker
+    _KIND = "elastic worker"
+
+    def _spawn(self, wid: int) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _note_death(self, wid: int, note: str) -> None:
+        """First cause wins (a worker's own unwind may race the
+        supervisor's diagnosis)."""
+        self.failures.setdefault(wid, note)
+        self.death_times.setdefault(wid, time.monotonic())
+
+    def _respawn(self, died: int, reason: str) -> Optional[int]:
+        if self.respawns >= self.max_respawns:
+            return None
+        nid = self._next_id
+        self._next_id += 1
+        self._spawn(nid)
+        self.active.add(nid)
+        self.respawns += 1
+        t_death = self.death_times.get(died)
+        rec = {"died": died, "replacement": nid, "reason": reason,
+               "recovery_ms": (round((time.monotonic() - t_death) * 1e3, 1)
+                               if t_death is not None else None)}
+        self.respawn_records.append(rec)
+        self.events.append({"kind": "respawn", **rec})
+        logger.warning("%s %d %s; respawned as worker %d", self._KIND,
+                       died, reason, nid)
+        return nid
+
+    def _declare_dead(self, wid: int, note: str, reason: str) -> None:
+        self.active.discard(wid)
+        self._note_death(wid, note)
+        self.ledger.revoke_worker(wid)
+        self.events.append({"kind": "death", "worker": wid,
+                            "reason": reason})
+        if not self.ledger.epoch_done():
+            self._respawn(wid, reason)
+
+
+class WorkerSupervisor(_RespawnRules):
     """Detect-and-respawn loop over elastic worker threads.
 
     ``factory(worker_id)`` builds a worker object; ``run_fn(worker_id,
@@ -1114,38 +1184,15 @@ class WorkerSupervisor:
         t = self._threads.get(wid)
         return t is not None and t.is_alive()
 
-    def _respawn(self, died: int, reason: str) -> Optional[int]:
-        if self.respawns >= self.max_respawns:
-            return None
-        nid = self._next_id
-        self._next_id += 1
-        self.workers[nid] = self.factory(nid)
-        self.active.add(nid)
-        self.respawns += 1
-        self._start(nid)
-        with self._lock:
-            t_death = self.death_times.get(died)
-        rec = {"died": died, "replacement": nid, "reason": reason,
-               "recovery_ms": (round((time.monotonic() - t_death) * 1e3, 1)
-                               if t_death is not None else None)}
-        self.respawn_records.append(rec)
-        self.events.append({"kind": "respawn", **rec})
-        logger.warning("elastic worker %d %s; respawned as worker %d",
-                       died, reason, nid)
-        return nid
+    def _spawn(self, wid: int) -> None:
+        self.workers[wid] = self.factory(wid)
+        self._start(wid)
 
-    def _declare_dead(self, wid: int, note: str, reason: str):
-        self.active.discard(wid)
+    def _note_death(self, wid: int, note: str) -> None:
         with self._lock:
-            # first cause wins against the worker's own unwind path, which
-            # setdefaults the same keys from its thread (_thread_main)
-            self.failures.setdefault(wid, note)
-            self.death_times.setdefault(wid, time.monotonic())
-        self.ledger.revoke_worker(wid)
-        self.events.append({"kind": "death", "worker": wid,
-                            "reason": reason})
-        if not self.ledger.epoch_done():
-            self._respawn(wid, reason)
+            # the worker's own unwind path setdefaults the same keys from
+            # its thread (_thread_main)
+            super()._note_death(wid, note)
 
     # -- the per-epoch loop ----------------------------------------------------
     def run_epoch(self, epoch: int):
@@ -1215,3 +1262,523 @@ class WorkerSupervisor:
         self.release_hung()
         for t in self._threads.values():
             t.join(timeout=1.0)
+
+
+# ---------------------------------------------------------------------------
+# cross-process elastic workers: the lease wire rail
+# ---------------------------------------------------------------------------
+
+class LeaseServer:
+    """Wire front-end for a :class:`LeaseLedger` — the cross-process lease
+    rail (``execution='process_ps'`` with ``elastic=True``).
+
+    The in-process elastic engine hands worker threads the ledger object;
+    worker *processes* (``ps_worker_main``) instead dial this server and
+    speak a tiny framed dict protocol (one request frame → one reply frame
+    per op on a persistent connection, same codec as the PS wire)::
+
+        {"op": "epoch", "after": e}                 → {"running"[, "epoch"]}
+        {"op": "acquire", "worker": w}              → {"done"} | {"lease"}
+        {"op": "renew", "lease": l, "worker": w}    → {"ok"}
+        {"op": "complete", "lease": l, "worker": w} → {"ok"}
+
+    ``acquire``/``renew`` double as **wire heartbeats**: each stamps
+    ``last_beat[worker]`` — the liveness source :class:`ProcessSupervisor`
+    reads (renewals already ride the commit cadence, so a worker's PS
+    traffic and its supervisor heartbeat share one clock).  A SIGSTOPped
+    worker stops beating here first; waitpid still calls it alive.
+
+    The driver owns the epoch lifecycle: ``open_epoch`` after the ledger's
+    ``begin_epoch`` makes the epoch visible to polling workers,
+    ``close_epoch`` parks them between epochs, ``finish`` releases them to
+    exit (their ``wait_epoch`` returns None).  Exactly-once lease
+    accounting stays entirely in the wrapped ledger — this class adds
+    transport, never semantics.
+    """
+
+    def __init__(self, ledger: LeaseLedger, host: str = "127.0.0.1",
+                 port: int = 0):
+        self.ledger = ledger
+        self.host = host
+        self.port = int(port)
+        #: worker id → monotonic time of its last acquire/renew frame
+        self.last_beat: Dict[int, float] = {}
+        self.requests = 0
+        self._epoch: Optional[int] = None
+        self._finished = False
+        self._lock = threading.Lock()  # guards: last_beat, _epoch, _finished, requests
+        self._sock: Optional[socket.socket] = None
+        self._accept_thread: Optional[threading.Thread] = None
+        self._running = False
+
+    # -- driver surface ------------------------------------------------------
+    def open_epoch(self, epoch: int) -> None:
+        with self._lock:
+            self._epoch = int(epoch)
+
+    def close_epoch(self) -> None:
+        with self._lock:
+            self._epoch = None
+
+    def finish(self) -> None:
+        """End of run: workers' ``wait_epoch`` returns None and they exit."""
+        with self._lock:
+            self._epoch = None
+            self._finished = True
+
+    def beats(self) -> Dict[int, float]:
+        with self._lock:
+            return dict(self.last_beat)
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "LeaseServer":
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((self.host, self.port))
+        self._sock.listen(64)
+        self.port = self._sock.getsockname()[1]
+        self._running = True
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="dkt-lease-server")
+        self._accept_thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._running = False
+        if self._sock is not None:
+            try:
+                # wakes the accept loop's blocking accept (a close from
+                # another thread alone does not, on Linux)
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=5.0)
+            self._accept_thread = None
+
+    def __enter__(self) -> "LeaseServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _accept_loop(self) -> None:
+        while self._running:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # stop() closed the listener
+            threading.Thread(target=self._serve, args=(conn,), daemon=True,
+                             name="dkt-lease-conn").start()
+
+    # -- the protocol --------------------------------------------------------
+    def _beat(self, worker: int) -> None:
+        with self._lock:
+            self.last_beat[int(worker)] = time.monotonic()
+
+    def _dispatch(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        op = msg.get("op")
+        with self._lock:
+            self.requests += 1
+            epoch, finished = self._epoch, self._finished
+        if op == "epoch":
+            after = msg.get("after")
+            rep: Dict[str, Any] = {"running": not finished}
+            if epoch is not None and (after is None or epoch > int(after)):
+                rep["epoch"] = epoch
+            return rep
+        if op == "acquire":
+            wid = int(msg["worker"])
+            self._beat(wid)
+            lease = self.ledger.acquire(wid)
+            if lease is not None:
+                return {"lease": list(lease)}
+            return {"done": epoch is None or self.ledger.epoch_done()}
+        if op == "renew":
+            wid = int(msg["worker"])
+            self._beat(wid)
+            return {"ok": self.ledger.renew(int(msg["lease"]), wid)}
+        if op == "complete":
+            return {"ok": self.ledger.complete(int(msg["lease"]),
+                                               int(msg["worker"]))}
+        return {"error": f"unknown op {op!r}"}
+
+    def _serve(self, conn: socket.socket) -> None:
+        try:
+            while self._running:
+                try:
+                    msg = networking.recv_data(conn)
+                except (ConnectionError, OSError, ValueError):
+                    return  # peer gone (EOF, RST, or torn frame): drop it
+                if not isinstance(msg, dict) or msg.get("op") == "quit":
+                    return
+                try:
+                    networking.send_data(conn, self._dispatch(msg))
+                except (ConnectionError, OSError):
+                    return
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+class LeaseClient:
+    """Worker-process twin of the ledger's worker-facing surface —
+    duck-typed ``acquire``/``renew``/``complete`` so
+    ``workers.PSWorker.train_leases`` drives it unchanged.
+
+    Two contract adaptations for the wire:
+
+     - ``acquire`` **blocks** while the epoch is open but no lease is free:
+       a revoked lease (dead/frozen holder) can return to the pool at any
+       moment, and an exited process — unlike an in-process thread the
+       ``WorkerSupervisor`` can restart — could never come back for it.
+       It returns None only once the epoch is done (or closed).
+     - transport faults re-dial and re-issue the request under ``policy``
+       (default :data:`DEFAULT_RECOVERY_POLICY`).  Every op is safe to
+       re-issue: renew/complete are holder-checked by the ledger, and a
+       duplicated acquire merely claims a lease whose deadline returns it
+       to the pool if the first reply was the one that got lost —
+       exactly-once completion holds either way.
+    """
+
+    def __init__(self, host: str, port: int, poll_interval: float = 0.05,
+                 policy: Optional[RetryPolicy] = None):
+        self.host = str(host)
+        self.port = int(port)
+        self.poll_interval = float(poll_interval)
+        self.policy = policy
+        self._sock: Optional[socket.socket] = None
+        self.resumes = 0
+
+    # -- lifecycle -----------------------------------------------------------
+    def connect(self) -> "LeaseClient":
+        self._sock = dial(self.host, self.port,
+                          self.policy or DEFAULT_CONNECT_POLICY)
+        return self
+
+    def close(self) -> None:
+        if self._sock is not None:
+            try:
+                networking.send_data(self._sock, {"op": "quit"})
+            except (ConnectionError, OSError):
+                pass
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def __enter__(self) -> "LeaseClient":
+        return self.connect()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- transport -----------------------------------------------------------
+    def _request(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        if self._sock is None:
+            self.connect()
+
+        def roundtrip() -> Dict[str, Any]:
+            networking.send_data(self._sock, msg)
+            return networking.recv_data(self._sock)
+
+        try:
+            return roundtrip()
+        except (ConnectionError, OSError, ValueError) as fault:
+            pol = self.policy or DEFAULT_RECOVERY_POLICY
+            t0 = time.monotonic()
+            last: BaseException = fault
+            for d in pol.delays():
+                try:
+                    if self._sock is not None:
+                        try:
+                            self._sock.close()
+                        except OSError:
+                            pass
+                        self._sock = None
+                    self._sock = networking.connect(self.host, self.port)
+                    out = roundtrip()
+                    self.resumes += 1
+                    return out
+                except (ConnectionError, OSError, ValueError,
+                        socket.timeout) as e:
+                    last = e
+                    if (pol.deadline is not None
+                            and time.monotonic() - t0 + d > pol.deadline):
+                        break
+                    time.sleep(d)
+            raise ConnectionError(
+                f"lease server at {self.host}:{self.port} unrecovered after "
+                f"{pol.describe()} reconnect attempts") from last
+
+    # -- the ledger surface --------------------------------------------------
+    def acquire(self, worker: int) -> Optional[Lease]:
+        while True:
+            rep = self._request({"op": "acquire", "worker": int(worker)})
+            lease = rep.get("lease")
+            if lease is not None:
+                return Lease(*[int(v) for v in lease])
+            if rep.get("done"):
+                return None
+            time.sleep(self.poll_interval)
+
+    def renew(self, lease_id: int, worker: int) -> bool:
+        return bool(self._request({"op": "renew", "lease": int(lease_id),
+                                   "worker": int(worker)}).get("ok"))
+
+    def complete(self, lease_id: int, worker: int) -> bool:
+        return bool(self._request({"op": "complete", "lease": int(lease_id),
+                                   "worker": int(worker)}).get("ok"))
+
+    # -- the epoch loop ------------------------------------------------------
+    def wait_epoch(self, after: Optional[int] = None) -> Optional[int]:
+        """Block until an epoch newer than ``after`` opens (its number) or
+        the run finishes (None)."""
+        while True:
+            rep = self._request({"op": "epoch", "after": after})
+            if "epoch" in rep:
+                return int(rep["epoch"])
+            if not rep.get("running", False):
+                return None
+            time.sleep(self.poll_interval)
+
+
+# ---------------------------------------------------------------------------
+# cross-process supervision
+# ---------------------------------------------------------------------------
+
+class ProcessSupervisor(_RespawnRules):
+    """:class:`WorkerSupervisor`'s detect-and-respawn contract over real OS
+    processes (``execution='process_ps'`` with ``elastic=True``).
+
+    **Worker liveness** has two layers: waitpid (``Popen.poll`` — a
+    SIGKILLed or crashed worker) and the wire heartbeat its lease traffic
+    stamps on the :class:`LeaseServer` (a SIGSTOPped worker is alive by
+    waitpid but stops beating — *frozen*).  A dead worker's leases are
+    revoked and a replacement spawned through the job runner under a fresh
+    id (``spawn_worker(new_id)`` — the replacement re-pulls the live center,
+    the same bounded-staleness class as any late joiner).  A frozen worker
+    only loses its leases (survivors steal them immediately instead of
+    waiting out the lease deadline); the process is left alone — if it
+    thaws (SIGCONT) its next renew returns False, it abandons the stolen
+    lease, and it rejoins as a healthy member.  Exactly-once completion
+    holds across freeze-vs-steal races by the ledger's holder check.
+
+    **PS shard processes** (optional: ``ps_procs``/``ps_addrs``/
+    ``respawn_ps``) are probed by waitpid plus the same wire ``'h'``
+    heartbeat the in-process :class:`ShardSupervisor` uses; a dead shard is
+    respawned **same-address** via ``respawn_ps(j)`` — the fresh process
+    restores its :class:`ShardJournal` snapshot from the shared scratch
+    directory and bumps its generation itself (``ps_shard_main``), so the
+    bounded-loss + generation-handshake contract carries over verbatim.
+    Freshly (re)spawned shards get a grace window before probes count
+    (a cold interpreter pays its imports, and on a card its CUDA context,
+    before it can answer).
+
+    Its death and respawn rules are :class:`WorkerSupervisor`'s
+    (``_RespawnRules``); only how a worker starts, and how it is seen to
+    die or freeze, differ.
+
+    The driver drives :meth:`run_epoch` per epoch, exactly like
+    ``WorkerSupervisor`` — detection is polled inside the epoch wait loop,
+    not a background thread, so the loop observes a consistent ledger.
+    """
+
+    _KIND = "worker process"
+
+    def __init__(self, ledger: LeaseLedger, lease_server: LeaseServer,
+                 spawn_worker: Callable[[int], Any], num_workers: int,
+                 poll_interval: float = 0.05,
+                 freeze_deadline: Optional[float] = None,
+                 max_respawns: Optional[int] = None,
+                 ps_procs: Optional[List[Any]] = None,
+                 ps_addrs: Optional[List[Tuple[str, int]]] = None,
+                 respawn_ps: Optional[Callable[[int], Any]] = None,
+                 ps_deadline: float = 2.0, ps_probe_interval: float = 0.5,
+                 ps_grace: float = 30.0, max_ps_restarts: int = 20):
+        self.ledger = ledger
+        self.lease_server = lease_server
+        self.spawn_worker = spawn_worker
+        self.num_workers = int(num_workers)
+        self.poll_interval = float(poll_interval)
+        self.freeze_deadline = (None if freeze_deadline is None
+                                else float(freeze_deadline))
+        self.max_respawns = (2 * self.num_workers if max_respawns is None
+                             else int(max_respawns))
+        self.procs: Dict[int, Any] = {}
+        self.active: set = set()
+        self.failures: Dict[int, str] = {}
+        self.death_times: Dict[int, float] = {}
+        self.respawns = 0
+        self.respawn_records: List[Dict[str, Any]] = []
+        self.events: List[Dict[str, Any]] = []
+        self._frozen: set = set()
+        self._next_id = self.num_workers
+        # PS shard process watch (all-or-nothing)
+        self.ps_procs = list(ps_procs) if ps_procs else []
+        self.ps_addrs = ([(str(h), int(p)) for h, p in ps_addrs]
+                         if ps_addrs else [])
+        self.respawn_ps = respawn_ps
+        self.ps_deadline = float(ps_deadline)
+        self.ps_probe_interval = float(ps_probe_interval)
+        self.ps_grace = float(ps_grace)
+        self.max_ps_restarts = int(max_ps_restarts)
+        self.ps_restarts = [0] * len(self.ps_procs)
+        self.ps_recoveries: List[Dict[str, Any]] = []
+        self._ps_grace_until = [0.0] * len(self.ps_procs)
+        self._last_ps_probe = 0.0
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "ProcessSupervisor":
+        for wid in range(self.num_workers):
+            self.procs[wid] = self.spawn_worker(wid)
+            self.active.add(wid)
+        return self
+
+    def shutdown(self, timeout: float = 60.0) -> None:
+        """End of run: release workers (they drain, write results, exit 0)
+        and reap them; stragglers past ``timeout`` are killed."""
+        self.lease_server.finish()
+        deadline = time.monotonic() + timeout
+        for wid in sorted(self.procs):
+            p = self.procs[wid]
+            if p.poll() is not None:
+                continue
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except Exception:
+                try:
+                    p.kill()
+                    p.wait(timeout=5.0)
+                except Exception:
+                    pass
+
+    # -- detection helpers ---------------------------------------------------
+    def _alive(self, wid: int) -> bool:
+        p = self.procs.get(wid)
+        return p is not None and p.poll() is None
+
+    def _spawn(self, wid: int) -> None:
+        self.procs[wid] = self.spawn_worker(wid)
+
+    def _declare_dead(self, wid: int, note: str, reason: str) -> None:
+        self._frozen.discard(wid)
+        super()._declare_dead(wid, note, reason)
+
+    def _check_workers(self) -> None:
+        # deaths: waitpid — any exit while the epoch is incomplete is a
+        # casualty (a healthy worker blocks in acquire until the run ends)
+        for wid in sorted(self.active):
+            p = self.procs[wid]
+            rc = p.poll()
+            if rc is not None:
+                self._declare_dead(wid, f"worker process exited with code "
+                                        f"{rc} mid-epoch", reason="died")
+        # frozen: beating stopped but waitpid says alive (SIGSTOP, swap
+        # death, a wedged device).  Revoke its leases NOW — survivors steal
+        # them instead of waiting out the lease deadline.  The process is
+        # left alone: a thaw re-enters via the ledger's holder check.
+        if self.freeze_deadline is None:
+            return
+        now = time.monotonic()
+        beats = self.lease_server.beats()
+        for wid in sorted(self.active):
+            beat = beats.get(wid)
+            if beat is None or not self._alive(wid):
+                continue
+            if now - beat > self.freeze_deadline:
+                if wid not in self._frozen:
+                    self._frozen.add(wid)
+                    n = self.ledger.revoke_worker(wid)
+                    self.events.append({"kind": "frozen", "worker": wid,
+                                        "leases_revoked": n})
+                    logger.warning(
+                        "worker process %d frozen (no heartbeat for %.1fs); "
+                        "%d lease(s) revoked", wid, now - beat, n)
+            elif wid in self._frozen:
+                self._frozen.discard(wid)
+                self.events.append({"kind": "thawed", "worker": wid})
+
+    def _check_ps(self) -> None:
+        if not self.ps_procs or self.respawn_ps is None:
+            return
+        now = time.monotonic()
+        if now - self._last_ps_probe < self.ps_probe_interval:
+            return
+        self._last_ps_probe = now
+        for j, p in enumerate(self.ps_procs):
+            if now < self._ps_grace_until[j]:
+                if wire_heartbeat(*self.ps_addrs[j],
+                                  timeout=self.ps_deadline):
+                    self._ps_grace_until[j] = 0.0  # up: probes count again
+                continue
+            dead = p.poll() is not None
+            if not dead:
+                dead = not wire_heartbeat(*self.ps_addrs[j],
+                                          timeout=self.ps_deadline)
+            if not dead:
+                continue
+            if self.ps_restarts[j] >= self.max_ps_restarts:
+                continue  # crash loop: leave it to PSShardDown
+            self.ps_restarts[j] += 1
+            t0 = time.monotonic()
+            try:
+                p.kill()  # a wedged-but-alive process must release the port
+                p.wait(timeout=5.0)
+            except Exception:
+                pass
+            self.ps_procs[j] = self.respawn_ps(j)
+            self._ps_grace_until[j] = time.monotonic() + self.ps_grace
+            rec = {"shard": j, "respawn_ms":
+                   round((time.monotonic() - t0) * 1e3, 1)}
+            self.ps_recoveries.append(rec)
+            self.events.append({"kind": "ps_respawn", **rec})
+            logger.warning("PS shard process %d dead; respawned at %s:%d",
+                           j, *self.ps_addrs[j])
+
+    # -- the per-epoch loop --------------------------------------------------
+    def run_epoch(self, epoch: int) -> None:
+        """Drive one epoch of the ledger to completion (or raise)."""
+        self.ledger.begin_epoch(epoch)
+        self.lease_server.open_epoch(epoch)
+        try:
+            while not self.ledger.epoch_done():
+                for lease, holder in self.ledger.revoke_expired():
+                    self.events.append({"kind": "lease_revoked",
+                                        "epoch": epoch,
+                                        "lease": lease.lease_id,
+                                        "worker": holder})
+                self._check_workers()
+                self._check_ps()
+                # liveness: leases remain but no unfrozen worker is running
+                if not self.ledger.epoch_done() and not any(
+                        self._alive(w) and w not in self._frozen
+                        for w in self.active):
+                    if self._respawn(-1, "worker pool drained") is None:
+                        raise RuntimeError(
+                            f"all worker processes failed with "
+                            f"{self.respawns} respawns spent (max_respawns="
+                            f"{self.max_respawns}); failures: "
+                            f"{self.failures}")
+                time.sleep(self.poll_interval)
+        finally:
+            self.lease_server.close_epoch()
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "respawns": self.respawns,
+            "respawn_records": list(self.respawn_records),
+            "ps_restarts": list(self.ps_restarts),
+            "ps_recoveries": list(self.ps_recoveries),
+            "leases_reassigned": self.ledger.reassigned,
+            "windows_per_worker": dict(self.ledger.windows_by_worker),
+            "events": list(self.events),
+        }

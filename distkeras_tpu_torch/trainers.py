@@ -26,10 +26,13 @@ sharded over ``ps_shards`` servers (``ps_sharding.py``), and survives
 faults: ``recovery`` (journaled, respawned shards and reconnecting
 workers), ``elastic`` (lease-based workers, respawned on death, stolen
 from on a wedge), ``fault_tolerance``/``fault_injection`` and
-``partition_windows`` (``resilience.py``).  What waits for later slices
-raises: the process engine (``execution="process_ps"``, with its knobs)
-and the streaming engine (ROADMAP queue A item 6), the orbax checkpoint
-backend and the Keras adapter.
+``partition_windows`` (``resilience.py``).  ``execution="process_ps"``
+runs the same workers as OS processes (``ps_worker_main.py``) that share
+only the socket with the driver, static or elastic under a
+``resilience.ProcessSupervisor``, with the PS in the driver or in shard
+processes of its own (``ps_placement="process"``, ``ps_shard_main.py``).
+What waits for later slices raises: the streaming engine (ROADMAP queue
+A item 6), the orbax checkpoint backend and the Keras adapter.
 """
 
 from __future__ import annotations
@@ -311,19 +314,23 @@ class SingleTrainer(Trainer):
 
 
 #: the execution engines of the port's distributed trainers
-_ENGINES = ("spmd", "host_ps")
+_ENGINES = ("spmd", "host_ps", "process_ps")
+#: the engines with a parameter server (worker threads or processes)
+_PS_ENGINES = ("host_ps", "process_ps")
 
 
 class DistributedTrainer(Trainer):
     """Base of the multi-worker trainers: the worker count, batch and
     window, and the ``train()`` lifecycle on the SPMD engine, or on the
-    host parameter server with ``execution="host_ps"``.  The JAX
+    host parameter server with ``execution="host_ps"`` (worker threads)
+    or ``"process_ps"`` (worker processes).  The JAX
     package's ``service()`` (the parameter server's start) maps to the
     SPMD engine's construction here.
 
     On ``"spmd"`` the workers are a mesh (``parallel.get_mesh``: one per
     card by default).  On ``"host_ps"`` ``num_workers`` (default 1) counts
-    worker threads that all run on the trainer's one device; a ``mesh``
+    worker threads that all run on the trainer's one device (on
+    ``"process_ps"`` worker processes, each on that device); a ``mesh``
     given there only names that device and the count."""
 
     ALGORITHM = "local"
@@ -352,18 +359,14 @@ class DistributedTrainer(Trainer):
                  fault_injection: Optional[dict] = None,
                  segment_col: Optional[str] = None,
                  device: DeviceLike = None):
-        if execution == "process_ps":
-            raise NotImplementedError(
-                "execution='process_ps': the cross-process parameter-server "
-                "engine is not ported yet (ROADMAP queue A item 6); use "
-                "execution='host_ps' or 'spmd'")
         if execution not in _ENGINES:
             raise ValueError(f"unknown execution {execution!r}; the port "
                              f"runs execution in {list(_ENGINES)}")
         if segment_col is not None:
             _require_masked_loss(loss)
-        if execution == "host_ps" and mesh is None:
-            # worker threads on one device: the count is not a mesh
+        if execution in _PS_ENGINES and mesh is None:
+            # worker threads (or processes) on one device: the count is
+            # not a mesh
             workers = 1 if num_workers is None else int(num_workers)
             if workers < 1:
                 raise ValueError(f"num_workers must be >= 1, got {workers}")
@@ -469,7 +472,7 @@ class DistributedTrainer(Trainer):
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False,
               validation_data: Optional[Dataset] = None) -> FittedModel:
-        if self.execution == "host_ps":
+        if self.execution in _PS_ENGINES:
             if (validation_data is not None
                     or self.early_stopping_patience is not None):
                 raise ValueError(
@@ -482,6 +485,12 @@ class DistributedTrainer(Trainer):
                     "segment_col (packed training) runs on the SPMD engine "
                     "only — the PS workers don't thread segment ids; use "
                     "execution='spmd'")
+            if self.execution == "process_ps":
+                if resume:
+                    raise ValueError(
+                        "resume is not supported on execution='process_ps'")
+                from .parameter_servers import run_process_ps_training
+                return run_process_ps_training(self, dataset, shuffle)
             from .parameter_servers import run_host_ps_training
             return run_host_ps_training(self, dataset, shuffle,
                                         resume=resume)
@@ -641,10 +650,11 @@ class DistributedTrainer(Trainer):
 class AsynchronousDistributedTrainer(DistributedTrainer):
     """Base of the asynchronous family.  On the SPMD engine the async
     commits execute as deterministic rounds (``parallel/spmd.py``); with
-    ``execution="host_ps"`` they run against a live socket parameter
-    server (``parameter_servers.py``).
+    ``execution="host_ps"`` (worker threads) or ``"process_ps"`` (worker
+    processes) they run against a live socket parameter server
+    (``parameter_servers.py``).
 
-    The host-PS knobs of the JAX class that the port runs:
+    The PS knobs of the JAX class that the port runs:
     ``parallelism_factor`` (``num_workers × parallelism_factor`` worker
     threads), ``comm_overlap`` (one combined commit+pull round trip per
     window, received while the next window computes; ``None`` resolves
@@ -659,12 +669,17 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
     with ``lease_windows`` and ``lease_timeout`` (lease-based workers under
     a ``resilience.WorkerSupervisor``) and ``partition_windows`` (a
     partitioned worker buffers its windows and flushes them on heal).
-    Each is checked as the JAX class checks it, and a value the JAX class
-    refuses is refused here with the same ``ValueError``.  ``stream``
-    raises ``NotImplementedError`` on ``host_ps``, and the cross-process
-    engine's knobs (``ps_placement="process"``, ``freeze_deadline``,
-    ``scratch_dir``) are refused with the JAX message and a note that the
-    engine waits for ROADMAP queue A item 6.
+    The supervised cross-process engine (``process_ps`` with
+    ``elastic=True``) adds ``ps_placement`` (``"process"``: a shard
+    process each), ``freeze_deadline`` (a worker process silent that long
+    on the lease rail loses its leases) and ``scratch_dir``, and reads
+    ``snapshot_interval`` and ``max_respawns`` from the trainer's
+    attributes, as the JAX engine does.  Each is checked as the JAX class
+    checks it, and a value the JAX class refuses is refused here with the
+    same ``ValueError`` (``recovery`` on ``process_ps`` needs ``elastic``
+    and takes no ``recovery_policy`` object; ``row_sparse`` and
+    ``stream`` stay on ``host_ps``).  ``stream`` raises
+    ``NotImplementedError`` (ROADMAP queue A item 6).
     """
 
     #: algorithms whose per-algorithm comm_overlap default is ON
@@ -691,25 +706,36 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                  **kw):
         super().__init__(keras_model, **kw)
         host_ps = self.execution == "host_ps"
+        ps = self.execution in _PS_ENGINES
+        process_ps = self.execution == "process_ps"
         ps_only = ("applies to the parameter-server engines "
                    "(execution='host_ps'/'process_ps'); the SPMD engine "
                    "has no parameter server")
-        refusals = (
+        refusals = [
             (int(parallelism_factor) < 1,
              "parallelism_factor must be >= 1"),
             (int(parallelism_factor) > 1 and not host_ps,
              "parallelism_factor > 1 requires execution='host_ps' (the "
              "SPMD engine runs exactly one worker per mesh slot)"),
-            (comm_overlap is not None and not host_ps,
+            (comm_overlap is not None and not ps,
              f"comm_overlap {ps_only}"),
             (int(ps_shards) < 1, "ps_shards must be >= 1"),
-            (int(ps_shards) > 1 and not host_ps, f"ps_shards > 1 {ps_only}"),
-            (bool(recovery) and not host_ps,
+            (int(ps_shards) > 1 and not ps, f"ps_shards > 1 {ps_only}"),
+            (bool(recovery) and not ps,
              "recovery=True requires a PS engine; the SPMD engine's "
              "recovery story is checkpoint_dir + train(resume=True)"),
-            (bool(elastic) and not host_ps,
+            (bool(recovery) and process_ps and recovery_policy is not None,
+             "process_ps cannot ship a recovery_policy object to worker "
+             "processes (config travels as JSON) — workers use "
+             "DEFAULT_RECOVERY_POLICY; tune it via host_ps or leave "
+             "recovery_policy=None"),
+            (bool(elastic) and not ps,
              "elastic=True requires a PS engine; the SPMD engine is "
              "bulk-synchronous — a lost participant is a lost collective"),
+            (bool(recovery) and process_ps and not elastic,
+             "recovery=True on execution='process_ps' requires "
+             "elastic=True (the supervised cross-process engine); the "
+             "static process engine keeps the fail-fast topology"),
             (lease_windows is not None and int(lease_windows) < 1,
              "lease_windows must be >= 1"),
             (float(lease_timeout) <= 0, "lease_timeout must be > 0"),
@@ -720,10 +746,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
              f"apply_kernel must be one of (None, 'numpy', 'native', "
              f"'auto'), got {apply_kernel!r}"),
             ((ps_core != "event" or not coalesce
-              or apply_kernel is not None) and not host_ps,
+              or apply_kernel is not None) and not ps,
              f"ps_core/coalesce/apply_kernel {ps_only}"),
             (bool(stream) and not host_ps,
-             "stream=True requires execution='host_ps'"),
+             "stream=True requires execution='host_ps' (the horizon "
+             "loop drives the live socket PS; the SPMD engine shapes "
+             "finite epochs, and process_ps ships finite shards)"),
             (horizon_windows is not None and int(horizon_windows) < 1,
              "horizon_windows must be >= 1"),
             (horizon_windows is not None and not stream,
@@ -748,28 +776,34 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
              "ps_bind_host/ps_advertise_host must be a host string or None "
              "(empty string is neither bindable nor dialable)"),
             ((ps_bind_host is not None or ps_advertise_host is not None)
-             and not host_ps, f"ps_bind_host/ps_advertise_host {ps_only}"),
+             and not ps, f"ps_bind_host/ps_advertise_host {ps_only}"),
             (ps_placement not in ("driver", "process"),
              f"ps_placement must be 'driver' or 'process', got "
              f"{ps_placement!r}"),
             (int(partition_windows) < 0, "partition_windows must be >= 0"),
             (freeze_deadline is not None and float(freeze_deadline) <= 0,
              "freeze_deadline must be > 0"),
-            (ps_placement == "process" or freeze_deadline is not None
-             or scratch_dir is not None,
-             "ps_placement='process'/freeze_deadline/scratch_dir apply to "
-             "the supervised cross-process engine — execution='process_ps' "
-             "with elastic=True (not ported yet: ROADMAP queue A item 6)"),
-            (int(partition_windows) != 0 and not host_ps,
+        ]
+        # the supervised cross-process engine's own knobs
+        for knob, is_set in (
+                ("ps_placement='process'", ps_placement == "process"),
+                ("freeze_deadline", freeze_deadline is not None),
+                ("scratch_dir", scratch_dir is not None)):
+            refusals.append((
+                is_set and not (process_ps and bool(elastic)),
+                f"{knob} applies to the supervised cross-process engine — "
+                "execution='process_ps' with elastic=True"))
+        refusals += [
+            (int(partition_windows) != 0 and not ps,
              f"partition_windows {ps_only}"),
             (int(partition_windows) != 0 and int(ps_shards) > 1,
              "partition_windows requires ps_shards=1 — sharded workers "
              "heal by blocking reconnect-resume (lease stealing already "
              "guarantees zero lost examples)"),
-            (int(partition_windows) != 0 and bool(recovery),
+            (int(partition_windows) != 0 and bool(recovery) and host_ps,
              "partition_windows with recovery is a process_ps feature — "
              "host_ps recovery routes workers through the sharded client"),
-        )
+        ]
         for refused, message in refusals:
             if refused:
                 raise ValueError(message)
@@ -778,7 +812,7 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             raise NotImplementedError(
                 "stream=True on execution='host_ps' is not ported yet "
                 "(ROADMAP queue A item 6)")
-        if host_ps:
+        if ps:
             # resolved eagerly, as the JAX class does: 'native' raises here
             # (the port's build of the apply kernel waits for item 8)
             from . import applykernel
@@ -801,6 +835,16 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         self.apply_kernel = apply_kernel
         self.ps_bind_host = ps_bind_host
         self.ps_advertise_host = ps_advertise_host
+        # the supervised cross-process engine (process_ps + elastic):
+        # where the PS lives ("driver" or a "process" a shard), the wire
+        # heartbeat silence that freezes a worker process, and the scratch
+        # directory of the blob, the data, the journals and the results
+        self.ps_placement = str(ps_placement)
+        self.freeze_deadline = (None if freeze_deadline is None
+                                else float(freeze_deadline))
+        self.scratch_dir = None if scratch_dir is None else str(scratch_dir)
+        #: the worker processes' kernel launches, summed (process_ps)
+        self.process_launches: dict = {}
         # row-sparse embedding commits: True detects every Embedding table
         # of the model (streaming.resolve_row_sparse_tables), or explicit
         # weight-list indices; each table's window delta ships as an exact

@@ -299,15 +299,12 @@ def test_train_refusals_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("execution", ["host_ps", "process_ps"])
-def test_parameter_server_engines_wait_for_item_6(execution):
-    # host_ps arrived (A6a): its training is held to the JAX package's in
-    # tests/test_torch_host_ps_parity.py; a mesh given there names the
-    # device and the worker count.  process_ps still waits for item 6
-    if execution == "process_ps":
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2),
-                      execution=execution)
-        return
+def test_parameter_server_engines_wait_for_item_6(execution, monkeypatch):
+    # both PS engines arrived (host_ps A6a, process_ps A6d; their training
+    # is held to the JAX package's in tests/test_torch_host_ps_parity.py
+    # and tests/test_torch_process_ps.py): a mesh given there names the
+    # device and the worker count (threads, or processes)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     _, pdata = dataset(rows=64)
     t = port.ADAG(port_model(numpy_weights()), mesh=cpu_mesh(2),
                   execution=execution, batch_size=8,

@@ -378,9 +378,8 @@ def test_elastic_knob_validation():
     with pytest.raises(ValueError, match="elastic"):
         ADAG(m, elastic=True, label_col="label_encoded",
              mesh=get_mesh(2, devices=["cpu"] * 2))  # SPMD
-    # the JAX class's supervised cross-process engine waits for item 6
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ADAG(m, execution="process_ps", elastic=True, **kw)
+    # process_ps elastic is the supervised cross-process engine
+    assert ADAG(m, execution="process_ps", elastic=True, **kw).elastic
     with pytest.raises(ValueError, match="lease_windows"):
         ADAG(m, execution="host_ps", elastic=True, lease_windows=0, **kw)
     with pytest.raises(ValueError, match="lease_timeout"):

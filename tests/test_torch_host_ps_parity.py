@@ -240,6 +240,56 @@ def _optimizer(pkg, kw):
     return kw
 
 
+def jax_one_worker(name, weights, rows, overlap, **common):
+    """The JAX reference of a one-worker host-PS run, built from the JAX
+    package's public parts: ``allocate_parameter_server`` and
+    ``make_socket_server`` around the trainer's model blob, and one JAX
+    worker's ``train`` over every row.  The center is read once the
+    server's clock has reached the worker's commits.  (The JAX trainer
+    stops its server as soon as the worker thread joins; its event loop
+    can then exit with a serial worker's last fire-and-forget ``'c'``
+    unread in the socket, so its center misses that commit now and then
+    under load: this reference waits for it.)  Returns (window losses,
+    center weights, the worker, the server's clock)."""
+    import time
+
+    from distkeras_tpu.workers import WORKER_CLASSES as JAX_WORKERS
+    kw = dict(num_workers=1, batch_size=8, num_epoch=2,
+              communication_window=4, label_col="label_encoded", seed=3,
+              execution="host_ps", comm_overlap=overlap)
+    kw.update(common)
+    jt = getattr(jdk, name)(_jax_model(weights), **kw,
+                            **_optimizer(jdk, ALGORITHMS[name]))
+    blob = _jax_model(weights).serialize()
+    ps = jps.allocate_parameter_server(jt.ALGORITHM, blob, 1)
+    server = jps.make_socket_server(ps)
+    server.start()
+    try:
+        extra = ({"rho": jt.rho} if jt.ALGORITHM in ("aeasgd", "eamsgd")
+                 else {})
+        worker = JAX_WORKERS[jt.ALGORITHM](
+            blob, worker_optimizer=jt.worker_optimizer, loss=jt.loss,
+            ps_host="127.0.0.1", ps_port=server.port,
+            communication_window=jt.communication_window,
+            features_col=jt.features_col, label_col=jt.label_col,
+            batch_size=jt.batch_size, num_epoch=jt.num_epoch,
+            learning_rate=jt.learning_rate, seed=jt.seed,
+            comm_overlap=jt.comm_overlap, **extra)
+        worker.train(0, {jt.features_col: rows["features"],
+                         jt.label_col: rows[jt.label_col]})
+        deadline = time.monotonic() + 30.0
+        while ps.num_updates < worker._commits:
+            assert time.monotonic() < deadline, (ps.num_updates,
+                                                 worker._commits)
+            time.sleep(0.001)
+        with ps._lock:
+            center = [w.copy() for w in ps.center]
+            clock = ps.num_updates
+    finally:
+        server.stop()
+    return list(worker.history), center, worker, clock
+
+
 @pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("name", sorted(ALGORITHMS))
 def test_one_worker_matches_jax(name, overlap):
@@ -247,22 +297,73 @@ def test_one_worker_matches_jax(name, overlap):
     common = dict(num_workers=1, batch_size=8, num_epoch=2,
                   communication_window=4, label_col="label_encoded",
                   seed=3, execution="host_ps", comm_overlap=overlap)
-    jt = getattr(jdk, name)(_jax_model(weights), **common,
-                            **_optimizer(jdk, ALGORITHMS[name]))
-    jfit = jt.train(jdk.Dataset(rows))
+    jhist, jcenter, jw, jclock = jax_one_worker(name, weights, rows,
+                                                overlap)
     pt = getattr(port, name)(_port_model(weights), device="cpu", **common,
                              **_optimizer(port, ALGORITHMS[name]))
     pfit = pt.train(port.Dataset(rows))
     assert pt.comm_overlap is overlap
     # 160 rows / (window 4 x batch 8) = 5 windows an epoch
-    assert len(pt.get_history()) == len(jt.get_history()) == 10
-    np.testing.assert_allclose(pt.get_history(), jt.get_history(), **TOL)
-    for a, b in zip(pfit.get_weights(), jfit.get_weights()):
+    assert len(pt.get_history()) == len(jhist) == 10
+    np.testing.assert_allclose(pt.get_history(), jhist, **TOL)
+    for a, b in zip(pfit.get_weights(), jcenter):
         np.testing.assert_allclose(a, np.asarray(b), **TOL)
-    (jw,), (pw,) = jt._ps_workers, pt._ps_workers
+    (pw,) = pt._ps_workers
     assert pw._commits == jw._commits == 10
     assert pw.transport_ops == jw.transport_ops
-    assert pt._ps_server.ps.num_updates == 10
+    assert pt._ps_server.ps.num_updates == jclock == 10
+
+
+def test_the_jax_trainer_can_lose_the_last_commit_and_the_port_waits(
+        monkeypatch):
+    """Which side loses the last commit: hold the JAX server's event loop
+    for 0.3 s after it answers the last window's pull (EAMSGD pulls, then
+    commits), as a loaded machine sometimes does.  The worker's last
+    ``'c'`` and its ``'q'`` arrive meanwhile, the JAX trainer stops the
+    server, and the loop exits with the commit unread: the JAX center has
+    9 of 10 commits.  The port's trainer, held the same way, waits for the
+    clock to reach the commits sent (``_await_applied``) and has all 10."""
+    import time
+    weights, rows = _weights(), _rows()
+    common = dict(num_workers=1, batch_size=8, num_epoch=2,
+                  communication_window=4, label_col="label_encoded",
+                  seed=3, execution="host_ps", comm_overlap=False)
+    servers = []
+    for module in (jps, pps):
+        cls = module.SocketParameterServer
+        drain = cls._process_drain
+
+        def held(self, entries, drain=drain):
+            drain(self, entries)
+            if self.ps.num_updates == 9 and any(
+                    e[1] == b"p" for e in entries):
+                time.sleep(0.3)  # the loop is late back to select()
+
+        monkeypatch.setattr(cls, "_process_drain", held)
+        make = module.make_socket_server
+
+        def capture(*a, make=make, **k):
+            servers.append(make(*a, **k))
+            return servers[-1]
+
+        monkeypatch.setattr(module, "make_socket_server", capture)
+    jt = jdk.EAMSGD(_jax_model(weights), **common,
+                    **_optimizer(jdk, ALGORITHMS["EAMSGD"]))
+    jfit = jt.train(jdk.Dataset(rows))
+    pt = port.EAMSGD(_port_model(weights), device="cpu", **common,
+                     **_optimizer(port, ALGORITHMS["EAMSGD"]))
+    pfit = pt.train(port.Dataset(rows))
+    jserver, pserver = servers
+    assert jt._ps_workers[0]._commits == pt._ps_workers[0]._commits == 10
+    assert jserver.ps.num_updates == 9
+    assert pserver.ps.num_updates == 10
+    # the reference that waits has the commit the JAX trainer lost
+    _, jcenter, _, jclock = jax_one_worker("EAMSGD", weights, rows, False)
+    assert jclock == 10
+    for a, b, c in zip(pfit.get_weights(), jcenter, jfit.get_weights()):
+        np.testing.assert_allclose(a, b, **TOL)
+    assert not all(np.allclose(a, np.asarray(c), **TOL)
+                   for a, c in zip(pfit.get_weights(), jfit.get_weights()))
 
 
 # ---------------------------------------------------------------------------

@@ -58,7 +58,8 @@ def imported_roots(path):
 NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "serving.py", "resilience.py", "networking.py",
                "parameter_servers.py", "workers.py", "applykernel.py",
-               "ps_sharding.py", "streaming.py")
+               "ps_sharding.py", "streaming.py", "job_deployment.py",
+               "ps_worker_main.py", "ps_shard_main.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -98,7 +99,10 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.networking, "
             "distkeras_tpu_torch.parameter_servers, "
             "distkeras_tpu_torch.workers, distkeras_tpu_torch.applykernel, "
-            "distkeras_tpu_torch.ps_sharding, distkeras_tpu_torch.streaming; "
+            "distkeras_tpu_torch.ps_sharding, distkeras_tpu_torch.streaming, "
+            "distkeras_tpu_torch.job_deployment, "
+            "distkeras_tpu_torch.ps_worker_main, "
+            "distkeras_tpu_torch.ps_shard_main; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")
@@ -106,6 +110,64 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("main", ["ps_worker_main", "ps_shard_main"])
+def test_the_process_mains_print_their_usage_and_load_no_jax(main):
+    """``python -m distkeras_tpu_torch.<main>`` with no arguments exits 2
+    with its usage line; run as ``__main__`` in one interpreter, it leaves
+    no jax module loaded."""
+    out = subprocess.run([sys.executable, "-m", f"distkeras_tpu_torch.{main}"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2
+    assert out.stderr.startswith(
+        f"usage: python -m distkeras_tpu_torch.{main} <config.json>")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['main']\n"
+            "try:\n"
+            f"    runpy.run_module('distkeras_tpu_torch.{main}', "
+            "run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    print(e.code)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(BANNED)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["2", "[]"]
+
+
+def test_a_worker_process_without_a_device_asks_for_the_card(tmp_path):
+    """A worker config without ``device`` gets the card rule: with no card
+    the child raises (exit 1, "no CUDA device") and never trains on the
+    CPU."""
+    import json
+
+    import numpy as np
+
+    from distkeras_tpu_torch.core.model import serialize_model
+    from distkeras_tpu_torch.ps_worker_main import save_model_blob
+    model = Sequential([Dense(3)], input_shape=(4,), device="cpu")
+    save_model_blob(str(tmp_path / "m.npz"), serialize_model(model))
+    np.savez(tmp_path / "s.npz", x=np.zeros((8, 4), np.float32),
+             y=np.zeros((8, 3), np.float32))
+    cfg = tmp_path / "w.json"
+    cfg.write_text(json.dumps({
+        "algorithm": "downpour", "model_path": str(tmp_path / "m.npz"),
+        "shard_paths": [str(tmp_path / "s.npz")],
+        "result_paths": [str(tmp_path / "r.npz")],
+        "worker_optimizer": "sgd", "loss": "mse", "ps_host": "127.0.0.1",
+        "ps_port": 1, "features_col": "features", "label_col": "label"}))
+    out = subprocess.run(
+        [sys.executable, "-m", "distkeras_tpu_torch.ps_worker_main",
+         str(cfg), "0"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    if torch.cuda.is_available():  # pragma: no cover - the card's machine
+        return
+    assert out.returncode == 1
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "r.npz").exists()
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -128,11 +190,12 @@ def test_entry_points_default_to_the_card(tmp_path):
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
-    # the host-PS trainer's worker threads run on the card too
-    if torch.cuda.is_available():
-        trainer = port.ADAG(fitted, num_workers=2, execution="host_ps")
-        assert trainer.device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            port.ADAG(fitted, num_workers=2, execution="host_ps")
+    # the PS trainers' worker threads and processes run on the card too
+    for execution in ("host_ps", "process_ps"):
+        if torch.cuda.is_available():
+            trainer = port.ADAG(fitted, num_workers=2, execution=execution)
+            assert trainer.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                port.ADAG(fitted, num_workers=2, execution=execution)
     assert "transformer_lm" in port.__all__

@@ -64,9 +64,9 @@ def test_load_compiles_once_from_eight_threads(monkeypatch, tmp_path,
         def __init__(self, cmd, **kw):
             starts.append(cmd)
             self.returncode = 0
+            self._out = cmd[cmd.index("-o") + 1]
             self._name = next(n for n in kernels.KERNELS
-                              if cmd[cmd.index("-o") + 1].endswith(
-                                  f"lib{n}.so"))
+                              if self._out.endswith(f"lib{n}.so"))
 
         def communicate(self):
             # hold the compile until every thread has asked for the
@@ -74,6 +74,9 @@ def test_load_compiles_once_from_eight_threads(monkeypatch, tmp_path,
             for _ in range(THREADS):
                 entered.acquire(timeout=10)
             built.add(self._name)
+            # nvcc's output name, which the build moves into place
+            with open(self._out, "wb") as f:
+                f.write(b"lib")
             return "", None
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)

@@ -8,8 +8,8 @@ once the budget is spent).
 
 The port's wire runs the pure-Python codec only (its native codec waits
 for ROADMAP queue A item 8), so the JAX file's ``codec`` axis has one
-value here.  The ``ProcessChaos`` legs (signals to OS processes) wait for
-the cross-process engine, ROADMAP queue A item 6.
+value here.  The ``ProcessChaos`` legs (signals to OS processes) and the
+two-process chaos run are in ``tests/test_torch_process_elastic.py``.
 """
 
 import random

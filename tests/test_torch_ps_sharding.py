@@ -366,9 +366,8 @@ def test_ps_shards_knob_validation():
     with pytest.raises(ValueError, match="ps_shards"):
         ADAG(m, ps_shards=2, num_workers=1, label_col="label_encoded",
              device="cpu")  # SPMD: no PS to shard
-    # the JAX class shards process_ps too; the process engine waits
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ADAG(m, execution="process_ps", ps_shards=2, **kw)
+    # process_ps shards through the same wire protocol (driver-hosted group)
+    assert ADAG(m, execution="process_ps", ps_shards=2, **kw).ps_shards == 2
 
 
 # ---------------------------------------------------------------------------

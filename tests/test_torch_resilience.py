@@ -436,10 +436,15 @@ def test_recovery_knob_validation():
         # SPMD: resume is the recovery story
         ADAG(m, recovery=True, label_col="label_encoded",
              mesh=get_mesh(2, devices=["cpu"] * 2))
-    # the JAX class routes process_ps recovery through its supervised
-    # engine; the port's process engine waits for item 6
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ADAG(m, execution="process_ps", recovery=True, elastic=True, **kw)
+    # process_ps recovery rides the supervised (elastic) engine only, and
+    # takes no policy object (the config travels as JSON)
+    with pytest.raises(ValueError, match="recovery"):
+        ADAG(m, execution="process_ps", recovery=True, **kw)
+    with pytest.raises(ValueError, match="recovery_policy"):
+        ADAG(m, execution="process_ps", recovery=True, elastic=True,
+             recovery_policy=FAST, **kw)
+    t2 = ADAG(m, execution="process_ps", recovery=True, elastic=True, **kw)
+    assert t2.recovery and t2.elastic
 
 
 # ---------------------------------------------------------------------------
