@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-five phases, each printing JSON lines, and fails with a non-zero
+twenty-seven phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -273,13 +273,35 @@ exit if any phase fails:
     shards, one death: one respawn, the loss falls, the sm90 forward, dq
     and dk/dv each launched once per layer, step and window that ran and
     nothing else; no run logs the wait's "short of" warning.
+26. process_ps: the same workers as OS processes (``execution=
+    "process_ps"``): one process equal to the bit to one host_ps thread,
+    the ConvNet epoch at 1, 2 and 4 processes beside the threads,
+    degraded completion, the supervised engine over shard processes under
+    faults fired at states of the run, the LM from two elastic worker
+    processes (their sm90 launches read from their result files), and two
+    processes building one kernel under one ``nvcc``.
+27. online: streaming online training, hot weight reload and the online
+    deployment (``stream=True``, ``attach_ps``, ``OnlineDeployment``):
+    the LM at full width streams under DOWNPOUR from 2 threads over a
+    drifting token stream, one worker exiting (every horizon's ledger
+    complete, every row read trained), while a bf16 engine attached to
+    the live PS serves phase serve's trace with a pull every decode step
+    (reloads, no failure, generations never decreasing, every tensor at
+    its address; pull ms and decode p50 with and without reloads; pulled
+    bf16 and int8 engines equal to fresh ones over the center, token for
+    token); an ``OnlineDeployment`` of the same shapes, supervised, with a
+    blue/green swap and an engine kill (every request on one generation,
+    none lost, freshness populated and mirrored, the kill's
+    ``recovery_ms``); the sm90 training kernels launched once per layer,
+    step and window of the stream runs and nothing else; then
+    accuracy-tracks-drift on the reference bench's small configuration.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
-QoS, disaggregated serving, fleet, host-PS, sparse host-PS and survivable
-host-PS paths), the
+QoS, disaggregated serving, fleet, host-PS, sparse host-PS, survivable
+host-PS, cross-process and online paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -841,9 +863,48 @@ RESILIENCE_LM_FAULTS = {1: ("raise", 2)}
 # a logging nvcc first on PATH: one nvcc, both load the library and hold
 # one launch against the plain version.  No run logs "short of".  The
 # scaling runs alone (it is timed); the other legs run side by side.
-PROCESS_PS_SCALING = (1, 2, 4)
+PROCESS_PS_SCALING = (2,)  # depth cut from (1, 2, 4), PERF.md section 4
 PROCESS_PS_FT_FAULTS = {1: ("exit", 1)}
 PROCESS_PS_FREEZE_S = 3.0
+# streaming online training, hot weight reload and the online deployment
+# (ROADMAP queue A items 6 and 4, their streaming and online parts), on
+# the LM (transformer_lm(**LM), bf16) at full width.  (a) DOWNPOUR with
+# stream=True, 2 worker threads, window HOST_PS_LM_WINDOW, batch BATCH,
+# adam 3e-3, horizon_windows ONLINE_HORIZON_WINDOWS, max_horizons
+# ONLINE_HORIZONS, over a generator of ONLINE_CHUNK-row chunks of token
+# rows labelled through a permutation of the vocabulary that drifts (half
+# the vocabulary remapped) half-way, worker 1 exiting at its
+# ONLINE_EXIT_AT-th commit: every horizon's ledger completes every lease
+# once over its rows, stream_stats["rows"] equals the rows read.  (b) a
+# quantize="bf16" engine (SERVE_SLOTS slots, chunks of SERVE_CHUNK) over
+# the same weights, attach_ps-ed to (a)'s live PS with every=1 (in the
+# trainer's _on_ps_ready), serves the first SERVE_REQUESTS requests of
+# phase serve's trace while (a) trains: reloads > 0, no reload failure,
+# center_generation never decreasing, every tensor the decode graph reads
+# at its address; with training paused at the last horizon (its hook
+# waits), the trace again with a pull every decode step and with none
+# (decode p50 with and without reloads), a last pull, then the greedy
+# tokens of ONLINE_PROMPTS prompts equal to a fresh bf16 engine's built
+# from the PS's center, and the same for an int8 engine after one pull.
+# (c) OnlineDeployment over a trainer of (a)'s configuration (no fault,
+# ONLINE_DEPLOY_HORIZONS horizons) and a started bf16 engine of (b)'s,
+# supervise=True: one blue/green swap and one kill_engine from the
+# horizon hook, ONLINE_PROMPTS requests served each horizon: every request
+# completes on exactly one generation, none failed, freshness populated
+# and mirrored, the kill's recovery_ms.  Counted from 0 over (a)-(c): the
+# sm90 training forward, dq and dk/dv each launched layers x steps x the
+# windows that ran (the ledger's seeding window, each worker's warm-up,
+# every history window, the window the exit aborted), nothing else (the
+# engines launch none).  Then accuracy-tracks-drift on bench.py:442
+# online_deployment_bench's own configuration (vocab 16, seq 8 + 2,
+# d_model 32, 4 heads, 1 layer, mlp 64, f32; DOWNPOUR, 2 workers, batch
+# 16, window 2, horizon_windows 4, max_horizons 12; a drifting stream of
+# 6 chunks of 128 rows, probe feedback for 8 horizons; an inline engine of
+# 4 slots): served accuracy on the drifted mapping >= ONLINE_ACC_MIN and
+# freshness p50 <= p99 (its launches printed apart).
+ONLINE_HORIZON_WINDOWS, ONLINE_HORIZONS, ONLINE_CHUNK = 4, 4, 32
+ONLINE_EXIT_AT, ONLINE_PROMPTS, ONLINE_DEPLOY_HORIZONS = 2, 4, 3
+ONLINE_ACC_MIN = 0.5
 
 
 def emit(obj) -> None:
@@ -7024,6 +7085,471 @@ def phase_process_ps(card: str, threads: dict = None, dev: str = "cuda"):
             "supervised": supervised, "build": build}, launches
 
 
+def _online_rows(mapping, drifted, chunks: int, rng):
+    """ONLINE_CHUNK-row chunks of the LM's token rows labelled through
+    ``mapping``, then, from half-way, through ``drifted``."""
+    for i in range(chunks):
+        m = drifted if i >= chunks // 2 else mapping
+        x = rng.integers(0, LM["vocab_size"],
+                         (ONLINE_CHUNK, LM["seq_len"])).astype("int32")
+        yield x, m[x].astype("int64")
+
+
+def _online_maps(rng):
+    """A permutation of the LM's vocabulary and its drift: half the
+    vocabulary remapped."""
+    mapping = rng.permutation(LM["vocab_size"]).astype("int64")
+    drifted = mapping.copy()
+    flip = rng.permutation(LM["vocab_size"])[: LM["vocab_size"] // 2]
+    drifted[flip] = mapping[(flip + 1) % LM["vocab_size"]]
+    return mapping, drifted
+
+
+def _online_trainer(model, dev: str, **kw):
+    """A stream trainer of phase online's configuration."""
+    from distkeras_tpu_torch import DOWNPOUR
+    return DOWNPOUR(model, num_workers=2, batch_size=BATCH, num_epoch=1,
+                    communication_window=HOST_PS_LM_WINDOW,
+                    loss="sparse_categorical_crossentropy_from_logits",
+                    worker_optimizer="adam", learning_rate=3e-3, seed=SEED,
+                    execution="host_ps", stream=True,
+                    horizon_windows=ONLINE_HORIZON_WINDOWS, device=dev, **kw)
+
+
+def _online_windows(t, faults: int) -> int:
+    """The windows a stream run ran on the card: the ledger's seeding
+    window, each worker's warm-up in its thread, every history window and
+    each window whose commit an injected fault aborted."""
+    ws = t._ps_workers
+    return 1 + len(ws) + sum(len(w.history) for w in ws) + faults
+
+
+def _online_decode(eng, trace, every: int):
+    """The trace through ``eng`` inline, a pull every ``every`` decode
+    steps (0: none): the rows, each decode-only iteration's ms, and the
+    center generation after every iteration."""
+    eng._reload_every = every
+    handles = [eng.submit(p, n, **kw) for p, n, kw in trace]
+    iter_ms, gens = [], []
+    keys = ("decode_steps", "prefills", "prefill_chunks")
+    while True:
+        before = [eng.stats[k] for k in keys]
+        t1 = time.perf_counter()
+        if not eng.step():
+            break
+        dt = time.perf_counter() - t1
+        delta = [eng.stats[k] - b for k, b in zip(keys, before)]
+        if delta == [1, 0, 0]:
+            iter_ms.append(dt * 1e3)
+        gens.append(eng.stats["center_generation"])
+    return [h.result() for h in handles], iter_ms, gens
+
+
+def _online_tensors(eng) -> list:
+    """The data pointers of what the decode graph reads: the weights, the
+    KV pool, the device-resident slot state."""
+    def tensors(tree):
+        if hasattr(tree, "data_ptr"):
+            return [tree]
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (list, tuple)):
+            return [t for x in tree for t in tensors(x)]
+        return []
+    held = (*eng.model.parameters(), *eng.model.buffers(),
+            *tensors(eng.caches), eng._dev_tok, eng._dev_pos, eng._dev_act,
+            eng._dev_temp, eng._dev_topk, eng._dev_topp, eng._dev_keys)
+    return [t.data_ptr() for t in held]
+
+
+def _online_greedy(eng, prompts, steps: int = 16):
+    handles = [eng.submit(p, steps) for p in prompts]
+    eng.run_until_idle()
+    return [h.result() for h in handles]
+
+
+def _online_fresh_equal(server, eng, quantize: str, prompts, dev: str):
+    """``eng``'s greedy tokens against a fresh engine's built from the
+    server's center with the same quantization: equal to the bit?"""
+    import numpy as np
+    from distkeras_tpu_torch import serving
+    fresh = serving.ServingEngine(
+        server.get_model(device=dev), num_slots=SERVE_SLOTS,
+        max_len=LM["seq_len"], prefill_chunk=SERVE_CHUNK, quantize=quantize)
+    eng._reload_every = 0
+    got, want = _online_greedy(eng, prompts), _online_greedy(fresh, prompts)
+    return all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _online_stream_serve(card: str, dev: str, weights, trace, rng) -> dict:
+    """Legs (a) and (b) of phase online: the stream trains while the
+    attached bf16 engine serves the trace, then, training paused at the
+    last horizon's hook, the reload A/B and the fresh-engine identities.
+    """
+    import threading
+    import numpy as np
+    from distkeras_tpu_torch import (FittedModel, StreamSource,
+                                     load_jax_weights, serving,
+                                     transformer_lm)
+
+    def lm():
+        return load_jax_weights(transformer_lm(**LM, device=dev), weights)
+
+    mapping, drifted = _online_maps(rng)
+    chunks = ONLINE_HORIZONS * ONLINE_HORIZON_WINDOWS * HOST_PS_LM_WINDOW \
+        * BATCH // ONLINE_CHUNK
+    t = _online_trainer(lm(), dev, max_horizons=ONLINE_HORIZONS,
+                        fault_injection={1: ("exit", ONLINE_EXIT_AT)})
+    eng = _serve_engine(lm(), False, quantize="bf16")
+    addresses = _online_tensors(eng)
+    pull_ms = []
+    pull = eng._pull_weights
+
+    def timed_pull():
+        t0 = time.perf_counter()
+        pull()
+        pull_ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng._pull_weights = timed_pull
+    ready, served = threading.Event(), threading.Event()
+    out: dict = {}
+
+    def on_ps_ready(server, addr):
+        eng.attach_ps(*addr, every=1)
+        out["server"] = server
+        ready.set()
+
+    def on_horizon(h, fitted):
+        if h != ONLINE_HORIZONS - 1:
+            return
+        served.wait(600.0)  # the PS stays live, no commit lands meanwhile
+        server = out["server"]
+        prompts = [p[:16] for p, _, _ in trace[:ONLINE_PROMPTS]]
+        pull()  # both runs of the A/B serve this center
+        with_ = _online_decode(eng, trace, 1)
+        without = _online_decode(eng, trace, 0)
+        out["decode_ms_p50_reloads"] = statistics.median(with_[1])
+        out["decode_ms_p50_no_reloads"] = statistics.median(without[1])
+        out["ab_rows_equal"] = all(np.array_equal(a, b) for a, b in
+                                   zip(with_[0], without[0]))
+        pull()
+        out["bf16_equals_fresh"] = _online_fresh_equal(
+            server, eng, "bf16", prompts, dev)
+        q8 = serving.ServingEngine(FittedModel(lm()), num_slots=SERVE_SLOTS,
+                                   max_len=LM["seq_len"],
+                                   prefill_chunk=SERVE_CHUNK,
+                                   quantize="int8")
+        q8.attach_ps(*t._ps_advertise_addr, every=1)
+        q8._pull_weights()
+        out["int8_reloads"] = q8.stats["reloads"]
+        out["int8_equals_fresh"] = _online_fresh_equal(
+            server, q8, "int8", prompts, dev)
+
+    t._on_ps_ready, t.on_horizon = on_ps_ready, on_horizon
+    errors = []
+    consumed = {"rows": 0}
+
+    def counted():
+        for x, y in _online_rows(mapping, drifted, chunks, rng):
+            consumed["rows"] += len(x)
+            yield x, y
+
+    def train():
+        try:
+            t0 = time.perf_counter()
+            t.train(StreamSource(generator=counted()))
+            _sync(dev)
+            out["train_s"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised by the check below
+            errors.append(repr(e))
+            ready.set()
+
+    th = threading.Thread(target=train, name="online-train")
+    th.start()
+    ready.wait(600.0)
+    try:
+        rows, iter_ms, gens = _online_decode(eng, trace, 1)
+    finally:
+        served.set()
+        th.join()
+    check(not errors, f"online (a): the stream run failed: {errors}")
+    reps = t.elastic_stats["lease_completions"]
+    ledger_ok = (len(reps) == t.stream_stats["horizons"] == ONLINE_HORIZONS
+                 and all(r["completed"] == r["leases"] and
+                         r["rows_completed"] == t.stream_stats["horizon_rows"]
+                         for r in reps.values()))
+    live = [g for g in gens if g is not None]
+    row = {"phase": "online_stream",
+           "horizons": t.stream_stats["horizons"],
+           "rows": t.stream_stats["rows"], "rows_read": consumed["rows"],
+           "examples_per_sec": t.stream_stats["examples_per_sec"],
+           "train_s": out.get("train_s"),
+           "failed_workers": t.failed_workers,
+           "respawns": t.elastic_stats["respawns"],
+           "windows_per_worker": t.elastic_stats["windows_per_worker"],
+           "windows_ran": _online_windows(t, 1),
+           "ledger_complete": ledger_ok,
+           "first_last_loss": [t._ps_workers[0].history[0],
+                               t._ps_workers[0].history[-1]],
+           "card": card}
+    emit(row)
+    check(ledger_ok and t.failed_workers == [1]
+          and t.stream_stats["rows"] == consumed["rows"],
+          f"online (a): horizons {t.stream_stats}, leases {reps}, failed "
+          f"{t.failed_workers}, rows read {consumed['rows']}")
+    same_addr = _online_tensors(eng) == addresses
+    row = {"phase": "online_reload",
+           "requests": len(rows), "reloads": eng.stats["reloads"],
+           "reload_failures": eng.stats["reload_failures"],
+           "center_generations": [live[0], live[-1]] if live else None,
+           "generation_monotone": live == sorted(live),
+           "addresses_kept": same_addr,
+           "pull_ms_p50": statistics.median(pull_ms) if pull_ms else None,
+           "pull_ms_max": max(pull_ms) if pull_ms else None,
+           "decode_ms_p50_under_training": (statistics.median(iter_ms)
+                                            if iter_ms else None),
+           **{k: out.get(k) for k in (
+               "decode_ms_p50_reloads", "decode_ms_p50_no_reloads",
+               "ab_rows_equal", "bf16_equals_fresh", "int8_reloads",
+               "int8_equals_fresh")},
+           "card": card}
+    emit(row)
+    check(eng.stats["reloads"] > 0 and eng.stats["reload_failures"] == 0
+          and live and live == sorted(live) and live[-1] > live[0],
+          f"online (b): reloads {eng.stats['reloads']}, failures "
+          f"{eng.stats['reload_failures']}, generations {live[:3]}..")
+    check(same_addr, "online (b): a pull moved a tensor the decode graph "
+          "reads")
+    check(all(len(r) == len(p) + n for r, (p, n, _) in zip(rows, trace)),
+          "online (b): a request of the trace did not complete")
+    check(out.get("ab_rows_equal"), "online (b): pulls of an unchanged "
+          "center changed the trace's tokens")
+    check(out.get("bf16_equals_fresh") and out.get("int8_equals_fresh")
+          and out.get("int8_reloads") == 1,
+          f"online (b): pulled engines against fresh ones from the center: "
+          f"bf16 {out.get('bf16_equals_fresh')}, int8 "
+          f"{out.get('int8_equals_fresh')}")
+    return {"stream": t, "windows": _online_windows(t, 1),
+            "pull_ms": pull_ms, **row}
+
+
+def _online_deploy(card: str, dev: str, weights, trace, rng) -> dict:
+    """Leg (c) of phase online: OnlineDeployment over a stream trainer
+    and a started bf16 engine, supervised, with a blue/green swap and an
+    engine kill from the horizon hook."""
+    import numpy as np
+    from distkeras_tpu_torch import (OnlineDeployment, StreamSource,
+                                     load_jax_weights, transformer_lm)
+
+    def lm():
+        return load_jax_weights(transformer_lm(**LM, device=dev), weights)
+
+    mapping, drifted = _online_maps(rng)
+    chunks = ONLINE_DEPLOY_HORIZONS * ONLINE_HORIZON_WINDOWS \
+        * HOST_PS_LM_WINDOW * BATCH // ONLINE_CHUNK
+    t = _online_trainer(lm(), dev, max_horizons=ONLINE_DEPLOY_HORIZONS)
+    eng = _serve_engine(lm(), False, quantize="bf16").start()
+    dep = OnlineDeployment(t, StreamSource(generator=_online_rows(
+        mapping, drifted, chunks, rng)), eng, reload_every=1,
+        supervise=True, supervisor_kw={"heartbeat_interval": 0.05,
+                                       "liveness_deadline": 60.0})
+    prompts = [p[:16] for p, _, _ in trace[:ONLINE_PROMPTS]]
+    tags, results, swaps = [], [], []
+
+    def on_horizon(h, fitted):
+        if h == 0:
+            swaps.append(dep.blue_green_swap())
+        if h == 1:
+            dep.kill_engine()
+        rows, gens = dep.serve(prompts, num_steps=16, retry_wait_s=120.0)
+        tags.append(gens)
+        results.extend(rows)
+
+    t.on_horizon = on_horizon
+    t0 = time.perf_counter()
+    dep.start()
+    dep.join(timeout=900.0)
+    s = dep.stats()
+    dep.stop()
+    wall = time.perf_counter() - t0
+    rec = [r for r in s.get("engine_recoveries", []) if r.get("restarted")]
+    fresh_mirrored = (s["freshness_p50_s"] is not None
+                      and t.stream_stats.get("freshness_p50_s")
+                      == s["freshness_p50_s"]
+                      and dep.engine.stats.get("freshness_p50_s")
+                      == s["freshness_p50_s"])
+    row = {"phase": "online_deploy", "wall_s": wall,
+           "horizons": t.stream_stats["horizons"],
+           "examples_per_sec": t.stream_stats["examples_per_sec"],
+           "generation": s["generation"],
+           "generation_tags": tags,
+           "swaps": [{k: r.get(k) for k in ("generation", "blue_green",
+                                            "pulled", "old_drained_clean",
+                                            "old_dead", "drain_ms")}
+                     for r in s["swaps"]],
+           "recovery_ms": rec[0]["recovery_ms"] if rec else None,
+           "freshness_p50_s": s["freshness_p50_s"],
+           "freshness_p99_s": s["freshness_p99_s"],
+           "freshness_rows": s["freshness_rows"],
+           "freshness_mirrored": fresh_mirrored,
+           "engine_reloads": s["engine_reloads"],
+           "engine_reload_failures": s["engine_reload_failures"],
+           "engine_requests_failed": s["engine_requests_failed"],
+           "card": card}
+    emit(row)
+    check(len(tags) == ONLINE_DEPLOY_HORIZONS
+          and all(len(set(g)) == 1 and None not in g for g in tags)
+          and len(results) == ONLINE_PROMPTS * ONLINE_DEPLOY_HORIZONS
+          and all(r is not None for r in results),
+          f"online (c): requests by generation {tags}")
+    check(s["generation"] == 2 and [r["generation"] for r in s["swaps"]]
+          == [1, 2] and swaps and swaps[0]["blue_green"]
+          and swaps[0]["pulled"] and swaps[0]["old_drained_clean"] and rec,
+          f"online (c): swaps {s['swaps']}, recoveries "
+          f"{s.get('engine_recoveries')}")
+    check(fresh_mirrored and s["freshness_p99_s"] >= s["freshness_p50_s"]
+          and s["engine_reload_failures"] == 0,
+          f"online (c): freshness {s['freshness_p50_s']} / "
+          f"{s['freshness_p99_s']}, mirrored {fresh_mirrored}, reload "
+          f"failures {s['engine_reload_failures']}")
+    return {"stream": t, "windows": _online_windows(t, 0), **row}
+
+
+def _online_drift(card: str, dev: str) -> dict:
+    """Accuracy tracks drift on bench.py:442 online_deployment_bench's own
+    configuration: the served model learns the drifted mapping."""
+    import numpy as np
+    from distkeras_tpu_torch import (DOWNPOUR, FittedModel,
+                                     OnlineDeployment, StreamSource,
+                                     load_jax_weights, serving,
+                                     transformer_lm)
+    vocab, seq = 16, 8
+    rng = np.random.default_rng(0)
+    mapping = rng.permutation(vocab).astype(np.int32)
+    drifted = mapping.copy()
+    flip = rng.permutation(vocab)[: vocab // 2]
+    drifted[flip] = np.roll(mapping[flip], 1)
+
+    def gen():
+        for i in range(6):
+            m = drifted if i >= 3 else mapping
+            x = rng.integers(0, vocab, (128, seq)).astype(np.int32)
+            yield x, m[x]
+
+    def make_model(seed):
+        m = transformer_lm(vocab_size=vocab, seq_len=seq + 2, d_model=32,
+                           num_heads=4, num_layers=1, mlp_dim=64,
+                           compute_dtype="float32", device=dev)
+        return load_jax_weights(m, _random_jax_weights(
+            m, np.random.default_rng(seed)))
+
+    trainer = DOWNPOUR(make_model(0), num_workers=2, batch_size=16,
+                       num_epoch=1, communication_window=2,
+                       execution="host_ps",
+                       loss="sparse_categorical_crossentropy_from_logits",
+                       worker_optimizer="adam", learning_rate=3e-3,
+                       stream=True, horizon_windows=4, seed=0,
+                       max_horizons=12, device=dev)
+    engine = serving.ServingEngine(FittedModel(make_model(1)), num_slots=4,
+                                   max_len=4)
+    dep = OnlineDeployment(trainer, StreamSource(generator=gen()), engine,
+                           reload_every=1)
+    probe = np.arange(vocab, dtype=np.int32).reshape(-1, 1)
+    acc = {"curve": []}
+
+    def on_horizon(h, fitted):
+        rows, _ = dep.serve(list(probe), num_steps=1)
+        pred = np.array([r[1] for r in rows])
+        acc["curve"].append(float(np.mean(pred == drifted[probe[:, 0]])))
+        if h < 8:
+            fx = np.repeat(probe, seq, axis=1)
+            dep.feed(fx, (drifted if h >= 3 else mapping)[fx])
+
+    trainer.on_horizon = on_horizon
+    _zero_counts()
+    t0 = time.perf_counter()
+    dep.start()
+    dep.join(timeout=600.0)
+    dep.stop()
+    s = dep.stats()
+    row = {"phase": "online_drift", "wall_s": time.perf_counter() - t0,
+           "horizons": s["stream_stats"]["horizons"],
+           "served_accuracy_curve": acc["curve"],
+           "online_served_accuracy": acc["curve"][-1],
+           "freshness_p50_s": s["freshness_p50_s"],
+           "freshness_p99_s": s["freshness_p99_s"],
+           "launches": _read_counts(), "card": card}
+    emit(row)
+    check(acc["curve"][-1] >= ONLINE_ACC_MIN
+          and s["freshness_p50_s"] is not None
+          and s["freshness_p50_s"] <= s["freshness_p99_s"],
+          f"online drift: served accuracy {acc['curve']}, freshness "
+          f"{s['freshness_p50_s']} / {s['freshness_p99_s']}")
+    return row
+
+
+def phase_online(card: str, dev: str = "cuda"):
+    """Streaming online training, hot weight reload and the online
+    deployment on the card (legs (a)-(c) of the ONLINE_* comment), then
+    accuracy-tracks-drift on the reference's small configuration.  The
+    counts are set to 0 before (a) and read after (c): the sm90 training
+    kernels once per layer, step and window the two stream runs ran,
+    nothing else.  Returns (the legs' lines, those launches)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import transformer_lm
+    t_start = time.perf_counter()
+    shorts, detach = _short_of_watch()
+    try:
+        rng = np.random.default_rng(SEED + 15)
+        trace = _serve_trace(rng)  # phase serve's trace, its first draws
+        weights = _random_jax_weights(transformer_lm(**LM, device="cpu"),
+                                      np.random.default_rng(SEED + 21))
+        _zero_counts()
+        ab = _online_stream_serve(card, dev, weights, trace,
+                                  np.random.default_rng(SEED + 22))
+        c = _online_deploy(card, dev, weights, trace,
+                           np.random.default_rng(SEED + 23))
+        launches = _read_counts()
+        want = LM["num_layers"] * HOST_PS_LM_WINDOW * (ab["windows"]
+                                                       + c["windows"])
+        sm90 = {k: launches[f"flash_{k}_sm90"]
+                for k in ("fwd_lse", "dq", "dkv")}
+        trained = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+                   for v in ("", "_sm90")}
+        others = {k: n for k, n in launches.items()
+                  if k not in trained and (any(n.values())
+                                           if isinstance(n, dict) else n)}
+        emit({"phase": "online_launches", "launches": launches,
+              "launches_sm90": sm90, "launches_other": others,
+              "want_each": want})
+        if dev == "cuda":
+            check(all(n == want for n in sm90.values()) and not others,
+                  f"online: sm90 launches {sm90}, others {others}, want "
+                  f"{want} each (layers x steps x windows) and nothing "
+                  "else")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        drift = _online_drift(card, dev)
+    finally:
+        detach()
+    check(not shorts, f"online: the wait fell short: {shorts}")
+    summary = {"phase": "online",
+               "examples_per_sec": ab["stream"].stream_stats[
+                   "examples_per_sec"],
+               "pull_ms_p50": ab["pull_ms_p50"],
+               "decode_ms_p50_reloads": ab["decode_ms_p50_reloads"],
+               "decode_ms_p50_no_reloads": ab["decode_ms_p50_no_reloads"],
+               "freshness_p50_s": c["freshness_p50_s"],
+               "freshness_p99_s": c["freshness_p99_s"],
+               "recovery_ms": c["recovery_ms"],
+               "online_served_accuracy": drift["online_served_accuracy"],
+               "launches_online": sm90,
+               "seconds": time.perf_counter() - t_start, "card": card}
+    emit(summary)
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7062,6 +7588,7 @@ def main() -> int:
     _, ps_sparse_launches = phase_ps_sparse(smi)
     _, resilience_launches = phase_resilience(smi)
     _, process_ps_launches = phase_process_ps(smi, host_ps_scaling)
+    _, online_launches = phase_online(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -7230,7 +7757,9 @@ def main() -> int:
         ran) and on the cross-process path (phase process_ps's LM leg,
         summed over its worker processes' result files: the sm90
         training kernels once per layer, step and window each child ran,
-        its warm-up included)."""
+        its warm-up included) and on the online path (phase online's two
+        stream runs and the engines serving beside them: the sm90
+        training kernels once per layer, step and window that ran)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -7249,6 +7778,7 @@ def main() -> int:
         entry["launches_ps_sparse"] = ps_sparse_launches[key]
         entry["launches_resilience"] = resilience_launches[key]
         entry["launches_process_ps"] = process_ps_launches.get(key, 0)
+        entry["launches_online"] = online_launches[key]
         return entry
 
     emit(north_star)

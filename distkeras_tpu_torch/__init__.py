@@ -24,7 +24,11 @@ live socket parameter server (``execution="host_ps"``:
 ``parameter_servers``, ``workers``, ``applykernel``), each worker a thread
 training its own copy of the model on the card, or an OS process of its
 own (``execution="process_ps"``: ``ps_worker_main``, ``ps_shard_main``,
-launched through ``job_deployment``).  The port imports
+launched through ``job_deployment``); trains them online from an
+unbounded ``streaming.StreamSource`` (``stream=True``) while a
+``ServingEngine`` hot-reloads the live center (``attach_ps``), the two
+run as one system by ``deployment_online.OnlineDeployment``.  The port
+imports
 torch and numpy,
 never jax and nothing of ``distkeras_tpu``.  Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
@@ -61,6 +65,9 @@ from .metrics import MetricsLogger
 from . import (applykernel, job_deployment, parameter_servers, ps_sharding,
                streaming, workers)
 from .ps_sharding import PSShardDown
+from .streaming import StreamBuffer, StreamSource
+from . import deployment_online
+from .deployment_online import FreshnessTracker, OnlineDeployment
 from .trainers import (ADAG, AEASGD, DOWNPOUR, EAMSGD,
                        AsynchronousDistributedTrainer, AveragingTrainer,
                        DistributedTrainer, DynSGD, EnsembleTrainer,
@@ -91,4 +98,6 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "networking", "ChaosFault", "ChaosProxy", "resilience",
            "router", "ServingRouter", "EngineSupervisor", "FleetSupervisor",
            "RetryPolicy", "applykernel", "parameter_servers", "workers",
-           "ps_sharding", "streaming", "PSShardDown", "job_deployment"]
+           "ps_sharding", "streaming", "PSShardDown", "job_deployment",
+           "StreamBuffer", "StreamSource", "deployment_online",
+           "FreshnessTracker", "OnlineDeployment"]

@@ -79,16 +79,33 @@ def read_weight(w, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def quantize_tensor(w: torch.Tensor) -> QuantizedTensor:
-    """Symmetric per-output-channel int8: scale over all but the last
-    axis."""
+def _codes(w: torch.Tensor):
+    """(int8 codes, f32 scale) of ``w``: symmetric per-output-channel,
+    the scale over all but the last axis."""
     w = w.detach().to(torch.float32)
     dims = tuple(range(w.ndim - 1))
     amax = torch.amax(torch.abs(w), dim=dims, keepdim=True)
     scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
                         torch.ones_like(amax))
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return QuantizedTensor(q, scale)
+    return q, scale
+
+
+def quantize_tensor(w: torch.Tensor) -> QuantizedTensor:
+    """Symmetric per-output-channel int8: scale over all but the last
+    axis."""
+    return QuantizedTensor(*_codes(w))
+
+
+def requantize_(qt: QuantizedTensor, w: torch.Tensor) -> QuantizedTensor:
+    """Quantize ``w`` into ``qt``'s own codes and scale, in place (the
+    same bits as ``quantize_tensor(w)``): a serving engine's hot reload
+    keeps the addresses its decode graph reads."""
+    q, scale = _codes(w)
+    with torch.no_grad():
+        qt.q.copy_(q)
+        qt.scale.copy_(scale)
+    return qt
 
 
 def _quantize_in_place(module: nn.Module, keys: Set[str]) -> None:

@@ -34,9 +34,10 @@ Differences from the JAX module:
    (``ps_worker_main``, launched through ``job_deployment``), static or
    elastic under a ``resilience.ProcessSupervisor`` over the lease rail,
    with the PS in the driver or in shard processes (``ps_shard_main``);
-   its wait counts the commits each child reports in its result file.
-   The streaming engine waits for ROADMAP queue A item 6, and the
-   trainers refuse its knobs.
+   its wait counts the commits each child reports in its result file;
+ - the elastic epoch engine and the streaming horizon loop
+   (``streaming.run_stream_training``) share one lease engine
+   (``_LeaseLoop``).
 
 The JAX module's description follows.
 
@@ -1478,11 +1479,6 @@ def run_host_ps_training(trainer, dataset, shuffle: bool = False,
             "path checkpoints at epoch waves")
     if resume and trainer.checkpoint_dir is None:
         raise ValueError("train(resume=True) needs checkpoint_dir")
-    if getattr(trainer, "stream", False):
-        # the streaming engine (the trainers refuse the knob until then)
-        raise NotImplementedError(
-            "stream=True on execution='host_ps' is not ported yet (ROADMAP "
-            "queue A item 6)")
     elastic = bool(getattr(trainer, "elastic", False))
     fault_kinds = parse_fault_injection(getattr(trainer, "fault_injection",
                                                 None))
@@ -1770,6 +1766,120 @@ def _settle_errors(trainer, errors: List[tuple], alive: List[bool]) -> None:
             "some, not all)") from errors[0][1]
 
 
+def _time_first_window(head, x, y) -> float:
+    """One masked window of ``head`` (``compile_windows``), timed in a
+    fresh thread: the seed of a lease ledger's cold estimate.  The JAX
+    estimate is generous because its window pays the compile; the port's
+    counterpart is a thread's first window (its cuDNN and cuBLAS handles,
+    its convolution algorithms), so it is timed in a thread of its own."""
+    warm: Dict[str, Any] = {}
+
+    def time_window():
+        try:
+            warm["seconds"] = head.compile_windows(x, y)
+        except BaseException as e:  # re-raised in the caller's thread
+            warm["error"] = e
+
+    th = threading.Thread(target=time_window, name="dkt-elastic-warmup")
+    th.start()
+    th.join()
+    if "error" in warm:
+        raise warm["error"]
+    return warm["seconds"]
+
+
+class _LeaseLoop:
+    """The lease engine that the elastic epoch engine
+    (``_run_elastic_host_ps``) and the streaming horizon loop
+    (``streaming.run_stream_training``) share: one ``LeaseLedger`` seeded
+    by a window timed in a fresh thread (× ``n`` for the n-way
+    contention), a ``WorkerSupervisor`` over ``n`` worker threads (the
+    first built here, every later one — respawns included — built by the
+    factory; each warmed in its own thread before its first lease, off
+    the ledger clock), and per pass (an epoch or a horizon, ``run``) the
+    wait for every commit that can still land before the exactly-once
+    contract is asserted.  ``close`` shuts the supervisor down and
+    publishes ``elastic_stats``, ``failed_workers``, ``worker_failures``
+    and ``_ps_workers`` on the trainer."""
+
+    def __init__(self, trainer, n: int, worker_cls, blob: dict, kw: dict,
+                 server, supervisor, x0, y0, lease_windows: int):
+        self.server, self.supervisor = server, supervisor
+        win_rows = trainer.communication_window * trainer.batch_size
+        head = worker_cls(blob, **kw)
+        t_window = _time_first_window(head, x0, y0)
+        self.ledger = LeaseLedger(
+            len(x0), win_rows, lease_windows,
+            min_deadline=getattr(trainer, "lease_timeout", 5.0),
+            default_window_s=t_window * n)
+
+        def factory(wid: int):
+            w = head if wid == 0 else worker_cls(blob, **kw)
+            share_compiled_state([head, w])  # the update rule, top-k layout
+            return w
+
+        self.data: Dict[str, Any] = {}
+        self._warmed: set = set()
+        self.sup = WorkerSupervisor(self.ledger, factory, self._run_worker,
+                                    n)
+        trainer._worker_supervisor = self.sup  # observability (tests, smoke)
+        self.reports: Dict[int, Any] = {}
+
+    def _run_worker(self, wid: int, worker):
+        xe, ye = self.data["x"], self.data["y"]
+        if wid not in self._warmed:
+            # a worker's first window in its own thread also builds that
+            # thread's cuDNN and cuBLAS handles and picks its convolution
+            # algorithms (the JAX program compiles once for every thread):
+            # warm each worker in its thread before its first lease, off
+            # the ledger clock, or a healthy worker reads as wedged
+            worker.compile_windows(xe, ye)
+            self._warmed.add(wid)
+
+        def data_fn(lease):
+            return xe[lease.start:lease.stop], ye[lease.start:lease.stop]
+
+        res = worker.train_leases(wid, self.ledger, data_fn,
+                                  initial_state=self.sup.states.get(wid))
+        self.sup.states[wid] = res["state"]
+        return res
+
+    def run(self, index: int, x, y) -> Dict[str, Any]:
+        """One ledger pass over the rows ``x``, ``y`` (already shuffled):
+        the workers drain its leases, the server applies every commit
+        that can still land (a lease loop's last commit may be a
+        fire-and-forget 'c'), and the pass's exactly-once report is
+        asserted and returned."""
+        self.data["x"], self.data["y"] = x, y
+        mark = _applied_mark(self.server, list(self.sup.workers.values()))
+        self.sup.run_epoch(index)
+        _await_applied(self.server, lambda: _landing_targets(
+            self.server, list(self.sup.workers.values()), mark,
+            self.supervisor))
+        self.reports[index] = self.ledger.assert_epoch_complete(index)
+        return self.reports[index]
+
+    def close(self, trainer) -> list:
+        """Release 'hang'-faulted threads, join stragglers and publish the
+        run's observability; returns every worker (original ids and
+        respawns, id order) for history collection."""
+        sup = self.sup
+        sup.shutdown()
+        trainer.failed_workers = sorted(sup.failures)
+        trainer.worker_failures = dict(sup.failures)
+        trainer.elastic_stats = {
+            "respawns": sup.respawns,
+            "respawn_records": list(sup.respawn_records),
+            "leases_reassigned": self.ledger.reassigned,
+            "windows_per_worker": dict(self.ledger.windows_by_worker),
+            "lease_completions": self.reports,
+            "events": list(sup.events),
+        }
+        workers = [sup.workers[wid] for wid in sorted(sup.workers)]
+        trainer._ps_workers = workers
+        return workers
+
+
 def _run_elastic_host_ps(trainer, x, y, n: int, worker_cls, blob: dict,
                          kw: dict, server, supervisor):
     """The elastic worker engine (``elastic=True``).
@@ -1780,12 +1890,10 @@ def _run_elastic_host_ps(trainer, x, y, n: int, worker_cls, blob: dict,
     leases that the worker threads acquire, renew and complete; a
     ``WorkerSupervisor`` revokes the leases of dead or wedged workers
     (survivors steal them) and respawns replacements under fresh ids from
-    a live center pull.  One masked window (``compile_windows``) timed in
-    a fresh thread seeds the ledger's cold estimate, and every worker runs
-    one more in its own thread before its first lease.  After
-    every epoch the server has applied every commit that can still land
-    and the ledger's exactly-once contract is asserted: killing k of N
-    workers mid-epoch loses zero examples.
+    a live center pull (``_LeaseLoop``).  After every epoch the server has
+    applied every commit that can still land and the ledger's
+    exactly-once contract is asserted: killing k of N workers mid-epoch
+    loses zero examples.
 
     Returns the full worker list (original ids + respawns, id order) for
     history collection; observability lands on the trainer as
@@ -1799,90 +1907,17 @@ def _run_elastic_host_ps(trainer, x, y, n: int, worker_cls, blob: dict,
         # ~4 leases per worker per epoch: enough granularity for stealing
         # and respawn pickup without drowning in ledger round trips
         lease_windows = max(1, total_windows // (4 * n))
-    head = worker_cls(blob, **kw)
-    # time one window before the ledger clock starts and seed the
-    # cold-start window estimate with it, × n for the n-way contention.
-    # The JAX estimate is generous because its window pays the compile;
-    # the port's counterpart is a thread's first window (its cuDNN and
-    # cuBLAS handles, its convolution algorithms), so it is timed in a
-    # fresh thread
-    warm: Dict[str, Any] = {}
-
-    def time_window():
-        try:
-            warm["seconds"] = head.compile_windows(x, y)
-        except BaseException as e:  # re-raised in the trainer's thread
-            warm["error"] = e
-
-    th = threading.Thread(target=time_window, name="dkt-elastic-warmup")
-    th.start()
-    th.join()
-    if "error" in warm:
-        raise warm["error"]
-    t_window = warm["seconds"]
-    ledger = LeaseLedger(len(x), win_rows, lease_windows,
-                         min_deadline=getattr(trainer, "lease_timeout", 5.0),
-                         default_window_s=t_window * n)
-
-    def factory(wid: int):
-        w = head if wid == 0 else worker_cls(blob, **kw)
-        share_compiled_state([head, w])  # the update rule, the top-k layout
-        return w
-
-    epoch_data: Dict[str, np.ndarray] = {}
-    warmed: set = set()
-
-    def run_fn(wid: int, worker):
-        xe, ye = epoch_data["x"], epoch_data["y"]
-        if wid not in warmed:
-            # a worker's first window in its own thread also builds that
-            # thread's cuDNN and cuBLAS handles and picks its convolution
-            # algorithms (the JAX program compiles once for every thread):
-            # warm each worker in its thread before its first lease, off
-            # the ledger clock, or a healthy worker reads as wedged
-            worker.compile_windows(xe, ye)
-            warmed.add(wid)
-
-        def data_fn(lease):
-            return xe[lease.start:lease.stop], ye[lease.start:lease.stop]
-
-        res = worker.train_leases(wid, ledger, data_fn,
-                                  initial_state=sup.states.get(wid))
-        sup.states[wid] = res["state"]
-        return res
-
-    sup = WorkerSupervisor(ledger, factory, run_fn, n)
-    trainer._worker_supervisor = sup  # observability (tests, smoke)
-    epoch_reports = {}
+    loop = _LeaseLoop(trainer, n, worker_cls, blob, kw, server, supervisor,
+                      x, y, lease_windows)
     try:
         for epoch in range(trainer.num_epoch):
             # global per-epoch shuffle: leases are contiguous row ranges of
             # this permutation, so lease boundaries resample every epoch
             perm = np.random.default_rng(
                 trainer.seed + 7919 * epoch).permutation(len(x))
-            epoch_data["x"], epoch_data["y"] = x[perm], y[perm]
-            workers = list(sup.workers.values())
-            mark = _applied_mark(server, workers)
-            sup.run_epoch(epoch)
-            # a lease loop's last commit may be a fire-and-forget 'c'
-            _await_applied(server, lambda: _landing_targets(
-                server, list(sup.workers.values()), mark, supervisor))
-            # the zero-data-loss contract, asserted per epoch
-            epoch_reports[epoch] = ledger.assert_epoch_complete(epoch)
+            loop.run(epoch, x[perm], y[perm])
     finally:
-        sup.shutdown()  # release 'hang'-faulted threads, join stragglers
-        trainer.failed_workers = sorted(sup.failures)
-        trainer.worker_failures = dict(sup.failures)
-        trainer.elastic_stats = {
-            "respawns": sup.respawns,
-            "respawn_records": list(sup.respawn_records),
-            "leases_reassigned": ledger.reassigned,
-            "windows_per_worker": dict(ledger.windows_by_worker),
-            "lease_completions": epoch_reports,
-            "events": list(sup.events),
-        }
-        workers = [sup.workers[wid] for wid in sorted(sup.workers)]
-        trainer._ps_workers = workers
+        workers = loop.close(trainer)
     return workers
 
 

@@ -133,9 +133,18 @@ threads and the pair's relay loop touch host data only (token lists,
 ``KVBlocks`` in host memory); only an engine's own scheduler thread
 touches its device tensors.
 
-Left for a later slice: hot weight reload from a parameter server
-(``attach_ps`` raises ``NotImplementedError`` naming ROADMAP queue A item
-6).
+Hot weight reload (``attach_ps``) pulls the center of a live parameter
+server over the PS wire's ``'p'`` (or gathers it over every shard of a
+sharded one) between decode steps.  The JAX engine replaces its immutable
+``params``; the port's decode graph reads the weights at fixed addresses,
+so a pull writes them in place, queued on the engine's stream behind the
+step in flight: f32 and bf16 weights take a cast copy, int8 weights are
+requantized into their own codes and scales (``core.quant.requantize_``),
+and the draft is not reloaded.  An attached engine owns its weights: on
+attachment (and in every clone of an attached engine) it takes a private
+copy of the model, so a pull never writes the caller's model or a sibling
+engine's.  A failed pull counts ``reload_failures`` and keeps the current
+weights whole.
 """
 
 from __future__ import annotations
@@ -162,7 +171,7 @@ from .core.decode import (_check_supported, _context_limit, _forward,
                           rng_key, sample_logits)
 from .core.model import FittedModel, Sequential
 from .core.quant import (QUANT_KEYS, QuantizedTensor, kv_cache_bytes,
-                         quantize_kv, quantize_params)
+                         quantize_kv, quantize_params, requantize_)
 from .resilience import RetryPolicy as _RetryPolicy
 
 logger = logging.getLogger("distkeras_tpu_torch.serving")
@@ -1171,6 +1180,32 @@ class ServingEngine:
                          else _quantize_weights(draft, quantize))
         self._draft_model: Optional[Sequential] = draft
         self.device = self.model.device
+        # -- hot weight reload (off unless attach_ps is called).  The
+        #    engine owns its weights when quantization made it a copy; an
+        #    attachment takes a private copy otherwise (_own_weights), so
+        #    a pull never writes the caller's model
+        self._owns_weights = self.model is not target
+        self._weights_lock = threading.Lock()
+        #: held for a whole pull, so detach_ps returns only once no pull
+        #: is in flight
+        self._reload_lock = threading.Lock()
+        self._ps_addr: Optional[Tuple[str, int]] = None
+        self._reload_every = 0
+        self._reload_sock: Optional[socket.socket] = None
+        self._reload_pool = networking.BufferPool()
+        self._reload_policy = None          # resilience.RetryPolicy or None
+        #: sharded attachment: pulls gather the center across every shard
+        #: through a ShardedPSClient instead of one socket's 'p'
+        self._ps_shard_plan = None
+        self._ps_shard_addrs: Optional[List[Tuple[str, int]]] = None
+        self._reload_client = None          # ps_sharding.ShardedPSClient
+        #: optional (t_monotonic, center_clock) callback fired after every
+        #: successful pull — the freshness seam of deployment_online.py
+        #: (called on the scheduler thread; must be cheap and non-raising)
+        self._reload_listener = None
+        #: the pull's flat f32 host buffer (pinned on a card), its device
+        #: staging buffer (a card) and the event after its last copy
+        self._stage = None
         self.num_slots = int(num_slots)
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
@@ -1362,6 +1397,12 @@ class ServingEngine:
             "requests_rejected": 0, "tokens_generated": 0,
             "prefills": 0, "decode_steps": 0, "active_slot_steps": 0,
             "queue_peak": 0, "slot_requests": [0] * self.num_slots,
+            "weight_reloads": 0,
+            # hot reload: reloads mirrors weight_reloads (successful
+            # pulls), reload_failures counts pulls abandoned past the
+            # retry policy, center_generation is the PS center's update
+            # clock at the last successful pull (None until one lands)
+            "reloads": 0, "reload_failures": 0, "center_generation": None,
             # failure semantics: retirements by reason, handles failed with
             # EngineDead, one reclaim sample per mid-run cancel/deadline
             "requests_cancelled": 0, "requests_expired": 0,
@@ -2940,6 +2981,7 @@ class ServingEngine:
         never decodes: it drains every dispatched prefill in the same
         iteration.  Returns whether any work happened."""
         self.last_beat = time.monotonic()
+        steps_before = self.stats["decode_steps"]
         did = self._reap()
         if self._can_preempt:
             with self._qlock:
@@ -2961,6 +3003,12 @@ class ServingEngine:
             did = True
         if self._pending:
             did = self._drain_pending(flush=not self._active.any()) or did
+        if (self._reload_every
+                and self.stats["decode_steps"] > steps_before
+                and self.stats["decode_steps"] % self._reload_every == 0):
+            # between decode steps: the step in flight reads the old
+            # weights, the next one the pulled center
+            self._pull_weights()
         self._publish_load()
         return did
 
@@ -3238,11 +3286,18 @@ class ServingEngine:
         draft, ``spec_len`` and both quantization knobs carry over; the
         models are already quantized, so the clone shares them instead of
         quantizing again.  Tenant policies carry over as clones with full
-        buckets, and so does the role."""
+        buckets, and so does the role.  An attached engine's clone carries
+        the attachment (address, cadence, policy, shard plan) and the
+        reload listener, and owns a private copy of this engine's current
+        weights (taken under the pull lock: never half a pull)."""
         with self._qlock:  # register_tenant may race a respawn
             tenant_pols = [p.clone() for p in self._tenants.values()]
-        return ServingEngine(
-            self.model, num_slots=self.num_slots, max_len=self.max_len,
+        model = self.model
+        if self._ps_addr is not None:
+            with self._weights_lock:
+                model = copy.deepcopy(self.model)
+        eng = ServingEngine(
+            model, num_slots=self.num_slots, max_len=self.max_len,
             queue_capacity=self.queue_capacity,
             prefills_per_step=self.prefills_per_step, rolling=self.rolling,
             default_deadline_s=self.default_deadline_s,
@@ -3255,6 +3310,17 @@ class ServingEngine:
             paged=self.paged, block_size=self.block_size,
             kv_blocks=self.kv_blocks, role=self.role,
             tenants=tenant_pols or None)
+        if self._ps_addr is not None:
+            eng._owns_weights = True
+            eng.attach_ps(*self._ps_addr, every=self._reload_every,
+                          retry_policy=self._reload_policy,
+                          shard_plan=self._ps_shard_plan,
+                          shard_addrs=self._ps_shard_addrs)
+        # the freshness listener is engine-agnostic (a (time, clock)
+        # callback): carrying it over keeps the online deployment's
+        # freshness chain intact across restarts and blue/green swaps
+        eng._reload_listener = self._reload_listener
+        return eng
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -3409,15 +3475,225 @@ class ServingEngine:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    # ------------------------------------------------------- hot reload
     def attach_ps(self, host: str, port: int, every: int = 1,
                   retry_policy=None, shard_plan=None,
                   shard_addrs=None) -> None:
-        """Hot weight reload from a live parameter server: not ported yet
-        (it needs the port's socket PS stack)."""
-        raise NotImplementedError(
-            "ServingEngine.attach_ps: hot weight reload from a parameter "
-            "server comes with the async host-PS family (ROADMAP queue A "
-            "item 6)")
+        """Hot weight reload: pull a fresh center from a live parameter
+        server (the PS stack's ``'p'`` opcode — the wire the training
+        workers speak) every ``every`` decode steps, so a training run and
+        this engine share one deployment.  The pull happens BETWEEN decode
+        steps — in-flight requests continue on the new weights (the KV
+        cache keeps old-weight k/v until those positions roll out, the
+        standard live-reload tradeoff).
+
+        ``retry_policy`` (a ``resilience.RetryPolicy``) governs the
+        re-dial when the reload socket is down (a PS shard respawning on
+        the same address comes back within tens of milliseconds); the
+        default, :data:`DEFAULT_RELOAD_POLICY`, is tight, since the pull
+        runs on the scheduler thread.  A pull that fails past the policy
+        counts ``stats["reload_failures"]`` and keeps the current weights:
+        the engine never dies on its PS.
+
+        A sharded training PS attaches with ``shard_plan`` +
+        ``shard_addrs``: each pull gathers the center across every shard
+        through a ``ps_sharding.ShardedPSClient`` and loses all of it or
+        none (never one shard's torn slice); ``(host, port)`` is shard 0's
+        address.  A one-shard plan is the plain single-socket attachment.
+
+        Attaching makes the engine own its weights: unless quantization
+        already made them a copy, the model is copied here (or, on a
+        running engine, by its scheduler thread before its first pull),
+        and a captured decode graph is captured again over the copy."""
+        if every < 1:
+            raise ValueError(f"every must be >= 1, got {every}")
+        if (shard_plan is None) != (shard_addrs is None):
+            raise ValueError(
+                "shard_plan and shard_addrs come as a pair — both for a "
+                "sharded PS attachment, neither for a single server")
+        if shard_addrs is not None and len(shard_addrs) < 2:
+            # the N=1 plan is the identity partition: the plain single-
+            # socket pull already returns the full center
+            shard_plan = shard_addrs = None
+        self._ps_addr = (host, int(port))
+        self._reload_policy = retry_policy
+        self._reload_every = int(every)
+        self._ps_shard_plan = shard_plan
+        self._ps_shard_addrs = (None if shard_addrs is None else
+                                [(str(h), int(p)) for h, p in shard_addrs])
+        if self._thread is None:
+            self._own_weights()
+
+    def detach_ps(self) -> None:
+        """End the attachment: wait for a pull in flight, close the reload
+        socket or sharded client, and pull no more.  The engine keeps
+        serving the last center it pulled, on the weights it owns.  The
+        online deployment calls this before its training run's PS stops,
+        so that no pull races the PS's shutdown."""
+        with self._reload_lock:
+            self._ps_addr = None
+            self._reload_every = 0
+            self._ps_shard_plan = self._ps_shard_addrs = None
+            self._close_reload_transport()
+
+    def _close_reload_transport(self) -> None:
+        if self._reload_sock is not None:
+            try:
+                self._reload_sock.close()
+            except OSError:
+                pass
+            self._reload_sock = None
+        if self._reload_client is not None:
+            try:
+                self._reload_client.disconnect()
+            except (OSError, ConnectionError):
+                pass
+            self._reload_client = None
+
+    def _own_weights(self) -> None:
+        """Replace a model the engine shares (the caller's, or a sibling
+        engine's) with a private copy, once; a decode graph captured over
+        the shared weights is dropped and captured again at the next
+        step.  Scheduler thread, or an engine that is not running."""
+        if self._owns_weights:
+            return
+        with self._weights_lock:
+            self.model = copy.deepcopy(self.model)
+            self._owns_weights = True
+        self._graph = None
+
+    def _reload_leaves(self) -> List[Tuple[str, Any]]:
+        """(path, destination) in the JAX leaf order of the unquantized
+        layout (``core.model.jax_leaves``): a tensor, or a
+        ``QuantizedTensor`` standing for its weight."""
+        def walk(module, prefix):
+            entries = {**module._parameters, **module._buffers,
+                       **module._modules}
+            for name in sorted(entries):
+                value = entries[name]
+                if value is None:
+                    continue
+                if isinstance(value, QuantizedTensor) or not isinstance(
+                        value, nn.Module):
+                    yield f"{prefix}{name}", value
+                else:
+                    yield from walk(value, f"{prefix}{name}/")
+
+        return [leaf for i, layer in enumerate(self.model.layers)
+                for leaf in walk(layer, f"{i}/")]
+
+    def _load_center(self, weights) -> None:
+        """Write the pulled wire list into the engine's weights in place:
+        every shape is checked before anything is written (a mismatched
+        architecture fails the pull whole), then the list goes through
+        one flat f32 host buffer (pinned on a card, then one copy to a
+        device staging buffer, queued on the current stream behind the
+        step in flight; the host waits only for the previous pull's
+        staging copy) and each leaf takes a cast copy or, quantized, an
+        in-place requantize."""
+        leaves = self._reload_leaves()
+        if len(leaves) != len(weights):
+            raise ValueError(f"pulled {len(weights)} weights, the engine "
+                             f"holds {len(leaves)}")
+        for (path, dst), w in zip(leaves, weights):
+            if tuple(w.shape) != tuple(dst.shape):
+                raise ValueError(f"pulled weight {path} is shaped "
+                                 f"{tuple(w.shape)}, the engine's "
+                                 f"{tuple(dst.shape)}")
+        sizes = [int(np.prod(dst.shape, dtype=np.int64)) for _, dst in leaves]
+        cuda = self.device.type == "cuda"
+        if self._stage is None or self._stage[0].numel() != sum(sizes):
+            self._stage = [
+                torch.empty(sum(sizes), dtype=torch.float32, pin_memory=cuda),
+                torch.empty(sum(sizes), dtype=torch.float32,
+                            device=self.device) if cuda else None, None]
+        host, dev, event = self._stage
+        if event is not None:
+            event.synchronize()  # the previous pull's staging copy
+        flat, off = host.numpy(), 0
+        for w, n in zip(weights, sizes):
+            flat[off:off + n] = np.asarray(
+                w.float() if isinstance(w, torch.Tensor) else w,
+                np.float32).reshape(-1)
+            off += n
+        with self._weights_lock, torch.no_grad():
+            src = host
+            if cuda:
+                dev.copy_(host, non_blocking=True)
+                self._stage[2] = torch.cuda.Event()
+                self._stage[2].record()
+                src = dev
+            off = 0
+            for (_, dst), n in zip(leaves, sizes):
+                piece = src[off:off + n].reshape(dst.shape)
+                off += n
+                if isinstance(dst, QuantizedTensor):
+                    requantize_(dst, piece)
+                else:
+                    dst.copy_(piece)
+
+    def _pull_sharded(self) -> Dict[str, Any]:
+        """One gathered pull over every shard — the ``{"weights",
+        "clock"}`` shape of the single-socket ``'p'`` reply, with the
+        clock summed over shards (each shard counts its own applies; the
+        client's per-shard view is monotone across shard respawns)."""
+        if self._reload_client is None:
+            from .ps_sharding import ShardedPSClient
+            policy = (self._reload_policy if self._reload_policy
+                      is not None else DEFAULT_RELOAD_POLICY)
+            client = ShardedPSClient(self._ps_shard_plan,
+                                     self._ps_shard_addrs,
+                                     recovery=True, policy=policy)
+            client.connect(policy=policy)
+            self._reload_client = client
+        weights = self._reload_client.pull()
+        return {"weights": weights,
+                "clock": sum(self._reload_client._clocks)}
+
+    def _pull_weights(self) -> None:
+        """One hot-reload pull (scheduler thread): fetch the center, write
+        it into the engine's weights in place, count it and tell the
+        listener; a transport fault or a mismatched center counts
+        ``reload_failures`` and keeps the current weights.  A detached
+        engine pulls nothing."""
+        with self._reload_lock:
+            if self._ps_addr is not None:
+                self._pull_locked()
+
+    def _pull_locked(self) -> None:
+        try:
+            self._own_weights()
+            if self._ps_shard_addrs is not None:
+                msg = self._pull_sharded()
+            else:
+                if self._reload_sock is None:
+                    from . import resilience
+                    policy = (self._reload_policy if self._reload_policy
+                              is not None else DEFAULT_RELOAD_POLICY)
+                    self._reload_sock = resilience.dial(*self._ps_addr,
+                                                        policy=policy)
+                networking.send_opcode(self._reload_sock, b"p")
+                msg = networking.recv_data(self._reload_sock,
+                                           pool=self._reload_pool)
+            self._load_center(msg["weights"])
+            self.stats["weight_reloads"] += 1
+            self.stats["reloads"] += 1
+            clock = msg.get("clock") if isinstance(msg, dict) else None
+            if clock is not None:
+                self.stats["center_generation"] = int(clock)
+            listener = self._reload_listener
+            if listener is not None:
+                try:
+                    listener(time.monotonic(),
+                             self.stats["center_generation"])
+                except Exception:   # freshness is observability, not
+                    logger.exception(  # control flow: never kill decode
+                        "hot-reload listener raised")
+        except (ConnectionError, OSError, ValueError) as e:
+            self.stats["reload_failures"] += 1
+            logger.warning("serving hot-reload pull failed (%s); keeping "
+                           "current weights", e)
+            self._close_reload_transport()
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,10 @@ runs the same workers as OS processes (``ps_worker_main.py``) that share
 only the socket with the driver, static or elastic under a
 ``resilience.ProcessSupervisor``, with the PS in the driver or in shard
 processes of its own (``ps_placement="process"``, ``ps_shard_main.py``).
-What waits for later slices raises: the streaming engine (ROADMAP queue
-A item 6), the orbax checkpoint backend and the Keras adapter.
+``stream=True`` (host_ps) trains online from an unbounded
+``streaming.StreamSource`` through the horizon loop
+(``streaming.run_stream_training``).  What waits for later slices
+raises: the orbax checkpoint backend and the Keras adapter.
 """
 
 from __future__ import annotations
@@ -485,6 +487,17 @@ class DistributedTrainer(Trainer):
                     "segment_col (packed training) runs on the SPMD engine "
                     "only — the PS workers don't thread segment ids; use "
                     "execution='spmd'")
+            if getattr(self, "stream", False):
+                # streaming online learning: dataset is a StreamSource;
+                # the horizon loop owns shuffling (per horizon,
+                # deterministic) and there are no epoch waves to resume
+                # between
+                if resume:
+                    raise ValueError(
+                        "resume does not apply to stream=True (no epoch "
+                        "waves; the PS center is the live state)")
+                from .streaming import run_stream_training
+                return run_stream_training(self, dataset)
             if self.execution == "process_ps":
                 if resume:
                     raise ValueError(
@@ -678,8 +691,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
     checks it, and a value the JAX class refuses is refused here with the
     same ``ValueError`` (``recovery`` on ``process_ps`` needs ``elastic``
     and takes no ``recovery_policy`` object; ``row_sparse`` and
-    ``stream`` stay on ``host_ps``).  ``stream`` raises
-    ``NotImplementedError`` (ROADMAP queue A item 6).
+    ``stream`` stay on ``host_ps``).  ``stream=True`` trains from an
+    unbounded ``streaming.StreamSource`` passed to ``train()``: a horizon
+    loop re-leases ``horizon_windows`` communication windows at a time
+    through the elastic lease machinery; ``max_horizons`` bounds an
+    unbounded source, ``on_horizon(h, model)`` observes the live center
+    after each horizon, and ``stream_stats`` reports the run.
     """
 
     #: algorithms whose per-algorithm comm_overlap default is ON
@@ -807,17 +824,23 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         for refused, message in refusals:
             if refused:
                 raise ValueError(message)
-        # the streaming engine is still to come
-        if stream:
-            raise NotImplementedError(
-                "stream=True on execution='host_ps' is not ported yet "
-                "(ROADMAP queue A item 6)")
         if ps:
             # resolved eagerly, as the JAX class does: 'native' raises here
             # (the port's build of the apply kernel waits for item 8)
             from . import applykernel
             applykernel.resolve(apply_kernel)
         self.parallelism_factor = int(parallelism_factor)
+        # streaming online learning (streaming.py): a horizon loop over an
+        # unbounded StreamSource; on_horizon(h, model) observes the live
+        # center per horizon, stream_stats reports the run (horizons, rows,
+        # examples/s, the buffer's counters)
+        self.stream = bool(stream)
+        self.horizon_windows = (None if horizon_windows is None
+                                else int(horizon_windows))
+        self.max_horizons = (None if max_horizons is None
+                             else int(max_horizons))
+        self.on_horizon = None
+        self.stream_stats: dict = {}
         self._comm_overlap = comm_overlap
         self.ps_shards = int(ps_shards)
         self.recovery = bool(recovery)

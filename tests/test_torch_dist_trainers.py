@@ -362,9 +362,10 @@ HOST_PS_KNOBS = [
     ("DynSGD", dict(elastic=True)),
     ("ADAG", dict(partition_windows=2)),
 ]
-# ... the knobs of the host-PS engines still to come (item 6) ...
+# ... the streaming knobs, taken on host_ps as the JAX class takes them ...
 HOST_PS_WAITS = [
     ("ADAG", dict(stream=True)),
+    ("DOWNPOUR", dict(stream=True, horizon_windows=4, max_horizons=2)),
 ]
 # ... and the values the JAX class refuses on host_ps too
 HOST_PS_REFUSALS = [
@@ -399,9 +400,17 @@ def test_host_ps_takes_the_ps_knobs(name, kw):
 
 @pytest.mark.parametrize("name,kw", HOST_PS_WAITS, ids=_ids(HOST_PS_WAITS))
 def test_host_ps_knobs_waiting_for_item_6(name, kw):
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        getattr(port, name)(port_model(numpy_weights()), num_workers=2,
+    """The streaming knobs, once refused until their slice, are taken now
+    as the JAX class takes them, with ``on_horizon`` and ``stream_stats``
+    at their defaults (their training: tests/test_torch_stream_training.py)."""
+    weights = numpy_weights()
+    jt = getattr(jdk, name)(jax_model(weights), num_workers=2,
+                            execution="host_ps", **kw)
+    t = getattr(port, name)(port_model(weights), num_workers=2,
                             device="cpu", execution="host_ps", **kw)
+    for knob in ("stream", "horizon_windows", "max_horizons", "on_horizon",
+                 "stream_stats"):
+        assert getattr(t, knob) == getattr(jt, knob), knob
 
 
 @pytest.mark.parametrize("name,kw", HOST_PS_REFUSALS,

@@ -51,15 +51,16 @@ def imported_roots(path):
     return roots
 
 
-#: the modules of the decode, packing, serving and host-PS slices
-#: (data/packing.py, resilience.py, networking.py, applykernel.py,
-#: ps_sharding.py and streaming.py are copies of numpy-only parts of the
-#: JAX package, kept in the port)
+#: the modules of the decode, packing, serving, host-PS and online slices
+#: (data/packing.py, resilience.py, networking.py, applykernel.py and
+#: ps_sharding.py are copies of numpy-only parts of the JAX package, kept
+#: in the port)
 NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "serving.py", "resilience.py", "networking.py",
                "parameter_servers.py", "workers.py", "applykernel.py",
                "ps_sharding.py", "streaming.py", "job_deployment.py",
-               "ps_worker_main.py", "ps_shard_main.py")
+               "ps_worker_main.py", "ps_shard_main.py",
+               "deployment_online.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -102,7 +103,8 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.ps_sharding, distkeras_tpu_torch.streaming, "
             "distkeras_tpu_torch.job_deployment, "
             "distkeras_tpu_torch.ps_worker_main, "
-            "distkeras_tpu_torch.ps_shard_main; "
+            "distkeras_tpu_torch.ps_shard_main, "
+            "distkeras_tpu_torch.deployment_online; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

@@ -4,7 +4,8 @@ model (``streaming.resolve_row_sparse_tables``), a single-worker
 ``row_sparse=True`` run bit-identical to the dense run and at 3 shards to
 1 shard, commit bytes that scale with the rows a window touched (≤ 5% of
 dense at ~1% of rows), and the knob's validation.  The streaming legs of
-that file wait for ROADMAP queue A item 6."""
+that file are tests/test_torch_streaming.py and
+tests/test_torch_stream_training.py."""
 
 import numpy as np
 import pytest

@@ -413,8 +413,12 @@ def test_spec_draft_tenant_and_attach_ps_raise_their_items(pair):
     assert eng.stats["tenants"]["gold"]["submitted"] == 1
     eng.run_until_idle()
     assert eng.stats["tenants"]["gold"]["completed"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        eng.attach_ps("127.0.0.1", 1)
+    # attach_ps is taken now (hot reload: tests/test_torch_attach_ps.py):
+    # it records the attachment, as the JAX engine does, and the engine
+    # takes a private copy of its weights
+    eng.attach_ps("127.0.0.1", 1, every=2)
+    assert eng._ps_addr == ("127.0.0.1", 1) and eng._reload_every == 2
+    assert eng.stats["reloads"] == eng.stats["reload_failures"] == 0
 
 
 # ---------------------------------------------------------------------------
