@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-seven phases, each printing JSON lines, and fails with a non-zero
+twenty-eight phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -242,7 +242,7 @@ exit if any phase fails:
     (half and a quarter of the f32 delta bytes); the LM at full width
     under ADAG from 2 threads, the sm90 forward, dq and dk/dv launched
     exactly once per layer, step and worker; the ConvNet's examples/s at
-    1, 2 and 4 threads; the ConvNet legs launch no kernel.
+    1 and 2 threads; the ConvNet legs launch no kernel.
 24. ps_sparse: sharded parameter servers, top-k and row-sparse commits
     (``ps_shards``, ``wire_dtype="topk"``, ``row_sparse``): phase
     host_ps's ConvNet under ADAG, one worker, serial, at 1 and 3 shards
@@ -295,13 +295,25 @@ exit if any phase fails:
     ``recovery_ms``); the sm90 training kernels launched once per layer,
     step and window of the stream runs and nothing else; then
     accuracy-tracks-drift on the reference bench's small configuration.
+28. moe: ``ParallelTransformerLM`` with Switch experts and across ranks
+    (``moe_layers``, ``parallel/moe.py``, ``parallel/collective.py``):
+    phase parallel_train's LM (bf16, fused CE, Ulysses, batch 8 x 2048)
+    with 8 experts on every other layer, top-1 and top-2, 8 Adam steps
+    each (the loss falls, fractions sum to 1, the dropped share, ms a
+    step, tokens/s, peak memory; B1/B2 once a step, B3-B5 once a layer
+    and step); one MoE layer at f32 at that shape, the index dispatch
+    against the one-hot einsums on the card and against the CPU; two
+    ranks on the one card over gloo, a coordinated ``Job`` through
+    ``initialize_from_env`` on mesh (1, 1, 2), full width at f32 on 2
+    layers, against one rank in this process (losses, gathered parameters),
+    with their start seconds, ms a step and collective bytes and seconds.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
 QoS, disaggregated serving, fleet, host-PS, sparse host-PS, survivable
-host-PS, cross-process and online paths), the
+host-PS, cross-process, online and MoE paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -676,7 +688,10 @@ PAGED_TIGHT = 2
 # random draft SPEC_DRAFT_LAYERS layers of random weights
 SPEC_TRAIN_ROWS, SPEC_TRAIN_EPOCHS = 64, 6
 SPEC_UNCAPTURED = 8
-SPEC_CHECK_REQUESTS, SPEC_CHECK_STEPS = 6, 48
+SPEC_CHECK_REQUESTS, SPEC_CHECK_STEPS = 3, 32  # depth cut, PERF.md §4
+# the forms whose speculative rounds are profiled (host calls and busy
+# time a round): the full form (depth cut from both forms, PERF.md §4)
+SPEC_PROFILE_FORMS = ("full",)
 # multi-tenant QoS and preemption in the engine (ROADMAP queue A item 4):
 # the LM at full width, bf16, form full (a rolling pool cannot preempt),
 # paged with PAGED_BLOCK-token blocks, SERVE_SLOTS slots, chunks of
@@ -764,7 +779,7 @@ FLEET_HEARTBEAT_S, FLEET_LIVENESS_S = 0.05, 5.0
 # ConvNet's examples/s at HOST_PS_SCALING threads (printed only)
 HOST_PS_WORKERS, HOST_PS_TEST_ROWS, HOST_PS_ALGO_WINDOWS = 2, 1024, 4
 HOST_PS_LM_ROWS, HOST_PS_LM_WINDOW = 128, 2
-HOST_PS_SCALING = (1, 2, 4)
+HOST_PS_SCALING = (1, 2)  # depth cut from (1, 2, 4), PERF.md section 4
 # sharded parameter servers, top-k and row-sparse commits (ROADMAP queue A
 # item 6, its second part): (a) phase host_ps's ConvNet (bench.py:1109-
 # 1121: mnist_convnet bf16, adam, batch ADAG_BATCH, window ADAG_WINDOW)
@@ -905,6 +920,44 @@ PROCESS_PS_FREEZE_S = 3.0
 ONLINE_HORIZON_WINDOWS, ONLINE_HORIZONS, ONLINE_CHUNK = 4, 4, 32
 ONLINE_EXIT_AT, ONLINE_PROMPTS, ONLINE_DEPLOY_HORIZONS = 2, 4, 3
 ONLINE_ACC_MIN = 0.5
+# ParallelTransformerLM across ranks with Switch MoE (ROADMAP queue A item
+# 7).  (a) One rank: the PLM of phase parallel_train on its fused-CE
+# Ulysses route (bf16, batch 8 x 2048) with MOE's experts on every other
+# layer (the Switch layout), router top-k each of MOE_TOP_K, PLM_STEPS
+# steps of adam(PLM_LR) from one numpy-seeded weight set through
+# load_jax_params: finite losses that fall, every layer's first-choice
+# fractions summing to 1, B1 and B2 once a step, B3-B5 (sm90) once a
+# layer and step, nothing else; one MoE layer at f32 (TF32 off) at that
+# shape, the index form against the one-hot einsum form on the card
+# (MOE_FORM_RTOL of the output's largest element; the same routing, sums
+# in other orders) and against itself on the CPU (MOE_CPU_RTOL, over the
+# tokens whose expert choices agree: a near-tie in the router's f32
+# logits may flip a token's expert between devices, and those are
+# counted).  (b) MOE_RANKS ranks on the one card over gloo, started as a
+# coordinated job_deployment.Job through initialize_from_env while (a)
+# runs, on mesh (1, 1, MOE_RANKS): heads, MLP and experts split over
+# them, full width at f32, cut to MOE_RANK_LAYERS layers (layer 1 MoE),
+# capacity factor MOE_RANK_CAPACITY so that no token drops on either mesh
+# (a shard's capacity follows its token count, as
+# tests/test_parallel_transformer.py:52-58 sets it for the same reason),
+# batch MOE_RANK_BATCH, MOE_RANK_STEPS steps of adam(PLM_LR, eps
+# MOE_RANK_EPS: the parity epsilon of tests/test_torch_train.py, so
+# that f32 noise on a near-zero gradient moves no weight by a step),
+# against a one-rank run of the same weights and batch in this process:
+# losses within LOSS_RTOL_F32, the gathered parameters within
+# MOE_RANK_PARAM_RTOL of each tensor's largest update over the two steps.
+# Adam moves an element by lr · g / (|g| + eps) a step, so f32 noise dg
+# in a gradient moves it by at most lr · dg / (4 eps): with dg ~1e-6 of
+# the largest gradient that is under 0.3% of lr, while a gradient of the
+# wrong sign moves it by 2 lr.
+MOE = dict(moe_layers=(1, 3, 5, 7), num_experts=8, capacity_factor=2.0,
+           router_aux_weight=1e-2)
+MOE_TOP_K = (1, 2)
+MOE_FORM_RTOL, MOE_CPU_RTOL = 1e-6, 1e-5
+MOE_RANKS, MOE_RANK_LAYERS, MOE_RANK_CAPACITY = 2, 2, 8.0
+MOE_RANK_BATCH, MOE_RANK_STEPS, MOE_RANK_EPS = 2, 2, 1e-4
+MOE_RANK_PARAM_RTOL = 1e-2
+MOE_RANK_TIMEOUT_S = 300.0
 
 
 def emit(obj) -> None:
@@ -1881,34 +1934,40 @@ def _read_counts():
     return launch_counts()
 
 
-def _parallel_route(cfg, tree, toks, labels):
+def _parallel_route(cfg, tree, toks, labels, after=None, dev="cuda"):
     """Build the LM from ``tree`` on the card and train it PLM_STEPS
     steps through ``compile_train_step``, the counts set to 0 just before
-    and read just after; returns (losses, step seconds, launches)."""
+    and read just after; returns (losses, step seconds, launches), and
+    with ``after`` also ``after(lm, params, tokens)`` once the counts are
+    read."""
     import torch
     from distkeras_tpu_torch.core.optimizers import adam
     from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
                                               load_jax_params)
-    lm = ParallelTransformerLM(**cfg, mesh=Mesh())  # the card
+    lm = ParallelTransformerLM(**cfg, mesh=Mesh(device=dev))  # the card
     params = load_jax_params(lm, tree)
     opt_state, step = lm.compile_train_step(adam(PLM_LR), params)
     dev = lm.batch_sharding()
     tokens = torch.as_tensor(toks, device=dev)
     labels = torch.as_tensor(labels, device=dev)
-    torch.cuda.synchronize()
+    _sync(dev)
     _zero_counts()
     losses, seconds = [], []
     for _ in range(PLM_STEPS):
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, tokens, labels)
-        torch.cuda.synchronize()
+        _sync(dev)
         seconds.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = _read_counts()
     losses = [float(x) for x in losses]
+    extra = None if after is None else after(lm, params, tokens)
     del params, opt_state, lm
-    torch.cuda.empty_cache()
-    return losses, seconds, launches
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    if after is None:
+        return losses, seconds, launches
+    return losses, seconds, launches, extra
 
 
 def _first_step_parallel_grads(cfg, tree, toks, labels):
@@ -4124,11 +4183,13 @@ def phase_spec(card: str, dev: str = "cuda"):
             "arith_plain": _serve_run(model, arith, rolling, dev),
             "arith_draft": _serve_run(model, arith, rolling, dev,
                                       spec_draft=draft, **spec)}
-        prof = {name: _serve_profile(model, rolling, True, dev, **knobs)
-                for name, knobs in (("plain", {}),
-                                    ("self", dict(spec_draft=model, **spec)),
-                                    ("draft", dict(spec_draft=draft,
-                                                   **spec)))}
+        prof = ({name: _serve_profile(model, rolling, True, dev, **knobs)
+                 for name, knobs in (("plain", {}),
+                                     ("self", dict(spec_draft=model,
+                                                   **spec)),
+                                     ("draft", dict(spec_draft=draft,
+                                                    **spec)))}
+                if form in SPEC_PROFILE_FORMS else None)
         same = _serve_mismatch(runs["self"]["rows"][:SPEC_UNCAPTURED],
                                runs["self_uncaptured"]["rows"],
                                trace[:SPEC_UNCAPTURED])
@@ -5906,7 +5967,7 @@ def _host_ps_convnet(card: str, dev: str, rows) -> dict:
               and r["center_finite"],
               f"host_ps wire {coding}: {per_commit} bytes a commit "
               f"(f32 {f32_bytes}), losses {r['first_last_loss']}")
-    # (5) scaling: examples/s at 1, 2 and 4 threads (printed only)
+    # (5) scaling: examples/s at HOST_PS_SCALING threads (printed only)
     scaling = {}
     for workers in HOST_PS_SCALING:
         r = _host_ps_run(ADAG, convnet(), x, y, dev, workers,
@@ -7550,6 +7611,385 @@ def phase_online(card: str, dev: str = "cuda"):
     return summary, launches
 
 
+_MOE_RANK = """
+import json, os, sys, time
+t_enter = time.time()
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from distkeras_tpu_torch.job_deployment import initialize_from_env
+initialize_from_env()
+import torch.distributed as dist
+from distkeras_tpu_torch.core.optimizers import adam
+from distkeras_tpu_torch.kernels import launch_counts
+from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                          gather_params, load_jax_params)
+rank = dist.get_rank()
+cfg_path, out, go = sys.argv[1:4]
+sync = (torch.cuda.synchronize if torch.cuda.is_available()
+        else lambda: None)
+spec = json.load(open(cfg_path))
+joined = time.time()
+blob = np.load(os.path.join(out, "weights.npz"))
+# the weights by leaf name (load_jax_params takes them flat), the batch
+tree = {n: blob[n] for n in blob.files if not n.startswith("__")}
+deadline = time.time() + spec["timeout_s"]
+while not os.path.exists(go):  # the card is this leg's once (a) is done
+    if time.time() > deadline:
+        raise TimeoutError("no go from the parent process")
+    time.sleep(0.01)
+mesh = Mesh(np.array([spec["device"]] * spec["ranks"],
+                     dtype=object).reshape(1, 1, spec["ranks"]))
+lm = ParallelTransformerLM(**spec["cfg"], mesh=mesh)
+params = load_jax_params(lm, tree)
+toks = lm.shard_batch(blob["__tokens"])
+labels = lm.shard_batch(blob["__labels"])
+opt_state, step = lm.compile_train_step(
+    adam(spec["lr"], eps=spec["eps"]), params)
+sync()
+mesh.comm_stats.clear()
+losses, seconds = [], []
+for _ in range(spec["steps"]):
+    t0 = time.perf_counter()
+    params, opt_state, loss = step(params, opt_state, toks, labels)
+    sync()
+    seconds.append(time.perf_counter() - t0)
+    losses.append(loss.item())
+launches = launch_counts()
+comm = {k: dict(v) for k, v in mesh.comm_stats.items()}
+with torch.no_grad():
+    _, stats = lm._forward(params, toks)
+dropped = [s["dropped"].item() for s in stats]
+full = gather_params(lm, params)
+if rank == 0:
+    flat = {"layers.%d.%s" % (i, k): a for i, lp in enumerate(full["layers"])
+            for k, a in lp.items()}
+    flat.update({k: a for k, a in full.items() if k != "layers"})
+    np.savez(os.path.join(out, "gathered.npz"), **flat)
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump({"rank": rank, "joined_s": joined - float(sys.argv[4]),
+               "entered_s": t_enter - float(sys.argv[4]),
+               "losses": losses, "step_s": seconds, "launches": launches,
+               "collectives": comm, "dropped": dropped,
+               "backend": str(dist.get_backend()),
+               "device": str(lm.device)}, f)
+dist.destroy_process_group()
+"""
+
+
+def _moe_flat(tree) -> dict:
+    """A JAX-layout tree as name -> array (``layers.{i}.{leaf}``)."""
+    flat = {f"layers.{i}.{k}": a for i, lp in enumerate(tree["layers"])
+            for k, a in lp.items()}
+    flat.update({k: a for k, a in tree.items() if k != "layers"})
+    return flat
+
+
+def _moe_router_stats(lm, params, tokens) -> dict:
+    """One forward after training: each MoE layer's first-choice fractions
+    summed and its share of dropped choices."""
+    import torch
+    with torch.no_grad():
+        _, stats = lm._forward(params, tokens)
+    return {"fraction_sums": [s["fraction"].sum().item() for s in stats],
+            "dropped": [s["dropped"].item() for s in stats]}
+
+
+def _moe_layer_forms(card: str, dev: str) -> list:
+    """One MoE layer at f32 at the main path's shape, k each of MOE_TOP_K:
+    the index form against the one-hot form on ``dev`` and against
+    itself on the CPU."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, moe
+    rng = np.random.default_rng(SEED + 25)
+    d, f, e = PLM["d_model"], PLM["mlp_dim"], MOE["num_experts"]
+    w = lambda *shape: (rng.standard_normal(shape, dtype=np.float32)
+                        / np.float32(np.sqrt(shape[-2])))
+    host = [rng.standard_normal((PLM_BATCH, PLM["seq_len"], d),
+                                dtype=np.float32), w(d, e), w(e, d, f),
+            0.1 * rng.standard_normal((e, f), dtype=np.float32), w(e, f, d),
+            0.1 * rng.standard_normal((e, d), dtype=np.float32)]
+    rows = []
+    for k in MOE_TOP_K:
+        kw = dict(capacity_factor=MOE["capacity_factor"], router_top_k=k,
+                  compute_dtype=torch.float32)
+        on_dev = [torch.as_tensor(a, device=dev) for a in host]
+        on_cpu = [torch.as_tensor(a) for a in host]
+        with torch.no_grad():
+            _sync(dev)
+            t0 = time.perf_counter()
+            y, stats = moe.moe_mlp(*on_dev, mesh=Mesh(device=dev), **kw)
+            _sync(dev)
+            index_ms = (time.perf_counter() - t0) * 1e3
+            if torch.device(dev).type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            base = (torch.cuda.memory_allocated()
+                    if torch.device(dev).type == "cuda" else 0)
+            y_hot, _ = moe.moe_mlp(*on_dev, mesh=Mesh(device=dev),
+                                   dispatch="onehot", **kw)
+            hot_peak = (torch.cuda.max_memory_allocated() - base
+                        if torch.device(dev).type == "cuda" else None)
+            y_cpu, _ = moe.moe_mlp(*on_cpu, mesh=Mesh(device="cpu"), **kw)
+            # the routing on each device, from the same f32 logits op
+            t = PLM_BATCH * PLM["seq_len"]
+            cap = max(int(np.ceil(MOE["capacity_factor"] * k * t / e)), 1)
+            slots = [moe.topk_slots(a[0].reshape(t, d) @ a[1], cap, k)[0]
+                     .cpu() // cap for a in (on_dev, on_cpu)]
+        agree = (slots[0] == slots[1]).all(dim=1)
+        y_dev = y.cpu().reshape(t, d)
+        form_err = ((y - y_hot).abs().max() / y_hot.abs().max()).item()
+        cpu_err = ((y_dev - y_cpu.reshape(t, d))[agree].abs().max()
+                   / y_cpu.abs().max()).item()
+        row = {"phase": "moe_layer", "router_top_k": k, "tokens": t,
+               "capacity": cap, "dropped": stats["dropped"].item(),
+               "index_vs_onehot": form_err, "index_vs_onehot_rtol":
+               MOE_FORM_RTOL, "card_vs_cpu": cpu_err,
+               "card_vs_cpu_rtol": MOE_CPU_RTOL,
+               "expert_flips_card_vs_cpu": int((~agree).sum()),
+               "index_ms": index_ms, "onehot_peak_bytes": hot_peak,
+               "card": card}
+        emit(row)
+        check(form_err <= MOE_FORM_RTOL, f"moe k={k}: the index form "
+              f"differs from the one-hot form by {form_err}")
+        check(cpu_err <= MOE_CPU_RTOL and (~agree).sum() <= t // 1000,
+              f"moe k={k}: card vs CPU {cpu_err}, "
+              f"{int((~agree).sum())} expert flips")
+        rows.append(row)
+        del on_dev, y, y_hot
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_start_ranks(tmp: str, dev: str):
+    """(b)'s inputs written under ``tmp`` and its ranks started as a
+    coordinated Job over gloo; returns (the job, the one-rank config, the
+    tree, tokens, labels, the go file, the launch time)."""
+    import json
+    import socket
+    import numpy as np
+    from distkeras_tpu_torch.job_deployment import Job, LocalJobRunner
+    from distkeras_tpu_torch.parallel import Mesh, ParallelTransformerLM
+    cfg = {**PLM, **PLM_ROUTES["fused_ulysses"], **MOE,
+           "num_layers": MOE_RANK_LAYERS, "moe_layers": (1,),
+           "capacity_factor": MOE_RANK_CAPACITY, "compute_dtype": "float32"}
+    rng = np.random.default_rng(SEED + 26)
+    tree = _parallel_tree(ParallelTransformerLM(
+        **cfg, mesh=Mesh(device="meta")), rng)
+    toks = rng.integers(0, PLM["vocab_size"], (MOE_RANK_BATCH,
+                                               PLM["seq_len"])).astype(
+        np.int32)
+    labels = (toks + 1) % PLM["vocab_size"]
+    np.savez(os.path.join(tmp, "weights.npz"), __tokens=toks,
+             __labels=labels, **_moe_flat(tree))
+    spec_path, script = (os.path.join(tmp, n)
+                         for n in ("spec.json", "moe_rank.py"))
+    with open(spec_path, "w") as f:
+        json.dump({"cfg": cfg, "ranks": MOE_RANKS, "lr": PLM_LR,
+                   # every rank on the one card
+                   "device": "cuda:0" if dev == "cuda" else dev,
+                   "eps": MOE_RANK_EPS, "steps": MOE_RANK_STEPS,
+                   "timeout_s": MOE_RANK_TIMEOUT_S}, f)
+    with open(script, "w") as f:
+        f.write(_MOE_RANK)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    go = os.path.join(tmp, "go")
+    t_launch = time.time()
+    job = Job("moe_ranks", script, args=[spec_path, tmp, go, repr(t_launch)],
+              hosts=["127.0.0.1"] * MOE_RANKS, coordinator_port=port,
+              backend="gloo", env={"PYTHONPATH": os.pathsep.join(
+                  p for p in (root, os.environ.get("PYTHONPATH")) if p)})
+    job.run(LocalJobRunner(), wait=False)
+    return job, cfg, tree, toks, labels, go, t_launch
+
+
+def _moe_ranks(card: str, dev: str, tmp: str, started) -> dict:
+    """(b): the one-rank reference in this process, then the go to the
+    ranks, their results and the comparison."""
+    import json
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.core.optimizers import adam
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              gather_params,
+                                              load_jax_params)
+    job, cfg, tree, toks, labels, go, t_launch = started
+    lm = ParallelTransformerLM(**cfg, mesh=Mesh(device=dev))
+    params = load_jax_params(lm, tree)
+    opt_state, step = lm.compile_train_step(
+        adam(PLM_LR, eps=MOE_RANK_EPS), params)
+    tokens, targets = lm.shard_batch(toks), lm.shard_batch(labels)
+    ref_losses, ref_s = [], []
+    for _ in range(MOE_RANK_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, targets)
+        _sync(dev)
+        ref_s.append(time.perf_counter() - t0)
+        ref_losses.append(loss.item())
+    ref = _moe_flat(gather_params(lm, params))
+    del lm, params, opt_state
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    open(go, "w").close()
+    codes = []
+    try:
+        for p in job.processes:
+            left = max(t_launch + MOE_RANK_TIMEOUT_S - time.time(), 1.0)
+            codes.append(p.wait(timeout=left))
+    finally:
+        for p in job.processes:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0] * MOE_RANKS, f"moe ranks exited {codes}")
+    ranks = []
+    for r in range(MOE_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = dict(np.load(os.path.join(tmp, "gathered.npz")))
+    init = _moe_flat(tree)
+    shares = {n: float(np.abs(got[n] - ref[n]).max())
+              / (MOE_RANK_PARAM_RTOL * float(np.abs(ref[n] - init[n]).max())
+                 + 1e-12) for n in ref}
+    worst = max(shares, key=shares.get)
+    loss_gap = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref_losses))
+    comm = [{op: {k: s[k] for k in ("calls", "bytes", "seconds")}
+             for op, s in r["collectives"].items()} for r in ranks]
+    row = {"phase": "moe_ranks", "ranks": MOE_RANKS,
+           "mesh": [1, 1, MOE_RANKS], "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks], "config": cfg,
+           "batch": MOE_RANK_BATCH, "steps": MOE_RANK_STEPS,
+           "losses": [r["losses"] for r in ranks],
+           "one_rank_losses": ref_losses, "loss_gap": loss_gap,
+           "loss_rtol": LOSS_RTOL_F32, "param_worst_tensor": worst,
+           "param_worst_share_of_tol": shares[worst],
+           "child_start_s": [r["joined_s"] for r in ranks],
+           "ms_per_step": [statistics.median(r["step_s"]) * 1e3
+                           for r in ranks],
+           "one_rank_ms_per_step": statistics.median(ref_s) * 1e3,
+           # gloo through pinned host memory, not NCCL
+           "collectives_per_rank": comm,
+           "collective_bytes_per_rank": [sum(s["bytes"] for s in c.values())
+                                         for c in comm],
+           "collective_s_per_rank": [sum(s["seconds"] for s in c.values())
+                                     for c in comm],
+           "dropped": [r["dropped"] for r in ranks],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "card": card}
+    emit(row)
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"moe ranks: backend {[r['backend'] for r in ranks]}")
+    check(all(d == 0.0 for r in ranks for d in r["dropped"]),
+          f"moe ranks: dropped {row['dropped']} at capacity factor "
+          f"{MOE_RANK_CAPACITY}")
+    check(all(np.isfinite(r["losses"]).all() for r in ranks)
+          and loss_gap <= LOSS_RTOL_F32,
+          f"moe ranks: losses {row['losses']} vs one rank {ref_losses}")
+    check(shares[worst] <= 1.0, f"moe ranks: gathered {worst} differs "
+          f"{shares[worst]:.3g}x its tolerance from the one-rank run")
+    if torch.device(dev).type == "cuda":
+        want = MOE_RANK_LAYERS * MOE_RANK_STEPS
+        for r in ranks:
+            n = r["launches"]
+            check(n["fused_ce_fwd"] == n["fused_ce_bwd"] == MOE_RANK_STEPS
+                  and all(n[f"flash_{k}_simt"] == want
+                          for k in ("fwd_lse", "dq", "dkv")),
+                  f"moe ranks: rank {r['rank']} launches {n}, want fused "
+                  f"CE {MOE_RANK_STEPS} and SIMT flash {want} each")
+    return row
+
+
+def phase_moe(card: str, dev: str = "cuda"):
+    """ParallelTransformerLM with Switch MoE (the MOE_* comment): (b)'s
+    ranks start first and join while (a) runs on the card; the counts are
+    set to 0 before (a)'s runs and read after them.  Returns (the lines,
+    the launches of (a) with (b)'s ranks' added)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, ParallelTransformerLM
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        started = _moe_start_ranks(tmp, dev)
+        try:
+            rng = np.random.default_rng(SEED + 24)
+            v, s = PLM["vocab_size"], PLM["seq_len"]
+            toks = rng.integers(0, v, (PLM_BATCH, s)).astype(np.int32)
+            labels = (toks + 1) % v
+            base = {**PLM, **PLM_ROUTES["fused_ulysses"], **MOE,
+                    "compute_dtype": "bfloat16"}
+            tree = _parallel_tree(ParallelTransformerLM(
+                **base, mesh=Mesh(device="meta")), rng)
+            runs, launches = {}, {}
+            for k in MOE_TOP_K:
+                if torch.device(dev).type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                losses, seconds, counts, stats = _parallel_route(
+                    {**base, "router_top_k": k}, tree, toks, labels,
+                    after=_moe_router_stats, dev=dev)
+                peak = (torch.cuda.max_memory_allocated()
+                        if torch.device(dev).type == "cuda" else None)
+                launches = _add_counts(launches, counts)
+                step_ms = statistics.median(seconds[1:]) * 1e3
+                row = {"phase": "moe_train", "router_top_k": k,
+                       "config": {**PLM, **MOE}, "compute_dtype": "bfloat16",
+                       "batch": PLM_BATCH, "steps": PLM_STEPS,
+                       "losses": losses,
+                       "last_over_first": losses[-1] / losses[0],
+                       **stats, "launches": counts,
+                       "first_step_ms": seconds[0] * 1e3,
+                       "ms_per_step": step_ms,
+                       "tokens_per_s": PLM_BATCH * s / (step_ms / 1e3),
+                       "peak_bytes": peak, "card": card}
+                emit(row)
+                runs[k] = row
+                tag = f"moe top-{k}"
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"{tag}: losses {losses}")
+                check(all(abs(x - 1.0) <= 1e-5
+                          for x in stats["fraction_sums"]),
+                      f"{tag}: fractions sum to {stats['fraction_sums']}")
+                if torch.device(dev).type == "cuda":
+                    flash = PLM["num_layers"] * PLM_STEPS
+                    check(counts["fused_ce_fwd"] == counts["fused_ce_bwd"]
+                          == PLM_STEPS
+                          and all(counts[f"flash_{k_}{v_}"] == flash
+                                  for k_ in ("fwd_lse", "dq", "dkv")
+                                  for v_ in ("", "_sm90"))
+                          and counts["flash_inference"] == 0
+                          and all(counts[f"flash_{k_}_simt"] == 0
+                                  for k_ in ("fwd_lse", "dq", "dkv")),
+                          f"{tag}: launches {counts}, want fused CE "
+                          f"{PLM_STEPS} and sm90 flash {flash} each")
+            del tree
+            forms = _moe_layer_forms(card, dev)
+            ranks = _moe_ranks(card, dev, tmp, started)
+        finally:
+            for p in started[0].processes:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for r in ranks["launches_per_rank"]:
+        launches = _add_counts(launches, r)
+    summary = {"phase": "moe", "ms_per_step": {
+        k: r["ms_per_step"] for k, r in runs.items()},
+        "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+        "peak_bytes": {k: r["peak_bytes"] for k, r in runs.items()},
+        "dropped": {k: r["dropped"] for k, r in runs.items()},
+        "ranks_ms_per_step": ranks["ms_per_step"],
+        "launches_moe": launches,
+        "seconds": time.perf_counter() - t_start, "card": card}
+    emit(summary)
+    return {"train": runs, "layer": forms, "ranks": ranks}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7589,6 +8029,7 @@ def main() -> int:
     _, resilience_launches = phase_resilience(smi)
     _, process_ps_launches = phase_process_ps(smi, host_ps_scaling)
     _, online_launches = phase_online(smi)
+    _, moe_launches = phase_moe(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -7759,7 +8200,10 @@ def main() -> int:
         training kernels once per layer, step and window each child ran,
         its warm-up included) and on the online path (phase online's two
         stream runs and the engines serving beside them: the sm90
-        training kernels once per layer, step and window that ran)."""
+        training kernels once per layer, step and window that ran) and on
+        the MoE path (phase moe: (a)'s two runs, B1/B2 once a step and the
+        sm90 training kernels once a layer and step, and (b)'s ranks, read
+        from their result files: B1/B2 and the SIMT training kernels)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -7779,6 +8223,7 @@ def main() -> int:
         entry["launches_resilience"] = resilience_launches[key]
         entry["launches_process_ps"] = process_ps_launches.get(key, 0)
         entry["launches_online"] = online_launches[key]
+        entry["launches_moe"] = moe_launches.get(key, 0)
         return entry
 
     emit(north_star)

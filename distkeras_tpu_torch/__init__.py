@@ -5,8 +5,10 @@ It serves a causal transformer LM through ``ModelPredictor`` and trains it
 through ``SingleTrainer``, with attention in hand-written Hopper
 flash-attention kernels (``csrc/flash_attention_fwd*.cu`` forward,
 ``csrc/flash_attention_bwd*.cu`` backward); trains
-``parallel.ParallelTransformerLM`` on one card, whose fused loss runs the
-hand-written cross-entropy kernels (``csrc/fused_ce.cu``); and trains and
+``parallel.ParallelTransformerLM`` on one card and across
+``torch.distributed`` ranks (data, sequence, tensor and Switch expert
+parallelism), whose fused loss runs the hand-written cross-entropy
+kernels (``csrc/fused_ce.cu``); and trains and
 serves the ConvNet/MLP zoo (MNIST, digits, CIFAR-10, ATLAS Higgs) through
 ``SingleTrainer`` and ``ModelPredictor`` with the dist-keras transformer
 and evaluator pipeline, and with the dist-keras distributed trainers

@@ -9,10 +9,12 @@ parameter-server engine (``parameter_servers.run_process_ps_training``)
 launches its worker and shard processes through this rail.
 
 ``initialize_from_env`` returns where the JAX one returns (no
-coordinator, or a group of one process).  A coordinated group of more
-than one process would join a collective group, which in the port is
-work for ROADMAP queue A item 7; nothing the process engine launches is
-coordinated.
+coordinator, or a group of one process); a coordinated group of more
+than one process joins a ``torch.distributed`` process group through
+``parallel.mesh.initialize``, one rank a process, with the backend that
+``DISTKERAS_TPU_BACKEND`` names (``Job(backend=...)`` renders it; unset,
+``"nccl"`` where a card is visible, else ``"gloo"``).  Nothing the
+process engine launches is coordinated.
 
 The JAX module's description follows.
 
@@ -64,7 +66,8 @@ class Job:
                  python: str = sys.executable,
                  coordinator_port: int = COORDINATOR_PORT,
                  coordinated: bool = True,
-                 process_ids: Optional[Sequence[int]] = None):
+                 process_ids: Optional[Sequence[int]] = None,
+                 backend: Optional[str] = None):
         self.name = name
         self.script = script
         self.args = list(args)
@@ -82,6 +85,9 @@ class Job:
         # group) — e.g. PS workers that only speak the socket wire; one
         # crashing must not stall the others at an init barrier
         self.coordinated = bool(coordinated)
+        # the torch.distributed backend of a coordinated group (None: the
+        # default of parallel.mesh.initialize)
+        self.backend = backend
         self.returncodes: List[int] = []
         self.processes: List[subprocess.Popen] = []
 
@@ -101,6 +107,8 @@ class Job:
                     f"{coordinator}:{self.coordinator_port}",
                 "DISTKERAS_TPU_NUM_PROCESSES": str(num),
             })
+            if self.backend is not None:
+                env["DISTKERAS_TPU_BACKEND"] = str(self.backend)
         else:
             # explicitly blank (not merely omit): launchers overlay this on
             # os.environ, and a driver that itself runs under a coordinated
@@ -133,11 +141,14 @@ class Job:
 
     # -- punchcard (de)serialization ------------------------------------------
     def to_record(self) -> dict:
-        return {"name": self.name, "script": self.script, "args": self.args,
-                "hosts": self.hosts, "env": self.env, "python": self.python,
-                "coordinator_port": self.coordinator_port,
-                "coordinated": self.coordinated,
-                "process_ids": self.process_ids}
+        rec = {"name": self.name, "script": self.script, "args": self.args,
+               "hosts": self.hosts, "env": self.env, "python": self.python,
+               "coordinator_port": self.coordinator_port,
+               "coordinated": self.coordinated,
+               "process_ids": self.process_ids}
+        if self.backend is not None:
+            rec["backend"] = self.backend
+        return rec
 
     @classmethod
     def from_record(cls, rec: dict) -> "Job":
@@ -146,7 +157,7 @@ class Job:
                    rec.get("python", sys.executable),
                    rec.get("coordinator_port", COORDINATOR_PORT),
                    rec.get("coordinated", True),
-                   rec.get("process_ids"))
+                   rec.get("process_ids"), rec.get("backend"))
 
 
 class JobRunner:
@@ -274,18 +285,18 @@ class Punchcard:
 
 
 def initialize_from_env() -> None:
-    """Read the env vars ``Job`` renders — the first line of a deployed
-    training script.  An uncoordinated or one-process run has nothing to
-    initialize; a coordinated group of more than one process raises (its
-    collectives are ROADMAP queue A item 7)."""
+    """Join the process group from the env vars ``Job`` renders — the
+    first line of a deployed training script: ``parallel.mesh.initialize``
+    with the coordinator, the process count, this process's id and the
+    backend ``DISTKERAS_TPU_BACKEND`` names.  An uncoordinated or
+    one-process run has nothing to initialize."""
     coord = os.environ.get("DISTKERAS_TPU_COORDINATOR")
     if not coord:
         return  # single-process run; nothing to initialize
     num = int(os.environ.get("DISTKERAS_TPU_NUM_PROCESSES", "1"))
+    pid = int(os.environ.get("DISTKERAS_TPU_PROCESS_ID", "0"))
     if num <= 1:
         return
-    raise NotImplementedError(
-        f"a coordinated group of {num} processes (coordinator {coord}) "
-        "needs the port's multi-card collectives, which are not ported yet "
-        "(ROADMAP queue A item 7); launch PS workers with "
-        "Job(coordinated=False)")
+    from .parallel.mesh import initialize
+    initialize(coord, num, pid,
+               backend=os.environ.get("DISTKERAS_TPU_BACKEND") or None)

@@ -1,24 +1,32 @@
-"""The parallel layer of the port on one card (counterpart of
-``distkeras_tpu.parallel``): the meshes, the SPMD engine of the
-distributed trainers with its update rules, tensor-parallel blocks, the
-ring and Ulysses attention schedules, the train step and
-``ParallelTransformerLM``.  Every collective of the model-parallel layer
-is the identity on a mesh axis of size 1 and raises above it; MoE, the
-pipeline and programs across cards wait for ROADMAP queue A item 7."""
+"""The parallel layer of the port (counterpart of
+``distkeras_tpu.parallel``): the meshes and their process groups, the
+collectives, the SPMD engine of the distributed trainers with its update
+rules, tensor-parallel blocks, the ring and Ulysses attention schedules,
+expert parallelism (MoE), the train step and ``ParallelTransformerLM``
+over ('data', 'seq', 'model') ranks.  ZeRO/FSDP above a data axis of
+size 1, the pipeline and the SPMD engine across cards wait for ROADMAP
+queue A item 7."""
 
-from . import rules
-from .mesh import WORKER_AXIS, Mesh, get_mesh
+from . import collective, rules
+from .collective import (all_gather, all_to_all, pmean, ppermute, psum,
+                         pvary)
+from .mesh import WORKER_AXIS, Mesh, get_mesh, initialize
+from .moe import (EXPERT_AXIS, load_balance_loss, moe_mlp, top1_routing,
+                  topk_routing, topk_slots)
 from .spmd import DistState, SPMDEngine, shape_epoch_data
 from .ring import SEQ_AXIS, ring_attention, ring_self_attention
 from .tp import (MODEL_AXIS, column_parallel_dense, row_parallel_dense,
                  tp_mlp, tp_self_attention)
 from .train_step import build_train_step
-from .transformer import ParallelTransformerLM, load_jax_params
+from .transformer import ParallelTransformerLM, gather_params, load_jax_params
 from .ulysses import ulysses_attention, ulysses_self_attention
 
-__all__ = ["WORKER_AXIS", "Mesh", "get_mesh", "SPMDEngine", "DistState",
-           "shape_epoch_data", "rules", "SEQ_AXIS", "ring_attention",
-           "ring_self_attention", "MODEL_AXIS", "column_parallel_dense",
-           "row_parallel_dense", "tp_mlp", "tp_self_attention",
+__all__ = ["WORKER_AXIS", "Mesh", "get_mesh", "initialize", "collective",
+           "psum", "pmean", "pvary", "all_gather", "all_to_all", "ppermute",
+           "SPMDEngine", "DistState", "shape_epoch_data", "rules",
+           "SEQ_AXIS", "ring_attention", "ring_self_attention",
+           "MODEL_AXIS", "column_parallel_dense", "row_parallel_dense",
+           "tp_mlp", "tp_self_attention", "EXPERT_AXIS", "topk_routing",
+           "topk_slots", "load_balance_loss", "top1_routing", "moe_mlp",
            "build_train_step", "ParallelTransformerLM", "load_jax_params",
-           "ulysses_attention", "ulysses_self_attention"]
+           "gather_params", "ulysses_attention", "ulysses_self_attention"]

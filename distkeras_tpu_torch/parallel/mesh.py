@@ -1,27 +1,42 @@
-"""The device meshes of the port, counterpart of the part of
-``distkeras_tpu/parallel/mesh.py`` that one card needs.
+"""The device meshes of the port, counterpart of
+``distkeras_tpu/parallel/mesh.py`` (``initialize``, ``get_mesh``) and of
+``jax.sharding.Mesh``.
 
-:class:`Mesh` is the counterpart of ``jax.sharding.Mesh``: an array of
-devices with one axis name per dimension, whose ``shape`` maps each name
-to its size.  The port runs the model-parallel programs on one card, where
-every mesh axis has size 1 and every collective over it is the identity:
-:func:`collective` is that identity, and raises for an axis of any other
-size.
+:class:`Mesh` is an array of devices with one axis name per dimension,
+whose ``shape`` maps each name to its size.  A JAX program runs one
+process over every device of its mesh; the port runs one process per mesh
+position, a *rank* of a ``torch.distributed`` process group
+(:func:`initialize`), which holds its own shard of the parameters and
+calls the collectives of ``collective.py`` explicitly.  Rank ``r`` sits
+at ``np.unravel_index(r, shape)``: the order of
+``Mesh(np.array(devs).reshape(shape), axes)``, so a rank's shards are the
+JAX mesh's shards at the same position.  A mesh of one device needs no
+process group, and every collective over it is the identity.
+
+A mesh of more than one entry binds to the process group the first time a
+rank asks for its position (:meth:`Mesh.rank`, :meth:`Mesh.device`,
+:meth:`Mesh.axis_index`, :meth:`Mesh.group`): the group's world size must
+be the mesh's size, each entry names the device of the rank at that
+position, and every rank then creates the subgroups of every set of axes
+in one fixed order (``new_group`` is collective).  Two ranks on one CUDA
+device cannot run NCCL: such a mesh under ``"nccl"`` raises before any
+collective, naming ``backend="gloo"``.
 
 :func:`get_mesh` builds the 1-D worker mesh of the distributed trainers
 (axis :data:`WORKER_AXIS`): one worker per visible card by default.  An
 explicit ``devices`` list may name one device N times, the port's
 counterpart of ``--xla_force_host_platform_device_count``: the SPMD engine
-runs such a mesh as N workers on that one device (:func:`worker_device`).
-Collectives across cards (``torch.distributed``), the worker mesh across
-cards, ``initialize`` and the placement helpers (``replicated``,
-``worker_sharded``, ``put_*``) wait for ROADMAP queue A item 7.
+runs such a mesh as N workers on that one device (:func:`worker_device`)
+and never binds it to a process group.  The SPMD engine across cards and
+the placement helpers (``replicated``, ``worker_sharded``, ``put_*``) wait
+for ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +47,46 @@ from ..device import DeviceLike, resolve_device
 LM_AXES = ("data", "seq", "model")
 #: the one axis of the distributed trainers' mesh
 WORKER_AXIS = "workers"
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               backend: Optional[str] = None) -> None:
+    """Join this process to the group of ``num_processes`` ranks whose
+    rank 0 listens at ``coordinator_address`` (``host:port``), as rank
+    ``process_id``: ``torch.distributed.init_process_group`` over TCP.
+    ``backend`` defaults to ``"nccl"`` where a CUDA device is visible and
+    to ``"gloo"`` on the CPU.  Without an address it does nothing (a
+    one-process run), as the JAX ``initialize`` does."""
+    if coordinator_address is None:
+        return
+    import torch.distributed as dist
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes),
+                            rank=int(process_id))
+
+
+def check_backend(backend: str, devices: Sequence[torch.device]) -> None:
+    """The rule about a mesh and its backend: NCCL runs one rank a CUDA
+    device, so a mesh that places two ranks on one CUDA device under
+    ``"nccl"`` raises (one card's ranks run over ``"gloo"``)."""
+    if str(backend).lower() != "nccl":
+        return
+    seen = set()
+    for dev in devices:
+        if dev.type != "cuda":
+            continue
+        key = dev.index if dev.index is not None else 0
+        if key in seen:
+            raise ValueError(
+                f"mesh places two ranks on {dev} under backend 'nccl', "
+                "which runs one rank a CUDA device; initialize the group "
+                "with backend=\"gloo\" to run several ranks on one card")
+        seen.add(key)
 
 
 class Mesh:
@@ -53,6 +108,11 @@ class Mesh:
             raise ValueError(f"mesh of {arr.ndim} dims for axis names "
                              f"{self.axis_names}")
         self.devices = np.vectorize(resolve_device, otypes=[object])(arr)
+        self._rank: Optional[int] = None
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        #: per collective over this mesh: calls, bytes this rank handed to
+        #: it, host seconds (``collective.py``)
+        self.comm_stats: Dict[str, Dict[str, float]] = {}
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -62,14 +122,95 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    # -- this rank's place -----------------------------------------------------
+    def _bind(self) -> int:
+        if self._rank is not None:
+            return self._rank
+        if self.size == 1:
+            self._rank = 0
+            return 0
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            raise NotImplementedError(
+                f"a mesh of {self.size} devices runs one rank a position "
+                "over torch.distributed: call parallel.mesh.initialize (or "
+                "job_deployment.initialize_from_env) in every rank first; "
+                "one process over several devices is not ported (ROADMAP "
+                "queue A item 7)")
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(f"a mesh of {self.size} devices needs a "
+                             f"process group of {self.size} ranks, got "
+                             f"{world}")
+        check_backend(dist.get_backend(), list(self.devices.flat))
+        rank = dist.get_rank()
+        # every rank creates every subgroup, in one order
+        sized = [a for a in self.axis_names if self.shape[a] > 1]
+        ranks = np.arange(self.size).reshape(self.devices.shape)
+        for k in range(1, len(sized) + 1):
+            for axes in itertools.combinations(sized, k):
+                if k == len(sized):
+                    self._groups[axes] = None  # the whole group
+                    continue
+                keep = [self.axis_names.index(a) for a in axes]
+                moved = np.moveaxis(ranks, keep, list(range(len(keep))))
+                members = moved.reshape(-1, moved[(0,) * len(keep)].size)
+                for col in members.T:
+                    group = dist.new_group(sorted(int(r) for r in col))
+                    if rank in col:
+                        self._groups[axes] = group
+        self._rank = rank
+        return rank
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (0 on a mesh of one device)."""
+        return self._bind()
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's position, one index per axis."""
+        return tuple(int(i) for i in
+                     np.unravel_index(self.rank, self.devices.shape))
+
+    def axis_index(self, axis_name: str) -> int:
+        """This rank's index along ``axis_name`` (``lax.axis_index``)."""
+        if self.shape[axis_name] == 1:
+            return 0
+        return self.coords[self.axis_names.index(axis_name)]
+
+    def sized_axes(self, axis_names: Union[str, Sequence[str]]
+                   ) -> Tuple[str, ...]:
+        """``axis_names`` without the axes of size 1, in mesh order."""
+        names = ((axis_names,) if isinstance(axis_names, str)
+                 else tuple(axis_names))
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} not in mesh axes "
+                                 f"{self.axis_names}")
+        return tuple(a for a in self.axis_names
+                     if a in names and self.shape[a] > 1)
+
+    def group(self, axis_names: Union[str, Sequence[str]]):
+        """The process group of the ranks that share this rank's place on
+        every axis but ``axis_names`` (``None``: the whole group, or no
+        group where every axis of ``axis_names`` has size 1); its ranks in
+        group order are the axes' positions in row-major order."""
+        axes = self.sized_axes(axis_names)
+        self._bind()
+        return self._groups[axes] if axes else None
+
+    def rank_at(self, **coords: int) -> int:
+        """The rank at this rank's place with the given axes moved."""
+        pos = list(self.coords)
+        for a, i in coords.items():
+            pos[self.axis_names.index(a)] = int(i)
+        return int(np.ravel_multi_index(pos, self.devices.shape))
+
     @property
     def device(self) -> torch.device:
-        """The mesh's one device (the port's programs run on one card)."""
-        if self.size != 1:
-            raise NotImplementedError(
-                f"a mesh of {self.size} devices: programs across cards are "
-                "not ported yet (ROADMAP queue A item 7)")
-        return self.devices.flat[0]
+        """This rank's device: the mesh's entry at its position."""
+        return self.devices.flat[self.rank]
 
 
 def axis_size(mesh: Optional[Mesh], axis_name: str) -> int:
@@ -77,19 +218,9 @@ def axis_size(mesh: Optional[Mesh], axis_name: str) -> int:
     return 1 if mesh is None else mesh.shape[axis_name]
 
 
-def collective(name: str, x, axis_names: Union[str, Sequence[str]],
-               mesh: Optional[Mesh]):
-    """A collective (``psum``, ``all_to_all``, ``ppermute``...) of ``x``
-    over ``axis_names``: the identity where each axis has size 1; any
-    other size raises."""
-    names = (axis_names,) if isinstance(axis_names, str) else axis_names
-    for axis in names:
-        n = axis_size(mesh, axis)
-        if n != 1:
-            raise NotImplementedError(
-                f"{name} over mesh axis {axis!r} of size {n}: collectives "
-                "across cards are not ported yet (ROADMAP queue A item 7)")
-    return x
+def axis_index(mesh: Optional[Mesh], axis_name: str) -> int:
+    """This rank's index along ``axis_name`` (0 without a mesh)."""
+    return 0 if mesh is None else mesh.axis_index(axis_name)
 
 
 def get_mesh(num_workers: Optional[int] = None,

@@ -1,13 +1,14 @@
-"""Ring attention, port of ``distkeras_tpu/parallel/ring.py`` on a
-sequence axis of size 1.
+"""Ring attention, port of ``distkeras_tpu/parallel/ring.py``.
 
-The JAX ring keeps each device's q shard resident, rotates the k/v shards
-with ``ppermute`` and accumulates the output with an f32 online softmax
-over the blocks as they arrive.  On one card the ring has one position:
-the device attends its own block and no rotation happens, so what remains
-is the online-softmax attend itself, here in plain PyTorch (the JAX
-package runs it as XLA; no kernel is reached), trained through autograd.
-A sequence axis of any other size raises (ROADMAP queue A item 7).
+The ring keeps each rank's q shard resident, rotates the k/v shards
+(at Hkv heads, stacked into one message) around the sequence axis with
+``ppermute`` and accumulates the output with an f32 online softmax over
+the blocks as they arrive: the rank's own block first, then after r
+send-to-left hops the block of ring position (idx + r) mod n, n - 1 hops
+in all.  Causal and window masks use global positions, ``idx · S_local``
+plus the row.  The attend is plain PyTorch (the JAX package runs it as
+XLA; no kernel is reached), trained through autograd; on a sequence axis
+of size 1 no hop happens.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from .mesh import Mesh, collective
+from .collective import ppermute
+from .mesh import Mesh, axis_index, axis_size
 
 SEQ_AXIS = "seq"
 
@@ -40,8 +42,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` (requires ``causal``) keeps keys in (p - window, p]."""
     from ..ops.attention import validate_window
     window = validate_window(window, causal)
-    collective("ppermute", None, axis_name, mesh)  # a ring of one: no hop
-    idx = 0  # this device's position on the ring
+    n = axis_size(mesh, axis_name)
+    idx = axis_index(mesh, axis_name)  # this rank's position on the ring
     b, s_loc, h, d = q.shape
     hkv = k.shape[2]
     if h % hkv:
@@ -80,13 +82,24 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        device=q.device)
     acc = (zeros(b, hkv, g, s_loc, d), zeros(b, hkv, g, s_loc),
            torch.full((b, hkv, g, s_loc), float("-inf"), device=q.device))
-    if block_k is None:
-        acc = attend_chunk(acc, k, v, idx * s_loc)
-    else:
+
+    def attend(acc, k_blk, v_blk, src):
+        if block_k is None:
+            return attend_chunk(acc, k_blk, v_blk, src * s_loc)
         for c in range(s_loc // block_k):
             sl = slice(c * block_k, (c + 1) * block_k)
-            acc = attend_chunk(acc, k[:, sl], v[:, sl],
-                               idx * s_loc + c * block_k)
+            acc = attend_chunk(acc, k_blk[:, sl], v_blk[:, sl],
+                               src * s_loc + c * block_k)
+        return acc
+
+    acc = attend(acc, k, v, idx)                                 # own block
+    # send-to-left: after r hops the resident block is ring position
+    # (idx + r) mod n; k and v travel as one message
+    perm = [(i, (i - 1) % n) for i in range(n)]
+    kv = torch.stack([k, v])
+    for r in range(1, n):
+        kv = ppermute(kv, axis_name, perm, mesh)
+        acc = attend(acc, kv[0], kv[1], (idx + r) % n)
     num, den, _ = acc
     den = torch.where(den == 0.0, torch.ones_like(den), den)
     out = num / den[..., None]                               # (B,Hkv,G,S,Dh)
@@ -98,8 +111,9 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
                         block_k: Optional[int] = None,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Global (B, S, H, Dh) tensors in, sequence-sharded over
-    ``mesh[axis_name]``, ring attention, global tensor out.  On a sequence
-    axis of size 1 the shard is the whole sequence."""
+    """``ring_attention`` on a mesh whose sequence axis has size 1, where
+    the shard is the whole (B, S, H, Dh) sequence (the JAX wrapper shards
+    global arrays over the axis; across ranks, call ``ring_attention`` on
+    each rank's shard)."""
     return ring_attention(q, k, v, axis_name, causal, scale, block_k,
                           window, mesh=mesh)

@@ -1,16 +1,17 @@
 """Tensor-parallel building blocks, port of
-``distkeras_tpu/parallel/tp.py`` on one card.
+``distkeras_tpu/parallel/tp.py``.
 
 The Megatron pattern of the JAX package: a column-parallel product needs
 no communication, a row-parallel product ends in one ``psum`` over the
 model axis, so an MLP (column → gelu → row) and an attention block (q/k/v
-column-split by head, output row-split) each cost one collective.  The
-products keep the JAX rule: operands rounded to the compute dtype, an f32
-result (``preferred_element_type=f32``), the bias added in f32 after the
-"psum".  Each collective takes its axis size from ``mesh``
-(:func:`~.mesh.collective`): the identity at size 1, a raise above it.
-Weights are the full tensors, which on a model axis of size 1 are the
-local shards.
+column-split by head, output row-split) each cost one collective forward.
+Each block's input, which every model rank holds, enters through
+``pvary`` (identity forward, all-reduce backward: Megatron's other half,
+which JAX inserts from its types), so the input's gradient is whole on
+every rank.  The products keep the JAX rule: operands rounded to the
+compute dtype, an f32 result (``preferred_element_type=f32``), the bias
+added in f32 after the psum.  Weights are this rank's shards: (D, F/tp)
+columns, (F/tp, D) rows, the local heads.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.layers import _project
-from .mesh import Mesh, collective
+from .collective import psum, pvary
+from .mesh import Mesh
 
 MODEL_AXIS = "model"
 
@@ -40,8 +42,7 @@ def row_parallel_dense(x: torch.Tensor, kernel: torch.Tensor,
                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """psum(x_shard @ W_row_shard) in f32; the bias is added once, after
     the reduce."""
-    y = collective("psum", _project(x, kernel, None, compute_dtype),
-                   axis_name, mesh)
+    y = psum(_project(x, kernel, None, compute_dtype), axis_name, mesh)
     return y if bias is None else y + bias
 
 
@@ -56,6 +57,7 @@ def tp_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
            compute_dtype=torch.bfloat16,
            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Column → activation → row: the Megatron MLP, one psum."""
+    x = pvary(x, axis_name, mesh)
     h = column_parallel_dense(x, w1, b1, compute_dtype=compute_dtype)
     h = activation(h).to(compute_dtype)
     return row_parallel_dense(h, w2, b2, axis_name=axis_name,
@@ -88,6 +90,7 @@ def tp_self_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     from .ring import ring_attention
     from .ulysses import ulysses_attention
 
+    x = pvary(x, axis_name, mesh)
     b, s, _ = x.shape
     h, dh = num_local_heads, head_dim
     hkv = num_local_kv_heads if num_local_kv_heads is not None else h

@@ -1,32 +1,39 @@
-"""ParallelTransformerLM on one card, port of
+"""ParallelTransformerLM across ranks, port of
 ``distkeras_tpu/parallel/transformer.py``.
 
 The JAX class is a decoder-only LM whose one jitted train step shards the
 batch over a 'data' mesh axis, the sequence over 'seq' (ring or Ulysses
-attention) and heads and MLP weights over 'model' (Megatron tensor
-parallelism), inside one ``shard_map``.  The JAX package benchmarks it on
-a single-chip (1, 1, 1) mesh (``scripts/bench_transformer.py``), where
-every collective is the identity; that is the configuration ported here.
-The model is the same function: embedding, learned or RoPE positions, per
-layer a pre-LN block (f32 LayerNorm with population variance, eps 1e-5,
-scale only; head-parallel self-attention through the ``sp_impl``
-schedule; the tanh-GELU MLP), a final LayerNorm and an f32-accumulated
-head product; the loss is the token mean of the softmax cross-entropy,
-through the hand-written fused kernels (``ops/fused_ce.py``) when
-``fused_ce`` is set, else ``log_softmax`` and a gather.
+attention) and heads, MLP weights and Switch experts over 'model'
+(Megatron tensor parallelism, ``moe.py``), inside one ``shard_map``.  The
+port runs each mesh position as a rank of a ``torch.distributed`` group
+(``mesh.py``): every rank holds its shard of every parameter and runs the
+local forward with the collectives of ``collective.py``; a mesh of one
+device needs no group, and every collective is then the identity.  The
+model is the same function: embedding, learned or RoPE positions (sliced
+and rotated at this rank's global sequence offset), per layer a pre-LN
+block (f32 LayerNorm with population variance, eps 1e-5, scale only;
+head-parallel self-attention through the ``sp_impl`` schedule; the
+tanh-GELU MLP, or on ``moe_layers`` the expert-parallel MoE MLP), a final
+LayerNorm and an f32-accumulated head product; the loss is the global
+token mean of the softmax cross-entropy, through the hand-written fused
+kernels (``ops/fused_ce.py``) when ``fused_ce`` is set, else
+``log_softmax`` and a gather, plus the weighted Switch load-balance term
+of each MoE layer over router statistics averaged across every rank.
 
 Parameters are f32 tensors in a name → tensor dict, named after the JAX
-tree's leaves (``embed``, ``head``, ``layers.{i}.{b1, b2, ln1, ln2, w1,
-w2, wk, wo, wq, wv}``, ``ln_f``, ``pos``) and ordered as its leaves are;
-:func:`load_jax_params` copies a JAX ``init`` output into such a dict.
-MoE layers and mesh axes of more than one device raise (ROADMAP queue A
-item 7); ``param_specs`` (sharding annotations) is not ported.
+tree's leaves (``embed``, ``head``, ``layers.{i}.{b1, b2, ln1, ln2,
+[router,] w1, w2, wk, wo, wq, wv}``, ``ln_f``, ``pos``) and ordered as its
+leaves are, each this rank's shard under :meth:`param_specs`;
+:func:`load_jax_params` slices a full JAX tree into them and
+:func:`gather_params` puts shards (or gradients) back together.  Every
+parameter's gradient is summed over the axes in :meth:`grad_axes` by the
+train step (see ``collective.py`` for why).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,19 +43,28 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.layers import _project
 from ..device import torch_dtype
-from .mesh import Mesh, collective
+from .collective import gather_leaf, pmean, psum
+from .mesh import Mesh
+from .moe import load_balance_loss, moe_mlp
 from .tp import tp_mlp, tp_self_attention
 
 #: a dense layer's parameters, in the JAX tree's (sorted) leaf order
 LAYER_KEYS = ("b1", "b2", "ln1", "ln2", "w1", "w2", "wk", "wo", "wq", "wv")
+#: an MoE layer's parameters, in the JAX tree's (sorted) leaf order
+MOE_LAYER_KEYS = ("b1", "b2", "ln1", "ln2", "router", "w1", "w2", "wk",
+                  "wo", "wq", "wv")
 
 
 class ParallelTransformerLM:
-    """Causal LM over a ('data', 'seq', 'model') mesh of one device."""
+    """Causal LM over a ('data', 'seq', 'model') mesh, one rank a
+    position."""
 
     def __init__(self, vocab_size: int, seq_len: int, d_model: int,
                  num_heads: int, num_layers: int, mlp_dim: int, mesh: Mesh,
                  *, moe_layers: Tuple[int, ...] = (),
+                 num_experts: Optional[int] = None,
+                 capacity_factor: float = 2.0, router_top_k: int = 1,
+                 router_aux_weight: float = 1e-2,
                  compute_dtype=torch.bfloat16, remat: bool = False,
                  ring_block_k: Optional[int] = None, sp_impl: str = "ring",
                  fused_ce: bool = False,
@@ -65,6 +81,9 @@ class ParallelTransformerLM:
         self.mlp_dim = mlp_dim
         self.mesh = mesh
         self.moe_layers = tuple(moe_layers)
+        self.capacity_factor = capacity_factor
+        self.router_top_k = int(router_top_k)
+        self.router_aux_weight = float(router_aux_weight)
         self.compute_dtype = (compute_dtype
                               if isinstance(compute_dtype, torch.dtype)
                               else torch_dtype(compute_dtype))
@@ -115,39 +134,93 @@ class ParallelTransformerLM:
             raise ValueError(f"mlp_dim {mlp_dim} % tp {self.tp} != 0")
         if seq_len % self.sp:
             raise ValueError(f"seq_len {seq_len} % sp {self.sp} != 0")
-        # what one card does not run yet; the MoE knobs (num_experts,
-        # capacity_factor, router_top_k, router_aux_weight) come with it
-        if self.moe_layers:
-            raise NotImplementedError(
-                "moe_layers (Switch expert parallelism, parallel/moe.py) are "
-                "not ported yet (ROADMAP queue A item 7)")
-        for axis in self.axes:
-            collective("ParallelTransformerLM", None, axis, mesh)
-        self.device = mesh.device
+        self.num_experts = (num_experts if num_experts is not None
+                            else self.tp)
+        if self.moe_layers and self.num_experts % self.tp:
+            raise ValueError("num_experts must divide over the model axis")
+        self.device = mesh.device  # this rank's (binds a mesh of ranks)
         self.head_dim = d_model // num_heads
 
     # -- params ---------------------------------------------------------------
-    def _shapes(self) -> Dict[str, Tuple[int, ...]]:
-        """Every parameter's shape by name, in the JAX tree's leaf order."""
-        d, f, v = self.d_model, self.mlp_dim, self.vocab_size
+    def _layer_shapes(self, i: int) -> Dict[str, Tuple[Tuple[int, ...],
+                                                       Tuple]]:
+        """Layer ``i``'s (shape, spec) by leaf, in the JAX tree's order."""
+        d, f = self.d_model, self.mlp_dim
         hd = self.num_heads * self.head_dim
         hd_kv = self.num_kv_heads * self.head_dim
-        layer = {"b1": (f,), "b2": (d,), "ln1": (d,), "ln2": (d,),
-                 "w1": (d, f), "w2": (f, d), "wk": (d, hd_kv),
-                 "wo": (hd, d), "wq": (d, hd), "wv": (d, hd_kv)}
-        shapes = {"embed": (v, d), "head": (d, v)}
+        model = self.axes[2]
+        shapes = {"ln1": ((d,), ()), "ln2": ((d,), ()),
+                  "wq": ((d, hd), (None, model)),
+                  "wk": ((d, hd_kv), (None, model)),
+                  "wv": ((d, hd_kv), (None, model)),
+                  "wo": ((hd, d), (model, None))}
+        if i in self.moe_layers:
+            e = self.num_experts
+            shapes.update({"router": ((d, e), ()),
+                           "w1": ((e, d, f), (model, None, None)),
+                           "b1": ((e, f), (model, None)),
+                           "w2": ((e, f, d), (model, None, None)),
+                           "b2": ((e, d), (model, None))})
+        else:
+            shapes.update({"w1": ((d, f), (None, model)),
+                           "b1": ((f,), (model,)),
+                           "w2": ((f, d), (model, None)),
+                           "b2": ((d,), ())})
+        return {k: shapes[k] for k in sorted(shapes)}
+
+    def _shapes_and_specs(self) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
+        d, v = self.d_model, self.vocab_size
+        out = {"embed": ((v, d), ()), "head": ((d, v), ())}
         for i in range(self.num_layers):
-            shapes.update({f"layers.{i}.{k}": layer[k] for k in LAYER_KEYS})
-        shapes["ln_f"] = (d,)
+            out.update({f"layers.{i}.{k}": sp for k, sp in
+                        self._layer_shapes(i).items()})
+        out["ln_f"] = ((d,), ())
         if self.positional == "learned":  # rope has no additive table
-            shapes["pos"] = (self.seq_len, d)
-        return shapes
+            out["pos"] = ((self.seq_len, d), ())
+        return out
+
+    def _shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Every parameter's full shape by name, in the JAX tree's leaf
+        order."""
+        return {n: sp[0] for n, sp in self._shapes_and_specs().items()}
+
+    def param_specs(self) -> Dict[str, Tuple]:
+        """Every parameter's ``PartitionSpec`` as a plain tuple (one entry
+        per dim: a mesh axis name or None; ``()`` replicated), by name in
+        leaf order."""
+        return {n: sp[1] for n, sp in self._shapes_and_specs().items()}
+
+    def _local_slice(self, name: str, full: Tuple[int, ...]):
+        """This rank's index into the full leaf ``name``."""
+        spec = self.param_specs()[name]
+        index = []
+        for dim, size in enumerate(full):
+            axis = spec[dim] if dim < len(spec) else None
+            if axis is None:
+                index.append(slice(None))
+                continue
+            part = size // self.mesh.shape[axis]
+            start = self.mesh.axis_index(axis) * part
+            index.append(slice(start, start + part))
+        return tuple(index)
+
+    def grad_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """The axes over which each parameter's gradient is summed: every
+        parameter is used on this rank's part of the batch and sequence,
+        so 'data' and 'seq'; the MoE router also on this rank's token
+        slice, so 'model' too.  The other parameters meet the model axis
+        only through the Megatron pair and the gather of ``moe_mlp``,
+        which hand every model rank the whole gradient."""
+        data, seq, model = self.axes
+        return {n: ((data, seq, model) if n.endswith(".router")
+                    else (data, seq)) for n in self._shapes()}
 
     def init(self, generator: torch.Generator) -> Dict[str, nn.Parameter]:
-        """Fresh f32 parameters on the mesh's device, drawn from
-        ``generator`` (a CPU generator), by the JAX rules: LayerNorm scales
-        ones, biases zeros, ``embed``/``pos`` N(0, 0.02²), the other
-        matrices N(0, 1) / sqrt(fan_in) with fan_in = ``shape[-2]``."""
+        """Fresh f32 parameters on this rank's device, drawn from
+        ``generator`` (a CPU generator) whole, by the JAX rules, and cut
+        to this rank's shards: LayerNorm scales ones, biases zeros,
+        ``embed``/``pos`` N(0, 0.02²), the other matrices N(0, 1) /
+        sqrt(fan_in) with fan_in = ``shape[-2]``."""
         params = {}
         for name, shape in self._shapes().items():
             leaf = name.rsplit(".", 1)[-1]
@@ -161,6 +234,7 @@ class ParallelTransformerLM:
                 t = (torch.randn(shape, generator=generator)
                      / math.sqrt(max(shape[-2] if len(shape) > 1
                                      else shape[0], 1)))
+            t = t[self._local_slice(name, shape)].contiguous()
             params[name] = nn.Parameter(t.to(self.device))
         return params
 
@@ -172,8 +246,10 @@ class ParallelTransformerLM:
         return ((h32 - mu) * torch.rsqrt(var + 1e-5)
                 * scale).to(self.compute_dtype)
 
-    def _block(self, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-               rope_pos: Optional[torch.Tensor]) -> torch.Tensor:
+    def _block(self, i: int, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+               rope_pos: Optional[torch.Tensor]):
+        """Layer ``i`` on (B, S, D) ``x``: (x out, router stats or
+        None)."""
         _, seq_axis, model_axis = self.axes
         cdt = self.compute_dtype
         h = self._ln(lp["ln1"], x)
@@ -189,18 +265,31 @@ class ParallelTransformerLM:
             rope_scale=self.rope_scale, mesh=self.mesh)
         x = x + attn.to(cdt)
         h = self._ln(lp["ln2"], x)
-        y = tp_mlp(h, lp["w1"], lp["b1"], lp["w2"], lp["b2"],
-                   axis_name=model_axis, compute_dtype=cdt, mesh=self.mesh)
-        return x + y.to(cdt)
+        stats = None
+        if i in self.moe_layers:
+            # each model rank routes its own token slice; moe_mlp gathers
+            # the slices back, so every model rank holds the whole output
+            y, stats = moe_mlp(h, lp["router"], lp["w1"], lp["b1"],
+                               lp["w2"], lp["b2"], axis_name=model_axis,
+                               capacity_factor=self.capacity_factor,
+                               compute_dtype=cdt,
+                               router_top_k=self.router_top_k,
+                               mesh=self.mesh)
+        else:
+            y = tp_mlp(h, lp["w1"], lp["b1"], lp["w2"], lp["b2"],
+                       axis_name=model_axis, compute_dtype=cdt,
+                       mesh=self.mesh)
+        return x + y.to(cdt), stats
 
     def _forward(self, params: Dict[str, torch.Tensor],
-                 tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) → logits (B, S, V) f32.  (The JAX method also
-        returns the MoE layers' router statistics, which a dense stack
-        does not have.)"""
+                 tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        """This rank's tokens (B/dp, S/sp) → (logits (B/dp, S/sp, V) f32,
+        each MoE layer's router stats over this rank's token slice; an
+        empty list for a dense stack)."""
         cdt = self.compute_dtype
         s_loc = tokens.shape[1]
-        seq_idx = 0  # this device's position on the sequence axis
+        seq_idx = self.mesh.axis_index(self.axes[1])
         x = F.embedding(tokens.long(), params["embed"].to(cdt))
         if self.positional == "learned":
             pos = params["pos"][seq_idx * s_loc:(seq_idx + 1) * s_loc]
@@ -208,23 +297,29 @@ class ParallelTransformerLM:
         # rope: q/k rotate inside each block, by global positions
         rope_pos = (seq_idx * s_loc + torch.arange(s_loc, device=x.device)
                     if self.positional == "rope" else None)
+        router_stats = []
         for i in range(self.num_layers):
-            lp = {k: params[f"layers.{i}.{k}"] for k in LAYER_KEYS}
+            keys = MOE_LAYER_KEYS if i in self.moe_layers else LAYER_KEYS
+            lp = {k: params[f"layers.{i}.{k}"] for k in keys}
             if self.remat:
                 # recompute the block's activations in the backward instead
                 # of keeping them: the long-context memory/FLOPs trade
-                x = checkpoint(self._block, x, lp, rope_pos,
-                               use_reentrant=False)
+                x, stats = checkpoint(self._block, i, x, lp, rope_pos,
+                                      use_reentrant=False)
             else:
-                x = self._block(x, lp, rope_pos)
+                x, stats = self._block(i, x, lp, rope_pos)
+            if stats is not None:
+                router_stats.append(stats)
         x = self._ln(params["ln_f"], x)
-        return _project(x, params["head"], None, cdt)
+        return _project(x, params["head"], None, cdt), router_stats
 
     def _loss(self, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
-        """The token mean of the softmax cross-entropy, an f32 scalar."""
+        """The global token mean of the softmax cross-entropy plus the
+        weighted load-balance term of each MoE layer, an f32 scalar that
+        every rank holds."""
         data_axis, seq_axis, model_axis = self.axes
-        logits = self._forward(params, tokens)
+        logits, router_stats = self._forward(params, tokens)
         if self.fused_ce:
             from ..ops.fused_ce import fused_softmax_cross_entropy
             losses = fused_softmax_cross_entropy(
@@ -234,10 +329,22 @@ class ParallelTransformerLM:
             logp = torch.log_softmax(logits, dim=-1)
             picked = logp.gather(-1, labels.long()[..., None])[..., 0]
             local_sum = -picked.sum()
-        count = float(labels.numel())
-        total = collective("psum", local_sum, (data_axis, seq_axis),
-                           self.mesh)
-        return collective("pmean", total / count, model_axis, self.mesh)
+        total = psum(local_sum, (data_axis, seq_axis), self.mesh)
+        # the psum of the counts: every (data, seq) shard holds as many
+        count = float(labels.numel() * self.dp * self.sp)
+        # JAX pmeans the loss over 'model' here, a no-op in value that its
+        # varying-axes types need; every model rank holds this loss and
+        # its whole cotangent already (collective.py), which is that
+        # pmean's transpose for a value that does not vary over the axis
+        loss = total / count
+        for stats in router_stats:
+            # average the STATS over every shard, then form f·P once: the
+            # loss is then the same on any mesh shape
+            fp = pmean(torch.stack([stats["fraction"], stats["prob"]]),
+                       self.axes, self.mesh)
+            loss = loss + self.router_aux_weight * load_balance_loss(
+                {"fraction": fp[0], "prob": fp[1]})
+        return loss
 
     # -- train step -----------------------------------------------------------
     def compile_train_step(self, optimizer, params: Dict[str, torch.Tensor],
@@ -247,17 +354,34 @@ class ParallelTransformerLM:
         ``core.optimizers.Transform`` (``core.optimizers.adam`` for
         ``optax.adam``), tokens and labels (B, S) integer tensors on
         :meth:`batch_sharding`'s device, and the parameters updated in
-        place.  ``zero``/``fsdp`` shard the optimizer state (and the
-        parameters) over the data axis, which on one card changes nothing."""
+        place.  Tokens and labels are this rank's block (:meth:`shard_batch`).
+        ``zero``/``fsdp`` shard the optimizer state (and the parameters)
+        over the data axis, which at data-axis size 1 changes nothing."""
         from .train_step import build_train_step
         data_axis = self.axes[0]
         return build_train_step(self.mesh, self._loss, optimizer, params,
                                 zero_axis=data_axis if zero else None,
-                                fsdp_axis=data_axis if fsdp else None)
+                                fsdp_axis=data_axis if fsdp else None,
+                                grad_axes=self.grad_axes())
 
     def batch_sharding(self) -> torch.device:
-        """Where a batch goes: the mesh's one device."""
+        """Where this rank's batch goes: its device."""
         return self.device
+
+    def shard_batch(self, batch) -> torch.Tensor:
+        """A global (B, S) batch (numpy or tensor) → this rank's
+        (B/dp, S/sp) block on its device, the block that JAX's
+        ``P('data', 'seq')`` gives the same mesh position."""
+        t = torch.as_tensor(batch)
+        b, s = t.shape
+        if b % self.dp or s % self.sp:
+            raise ValueError(f"batch {tuple(t.shape)} does not split over "
+                             f"dp={self.dp}, sp={self.sp}")
+        bi = self.mesh.axis_index(self.axes[0])
+        si = self.mesh.axis_index(self.axes[1])
+        bl, sl = b // self.dp, s // self.sp
+        return t[bi * bl:(bi + 1) * bl, si * sl:(si + 1) * sl].contiguous(
+            ).to(self.device)
 
 
 def _jax_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -275,10 +399,12 @@ def _jax_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 def load_jax_params(lm: ParallelTransformerLM,
                     tree: Any) -> Dict[str, nn.Parameter]:
-    """The JAX ``ParallelTransformerLM.init`` output, as nested dicts and
-    lists of arrays (``jax.device_get(params)``), as the port's parameter
-    dict: f32 tensors on ``lm``'s device.  Every name and every shape is
-    checked against ``lm``."""
+    """The JAX ``ParallelTransformerLM.init`` output, whole, as nested
+    dicts and lists of arrays (``jax.device_get(params)``; a flat dict
+    keyed by leaf name, ``layers.0.wq``, is taken too), as the port's
+    parameter dict: each leaf sliced by its spec at this rank's
+    coordinates, f32 tensors on this rank's device.  Every name and every
+    full shape is checked against ``lm``."""
     given = dict(_jax_leaves(tree))
     shapes = lm._shapes()
     missing = sorted(set(shapes) - set(given))
@@ -292,5 +418,27 @@ def load_jax_params(lm: ParallelTransformerLM,
         if arr.shape != shape:
             raise ValueError(f"parameter {name}: shape {arr.shape} does not "
                              f"match the model's {shape}")
-        params[name] = nn.Parameter(torch.tensor(arr, device=lm.device))
+        local = np.ascontiguousarray(arr[lm._local_slice(name, shape)])
+        params[name] = nn.Parameter(torch.tensor(local, device=lm.device))
     return params
+
+
+def gather_params(lm: ParallelTransformerLM,
+                  params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The shards of ``params`` (parameters, or gradients of the same
+    shapes) put back together: the full tree as JAX lays it out (a dict
+    with a ``layers`` list of dicts), numpy f32 arrays in JAX leaf order,
+    on every rank (a collective: every rank calls it)."""
+    tree: Dict[str, Any] = {"layers": [{} for _ in range(lm.num_layers)]}
+    for name, spec in lm.param_specs().items():
+        t = params[name]
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                t = gather_leaf(t, axis, dim, lm.mesh)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            tree["layers"][int(parts[1])][parts[2]] = arr
+        else:
+            tree[name] = arr
+    return tree

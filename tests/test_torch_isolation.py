@@ -2,11 +2,12 @@
 of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
 ``tools/compare_simt_builds.py``, ``tools/time_simt_builds.py``,
 ``tools/simt_backward_share.py``, ``tools/simt_forward_share.py``,
-``tools/host_ps_threads.py``), imports
+``tools/host_ps_threads.py``, ``tools/gloo_device_ops.py``), imports
 jax or the JAX package; importing the port pulls in no jax; and its
 entry points refuse to drop to the CPU when no CUDA card is present."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +18,7 @@ import torch
 import distkeras_tpu_torch as port
 from distkeras_tpu_torch import (Dense, FittedModel, ModelPredictor,
                                  Sequential, transformer_lm)
+from distkeras_tpu_torch.job_deployment import Job
 
 torch.set_num_threads(1)
 
@@ -34,7 +36,8 @@ def port_files():
                     ROOT / "tools" / "time_simt_builds.py",
                     ROOT / "tools" / "simt_backward_share.py",
                     ROOT / "tools" / "simt_forward_share.py",
-                    ROOT / "tools" / "host_ps_threads.py"]
+                    ROOT / "tools" / "host_ps_threads.py",
+                    ROOT / "tools" / "gloo_device_ops.py"]
 
 
 def imported_roots(path):
@@ -60,7 +63,8 @@ NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "parameter_servers.py", "workers.py", "applykernel.py",
                "ps_sharding.py", "streaming.py", "job_deployment.py",
                "ps_worker_main.py", "ps_shard_main.py",
-               "deployment_online.py")
+               "deployment_online.py", "parallel/moe.py",
+               "parallel/collective.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -104,7 +108,9 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.job_deployment, "
             "distkeras_tpu_torch.ps_worker_main, "
             "distkeras_tpu_torch.ps_shard_main, "
-            "distkeras_tpu_torch.deployment_online; "
+            "distkeras_tpu_torch.deployment_online, "
+            "distkeras_tpu_torch.parallel.moe, "
+            "distkeras_tpu_torch.parallel.collective; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")
@@ -112,6 +118,43 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_a_rank_started_through_initialize_from_env_loads_no_jax(tmp_path):
+    """A rank child of a coordinated ``Job`` of 2 processes, joined through
+    ``initialize_from_env`` over gloo, runs the MoE layer across both
+    ranks and has loaded neither jax nor the JAX package."""
+    import torch_ranks as tr
+    script = tmp_path / "rank.py"
+    script.write_text(
+        "import sys, numpy as np, torch\n"
+        "from distkeras_tpu_torch.job_deployment import "
+        "initialize_from_env\n"
+        "initialize_from_env()\n"
+        "from distkeras_tpu_torch.parallel import Mesh, moe\n"
+        "mesh = Mesh(np.array(['cpu'] * 2, dtype=object), ('model',))\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "x, r = torch.randn(2, 4, 8, generator=g), torch.randn(8, 4)\n"
+        "w1, w2 = torch.randn(2, 8, 16), torch.randn(2, 16, 8)\n"
+        "y, _ = moe.moe_mlp(x, r, w1, torch.zeros(2, 16), w2, "
+        "torch.zeros(2, 8), mesh=mesh)\n"
+        "assert y.shape == (2, 4, 8)\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(BANNED)!r}))\n")
+    job = Job("iso", str(script), hosts=["127.0.0.1"] * 2, backend="gloo",
+              coordinator_port=tr.free_port(),
+              env={"OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)})
+    assert job.host_env(0)["DISTKERAS_TPU_BACKEND"] == "gloo"
+    outs = []
+    procs = [subprocess.Popen([sys.executable, str(script)],
+                              env=dict(os.environ, **job.host_env(i)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        outs.append(out.strip())
+    assert outs == ["[]", "[]"]
 
 
 @pytest.mark.parametrize("main", ["ps_worker_main", "ps_shard_main"])

@@ -9,7 +9,9 @@ the JAX package's, on the CPU.
    command, and a punchcard queue written by the JAX package is drained by
    the port.
  - ``initialize_from_env`` returns for uncoordinated and one-process runs,
-   as the JAX one does, and refuses a coordinated group (item 7).
+   as the JAX one does, and joins a coordinated group through
+   ``parallel.mesh.initialize`` (a real 2-process group runs in
+   ``tests/test_torch_collectives.py``).
 """
 
 
@@ -162,13 +164,27 @@ with open({str(out)!r}, "a") as f:
 
 
 def test_initialize_from_env_refuses_a_coordinated_group(monkeypatch):
+    """A coordinated group of more than one process is no longer refused:
+    it joins the process group through ``parallel.mesh.initialize`` with
+    the rendered coordinator, process count and id (and backend, when the
+    Job names one); a group of one and an uncoordinated run do nothing."""
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+    calls = []
+    monkeypatch.setattr(mesh_lib, "initialize",
+                        lambda *a, **k: calls.append((a, k)))
     job = Job("j", "train.py", hosts=["a", "b"])
     for k, v in job.host_env(1).items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        pjd.initialize_from_env()
+    monkeypatch.delenv("DISTKERAS_TPU_BACKEND", raising=False)
+    pjd.initialize_from_env()
+    assert calls == [((f"a:{pjd.COORDINATOR_PORT}", 2, 1),
+                      {"backend": None})]
+    assert "DISTKERAS_TPU_BACKEND" not in job.host_env(0)
+    assert Job("j", "t.py", hosts=["a", "b"], backend="gloo").host_env(0)[
+        "DISTKERAS_TPU_BACKEND"] == "gloo"
     # a coordinated group of one is a single-process run
     monkeypatch.setenv("DISTKERAS_TPU_NUM_PROCESSES", "1")
     pjd.initialize_from_env()
     monkeypatch.delenv("DISTKERAS_TPU_COORDINATOR")
     pjd.initialize_from_env()
+    assert len(calls) == 1

@@ -185,7 +185,8 @@ def test_forward_logits_match_jax(name):
     lm = port_lm(name, False)
     params = load_jax_params(lm, want["tree"])
     with torch.no_grad():
-        logits = lm._forward(params, tensors(*batch())[0])
+        logits, router_stats = lm._forward(params, tensors(*batch())[0])
+    assert router_stats == []  # a dense stack routes nothing
     assert logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), want["logits"], rtol=0,
                                atol=1e-5)
@@ -400,6 +401,10 @@ def test_load_jax_params_checks_names_and_shapes(bad):
 
 @pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 1), (2, 1, 1)])
 def test_a_mesh_axis_above_one_raises(shape):
+    """A mesh of two devices runs one rank a position over
+    torch.distributed: without a process group (this process joined none)
+    the LM and a collective over the axis refuse, and a mesh of one
+    process over several devices stays unported (item 7)."""
     devices = np.array(["cpu"] * 2, dtype=object).reshape(shape)
     mesh = Mesh(devices)
     assert dict(mesh.shape) == dict(zip(("data", "seq", "model"), shape))
@@ -413,8 +418,21 @@ def test_a_mesh_axis_above_one_raises(shape):
 
 
 def test_moe_layers_and_a_ring_across_cards_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        ParallelTransformerLM(**TINY, mesh=port_mesh(), moe_layers=(1,))
+    """MoE layers are ported (tests/test_torch_moe.py): what raises is the
+    JAX class's check on the expert count, and a ring across a mesh of two
+    devices without a process group (item 7)."""
+    lm = ParallelTransformerLM(**TINY, mesh=port_mesh(), moe_layers=(1,),
+                               num_experts=4)
+    assert lm._shapes()["layers.1.w1"] == (4, 16, 32)
+    assert lm._shapes()["layers.1.router"] == (16, 4)
+    two = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 1, 2))
+    with pytest.raises(ValueError, match="num_experts"):
+        JaxLM(**TINY, mesh=JaxMesh(np.array(jax.devices()[:2]).reshape(
+            1, 1, 2), ("data", "seq", "model")), moe_layers=(1,),
+            num_experts=3)
+    with pytest.raises(ValueError, match="num_experts"):
+        ParallelTransformerLM(**TINY, mesh=two, moe_layers=(1,),
+                              num_experts=3)
     mesh = Mesh(np.array(["cpu"] * 2, dtype=object), axis_names=("seq",))
     q = torch.zeros(1, 4, 2, 4)
     with pytest.raises(NotImplementedError, match="queue A item 7"):

@@ -1,0 +1,284 @@
+"""Rank processes for the port's multi-rank tests on the CPU.
+
+A test starts its ranks once, together, as a coordinated
+``job_deployment.Job`` of n local processes over gloo (:class:`Ranks`):
+each runs this file as a script, joins the group through
+``job_deployment.initialize_from_env``, runs the cases of a JSON spec and
+pickles its results under the test's ``tmp_path``.  A rank that raises
+writes its traceback and leaves at once, so that its peers' collectives
+fail rather than wait; the parent waits for every rank under one
+timeout and kills them all when it runs out.
+
+The cases:
+- ``collectives``: every collective of ``parallel/collective.py`` on a
+  mesh of CPU ranks, forward and backward against a seeded cotangent
+  (:func:`op_inputs`, :func:`cotangent`: the tests rebuild both);
+- ``lm``: ``ParallelTransformerLM`` from a numpy tree (:func:`lm_tree`):
+  the step-1 loss and its gradients reduced by the train step's rule and
+  gathered, then the losses of three Adam steps.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: the collectives each case runs: (name, op, axes, keywords, the output
+#: every rank of the axes holds alike)
+ONE_AXIS_OPS = (
+    ("psum", "psum", ("x",), {}, True),
+    ("pmean", "pmean", ("x",), {}, True),
+    ("pvary", "pvary", ("x",), {}, False),
+    ("all_gather0", "all_gather", ("x",), {"axis": 0}, True),
+    ("all_gather1", "all_gather", ("x",), {"axis": 1}, True),
+    ("all_to_all01", "all_to_all", ("x",), {"split_axis": 0,
+                                            "concat_axis": 1}, False),
+    ("all_to_all10", "all_to_all", ("x",), {"split_axis": 1,
+                                            "concat_axis": 0}, False),
+    ("all_to_all00", "all_to_all", ("x",), {"split_axis": 0,
+                                            "concat_axis": 0}, False),
+    ("ppermute_ring", "ppermute", ("x",), {"shift": -1}, False),
+    ("ppermute_one", "ppermute", ("x",), {"pairs": [[0, 1]]}, False),
+)
+TWO_AXIS_OPS = (
+    ("psum_a", "psum", ("a",), {}, True),
+    ("psum_b", "psum", ("b",), {}, True),
+    ("psum_ab", "psum", ("a", "b"), {}, True),
+    ("pmean_ab", "pmean", ("a", "b"), {}, True),
+    ("pvary_b", "pvary", ("b",), {}, False),
+    ("all_gather_b", "all_gather", ("b",), {"axis": 1}, True),
+    ("all_to_all_a", "all_to_all", ("a",), {"split_axis": 1,
+                                            "concat_axis": 0}, False),
+    ("ppermute_b", "ppermute", ("b",), {"shift": 1}, False),
+)
+SHAPE = (4, 8)
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def perm_of(kw, n):
+    if "pairs" in kw:
+        return [tuple(p) for p in kw["pairs"]]
+    return [(i, (i + kw["shift"]) % n) for i in range(n)]
+
+
+def group_key(coords, axis_names, axes):
+    """The coordinates that name a rank's group over ``axes``."""
+    return tuple(c for a, c in zip(axis_names, coords) if a not in axes)
+
+
+def op_inputs(name, rank, coords, axis_names, axes, replicated_in):
+    """A rank's input to collective ``name``: the same on every rank of
+    the group where the op takes a value every rank holds (``pvary``)."""
+    key = (group_key(coords, axis_names, axes) if replicated_in
+           else (rank,))
+    seed = [sum(map(ord, name)), 1, *key]
+    return np.random.default_rng(seed).standard_normal(SHAPE).astype(
+        np.float32)
+
+
+def cotangent(name, rank, coords, axis_names, axes, same, shape):
+    key = group_key(coords, axis_names, axes) if same else (rank,)
+    seed = [sum(map(ord, name)), 2, *key]
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def lm_tree(shapes, seed):
+    """Weights for every leaf of ``shapes`` (name → full shape), drawn
+    with numpy by the JAX init's rules, LayerNorm scales and biases
+    perturbed so their gradients are not those of ones and zeros; the
+    JAX tree's layout."""
+    rng = np.random.default_rng(seed)
+    layers = sorted({int(n.split(".")[1]) for n in shapes
+                     if n.startswith("layers.")})
+    tree = {"layers": [{} for _ in layers]}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        z = rng.standard_normal(shape)
+        if leaf.startswith("ln"):
+            z = 1.0 + 0.1 * z
+        elif leaf.startswith("b"):
+            z = 0.1 * z
+        elif leaf in ("embed", "pos"):
+            z = 0.02 * z
+        else:
+            z = z / np.sqrt(shape[-2])
+        parts = name.split(".")
+        if parts[0] == "layers":
+            tree["layers"][int(parts[1])][parts[2]] = z.astype(np.float32)
+        else:
+            tree[name] = z.astype(np.float32)
+    return tree
+
+
+def lm_batch(cfg, batch, seed):
+    rng = np.random.default_rng(seed)
+    v = cfg["vocab_size"]
+    toks = rng.integers(0, v, (batch, cfg["seq_len"])).astype(np.int32)
+    return toks, (toks + 1) % v
+
+
+class Ranks:
+    """n ranks over gloo, started at once as a coordinated ``Job`` that
+    runs the cases of ``spec``; :meth:`results` waits for them."""
+
+    def __init__(self, n, spec, tmp_path, timeout=120.0):
+        from distkeras_tpu_torch.job_deployment import Job, LocalJobRunner
+        self.n, self.out = n, Path(tmp_path)
+        self.out.mkdir(parents=True, exist_ok=True)
+        spec_path = self.out / "spec.json"
+        spec_path.write_text(json.dumps(spec))
+        env = {"OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join(
+                   [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+        self.job = Job("ranks", __file__, args=[str(spec_path),
+                                                str(self.out)],
+                       hosts=["127.0.0.1"] * n, env=env,
+                       coordinator_port=free_port(), backend="gloo")
+        self.deadline = time.monotonic() + timeout
+        self.job.run(LocalJobRunner(), wait=False)
+        self._results = None
+
+    def results(self):
+        if self._results is not None:
+            return self._results
+        codes = []
+        try:
+            for p in self.job.processes:
+                left = max(self.deadline - time.monotonic(), 0.1)
+                codes.append(p.wait(timeout=left))
+        except subprocess.TimeoutExpired:
+            for p in self.job.processes:
+                p.kill()
+                p.wait()
+            raise AssertionError(f"{self.n} ranks did not finish in time")
+        errs = [f.read_text() for f in sorted(self.out.glob("rank*.err"))]
+        assert codes == [0] * self.n and not errs, (codes, errs)
+        self._results = [pickle.loads((self.out / f"rank{r}.pkl")
+                                      .read_bytes()) for r in range(self.n)]
+        return self._results
+
+
+# -- inside a rank ---------------------------------------------------------------
+def _collectives(case, rank):
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, collective
+    shape, names = tuple(case["shape"]), tuple(case["axis_names"])
+    mesh = Mesh(np.array(["cpu"] * int(np.prod(shape)),
+                         dtype=object).reshape(shape), names)
+    ops = ONE_AXIS_OPS if len(names) == 1 else TWO_AXIS_OPS
+    out = {"coords": mesh.coords, "rank": mesh.rank,
+           "axis_index": {a: mesh.axis_index(a) for a in names}}
+    for name, op, axes, kw, same in ops:
+        x = torch.from_numpy(op_inputs(name, rank, mesh.coords, names, axes,
+                                       op == "pvary")).requires_grad_()
+        if op == "ppermute":
+            y = collective.ppermute(x, axes[0],
+                                    perm_of(kw, mesh.shape[axes[0]]), mesh)
+        elif op in ("all_gather", "all_to_all"):
+            y = getattr(collective, op)(x, axes[0], mesh=mesh, **kw)
+        else:
+            y = getattr(collective, op)(x, axes, mesh)
+        c = torch.from_numpy(cotangent(name, rank, mesh.coords, names,
+                                       axes, same, tuple(y.shape)))
+        g, = torch.autograd.grad((y * c).sum(), x)
+        out[name] = (y.detach().numpy(), g.numpy())
+    return out
+
+
+def _lm(case, rank):
+    import torch
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              gather_params, load_jax_params)
+    from distkeras_tpu_torch.parallel.train_step import reduce_grads
+    shape, cfg = tuple(case["shape"]), case["cfg"]
+    mesh = Mesh(np.array(["cpu"] * int(np.prod(shape)),
+                         dtype=object).reshape(shape))
+    lm = ParallelTransformerLM(**cfg, mesh=mesh, compute_dtype="float32")
+    tree = lm_tree(lm._shapes(), case["seed"])
+    toks, labels = lm_batch(cfg, case["batch"], case["seed"] + 1)
+    toks, labels = lm.shard_batch(toks), lm.shard_batch(labels)
+    params = load_jax_params(lm, tree)
+    loss = lm._loss(params, toks, labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    axes = lm.grad_axes()
+    grads = reduce_grads(list(grads), [axes[n] for n in params], mesh)
+    with torch.no_grad():
+        _, stats = lm._forward(params, toks)
+    out = {"loss": loss.item(), "coords": mesh.coords,
+           "grads": gather_params(lm, dict(zip(params, grads))),
+           "dropped": [float(s["dropped"]) for s in stats],
+           "local_shapes": {n: tuple(p.shape) for n, p in params.items()}}
+    params = load_jax_params(lm, tree)
+    opt_state, step = lm.compile_train_step(
+        optimizers.adam(case["lr"], eps=1e-4), params)
+    losses = []
+    for _ in range(case["steps"]):
+        params, opt_state, loss = step(params, opt_state, toks, labels)
+        losses.append(float(loss))
+    out["losses"] = losses
+    return out
+
+
+def _env(case, rank):
+    import torch.distributed as dist
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, psum
+    mesh = Mesh(np.array(["cpu"] * dist.get_world_size(), dtype=object),
+                ("x",))
+    total = psum(torch.tensor([float(rank + 1)]), "x", mesh)
+    return {"backend": str(dist.get_backend()), "rank": dist.get_rank(),
+            "world": dist.get_world_size(), "psum": float(total),
+            "process_id": os.environ["DISTKERAS_TPU_PROCESS_ID"],
+            "comm_stats": {op: (st["calls"], st["bytes"])
+                           for op, st in mesh.comm_stats.items()},
+            "modules": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "distkeras_tpu"))}
+
+
+RUNNERS = {"collectives": _collectives, "lm": _lm, "env": _env}
+
+
+def main(spec_path, out_dir):
+    import torch
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    rank = os.environ.get("DISTKERAS_TPU_PROCESS_ID", "?")
+    try:
+        from distkeras_tpu_torch.job_deployment import initialize_from_env
+        initialize_from_env()
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        spec = json.loads(Path(spec_path).read_text())
+        results = {c["name"]: RUNNERS[c["kind"]](c, rank)
+                   for c in spec["cases"]}
+        (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(results))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        sys.stderr.flush()
+        os._exit(1)  # closes this rank's sockets: its peers fail, not wait
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])
