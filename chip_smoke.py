@@ -670,8 +670,8 @@ PREFIX_USERS = 8
 PREFIX_HIT_MIN = 224 * 15
 PAGED_TIGHT = 2
 # speculation and quantization in the engine (ROADMAP queue A item 4): phase
-# serve's engine and trace (bf16, full width, both forms, 8 slots, chunks
-# of 128) with spec_len SPEC_DRAFT_LEN, drafted by the target itself and
+# serve's engine and trace (bf16, full width, the forms of SPEC_FORMS, 8
+# slots, chunks of 128) with spec_len SPEC_DRAFT_LEN, drafted by the target itself and
 # by a SPEC_DRAFT_LAYERS-layer draft of the same widths; the target and
 # that draft are first trained on the card on phase train's x+1 task
 # (SPEC_TRAIN_ROWS rows of seq 2048, batch 8, SPEC_TRAIN_EPOCHS epochs,
@@ -692,6 +692,10 @@ SPEC_CHECK_REQUESTS, SPEC_CHECK_STEPS = 3, 32  # depth cut, PERF.md §4
 # the forms whose speculative rounds are profiled (host calls and busy
 # time a round): the full form (depth cut from both forms, PERF.md §4)
 SPEC_PROFILE_FORMS = ("full",)
+# the forms whose bf16 engines run the trace and the arith trace: the full
+# form (depth cut from both forms, PERF.md §4; the f32 checks still take
+# both)
+SPEC_FORMS = ("full",)
 # multi-tenant QoS and preemption in the engine (ROADMAP queue A item 4):
 # the LM at full width, bf16, form full (a rolling pool cannot preempt),
 # paged with PAGED_BLOCK-token blocks, SERVE_SLOTS slots, chunks of
@@ -855,10 +859,11 @@ RESILIENCE_LM_FAULTS = {1: ("raise", 2)}
 # socket with the driver; at phase host_ps's widths.  (a) the static
 # engine: ADAG, one worker process, serial, on HOST_PS_ALGO_WINDOWS
 # windows (cuDNN deterministic) against the same run on host_ps: equal
-# weights and histories; then the ConvNet for one epoch at
-# PROCESS_PS_SCALING worker processes, examples/s beside phase host_ps's
-# threads (every child's loss falls, held-out accuracy >=
-# RESILIENCE_ACC_MIN); fault_tolerance with PROCESS_PS_FT_FAULTS:
+# weights and histories; then the ConvNet for one epoch at each of
+# PROCESS_PS_SCALING worker processes (none now: PRs 20-21 hold the
+# numbers of 1, 2 and 4), examples/s beside phase host_ps's threads
+# (every child's loss falls, held-out accuracy >= RESILIENCE_ACC_MIN);
+# fault_tolerance with PROCESS_PS_FT_FAULTS:
 # failed_workers == [1].  (b) the supervised engine: DOWNPOUR (adam) with
 # 2 worker processes for RESILIENCE_EPOCHS epochs, elastic, recovery,
 # ps_shards 2 in shard processes of their own (ps_placement="process"),
@@ -878,7 +883,7 @@ RESILIENCE_LM_FAULTS = {1: ("raise", 2)}
 # a logging nvcc first on PATH: one nvcc, both load the library and hold
 # one launch against the plain version.  No run logs "short of".  The
 # scaling runs alone (it is timed); the other legs run side by side.
-PROCESS_PS_SCALING = (2,)  # depth cut from (1, 2, 4), PERF.md section 4
+PROCESS_PS_SCALING = ()  # depth cut from (1, 2, 4), PERF.md section 4
 PROCESS_PS_FT_FAULTS = {1: ("exit", 1)}
 PROCESS_PS_FREEZE_S = 3.0
 # streaming online training, hot weight reload and the online deployment
@@ -958,6 +963,40 @@ MOE_RANKS, MOE_RANK_LAYERS, MOE_RANK_CAPACITY = 2, 2, 8.0
 MOE_RANK_BATCH, MOE_RANK_STEPS, MOE_RANK_EPS = 2, 2, 1e-4
 MOE_RANK_PARAM_RTOL = 1e-2
 MOE_RANK_TIMEOUT_S = 300.0
+# The pipeline (GPipe and 1F1B), PipelineTransformerLM and ZeRO-1/FSDP
+# (ROADMAP queue A item 7).  (a) One rank, mesh (1, 1) ('data', 'stage'):
+# PipelineTransformerLM at the PLM's widths (vocab 32768, seq 2048,
+# d_model 512, 8 heads, 8 layers, mlp 2048; learned positions, as the JAX
+# class has no RoPE), bf16, batch PLM_BATCH, PLM_STEPS steps of
+# adam(PLM_LR) from one numpy-seeded weight set through load_jax_params,
+# for each schedule at each M of PP_MICRO: finite losses that fall, ms a
+# step, tokens/s, the peak memory, and per step exactly 8 M sm90 training
+# forwards, dq and dk/dv (GPipe; 0 inference forwards) or 8 M inference
+# forwards beside them (1F1B: the tick's forward under no_grad, its
+# recompute with grad), nothing on simt.  (b) PP_RANKS ranks on the one
+# card over gloo, started as a coordinated job_deployment.Job through
+# initialize_from_env while (a) runs, mesh (1, PP_RANKS): full width at
+# bf16, cut to PP_RANK_LAYERS layers (one a stage), batch PP_RANK_BATCH,
+# M = PP_RANK_MICRO, PP_RANK_STEPS steps of each schedule, against a
+# one-rank run of the same weights and batch in this process: losses
+# within PP_RANK_LOSS_RTOL, gathered parameters within MOE_RANK_PARAM_RTOL
+# of each tensor's largest update (whether they agree to the bit is
+# printed), each rank's launches those of its one layer.  (c) The same
+# ranks on mesh (PP_RANKS, 1, 1): ParallelTransformerLM at the PLM's
+# widths on the fused Ulysses route, f32, cut to ZERO_RANK_LAYERS layers,
+# batch ZERO_RANK_BATCH (a row a rank), ZERO_RANK_STEPS steps of adam
+# (eps MOE_RANK_EPS) each with zero=False, zero=True and fsdp=True: losses
+# and gathered parameters of the three within ZERO_RTOL (JAX's own band,
+# tests/test_zero.py:66), and each rank's Adam moment bytes (ZeRO, FSDP)
+# and parameter bytes at rest (FSDP) equal to what the slicing rule gives
+# from the shapes (computed here, not read from an allocator).
+PP_LM = dict(vocab_size=32768, seq_len=2048, d_model=512, num_heads=8,
+             num_layers=8, mlp_dim=2048)
+PP_SCHEDULES, PP_MICRO = ("gpipe", "1f1b"), (2, 8)
+PP_RANKS, PP_RANK_LAYERS, PP_RANK_BATCH, PP_RANK_MICRO = 2, 2, 4, 2
+PP_RANK_STEPS, PP_RANK_LOSS_RTOL = 2, 1e-4
+ZERO_RANK_LAYERS, ZERO_RANK_BATCH, ZERO_RANK_STEPS, ZERO_RTOL = 2, 2, 2, 1e-6
+PP_RANK_TIMEOUT_S = 300.0
 
 
 def emit(obj) -> None:
@@ -1888,24 +1927,28 @@ def phase_memory_ce():
     torch.cuda.empty_cache()
 
 
+def _draw_leaf(name: str, shape, rng):
+    """A leaf drawn from a numpy seed by the JAX init's rules: LayerNorm
+    scales ones, biases zeros, ``embed``/``pos`` N(0, 0.02²), the other
+    matrices N(0, 1) / sqrt(fan_in)."""
+    import numpy as np
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.startswith("ln"):
+        return np.ones(shape, np.float32)
+    if leaf.startswith("b"):
+        return np.zeros(shape, np.float32)
+    if leaf in ("embed", "pos"):
+        return 0.02 * rng.standard_normal(shape, dtype=np.float32)
+    return (rng.standard_normal(shape, dtype=np.float32)
+            / np.float32(np.sqrt(shape[-2])))
+
+
 def _parallel_tree(lm, rng):
     """Weights in the JAX ``ParallelTransformerLM`` tree's layout (nested
-    dicts, a list of layers), drawn from a numpy seed by the JAX init's
-    rules: LayerNorm scales ones, biases zeros, ``embed`` N(0, 0.02²),
-    the other matrices N(0, 1) / sqrt(fan_in)."""
-    import numpy as np
+    dicts, a list of layers), drawn by :func:`_draw_leaf`."""
     tree = {"layers": [{} for _ in range(lm.num_layers)]}
     for name, shape in lm._shapes().items():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf.startswith("ln"):
-            w = np.ones(shape, np.float32)
-        elif leaf.startswith("b"):
-            w = np.zeros(shape, np.float32)
-        elif leaf in ("embed", "pos"):
-            w = 0.02 * rng.standard_normal(shape, dtype=np.float32)
-        else:
-            w = (rng.standard_normal(shape, dtype=np.float32)
-                 / np.float32(np.sqrt(shape[-2])))
+        w = _draw_leaf(name, shape, rng)
         parts = name.split(".")
         if parts[0] == "layers":
             tree["layers"][int(parts[1])][parts[2]] = w
@@ -4130,8 +4173,9 @@ def _spec_checks(card: str, dev: str, trace, rng) -> dict:
 
 
 def phase_spec(card: str, dev: str = "cuda"):
-    """Speculation and quantization in the engine on the card: per form a
-    target and a SPEC_DRAFT_LAYERS-layer draft trained on the x+1 task,
+    """Speculation and quantization in the engine on the card: per form
+    of SPEC_FORMS a target and a SPEC_DRAFT_LAYERS-layer draft trained on
+    the x+1 task,
     then (counts from 0) phase serve's trace through the plain graph
     engine, the self-drafted and the trained-draft speculative graph
     engines, the trained-draft one twice (sampled rows repeat) and paged,
@@ -4150,8 +4194,8 @@ def phase_spec(card: str, dev: str = "cuda"):
     rng = np.random.default_rng(SEED + 17)
     trace = _serve_trace(np.random.default_rng(SEED + 15))
     arith = _arith_trace(rng)
-    pairs = {form: _spec_pair(extra, rng, dev)
-             for form, (extra, _) in SERVE_FORMS.items()}
+    pairs = {form: _spec_pair(SERVE_FORMS[form][0], rng, dev)
+             for form in SPEC_FORMS}
     for form, (_, _, hist, seconds) in pairs.items():
         emit({"phase": "spec_train", "form": form,
               "epochs": SPEC_TRAIN_EPOCHS, "rows": SPEC_TRAIN_ROWS,
@@ -4162,7 +4206,8 @@ def phase_spec(card: str, dev: str = "cuda"):
     spec = dict(spec_len=SPEC_DRAFT_LEN)
     paged = dict(paged=True, block_size=PAGED_BLOCK)
     rows = {}
-    for form, (extra, rolling) in SERVE_FORMS.items():
+    for form in SPEC_FORMS:
+        rolling = SERVE_FORMS[form][1]
         model, draft, _, _ = pairs[form]
         runs = {
             "plain": _serve_run(model, trace, rolling, dev),
@@ -7990,6 +8035,493 @@ def phase_moe(card: str, dev: str = "cuda"):
     return {"train": runs, "layer": forms, "ranks": ranks}, launches
 
 
+_PP_RANK = """
+import json, os, sys, time
+t_enter = time.time()
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from distkeras_tpu_torch.job_deployment import initialize_from_env
+initialize_from_env()
+import torch.distributed as dist
+from distkeras_tpu_torch.core.optimizers import adam
+from distkeras_tpu_torch.kernels import launch_counts
+from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                          PipelineTransformerLM,
+                                          gather_params, load_jax_params)
+rank = dist.get_rank()
+spec_path, out, go, t0 = sys.argv[1:5]
+spec = json.load(open(spec_path))
+joined = time.time()
+sync = (torch.cuda.synchronize if torch.cuda.is_available()
+        else lambda: None)
+deadline = time.time() + spec["timeout_s"]
+while not os.path.exists(go):  # the card is (b)'s once (a) is done
+    if time.time() > deadline:
+        raise TimeoutError("no go from the parent process")
+    time.sleep(0.01)
+dev, n = spec["device"], spec["ranks"]
+
+
+def flat(tree):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({k + "." + j: a for j, a in v.items()})
+        elif isinstance(v, list):
+            out.update({"%s.%d.%s" % (k, i, j): a
+                        for i, lp in enumerate(v) for j, a in lp.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def run(lm, blob, steps, eps, **kw):
+    tree = {k: blob[k] for k in blob.files if not k.startswith("__")}
+    params = load_jax_params(lm, tree)
+    opt_state, step = lm.compile_train_step(adam(spec["lr"], eps=eps),
+                                            params, **kw)
+    toks = lm.shard_batch(blob["__tokens"])
+    labels = lm.shard_batch(blob["__labels"])
+    sync()
+    lm.mesh.comm_stats.clear()
+    before = launch_counts()
+    losses, seconds = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, toks, labels)
+        sync()
+        seconds.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    comm = {k: dict(v) for k, v in lm.mesh.comm_stats.items()}
+    return params, opt_state, {"losses": losses, "step_s": seconds,
+                               "launches": launches, "collectives": comm}
+
+
+def moments(state):
+    if (isinstance(state, tuple) and len(state) == 3
+            and isinstance(state[0], int) and isinstance(state[1], list)):
+        return state[1] + state[2]
+    for sub in state if isinstance(state, (tuple, list)) else ():
+        found = moments(sub)
+        if found is not None:
+            return found
+    return None
+
+
+nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+runs = {}
+blob = np.load(os.path.join(out, "pp_weights.npz"))
+mesh = Mesh(np.array([dev] * n, dtype=object).reshape(1, n),
+            ("data", "stage"))
+for sched in spec["schedules"]:
+    lm = PipelineTransformerLM(**spec["pp_cfg"], mesh=mesh, schedule=sched)
+    params, _, row = run(lm, blob, spec["pp_steps"], 1e-8)
+    full = flat(gather_params(lm, params))
+    if rank == 0:
+        np.savez(os.path.join(out, "pp_%s.npz" % sched), **full)
+    runs["pp_" + sched] = row
+blob = np.load(os.path.join(out, "zero_weights.npz"))
+mesh = Mesh(np.array([dev] * n, dtype=object).reshape(n, 1, 1))
+lm = ParallelTransformerLM(**spec["zero_cfg"], mesh=mesh)
+for mode in ("plain", "zero", "fsdp"):
+    params, opt_state, row = run(lm, blob, spec["zero_steps"], spec["eps"],
+                                 zero=mode == "zero", fsdp=mode == "fsdp")
+    row["moment_bytes"] = nbytes(moments(opt_state))
+    row["param_bytes"] = nbytes(params.values())
+    full = flat(gather_params(lm, params))
+    if rank == 0:
+        np.savez(os.path.join(out, "zero_%s.npz" % mode), **full)
+    runs["zero_" + mode] = row
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump({"rank": rank, "joined_s": joined - float(t0),
+               "entered_s": t_enter - float(t0), "runs": runs,
+               "backend": str(dist.get_backend()),
+               "device": str(lm.device)}, f)
+dist.destroy_process_group()
+"""
+
+
+def _pp_tree(lm, rng) -> dict:
+    """Weights for ``lm`` (a PipelineTransformerLM) by the JAX tree's flat
+    leaf names, drawn by :func:`_draw_leaf`."""
+    return {name: _draw_leaf(name, shape, rng)
+            for name, shape in lm._shapes().items()}
+
+
+def _pp_start_ranks(tmp: str, dev: str):
+    """(b) and (c)'s inputs written under ``tmp`` and their ranks started
+    as a coordinated Job over gloo; returns (the job, the configurations,
+    the weights, the batches, the go file, the launch time)."""
+    import json
+    import socket
+    import numpy as np
+    from distkeras_tpu_torch.job_deployment import Job, LocalJobRunner
+    from distkeras_tpu_torch.parallel import (Mesh, ParallelTransformerLM,
+                                              PipelineTransformerLM)
+    rng = np.random.default_rng(SEED + 28)
+    pp_cfg = {**PP_LM, "num_layers": PP_RANK_LAYERS,
+              "num_microbatches": PP_RANK_MICRO,
+              "compute_dtype": "bfloat16"}
+    one = PipelineTransformerLM(**pp_cfg, mesh=Mesh(
+        device="meta", axis_names=("data", "stage")))
+    pp_tree = _pp_tree(one, rng)  # (1, layers, ...): one stage
+    v, s = PP_LM["vocab_size"], PP_LM["seq_len"]
+    pp_toks = rng.integers(0, v, (PP_RANK_BATCH, s)).astype(np.int32)
+    # the same weights as PP_RANKS stages of one layer each
+    staged = {k: (a.reshape((PP_RANKS, PP_RANK_LAYERS // PP_RANKS)
+                            + a.shape[2:]) if k.startswith("layers.")
+                  else a) for k, a in pp_tree.items()}
+    np.savez(os.path.join(tmp, "pp_weights.npz"), __tokens=pp_toks,
+             __labels=(pp_toks + 1) % v, **staged)
+    zero_cfg = {**PLM, **PLM_ROUTES["fused_ulysses"],
+                "num_layers": ZERO_RANK_LAYERS, "compute_dtype": "float32"}
+    zero_lm = ParallelTransformerLM(**zero_cfg, mesh=Mesh(device="meta"))
+    zero_tree = _moe_flat(_parallel_tree(zero_lm, rng))
+    zero_toks = rng.integers(0, v, (ZERO_RANK_BATCH, s)).astype(np.int32)
+    np.savez(os.path.join(tmp, "zero_weights.npz"), __tokens=zero_toks,
+             __labels=(zero_toks + 1) % v, **zero_tree)
+    spec_path, script = (os.path.join(tmp, n)
+                         for n in ("spec.json", "pp_rank.py"))
+    with open(spec_path, "w") as f:
+        json.dump({"pp_cfg": pp_cfg, "zero_cfg": zero_cfg,
+                   "schedules": list(PP_SCHEDULES), "ranks": PP_RANKS,
+                   "lr": PLM_LR, "eps": MOE_RANK_EPS,
+                   "pp_steps": PP_RANK_STEPS, "zero_steps": ZERO_RANK_STEPS,
+                   # every rank on the one card
+                   "device": "cuda:0" if dev == "cuda" else dev,
+                   "timeout_s": PP_RANK_TIMEOUT_S}, f)
+    with open(script, "w") as f:
+        f.write(_PP_RANK)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    go = os.path.join(tmp, "go")
+    t_launch = time.time()
+    job = Job("pp_ranks", script, args=[spec_path, tmp, go, repr(t_launch)],
+              hosts=["127.0.0.1"] * PP_RANKS, coordinator_port=port,
+              backend="gloo", env={"PYTHONPATH": os.pathsep.join(
+                  p for p in (root, os.environ.get("PYTHONPATH")) if p)})
+    job.run(LocalJobRunner(), wait=False)
+    return (job, pp_cfg, pp_tree, pp_toks, zero_cfg, zero_tree, go,
+            t_launch)
+
+
+def _pp_one_rank(card: str, dev: str, sched: str, m: int, tree, toks,
+                 cfg=None, steps=PLM_STEPS, gather=False) -> dict:
+    """One PipelineTransformerLM on mesh (1, 1), ``steps`` steps of
+    adam(PLM_LR) from ``tree``, the counts set to 0 just before the steps
+    and read just after; with ``gather`` the trained weights by flat leaf
+    name too."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.core.optimizers import adam
+    from distkeras_tpu_torch.parallel import (Mesh, PipelineTransformerLM,
+                                              gather_params, load_jax_params)
+    cfg = cfg or {**PP_LM, "compute_dtype": "bfloat16"}
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    lm = PipelineTransformerLM(**{**cfg, "num_microbatches": m},
+                               schedule=sched, mesh=Mesh(
+                                   device=dev, axis_names=("data", "stage")))
+    params = load_jax_params(lm, tree)
+    opt_state, step = lm.compile_train_step(adam(PLM_LR), params)
+    tokens = lm.shard_batch(toks)
+    labels = lm.shard_batch((toks + 1) % cfg["vocab_size"])
+    _sync(dev)
+    _zero_counts()
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, labels)
+        _sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    out = {"losses": [float(x) for x in losses], "seconds": seconds,
+           "launches": launches, "peak_bytes": peak}
+    if gather:
+        full = gather_params(lm, params)
+        out["gathered"] = {k: v for k, v in full.items() if k != "layers"}
+        out["gathered"].update({f"layers.{k}": v
+                                for k, v in full["layers"].items()})
+    del lm, params, opt_state
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zero_bytes(shapes: dict, specs: dict, dp: int) -> dict:
+    """Each rank's bytes by the slicing rule, from the f32 shapes and the
+    specs: a leaf is cut in dp along a dim that its spec leaves unnamed
+    and that dp divides, if it has one (on mesh (dp, 1, 1) no named axis
+    splits anything); Adam keeps two moments a leaf."""
+    whole = sliced = 0
+    for name, shape in shapes.items():
+        spec = tuple(specs[name]) + (None,) * (len(shape) - len(specs[name]))
+        n = 1
+        for d in shape:
+            n *= d
+        whole += 4 * n
+        cut = any(e is None and d % dp == 0 for e, d in zip(spec, shape))
+        sliced += 4 * (n // dp if cut else n)
+    return {"plain": {"moment_bytes": 2 * whole, "param_bytes": whole},
+            "zero": {"moment_bytes": 2 * sliced, "param_bytes": whole},
+            "fsdp": {"moment_bytes": 2 * sliced, "param_bytes": sliced}}
+
+
+def _pp_ranks(card: str, dev: str, tmp: str, started) -> dict:
+    """(b) and (c): the one-rank references of (b) in this process, then
+    the go to the ranks, their results and the comparisons."""
+    import json
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, ParallelTransformerLM
+    job, pp_cfg, pp_tree, pp_toks, zero_cfg, zero_tree, go, t_launch = \
+        started
+    refs = {sched: _pp_one_rank(card, dev, sched, PP_RANK_MICRO, pp_tree,
+                                pp_toks, cfg=pp_cfg, steps=PP_RANK_STEPS,
+                                gather=True)
+            for sched in PP_SCHEDULES}
+    open(go, "w").close()
+    codes = []
+    try:
+        for p in job.processes:
+            left = max(t_launch + PP_RANK_TIMEOUT_S - time.time(), 1.0)
+            codes.append(p.wait(timeout=left))
+    finally:
+        for p in job.processes:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0] * PP_RANKS, f"pipeline ranks exited {codes}")
+    ranks = []
+    for r in range(PP_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    comm = lambda run: [{op: {k: s[k] for k in ("calls", "bytes", "seconds")}
+                         for op, s in r["runs"][run]["collectives"].items()}
+                        for r in ranks]
+    launches, rows = {}, {}
+    for r in ranks:
+        for row in r["runs"].values():
+            launches = _add_counts(launches, row["launches"])
+    # (b): two stages against one rank
+    for sched in PP_SCHEDULES:
+        got = dict(np.load(os.path.join(tmp, f"pp_{sched}.npz")))
+        ref = refs[sched]["gathered"]
+        shares, equal = {}, True
+        for n, w in ref.items():
+            g = got[n].reshape(w.shape)  # (stages, 1, ...) → (1, stages, ...)
+            equal &= bool(np.array_equal(g, w))
+            shares[n] = float(np.abs(g - w).max()) / (
+                MOE_RANK_PARAM_RTOL * float(np.abs(w - pp_tree[n]).max())
+                + 1e-12)
+        worst = max(shares, key=shares.get)
+        run = f"pp_{sched}"
+        losses = [r["runs"][run]["losses"] for r in ranks]
+        gap = max(abs(a - b) / abs(b) for ls in losses
+                  for a, b in zip(ls, refs[sched]["losses"]))
+        row = {"phase": "pipeline_ranks", "schedule": sched,
+               "ranks": PP_RANKS, "mesh": [1, PP_RANKS],
+               "backend": ranks[0]["backend"],
+               "devices": [r["device"] for r in ranks],
+               "config": pp_cfg, "batch": PP_RANK_BATCH,
+               "microbatches": PP_RANK_MICRO, "steps": PP_RANK_STEPS,
+               "losses": losses, "one_rank_losses": refs[sched]["losses"],
+               "loss_gap": gap, "loss_rtol": PP_RANK_LOSS_RTOL,
+               "bit_equal_to_one_rank": bool(
+                   equal and all(ls == refs[sched]["losses"]
+                                 for ls in losses)),
+               "param_worst_tensor": worst,
+               "param_worst_share_of_tol": shares[worst],
+               "child_start_s": [r["joined_s"] for r in ranks],
+               # the first step carries each process's first-call set-up
+               "first_step_ms": [r["runs"][run]["step_s"][0] * 1e3
+                                 for r in ranks],
+               "ms_per_step": [statistics.median(
+                   r["runs"][run]["step_s"][1:]) * 1e3 for r in ranks],
+               "one_rank_ms_per_step":
+                   statistics.median(refs[sched]["seconds"][1:]) * 1e3,
+               "collectives_per_rank": comm(run),
+               "launches_per_rank": [r["runs"][run]["launches"]
+                                     for r in ranks],
+               "card": card}
+        emit(row)
+        rows[sched] = row
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"pipeline ranks: backend {[r['backend'] for r in ranks]}")
+        check(all(np.isfinite(ls).all() for ls in losses)
+              and gap <= PP_RANK_LOSS_RTOL,
+              f"pipeline ranks {sched}: losses {losses} vs one rank "
+              f"{refs[sched]['losses']}")
+        check(shares[worst] <= 1.0, f"pipeline ranks {sched}: gathered "
+              f"{worst} differs {shares[worst]:.3g}x its tolerance")
+        if torch.device(dev).type == "cuda":
+            want = PP_RANK_MICRO * PP_RANK_STEPS  # one layer a rank
+            for r, n in zip(ranks, row["launches_per_rank"]):
+                check(all(n[f"flash_{k}_sm90"] == want
+                          for k in ("fwd_lse", "dq", "dkv"))
+                      and n["flash_inference_sm90"] == (
+                          want if sched == "1f1b" else 0)
+                      and not any(n[f"flash_{k}_simt"] for k in
+                                  ("fwd_lse", "dq", "dkv", "inference")),
+                      f"pipeline ranks {sched}: rank {r['rank']} launches "
+                      f"{n}, want {want} sm90 each")
+    # (c): ZeRO-1 and FSDP against the plain step on the same ranks
+    zero_lm = ParallelTransformerLM(**zero_cfg, mesh=Mesh(device="meta"))
+    want_bytes = _zero_bytes(zero_lm._shapes(), zero_lm.param_specs(),
+                             PP_RANKS)
+    plain = dict(np.load(os.path.join(tmp, "zero_plain.npz")))
+    init = zero_tree
+    zrows = {}
+    for mode in ("plain", "zero", "fsdp"):
+        run = f"zero_{mode}"
+        got = dict(np.load(os.path.join(tmp, f"{run}.npz")))
+        losses = [r["runs"][run]["losses"] for r in ranks]
+        base = ranks[0]["runs"]["zero_plain"]["losses"]
+        loss_gap = max(abs(a - b) / abs(b) for ls in losses
+                       for a, b in zip(ls, base))
+        param_gap = max(float(np.abs(got[n] - w).max())
+                        / (float(np.abs(w).max()) + 1e-30)
+                        for n, w in plain.items())
+        moved = max(float(np.abs(plain[n] - init[n]).max()) for n in init)
+        row = {"phase": "zero_fsdp_ranks", "mode": mode,
+               "mesh": [PP_RANKS, 1, 1], "config": zero_cfg,
+               "batch": ZERO_RANK_BATCH, "steps": ZERO_RANK_STEPS,
+               "losses": losses, "loss_gap_to_plain": loss_gap,
+               "param_gap_to_plain": param_gap, "rtol": ZERO_RTOL,
+               "bit_equal_to_plain": bool(
+                   all(np.array_equal(got[n], w) for n, w in plain.items())
+                   and all(ls == base for ls in losses)),
+               "largest_update": moved,
+               "moment_bytes_per_rank": [r["runs"][run]["moment_bytes"]
+                                         for r in ranks],
+               "param_bytes_per_rank": [r["runs"][run]["param_bytes"]
+                                        for r in ranks],
+               "predicted_bytes_per_rank": want_bytes[mode],
+               "first_step_ms": [r["runs"][run]["step_s"][0] * 1e3
+                                 for r in ranks],
+               "ms_per_step": [statistics.median(
+                   r["runs"][run]["step_s"][1:]) * 1e3 for r in ranks],
+               "collectives_per_rank": comm(run),
+               "launches_per_rank": [r["runs"][run]["launches"]
+                                     for r in ranks],
+               "card": card}
+        emit(row)
+        zrows[mode] = row
+        check(all(np.isfinite(ls).all() for ls in losses)
+              and loss_gap <= ZERO_RTOL and param_gap <= ZERO_RTOL,
+              f"zero/fsdp ranks {mode}: losses {losses} (plain {base}), "
+              f"parameters {param_gap:.3g} of their largest off plain")
+        check(row["moment_bytes_per_rank"] == [want_bytes[mode][
+                  "moment_bytes"]] * PP_RANKS
+              and row["param_bytes_per_rank"] == [want_bytes[mode][
+                  "param_bytes"]] * PP_RANKS,
+              f"zero/fsdp ranks {mode}: bytes a rank "
+              f"{row['moment_bytes_per_rank']} / "
+              f"{row['param_bytes_per_rank']}, want {want_bytes[mode]}")
+        if torch.device(dev).type == "cuda":
+            want = ZERO_RANK_LAYERS * ZERO_RANK_STEPS
+            for r, n in zip(ranks, row["launches_per_rank"]):
+                check(n["fused_ce_fwd"] == n["fused_ce_bwd"]
+                      == ZERO_RANK_STEPS
+                      and all(n[f"flash_{k}_simt"] == want
+                              for k in ("fwd_lse", "dq", "dkv")),
+                      f"zero/fsdp ranks {mode}: rank {r['rank']} launches "
+                      f"{n}, want fused CE {ZERO_RANK_STEPS} and SIMT "
+                      f"flash {want} each")
+    return {"pipeline": rows, "zero": zrows, "launches": launches,
+            "references": {k: {kk: vv for kk, vv in v.items()
+                               if kk != "gathered"}
+                           for k, v in refs.items()}}
+
+
+def phase_pipeline(card: str, dev: str = "cuda"):
+    """PipelineTransformerLM and ZeRO-1/FSDP (the PP_* comment): (b) and
+    (c)'s ranks start first and join while (a) runs on the card; the
+    counts are set to 0 before each of (a)'s runs and read after it.
+    Returns (the lines, the launches of (a), (b)'s references and the
+    ranks' runs)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch.parallel import Mesh, PipelineTransformerLM
+    t_start = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        started = _pp_start_ranks(tmp, dev)
+        try:
+            rng = np.random.default_rng(SEED + 27)
+            v, s = PP_LM["vocab_size"], PP_LM["seq_len"]
+            toks = rng.integers(0, v, (PLM_BATCH, s)).astype(np.int32)
+            tree = _pp_tree(PipelineTransformerLM(
+                **PP_LM, mesh=Mesh(device="meta",
+                                   axis_names=("data", "stage"))), rng)
+            runs, launches = {}, {}
+            for sched in PP_SCHEDULES:
+                for m in PP_MICRO:
+                    r = _pp_one_rank(card, dev, sched, m, tree, toks)
+                    launches = _add_counts(launches, r["launches"])
+                    losses, counts = r["losses"], r["launches"]
+                    step_ms = statistics.median(r["seconds"][1:]) * 1e3
+                    row = {"phase": "pipeline_train", "schedule": sched,
+                           "microbatches": m, "config": PP_LM,
+                           "compute_dtype": "bfloat16", "batch": PLM_BATCH,
+                           "steps": PLM_STEPS, "losses": losses,
+                           "last_over_first": losses[-1] / losses[0],
+                           "launches": counts,
+                           "first_step_ms": r["seconds"][0] * 1e3,
+                           "ms_per_step": step_ms,
+                           "tokens_per_s": PLM_BATCH * s / (step_ms / 1e3),
+                           "peak_bytes": r["peak_bytes"], "card": card}
+                    emit(row)
+                    runs[f"{sched}_m{m}"] = row
+                    tag = f"pipeline {sched} M={m}"
+                    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                          f"{tag}: losses {losses}")
+                    if cuda:
+                        want = PP_LM["num_layers"] * m * PLM_STEPS
+                        check(all(counts[f"flash_{k}_sm90"] == want
+                                  for k in ("fwd_lse", "dq", "dkv"))
+                              and counts["flash_inference_sm90"] == (
+                                  want if sched == "1f1b" else 0)
+                              and not any(counts[f"flash_{k}_simt"] for k
+                                          in ("fwd_lse", "dq", "dkv",
+                                              "inference"))
+                              and counts["fused_ce_fwd"] == 0,
+                              f"{tag}: launches {counts}, want {want} sm90 "
+                              "each")
+            del tree
+            ranks = _pp_ranks(card, dev, tmp, started)
+        finally:
+            for p in started[0].processes:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for ref in ranks["references"].values():
+        launches = _add_counts(launches, ref["launches"])
+    launches = _add_counts(launches, ranks["launches"])
+    summary = {"phase": "pipeline",
+               "ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()},
+               "tokens_per_s": {k: r["tokens_per_s"]
+                                for k, r in runs.items()},
+               "peak_bytes": {k: r["peak_bytes"] for k, r in runs.items()},
+               "ranks_ms_per_step": {k: r["ms_per_step"] for k, r in
+                                     ranks["pipeline"].items()},
+               "zero_ms_per_step": {k: r["ms_per_step"] for k, r in
+                                    ranks["zero"].items()},
+               "launches_pipeline": launches,
+               "seconds": time.perf_counter() - t_start, "card": card}
+    emit(summary)
+    return {"train": runs, "ranks": ranks}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8030,6 +8562,7 @@ def main() -> int:
     _, process_ps_launches = phase_process_ps(smi, host_ps_scaling)
     _, online_launches = phase_online(smi)
     _, moe_launches = phase_moe(smi)
+    _, pipeline_launches = phase_pipeline(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -8203,7 +8736,13 @@ def main() -> int:
         training kernels once per layer, step and window that ran) and on
         the MoE path (phase moe: (a)'s two runs, B1/B2 once a step and the
         sm90 training kernels once a layer and step, and (b)'s ranks, read
-        from their result files: B1/B2 and the SIMT training kernels)."""
+        from their result files: B1/B2 and the SIMT training kernels) and
+        on the pipeline path (phase pipeline: (a)'s four runs and (b)'s
+        one-rank references, the sm90 training kernels once a layer,
+        microbatch and step and under 1F1B the sm90 inference forward as
+        often; (b)'s ranks, the same for their one layer; (c)'s ranks,
+        B1/B2 once a step and the SIMT training kernels once a layer and
+        step)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -8224,6 +8763,7 @@ def main() -> int:
         entry["launches_process_ps"] = process_ps_launches.get(key, 0)
         entry["launches_online"] = online_launches[key]
         entry["launches_moe"] = moe_launches.get(key, 0)
+        entry["launches_pipeline"] = pipeline_launches.get(key, 0)
         return entry
 
     emit(north_star)

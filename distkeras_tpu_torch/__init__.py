@@ -7,8 +7,10 @@ flash-attention kernels (``csrc/flash_attention_fwd*.cu`` forward,
 ``csrc/flash_attention_bwd*.cu`` backward); trains
 ``parallel.ParallelTransformerLM`` on one card and across
 ``torch.distributed`` ranks (data, sequence, tensor and Switch expert
-parallelism), whose fused loss runs the hand-written cross-entropy
-kernels (``csrc/fused_ce.cu``); and trains and
+parallelism, ZeRO-1 and FSDP over the data axis), whose fused loss runs
+the hand-written cross-entropy kernels (``csrc/fused_ce.cu``), and
+``parallel.PipelineTransformerLM`` over data, pipeline (GPipe, 1F1B) and
+tensor ranks; and trains and
 serves the ConvNet/MLP zoo (MNIST, digits, CIFAR-10, ATLAS Higgs) through
 ``SingleTrainer`` and ``ModelPredictor`` with the dist-keras transformer
 and evaluator pipeline, and with the dist-keras distributed trainers

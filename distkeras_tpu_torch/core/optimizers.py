@@ -14,11 +14,21 @@ order, as in optax; :func:`apply_updates` adds the updates to the
 parameters in place (the port's parameters are the model's own tensors).
 ``update`` never changes its ``state`` argument, so a caller can keep the
 old state (the masked step's no-op).
+
+The rules that take norms (:func:`clip_by_global_norm`,
+:func:`scale_by_trust_ratio`) take them over the tensors they are given.
+A sharded step that runs the rule on slices of the logical tensors
+(ZeRO-1 and FSDP, ``parallel/train_step.py``) sets :func:`mesh_squares`
+around the update, and the norms are then those of the whole leaves,
+summed over the ranks that hold their slices, as the JAX package's
+sharded steps take them under plain ``jit``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -228,6 +238,39 @@ def get_schedule(spec: Any, base_lr: float,
 # transformations (optax's, over lists of tensors)
 # ---------------------------------------------------------------------------
 
+#: this thread's (reduce, leaf positions) while a sharded step's update
+#: runs, as torch.no_grad is a thread's
+_SQUARES = threading.local()
+
+
+@contextlib.contextmanager
+def _squares_as(value: Optional[tuple]):
+    prev = getattr(_SQUARES, "value", None)
+    _SQUARES.value = value
+    try:
+        yield
+    finally:
+        _SQUARES.value = prev
+
+
+def mesh_squares(reduce: Callable[[Tensors, List[int]], Tensors], n: int):
+    """A context in which the norm-taking rules sum each leaf's squares
+    through ``reduce(sums, positions)``: the per-leaf sums of squares of
+    the slices this rank holds and the leaves' positions among the ``n``
+    the step updates, to the sums over the whole leaves."""
+    return _squares_as((reduce, list(range(n))))
+
+
+def _leaf_squares(tensors: Tensors) -> Optional[Tensors]:
+    """Each whole leaf's sum of squares under :func:`mesh_squares`, else
+    None."""
+    value = getattr(_SQUARES, "value", None)
+    if value is None:
+        return None
+    reduce, positions = value
+    return reduce([torch.sum(t * t) for t in tensors], positions)
+
+
 def _zeros(params: Tensors) -> Tensors:
     return [torch.zeros_like(p) for p in params]
 
@@ -361,8 +404,14 @@ def scale_by_trust_ratio() -> Transform:
     is 0."""
     def scale(updates, params):
         out = []
-        for u, p in zip(updates, params):
-            pn, un = torch.linalg.norm(p), torch.linalg.norm(u)
+        p_sq, u_sq = _leaf_squares(params), _leaf_squares(updates)
+        if p_sq is None:
+            norms = [(torch.linalg.norm(p), torch.linalg.norm(u))
+                     for u, p in zip(updates, params)]
+        else:
+            norms = [(torch.sqrt(a), torch.sqrt(b))
+                     for a, b in zip(p_sq, u_sq)]
+        for u, (pn, un) in zip(updates, norms):
             ratio = torch.where((pn == 0.0) | (un == 0.0),
                                 torch.ones_like(pn), pn / un)
             out.append(u * ratio)
@@ -394,7 +443,10 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     """Rescale by max_norm / ‖g‖ only when ‖g‖ ≥ max_norm (optax's rule:
     no epsilon in the denominator)."""
     def clip(updates, params):
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in updates))
+        squares = _leaf_squares(updates)
+        if squares is None:
+            squares = [torch.sum(g * g) for g in updates]
+        norm = torch.sqrt(sum(squares))
         within = norm < max_norm  # stays on the device: no host sync
         return [torch.where(within, g, (g / norm) * max_norm)
                 for g in updates]
@@ -408,8 +460,12 @@ def masked(inner: Transform, mask: Sequence[bool]) -> Transform:
     pick = lambda xs: [xs[i] for i in keep]
 
     def update(updates, state, params=None):
-        new, state = inner.update(pick(updates), state,
-                                  None if params is None else pick(params))
+        outer = getattr(_SQUARES, "value", None)
+        # the inner rule's leaves are the picked ones
+        with _squares_as(outer and (outer[0], pick(outer[1]))):
+            new, state = inner.update(pick(updates), state,
+                                      None if params is None
+                                      else pick(params))
         out = list(updates)
         for i, u in zip(keep, new):
             out[i] = u

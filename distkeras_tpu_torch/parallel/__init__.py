@@ -2,10 +2,11 @@
 ``distkeras_tpu.parallel``): the meshes and their process groups, the
 collectives, the SPMD engine of the distributed trainers with its update
 rules, tensor-parallel blocks, the ring and Ulysses attention schedules,
-expert parallelism (MoE), the train step and ``ParallelTransformerLM``
-over ('data', 'seq', 'model') ranks.  ZeRO/FSDP above a data axis of
-size 1, the pipeline and the SPMD engine across cards wait for ROADMAP
-queue A item 7."""
+expert parallelism (MoE), the pipeline schedules (GPipe and 1F1B), the
+train step with ZeRO-1 and FSDP over the data axis,
+``ParallelTransformerLM`` over ('data', 'seq', 'model') ranks and
+``PipelineTransformerLM`` over ('data', 'stage'[, 'model']) ranks.  The
+SPMD engine across cards waits for ROADMAP queue A item 7."""
 
 from . import collective, rules
 from .collective import (all_gather, all_to_all, pmean, ppermute, psum,
@@ -17,7 +18,10 @@ from .spmd import DistState, SPMDEngine, shape_epoch_data
 from .ring import SEQ_AXIS, ring_attention, ring_self_attention
 from .tp import (MODEL_AXIS, column_parallel_dense, row_parallel_dense,
                  tp_mlp, tp_self_attention)
-from .train_step import build_train_step
+from .pipeline import STAGE_AXIS, pipeline_1f1b, pipeline_apply
+from .pp_transformer import PipelineTransformerLM
+from .train_step import (build_train_step, opt_partition_specs,
+                         shard_specs_over_axis, zero_shard_specs)
 from .transformer import ParallelTransformerLM, gather_params, load_jax_params
 from .ulysses import ulysses_attention, ulysses_self_attention
 
@@ -28,5 +32,8 @@ __all__ = ["WORKER_AXIS", "Mesh", "get_mesh", "initialize", "collective",
            "MODEL_AXIS", "column_parallel_dense", "row_parallel_dense",
            "tp_mlp", "tp_self_attention", "EXPERT_AXIS", "topk_routing",
            "topk_slots", "load_balance_loss", "top1_routing", "moe_mlp",
-           "build_train_step", "ParallelTransformerLM", "load_jax_params",
+           "STAGE_AXIS", "pipeline_apply", "pipeline_1f1b",
+           "PipelineTransformerLM", "build_train_step",
+           "opt_partition_specs", "shard_specs_over_axis",
+           "zero_shard_specs", "ParallelTransformerLM", "load_jax_params",
            "gather_params", "ulysses_attention", "ulysses_self_attention"]

@@ -1,7 +1,10 @@
 """Collectives over the axes of a :class:`~.mesh.Mesh`, the port's
 counterpart of the ``jax.lax`` collectives that the JAX model-parallel
 layer calls inside ``shard_map``: ``psum``, ``pmean``, ``all_gather``,
-``all_to_all``, ``ppermute``, and ``pvary``.
+``all_to_all``, ``ppermute``, and ``pvary``; outside autograd, the
+tiled reduce-scatter of FSDP's gradient (:func:`reduce_scatter_sum`) and
+one rank's part of a ``ppermute`` step, the pipeline's transfer
+(:func:`send_recv`).
 
 Each is a ``torch.autograd.Function`` over ``torch.distributed`` whose
 backward is stated here.  JAX derives the backward of a collective from
@@ -48,11 +51,12 @@ from .mesh import Mesh
 Axes = Union[str, Sequence[str]]
 
 #: the operations gloo runs on CUDA tensors (on the H100 machine's torch
-#: 2.11, tools/gloo_device_ops.py: right answers on device memory); its
-#: send and recv there abort the process on CUDA tensors, so ppermute
-#: goes through host memory
+#: 2.11, tools/gloo_device_ops.py: right answers on device memory, the
+#: reduce-scatter in both its list and its tensor form); its send and
+#: recv there abort the process on CUDA tensors, so ppermute and the
+#: pipeline's transfers go through host memory
 GLOO_DEVICE_OPS = frozenset({"all_reduce", "broadcast", "all_gather",
-                             "all_to_all"})
+                             "all_to_all", "reduce_scatter"})
 
 def _backend() -> str:
     import torch.distributed as dist
@@ -136,6 +140,68 @@ def _all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
     dist.all_to_all_single(recv, run.x, group=group)
     recv = run.back(recv)
     return torch.cat(recv.unbind(0), dim=concat_axis)  # by source rank
+
+
+def reduce_scatter_sum(x: torch.Tensor, axis_name: str, dim: int,
+                       mesh: Optional[Mesh]) -> torch.Tensor:
+    """The tiled reduce-scatter (``lax.psum_scatter(tiled=True)``): the
+    sum of ``x`` over the ranks of ``axis_name``, cut into n equal parts
+    along ``dim``, of which this rank keeps the part at its axis index.
+    Outside autograd (FSDP's gradient, ``train_step.py``)."""
+    if _trivial(mesh, axis_name):
+        return x
+    import torch.distributed as dist
+    n, group = mesh.shape[axis_name], mesh.group(axis_name)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    pieces = x.chunk(n, dim=dim)                # piece j is rank j's sum
+    # flat: the backend cuts the input into n runs along its first dim
+    run = _Run("reduce_scatter", torch.stack(pieces).reshape(-1), mesh)
+    out = torch.empty(run.x.numel() // n, dtype=run.x.dtype,
+                      device=run.x.device, pin_memory=run.stage)
+    dist.reduce_scatter_tensor(out, run.x, group=group)
+    return run.back(out).view(pieces[0].shape)
+
+
+def send_recv(x: Optional[torch.Tensor], axis_name: str,
+              dst: Optional[int], src: Optional[int], like: torch.Tensor,
+              mesh: Mesh, tag: int = 0) -> Optional[torch.Tensor]:
+    """This rank's part of one ``ppermute`` step along ``axis_name``:
+    ``x`` sent to axis position ``dst`` and a tensor shaped like ``like``
+    received from ``src`` (either may be None: the pipeline's ends and
+    its skipped bubble ticks), both posted before either is waited on.
+    Returns what arrived, or None.  Counted as a ``ppermute`` call with
+    the bytes sent; ``tag`` keeps each ring's messages apart."""
+    if dst is None and src is None:
+        return None
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    stage = staged("ppermute", _backend(), like.device)
+    stats = mesh.comm_stats.setdefault(
+        "ppermute", {"calls": 0, "bytes": 0, "seconds": 0.0})
+    stats["calls"] += 1
+    works, out = [], None
+    if dst is not None:
+        buf = x.contiguous()
+        stats["bytes"] += buf.numel() * buf.element_size()
+        if stage:
+            buf = torch.empty(buf.shape, dtype=buf.dtype,
+                              pin_memory=True).copy_(buf)
+        works.append(dist.isend(buf, mesh.rank_at(**{axis_name: dst}),
+                                tag=tag))
+    if src is not None:
+        out = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if stage else like.device,
+                          pin_memory=stage)
+        works.append(dist.irecv(out, mesh.rank_at(**{axis_name: src}),
+                                tag=tag))
+    for work in works:
+        work.wait()
+    if out is not None and stage:
+        out = out.to(like.device, non_blocking=True)
+    stats["seconds"] += time.perf_counter() - t0
+    return out
 
 
 def _ppermute(x: torch.Tensor, axis_name: str,
@@ -295,5 +361,6 @@ def gather_leaf(x: torch.Tensor, axis_name: str, dim: int,
 
 
 __all__: List[str] = ["psum", "pmean", "pvary", "all_gather", "all_to_all",
-                      "ppermute", "all_reduce_sum", "gather_leaf", "staged",
+                      "ppermute", "all_reduce_sum", "reduce_scatter_sum",
+                      "send_recv", "gather_leaf", "staged",
                       "GLOO_DEVICE_OPS"]

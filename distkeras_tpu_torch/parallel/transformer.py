@@ -55,6 +55,20 @@ MOE_LAYER_KEYS = ("b1", "b2", "ln1", "ln2", "router", "w1", "w2", "wk",
                   "wo", "wq", "wv")
 
 
+def local_slice(spec: Tuple, full: Tuple[int, ...], mesh: Mesh):
+    """This rank's index into a leaf of shape ``full`` under ``spec``."""
+    index = []
+    for dim, size in enumerate(full):
+        axis = spec[dim] if dim < len(spec) else None
+        if axis is None:
+            index.append(slice(None))
+            continue
+        part = size // mesh.shape[axis]
+        start = mesh.axis_index(axis) * part
+        index.append(slice(start, start + part))
+    return tuple(index)
+
+
 class ParallelTransformerLM:
     """Causal LM over a ('data', 'seq', 'model') mesh, one rank a
     position."""
@@ -90,6 +104,7 @@ class ParallelTransformerLM:
         self.remat = bool(remat)
         self.ring_block_k = ring_block_k
         self.axes = (data_axis, seq_axis, model_axis)
+        self.data_axis = data_axis
         self.tp = mesh.shape[model_axis]
         self.sp = mesh.shape[seq_axis]
         self.dp = mesh.shape[data_axis]
@@ -192,17 +207,7 @@ class ParallelTransformerLM:
 
     def _local_slice(self, name: str, full: Tuple[int, ...]):
         """This rank's index into the full leaf ``name``."""
-        spec = self.param_specs()[name]
-        index = []
-        for dim, size in enumerate(full):
-            axis = spec[dim] if dim < len(spec) else None
-            if axis is None:
-                index.append(slice(None))
-                continue
-            part = size // self.mesh.shape[axis]
-            start = self.mesh.axis_index(axis) * part
-            index.append(slice(start, start + part))
-        return tuple(index)
+        return local_slice(self.param_specs()[name], full, self.mesh)
 
     def grad_axes(self) -> Dict[str, Tuple[str, ...]]:
         """The axes over which each parameter's gradient is summed: every
@@ -355,14 +360,17 @@ class ParallelTransformerLM:
         ``optax.adam``), tokens and labels (B, S) integer tensors on
         :meth:`batch_sharding`'s device, and the parameters updated in
         place.  Tokens and labels are this rank's block (:meth:`shard_batch`).
-        ``zero``/``fsdp`` shard the optimizer state (and the parameters)
-        over the data axis, which at data-axis size 1 changes nothing."""
+        ``zero=True`` slices the optimizer state over the data axis
+        (ZeRO-1), ``fsdp=True`` the parameters too, which then rest as
+        their slices (``train_step.build_train_step``; at data-axis size 1
+        the arithmetic of the plain step)."""
         from .train_step import build_train_step
         data_axis = self.axes[0]
         return build_train_step(self.mesh, self._loss, optimizer, params,
                                 zero_axis=data_axis if zero else None,
                                 fsdp_axis=data_axis if fsdp else None,
-                                grad_axes=self.grad_axes())
+                                grad_axes=self.grad_axes(),
+                                param_specs=self.param_specs())
 
     def batch_sharding(self) -> torch.device:
         """Where this rank's batch goes: its device."""
@@ -397,9 +405,9 @@ def _jax_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
-def load_jax_params(lm: ParallelTransformerLM,
-                    tree: Any) -> Dict[str, nn.Parameter]:
-    """The JAX ``ParallelTransformerLM.init`` output, whole, as nested
+def load_jax_params(lm, tree: Any) -> Dict[str, nn.Parameter]:
+    """The JAX ``ParallelTransformerLM.init`` (or ``PipelineTransformerLM.
+    init``) output, whole, as nested
     dicts and lists of arrays (``jax.device_get(params)``; a flat dict
     keyed by leaf name, ``layers.0.wq``, is taken too), as the port's
     parameter dict: each leaf sliced by its spec at this rank's
@@ -412,33 +420,69 @@ def load_jax_params(lm: ParallelTransformerLM,
     if missing or extra:
         raise ValueError(f"parameter names differ from the model's: "
                          f"missing {missing}, unexpected {extra}")
-    params = {}
-    for name, shape in shapes.items():
-        arr = np.asarray(given[name], dtype=np.float32)
+    arrays = {}
+    for name, shape in shapes.items():  # every shape before any copy
+        arrays[name] = arr = np.asarray(given[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"parameter {name}: shape {arr.shape} does not "
                              f"match the model's {shape}")
+    params = {}
+    for name, shape in shapes.items():
+        arr = arrays[name]
         local = np.ascontiguousarray(arr[lm._local_slice(name, shape)])
         params[name] = nn.Parameter(torch.tensor(local, device=lm.device))
     return params
 
 
-def gather_params(lm: ParallelTransformerLM,
-                  params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def _tree_of(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Leaves by dotted name → the nested tree JAX lays out: a part that
+    is a number indexes a list (``layers.0.wq``), any other a dict
+    (``layers.wq``)."""
+    tree: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+        node: Any = tree
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            child = [] if isinstance(nxt, int) else {}
+            if isinstance(node, list):
+                node.extend(None for _ in range(part + 1 - len(node)))
+                if node[part] is None:
+                    node[part] = child
+                node = node[part]
+            else:
+                node = node.setdefault(part, child)
+        node[parts[-1]] = leaf
+    return tree
+
+
+def at_rest_specs(lm) -> Dict[str, Tuple]:
+    """The parameters' specs at rest under FSDP: ``param_specs`` sliced
+    over the LM's data axis by ``train_step.shard_specs_over_axis``."""
+    from .train_step import shard_specs_over_axis
+    return shard_specs_over_axis(lm.param_specs(), lm._shapes(), lm.mesh,
+                                 lm.data_axis)
+
+
+def gather_params(lm, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The shards of ``params`` (parameters, or gradients of the same
-    shapes) put back together: the full tree as JAX lays it out (a dict
-    with a ``layers`` list of dicts), numpy f32 arrays in JAX leaf order,
-    on every rank (a collective: every rank calls it)."""
-    tree: Dict[str, Any] = {"layers": [{} for _ in range(lm.num_layers)]}
-    for name, spec in lm.param_specs().items():
+    shapes) of a ``ParallelTransformerLM`` or a ``PipelineTransformerLM``
+    put back together: the full tree as JAX lays it out (nested dicts, a
+    list of layers where the names number them), numpy f32 arrays, on
+    every rank (a collective: every rank calls it).  A parameter that
+    rests as its FSDP slice is gathered by :func:`at_rest_specs`."""
+    specs, shapes = lm.param_specs(), lm._shapes()
+    rest = None
+    flat = {}
+    for name, spec in specs.items():
         t = params[name]
+        local = tuple(n // lm.mesh.shape[a] if a else n for n, a in
+                      zip(shapes[name], tuple(spec) + (None,) * len(t.shape)))
+        if tuple(t.shape) != local:
+            rest = at_rest_specs(lm) if rest is None else rest
+            spec = rest[name]
         for dim, axis in enumerate(spec):
             if axis is not None:
                 t = gather_leaf(t, axis, dim, lm.mesh)
-        arr = t.detach().to("cpu", torch.float32).numpy()
-        parts = name.split(".")
-        if parts[0] == "layers":
-            tree["layers"][int(parts[1])][parts[2]] = arr
-        else:
-            tree[name] = arr
-    return tree
+        # a copy: a CPU shard's own storage keeps training
+        flat[name] = t.detach().to("cpu", torch.float32, copy=True).numpy()
+    return _tree_of(flat)

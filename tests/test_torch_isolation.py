@@ -64,7 +64,8 @@ NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "ps_sharding.py", "streaming.py", "job_deployment.py",
                "ps_worker_main.py", "ps_shard_main.py",
                "deployment_online.py", "parallel/moe.py",
-               "parallel/collective.py")
+               "parallel/collective.py", "parallel/pipeline.py",
+               "parallel/pp_transformer.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():

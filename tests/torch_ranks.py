@@ -15,7 +15,17 @@ The cases:
   (:func:`op_inputs`, :func:`cotangent`: the tests rebuild both);
 - ``lm``: ``ParallelTransformerLM`` from a numpy tree (:func:`lm_tree`):
   the step-1 loss and its gradients reduced by the train step's rule and
-  gathered, then the losses of three Adam steps.
+  gathered, then the losses of three Adam steps;
+- ``pipeline``: the schedules of ``parallel/pipeline.py`` on toy
+  ``tanh(h @ w)`` stages over a ('stage',) mesh (:func:`toy_inputs`):
+  ``pipeline_apply``'s output and gradients against a seeded cotangent,
+  or ``pipeline_1f1b``'s loss and gradients;
+- ``pp_lm``: ``PipelineTransformerLM`` from a numpy tree, as ``lm``
+  (and, with ``roundtrip``, the tree loaded and gathered back);
+- ``zero``: a ``ParallelTransformerLM`` or ``PipelineTransformerLM`` run
+  of a few steps under each of the plain step, ZeRO-1 and FSDP: the
+  losses, the moments' and the parameters' local shapes and the
+  gathered final parameters.
 """
 
 from __future__ import annotations
@@ -105,11 +115,11 @@ def lm_tree(shapes, seed):
     """Weights for every leaf of ``shapes`` (name → full shape), drawn
     with numpy by the JAX init's rules, LayerNorm scales and biases
     perturbed so their gradients are not those of ones and zeros; the
-    JAX tree's layout."""
+    JAX tree's layout (a list of layers for ``layers.{i}.{leaf}``
+    names, a dict of stacked leaves for ``layers.{leaf}``)."""
+    from distkeras_tpu_torch.parallel.transformer import _tree_of
     rng = np.random.default_rng(seed)
-    layers = sorted({int(n.split(".")[1]) for n in shapes
-                     if n.startswith("layers.")})
-    tree = {"layers": [{} for _ in layers]}
+    flat = {}
     for name, shape in shapes.items():
         leaf = name.rsplit(".", 1)[-1]
         z = rng.standard_normal(shape)
@@ -121,12 +131,29 @@ def lm_tree(shapes, seed):
             z = 0.02 * z
         else:
             z = z / np.sqrt(shape[-2])
-        parts = name.split(".")
-        if parts[0] == "layers":
-            tree["layers"][int(parts[1])][parts[2]] = z.astype(np.float32)
-        else:
-            tree[name] = z.astype(np.float32)
-    return tree
+        flat[name] = z.astype(np.float32)
+    return _tree_of(flat)
+
+
+def toy_inputs(case):
+    """A ``pipeline`` case's inputs, the same on every rank and in the
+    test: stage weights (n, d, d), microbatches and labels (M, b, d), the
+    head's scale and ``pipeline_apply``'s output cotangent."""
+    rng = np.random.default_rng(case["seed"])
+    n, m, b, d = case["n"], case["m"], case["micro_b"], case["d"]
+    f32 = lambda *shape, scale=1.0: (scale * rng.standard_normal(shape)
+                                     ).astype(np.float32)
+    return {"ws": f32(n, d, d, scale=0.3), "x": f32(m, b, d),
+            "labels": f32(m, b, d), "scale": np.float32(1.5),
+            "ct": f32(m, b, d)}
+
+
+def toy_stage(w, h):
+    return (h @ w).tanh()
+
+
+def toy_head_loss(hp, y, lbl):
+    return ((hp["scale"] * y - lbl) ** 2).sum()
 
 
 def lm_batch(cfg, batch, seed):
@@ -239,6 +266,134 @@ def _lm(case, rank):
     return out
 
 
+def _cpu_mesh(shape, names):
+    from distkeras_tpu_torch.parallel import Mesh
+    return Mesh(np.array(["cpu"] * int(np.prod(shape)),
+                         dtype=object).reshape(shape), names)
+
+
+def _pipeline(case, rank):
+    import torch
+    from distkeras_tpu_torch.parallel import pipeline_1f1b, pipeline_apply
+    mesh = _cpu_mesh((case["n"],), ("stage",))
+    s = mesh.axis_index("stage")
+    inp = {k: torch.as_tensor(v) for k, v in toy_inputs(case).items()}
+    if case["which"] == "apply":
+        w = inp["ws"][s].clone().requires_grad_()
+        x = inp["x"].clone().requires_grad_()
+        out = pipeline_apply(toy_stage, w, x, "stage", mesh)
+        dw, dx = torch.autograd.grad((out * inp["ct"]).sum(), [w, x])
+        return {"stage": s, "out": out.detach().numpy(),
+                "dw": dw.numpy(), "dx": dx.numpy(),
+                "comm": {op: (st["calls"], st["bytes"])
+                         for op, st in mesh.comm_stats.items()}}
+    loss, dstage, dhead, dx = pipeline_1f1b(
+        toy_stage, inp["ws"][s], inp["x"], inp["labels"], toy_head_loss,
+        {"scale": inp["scale"]}, "stage", mesh)
+    return {"stage": s, "loss": float(loss), "dw": dstage.numpy(),
+            "dhead": float(dhead["scale"]), "dx": dx.numpy(),
+            "comm": {op: (st["calls"], st["bytes"])
+                     for op, st in mesh.comm_stats.items()}}
+
+
+def _pp_lm_of(case):
+    from distkeras_tpu_torch.parallel import PipelineTransformerLM
+    shape = tuple(case["shape"])
+    mesh = _cpu_mesh(shape, ("data", "stage", "model")[:len(shape)])
+    knobs = dict(case.get("knobs", {}))
+    if len(shape) == 3:
+        knobs["model_axis"] = "model"
+    return PipelineTransformerLM(**case["cfg"], **knobs, mesh=mesh,
+                                 compute_dtype="float32")
+
+
+def _pp_lm(case, rank):
+    import torch
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.parallel import gather_params, load_jax_params
+    from distkeras_tpu_torch.parallel.train_step import reduce_grads
+    lm = _pp_lm_of(case)
+    cfg = case["cfg"]
+    tree = lm_tree(lm._shapes(), case["seed"])
+    toks, labels = lm_batch(cfg, case["batch"], case["seed"] + 1)
+    toks, labels = lm.shard_batch(toks), lm.shard_batch(labels)
+    params = load_jax_params(lm, tree)
+    out = {"coords": lm.mesh.coords, "bubble": lm.bubble_fraction(),
+           "local_shapes": {n: tuple(p.shape) for n, p in params.items()}}
+    if case.get("roundtrip"):
+        out["roundtrip"] = gather_params(lm, params)
+    if lm.schedule == "1f1b":
+        loss, grads = lm._local_loss_and_grads_1f1b(params, toks, labels)
+    else:
+        loss = lm._local_loss(params, toks, labels)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    axes = lm.grad_axes()
+    grads = reduce_grads(list(grads), [axes[n] for n in params], lm.mesh)
+    out["loss"] = float(loss.detach())
+    out["grads"] = gather_params(lm, dict(zip(params, grads)))
+    out["ppermute"] = dict(lm.mesh.comm_stats.get("ppermute", {}))
+    opt_state, step = lm.compile_train_step(
+        optimizers.adam(case["lr"], eps=1e-4), params)
+    losses = []
+    for _ in range(case["steps"]):
+        params, opt_state, loss = step(params, opt_state, toks, labels)
+        losses.append(float(loss))
+    out["losses"] = losses
+    return out
+
+
+def _adam_moments(state):
+    """The first moments (mu) of the ``scale_by_adam`` inside ``state``."""
+    if (isinstance(state, tuple) and len(state) == 3
+            and isinstance(state[0], int) and isinstance(state[1], list)):
+        return state[1]
+    for sub in state if isinstance(state, (tuple, list)) else ():
+        found = _adam_moments(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def _zero(case, rank):
+    from distkeras_tpu_torch.core import optimizers
+    from distkeras_tpu_torch.parallel import (ParallelTransformerLM,
+                                              gather_params, load_jax_params)
+    shape, cfg = tuple(case["shape"]), case["cfg"]
+    if case["lm"] == "pp":
+        lm = _pp_lm_of(case)
+    else:
+        lm = ParallelTransformerLM(**cfg, mesh=_cpu_mesh(
+            shape, ("data", "seq", "model")), compute_dtype="float32")
+    tree = lm_tree(lm._shapes(), case["seed"])
+    toks, labels = lm_batch(cfg, case["batch"], case["seed"] + 1)
+    toks, labels = lm.shard_batch(toks), lm.shard_batch(labels)
+    out = {}
+    for mode in case["modes"]:
+        params = load_jax_params(lm, tree)
+        tx = optimizers.adam(case["lr"], eps=case["eps"])
+        if case.get("clip") is not None:
+            tx = optimizers.chain(optimizers.clip_by_global_norm(
+                case["clip"]), tx)
+        opt_state, step = lm.compile_train_step(
+            tx, params, zero=mode == "zero", fsdp=mode == "fsdp")
+        losses = []
+        for _ in range(case["steps"]):
+            params, opt_state, loss = step(params, opt_state, toks, labels)
+            losses.append(float(loss))
+        out[mode] = {
+            "losses": losses,
+            "moment_shapes": [tuple(m.shape)
+                              for m in _adam_moments(opt_state)],
+            "param_shapes": {n: tuple(p.shape) for n, p in params.items()},
+            "comm": {op: (st["calls"], st["bytes"])
+                     for op, st in lm.mesh.comm_stats.items()}}
+        out[mode]["final"] = gather_params(lm, params)
+        lm.mesh.comm_stats.clear()
+    return out
+
+
 def _env(case, rank):
     import torch.distributed as dist
     import torch
@@ -256,7 +411,8 @@ def _env(case, rank):
                                                      "distkeras_tpu"))}
 
 
-RUNNERS = {"collectives": _collectives, "lm": _lm, "env": _env}
+RUNNERS = {"collectives": _collectives, "lm": _lm, "env": _env,
+           "pipeline": _pipeline, "pp_lm": _pp_lm, "zero": _zero}
 
 
 def main(spec_path, out_dir):

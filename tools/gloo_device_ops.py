@@ -19,7 +19,7 @@ import subprocess
 import sys
 
 OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all_single",
-       "send_recv")
+       "reduce_scatter", "reduce_scatter_tensor", "send_recv")
 
 
 def child(rank: int, port: int, dev: str, ops) -> None:
@@ -45,6 +45,13 @@ def child(rank: int, port: int, dev: str, ops) -> None:
             dist.all_to_all_single(y, x)
             return y.tolist() == ([0.0, 1.0, 1.0, 2.0] if rank == 0
                                   else [2.0, 3.0, 3.0, 4.0])
+        if op in ("reduce_scatter", "reduce_scatter_tensor"):
+            y = torch.empty(2, device=dev)
+            if op == "reduce_scatter":
+                dist.reduce_scatter(y, list(x.chunk(2)))
+            else:
+                dist.reduce_scatter_tensor(y, x)
+            return y.tolist() == ([1.0, 3.0] if rank == 0 else [5.0, 7.0])
         y = torch.empty_like(x)  # send_recv
         for work in (dist.isend(x, 1 - rank), dist.irecv(y, 1 - rank)):
             work.wait()
