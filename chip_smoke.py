@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-twenty-eight phases, each printing JSON lines, and fails with a non-zero
+thirty phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -143,7 +143,8 @@ exit if any phase fails:
     1-layer draft equal to ``generate``; int8 weights' bytes and greedy
     agreement; no kernel launched on any of it.
 17. serve: the ``ServingEngine`` (``serving.py``) over the LM at full
-    width in bf16, both forms, 8 slots, chunks of 128: a seeded trace of
+    width in bf16, form full (both forms in the f32 checks), 8 slots,
+    chunks of 128: a seeded trace of
     16 requests (prompts of 16, 64, 256 and 1024 tokens, 128 new tokens
     each, half greedy, half sampled at temperature 0.7 with seeds of
     their own, some with top-k 40 or top-p 0.9) through the engine with
@@ -160,7 +161,7 @@ exit if any phase fails:
     on any of it.
 18. paged: the same engine with its paged KV pool (``paged=True``, blocks
     of 16 tokens, the default ``kv_blocks``: the dense pool's capacity)
-    over phase serve's trace, bf16, both forms, its decode step as a CUDA
+    over phase serve's trace, bf16, form full, its decode step as a CUDA
     graph (block tables on the device) and uncaptured: tokens/s, ms per
     decode-only iteration, TTFT, ATen calls a step, uploads and readbacks
     per decode-only iteration, the arena's bytes beside the dense pool's;
@@ -307,13 +308,24 @@ exit if any phase fails:
     ``initialize_from_env`` on mesh (1, 1, 2), full width at f32 on 2
     layers, against one rank in this process (losses, gathered parameters),
     with their start seconds, ms a step and collective bytes and seconds.
+29. pipeline: ``PipelineTransformerLM`` (GPipe and 1F1B) on one rank at
+    the parallel LM's widths, on two stages across ranks against one
+    rank, and ZeRO-1/FSDP on two data ranks against the plain step (the
+    PP_* comment).
+30. spmd_ranks: the SPMD engine, ``ModelPredictor(mesh=)`` and the dry
+    run across ranks on the one card over gloo (the SPMD_* comment): the
+    north-star configuration under ADAG and DynSGD on two ranks equal to
+    the one-process two-worker engine to the bit, the LM's rows through
+    the predictor's mesh route equal to the one-device predict to the bit
+    (the sm90 inference forward once a layer on each rank), and
+    ``dryrun_multichip(4)``.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
 QoS, disaggregated serving, fleet, host-PS, sparse host-PS, survivable
-host-PS, cross-process, online and MoE paths), the
+host-PS, cross-process, online, MoE, pipeline and SPMD-ranks paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -638,6 +650,11 @@ SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 1, 4
 SERVE_FORMS = {"full": (dict(), False),
                "rolling_window": (dict(attention_window=256,
                                        positional="rope"), True)}
+# the forms whose bf16 engines run the trace in phases serve and paged: the
+# full form (depth cut from both forms, PERF.md section 4; the other form's
+# weights are still drawn, so the f32 checks, which take both forms, see
+# the same numbers)
+SERVE_BF16_FORMS = ("full",)
 SERVE_SLOTS, SERVE_CHUNK = 8, 128
 # (16 requests keep the whole script under half its time limit; their
 # prompts take all four lengths)
@@ -964,7 +981,7 @@ MOE_RANK_BATCH, MOE_RANK_STEPS, MOE_RANK_EPS = 2, 2, 1e-4
 MOE_RANK_PARAM_RTOL = 1e-2
 MOE_RANK_TIMEOUT_S = 300.0
 # The pipeline (GPipe and 1F1B), PipelineTransformerLM and ZeRO-1/FSDP
-# (ROADMAP queue A item 7).  (a) One rank, mesh (1, 1) ('data', 'stage'):
+# across ranks.  (a) One rank, mesh (1, 1) ('data', 'stage'):
 # PipelineTransformerLM at the PLM's widths (vocab 32768, seq 2048,
 # d_model 512, 8 heads, 8 layers, mlp 2048; learned positions, as the JAX
 # class has no RoPE), bf16, batch PLM_BATCH, PLM_STEPS steps of
@@ -997,6 +1014,29 @@ PP_RANKS, PP_RANK_LAYERS, PP_RANK_BATCH, PP_RANK_MICRO = 2, 2, 4, 2
 PP_RANK_STEPS, PP_RANK_LOSS_RTOL = 2, 1e-4
 ZERO_RANK_LAYERS, ZERO_RANK_BATCH, ZERO_RANK_STEPS, ZERO_RTOL = 2, 2, 2, 1e-6
 PP_RANK_TIMEOUT_S = 300.0
+# The SPMD engine, ModelPredictor and the dry run across ranks,
+# SPMD_RANKS ranks on the one card over gloo, started as a coordinated
+# job_deployment.Job through initialize_from_env while this process runs
+# the one-process references.  (a) The north-star
+# configuration (bench.py:1109-1121: mnist_convnet, bf16, adam, batch
+# ADAG_BATCH, window ADAG_WINDOW, the ADAG_ROWS rows, seeded weights) under
+# each of SPMD_RANK_ALGOS, one worker a rank, SPMD_RANK_EPOCHS epochs (the
+# first warms up, the last is timed), against the one-process
+# SPMD_RANKS-worker engine on the card from the same weights: losses,
+# center and every worker's params equal to the bit; examples/s, ms a round
+# a rank, collective calls, bytes and host seconds; no kernel launched.
+# (b) ModelPredictor(mesh=) over phase slice's LM ("full", bf16, random
+# numpy-seeded weights) on SPMD_PREDICT_ROWS rows, batch SPMD_PREDICT_BATCH:
+# every rank's gathered rows equal this process's one-device predict of the
+# same rows to the bit, one flash_inference_sm90 a layer on each rank
+# (num_layers a rank) and nothing else.  (c) dryrun_multichip(
+# SPMD_DRYRUN_RANKS) on the card: every part's loss finite; it runs beside
+# (a)'s and (b)'s one-process references (so their times carry its load;
+# the ranks' timed runs start after it ends), a depth cut of ~13 s.
+SPMD_RANKS, SPMD_RANK_ALGOS, SPMD_RANK_EPOCHS = 2, ("adag", "dynsgd"), 2
+SPMD_PREDICT_ROWS, SPMD_PREDICT_BATCH = 16, 8
+SPMD_DRYRUN_RANKS = 4
+SPMD_RANK_TIMEOUT_S = 300.0
 
 
 def emit(obj) -> None:
@@ -3611,7 +3651,7 @@ def _serve_checks(card: str, dev: str, trace, rng) -> dict:
 def phase_serve(card: str, dev: str = "cuda"):
     """The serving engine on the card: the trace through the graph engine
     and through the same engine with its step uncaptured (bf16, full
-    width, both forms), their tokens/s, ms per decode step, TTFT and slot
+    width, the forms of SERVE_BF16_FORMS), their tokens/s, ms per decode step, TTFT and slot
     occupancy; host calls a step; 0 uploads and 1 readback per
     decode-only iteration; no request lost and every slot reused; the f32
     checks of _serve_checks; no kernel launched on any of it (decode
@@ -3627,6 +3667,8 @@ def phase_serve(card: str, dev: str = "cuda"):
     for form, (extra, rolling) in SERVE_FORMS.items():
         model = transformer_lm(**LM, **extra, device=dev)
         load_jax_weights(model, _random_jax_weights(model, rng))
+        if form not in SERVE_BF16_FORMS:
+            continue
         runs = {"graph": _serve_run(model, trace, rolling, dev),
                 "uncaptured": _serve_run(model, trace, rolling, dev,
                                          graphed=False)}
@@ -3892,7 +3934,7 @@ def _paged_checks(card: str, dev: str, trace, prefix_trace, rng) -> dict:
 
 def phase_paged(card: str, dev: str = "cuda"):
     """The paged pool on the card: phase serve's trace (bf16, full width,
-    both forms) through the paged engine with its decode step as a CUDA
+    the forms of SERVE_BF16_FORMS) through the paged engine with its decode step as a CUDA
     graph and uncaptured (tokens/s, ms per decode-only iteration, TTFT,
     host calls a step, uploads and readbacks per decode-only iteration,
     the pool's bytes beside the dense pool's; the two equal, one capture,
@@ -3916,6 +3958,8 @@ def phase_paged(card: str, dev: str = "cuda"):
     for form, (extra, rolling) in SERVE_FORMS.items():
         model = transformer_lm(**LM, **extra, device=dev)
         load_jax_weights(model, _random_jax_weights(model, rng))
+        if form not in SERVE_BF16_FORMS:
+            continue
         dense_bytes = ServingEngine(model, num_slots=SERVE_SLOTS,
                                     max_len=LM["seq_len"],
                                     rolling=rolling).kv_pool_bytes
@@ -8522,6 +8566,352 @@ def phase_pipeline(card: str, dev: str = "cuda"):
     return {"train": runs, "ranks": ranks}, launches
 
 
+_SPMD_RANK = """
+import json, os, sys, time
+t_enter = time.time()
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from distkeras_tpu_torch.job_deployment import initialize_from_env
+initialize_from_env()
+import torch.distributed as dist
+import chip_smoke as c
+rank = dist.get_rank()
+spec_path, out, go, t0 = sys.argv[1:5]
+spec = json.load(open(spec_path))
+for name, value in spec["constants"].items():  # the parent's sizes
+    setattr(c, name, value)
+joined = time.time()
+deadline = time.time() + spec["timeout_s"]
+x, y = c._adag_rows(c.ADAG_ROWS)  # while the parent's references run
+while not os.path.exists(go):
+    if time.time() > deadline:
+        raise TimeoutError("no go from the parent process")
+    time.sleep(0.01)
+result = {"rank": rank, "joined_s": joined - float(t0),
+          "entered_s": t_enter - float(t0),
+          "backend": str(dist.get_backend()), "runs": {}}
+for algo in spec["algos"]:
+    run, arrays = c._spmd_north_star(spec["device"], spec["ranks"], algo,
+                                     x, y)
+    result["runs"][algo] = run
+    np.savez(os.path.join(out, "%s_rank%d.npz" % (algo, rank)), **arrays)
+    result["device"] = run.pop("device")
+blob = np.load(os.path.join(out, "lm.npz"))
+result["predict"] = c._spmd_predict(spec["device"], spec["ranks"], blob)
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump(result, f)
+dist.destroy_process_group()
+"""
+
+
+def _spmd_north_star(dev: str, n: int, algo: str, x, y):
+    """The north-star configuration under ``algo`` on a mesh of ``n``
+    workers on ``dev`` (across ranks inside a group of ``n``, in this
+    process without one): SPMD_RANK_EPOCHS epochs from the seeded weights,
+    the counts and the collectives' counters set to 0 before the last
+    (timed) one.  Returns (the row, the arrays: losses, center, this
+    process's workers)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import models
+    from distkeras_tpu_torch.parallel import (SPMDEngine, get_mesh,
+                                              shape_epoch_data)
+    mesh = get_mesh(n, devices=[dev] * n)
+    model = models.mnist_convnet("bfloat16", device=dev)
+    engine = SPMDEngine(model, "categorical_crossentropy", "adam", mesh,
+                        algo, communication_window=ADAG_WINDOW)
+    xb, yb, mb, rounds = shape_epoch_data(x, y, n, ADAG_WINDOW, ADAG_BATCH)
+    xb, yb = engine.place_columns(xb, 2), engine.place_columns(yb, 2)
+    state = engine.init_state(torch.Generator().manual_seed(SEED), (784,))
+    rngs = engine.worker_rngs(SEED)
+    losses, seconds = [], []
+    for epoch in range(SPMD_RANK_EPOCHS):
+        _sync(dev)
+        if epoch == SPMD_RANK_EPOCHS - 1:
+            mesh.comm_stats.clear()
+            _zero_counts()
+        t0 = time.perf_counter()
+        state, ls = engine.run_epoch(state, xb, yb, mb, rngs)
+        losses.append(ls.cpu().numpy())  # the epoch's one host sync
+        seconds.append(time.perf_counter() - t0)
+    launches = _read_counts()
+    arrays = {"losses": np.concatenate(losses)}
+    arrays.update({f"center/{k}": v.float().cpu().numpy()
+                   for k, v in state.center.items()})
+    for w, p in zip(engine.workers, state.local):
+        arrays.update({f"worker{w}/{k}": v.float().cpu().numpy()
+                       for k, v in p.items()})
+    row = {"algorithm": algo, "workers": n, "ranks": engine.ranks,
+           "rounds_per_epoch": rounds, "epoch_s": seconds,
+           "examples_per_s": len(x) / seconds[-1],
+           "ms_per_round": seconds[-1] / rounds * 1e3,
+           "launches": launches, "device": str(engine.device),
+           "collectives": {op: dict(v) for op, v in
+                           mesh.comm_stats.items()}}
+    return row, arrays
+
+
+def _spmd_predict(dev: str, n: int, blob) -> dict:
+    """ModelPredictor over phase slice's LM with ``mesh=`` a mesh of ``n``
+    ranks on ``dev`` (SPMD_PREDICT_BATCH rows a rank a chunk), the counts
+    set to 0 before the counted predict; its gathered rows against the
+    one-device predict in ``blob`` (bit-equal, largest gap)."""
+    import numpy as np
+    from distkeras_tpu_torch import (Dataset, FittedModel, ModelPredictor,
+                                     load_jax_weights, transformer_lm)
+    from distkeras_tpu_torch.parallel import get_mesh
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, [blob[f"w{i}"] for i in range(int(blob["nw"]))])
+    mesh = get_mesh(n, devices=[dev] * n)
+    predictor = ModelPredictor(FittedModel(model), mesh=mesh,
+                               batch_size=SPMD_PREDICT_BATCH)
+    data = Dataset({"features": blob["tokens"]})
+    predictor.predict(data)  # warm-up: cuBLAS handles, allocator
+    _sync(dev)
+    mesh.comm_stats.clear()
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = predictor.predict(data)["prediction"]
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    want = blob["logits"]
+    return {"seconds": seconds, "launches": launches,
+            "shape": list(got.shape),
+            "bit_equal": bool(np.array_equal(got, want)),
+            "max_abs_gap": float(np.abs(got - want).max()),
+            "collectives": {op: dict(v) for op, v in
+                            mesh.comm_stats.items()}}
+
+
+def _spmd_start_ranks(tmp: str, dev: str):
+    """The ranks started as a coordinated Job over gloo (they make the
+    north-star rows themselves and wait for the go); returns (the job, the
+    go file, the launch time)."""
+    import json
+    import socket
+    from distkeras_tpu_torch.job_deployment import Job, LocalJobRunner
+    spec_path, script = (os.path.join(tmp, n)
+                         for n in ("spec.json", "spmd_rank.py"))
+    with open(spec_path, "w") as f:
+        json.dump({"ranks": SPMD_RANKS, "algos": list(SPMD_RANK_ALGOS),
+                   # every rank on the one card
+                   "device": "cuda:0" if dev == "cuda" else dev,
+                   "timeout_s": SPMD_RANK_TIMEOUT_S,
+                   "constants": {n: globals()[n] for n in (
+                       "ADAG_ROWS", "ADAG_BATCH", "ADAG_WINDOW", "LM",
+                       "SEED", "SPMD_RANK_EPOCHS", "SPMD_PREDICT_BATCH")}},
+                  f)
+    with open(script, "w") as f:
+        f.write(_SPMD_RANK)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    go = os.path.join(tmp, "go")
+    t_launch = time.time()
+    job = Job("spmd_ranks", script, args=[spec_path, tmp, go,
+                                          repr(t_launch)],
+              hosts=["127.0.0.1"] * SPMD_RANKS, coordinator_port=port,
+              backend="gloo", env={"PYTHONPATH": os.pathsep.join(
+                  p for p in (root, os.environ.get("PYTHONPATH")) if p)})
+    job.run(LocalJobRunner(), wait=False)
+    return job, go, t_launch
+
+
+def phase_spmd_ranks(card: str, dev: str = "cuda"):
+    """The SPMD engine, ModelPredictor and the dry run across ranks (the
+    SPMD_* comment): the ranks of (a) and (b) start first and join, and
+    (c)'s dry run runs on a thread of its own, while this process runs
+    (a)'s and (b)'s one-process references, which count as the main path
+    too; the go waits for the dry run's end, so the ranks' timed runs
+    share the card with nothing; then the ranks' results and the
+    comparisons.  Returns (the lines, every launch: this process's, the
+    ranks' and the dry run's)."""
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import (Dataset, FittedModel, ModelPredictor,
+                                     load_jax_weights, transformer_lm)
+    from distkeras_tpu_torch.dryrun import dryrun_multichip
+    t_start = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    launches, rows = {}, {}
+    dry = {}
+
+    def dry_run():
+        t0 = time.perf_counter()
+        try:
+            dry["result"] = dryrun_multichip(SPMD_DRYRUN_RANKS,
+                                             None if cuda else dev)
+        except BaseException as e:  # re-raised on this phase's thread
+            dry["error"] = e
+        dry["seconds"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
+        job, go, t_launch = _spmd_start_ranks(tmp, dev)
+        dry_thread = threading.Thread(target=dry_run, name="dryrun")
+        dry_thread.start()
+        try:
+            x, y = _adag_rows(ADAG_ROWS)
+            refs = {}
+            for algo in SPMD_RANK_ALGOS:
+                refs[algo] = _spmd_north_star(dev, SPMD_RANKS, algo, x, y)
+                launches = _add_counts(launches, refs[algo][0]["launches"])
+            model = transformer_lm(**LM, device=dev)
+            weights = _random_jax_weights(model, np.random.default_rng(
+                SEED + 29))
+            load_jax_weights(model, weights)
+            toks = np.random.default_rng(SEED + 30).integers(
+                0, LM["vocab_size"], (SPMD_PREDICT_ROWS, LM["seq_len"])
+            ).astype(np.int32)
+            one = ModelPredictor(FittedModel(model), device=dev,
+                                 batch_size=SPMD_PREDICT_BATCH)
+            one.predict(Dataset({"features": toks}))  # warm-up
+            _zero_counts()
+            t0 = time.perf_counter()
+            logits = one.predict(Dataset({"features": toks}))["prediction"]
+            one_s = time.perf_counter() - t0
+            one_launches = _read_counts()
+            launches = _add_counts(launches, one_launches)
+            np.savez(os.path.join(tmp, "lm.npz"), tokens=toks,
+                     logits=logits, nw=len(weights),
+                     **{f"w{i}": w for i, w in enumerate(weights)})
+            del model, one
+            dry_thread.join()
+            if "error" in dry:
+                raise dry["error"]
+            open(go, "w").close()
+            codes = []
+            for p in job.processes:
+                left = max(t_launch + SPMD_RANK_TIMEOUT_S - time.time(), 1.0)
+                codes.append(p.wait(timeout=left))
+            check(codes == [0] * SPMD_RANKS, f"spmd ranks exited {codes}")
+            ranks = []
+            for r in range(SPMD_RANKS):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            # (a): the ranks against the one-process engine, to the bit
+            for algo in SPMD_RANK_ALGOS:
+                ref_row, ref = refs[algo]
+                got = [dict(np.load(os.path.join(
+                    tmp, f"{algo}_rank{r}.npz"))) for r in range(SPMD_RANKS)]
+                equal = {
+                    "losses": all(np.array_equal(g["losses"],
+                                                 ref["losses"]) for g in got),
+                    "center": all(np.array_equal(g[k], v) for g in got
+                                  for k, v in ref.items()
+                                  if k.startswith("center/")),
+                    "workers": all(np.array_equal(
+                        got[r][k], ref[k]) for r in range(SPMD_RANKS)
+                        for k in ref if k.startswith(f"worker{r}/"))}
+                runs = [r["runs"][algo] for r in ranks]
+                for run in runs:
+                    launches = _add_counts(launches, run["launches"])
+                row = {"phase": "spmd_ranks_train", "algorithm": algo,
+                       "ranks": SPMD_RANKS, "backend": ranks[0]["backend"],
+                       "devices": [r["device"] for r in ranks],
+                       "compute_dtype": "bfloat16", "batch": ADAG_BATCH,
+                       "window": ADAG_WINDOW, "rows": len(x),
+                       "epochs": SPMD_RANK_EPOCHS,
+                       "rounds_per_epoch": ref_row["rounds_per_epoch"],
+                       "bit_equal_to_one_process": equal,
+                       "losses": ref["losses"].tolist(),
+                       "examples_per_s": [r["examples_per_s"] for r in runs],
+                       "ms_per_round_per_rank": [r["ms_per_round"]
+                                                 for r in runs],
+                       "epoch_s_per_rank": [r["epoch_s"] for r in runs],
+                       "one_process_examples_per_s":
+                           ref_row["examples_per_s"],
+                       "one_process_ms_per_round": ref_row["ms_per_round"],
+                       "collectives_per_rank": [r["collectives"]
+                                                for r in runs],
+                       "launches_per_rank": [r["launches"] for r in runs],
+                       "child_start_s": [r["joined_s"] for r in ranks],
+                       "card": card}
+                emit(row)
+                rows[algo] = row
+                check(all(r["backend"] == "gloo" and r["device"] == (
+                          "cuda:0" if cuda else dev) for r in ranks),
+                      f"spmd ranks: {[r['backend'] for r in ranks]}, "
+                      f"{[r['device'] for r in ranks]}")
+                check(np.isfinite(ref["losses"]).all()
+                      and all(equal.values()),
+                      f"spmd ranks {algo}: not equal to one process to the "
+                      f"bit: {equal}")
+                check(not any(v for r in runs for v in
+                              r["launches"].values())
+                      and not any(ref_row["launches"].values()),
+                      f"spmd ranks {algo}: kernel launches "
+                      f"{[r['launches'] for r in runs]}, want none")
+                check(all(r["collectives"]["all_reduce"]["calls"]
+                          == ref_row["rounds_per_epoch"] for r in runs),
+                      f"spmd ranks {algo}: collectives "
+                      f"{[r['collectives'] for r in runs]}, want one "
+                      "all_reduce a round")
+            # (b): ModelPredictor(mesh=) over the LM
+            preds = [r["predict"] for r in ranks]
+            for pr in preds:
+                launches = _add_counts(launches, pr["launches"])
+            row = {"phase": "spmd_ranks_predict", "ranks": SPMD_RANKS,
+                   "config": LM, "compute_dtype": "bfloat16",
+                   "rows": SPMD_PREDICT_ROWS, "batch": SPMD_PREDICT_BATCH,
+                   "bit_equal_to_one_device": [p["bit_equal"]
+                                               for p in preds],
+                   "max_abs_gap": [p["max_abs_gap"] for p in preds],
+                   "shape": preds[0]["shape"],
+                   "seconds_per_rank": [p["seconds"] for p in preds],
+                   "one_device_seconds": one_s,
+                   "one_device_launches": one_launches,
+                   "launches_per_rank": [p["launches"] for p in preds],
+                   "collectives_per_rank": [p["collectives"]
+                                            for p in preds],
+                   "card": card}
+            emit(row)
+            rows["predict"] = row
+            check(all(p["bit_equal"] for p in preds),
+                  f"spmd ranks predict: rows differ from one device by "
+                  f"{row['max_abs_gap']}")
+            if cuda:
+                want = LM["num_layers"]  # one batch of rows a rank
+                for r, n in enumerate(row["launches_per_rank"]):
+                    check(n["flash_inference_sm90"] == n["flash_inference"]
+                          == want and not any(
+                              v for k, v in n.items() if k not in (
+                                  "flash_inference", "flash_inference_sm90")),
+                          f"spmd ranks predict: rank {r} launches {n}, want "
+                          f"{want} flash_inference_sm90 and nothing else")
+        finally:
+            dry_thread.join()
+            for p in job.processes:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    # (c): the dry run of the distributed surface on the card
+    ranks = dry["result"]["ranks"]
+    for r in ranks:
+        launches = _add_counts(launches, r["launches"])
+    row = {"phase": "spmd_ranks_dryrun", "ranks": SPMD_DRYRUN_RANKS,
+           "seconds": dry["seconds"],
+           "devices": [r["device"] for r in ranks],
+           "losses": {k: ranks[0][k] for k in
+                      ("adag", "transformer", "ulysses_fsdp",
+                       "pipeline_gpipe", "pipeline_1f1b")},
+           "factors": ranks[0]["factors"],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "jax_modules": [r["modules"] for r in ranks],
+           "card": card}
+    emit(row)
+    rows["dryrun"] = row
+    check(all(not r["modules"] for r in ranks),
+          "spmd ranks dryrun: a rank loaded jax")
+    emit({"phase": "spmd_ranks", "launches_spmd_ranks": launches,
+          "seconds": time.perf_counter() - t_start, "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8563,6 +8953,7 @@ def main() -> int:
     _, online_launches = phase_online(smi)
     _, moe_launches = phase_moe(smi)
     _, pipeline_launches = phase_pipeline(smi)
+    _, spmd_ranks_launches = phase_spmd_ranks(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -8742,7 +9133,10 @@ def main() -> int:
         microbatch and step and under 1F1B the sm90 inference forward as
         often; (b)'s ranks, the same for their one layer; (c)'s ranks,
         B1/B2 once a step and the SIMT training kernels once a layer and
-        step)."""
+        step) and on the SPMD-ranks path (phase spmd_ranks: (a)'s engines
+        none; (b)'s one-device predict and its ranks, the sm90 inference
+        forward once a layer and batch of rows; (c)'s dry-run ranks, the
+        SIMT kernels of their f32 LMs)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -8764,6 +9158,7 @@ def main() -> int:
         entry["launches_online"] = online_launches[key]
         entry["launches_moe"] = moe_launches.get(key, 0)
         entry["launches_pipeline"] = pipeline_launches.get(key, 0)
+        entry["launches_spmd_ranks"] = spmd_ranks_launches.get(key, 0)
         return entry
 
     emit(north_star)

@@ -90,19 +90,31 @@ def round_stream(x: np.ndarray, y: np.ndarray, num_workers: int,
             yield x[sel], y[sel], mask
 
 
-def prefetch_to_device(iterator: Iterator, devices: Sequence,
-                       buffer_size: int = 2):
+def prefetch_to_device(iterator: Iterator, devices: Optional[Sequence] = None,
+                       buffer_size: int = 2, *, shardings=None):
     """Wrap an iterator of array tuples, keeping ``buffer_size`` items in
-    flight on their devices: element k of each item goes to
-    ``devices[k]``.
+    flight: element k of each item goes to ``devices[k]``, or, given
+    ``shardings`` instead (JAX's form), is placed by ``shardings[k]``: a
+    ``parallel.mesh.Placement`` (``replicated``, ``worker_sharded``: on a
+    worker mesh across ranks only this rank's part goes to its device) or
+    a device.
 
     A ``non_blocking`` copy from pinned memory returns at once (the copy
     runs on the card's copy engine in stream order), so enqueueing the next
     round before the current one is consumed overlaps host → device copies
     with device compute.
     """
-    devices = [torch.device(d) for d in devices]
+    if (devices is None) == (shardings is None):
+        raise ValueError("pass exactly one of devices and shardings")
+    kind = "devices" if shardings is None else "shardings"
+    targets = [t if hasattr(t, "place") else torch.device(t)
+               for t in (devices if shardings is None else shardings)]
     queue = collections.deque()
+
+    def put(a, target):
+        if isinstance(target, torch.device):
+            return host_to_device(a, target, non_blocking=True)
+        return target.place(a, non_blocking=True)
 
     def enqueue(k):
         for _ in range(k):
@@ -110,14 +122,13 @@ def prefetch_to_device(iterator: Iterator, devices: Sequence,
                 item = next(iterator)
             except StopIteration:
                 return
-            if len(item) != len(devices):
+            if len(item) != len(targets):
                 # zip would silently truncate (dropping e.g. the mask of a
-                # packed quadruple fed with 3 devices): refuse instead
+                # packed quadruple fed with 3 targets): refuse instead
                 raise ValueError(
                     f"streamed item has {len(item)} arrays but "
-                    f"{len(devices)} devices were given")
-            queue.append(tuple(host_to_device(a, d, non_blocking=True)
-                               for a, d in zip(item, devices)))
+                    f"{len(targets)} {kind} were given")
+            queue.append(tuple(put(a, t) for a, t in zip(item, targets)))
 
     enqueue(buffer_size)
     while queue:

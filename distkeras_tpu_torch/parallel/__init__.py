@@ -6,12 +6,16 @@ expert parallelism (MoE), the pipeline schedules (GPipe and 1F1B), the
 train step with ZeRO-1 and FSDP over the data axis,
 ``ParallelTransformerLM`` over ('data', 'seq', 'model') ranks and
 ``PipelineTransformerLM`` over ('data', 'stage'[, 'model']) ranks.  The
-SPMD engine across cards waits for ROADMAP queue A item 7."""
+SPMD engine runs a worker mesh across ranks (one worker a rank) or, on a
+mesh that repeats one device, every worker in one process
+(``mesh.py``)."""
 
 from . import collective, rules
 from .collective import (all_gather, all_to_all, pmean, ppermute, psum,
                          pvary)
-from .mesh import WORKER_AXIS, Mesh, get_mesh, initialize
+from .mesh import (WORKER_AXIS, Mesh, Placement, get_mesh, initialize,
+                   put_replicated, put_worker_sharded, replicated,
+                   worker_sharded)
 from .moe import (EXPERT_AXIS, load_balance_loss, moe_mlp, top1_routing,
                   topk_routing, topk_slots)
 from .spmd import DistState, SPMDEngine, shape_epoch_data
@@ -25,7 +29,9 @@ from .train_step import (build_train_step, opt_partition_specs,
 from .transformer import ParallelTransformerLM, gather_params, load_jax_params
 from .ulysses import ulysses_attention, ulysses_self_attention
 
-__all__ = ["WORKER_AXIS", "Mesh", "get_mesh", "initialize", "collective",
+__all__ = ["WORKER_AXIS", "Mesh", "get_mesh", "initialize", "Placement",
+           "replicated", "worker_sharded", "put_replicated",
+           "put_worker_sharded", "collective",
            "psum", "pmean", "pvary", "all_gather", "all_to_all", "ppermute",
            "SPMDEngine", "DistState", "shape_epoch_data", "rules",
            "SEQ_AXIS", "ring_attention", "ring_self_attention",

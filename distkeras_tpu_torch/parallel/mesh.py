@@ -1,6 +1,7 @@
 """The device meshes of the port, counterpart of
-``distkeras_tpu/parallel/mesh.py`` (``initialize``, ``get_mesh``) and of
-``jax.sharding.Mesh``.
+``distkeras_tpu/parallel/mesh.py`` (``initialize``, ``get_mesh``, the
+placement helpers ``replicated``, ``worker_sharded``, ``put_replicated``,
+``put_worker_sharded``) and of ``jax.sharding.Mesh``.
 
 :class:`Mesh` is an array of devices with one axis name per dimension,
 whose ``shape`` maps each name to its size.  A JAX program runs one
@@ -23,25 +24,42 @@ device cannot run NCCL: such a mesh under ``"nccl"`` raises before any
 collective, naming ``backend="gloo"``.
 
 :func:`get_mesh` builds the 1-D worker mesh of the distributed trainers
-(axis :data:`WORKER_AXIS`): one worker per visible card by default.  An
-explicit ``devices`` list may name one device N times, the port's
-counterpart of ``--xla_force_host_platform_device_count``: the SPMD engine
-runs such a mesh as N workers on that one device (:func:`worker_device`)
-and never binds it to a process group.  The SPMD engine across cards and
-the placement helpers (``replicated``, ``worker_sharded``, ``put_*``) wait
-for ROADMAP queue A item 7.
+(axis :data:`WORKER_AXIS`).  Without ``devices`` it is one worker per
+rank of the initialized process group, rank ``r`` on card ``r %
+device_count`` (on a one-card machine every rank shares ``cuda:0``), and
+without a group one worker per visible card.  An explicit ``devices``
+list may name one device N times, the port's counterpart of
+``--xla_force_host_platform_device_count``.
+
+The rule that picks how a worker mesh runs (:func:`across_ranks`,
+:func:`worker_device`, :func:`local_workers`):
+ - across ranks, one worker a rank, when a process group is initialized
+   and its world size equals the mesh's size;
+ - otherwise a mesh that repeats one device runs its N workers one after
+   another in this process (never bound to a group);
+ - a mesh over distinct devices without such a group raises: start one
+   process a worker and call :func:`initialize` (or
+   ``job_deployment.initialize_from_env``) in each.
+
+A :class:`Placement` says where a leaf goes on a worker mesh, as
+``NamedSharding`` over ``P()`` (:func:`replicated`: the whole array on
+this process's device) or over ``P(..., 'workers')``
+(:func:`worker_sharded`: across ranks this rank's part of that axis,
+kept as an axis, the block JAX's ``shard_map`` hands the position; in
+one process every worker's part, i.e. the whole array).
 """
 
 from __future__ import annotations
 
 import itertools
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, host_to_device, resolve_device
+from .rules import tmap
 
 #: the axes of ParallelTransformerLM's mesh, in the JAX package's order
 LM_AXES = ("data", "seq", "model")
@@ -131,12 +149,11 @@ class Mesh:
             return 0
         import torch.distributed as dist
         if not (dist.is_available() and dist.is_initialized()):
-            raise NotImplementedError(
+            raise RuntimeError(
                 f"a mesh of {self.size} devices runs one rank a position "
-                "over torch.distributed: call parallel.mesh.initialize (or "
-                "job_deployment.initialize_from_env) in every rank first; "
-                "one process over several devices is not ported (ROADMAP "
-                "queue A item 7)")
+                f"over torch.distributed: start {self.size} processes and "
+                "call parallel.mesh.initialize (or job_deployment."
+                "initialize_from_env) in each before using it")
         world = dist.get_world_size()
         if world != self.size:
             raise ValueError(f"a mesh of {self.size} devices needs a "
@@ -223,20 +240,33 @@ def axis_index(mesh: Optional[Mesh], axis_name: str) -> int:
     return 0 if mesh is None else mesh.axis_index(axis_name)
 
 
+def group_size() -> int:
+    """The world size of this process's ``torch.distributed`` group (0
+    without one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
 def get_mesh(num_workers: Optional[int] = None,
              axis_name: str = WORKER_AXIS,
              devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """1-D data-parallel mesh over ``num_workers`` devices.
 
-    ``devices`` defaults to every visible CUDA card (none raises: the port
-    never drops to the CPU); ``num_workers`` defaults to all of them.
-    Fewer workers than devices is allowed; more raises.  Pass ``devices``
-    to run several workers on one device, e.g. ``get_mesh(8,
+    ``devices`` defaults, in a process group of more than one rank, to
+    one entry a rank (rank ``r`` on ``cuda:(r % device_count)``), and
+    otherwise to every visible CUDA card (none raises: the port never
+    drops to the CPU); ``num_workers`` defaults to all of them.  Fewer
+    workers than devices is allowed; more raises.  Pass ``devices`` to run
+    several workers on one device, e.g. ``get_mesh(8,
     devices=["cpu"] * 8)``."""
     if devices is None:
         resolve_device("cuda")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        count, world = torch.cuda.device_count(), group_size()
+        devices = ([torch.device("cuda", r % count) for r in range(world)]
+                   if world > 1 else
+                   [torch.device("cuda", i) for i in range(count)])
     devs = list(devices)
     n = num_workers or len(devs)
     if n > len(devs):
@@ -258,12 +288,80 @@ def same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
+def across_ranks(mesh: Mesh) -> bool:
+    """Whether the workers of ``mesh`` run one a rank: a mesh of more than
+    one entry in a process group of exactly its size."""
+    return mesh.size > 1 and group_size() == mesh.size
+
+
 def worker_device(mesh: Mesh) -> torch.device:
-    """The one device on which every worker of a worker mesh runs; a mesh
-    whose workers sit on distinct devices raises."""
+    """The device of this process's workers: across ranks this rank's
+    entry; otherwise the one device a repeated-device mesh names.  A mesh
+    over distinct devices without a process group of its size raises."""
+    if across_ranks(mesh):
+        return mesh.device
     devs = list(mesh.devices.flat)
     if not all(same_device(d, devs[0]) for d in devs[1:]):
-        raise NotImplementedError(
-            f"a worker mesh over distinct devices {devs}: the SPMD engine "
-            "across cards is not ported yet (ROADMAP queue A item 7)")
+        raise RuntimeError(
+            f"a worker mesh over distinct devices {devs} runs one worker a "
+            f"rank: start {mesh.size} processes and call parallel.mesh."
+            "initialize (or job_deployment.initialize_from_env) in each, "
+            f"with a world size of {mesh.size}, before building it")
     return devs[0]
+
+
+def local_workers(mesh: Mesh) -> List[int]:
+    """The workers this process runs, by index on the worker axis: its
+    rank's across ranks, all of them in one process."""
+    worker_device(mesh)
+    return [mesh.rank] if across_ranks(mesh) else list(range(mesh.size))
+
+
+class Placement:
+    """Where a leaf goes on a worker mesh: the counterpart of a
+    ``NamedSharding`` over ``P()`` (``axis`` None) or over ``P(None, ...,
+    'workers')`` with the worker axis at dim ``axis``."""
+
+    def __init__(self, mesh: Mesh, axis: Optional[int] = None):
+        self.mesh, self.axis = mesh, axis
+
+    def __repr__(self) -> str:
+        return f"Placement(axis={self.axis}, mesh={dict(self.mesh.shape)})"
+
+    def place(self, a, non_blocking: bool = False) -> torch.Tensor:
+        """``a`` (a host array or a tensor) on this process's device: whole
+        when replicated or in one process, else this rank's part of dim
+        ``axis`` (an equal split in mesh order, the dim kept)."""
+        dev = worker_device(self.mesh)
+        if self.axis is not None and across_ranks(self.mesh):
+            n, size = self.mesh.size, a.shape[self.axis]
+            if size % n:
+                raise ValueError(f"dim {self.axis} of {tuple(a.shape)} does "
+                                 f"not split over {n} workers")
+            part, r = size // n, self.mesh.rank
+            a = a[(slice(None),) * self.axis
+                  + (slice(r * part, (r + 1) * part),)]
+        return host_to_device(a, dev, non_blocking=non_blocking)
+
+
+def replicated(mesh: Mesh) -> Placement:
+    return Placement(mesh)
+
+
+def worker_sharded(mesh: Mesh, axis: int = 0) -> Placement:
+    return Placement(mesh, axis)
+
+
+def put_replicated(tree, mesh: Mesh):
+    """Place a tree (dicts, lists, tuples of arrays) replicated across the
+    mesh: the whole of every leaf on this process's device."""
+    s = replicated(mesh)
+    return tmap(s.place, tree)
+
+
+def put_worker_sharded(tree, mesh: Mesh):
+    """Place a tree whose leaves have a leading 'workers' axis: across
+    ranks this rank's slice (a leading axis of 1), in one process the
+    whole leaf."""
+    s = worker_sharded(mesh)
+    return tmap(s.place, tree)

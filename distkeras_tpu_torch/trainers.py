@@ -11,9 +11,13 @@ The constructor keywords are the JAX package's (``keras_model``,
 ``train(dataset) -> FittedModel``, ``get_history()`` and
 ``get_training_time()`` behave the same, plus ``device`` (``None`` means
 the CUDA card, and raises without one).  The distributed trainers run on
-a worker mesh (``parallel.get_mesh``): by default one worker per visible
-card; ``mesh=get_mesh(N, devices=[device] * N)`` runs N workers on one
-device.  ``segment_col`` trains on packed rows (``data/packing.py``) with
+a worker mesh (``parallel.get_mesh``): by default one worker per rank of
+an initialized process group, else one per visible card;
+``mesh=get_mesh(N, devices=[device] * N)`` runs N workers on one device in
+one process, or one a rank when run by each of N ranks (the rule of
+``parallel/mesh.py``).  Across ranks every rank calls ``train`` on the
+whole dataset, trains its own worker, and returns the same model and
+history.  ``segment_col`` trains on packed rows (``data/packing.py``) with
 a ``*_masked`` loss, on ``SingleTrainer`` and on the SPMD engine.
 
 ``execution="host_ps"`` runs the asynchronous family (ADAG, DOWNPOUR,
@@ -330,8 +334,10 @@ class DistributedTrainer(Trainer):
     SPMD engine's construction here.
 
     On ``"spmd"`` the workers are a mesh (``parallel.get_mesh``: one per
-    card by default).  On ``"host_ps"`` ``num_workers`` (default 1) counts
-    worker threads that all run on the trainer's one device (on
+    rank of a process group, else one per card, by default), run one a
+    rank or all in this process by the rule of ``parallel/mesh.py``.  On
+    ``"host_ps"`` ``num_workers`` (default 1) counts worker threads that
+    all run on the trainer's one device (on
     ``"process_ps"`` worker processes, each on that device); a ``mesh``
     given there only names that device and the count."""
 
@@ -375,8 +381,10 @@ class DistributedTrainer(Trainer):
             worker_dev = resolve_device(device)
         else:
             if mesh is None:
+                world = mesh_lib.group_size()
                 mesh = mesh_lib.get_mesh(
-                    num_workers, devices=None if device is None else [device])
+                    num_workers, devices=None if device is None
+                    else [device] * max(world, 1))
             worker_dev = mesh_lib.worker_device(mesh)
             if device is not None and not mesh_lib.same_device(
                     resolve_device(device), worker_dev):
@@ -470,6 +478,15 @@ class DistributedTrainer(Trainer):
             packed=self.segment_col is not None)
         self._state = engine.init_state()
         return engine
+
+    def _save(self, ckpt, engine: SPMDEngine, step: int, meta: dict) -> None:
+        """Checkpoint ``step``: every worker of the mesh in the
+        one-process layout, written by rank 0 (or the one process); no rank
+        goes on before the step is on disk."""
+        full = engine.gather_workers(self._state)
+        if engine.is_writer:
+            ckpt.save(step, full, meta=meta)
+        engine.barrier()
 
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False,
@@ -575,8 +592,13 @@ class DistributedTrainer(Trainer):
                         f"gives {rpe} (batch_size/communication_window/"
                         "dataset size changed) — resume with the same "
                         "configuration")
-                self._state = engine.put_state(
-                    ckpt.restore(self._state, latest))
+                # the step holds every worker (the one-process layout);
+                # a rank takes its own
+                st, n = self._state, engine.num_workers
+                target = (DistState(st.center, st.local * n,
+                                    st.opt_state * n, st.round_idx)
+                          if engine.ranks else st)
+                self._state = engine.put_state(ckpt.restore(target, latest))
                 if self.checkpoint_unit == "round":
                     # step k = global round clock after k rounds
                     start_epoch, skip_rounds = divmod(latest, rpe)
@@ -584,8 +606,12 @@ class DistributedTrainer(Trainer):
                     # step k = state after k epochs
                     start_epoch = latest
         from .metrics import EpochMetrics, MetricsLogger
-        # every worker of the mesh runs on one card
-        metrics = EpochMetrics(MetricsLogger(self.metrics_path), num_chips=1)
+        # the mesh's distinct cards (several workers may share one); across
+        # ranks rank 0 writes the metrics file
+        cards = {(d.type, d.index or 0) for d in self.mesh.devices.flat}
+        metrics = EpochMetrics(MetricsLogger(
+            self.metrics_path if engine.is_writer else None),
+            num_chips=len(cards))
         self.metrics = metrics.logger.events
         rngs = engine.worker_rngs(self.seed + 17)
         try:
@@ -604,11 +630,11 @@ class DistributedTrainer(Trainer):
                     self.batch_size, columns_seg=se)
                 if se is not None:
                     xb, yb, sb, mb, rounds = shaped
-                    sb = host_to_device(sb, self.device)
                 else:
                     (xb, yb, mb, rounds), sb = shaped, None
-                xb = host_to_device(xb, self.device)
-                yb = host_to_device(yb, self.device)
+                # this process's workers' columns on the device, once
+                xb, yb, sb = (engine.place_columns(a, 2)
+                              for a in (xb, yb, sb))
                 first = skip_rounds if epoch == start_epoch else 0
                 if self.checkpoint_unit == "round" and ckpt is not None:
                     # round by round, checkpointable mid-epoch on the
@@ -623,10 +649,9 @@ class DistributedTrainer(Trainer):
                         losses.append(loss)
                         done += 1
                         if done % self.checkpoint_every == 0:
-                            ckpt.save(done, self._state,
-                                      meta={"engine": "spmd",
-                                            "unit": "round",
-                                            "rounds_per_epoch": rpe})
+                            self._save(ckpt, engine, done,
+                                       {"engine": "spmd", "unit": "round",
+                                        "rounds_per_epoch": rpe})
                     losses = (torch.stack(losses).cpu().numpy()
                               if losses else np.zeros((0,), np.float32))
                 else:
@@ -643,11 +668,14 @@ class DistributedTrainer(Trainer):
                               float(losses.mean()) if len(losses) else 0.0)
                 if (ckpt is not None and self.checkpoint_unit == "epoch"
                         and (epoch + 1) % self.checkpoint_every == 0):
-                    ckpt.save(epoch + 1, self._state,
-                              meta={"engine": "spmd", "unit": "epoch"})
+                    self._save(ckpt, engine, epoch + 1,
+                               {"engine": "spmd", "unit": "epoch"})
+                # across ranks rank 0's validation loss decides on every
+                # rank (a rank that stopped alone would strand its peers)
                 if val_fn is not None and self._validate_epoch(
-                        val_fn, self._model_from(self._state.center,
-                                                 self._input_shape),
+                        lambda m: engine.from_writer(val_fn(m)),
+                        self._model_from(self._state.center,
+                                         self._input_shape),
                         epoch, metrics):
                     break
         finally:
@@ -974,8 +1002,10 @@ class AveragingTrainer(DistributedTrainer):
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False) -> FittedModel:
         super().train(dataset, shuffle, resume)
+        # every worker's params, gathered from every rank across ranks
+        local = self._engine.gather_workers(self._state).local
         self._fitted = FittedModel(self._model_from(
-            rules.average_trees(self._state.local), self._input_shape))
+            rules.average_trees(local), self._input_shape))
         return self._fitted
 
 
@@ -995,7 +1025,7 @@ class EnsembleTrainer(DistributedTrainer):
               resume: bool = False) -> List[FittedModel]:
         super().train(dataset, shuffle, resume)
         models = [FittedModel(self._model_from(p, self._input_shape))
-                  for p in self._state.local]
+                  for p in self._engine.gather_workers(self._state).local]
         self._ensemble = models
         self._fitted = models[0]  # predict-convenience surface only
         return models

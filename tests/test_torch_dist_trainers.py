@@ -496,7 +496,7 @@ def test_meshes_and_devices():
         port.ADAG(model, num_workers=4, device="cpu")
     with pytest.raises(ValueError, match="worker mesh is on"):
         port.ADAG(model, mesh=cpu_mesh(2), device="meta")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         port.ADAG(model, mesh=get_mesh(2, devices=["cpu", "meta"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -3,10 +3,12 @@ of the card scripts (``chip_smoke.py``, ``tools/profile_torch_slice.py``,
 ``tools/compare_simt_builds.py``, ``tools/time_simt_builds.py``,
 ``tools/simt_backward_share.py``, ``tools/simt_forward_share.py``,
 ``tools/host_ps_threads.py``, ``tools/gloo_device_ops.py``), imports
-jax or the JAX package; importing the port pulls in no jax; and its
+jax or the JAX package; importing the port pulls in no jax, nor does a
+run of ``python -m distkeras_tpu_torch.dryrun`` and its ranks; and its
 entry points refuse to drop to the CPU when no CUDA card is present."""
 
 import ast
+import math
 import os
 import subprocess
 import sys
@@ -65,7 +67,7 @@ NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "ps_worker_main.py", "ps_shard_main.py",
                "deployment_online.py", "parallel/moe.py",
                "parallel/collective.py", "parallel/pipeline.py",
-               "parallel/pp_transformer.py")
+               "parallel/pp_transformer.py", "dryrun.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -156,6 +158,27 @@ def test_a_rank_started_through_initialize_from_env_loads_no_jax(tmp_path):
         assert p.returncode == 0, err
         outs.append(out.strip())
     assert outs == ["[]", "[]"]
+
+
+def test_the_dryrun_main_loads_no_jax():
+    """``python -m distkeras_tpu_torch.dryrun 1 cpu``: the driver and its
+    rank child (``python -m distkeras_tpu_torch.dryrun --rank``) finish
+    every part with finite losses and neither has loaded jax or the JAX
+    package (tests/test_torch_dryrun.py runs 2 and 4 ranks)."""
+    import json
+    out = subprocess.run(
+        [sys.executable, "-m", "distkeras_tpu_torch.dryrun", "1", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=180,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["modules"] == [] and len(result["ranks"]) == 1
+    for rank in result["ranks"]:
+        assert rank["modules"] == []
+        for part in ("adag", "transformer", "ulysses_fsdp",
+                     "pipeline_gpipe", "pipeline_1f1b"):
+            assert all(map(math.isfinite, (rank[part] if part == "adag"
+                                           else [rank[part]]))), part
 
 
 @pytest.mark.parametrize("main", ["ps_worker_main", "ps_shard_main"])

@@ -403,24 +403,24 @@ def test_load_jax_params_checks_names_and_shapes(bad):
 def test_a_mesh_axis_above_one_raises(shape):
     """A mesh of two devices runs one rank a position over
     torch.distributed: without a process group (this process joined none)
-    the LM and a collective over the axis refuse, and a mesh of one
-    process over several devices stays unported (item 7)."""
+    the LM and a collective over the axis refuse, naming how to start the
+    ranks."""
     devices = np.array(["cpu"] * 2, dtype=object).reshape(shape)
     mesh = Mesh(devices)
     assert dict(mesh.shape) == dict(zip(("data", "seq", "model"), shape))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(RuntimeError, match="start 2 processes"):
         ParallelTransformerLM(**TINY, mesh=mesh)
     x = torch.zeros(1, 4, 16)
     w = torch.zeros(16, 16)
     axis = ("data", "seq", "model")[shape.index(2)]
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         tp.row_parallel_dense(x, w, axis_name=axis, mesh=mesh)
 
 
 def test_moe_layers_and_a_ring_across_cards_raise():
     """MoE layers are ported (tests/test_torch_moe.py): what raises is the
     JAX class's check on the expert count, and a ring across a mesh of two
-    devices without a process group (item 7)."""
+    devices without a process group."""
     lm = ParallelTransformerLM(**TINY, mesh=port_mesh(), moe_layers=(1,),
                                num_experts=4)
     assert lm._shapes()["layers.1.w1"] == (4, 16, 32)
@@ -435,7 +435,7 @@ def test_moe_layers_and_a_ring_across_cards_raise():
                               num_experts=3)
     mesh = Mesh(np.array(["cpu"] * 2, dtype=object), axis_names=("seq",))
     q = torch.zeros(1, 4, 2, 4)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
         ring.ring_attention(q, q, q, "seq", mesh=mesh)
 
 

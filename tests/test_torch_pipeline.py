@@ -149,7 +149,8 @@ def test_worker_mesh_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_mesh()
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    # distinct devices without a process group of the mesh's size
+    with pytest.raises(RuntimeError, match="start 2 processes"):
         worker_device(get_mesh(2, devices=["cpu", "meta"]))
 
 

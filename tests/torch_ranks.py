@@ -25,7 +25,22 @@ The cases:
 - ``zero``: a ``ParallelTransformerLM`` or ``PipelineTransformerLM`` run
   of a few steps under each of the plain step, ZeRO-1 and FSDP: the
   losses, the moments' and the parameters' local shapes and the
-  gathered final parameters.
+  gathered final parameters;
+- ``spmd``: the SPMD engine on a worker mesh of the ranks, an epoch of
+  each algorithm from a numpy weight set (:func:`engine_model`,
+  :func:`engine_optimizer`): the losses, the center, this rank's worker
+  and every worker gathered; with ``modes`` also ``run_round`` round by
+  round and ``run_epoch_streaming`` through ``prefetch_to_device(
+  shardings=)``; ``spmd_packed`` the same for the packed engine over a
+  tiny RoPE LM (:func:`packed_setup`);
+- ``place``: ``put_replicated``, ``put_worker_sharded`` and
+  ``prefetch_to_device(shardings=)`` of the spec's arrays;
+- ``trainers``: the distributed trainers on the ranks' mesh (histories,
+  returned weights, metrics), checkpoints written for and resumed from
+  another process, early stopping;
+- ``predict``: ``ModelPredictor`` with ``mesh=`` the ranks' mesh and with
+  no mesh inside the group;
+- ``dryrun``: the ranks' part of ``dryrun.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -411,8 +426,276 @@ def _env(case, rank):
                                                      "distkeras_tpu"))}
 
 
+# -- the SPMD engine, the trainers and the predictor across ranks -------------
+ENGINE = dict(features=12, classes=4, rows=200, window=3, batch=8,
+              lr=0.01)
+ENGINE_LOSS = "categorical_crossentropy"
+ENGINE_ALPHA = {"aeasgd": 0.05, "eamsgd": 0.05}
+PACKED = dict(vocab_size=16, seq_len=8, d_model=8, num_heads=2,
+              num_layers=1, mlp_dim=16, positional="rope",
+              compute_dtype="float32")
+PACKED_LOSS = "sparse_categorical_crossentropy_masked_from_logits"
+
+
+def mlp_stack(m, classes, bn=False):
+    """The engine tests' model in either package's layers module ``m``."""
+    mid = [m.BatchNormalization()] if bn else []
+    return [m.Dense(16, activation="relu"), *mid,
+            m.Dense(classes, activation="softmax")]
+
+
+def engine_model(case):
+    from distkeras_tpu_torch.core import layers as pl
+    from distkeras_tpu_torch.core.model import Sequential
+    return Sequential(mlp_stack(pl, case["classes"], case.get("bn", False)),
+                      input_shape=(case["features"],),
+                      compute_dtype="float32", device="cpu")
+
+
+def engine_optimizer(pkg, algo, bn=False):
+    """The trainers' worker optimizers in package ``pkg`` (as
+    tests/test_torch_spmd.py): adam, SGD for AEASGD, Nesterov SGD for
+    EAMSGD, Adam at epsilon 1e-3 before BatchNormalization."""
+    if algo == "aeasgd":
+        return "sgd"
+    if algo == "eamsgd":
+        return pkg.SGD(learning_rate=0.02, momentum=0.9, nesterov=True)
+    if bn:
+        return pkg.Adam(learning_rate=0.01, epsilon=1e-3)
+    return "adam"
+
+
+def run_engine(engine, ws, x, y, n, case, modes=("epoch",), seg=None):
+    """An epoch of ``engine`` from weights ``ws`` in each of ``modes``
+    (``run_epoch``; ``run_round`` round by round; ``run_epoch_streaming``
+    over ``round_stream``), each from a fresh state: {mode: (losses,
+    state)}."""
+    import torch
+    from distkeras_tpu_torch.data.pipeline import round_stream
+    from distkeras_tpu_torch.parallel import shape_epoch_data
+    w, b = case["window"], case["batch"]
+    shaped = shape_epoch_data(x, y, n, w, b, columns_seg=seg)
+    if seg is None:
+        (xb, yb, mb, rounds), sb = shaped, None
+    else:
+        xb, yb, sb, mb, rounds = shaped
+    out = {}
+    for mode in modes:
+        state = engine.init_state(initial_params=ws)
+        rngs = engine.worker_rngs(1)
+        if mode == "epoch":
+            state, losses = engine.run_epoch(state, xb, yb, mb, rngs, sb=sb)
+            losses = losses.numpy()
+        elif mode == "round":
+            losses = []
+            for r in range(rounds):
+                state, loss = engine.run_round(
+                    state, xb[r], yb[r], mb[r], rngs,
+                    s=None if sb is None else sb[r])
+                losses.append(loss)
+            losses = torch.stack(losses).numpy()
+        else:
+            state, losses = engine.run_epoch_streaming(
+                state, round_stream(x, y, n, w, b, seg=seg), rngs)
+        out[mode] = (losses, state)
+    return out
+
+
+def state_arrays(state):
+    """A DistState's tensors as numpy: (center, locals, round clock)."""
+    arr = lambda p: {k: v.detach().numpy().copy() for k, v in p.items()}
+    return arr(state.center), [arr(p) for p in state.local], state.round_idx
+
+
+def _spmd(case, rank):
+    from distkeras_tpu_torch.core import optimizers as popt
+    from distkeras_tpu_torch.parallel import SPMDEngine, get_mesh
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    mesh = get_mesh(n, devices=["cpu"] * n)
+    blob = np.load(case["data"])
+    ws = [blob[f"w{i}"] for i in range(int(blob["nw"]))]
+    out = {}
+    for algo in case["algos"]:
+        engine = SPMDEngine(engine_model(case), ENGINE_LOSS,
+                            engine_optimizer(popt, algo, case["bn"]), mesh,
+                            algo, case["window"], case["lr"],
+                            alpha=ENGINE_ALPHA.get(algo))
+        runs = run_engine(engine, ws, blob["x"], blob["y"], n, case,
+                          tuple(case.get("modes", ("epoch",))))
+        res = {}
+        for mode, (losses, state) in runs.items():
+            center, local, clock = state_arrays(state)
+            res[mode] = {"losses": losses, "center": center,
+                         "local": local, "round_idx": clock}
+        full = engine.gather_workers(runs["epoch"][1])
+        res["gathered"] = state_arrays(full)[1]
+        res["gathered_counts"] = [s[0][0] for s in full.opt_state
+                                  if isinstance(s[0], tuple)]
+        res["workers"] = engine.workers
+        res["rngs"] = engine.worker_rngs(1)
+        out[algo] = res
+    return out
+
+
+def packed_setup(case):
+    """The packed engine case's model (weights from seed 0) and corpus
+    (x+1 documents packed into rows): (model, tokens, labels, segments)."""
+    import torch
+    from distkeras_tpu_torch.data.packing import (pack_documents,
+                                                  packed_lm_labels)
+    from distkeras_tpu_torch.models.zoo import transformer_lm
+    model = transformer_lm(**PACKED, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(case["seed"])
+    v, s = PACKED["vocab_size"], PACKED["seq_len"]
+    docs = [rng.integers(0, v, rng.integers(2, s + 1)).tolist()
+            for _ in range(case["docs"])]
+    toks, segs = pack_documents(docs, s)
+    return model, toks, packed_lm_labels(toks, segs), segs
+
+
+def _spmd_packed(case, rank):
+    from distkeras_tpu_torch.parallel import SPMDEngine, get_mesh
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    model, toks, labels, segs = packed_setup(case)
+    engine = SPMDEngine(model, PACKED_LOSS, "adam",
+                        get_mesh(n, devices=["cpu"] * n), "adag",
+                        case["window"], 1e-3, packed=True)
+    ws = model.get_weights()
+    runs = run_engine(engine, ws, toks, labels, n, case,
+                      ("epoch", "round", "stream"), seg=segs)
+    return {mode: {"losses": losses, "center": state_arrays(st)[0],
+                   "local": state_arrays(st)[1]}
+            for mode, (losses, st) in runs.items()}
+
+
+def _place(case, rank):
+    import torch.distributed as dist
+    from distkeras_tpu_torch.data.pipeline import prefetch_to_device
+    from distkeras_tpu_torch.parallel import (get_mesh, put_replicated,
+                                              put_worker_sharded,
+                                              replicated, worker_sharded)
+    n = dist.get_world_size()
+    mesh = get_mesh(n, devices=["cpu"] * n)
+    blob = np.load(case["data"])
+    tree = {"a": blob["a"], "b": [blob["b"]]}
+    rep = put_replicated(tree, mesh)
+    shard = put_worker_sharded(tree, mesh)
+    items = [(blob["a"][None].repeat(2, 0) + k, blob["c"] + k)
+             for k in range(3)]
+    streamed = list(prefetch_to_device(
+        iter(items), shardings=(worker_sharded(mesh, 1),
+                                replicated(mesh))))
+    from unittest import mock
+    from distkeras_tpu_torch.parallel.mesh import across_ranks, local_workers
+    with mock.patch("torch.cuda.is_available", return_value=True), \
+            mock.patch("torch.cuda.device_count", return_value=1):
+        default = [str(d) for d in get_mesh().devices.flat]
+    return {"default_mesh": default, "across": across_ranks(mesh),
+            "local_workers": local_workers(mesh),
+            "replicated": {"a": rep["a"].numpy(), "b": rep["b"][0].numpy()},
+            "sharded": {"a": shard["a"].numpy(),
+                        "b": shard["b"][0].numpy()},
+            "streamed": [(a.numpy(), c.numpy()) for a, c in streamed]}
+
+
+def trainer_model(blob):
+    from distkeras_tpu_torch import FittedModel, Sequential
+    from distkeras_tpu_torch.core import layers as pl
+    from distkeras_tpu_torch.core.model import load_jax_weights
+    pm = Sequential(mlp_stack(pl, int(blob["classes"])),
+                    input_shape=(int(blob["features"]),),
+                    compute_dtype="float32", device="cpu")
+    return FittedModel(load_jax_weights(
+        pm, [blob[f"w{i}"] for i in range(int(blob["nw"]))]))
+
+
+def trainer_run(name, blob, mesh, kw, resume=False, validation=None):
+    """One trainer of the spec on ``mesh``: {history, weights (a list of
+    members for the ensemble), metrics events, validation history}."""
+    import distkeras_tpu_torch as port
+    from distkeras_tpu_torch import Dataset
+    t = getattr(port, name)(trainer_model(blob), mesh=mesh, **kw)
+    data = Dataset({"features": blob["x"], "label_encoded": blob["y"]})
+    extra = {} if validation is None else {"validation_data": validation}
+    fit = t.train(data, shuffle=True, resume=resume, **extra)
+    weights = ([m.get_weights() for m in fit] if isinstance(fit, list)
+               else fit.get_weights())
+    return {"history": list(t.get_history()), "weights": weights,
+            "metrics": [e for e in t.metrics if e.get("kind") == "epoch"],
+            "validation": list(getattr(t, "validation_history", [])),
+            "stopped_epoch": getattr(t, "stopped_epoch", None)}
+
+
+def _trainers(case, rank):
+    import torch.distributed as dist
+    from distkeras_tpu_torch import Dataset
+    from distkeras_tpu_torch.parallel import get_mesh
+    n = dist.get_world_size()
+    mesh = get_mesh(n, devices=["cpu"] * n)
+    blob = np.load(case["data"])
+    out = {name: trainer_run(name, blob, mesh, kw)
+           for name, kw in case["trainers"].items()}
+    for leg, (kw, resume) in case.get("checkpoints", {}).items():
+        out[leg] = trainer_run("ADAG", blob, mesh, kw, resume=resume)
+    if "early" in case:
+        val = Dataset({"features": blob["xv"], "label_encoded": blob["yv"]})
+        out["early"] = trainer_run("ADAG", blob, mesh, case["early"],
+                                   validation=val)
+    return out
+
+
+def _predict(case, rank):
+    import torch.distributed as dist
+    from distkeras_tpu_torch import Dataset, ModelPredictor
+    from distkeras_tpu_torch.parallel import get_mesh
+    n = dist.get_world_size()
+    blob = np.load(case["data"])
+    data = Dataset({"features": blob["x"]})
+    out = {}
+    for b in case["batch_sizes"]:
+        mesh = get_mesh(n, devices=["cpu"] * n)
+        p = ModelPredictor(trainer_model(blob), device="cpu", batch_size=b,
+                           mesh=mesh)
+        out[("mesh", b)] = p.predict(data)["prediction"]
+        out[("calls", b)] = dict(mesh.comm_stats.get("all_gather", {}))
+        q = ModelPredictor(trainer_model(blob), device="cpu", batch_size=b)
+        out[("default", b)] = q.predict(data)["prediction"]
+        out[("default_mesh", b)] = None if q.mesh is None else q.mesh.size
+    if "lm" in case:
+        lm, toks = predict_lm(case)
+        mesh = get_mesh(n, devices=["cpu"] * n)
+        out["lm"] = ModelPredictor(lm, device="cpu", batch_size=2,
+                                   mesh=mesh).predict(
+            Dataset({"features": toks}))["prediction"]
+    return out
+
+
+def predict_lm(case):
+    """The predict case's tiny LM (weights from seed 0) and token rows."""
+    import torch
+    from distkeras_tpu_torch import FittedModel
+    from distkeras_tpu_torch.models.zoo import transformer_lm
+    lm = transformer_lm(**case["lm"], device="cpu",
+                        compute_dtype="float32",
+                        generator=torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(3).integers(
+        0, case["lm"]["vocab_size"], (case["lm_rows"],
+                                       case["lm"]["seq_len"]))
+    return FittedModel(lm), toks.astype(np.int32)
+
+
+def _dryrun(case, rank):
+    from distkeras_tpu_torch.dryrun import _run_rank
+    return _run_rank("cpu")
+
+
 RUNNERS = {"collectives": _collectives, "lm": _lm, "env": _env,
-           "pipeline": _pipeline, "pp_lm": _pp_lm, "zero": _zero}
+           "pipeline": _pipeline, "pp_lm": _pp_lm, "zero": _zero,
+           "spmd": _spmd, "spmd_packed": _spmd_packed, "place": _place,
+           "trainers": _trainers, "predict": _predict, "dryrun": _dryrun}
 
 
 def main(spec_path, out_dir):
