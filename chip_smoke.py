@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-thirty phases, each printing JSON lines, and fails with a non-zero
+thirty-one phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -319,13 +319,19 @@ exit if any phase fails:
     the predictor's mesh route equal to the one-device predict to the bit
     (the sm90 inference forward once a layer on each rank), and
     ``dryrun_multichip(4)``.
+31. native: the port's host C++ extensions (the NATIVE_* comment): each
+    built from the checkout's sources, the wire codec, the PS apply and
+    ``read_csv``'s parser native against their pure-Python or numpy twins
+    (the same bytes, the same bits), and one-worker host-PS runs of the
+    ConvNet and the LM with both, their centers to the bit.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
 QoS, disaggregated serving, fleet, host-PS, sparse host-PS, survivable
-host-PS, cross-process, online, MoE, pipeline and SPMD-ranks paths), the
+host-PS, cross-process, online, MoE, pipeline, SPMD-ranks and native
+paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -1037,6 +1043,29 @@ SPMD_RANKS, SPMD_RANK_ALGOS, SPMD_RANK_EPOCHS = 2, ("adag", "dynsgd"), 2
 SPMD_PREDICT_ROWS, SPMD_PREDICT_BATCH = 16, 8
 SPMD_DRYRUN_RANKS = 4
 SPMD_RANK_TIMEOUT_S = 300.0
+# the port's host C++ extensions (distkeras_tpu_torch/native.py: its own
+# copies of csrc/wirecodec.cpp, csvloader.cpp and applykernel.cpp, built
+# by the host compiler at first use).  (a) each built from the checkout's
+# sources into an empty directory, one compiler run and its seconds each,
+# a second build compiling none; (b) the full-width LM's weight message
+# (f32 leaves, then bf16 leaves) and the north star's ConvNet delta
+# (430,890 f32) through the native and the pure-Python codec: the same
+# bytes, the same decoded bits, encode and decode ms each (host clock,
+# median of NATIVE_REPS); (c) the PS apply, native against numpy, to the
+# bit, ms each: the dense axpy of a ConvNet delta into its center (scale
+# 1/HOST_PS_WORKERS), a top-k scatter-add at PS_SPARSE_TOPK, a row-sparse
+# commit of PS_SPARSE_EMB_WINDOW x PS_SPARSE_EMB_BATCH rows into the
+# PS_SPARSE_EMB table; (d) host-PS ADAG with one serial worker on phase
+# adag's rows (the ConvNet, cuDNN deterministic) and on phase host_ps's
+# LM rows (window HOST_PS_LM_WINDOW, batch BATCH), each run with the
+# native codec and apply_kernel="native" and again with the pure-Python
+# codec and numpy: the centers to the bit, examples/s each, the LM's sm90
+# forward, dq and dk/dv launched layers x steps a run and nothing else;
+# (e) a CSV of the Higgs layout (the label, then 28 features),
+# NATIVE_CSV_ROWS rows drawn from the seed (the 11M rows of the UCI file
+# cut to the run's budget): read_csv's native route against
+# np.genfromtxt, features and labels to the bit, seconds each
+NATIVE_CSV_ROWS, NATIVE_REPS = 100_000, 5
 
 
 def emit(obj) -> None:
@@ -1090,6 +1119,10 @@ def phase_device():
     t0 = time.perf_counter()
     compiled = kernels.build()
     build_s = time.perf_counter() - t0
+    from distkeras_tpu_torch import native
+    t0 = time.perf_counter()
+    native_compiled = native.build()
+    native_build_s = time.perf_counter() - t0
     # the plain reference path states its precision: full f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1099,7 +1132,9 @@ def phase_device():
           "count": torch.cuda.device_count(),
           "sm_count": sms, "sm_clock_max_mhz": sm_mhz,
           "exp2_per_s": EXP_PER_S,
-          "kernels_compiled": compiled, "build_s": build_s})
+          "kernels_compiled": compiled, "build_s": build_s,
+          "native_compiled": native_compiled,
+          "native_build_s": native_build_s, "cxx": native.compiler()})
     return smi
 
 
@@ -7089,8 +7124,15 @@ def _process_lm(card: str, dev: str) -> dict:
            "tokens_per_sec": HOST_PS_LM_ROWS * LM["seq_len"] / seconds,
            "children": per_child,
            "first_last_loss": [longest.history[0], longest.history[-1]],
+           # host-extension compiles in each child: 0, they load the
+           # driver's build of the native codec
+           "children_native_compiles": [r.native_compiles for r in kids],
            "card": card}
     emit(row)
+    check(t.process_native_compiles == 0
+          and not any(row["children_native_compiles"]),
+          f"process_ps lm: the children ran the host compiler "
+          f"{row['children_native_compiles']}")
     check(_lease_contract(t, len(x)),
           f"process_ps lm: leases {t.elastic_stats['lease_completions']}")
     check(longest.history[-1] < longest.history[0],
@@ -8912,6 +8954,296 @@ def phase_spmd_ranks(card: str, dev: str = "cuda"):
     return rows, launches
 
 
+def _host_ms(fn, reps: int = NATIVE_REPS) -> float:
+    """Median host-clock ms of ``reps`` calls (after one untimed)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _leaf_bits(v) -> bytes:
+    """A wire leaf's bytes: a numpy array's, or a bf16 tensor's."""
+    import numpy as np
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.contiguous().view(torch.int16).numpy().tobytes()
+    return np.ascontiguousarray(v).tobytes()
+
+
+def _native_builds(card: str) -> dict:
+    """Leg (a) of phase native: each host extension built from the
+    checkout's sources into an empty directory beside the build
+    directory, then the modules the run uses (the checkout's build,
+    loaded once)."""
+    import shutil
+    import sysconfig
+    from pathlib import Path
+    from distkeras_tpu_torch import kernels, native
+    include = sysconfig.get_paths()["include"]
+    probe = kernels.BUILD_DIR.parent / "native_probe"
+    shutil.rmtree(probe, ignore_errors=True)
+    saved, seconds = kernels.BUILD_DIR, {}
+    kernels.BUILD_DIR = probe
+    try:
+        before = native.compiles
+        for name in native.MODULES:
+            t0 = time.perf_counter()
+            built = native.build([name])
+            seconds[name] = time.perf_counter() - t0
+            check(built == [name], f"native: {name} built {built}")
+        compiles = native.compiles - before
+        again = native.build()
+    finally:
+        kernels.BUILD_DIR = saved
+        shutil.rmtree(probe, ignore_errors=True)
+    mods = {n: native.load(n) for n in native.MODULES}
+    row = {"phase": "native_build", "cxx": native.compiler(),
+           "python_h": (Path(include) / "Python.h").exists(),
+           "seconds": seconds, "compiles": compiles,
+           "second_call_compiled": again,
+           "modules": {n: m.__name__ for n, m in mods.items()},
+           "card": card}
+    emit(row)
+    check(compiles == len(native.MODULES) and not again,
+          f"native: {compiles} compiles, then {again} on a second call")
+    check(all(m.__name__ == f"distkeras_tpu_torch._{n}"
+              and Path(m.__file__).parent == kernels.BUILD_DIR
+              for n, m in mods.items()), f"native: modules {row['modules']}")
+    return mods
+
+
+def _native_wire(card: str, dev: str, mods: dict) -> list:
+    """Leg (b) of phase native: three messages through both codecs.
+    Returns the ConvNet's leaf shapes (the apply leg's center)."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import models, networking, transformer_lm
+    lm = transformer_lm(**LM, device=dev).get_weights()
+    conv = [w.shape for w in models.mnist_convnet(
+        "bfloat16", device=dev).get_weights()]
+    rng = np.random.default_rng(SEED + 29)
+    messages = {
+        "lm_f32": {"weights": lm, "clock": 3},
+        "lm_bf16": {"weights": [torch.from_numpy(w).to(torch.bfloat16)
+                                for w in lm], "clock": 3},
+        "convnet_delta": {"delta": [rng.standard_normal(s).astype(
+            np.float32) for s in conv], "clock": 0, "worker_id": 0}}
+    codecs = {"native": mods["wirecodec"], "python": None}
+    try:
+        for name, msg in messages.items():
+            blobs, enc_ms, dec_ms, decoded = {}, {}, {}, {}
+            for c, mod in codecs.items():
+                networking._native = mod
+                blobs[c] = bytes(networking.encode_message(msg))
+                enc_ms[c] = _host_ms(lambda: networking.encode_message(msg))
+            for c, mod in codecs.items():  # each decodes the same bytes
+                networking._native = mod
+                dec_ms[c] = _host_ms(
+                    lambda: networking.decode_message(blobs["python"]))
+                decoded[c] = networking.decode_message(blobs["python"])
+            key = "weights" if "weights" in msg else "delta"
+            same_decode = all(
+                _leaf_bits(a) == _leaf_bits(b) == _leaf_bits(w)
+                for a, b, w in zip(decoded["native"][key],
+                                   decoded["python"][key], msg[key]))
+            row = {"phase": "native_wire", "message": name,
+                   "leaves": len(msg[key]),
+                   "elements": int(sum(int(np.prod(w.shape))
+                                       for w in msg[key])),
+                   "bytes": len(blobs["native"]),
+                   "same_bytes": blobs["native"] == blobs["python"],
+                   "same_decode": same_decode, "encode_ms": enc_ms,
+                   "decode_ms": dec_ms, "card": card}
+            emit(row)
+            check(row["same_bytes"] and same_decode,
+                  f"native wire {name}: bytes equal {row['same_bytes']}, "
+                  f"decodes equal {same_decode}")
+    finally:
+        networking._native = mods["wirecodec"]
+    check(sum(int(np.prod(s)) for s in conv) == 430_890,
+          f"native: the ConvNet has {conv}")
+    return conv
+
+
+def _native_apply(card: str, mods: dict, conv: list) -> None:
+    """Leg (c) of phase native: the three PS applies, native against
+    numpy, to the bit."""
+    import numpy as np
+    from distkeras_tpu_torch import applykernel
+    kern = mods["applykernel"]
+    rng = np.random.default_rng(SEED + 31)
+    n = sum(int(np.prod(s)) for s in conv)
+    center = rng.standard_normal(n).astype(np.float32)
+    delta = rng.standard_normal(n).astype(np.float32) * np.float32(1e-2)
+    k = int(PS_SPARSE_TOPK * n)
+    idx = np.sort(rng.choice(n, k, replace=False)).astype(np.int64)
+    vals = rng.standard_normal(k).astype(np.float32)
+    vocab, dim = PS_SPARSE_EMB
+    table = rng.standard_normal((vocab, dim)).astype(np.float32)
+    rows = np.sort(rng.choice(
+        vocab, PS_SPARSE_EMB_WINDOW * PS_SPARSE_EMB_BATCH,
+        replace=False)).astype(np.int32)
+    row_vals = rng.standard_normal((len(rows), dim)).astype(np.float32)
+    scale = 1.0 / HOST_PS_WORKERS
+    cases = {
+        "dense_axpy": (center, lambda kk, dst: applykernel.axpy(
+            kk, dst, delta, scale)),
+        "topk_scatter_add": (center, lambda kk, dst: applykernel.scatter_add(
+            kk, dst, idx, vals)),
+        "row_sparse": (table, lambda kk, dst: applykernel.row_scatter_add(
+            kk, dst, rows, row_vals)),
+    }
+    for name, (base, apply) in cases.items():
+        out, ms = {}, {}
+        for route, kk in (("native", kern), ("numpy", None)):
+            dst = base.copy()
+            apply(kk, dst)
+            out[route] = dst
+            work = base.copy()
+            ms[route] = _host_ms(lambda: apply(kk, work))
+        same = np.array_equal(out["native"].view(np.uint32),
+                              out["numpy"].view(np.uint32))
+        emit({"phase": "native_apply", "case": name,
+              "elements": int(base.size), "touched": {
+                  "dense_axpy": n, "topk_scatter_add": k,
+                  "row_sparse": int(row_vals.size)}[name],
+              "bit_identical": same, "ms": ms, "card": card})
+        check(same, f"native apply {name}: native and numpy differ")
+
+
+def _native_runs(card: str, dev: str, mods: dict) -> dict:
+    """Leg (d) of phase native: one-worker host-PS ADAG, native codec and
+    apply against the pure-Python codec and numpy, the ConvNet and the
+    LM; each run's kernel launches counted from 0.  Returns the LM runs'
+    launches summed."""
+    import numpy as np
+    import torch
+    from distkeras_tpu_torch import ADAG, models, networking, transformer_lm
+    routes = {"native": (mods["wirecodec"], "native"),
+              "plain": (None, None)}
+    x, y, _, _ = _host_ps_rows()
+    lx, ly = _host_ps_lm_rows()
+    total, centers = {}, {}
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for route, (codec, kernel) in routes.items():
+            networking._native = codec
+            serial = dict(worker_optimizer="adam", comm_overlap=False,
+                          apply_kernel=kernel)
+            r = _host_ps_run(ADAG, models.mnist_convnet("bfloat16",
+                                                        device=dev),
+                             x, y, dev, 1, **serial)
+            centers[("convnet", route)] = r["fitted"].get_weights()
+            emit({"phase": "native_convnet", "route": route,
+                  **_host_ps_row(r), "card": card})
+            check(r["loss_falls"] and r["center_finite"],
+                  f"native convnet {route}: {r['first_last_loss']}")
+            _zero_counts()
+            r = _host_ps_run(ADAG, transformer_lm(**LM, device=dev), lx, ly,
+                             dev, 1, batch_size=BATCH,
+                             communication_window=HOST_PS_LM_WINDOW,
+                             loss="sparse_categorical_crossentropy_from_"
+                                  "logits", learning_rate=3e-3, **serial)
+            launches = _read_counts()
+            total = _add_counts(total, launches)
+            centers[("lm", route)] = r["fitted"].get_weights()
+            steps = r["windows_per_worker"][0] * HOST_PS_LM_WINDOW
+            want = LM["num_layers"] * steps
+            sm90 = {k: launches[f"flash_{k}_sm90"]
+                    for k in ("fwd_lse", "dq", "dkv")}
+            trained = {f"flash_{k}{v}" for k in ("fwd_lse", "dq", "dkv")
+                       for v in ("", "_sm90")}
+            others = {k: v for k, v in launches.items()
+                      if v and k not in trained}
+            emit({"phase": "native_lm", "route": route, **_host_ps_row(r),
+                  "tokens_per_sec": len(lx) * LM["seq_len"] / r["seconds"],
+                  "launches_sm90": sm90, "launches_other": others,
+                  "want_each": want, "card": card})
+            check(r["loss_falls"], f"native lm {route}: the loss did not "
+                                   f"fall {r['first_last_loss']}")
+            if dev == "cuda":
+                check(all(v == want for v in sm90.values()) and not others,
+                      f"native lm {route}: sm90 launches {sm90}, others "
+                      f"{others}, want {want} each and nothing else")
+    finally:
+        networking._native = mods["wirecodec"]
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+    same = {m: all(np.array_equal(a, b) for a, b in zip(
+        centers[(m, "native")], centers[(m, "plain")]))
+        for m in ("convnet", "lm")}
+    emit({"phase": "native_centers", "bit_identical": same, "card": card})
+    check(all(same.values()), f"native: centers differ {same}")
+    return total
+
+
+def _native_csv(card: str, mods: dict) -> None:
+    """Leg (e) of phase native: a Higgs-layout CSV through read_csv's
+    two routes."""
+    import numpy as np
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.data import datasets
+    rng = np.random.default_rng(SEED + 37)
+    # f32 features written with 9 significant digits: the shortest text
+    # that reads back to the same f32 on either route
+    x = rng.standard_normal((NATIVE_CSV_ROWS, 28)).astype(np.float32)
+    y = rng.integers(0, 2, NATIVE_CSV_ROWS)
+    path = kernels.BUILD_DIR.parent / "native_higgs.csv"
+    out, seconds = {}, {}
+    try:
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            f.write(",".join(["label"] + [f"f{i}" for i in range(28)])
+                    + "\n")
+            np.savetxt(f, np.column_stack([y, x]),
+                       fmt=["%d"] + ["%.9g"] * 28, delimiter=",")
+        write_s = time.perf_counter() - t0
+        for route, mod in (("native", mods["csvloader"]),
+                           ("genfromtxt", None)):
+            datasets._native_csv = mod
+            t0 = time.perf_counter()
+            out[route] = datasets.read_csv(str(path), "label")
+            seconds[route] = time.perf_counter() - t0
+    finally:
+        datasets._native_csv = mods["csvloader"]
+        size = path.stat().st_size if path.exists() else 0
+        path.unlink(missing_ok=True)
+    same = all(np.array_equal(out["native"][c].view(np.uint8),
+                              out["genfromtxt"][c].view(np.uint8))
+               for c in ("features", "label"))
+    exact = (np.array_equal(out["native"]["features"], x)
+             and np.array_equal(out["native"]["label"], y))
+    emit({"phase": "native_csv", "rows": NATIVE_CSV_ROWS, "columns": 29,
+          "bytes": size, "write_s": write_s, "seconds": seconds,
+          "bit_equal": same, "exact": exact, "card": card})
+    check(same and exact, f"native csv: routes equal {same}, values "
+                          f"exact {exact}")
+
+
+def phase_native(card: str, dev: str = "cuda"):
+    """The port's host C++ extensions (the NATIVE_* comment): builds, the
+    wire, the PS apply, the host-PS runs and the CSV, each native route
+    against its pure-Python or numpy twin.  Returns (None, the LM runs'
+    launches)."""
+    t_start = time.perf_counter()
+    mods = _native_builds(card)
+    conv = _native_wire(card, dev, mods)
+    _native_apply(card, mods, conv)
+    launches = _native_runs(card, dev, mods)
+    _native_csv(card, mods)
+    emit({"phase": "native_launches", "launches": launches})
+    emit({"phase": "native_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return None, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8954,6 +9286,7 @@ def main() -> int:
     _, moe_launches = phase_moe(smi)
     _, pipeline_launches = phase_pipeline(smi)
     _, spmd_ranks_launches = phase_spmd_ranks(smi)
+    _, native_launches = phase_native(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -9136,7 +9469,9 @@ def main() -> int:
         step) and on the SPMD-ranks path (phase spmd_ranks: (a)'s engines
         none; (b)'s one-device predict and its ranks, the sm90 inference
         forward once a layer and batch of rows; (c)'s dry-run ranks, the
-        SIMT kernels of their f32 LMs)."""
+        SIMT kernels of their f32 LMs) and on the native path (phase
+        native's two one-worker LM runs: the sm90 training kernels once a
+        layer and step of each)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -9159,6 +9494,7 @@ def main() -> int:
         entry["launches_moe"] = moe_launches.get(key, 0)
         entry["launches_pipeline"] = pipeline_launches.get(key, 0)
         entry["launches_spmd_ranks"] = spmd_ranks_launches.get(key, 0)
+        entry["launches_native"] = native_launches.get(key, 0)
         return entry
 
     emit(north_star)

@@ -66,8 +66,8 @@ from .router import ServingRouter
 from . import checkpoint, metrics, parallel
 from .checkpoint import Checkpointer, make_checkpointer
 from .metrics import MetricsLogger
-from . import (applykernel, job_deployment, parameter_servers, ps_sharding,
-               streaming, workers)
+from . import (applykernel, job_deployment, native, parameter_servers,
+               ps_sharding, streaming, utils, workers)
 from .ps_sharding import PSShardDown
 from .streaming import StreamBuffer, StreamSource
 from . import deployment_online
@@ -104,4 +104,4 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization", "Conv2D",
            "RetryPolicy", "applykernel", "parameter_servers", "workers",
            "ps_sharding", "streaming", "PSShardDown", "job_deployment",
            "StreamBuffer", "StreamSource", "deployment_online",
-           "FreshnessTracker", "OnlineDeployment"]
+           "FreshnessTracker", "OnlineDeployment", "native", "utils"]

@@ -3,11 +3,10 @@
 A copy of ``distkeras_tpu/data/datasets.py`` (numpy only), kept here so
 the port imports nothing of the JAX package: the loaders, their ``.npz``
 lookup and the synthetic stand-ins are the same code, so the same seed
-gives the same arrays to the bit.  ``read_csv`` takes the JAX module's
-pure-Python parse (``np.genfromtxt``) only: its native parser
-(``csrc/csvloader.cpp``) is not built for the port yet, and the JAX
-package's built module is never imported.  The original docstring
-follows.
+gives the same arrays to the bit.  ``read_csv`` is the JAX module's,
+gates and all; its native parser is the port's own build of
+``csrc/csvloader.cpp`` (``native.load("csvloader")``, compiled at first
+use), never the JAX package's module.  The original docstring follows.
 
 Workload datasets matching the reference examples.
 
@@ -24,6 +23,7 @@ benchmarks (throughput does not depend on pixel content).
 from __future__ import annotations
 
 import os
+import re
 from typing import Optional, Tuple
 
 import numpy as np
@@ -204,6 +204,76 @@ def load_digits(n_train: int = 1500, n_test: Optional[int] = None,
             Dataset({"features": x[n_train:stop], "label": y[n_train:stop]}))
 
 
+# Native multithreaded CSV parser (the port's copy of csrc/csvloader.cpp,
+# built by native.py at first use) — the data plane's Spark-JVM-ingest
+# analogue.  read_csv() uses it only for files it can prove are plain
+# numeric CSVs (no quotes/comments); everything else takes np.genfromtxt,
+# so behavior is identical either way.  That choice is a rule about the
+# file's contents: a build that fails raises.  _UNRESOLVED until the first
+# headered file loads it; None pins np.genfromtxt.
+_UNRESOLVED = object()
+_native_csv = _UNRESOLVED
+
+
+def _csv_module():
+    global _native_csv
+    if _native_csv is _UNRESOLVED:
+        from .. import native
+        _native_csv = native.load("csvloader")
+    return _native_csv
+
+
+def _header_eligible(names: list, delimiter: str) -> bool:
+    """Header-level gates for the native CSV path — O(header) checks that
+    run BEFORE the file body is even read.  Reject anything where
+    genfromtxt's name handling diverges: sanitized (non-identifier) names,
+    duplicate names (renamed 'a', 'a_1'), and numpy's excludelist (names
+    shadowing genfromtxt internals get an underscore appended)."""
+    if _csv_module() is None or len(delimiter) != 1 or ord(delimiter) >= 128:
+        return False
+    if delimiter.isspace():
+        return False  # whitespace delims hit genfromtxt's line-strip rules
+    if any(not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", n) for n in names):
+        return False  # genfromtxt would sanitize these names; let it
+    if len(set(names)) != len(names):
+        return False  # genfromtxt renames duplicates ('a', 'a_1', ...)
+    if any(n in ("return", "file", "print") for n in names):
+        return False  # numpy NameValidator excludelist: renamed 'print_' &c
+    return True
+
+
+def _native_parse(raw: bytes, names: list, delimiter: str,
+                  body_start: int):
+    """Parse a headered numeric CSV with the C++ kernel; returns a dict
+    column-name → float64 array (genfromtxt-equivalent), or None when the
+    body needs the general path (header gates are ``_header_eligible``).
+
+    The body gates are deliberately paranoid: anything where strtod and
+    genfromtxt's float() conversion could disagree (quotes, comments, tabs,
+    hex floats, Python underscore literals, non-ASCII bytes — the fallback
+    raises UnicodeDecodeError on mis-encoded files and the native path must
+    not mask that — or bare-CR line endings, which genfromtxt's
+    universal-newline text mode treats as row separators) takes the
+    fallback, so observable behavior never depends on the route.  Scans
+    use find()/count() with offsets, not slices: no body copies."""
+    if not raw.isascii():
+        return None  # non-ASCII: genfromtxt's decode/naming territory
+    if b'"' in raw or b"'" in raw or b"#" in raw or b"\t" in raw:
+        return None  # quoting/comments/tabs: genfromtxt semantics territory
+    if b"\x0b" in raw or b"\x0c" in raw:
+        return None  # \v/\f: float() strips them, strtod does not
+    if (raw.find(b"x", body_start) != -1 or raw.find(b"X", body_start) != -1
+            or raw.find(b"_", body_start) != -1):
+        return None  # strtod hex floats / float('1_5') underscore literals
+    if raw.count(b"\r") != raw.count(b"\r\n"):
+        return None  # bare CR: universal newlines make it a row separator
+    flat = np.frombuffer(
+        _native_csv.parse_numeric(raw, len(names), ord(delimiter), 1),
+        dtype=np.float64)
+    mat = flat.reshape(-1, len(names))
+    return {n: mat[:, i] for i, n in enumerate(names)}
+
+
 def read_csv(path: str, label_column: str,
              feature_columns: Optional[list] = None,
              delimiter: str = ",") -> Dataset:
@@ -215,10 +285,26 @@ def read_csv(path: str, label_column: str,
     order.  Features come back as one float32 ``features`` matrix and the
     label as an int64 ``label`` column — ready for the transformer pipeline.
     """
-    data = np.atleast_1d(np.genfromtxt(
-        path, delimiter=delimiter, names=True, dtype=np.float64,
-        encoding="utf-8"))
-    names = list(data.dtype.names)
+    # Header first: if the header-level gates already force the fallback,
+    # the body is never read into memory (genfromtxt streams from path).
+    # No BOM strip, errors="replace": a BOM-prefixed or mis-encoded first
+    # name just fails the identifier gate, routing to genfromtxt - whose
+    # naming was the pre-native behavior and must stay observable-identical.
+    with open(path, "rb") as f:
+        first = f.readline()
+        header = first.decode("utf-8", errors="replace").strip()
+        hdr_names = [c.strip() for c in header.split(delimiter)]
+        data = None
+        if _header_eligible(hdr_names, delimiter):
+            raw = first + f.read()
+            data = _native_parse(raw, hdr_names, delimiter, len(first))
+            del raw  # if body gates routed to fallback, free before
+            # genfromtxt builds its own representation (pre-native peak)
+    if data is None:
+        data = np.atleast_1d(np.genfromtxt(
+            path, delimiter=delimiter, names=True, dtype=np.float64,
+            encoding="utf-8"))
+    names = list(data.dtype.names) if hasattr(data, "dtype") else hdr_names
     if label_column not in names:
         raise ValueError(f"label column {label_column!r} not in CSV header "
                          f"{names}")

@@ -98,10 +98,15 @@ def annotate(name: str):
 
 # -- analytic FLOPs + MFU ----------------------------------------------------
 
-# bf16 dense peak FLOP/s per card by device name substring (NVIDIA's data
-# sheet, at 700 W); first match wins.  "H100 80GB HBM3" is the SXM part's
-# name: the PCIe and NVL parts peak lower and are not in the table yet
+# bf16 dense peak FLOP/s per card by device name substring, from NVIDIA's
+# H100 Tensor Core GPU datasheet: half its bf16 figure "with sparsity"
+# (PCIe 1,513 TFLOPS, NVL 1,671; SXM 1,979, kept at the 989 TFLOPS dense
+# figure NVIDIA quotes); first match wins, and no key is a substring of
+# another part's name.  "H100 80GB HBM3" is the SXM part's name as
+# torch.cuda.get_device_name() gives it
 _PEAK_FLOPS = (
+    ("H100 PCIe", 756.5e12),
+    ("H100 NVL", 835.5e12),
     ("H100 80GB HBM3", 989e12),
     ("H100 SXM", 989e12),
 )

@@ -4,9 +4,11 @@ only, kept in the port so that it imports nothing of the JAX package).
 It keeps the JAX module's wire byte for byte (its frames, opcodes,
 ``KVBlocks`` and PS payload nodes), with two changes:
 
- - **no native codec**: ``_native`` is None, so every frame goes through
-   the pure-Python codec, which the JAX module's own contract makes
-   byte-identical to its native one;
+ - **the port's own native codec**: ``_native`` is the port's build of
+   ``csrc/wirecodec.cpp`` (``native.load("wirecodec")``), resolved at the
+   first frame rather than at import, and never the JAX package's
+   module.  Setting ``_native = None`` pins the pure-Python codec, which
+   the JAX module's own contract makes byte-identical to the native one;
  - **bf16 without ``ml_dtypes``**: a CPU ``torch.Tensor`` leaf of dtype
    ``torch.bfloat16`` goes out as its raw bytes under the wire dtype name
    ``"bfloat16"`` (the name the JAX package gives an ``ml_dtypes``
@@ -71,11 +73,23 @@ _U64 = struct.Struct("<Q")
 #: maximum header size we will accept (sanity bound against garbage frames)
 MAX_HEADER_BYTES = 64 * 1024 * 1024
 
-# The JAX package's native C++ codec (csrc/wirecodec.cpp) is not built for
-# the port yet: its own build of that source waits for ROADMAP queue A item
-# 8.  Until then every frame takes the pure-Python codec below, which is
-# byte-identical to the native one.
-_native = None
+# Native C++ codec (the port's copy of csrc/wirecodec.cpp, built by
+# native.py at first use): byte-identical wire format, single-allocation
+# encode and zero-copy decode.  _UNRESOLVED until the first frame loads it
+# (a build that fails raises: no silent fallback); None pins the
+# pure-Python path below.
+_UNRESOLVED = object()
+_native: Any = _UNRESOLVED
+
+
+def _codec():
+    """The native codec module, or None when the pure-Python codec is
+    pinned."""
+    global _native
+    if _native is _UNRESOLVED:
+        from . import native
+        _native = native.load("wirecodec")
+    return _native
 
 
 # ---------------------------------------------------------------------------
@@ -566,8 +580,9 @@ def encode_message(obj: Any) -> bytes:
     header = json.dumps(
         {"tree": _encode_node(obj, buffers), "nbuf": len(buffers)}
     ).encode()
-    if _native is not None:
-        return _native.encode_frames(header, buffers)
+    codec = _codec()
+    if codec is not None:
+        return codec.encode_frames(header, buffers)
     parts = [MAGIC, _U32.pack(len(header)), header]
     for b in buffers:
         raw = b.tobytes()
@@ -640,8 +655,9 @@ def _expected_buffer_sizes(tree: Any, out: dict):
 
 
 def decode_message(data: bytes) -> Any:
-    if _native is not None:
-        raw_header, views = _native.decode_frames(data)
+    codec = _codec()
+    if codec is not None:
+        raw_header, views = codec.decode_frames(data)
         header = json.loads(raw_header.decode())
         expected: dict = {}
         _expected_buffer_sizes(header["tree"], expected)
@@ -697,9 +713,11 @@ def _decode_payload_py(data) -> List[memoryview]:
 
 
 def decode_payload(data) -> List[memoryview]:
-    """Split length-prefixed tensor frames (native codec when built)."""
-    if _native is not None and hasattr(_native, "decode_payload"):
-        return _native.decode_payload(data)
+    """Split length-prefixed tensor frames (native codec unless the
+    pure-Python one is pinned)."""
+    codec = _codec()
+    if codec is not None:
+        return codec.decode_payload(data)
     return _decode_payload_py(data)
 
 

@@ -17,8 +17,8 @@ Differences from the JAX module:
    before the axpy, the same exact widening ``ml_dtypes`` does;
  - ``get_model(device=)`` builds the fitted model on a torch device;
  - ``apply_kernel`` resolves through the port's ``applykernel``, whose
-   native build waits for ROADMAP queue A item 8 (numpy is the reference
-   and bit-identical either way);
+   native route is the port's own build of ``csrc/applykernel.cpp``
+   (``native.py``; numpy is the reference and bit-identical either way);
  - ``run_host_ps_training`` runs the static engine (the round-robin
    deal, the epoch waves and the npz checkpoint) and the elastic one
    (``_run_elastic_host_ps``: leases, a ``WorkerSupervisor``), over one
@@ -2055,12 +2055,16 @@ class _ChildResult:
             sent = z["sent"] if "sent" in z.files else np.zeros((0, 3))
             names = z["launch_names"] if "launch_names" in z.files else []
             counts = z["launches"] if "launches" in z.files else []
+            compiles = (int(z["native_compiles"])
+                        if "native_compiles" in z.files else 0)
             span = (z["train_span"].tolist() if "train_span" in z.files
                     else None)
         self.worker_id = int(worker_id)
         self.sent_by_gen = {(int(j), None if int(g) < 0 else int(g)): int(c)
                             for j, g, c in sent}
         self.launches = {str(k): int(n) for k, n in zip(names, counts)}
+        #: host-extension compiles the child ran (0: it loaded the build)
+        self.native_compiles = compiles
         #: (start, end) on the host's wall clock of the child's training
         self.train_span = span
 
@@ -2208,6 +2212,11 @@ def run_process_ps_training(trainer, dataset, shuffle: bool = False
     # the children's device: the trainer's, as a string ("cuda", "cuda:0",
     # "cpu"); the worker raises where the card is asked for and absent
     kw["device"] = str(trainer.device)
+    # the host extensions are built here, once: the children load this
+    # build and never run the compiler (trainer.process_native_compiles)
+    from . import native
+    native.build()
+    trainer.process_native_compiles = 0
 
     if getattr(trainer, "elastic", False):
         # the supervised cross-process engine: lease rail + process-level
@@ -2308,6 +2317,8 @@ def run_process_ps_training(trainer, dataset, shuffle: bool = False
         trainer.history.extend(r.history)
     trainer._process_results = results
     trainer.process_launches = _sum_launches(results)
+    trainer.process_native_compiles = sum(r.native_compiles
+                                          for r in results)
     fitted = server.get_model(device=trainer.device)
     trainer._fitted = fitted
     trainer.record_training_stop()
@@ -2554,6 +2565,8 @@ def _run_process_elastic(trainer, x, y, n: int, blob: dict, kw: dict,
             trainer.history.extend(r.history)
         trainer._process_results = results
         trainer.process_launches = _sum_launches(results)
+        trainer.process_native_compiles = sum(r.native_compiles
+                                              for r in results)
 
         # -- final model -----------------------------------------------------
         if group is not None:

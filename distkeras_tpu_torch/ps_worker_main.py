@@ -64,11 +64,13 @@ def save_model_blob(path: str, blob: dict) -> None:
 def write_result(path: str, worker, span=(0.0, 0.0)) -> None:
     """A worker's result file: its window losses under the JAX key, the
     commits it sent by (shard, generation), this process's kernel
-    launches, and the wall-clock span of its training (``time.time()``
-    at its first pull and after its last window: the imports, the
-    device's start and the warm-up fall outside it)."""
+    launches and host-extension compiles, and the wall-clock span of its
+    training (``time.time()`` at its first pull and after its last
+    window: the imports, the device's start and the warm-up fall outside
+    it)."""
     import numpy as np
 
+    from . import native
     from .kernels import launch_counts
     sent = [(shard, -1 if gen is None else int(gen), int(count))
             for (shard, gen), count in sorted(
@@ -81,6 +83,7 @@ def write_result(path: str, worker, span=(0.0, 0.0)) -> None:
              sent=np.asarray(sent, np.int64).reshape(-1, 3),
              launch_names=np.asarray(names, dtype=str),
              launches=np.asarray([counts[k] for k in names], np.int64),
+             native_compiles=np.asarray(native.compiles, np.int64),
              train_span=np.asarray(span, np.float64))
 
 

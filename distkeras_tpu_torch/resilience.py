@@ -1070,6 +1070,9 @@ class _RespawnRules:
         self.failures.setdefault(wid, note)
         self.death_times.setdefault(wid, time.monotonic())
 
+    def _death_time(self, wid: int) -> Optional[float]:
+        return self.death_times.get(wid)
+
     def _respawn(self, died: int, reason: str) -> Optional[int]:
         if self.respawns >= self.max_respawns:
             return None
@@ -1078,7 +1081,7 @@ class _RespawnRules:
         self._spawn(nid)
         self.active.add(nid)
         self.respawns += 1
-        t_death = self.death_times.get(died)
+        t_death = self._death_time(died)
         rec = {"died": died, "replacement": nid, "reason": reason,
                "recovery_ms": (round((time.monotonic() - t_death) * 1e3, 1)
                                if t_death is not None else None)}
@@ -1193,6 +1196,10 @@ class WorkerSupervisor(_RespawnRules):
             # the worker's own unwind path setdefaults the same keys from
             # its thread (_thread_main)
             super()._note_death(wid, note)
+
+    def _death_time(self, wid: int) -> Optional[float]:
+        with self._lock:  # written from the worker threads too
+            return super()._death_time(wid)
 
     # -- the per-epoch loop ----------------------------------------------------
     def run_epoch(self, epoch: int):

@@ -2066,13 +2066,14 @@ class ServingEngine:
             self.stats["tenants"][tenant] = ts
         return ts
 
-    def _tier_of(self, tenant: str) -> str:
+    def _tier_of(self, tenant: str) -> str:  # dklint: holds _qlock
         """The tenant's tier (``"batch"`` when not registered).  The
         caller holds ``_qlock``."""
         pol = self._tenants.get(tenant)
         return "batch" if pol is None else pol.tier
 
     def _q_push(self, h: RequestHandle, front: bool = False) -> None:
+        # dklint: holds _qlock
         """Enqueue under ``_qlock``.  A tenant joining the backlog starts
         its stride pass at the least pass among backlogged tenants, so
         idle time banks no credit."""
@@ -2093,7 +2094,7 @@ class ServingEngine:
         if self._tier_of(h.tenant) == "interactive":
             self._q_int += 1
 
-    def _q_pop_locked(self) -> Optional[RequestHandle]:
+    def _q_pop_locked(self) -> Optional[RequestHandle]:  # dklint: holds _qlock
         """The weighted-fair pick under ``_qlock``: interactive-tier
         tenants strictly before batch-tier ones; within a tier the
         backlogged tenant of least stride pass (ties by name; ``pass +=
@@ -2122,10 +2123,11 @@ class ServingEngine:
         return h
 
     def _q_snapshot_locked(self) -> List[RequestHandle]:
+        # dklint: holds _qlock
         """Every queued handle, tenant by tenant, under ``_qlock``."""
         return [h for q in self._queues.values() for h in q]
 
-    def _q_clear_locked(self) -> List[RequestHandle]:
+    def _q_clear_locked(self) -> List[RequestHandle]:  # dklint: holds _qlock
         """Empty every queue under ``_qlock``; returns what was queued."""
         out = self._q_snapshot_locked()
         self._queues.clear()
@@ -3003,9 +3005,8 @@ class ServingEngine:
             did = True
         if self._pending:
             did = self._drain_pending(flush=not self._active.any()) or did
-        if (self._reload_every
-                and self.stats["decode_steps"] > steps_before
-                and self.stats["decode_steps"] % self._reload_every == 0):
+        if (self.stats["decode_steps"] > steps_before
+                and self._pull_due(self.stats["decode_steps"])):
             # between decode steps: the step in flight reads the old
             # weights, the next one the pulled center
             self._pull_weights()
@@ -3293,9 +3294,16 @@ class ServingEngine:
         with self._qlock:  # register_tenant may race a respawn
             tenant_pols = [p.clone() for p in self._tenants.values()]
         model = self.model
-        if self._ps_addr is not None:
+        with self._reload_lock:  # the attachment whole: detach_ps may race
+            addr, every = self._ps_addr, self._reload_every
+            policy, plan = self._reload_policy, self._ps_shard_plan
+            shard_addrs = self._ps_shard_addrs
+        if addr is not None:
+            # a pull writes the owned weights in place under the weights
+            # lock; the weights the engine shared before its first pull
+            # are never written
             with self._weights_lock:
-                model = copy.deepcopy(self.model)
+                model = copy.deepcopy(model)
         eng = ServingEngine(
             model, num_slots=self.num_slots, max_len=self.max_len,
             queue_capacity=self.queue_capacity,
@@ -3310,12 +3318,10 @@ class ServingEngine:
             paged=self.paged, block_size=self.block_size,
             kv_blocks=self.kv_blocks, role=self.role,
             tenants=tenant_pols or None)
-        if self._ps_addr is not None:
+        if addr is not None:
             eng._owns_weights = True
-            eng.attach_ps(*self._ps_addr, every=self._reload_every,
-                          retry_policy=self._reload_policy,
-                          shard_plan=self._ps_shard_plan,
-                          shard_addrs=self._ps_shard_addrs)
+            eng.attach_ps(*addr, every=every, retry_policy=policy,
+                          shard_plan=plan, shard_addrs=shard_addrs)
         # the freshness listener is engine-agnostic (a (time, clock)
         # callback): carrying it over keeps the online deployment's
         # freshness chain intact across restarts and blue/green swaps
@@ -3515,12 +3521,14 @@ class ServingEngine:
             # the N=1 plan is the identity partition: the plain single-
             # socket pull already returns the full center
             shard_plan = shard_addrs = None
-        self._ps_addr = (host, int(port))
-        self._reload_policy = retry_policy
-        self._reload_every = int(every)
-        self._ps_shard_plan = shard_plan
-        self._ps_shard_addrs = (None if shard_addrs is None else
-                                [(str(h), int(p)) for h, p in shard_addrs])
+        if shard_addrs is not None:
+            shard_addrs = [(str(h), int(p)) for h, p in shard_addrs]
+        with self._reload_lock:  # a pull sees one attachment whole
+            self._ps_addr = (host, int(port))
+            self._reload_policy = retry_policy
+            self._reload_every = int(every)
+            self._ps_shard_plan = shard_plan
+            self._ps_shard_addrs = shard_addrs
         if self._thread is None:
             self._own_weights()
 
@@ -3536,7 +3544,7 @@ class ServingEngine:
             self._ps_shard_plan = self._ps_shard_addrs = None
             self._close_reload_transport()
 
-    def _close_reload_transport(self) -> None:
+    def _close_reload_transport(self) -> None:  # dklint: holds _reload_lock
         if self._reload_sock is not None:
             try:
                 self._reload_sock.close()
@@ -3557,9 +3565,11 @@ class ServingEngine:
         step.  Scheduler thread, or an engine that is not running."""
         if self._owns_weights:
             return
+        model = self.model  # rebound by this thread only
         with self._weights_lock:
-            self.model = copy.deepcopy(self.model)
-            self._owns_weights = True
+            model = copy.deepcopy(model)
+        self.model = model
+        self._owns_weights = True
         self._graph = None
 
     def _reload_leaves(self) -> List[Tuple[str, Any]]:
@@ -3582,7 +3592,7 @@ class ServingEngine:
         return [leaf for i, layer in enumerate(self.model.layers)
                 for leaf in walk(layer, f"{i}/")]
 
-    def _load_center(self, weights) -> None:
+    def _load_center(self, weights) -> None:  # dklint: holds _reload_lock
         """Write the pulled wire list into the engine's weights in place:
         every shape is checked before anything is written (a mismatched
         architecture fails the pull whole), then the list goes through
@@ -3632,7 +3642,7 @@ class ServingEngine:
                 else:
                     dst.copy_(piece)
 
-    def _pull_sharded(self) -> Dict[str, Any]:
+    def _pull_sharded(self) -> Dict[str, Any]:  # dklint: holds _reload_lock
         """One gathered pull over every shard — the ``{"weights",
         "clock"}`` shape of the single-socket ``'p'`` reply, with the
         clock summed over shards (each shard counts its own applies; the
@@ -3650,6 +3660,14 @@ class ServingEngine:
         return {"weights": weights,
                 "clock": sum(self._reload_client._clocks)}
 
+    def _pull_due(self, step: int) -> bool:
+        """Is a pull due after decode step ``step``?  The cadence is read
+        once, under the pull lock: a ``detach_ps`` racing the step zeroes
+        it before or after, never between two reads of it."""
+        with self._reload_lock:
+            every = self._reload_every
+        return bool(every) and step % every == 0
+
     def _pull_weights(self) -> None:
         """One hot-reload pull (scheduler thread): fetch the center, write
         it into the engine's weights in place, count it and tell the
@@ -3660,7 +3678,7 @@ class ServingEngine:
             if self._ps_addr is not None:
                 self._pull_locked()
 
-    def _pull_locked(self) -> None:
+    def _pull_locked(self) -> None:  # dklint: holds _reload_lock
         try:
             self._own_weights()
             if self._ps_shard_addrs is not None:

@@ -64,16 +64,21 @@ from .parallel import rules
 from .parallel.spmd import DistState, SPMDEngine, shape_epoch_data
 
 
-def _as_model(keras_model) -> Sequential:
-    """Accept a Sequential or a FittedModel (whose weights then start the
-    training).  The Keras adapter is not ported: a Keras model raises."""
+def _as_model(keras_model, device: DeviceLike = None) -> Sequential:
+    """Accept a Sequential, a FittedModel (whose weights then start the
+    training) or a Keras model (converted by ``core.keras_adapter`` onto
+    ``device``, as the JAX package converts one)."""
     if isinstance(keras_model, Sequential):
         return keras_model
     if isinstance(keras_model, FittedModel):
         return keras_model.model
-    raise TypeError(f"Cannot interpret model {type(keras_model)}: the port "
-                    "takes a Sequential or a FittedModel (the Keras adapter "
-                    "is not ported yet)")
+    from .core.keras_adapter import convert_keras_model
+    try:
+        return convert_keras_model(keras_model, device=device)
+    except TypeError as e:
+        raise TypeError(f"Cannot interpret model {type(keras_model)}: the "
+                        f"port takes a Sequential, a FittedModel or a Keras "
+                        f"model ({e})") from e
 
 
 def _require_masked_loss(loss):
@@ -100,8 +105,8 @@ class Trainer:
                  early_stopping_patience: Optional[int] = None,
                  early_stopping_min_delta: float = 0.0,
                  device: DeviceLike = None):
-        self.master_model = _as_model(keras_model)
         self.device = resolve_device(device)
+        self.master_model = _as_model(keras_model, self.device)
         self.loss = loss
         self.worker_optimizer = worker_optimizer
         self.learning_rate = learning_rate
@@ -853,8 +858,9 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             if refused:
                 raise ValueError(message)
         if ps:
-            # resolved eagerly, as the JAX class does: 'native' raises here
-            # (the port's build of the apply kernel waits for item 8)
+            # resolved eagerly, as the JAX class does: 'native' builds
+            # (or loads) the port's apply kernel here, and a failed build
+            # raises here
             from . import applykernel
             applykernel.resolve(apply_kernel)
         self.parallelism_factor = int(parallelism_factor)

@@ -41,11 +41,13 @@ setup(
                  "capability surface of dist-keras, rebuilt on JAX/XLA"),
     license="MIT",
     # distkeras_tpu_torch: the PyTorch/CUDA port; its CUDA sources are
-    # compiled by nvcc at first use, so they ship as package data
+    # compiled by nvcc and its host C++ sources by the host compiler at
+    # first use, so they ship as package data
     packages=find_packages(include=["distkeras_tpu", "distkeras_tpu.*",
                                     "distkeras_tpu_torch",
                                     "distkeras_tpu_torch.*"]),
-    package_data={"distkeras_tpu_torch": ["csrc/*.cu"]},
+    package_data={"distkeras_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                          "csrc/*.cpp"]},
     python_requires=">=3.10",
     # jax >= 0.9: the SPMD engine uses jax.shard_map and jax.lax.pcast
     # (older jax installs fine but AttributeErrors at runtime)

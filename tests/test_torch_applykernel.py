@@ -2,10 +2,12 @@
 ``applykernel``: the apply primitives (axpy, scatter-add, row scatter-add)
 fuzzed over both buffer alignments against the JAX module's numpy path
 bit for bit; the full PS apply path (dense, bf16, int8, sparse, a
-coalesced drain of them) through every server class; and ``resolve`` for
-each spelling — ``"native"`` raises (the port's build of
-``csrc/applykernel.cpp`` waits for ROADMAP queue A item 8), ``"auto"``,
-``"numpy"`` and None give the numpy path."""
+coalesced drain of them) through every server class, on the numpy path
+and through the port's own build of ``csrc/applykernel.cpp`` (``"auto"``),
+bit for bit; and ``resolve`` for each spelling — ``"native"`` and
+``"auto"`` give the port's build, ``"numpy"`` and None the numpy path, and
+with the native module pinned off ``"auto"`` is numpy and ``"native"``
+raises."""
 
 import numpy as np
 import pytest
@@ -141,7 +143,7 @@ def _expected(msgs, scale):
 def test_apply_path_numpy(make_ps, scale, kern):
     msgs = _wire_msgs(np.random.default_rng(9))
     ps = make_ps(kern)
-    assert ps._kernel is None
+    assert ps._kernel is applykernel.resolve(kern)  # 'auto': the native build
     for m in msgs:
         ps.handle_commit(dict(m))
     drained = make_ps(kern)
@@ -168,27 +170,37 @@ def test_scatter_add_helper_scaled():
         _scatter_add(center, SparseDelta(idx, vals, TOTAL + 1))
 
 
-def test_python_path_serves_applies_when_native_absent():
-    """With no native module (the port's state until ROADMAP queue A item
-    8), 'auto' resolves to the numpy path and the apply works."""
-    assert applykernel.have_native() is False
-    assert applykernel.resolve("auto") is None
-    assert applykernel.resolve(None) is None
-    assert applykernel.resolve("numpy") is None
-    with pytest.raises(RuntimeError, match="queue A item 8"):
-        applykernel.resolve("native")
-    with pytest.raises(RuntimeError, match="queue A item 8"):
-        DeltaParameterServer(_blob(), apply_kernel="native")
-    ps = DeltaParameterServer(_blob(), apply_kernel="auto")
-    assert ps._kernel is None  # the numpy path is live
-    d = [np.full(s, 2.0, np.float32) for s in SHAPES]
-    ps.handle_commit({"delta": d, "clock": 0})
-    idx = np.array([0, 1], np.int32)
-    ps.handle_commit({"delta": SparseDelta(idx, np.ones(2, np.float32),
-                                           TOTAL), "clock": 0})
-    assert ps.num_updates == 2
-    np.testing.assert_array_equal(ps.center[0][:2], np.full(2, 3.0))
-    np.testing.assert_array_equal(ps.center[0][2:], np.full(31, 2.0))
+def test_python_path_serves_applies_when_native_absent(monkeypatch):
+    """With the native module pinned off, 'auto' resolves to the numpy path
+    and the apply works, and 'native' raises; with the port's build,
+    'native' applies the same commits bit for bit."""
+    def run(kern):
+        ps = DeltaParameterServer(_blob(), apply_kernel=kern)
+        d = [np.full(s, 2.0, np.float32) for s in SHAPES]
+        ps.handle_commit({"delta": d, "clock": 0})
+        idx = np.array([0, 1], np.int32)
+        ps.handle_commit({"delta": SparseDelta(idx, np.ones(2, np.float32),
+                                               TOTAL), "clock": 0})
+        assert ps.num_updates == 2
+        np.testing.assert_array_equal(ps.center[0][:2], np.full(2, 3.0))
+        np.testing.assert_array_equal(ps.center[0][2:], np.full(31, 2.0))
+        return ps
+
+    built = applykernel.resolve("native")
+    assert built.__name__ == "distkeras_tpu_torch._applykernel"
+    assert run("native")._kernel is built
+    with monkeypatch.context() as m:
+        m.setattr(applykernel, "_native", None)
+        assert applykernel.have_native() is False
+        assert applykernel.resolve("auto") is None
+        assert applykernel.resolve(None) is None
+        assert applykernel.resolve("numpy") is None
+        with pytest.raises(RuntimeError, match="pinned off"):
+            applykernel.resolve("native")
+        with pytest.raises(RuntimeError, match="pinned off"):
+            DeltaParameterServer(_blob(), apply_kernel="native")
+        assert run("auto")._kernel is None  # the numpy path is live
+    assert applykernel.have_native() is True
 
 
 def test_resolve_rejects_unknown_names():

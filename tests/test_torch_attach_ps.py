@@ -398,6 +398,55 @@ def test_detach_waits_for_the_pull_in_flight_and_ends_pulling():
     assert eng.respawn_clone()._ps_addr is None
 
 
+class _DetachOnCadenceRead(ServingEngine):
+    """An engine whose cadence read, once armed, lets ``detach_ps`` run on
+    another thread at that very moment (as far as the pull lock allows):
+    the interleaving of a deployment detaching the engine while its
+    scheduler ends a decode step."""
+
+    armed = False
+
+    @property
+    def _reload_every(self):
+        value = self._every
+        if self.armed:
+            self.armed = False
+            self.detacher = threading.Thread(target=self.detach_ps)
+            self.detacher.start()
+            self.detacher.join(timeout=0.3)
+        return value
+
+    @_reload_every.setter
+    def _reload_every(self, value):
+        self._every = value
+
+
+def test_detach_racing_the_steps_cadence_read_leaves_the_step_whole():
+    """The step reads the pull cadence once, under the pull lock, so a
+    ``detach_ps`` that lands on that read waits for it instead of zeroing
+    the cadence between two reads of it (a division by zero in the
+    scheduler thread)."""
+    eng = _DetachOnCadenceRead(port_lm(1), num_slots=1, max_len=6)
+    eng.attach_ps("127.0.0.1", dead_port(), every=1, retry_policy=ONE_SHOT)
+    pulls = []
+    eng._pull_locked = lambda: pulls.append(eng._ps_addr)
+    h = eng.submit(PROBE[2], 4)
+    while eng.stats["decode_steps"] == 0:
+        eng.step()
+    assert len(pulls) == 1 and not h.done
+    eng.armed = True                  # the next step decodes, then reads
+    eng.step()
+    eng.detacher.join(timeout=30.0)
+    assert not eng.detacher.is_alive()
+    # the step pulled before the detach or not at all, never from half
+    # an attachment
+    assert len(pulls) in (1, 2) and None not in pulls
+    assert eng._ps_addr is None and eng._reload_every == 0
+    pulled = len(pulls)
+    eng.run_until_idle()
+    assert len(pulls) == pulled and h.done
+
+
 def test_a_port_engine_pulls_from_a_jax_server():
     """The JAX socket PS answers the port engine's 'p': the engine then
     serves the JAX center's greedy tokens, as the JAX engine does."""

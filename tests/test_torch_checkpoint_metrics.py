@@ -9,8 +9,8 @@ run of the distributed trainer killed after an epoch, or mid-epoch with
 ``checkpoint_unit="round"``, and resumed, ends with the uninterrupted
 run's weights to the bit; the three resume refusals of the JAX trainer
 hold.  ``flops_per_example`` equals the JAX value for every zoo model and
-for attention layers with GQA and a window; ``peak_flops`` knows the H100 SXM part
-and no other H100.
+for attention layers with GQA and a window; ``peak_flops`` knows the H100
+SXM, PCIe and NVL parts by their device names, each its own figure.
 """
 
 import json
@@ -293,8 +293,20 @@ def test_flops_of_attention_layers_match_jax(extra):
 def test_peak_flops():
     assert peak_flops("NVIDIA H100 80GB HBM3") == 989e12
     assert peak_flops("NVIDIA H100 SXM5 80GB") == 989e12
-    # the PCIe and NVL parts peak lower: no SXM figure for them
-    assert peak_flops("NVIDIA H100 PCIe") is None
-    assert peak_flops("NVIDIA H100 NVL") is None
+    # the PCIe and NVL parts peak lower: each has its own figure
+    assert peak_flops("NVIDIA H100 PCIe") == 756.5e12
+    assert peak_flops("NVIDIA H100 NVL") == 835.5e12
     assert peak_flops("cpu") is None
     assert peak_flops("TPU v5 lite") is None
+
+
+@pytest.mark.parametrize("name,peak", [
+    ("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 SXM5 80GB", 989e12),
+    ("NVIDIA H100 PCIe", 756.5e12), ("NVIDIA H100 NVL", 835.5e12),
+    ("nvidia h100 pcie", 756.5e12), ("NVIDIA H100 NVL 94GB", 835.5e12)])
+def test_peak_flops_by_name(name, peak):
+    """Each name matches its own row, and only that row: the table's
+    first-match order cannot hand one part another's peak."""
+    from distkeras_tpu_torch.metrics import _PEAK_FLOPS
+    assert peak_flops(name) == peak
+    assert sum(key.lower() in name.lower() for key, _ in _PEAK_FLOPS) == 1

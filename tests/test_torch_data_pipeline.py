@@ -203,11 +203,15 @@ def test_read_csv_matches_jax(tmp_path, features):
 
 
 def test_read_csv_imports_no_native_parser():
-    """The port's read_csv is the pure-Python parse: it names nothing of
-    the JAX package's native extension."""
+    """The port's read_csv imports no native parser of the JAX package's:
+    its native route is the port's own build of its own copy of
+    ``csrc/csvloader.cpp``, loaded under the port's name."""
     import inspect
     source = inspect.getsource(datasets)
-    assert "_csvloader" not in source and "_native" not in source
+    assert "import _csvloader" not in source
+    assert "distkeras_tpu._csvloader" not in source
+    assert datasets._csv_module().__name__ == \
+        "distkeras_tpu_torch._csvloader"
 
 
 def test_mnist_flow_through_single_trainer_and_predictor():

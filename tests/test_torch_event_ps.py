@@ -426,8 +426,11 @@ def test_trainer_ps_core_knob_end_to_end(core):
 def test_trainer_apply_kernel_auto_end_to_end():
     t = _tiny_training(apply_kernel="auto")
     assert len(t.history) > 0
-    # nothing native is built for the port: 'auto' is the numpy path
-    assert t._ps_server.ps._kernel is None
+    # 'auto' is the port's own build of the native apply kernel
+    from distkeras_tpu_torch import applykernel
+    assert t._ps_server.ps._kernel is applykernel.resolve("native")
+    assert t._ps_server.ps._kernel.__name__ == \
+        "distkeras_tpu_torch._applykernel"
 
 
 def test_trainer_knob_validation():
@@ -441,8 +444,9 @@ def test_trainer_knob_validation():
     with pytest.raises(ValueError, match="ps_core/coalesce/apply_kernel"):
         ADAG(make_model(), ps_core="threaded",  # SPMD: no server
              label_col="label_encoded", device="cpu")
-    with pytest.raises(RuntimeError, match="queue A item 8"):
-        ADAG(make_model(), execution="host_ps", apply_kernel="native", **kw)
+    native = ADAG(make_model(), execution="host_ps", apply_kernel="native",
+                  **kw)
+    assert native.apply_kernel == "native"  # the port's build: accepted
     t = ADAG(make_model(), execution="host_ps", **kw)
     assert t.ps_core == "event" and t.coalesce and t.apply_kernel is None
 

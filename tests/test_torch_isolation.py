@@ -25,7 +25,8 @@ from distkeras_tpu_torch.job_deployment import Job
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = {"jax", "jaxlib", "flax", "optax", "distkeras_tpu", "ml_dtypes"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "distkeras_tpu", "ml_dtypes",
+          "keras"}
 TINY = dict(vocab_size=16, seq_len=8, d_model=8, num_heads=2,
             num_layers=1, mlp_dim=8)
 
@@ -67,7 +68,11 @@ NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "ps_worker_main.py", "ps_shard_main.py",
                "deployment_online.py", "parallel/moe.py",
                "parallel/collective.py", "parallel/pipeline.py",
-               "parallel/pp_transformer.py", "dryrun.py")
+               "parallel/pp_transformer.py", "dryrun.py", "native.py",
+               "utils.py", "core/keras_adapter.py", "data/datasets.py",
+               "examples/mnist_mlp_single.py",
+               "examples/mnist_convnet_adag.py",
+               "examples/cifar10_downpour.py", "examples/higgs_workflow.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -113,7 +118,13 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.ps_shard_main, "
             "distkeras_tpu_torch.deployment_online, "
             "distkeras_tpu_torch.parallel.moe, "
-            "distkeras_tpu_torch.parallel.collective; "
+            "distkeras_tpu_torch.parallel.collective, "
+            "distkeras_tpu_torch.native, distkeras_tpu_torch.utils, "
+            "distkeras_tpu_torch.core.keras_adapter, "
+            "distkeras_tpu_torch.examples.mnist_mlp_single, "
+            "distkeras_tpu_torch.examples.mnist_convnet_adag, "
+            "distkeras_tpu_torch.examples.cifar10_downpour, "
+            "distkeras_tpu_torch.examples.higgs_workflow; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")
@@ -121,6 +132,44 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_native_routes_load_no_jax_keras_or_the_jax_packages_modules(
+        tmp_path):
+    """Encoding and decoding a message, a native axpy and a native
+    ``read_csv`` load the port's own builds (``distkeras_tpu_torch._*``)
+    and nothing of jax, Keras or the JAX package: no module of theirs, and
+    no shared object from the JAX package's directory."""
+    csv = tmp_path / "t.csv"
+    csv.write_text("label,a,b\n1,0.5,2\n0,1.5,-3\n")
+    code = (
+        "import sys, numpy as np\n"
+        "from distkeras_tpu_torch import applykernel, networking\n"
+        "from distkeras_tpu_torch.data import datasets\n"
+        "msg = {'w': [np.arange(6, dtype=np.float32)], 'clock': 3}\n"
+        "out = networking.decode_message(networking.encode_message(msg))\n"
+        "assert out['clock'] == 3\n"
+        "dst = np.zeros(6, np.float32)\n"
+        "applykernel.axpy(applykernel.resolve('native'), dst, out['w'][0], "
+        "0.5)\n"
+        "assert dst[2] == 1.0\n"
+        f"ds = datasets.read_csv({str(csv)!r}, 'label')\n"
+        "assert ds['features'].shape == (2, 2)\n"
+        "assert networking._native.__name__ == "
+        "'distkeras_tpu_torch._wirecodec'\n"
+        "assert datasets._native_csv.__name__ == "
+        "'distkeras_tpu_torch._csvloader'\n"
+        "jax_dir = %r\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if "
+        f"m.split('.')[0] in {sorted(BANNED)!r} or "
+        "str(getattr(mod, '__file__', '') or '').startswith(jax_dir))\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(bad, jax_dir + '_' in maps)\n"
+        % (str(ROOT / "distkeras_tpu") + os.sep))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"
 
 
 def test_a_rank_started_through_initialize_from_env_loads_no_jax(tmp_path):

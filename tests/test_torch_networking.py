@@ -4,8 +4,9 @@ networking``) held to the JAX package's wire, byte for byte.
 The contract pinned here:
 
  - the serving frames and the ``KVBlocks`` node (``'k'``,
-   ``SERVING_OP_KVBLOCKS``) round-trip through the port's one codec (the
-   pure-Python one: the port builds no native codec yet), plain and
+   ``SERVING_OP_KVBLOCKS``) round-trip through the port's codec (its own
+   native build; ``tests/test_torch_wirecodec.py`` runs the contract on
+   both codecs), plain and
    through a pooled socket receive, and ``validate()`` rejects every
    hostile geometry with the typed ``ProtocolError`` — the serving and
    KV-block cases of ``tests/test_wirecodec.py`` on the port;
@@ -64,7 +65,14 @@ SERVING_FRAMES = [
 
 
 def test_the_port_has_no_native_codec():
-    assert networking._native is None
+    """No native codec of the JAX package's: the port's is its own build of
+    its own copy of ``csrc/wirecodec.cpp``, loaded from the build
+    directory under the port's name."""
+    from distkeras_tpu_torch import kernels
+    codec = networking._codec()
+    assert codec.__name__ == "distkeras_tpu_torch._wirecodec"
+    assert Path(codec.__file__).parent == kernels.BUILD_DIR
+    assert "distkeras_tpu" not in Path(codec.__file__).parts
 
 
 def test_serving_frames_roundtrip():

@@ -6,9 +6,9 @@ partition tolerance (``partition_windows``: buffer while dark, one heal
 probe a window, one reconciling commit on heal, a typed ``Partitioned``
 once the budget is spent).
 
-The port's wire runs the pure-Python codec only (its native codec waits
-for ROADMAP queue A item 8), so the JAX file's ``codec`` axis has one
-value here.  The ``ProcessChaos`` legs (signals to OS processes) and the
+The JAX file's ``codec`` axis takes both values here too: the chaos
+actions run on the port's native codec (its default) and again with the
+pure-Python codec pinned (the ``..._on_the_python_codec`` twins).  The ``ProcessChaos`` legs (signals to OS processes) and the
 two-process chaos run are in ``tests/test_torch_process_elastic.py``.
 """
 
@@ -160,7 +160,7 @@ def test_idle_deadline_off_keeps_silent_connections(core):
 
 
 # ---------------------------------------------------------------------------
-# ChaosProxy WAN-grade actions (both PS cores, the Python codec)
+# ChaosProxy WAN-grade actions (both PS cores, both codecs)
 # ---------------------------------------------------------------------------
 
 def test_chaos_partition_refuses_dials_then_heals(core):
@@ -366,3 +366,24 @@ def test_partition_windows_trains_through_the_trainer():
     assert all(w.partition_windows == 4 and w.partitions == 0
                for w in t._ps_workers)
     assert _accuracy(fitted, ds) > 0.6
+
+
+@pytest.fixture()
+def python_codec(monkeypatch):
+    """Pin the pure-Python wire codec (``networking._native = None``)."""
+    monkeypatch.setattr(networking, "_native", None)
+
+
+def test_chaos_partition_refuses_dials_then_heals_on_the_python_codec(
+        core, python_codec):
+    test_chaos_partition_refuses_dials_then_heals(core)
+
+
+def test_chaos_asymmetric_delay_directions_on_the_python_codec(
+        core, python_codec):
+    test_chaos_asymmetric_delay_directions(core)
+
+
+def test_chaos_bandwidth_shapes_both_directions_bit_exact_on_the_python_codec(
+        core, python_codec):
+    test_chaos_bandwidth_shapes_both_directions_bit_exact(core)

@@ -205,6 +205,7 @@ def test_process_launches_are_summed_from_the_children(runs):
     assert t.process_launches and set(t.process_launches.values()) == {0}
     assert sorted(t.process_launches) == sorted(
         t._process_results[0].launches)
+    assert t.process_native_compiles == 0  # the driver built, they loaded
 
 
 def test_a_port_shard_restores_a_jax_journal(tmp_path, monkeypatch):

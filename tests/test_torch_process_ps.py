@@ -114,6 +114,8 @@ def test_one_worker_process_is_bit_identical_to_host_ps(runs, name):
     (child,) = pt._process_results
     assert sum(child.sent_by_gen.values()) == 10
     assert set(pt.process_launches.values()) == {0}  # no attention here
+    # the child loaded the driver's host extensions: no compiler ran there
+    assert child.native_compiles == pt.process_native_compiles == 0
 
 
 @pytest.mark.parametrize("name", ONE)

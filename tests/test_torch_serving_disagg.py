@@ -22,7 +22,7 @@ blocks of 4, 30 blocks), one numpy weight set in both packages:
 
 The supervisor leg (``PairSupervisor``) is in
 ``tests/test_torch_supervisors.py``; the JAX load generator's builder
-waits for the examples (ROADMAP queue A item 8).
+waits for the port of ``examples/loadgen.py`` (ROADMAP queue A item 9).
 """
 
 import time

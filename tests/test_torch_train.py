@@ -296,7 +296,9 @@ def test_what_waits_for_later_slices_raises(case):
     """Sequence packing arrived with its slice: ``segment_col``, the
     packed runner and ``segment_ids`` now work (checked against the JAX
     package in tests/test_torch_packing.py); an unmasked loss with
-    ``segment_col`` and the Keras adapter still raise."""
+    ``segment_col`` still raises.  The Keras adapter arrived too: a Keras
+    model trains (against Keras and the JAX adapter in
+    tests/test_torch_keras_adapter.py), and what is no model raises."""
     model = transformer_lm(**SMALL, device="cpu")
     rope = transformer_lm(**FORMS["rope_window"], **SMALL, device="cpu")
     x = torch.zeros(2, 32, dtype=torch.int64)
@@ -327,7 +329,18 @@ def test_what_waits_for_later_slices_raises(case):
         with pytest.raises(ValueError, match="rope"):
             model(x, segment_ids=seg)
     else:
-        with pytest.raises(TypeError, match="Keras adapter"):
+        keras = pytest.importorskip("keras")
+        km = keras.Sequential([keras.layers.Input((6,)),
+                               keras.layers.Dense(3, activation="softmax")])
+        t = SingleTrainer(km, batch_size=8, device="cpu")
+        rng = np.random.default_rng(0)
+        t.train(Dataset({
+            "features": rng.standard_normal((32, 6)).astype(np.float32),
+            "label": np.eye(3, dtype=np.float32)[rng.integers(0, 3, 32)]}))
+        assert len(t.get_history()) == 4
+        assert [type(layer).__name__ for layer in t.master_model.layers] \
+            == ["Dense"]
+        with pytest.raises(TypeError, match="Cannot interpret model"):
             SingleTrainer(object(), device="cpu")
 
 
