@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port only (no JAX is needed or imported) through
-thirty-one phases, each printing JSON lines, and fails with a non-zero
+thirty-two phases, each printing JSON lines, and fails with a non-zero
 exit if any phase fails:
 
 1. device: the card's name, power limit, SM count and maximum SM clock
@@ -324,14 +324,23 @@ exit if any phase fails:
     ``read_csv``'s parser native against their pure-Python or numpy twins
     (the same bytes, the same bits), and one-worker host-PS runs of the
     ConvNet and the LM with both, their centers to the bit.
+32. loadgen: the port's load generator (``distkeras_tpu_torch.examples.
+    loadgen``, the LOADGEN_* comment): its ``main`` at the JAX script's
+    defaults and with a random draft, every JSON line parsed and the
+    closed loop lossless with no kernel launched; ``build_spec_engine``'s
+    trained pair, the SIMT training kernels launched exactly once a
+    layer and step of each model's training; and its closed, wire and
+    open-loop load loops over phase serve's full-width engine: lossless,
+    the greedy rows those of direct submit, a flood shed with typed
+    refusals and counted.
 
 Then it prints the north-star line again, the whole run's wall time, the
 kernel summary line (each variant of each flash kernel with its source
 and the runs it served, the SIMT kernels at the wide head dim, and every
 kernel's launches on the packing, decode, serving, paged, speculative,
 QoS, disaggregated serving, fleet, host-PS, sparse host-PS, survivable
-host-PS, cross-process, online, MoE, pipeline, SPMD-ranks and native
-paths), the
+host-PS, cross-process, online, MoE, pipeline, SPMD-ranks, native and
+load-generator paths), the
 ``nvidia-smi`` name and power limit line, and last ``{"ok": true,
 "device": {...}}``.  Without a CUDA card, or outside a checkout, it exits
 non-zero and prints no result.
@@ -344,6 +353,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -672,9 +682,9 @@ SERVE_PROFILE_STEPS, SERVE_EVENT_STEPS = 8, 64
 # the paged pool (ROADMAP queue A item 4, its block arena and prefix trie):
 # phase serve's engine and trace with paged=True, PAGED_BLOCK-token blocks
 # and the default kv_blocks (the dense pool's capacity), graph and
-# uncaptured; then the shared-prefix trace of bench.py:741-790, rebuilt
-# here as examples/loadgen.py's make_trace draws it (that module imports
-# JAX): PREFIX_REQUESTS requests over one PREFIX_LEN-token prefix, each
+# uncaptured; then the shared-prefix trace of bench.py:741-790, drawn by
+# the port's loadgen make_trace as examples/loadgen.py draws it:
+# PREFIX_REQUESTS requests over one PREFIX_LEN-token prefix, each
 # with its own suffix of PREFIX_SUFFIXES tokens and PREFIX_STEPS new
 # token, through a paged and a dense engine of PREFIX_SLOTS slots,
 # max_len PREFIX_MAX_LEN, chunks of PREFIX_CHUNK and PREFIX_PER_STEP
@@ -1066,6 +1076,32 @@ SPMD_RANK_TIMEOUT_S = 300.0
 # cut to the run's budget): read_csv's native route against
 # np.genfromtxt, features and labels to the bit, seconds each
 NATIVE_CSV_ROWS, NATIVE_REPS = 100_000, 5
+# the load generator (ROADMAP queue A item 9: the port of
+# examples/loadgen.py, distkeras_tpu_torch/examples/loadgen.py).  (a) its
+# main in this process on the card at the JAX script's defaults
+# (LOADGEN_CLI: 24 requests, 4 slots, concurrency 8, 16 new tokens, its
+# 2-layer f32 LM of width 32 from random weights), then with --spec-draft 1
+# (a random 1-layer draft: no training in the JAX script's main either);
+# then build_spec_engine at the JAX default of LOADGEN_SPEC_EPOCHS epochs
+# (its 2-layer target and 1-layer draft trained by SingleTrainer on the
+# card: f32 at head dim 8, so B3-B5's SIMT training forms once a layer and
+# step) and a closed loop of an arith trace through its speculative
+# engine.  (b) at full width: phase serve's engine (the LM, bf16, form
+# full, SERVE_SLOTS slots, chunks of SERVE_CHUNK, warmed), the trace
+# make_trace(LOADGEN_REQUESTS, vocab 512, SERVE_PROMPT_LENS, LOADGEN_STEPS
+# new tokens, temperature SERVE_TEMP) driven by direct submit (the
+# reference rows), by run_closed_loop (LOADGEN_USERS users), by
+# run_wire_closed_loop (LOADGEN_USERS clients, event core), and by
+# run_open_loop at LOADGEN_FLOOD_QPS against a queue of
+# LOADGEN_FLOOD_QUEUE with the scheduler held until every submission was
+# tried (so exactly the queue's capacity is admitted).  LOADGEN_STEPS is a
+# depth cut from phase serve's SERVE_STEPS (PERF.md section 4)
+LOADGEN_CLI = ("--requests", "24", "--slots", "4", "--concurrency", "8",
+               "--steps", "16")
+LOADGEN_SPEC_EPOCHS = 25
+LOADGEN_REQUESTS, LOADGEN_STEPS, LOADGEN_USERS = 16, 32, 8
+LOADGEN_FLOOD_QPS, LOADGEN_FLOOD_QUEUE = 1e6, 4
+LOADGEN_TIMEOUT_S = 300.0
 
 
 def emit(obj) -> None:
@@ -3771,20 +3807,15 @@ def phase_serve(card: str, dev: str = "cuda"):
 
 
 def _prefix_trace(vocab: int):
-    """examples/loadgen.py's make_trace(PREFIX_REQUESTS, num_steps=
+    """The port's loadgen make_trace(PREFIX_REQUESTS, num_steps=
     PREFIX_STEPS, prompt_lengths=PREFIX_SUFFIXES, prefix_groups=1,
-    prefix_len=PREFIX_LEN) over ``vocab`` tokens, greedy, in numpy: the
-    same draws in the same order."""
-    import numpy as np
-    rng = np.random.default_rng(0)
-    prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
-    trace = []
-    for _ in range(PREFIX_REQUESTS):
-        p_len = int(PREFIX_SUFFIXES[rng.integers(0, len(PREFIX_SUFFIXES))])
-        suffix = rng.integers(0, vocab, p_len).astype(np.int32)
-        trace.append((np.concatenate([prefix, suffix]).astype(np.int32),
-                      PREFIX_STEPS, {}))
-    return trace
+    prefix_len=PREFIX_LEN) over ``vocab`` tokens, greedy, as (prompt,
+    steps, submit keywords)."""
+    from distkeras_tpu_torch.examples.loadgen import make_trace
+    return [(r["prompt"], r["num_steps"], {}) for r in make_trace(
+        PREFIX_REQUESTS, vocab=vocab, num_steps=PREFIX_STEPS,
+        prompt_lengths=PREFIX_SUFFIXES, prefix_groups=1,
+        prefix_len=PREFIX_LEN)]
 
 
 def _prefix_engine(model, paged: bool):
@@ -4421,62 +4452,22 @@ def phase_spec(card: str, dev: str = "cuda"):
     return rows, launches
 
 
-def _qos_trace(num_requests: int, seed: int = 0, vocab: int = 16,
-               num_steps: int = 16, temperature: float = 0.0,
-               sampled_fraction: float = 0.5, prompt_lengths=(4, 6, 8),
-               tenants: int = QOS_TENANTS, tier_mix: float = QOS_TIER_MIX,
-               pattern: str = "random", long_fraction: float = 0.25):
-    """examples/loadgen.py's make_trace(num_requests, seed, vocab,
-    num_steps, temperature, sampled_fraction, prompt_lengths,
-    pattern=pattern, long_fraction=long_fraction, tenants=tenants,
-    tier_mix=tier_mix) for its "random" and "bimodal" patterns, in numpy:
-    the same draws in the same order, as submit keywords."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    trace = []
-    for i in range(int(num_requests)):
-        steps = int(num_steps)
-        if pattern == "bimodal":
-            if rng.random() < float(long_fraction):
-                p_len = int(max(prompt_lengths))   # prefill-heavy
-                steps = max(1, int(num_steps) // 4)
-            else:
-                p_len = int(min(prompt_lengths))   # decode-heavy
-        else:
-            p_len = int(prompt_lengths[rng.integers(0,
-                                                    len(prompt_lengths))])
-        req = {"prompt": rng.integers(0, vocab, p_len).astype(np.int32),
-               "num_steps": steps, "seed": int(seed * 10_000 + i)}
-        if temperature > 0.0 and rng.random() < sampled_fraction:
-            req["temperature"] = float(temperature)
-        if int(tenants) >= 2:
-            if rng.random() < float(tier_mix):
-                req["tenant"] = "interactive"
-            else:
-                req["tenant"] = f"batch{int(rng.integers(tenants - 1))}"
-        trace.append(req)
-    return trace
+def _qos_overload_trace():
+    """Phase qos's overload trace: the port's loadgen make_trace(
+    tenants=QOS_TENANTS, tier_mix=QOS_TIER_MIX) over phase serve's prompt
+    lengths and new tokens, half sampled at SERVE_TEMP."""
+    from distkeras_tpu_torch.examples.loadgen import make_trace
+    return make_trace(QOS_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
+                      num_steps=SERVE_STEPS, temperature=SERVE_TEMP,
+                      prompt_lengths=SERVE_PROMPT_LENS, tenants=QOS_TENANTS,
+                      tier_mix=QOS_TIER_MIX)
 
 
-def _qos_policies(tenants: int = QOS_TENANTS,
-                  interactive_weight: float = QOS_INTERACTIVE_WEIGHT):
-    """examples/loadgen.py's qos_policies(tenants) in the port: one
-    "interactive" tenant (interactive tier, ``interactive_weight``) and
-    ``tenants - 1`` weight-1 batch tenants "batch0", "batch1", ...; fresh
-    objects on every call (a policy belongs to one engine)."""
-    from distkeras_tpu_torch.serving import TenantPolicy
-    pols = [TenantPolicy("interactive", tier="interactive",
-                         weight=interactive_weight)]
-    for i in range(max(int(tenants) - 1, 1)):
-        pols.append(TenantPolicy(f"batch{i}", tier="batch", weight=1.0))
-    return pols
-
-
-def _qos_percentile_ms(latencies_s, q: float):
-    import numpy as np
-    if not latencies_s:
-        return None
-    return float(np.percentile(np.asarray(latencies_s), q)) * 1e3
+def _qos_policies():
+    """The port's loadgen qos_policies(QOS_TENANTS): fresh objects on
+    every call (a policy belongs to one engine)."""
+    from distkeras_tpu_torch.examples.loadgen import qos_policies
+    return qos_policies(QOS_TENANTS, QOS_INTERACTIVE_WEIGHT)
 
 
 def _mean_max(xs):
@@ -4490,6 +4481,7 @@ def _run_overload(engine, trace, qps: float, timeout_s: float = 300.0):
     QuotaExceeded) counted as sheds of their tier, then every handle
     waited for; latencies by tier, completion rates and the engine's QoS
     counters."""
+    from distkeras_tpu_torch.examples.loadgen import _percentile_ms
     from distkeras_tpu_torch.serving import QueueFull
     engine.start()
     handles = []
@@ -4518,10 +4510,10 @@ def _run_overload(engine, trace, qps: float, timeout_s: float = 300.0):
     s = engine.stats
     return {
         "offered_qps": float(qps), "wall_s": wall,
-        "interactive_p50_ms": _qos_percentile_ms(lat["interactive"], 50),
-        "interactive_p99_ms": _qos_percentile_ms(lat["interactive"], 99),
-        "batch_p50_ms": _qos_percentile_ms(lat["batch"], 50),
-        "batch_p99_ms": _qos_percentile_ms(lat["batch"], 99),
+        "interactive_p50_ms": _percentile_ms(lat["interactive"], 50),
+        "interactive_p99_ms": _percentile_ms(lat["interactive"], 99),
+        "batch_p50_ms": _percentile_ms(lat["batch"], 50),
+        "batch_p99_ms": _percentile_ms(lat["batch"], 99),
         "interactive_completion_rate":
             done["interactive"] / max(total["interactive"], 1),
         "batch_completion_rate": done["batch"] / max(total["batch"], 1),
@@ -4804,9 +4796,7 @@ def phase_qos(card: str, dev: str = "cuda"):
           f"{plain['graph_replays_per_decode_iteration']} replays, want "
           "[0], [1], [1]")
     rows = {"preempt": row}
-    otrace = _qos_trace(QOS_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
-                        num_steps=SERVE_STEPS, temperature=SERVE_TEMP,
-                        prompt_lengths=SERVE_PROMPT_LENS)
+    otrace = _qos_overload_trace()
     for arm in ("policies", "fifo"):
         eng = _qos_engine(model, dev, policies=arm == "policies",
                           kv_blocks=QOS_KV_BLOCKS)
@@ -5046,13 +5036,24 @@ def _wait_state(pred, timeout: float = 30.0) -> bool:
     return True
 
 
+def _disagg_bimodal_trace():
+    """Phase disagg's interference trace: make_trace's bimodal pattern
+    (the port's loadgen make_trace) over DISAGG_PROMPT_LENS,
+    DISAGG_LONG_FRACTION long, greedy."""
+    from distkeras_tpu_torch.examples.loadgen import make_trace
+    return make_trace(DISAGG_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
+                      num_steps=SERVE_STEPS,
+                      prompt_lengths=DISAGG_PROMPT_LENS, pattern="bimodal",
+                      long_fraction=DISAGG_LONG_FRACTION)
+
+
 def _interference(engine, trace, dev: str) -> dict:
     """bench.py:870-886 at full width: the engine (a unified paged engine
     or a DisaggPair) started after its warmup, the whole bimodal trace
     submitted at once, every handle waited for; the per-token decode
     latency ``(latency - ttft) / (tokens - 1)`` of the short requests
     (its p50 and p99), TTFT p50/p99 of the short and of every request."""
-    import numpy as np
+    from distkeras_tpu_torch.examples.loadgen import _percentile_ms
     short = min(DISAGG_PROMPT_LENS)
     _sync(dev)
     engine.start()
@@ -5071,12 +5072,12 @@ def _interference(engine, trace, dev: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         engine.stop()
-    return {"decode_p50_ms": _qos_percentile_ms(per_tok, 50),
-            "decode_p99_ms": _qos_percentile_ms(per_tok, 99),
-            "ttft_p50_ms": _qos_percentile_ms(ttft, 50),
-            "ttft_p99_ms": _qos_percentile_ms(ttft, 99),
-            "short_ttft_p50_ms": _qos_percentile_ms(ttft_short, 50),
-            "short_ttft_p99_ms": _qos_percentile_ms(ttft_short, 99),
+    return {"decode_p50_ms": _percentile_ms(per_tok, 50),
+            "decode_p99_ms": _percentile_ms(per_tok, 99),
+            "ttft_p50_ms": _percentile_ms(ttft, 50),
+            "ttft_p99_ms": _percentile_ms(ttft, 99),
+            "short_ttft_p50_ms": _percentile_ms(ttft_short, 50),
+            "short_ttft_p99_ms": _percentile_ms(ttft_short, 99),
             "short_requests": len(per_tok), "wall_s": wall,
             "rows": [h.result() for _, h in hs],
             "finish": [h.finish for _, h in hs]}
@@ -5386,11 +5387,7 @@ def phase_disagg(card: str, dev: str = "cuda"):
     rows = {"rows": row}
     # (b) interference: make_trace's bimodal pattern, greedy (a long
     # prompt gets SERVE_STEPS // 4 new tokens, as make_trace gives it)
-    btrace = _qos_trace(DISAGG_REQUESTS, seed=SEED, vocab=LM["vocab_size"],
-                        num_steps=SERVE_STEPS,
-                        prompt_lengths=DISAGG_PROMPT_LENS, tenants=0,
-                        pattern="bimodal",
-                        long_fraction=DISAGG_LONG_FRACTION)
+    btrace = _disagg_bimodal_trace()
     ueng = _serve_engine(model, False, paged=True, block_size=PAGED_BLOCK)
     arms = {"unified": _interference(ueng, btrace, dev)}
     bpre, bdec = _disagg_engines(model)
@@ -9244,6 +9241,253 @@ def phase_native(card: str, dev: str = "cuda"):
     return None, launches
 
 
+def _loadgen_main(argv) -> list:
+    """The port's loadgen ``main(argv)`` in this process: its JSON lines,
+    parsed."""
+    import contextlib
+    import io
+    from distkeras_tpu_torch.examples import loadgen
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loadgen.main(list(argv))
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def _loadgen_cli(card: str, dev: str) -> dict:
+    """(a): the CLI at the JAX script's defaults and with --spec-draft 1
+    (no kernel launched on either), then build_spec_engine's trained pair
+    behind a speculative engine (the SIMT training kernels once a layer
+    and step of each model's training)."""
+    from distkeras_tpu_torch.examples import loadgen
+    want_modes = {(): ["closed_loop", "sequential", "speedup"],
+                  ("--spec-draft", "1"): ["closed_loop", "spec",
+                                          "sequential", "speedup"]}
+    rows = {}
+    for extra, modes in want_modes.items():
+        name = "spec_draft_1" if extra else "default"
+        _zero_counts()
+        t0 = time.perf_counter()
+        lines = _loadgen_main([*LOADGEN_CLI, *extra, "--device", dev])
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        closed = lines[0]
+        row = {"phase": "loadgen_cli", "run": name,
+               "argv": [*LOADGEN_CLI, *extra, "--device", dev],
+               "modes": [ln["mode"] for ln in lines], "wall_s": wall,
+               "lines": lines, "launches": launches, "card": card}
+        emit(row)
+        check([ln["mode"] for ln in lines] == modes,
+              f"loadgen {name}: modes {row['modes']}, want {modes}")
+        check(closed["completed"] == 24 and closed["shed"] == 0
+              and closed["killed"] == 0 and closed["tokens"] == 24 * 16,
+              f"loadgen {name}: the closed loop lost requests: {closed}")
+        check(not any(v for v in launches.values()),
+              f"loadgen {name}: kernel launches {launches}, want none")
+        rows[name] = row
+    _zero_counts()
+    t0 = time.perf_counter()
+    target, draft, eng = loadgen.build_spec_engine(
+        num_epoch=LOADGEN_SPEC_EPOCHS, device=dev)
+    train_s = time.perf_counter() - t0
+    trace = loadgen.make_trace(24, num_steps=16, pattern="arith")
+    try:
+        closed = loadgen.run_closed_loop(eng, trace, concurrency=8,
+                                         timeout_s=LOADGEN_TIMEOUT_S)
+    finally:
+        eng.stop()
+    launches = _read_counts()
+    steps = LOADGEN_SPEC_EPOCHS * -(-loadgen.SPEC_ROWS
+                                    // loadgen.SPEC_BATCH)
+    want = (loadgen.SPEC_TARGET_LAYERS + loadgen.SPEC_DRAFT_LAYERS) * steps
+    expect = {k: 0 for k in launches}
+    if dev == "cuda":  # on the CPU the wrappers run the plain versions
+        for kernel in ("flash_fwd_lse", "flash_dq", "flash_dkv"):
+            expect[kernel] = expect[f"{kernel}_simt"] = want
+    row = {"phase": "loadgen_spec", "epochs": LOADGEN_SPEC_EPOCHS,
+           "steps_per_model": steps, "train_s": train_s,
+           "closed_loop": closed, "drafted": eng.stats["drafted"],
+           "accepted": eng.stats["accepted"],
+           "launches_loadgen": launches, "want": expect, "card": card}
+    emit(row)
+    check(launches == expect,
+          f"loadgen spec: launches {launches}, want {expect}")
+    check(closed["completed"] == len(trace) and closed["shed"] == 0,
+          f"loadgen spec: the closed loop lost requests: {closed}")
+    rows["spec"] = row
+    return rows
+
+
+def _recording(eng) -> list:
+    """Keep every handle that ``eng.submit`` returns (the loop's own and
+    the server's)."""
+    handles, submit = [], eng.submit
+
+    def recording_submit(*args, **kw):
+        handles.append(submit(*args, **kw))
+        return handles[-1]
+
+    eng.submit = recording_submit
+    return handles
+
+
+def _held_flood(eng, n: int, timeout_s: float) -> list:
+    """Hold ``eng``'s scheduler until ``n`` submissions were tried, so an
+    open-loop flood meets a queue that nothing drains; returns the list
+    that collects each ``QueueFull`` the flood's submissions raised."""
+    from distkeras_tpu_torch.serving import QueueFull
+    tried, refused = [0], []
+    gate = threading.Event()
+    submit, step = eng.submit, eng.step
+
+    def counted_submit(*args, **kw):
+        try:
+            return submit(*args, **kw)
+        except QueueFull as e:
+            refused.append(e)
+            raise
+        finally:
+            tried[0] += 1
+            if tried[0] == n:
+                gate.set()
+
+    def held_step():
+        gate.wait(timeout=timeout_s)
+        return step()
+
+    eng.submit, eng.step = counted_submit, held_step
+    return refused
+
+
+def _by_prompt(handles, trace) -> list:
+    """The handles' rows in trace order (every prompt differs)."""
+    import numpy as np
+    rows = {h.prompt.tobytes(): np.asarray(h.result()) for h in handles}
+    return [rows.get(np.asarray(r["prompt"], np.int32).tobytes())
+            for r in trace]
+
+
+def _loadgen_full(card: str, dev: str) -> dict:
+    """(b): the full-width LM's engine under the three load loops."""
+    import numpy as np
+    from distkeras_tpu_torch import load_jax_weights, transformer_lm
+    from distkeras_tpu_torch.examples import loadgen
+    from distkeras_tpu_torch.serving import ServingServer
+    rng = np.random.default_rng(SEED + 27)
+    model = transformer_lm(**LM, device=dev)
+    load_jax_weights(model, _random_jax_weights(model, rng))
+    trace = loadgen.make_trace(
+        LOADGEN_REQUESTS, vocab=LM["vocab_size"],
+        prompt_lengths=SERVE_PROMPT_LENS, num_steps=LOADGEN_STEPS,
+        temperature=SERVE_TEMP)
+    greedy = [i for i, r in enumerate(trace) if not r.get("temperature")]
+    eng = _serve_engine(model, False)
+    handles = [eng.submit(**r) for r in trace]
+    eng.run_until_idle()
+    want = [np.asarray(h.result()) for h in handles]
+
+    def rows_check(name, got):
+        share = _share_equal(got, want)
+        greedy_equal = all(got[i] is not None
+                           and np.array_equal(got[i], want[i])
+                           for i in greedy)
+        return {f"{name}_share_equal": share,
+                f"{name}_greedy_equal": greedy_equal}
+
+    eng = _serve_engine(model, False)
+    recorded = _recording(eng)
+    try:
+        closed = loadgen.run_closed_loop(eng, trace,
+                                         concurrency=LOADGEN_USERS,
+                                         timeout_s=LOADGEN_TIMEOUT_S)
+    finally:
+        eng.stop()
+    checks = rows_check("closed", _by_prompt(recorded, trace))
+    eng = _serve_engine(model, False)
+    recorded = _recording(eng)
+    srv = ServingServer(eng, server_core="event", poll_s=0.002).start()
+    try:
+        wire = loadgen.run_wire_closed_loop(srv.addr, trace,
+                                            concurrency=LOADGEN_USERS,
+                                            timeout_s=LOADGEN_TIMEOUT_S)
+    finally:
+        srv.stop()
+        eng.stop()
+    checks.update(rows_check("wire", _by_prompt(recorded, trace)))
+    eng = _serve_engine(model, False, queue_capacity=LOADGEN_FLOOD_QUEUE)
+    refused = _held_flood(eng, len(trace), LOADGEN_TIMEOUT_S)
+    try:
+        flood = loadgen.run_open_loop(eng, trace, qps=LOADGEN_FLOOD_QPS,
+                                      timeout_s=LOADGEN_TIMEOUT_S)
+    finally:
+        eng.stop()
+    s = eng.stats
+    counters = {k: s[k] for k in ("requests_submitted", "requests_completed",
+                                  "requests_rejected", "requests_failed",
+                                  "requests_cancelled", "requests_expired")}
+    keys = ("completed", "shed", "tokens", "wall_s", "tokens_per_sec",
+            "p50_ms", "p99_ms", "ttft_p50_ms", "ttft_p99_ms",
+            "slot_occupancy")
+    row = {"phase": "loadgen_full", "form": "full",
+           "compute_dtype": LM["compute_dtype"], "slots": SERVE_SLOTS,
+           "prefill_chunk": SERVE_CHUNK, "requests": len(trace),
+           "steps": LOADGEN_STEPS, "users": LOADGEN_USERS,
+           "prompt_lens": sorted({len(r["prompt"]) for r in trace}),
+           "sampled_requests": len(trace) - len(greedy),
+           "closed_loop": {k: closed[k] for k in keys},
+           "wire_closed_loop": wire,
+           "open_loop_flood": {**{k: flood[k] for k in keys},
+                               "offered_qps": flood["offered_qps"],
+                               "queue_capacity": LOADGEN_FLOOD_QUEUE,
+                               "refusals": sorted({type(e).__name__
+                                                    for e in refused}),
+                               "counters": counters},
+           **checks, "card": card}
+    emit(row)
+    n = len(trace)
+    check(closed["completed"] == n and closed["shed"] == 0
+          and closed["tokens"] == n * LOADGEN_STEPS,
+          f"loadgen full: the closed loop lost requests: {row['closed_loop']}")
+    check(wire["completed"] == n and wire["tokens"] == n * LOADGEN_STEPS,
+          f"loadgen full: the wire loop lost requests: {wire}")
+    check(checks["closed_greedy_equal"] and checks["wire_greedy_equal"],
+          f"loadgen full: greedy rows differ from direct submit: {checks}")
+    check(flood["shed"] == len(refused) == n - LOADGEN_FLOOD_QUEUE
+          and row["open_loop_flood"]["refusals"] == ["QueueFull"]
+          and flood["completed"] == LOADGEN_FLOOD_QUEUE
+          and counters["requests_rejected"] == flood["shed"]
+          and counters["requests_submitted"]
+          == counters["requests_completed"] + counters["requests_rejected"],
+          f"loadgen full: the flood's sheds and counters do not add up: "
+          f"{row['open_loop_flood']}")
+    del model
+    return row
+
+
+def phase_loadgen(card: str, dev: str = "cuda"):
+    """The port's load generator on the card (the LOADGEN_* comment): (a)
+    its main at the JAX script's defaults and with a random draft (no
+    launch), build_spec_engine's trained pair (the SIMT training kernels
+    exactly once a layer and step); (b) its three load loops over phase
+    serve's full-width engine, lossless, the greedy rows those of direct
+    submit, the flood's sheds typed and counted.  Returns (the rows, the
+    spec leg's launches)."""
+    import torch
+    t_start = time.perf_counter()
+    rows = _loadgen_cli(card, dev)
+    launches = rows["spec"]["launches_loadgen"]
+    _zero_counts()
+    rows["full"] = _loadgen_full(card, dev)
+    full_launches = _read_counts()
+    check(not any(full_launches.values()),
+          f"loadgen full: kernel launches {full_launches}, want none")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    emit({"phase": "loadgen_launches", "launches": launches})
+    emit({"phase": "loadgen_wall", "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9287,6 +9531,7 @@ def main() -> int:
     _, pipeline_launches = phase_pipeline(smi)
     _, spmd_ranks_launches = phase_spmd_ranks(smi)
     _, native_launches = phase_native(smi)
+    _, loadgen_launches = phase_loadgen(smi)
 
     import importlib
     fa = importlib.import_module("distkeras_tpu_torch.ops.flash_attention")
@@ -9471,7 +9716,9 @@ def main() -> int:
         forward once a layer and batch of rows; (c)'s dry-run ranks, the
         SIMT kernels of their f32 LMs) and on the native path (phase
         native's two one-worker LM runs: the sm90 training kernels once a
-        layer and step of each)."""
+        layer and step of each) and on the load-generator path (phase
+        loadgen's build_spec_engine: the SIMT training kernels once a
+        layer and step of its target's and its draft's training)."""
         key = {"flash_attention_fwd": "flash_inference",
                "flash_attention_fwd_lse": "flash_fwd_lse",
                "flash_attention_bwd_dq": "flash_dq",
@@ -9495,6 +9742,7 @@ def main() -> int:
         entry["launches_pipeline"] = pipeline_launches.get(key, 0)
         entry["launches_spmd_ranks"] = spmd_ranks_launches.get(key, 0)
         entry["launches_native"] = native_launches.get(key, 0)
+        entry["launches_loadgen"] = loadgen_launches.get(key, 0)
         return entry
 
     emit(north_star)

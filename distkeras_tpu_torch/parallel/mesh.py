@@ -51,6 +51,7 @@ one process every worker's part, i.e. the whole array).
 
 from __future__ import annotations
 
+import atexit
 import itertools
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -86,6 +87,17 @@ def initialize(coordinator_address: Optional[str] = None,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes),
                             rank=int(process_id))
+    atexit.register(_leave_group)
+
+
+def _leave_group() -> None:
+    """Destroy the process group before the interpreter exits, as the JAX
+    ``initialize`` shuts its client down: a gloo group still alive at exit
+    is torn down with its threads running, which can abort the process
+    ("terminate called without an active exception")."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def check_backend(backend: str, devices: Sequence[torch.device]) -> None:

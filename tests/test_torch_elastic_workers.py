@@ -474,9 +474,13 @@ def test_elastic_straggler_leases_stolen_epoch_finishes():
 
 
 @pytest.mark.parametrize("cls,lr", [(DOWNPOUR, 0.05), (ADAG, 0.1)])
-def test_elastic_kill_two_of_four_zero_examples_lost(cls, lr):
+def test_elastic_kill_two_of_four_zero_examples_lost(cls, lr, monkeypatch):
     """Killing 2 of 4 workers mid-epoch (one 'exit', one 'hang') loses zero
-    examples, and the MLP reaches the non-faulted run's quality band."""
+    examples, and the MLP reaches the non-faulted run's quality band.
+
+    Worker 2's hang fires at its third commit, so in the faulted run the
+    other workers take no lease until worker 2 holds its third: a slow
+    start of its thread cannot leave it too few leases for the fault."""
     ds = make_dataset(n=1024)
 
     def run(faults):
@@ -488,7 +492,22 @@ def test_elastic_kill_two_of_four_zero_examples_lost(cls, lr):
         return t, t.train(ds)
 
     clean_t, clean = run(None)
+    taken, third = [0], threading.Event()
+    acquire = LeaseLedger.acquire
+
+    def gated_acquire(self, worker):
+        if worker != 2:
+            third.wait(timeout=120.0)
+        lease = acquire(self, worker)
+        if worker == 2 and lease is not None:
+            taken[0] += 1
+            if taken[0] == 3:
+                third.set()
+        return lease
+
+    monkeypatch.setattr(LeaseLedger, "acquire", gated_acquire)
     chaos_t, chaos = run({1: ("exit", 1), 2: ("hang", 2)})
+    assert third.is_set()
     _assert_zero_loss(chaos_t)
     assert {1, 2} <= set(chaos_t.failed_workers)
     assert chaos_t.elastic_stats["respawns"] >= 1

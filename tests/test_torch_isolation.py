@@ -72,7 +72,8 @@ NEW_MODULES = ("core/decode.py", "core/quant.py", "data/packing.py",
                "utils.py", "core/keras_adapter.py", "data/datasets.py",
                "examples/mnist_mlp_single.py",
                "examples/mnist_convnet_adag.py",
-               "examples/cifar10_downpour.py", "examples/higgs_workflow.py")
+               "examples/cifar10_downpour.py", "examples/higgs_workflow.py",
+               "examples/loadgen.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -124,7 +125,8 @@ def test_importing_the_port_loads_no_jax():
             "distkeras_tpu_torch.examples.mnist_mlp_single, "
             "distkeras_tpu_torch.examples.mnist_convnet_adag, "
             "distkeras_tpu_torch.examples.cifar10_downpour, "
-            "distkeras_tpu_torch.examples.higgs_workflow; "
+            "distkeras_tpu_torch.examples.higgs_workflow, "
+            "distkeras_tpu_torch.examples.loadgen; "
             "import chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED)!r}))")

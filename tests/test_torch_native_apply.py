@@ -3,7 +3,10 @@
 against the numpy path and against the JAX package's module: the dense
 axpy over aligned and byte-unaligned buffers at several scales, the
 sequential scatter-add with duplicated indices (the accumulation order is
-part of the contract), and the row scatter-add of a row-sparse commit."""
+part of the contract), and the row scatter-add of a row-sparse commit.
+The JAX package's native route is its ``csrc/applykernel.cpp`` built for
+these tests (``torch_jax_native``), whatever the checkout's in-place
+builds hold."""
 
 import numpy as np
 import pytest
@@ -11,8 +14,15 @@ import torch
 
 from distkeras_tpu import applykernel as japply
 from distkeras_tpu_torch import applykernel
+from torch_jax_native import load as load_jax_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def jax_native_apply(monkeypatch):
+    """The JAX package's apply kernel from its own build, not the tree's."""
+    monkeypatch.setattr(japply, "_native", load_jax_native("applykernel"))
 
 SCALES = [1.0, 0.25, 1.0 / 3.0, -2.7183, 0.0, 1e-7]
 SIZES = [0, 1, 7, 128, 1023]

@@ -7,7 +7,9 @@ bytes, tabs, bare CR, whitespace-only lines, duplicate and excluded
 names, a field past 63 characters, a body past 64 KiB (the threaded
 parse) and a ragged row.  Each route of the port gives the bits of the
 same route of the JAX package, the gates route each file the same way in
-both packages, and the two routes agree."""
+both packages, and the two routes agree.  The JAX package's native route
+is its ``csrc/csvloader.cpp`` built for these tests
+(``torch_jax_native``), whatever the checkout's in-place builds hold."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 from distkeras_tpu.data import datasets as jds
 from distkeras_tpu_torch.data import datasets
+from torch_jax_native import load as load_jax_native
 
 torch.set_num_threads(1)
 
@@ -55,6 +58,12 @@ def _file(tmp_path, case):
     p = tmp_path / f"{case}.csv"
     p.write_bytes(raw)
     return p
+
+
+@pytest.fixture(autouse=True)
+def jax_native_csv(monkeypatch):
+    """The JAX package's parser from its own build, not the tree's."""
+    monkeypatch.setattr(jds, "_native_csv", load_jax_native("csvloader"))
 
 
 def _read(mod, path, route, monkeypatch, **kw):

@@ -21,8 +21,12 @@ blocks of 4, 30 blocks), one numpy weight set in both packages:
    unified rows, and a port prefill engine's into a JAX decode server.
 
 The supervisor leg (``PairSupervisor``) is in
-``tests/test_torch_supervisors.py``; the JAX load generator's builder
-waits for the port of ``examples/loadgen.py`` (ROADMAP queue A item 9).
+``tests/test_torch_supervisors.py``; the load generator's pair (the
+port's ``examples.loadgen.build_engine(disaggregate=True)`` on the JAX
+``build_engine``'s weights, run by its closed loop) is held against the JAX
+example's in ``tests/test_torch_loadgen_parity.py``
+(``test_greedy_rows_equal_the_jax_engines[disagg]``,
+``test_counts_equal_the_jax_runs[disagg]``).
 """
 
 import time

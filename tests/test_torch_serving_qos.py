@@ -817,16 +817,17 @@ def test_interleaving_scripts_exercise_every_path(fitted):
 # ---------------------------------------------------------------------------
 
 def test_overload_fast_leg(fitted):
-    """examples/loadgen.py's fast overload leg on the port (its trace,
-    policies and run_overload copied into chip_smoke.py): every tier
+    """examples/loadgen.py's fast overload leg on the port (the port's
+    loadgen trace and policies, chip_smoke.py's run_overload): every tier
     completes, the terminal balance holds and no block leaks."""
     import chip_smoke
+    from distkeras_tpu_torch.examples import loadgen as ploadgen
     eng = _mk(pserving, fitted, specs=None, block_size=8, kv_blocks=None,
               num_slots=2, queue_capacity=16)
-    for p in chip_smoke._qos_policies(3):
+    for p in ploadgen.qos_policies(3):
         eng.register_tenant(p)
-    trace = chip_smoke._qos_trace(10, seed=3, num_steps=8, tenants=3,
-                                  tier_mix=0.3)
+    trace = ploadgen.make_trace(10, seed=3, num_steps=8, tenants=3,
+                                tier_mix=0.3)
     assert any(t["tenant"] == "interactive" for t in trace)
     assert any(t["tenant"] != "interactive" for t in trace)
     try:
@@ -849,22 +850,21 @@ def test_overload_fast_leg(fitted):
 
 
 def test_qos_trace_matches_loadgen():
-    """The port's copy of make_trace(tenants=3, tier_mix=0.3) draws the
-    JAX example's trace."""
-    import chip_smoke
+    """The port's loadgen make_trace(tenants=3, tier_mix=0.3) draws the
+    JAX example's trace, and its qos_policies(3) are the JAX example's."""
+    from distkeras_tpu_torch.examples import loadgen as ploadgen
     from examples import loadgen
     for kw in (dict(num_requests=12, seed=3, num_steps=8),
                dict(num_requests=16, seed=0, vocab=512, num_steps=128,
                     temperature=0.7, prompt_lengths=(16, 64, 256, 1024))):
         want = loadgen.make_trace(tenants=3, tier_mix=0.3, **kw)
-        n = kw.pop("num_requests")
-        got = chip_smoke._qos_trace(n, tenants=3, tier_mix=0.3, **kw)
+        got = ploadgen.make_trace(tenants=3, tier_mix=0.3, **kw)
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert sorted(g) == sorted(w)
             np.testing.assert_array_equal(g.pop("prompt"), w.pop("prompt"))
             assert g == w
-    pols = chip_smoke._qos_policies(3)
+    pols = ploadgen.qos_policies(3)
     jpols = loadgen.qos_policies(3)
     assert [(p.name, p.tier, p.weight, p.rate) for p in pols] == \
         [(p.name, p.tier, p.weight, p.rate) for p in jpols]

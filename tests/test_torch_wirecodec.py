@@ -10,14 +10,12 @@ kind — f32, int8 codes with scales and bf16 leaves (the port's CPU
 same bits), ``SparseDelta`` with f32, bf16 and int8 values,
 ``RowSparseDelta`` and ``KVBlocks`` (f32, int8, bf16) — encodes to the
 same bytes under each of the four pairs of codecs, and each package
-decodes the other's frames to the same bits.  The JAX module is built in
-place with ``setup.py build_ext --inplace`` where it is missing."""
+decodes the other's frames to the same bits.  The JAX package's native
+codec is its ``csrc/wirecodec.cpp`` built for these tests
+(``torch_jax_native``), whatever the checkout's in-place builds hold."""
 
 import socket
-import subprocess
-import sys
 import threading
-from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -27,20 +25,13 @@ import torch
 from distkeras_tpu import networking as jnet
 from distkeras_tpu_torch import native, networking
 from test_torch_networking import _as_jax, _assert_same_blocks, _bits, _kvb
+from torch_jax_native import load as load_jax_native
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parents[1]
-
 
 def _jax_native():
-    if jnet._native is not None:
-        return jnet._native
-    r = subprocess.run([sys.executable, "setup.py", "build_ext",
-                        "--inplace"], cwd=ROOT, capture_output=True)
-    assert r.returncode == 0, r.stderr[-400:]
-    import distkeras_tpu._wirecodec as built
-    return built
+    return load_jax_native("wirecodec")
 
 
 @pytest.fixture(params=["python", "native"])
